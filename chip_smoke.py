@@ -9,23 +9,44 @@ Phase 0  the device: name and power limit (nvidia-smi), TF32 off.
 Phase 1  build every CUDA kernel from ``src/repro_torch/csrc`` (nvcc,
          sm_90a), all sources in parallel.
 Phase 2  every kernel against its plain PyTorch version on the card, at
-         the serving path's shapes for full-width qwen2-1.5b (L=28, KV=2,
-         Dh=128, H=12, page=16, bf16 pools, B=8, ragged lengths up to 4096
-         with a zero-length row and garbage in dead table slots) and at the
-         smoke models' shapes (Dh=8, G=3, page=8; Dh=16, G=2, page=16), in
-         bf16 and fp32; times the kernel, its plain version and, where one
-         exists, the one PyTorch call computing the same function, beside
-         the least time the card could take.
-Phase 3  the main path: full-width qwen2-1.5b (28 layers, seeded random
-         weights cast once to bf16) serving agent programs through the
-         unchanged ``Engine`` with a ``TorchModelBackend``: (a) the
-         differential replay, the physical leg on a shadow clock priced by
-         the card's datasheet profile, which must make the logical leg's
-         decisions with every restore and COW split bit-exact and with
-         pins, TTL hits, demotions, restores and COW splits all exercised;
-         (b) the same programs on the measured clock, for JCT and
-         throughput. Kernel launch counts are zeroed before phase 3 and
-         read after it: every kernel must have run there.
+         the main paths' shapes, timed beside the least time the card
+         could take and, where one exists, the one PyTorch call computing
+         the same function: paged decode attention and the page moves at
+         full-width qwen2-1.5b (L=28, KV=2, Dh=128, H=12, page=16, bf16
+         pools, B=8, ragged lengths up to 4096 with a zero-length row and
+         garbage in dead table slots) and at the smoke models' shapes (Dh=8,
+         G=3, page=8; Dh=16, G=2, page=16), in bf16 and fp32; flash
+         attention at qwen2-1.5b's prefill shape (B=1, H=12, KV=2, S=2048,
+         D=128, bf16), through the model's strided layout too, at D=80 with
+         S not a multiple of the tile and at a gemma2-like shape (D=256,
+         window 4096, softcap 50, S=8192), in bf16 and fp32; the RWKV6 scan
+         at rwkv6-3b's prefill shape (T=2048, H=40, K=64) and at the smoke
+         shape (K=L=16) with a carried state, where it is also held against
+         the sequential recurrence.
+Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
+         seeded random weights cast once to bf16) serving agent programs
+         through the unchanged ``Engine`` with a ``TorchModelBackend``:
+         (a) the differential replay, the physical leg on a shadow clock
+         priced by the card's datasheet profile, which must make the
+         logical leg's decisions with every restore and COW split bit-exact
+         and with pins, TTL hits, demotions, restores and COW splits all
+         exercised; (b) the same programs on the measured clock, for JCT
+         and throughput. Launch counts are zeroed before phase 3 and read
+         after it: every kernel of the path (decode attention, the page
+         moves, flash attention in each fresh prefill) must have run there,
+         flash attention in 3a and in 3b. Then the prefill logits through
+         the flash kernel against prefill + extend (dense attention) of
+         the same 1024-token prompt, in bf16 and fp32, on the first 2
+         layers at full width, and a logged depth sweep.
+Phase 4  path B: full-width rwkv6-3b (32 layers, seeded random weights)
+         through ``Model.forward``: B=2, a 2048-token prompt, then 32
+         decode steps, for tokens/s in bf16, with the counts zeroed before
+         and read after (one WKV-scan launch per layer and prefill); then,
+         in fp32 on the first 4 layers at full width, the prefill's final
+         WKV states and last logits against prefill of all but 64 tokens
+         followed by 64 decode steps (the plain recurrence), and against
+         two prefill calls with the state carried; a depth sweep up to 32
+         layers is logged, with the greedy token asserted at full depth.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -33,6 +54,7 @@ then exits non-zero and prints no result line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -67,6 +89,21 @@ SMOKE = dict(L=2, KV=2, G=3, Dh=8, page=8, B=4, lens=(0, 5, 17, 40),
              stage_pages=5)
 GLM4_SMOKE = dict(L=2, KV=2, G=2, Dh=16, page=16, B=3, lens=(7, 0, 33),
                   stage_pages=3)
+# Flash attention: qwen2-1.5b's fresh prefill (timed), then D=80 with S not
+# a multiple of the 64-row tile, and a gemma2-9b-like layer (16 heads of
+# 256, 8 KV heads, window 4096, softcap 50) at S=8192.
+FLASH_MAIN = dict(B=1, H=12, KV=2, S=2048, D=128, window=0, softcap=0.0)
+FLASH_OTHER = (dict(B=2, H=8, KV=2, S=1000, D=80, window=0, softcap=0.0),
+               dict(B=1, H=16, KV=8, S=8192, D=256, window=4096,
+                    softcap=50.0))
+# RWKV6 scan: rwkv6-3b's prefill (timed), and the smoke model's heads
+# (K = L = 16) with a carried state, decays inside the +-38 clip.
+SCAN_MAIN = dict(B=1, T=2048, H=40, K=64, L=64)
+SCAN_SMOKE = dict(B=2, T=256, H=4, K=16, L=16)
+# Path A's kernels (the serving path) and path B's run (rwkv6-3b).
+PATH_A = ("paged_decode_attention", "page_gather", "page_scatter",
+          "token_append", "flash_attention")
+RWKV_RUN = dict(B=2, T=2048, decode_steps=32)
 
 
 def log(*args) -> None:
@@ -280,8 +317,134 @@ def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
     return out
 
 
+def flash_work(shape: dict, esz: int) -> tuple[int, float]:
+    """(bytes, flops) causal flash attention must move and do: q, k, v
+    read once and o written once; 4 * D flops (q.k and p.v) per live
+    (query, key) pair."""
+    B, H, KV, S, D = (shape[k] for k in ("B", "H", "KV", "S", "D"))
+    nbytes = (2 * B * H * S * D + 2 * B * KV * S * D) * esz
+    pairs = S * (S + 1) // 2
+    return nbytes, 4.0 * D * pairs * B * H
+
+
+def scan_work(shape: dict) -> tuple[int, float]:
+    """(bytes, flops) of the chunked WKV scan: r, k, v, log-decay read and
+    o written once, u and the states in and out, all fp32; per chunk the
+    strictly-lower intra-chunk scores and their product with v (L(L-1)/2 x
+    K multiply-adds each), the state readout and the state update (L x K x
+    K each)."""
+    B, T, H, K, L = (shape[x] for x in ("B", "T", "H", "K", "L"))
+    nbytes = 4 * (5 * B * T * H * K + 2 * B * H * K * K + H * K)
+    per_chunk = 2 * (L * (L - 1) // 2) * K + 2 * L * K * K
+    return nbytes, 2.0 * B * H * (T // L) * per_chunk
+
+
+def flash_case(shape: dict, dtype, gen):
+    import torch
+    B, H, KV, S, D = (shape[k] for k in ("B", "H", "KV", "S", "D"))
+    return [torch.randn(dims, generator=gen, device="cuda").to(dtype)
+            for dims in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))]
+
+
+def check_flash(shape: dict, dtype, gen, timed: bool, sheet: dict):
+    """Flash attention against its plain version. Tolerances: fp32
+    outputs 1e-3 (both are fp32 softmaxes over the same scores, summed in
+    other orders over up to 8192 keys: n * 2^-24 * max|v| ~ 2e-3 at
+    worst, ~1e-6 typical); bf16 outputs 1e-2, one bf16 rounding apart."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_ref)
+    q, k, v = flash_case(shape, dtype, gen)
+    opts = dict(window=shape["window"], softcap=shape["softcap"])
+    out = flash_attention_kernel(q, k, v, **opts)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v, **opts)
+    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    err = (out.float() - ref.float()).abs().max().item()
+    del ref
+    # the model's layout: (B, S, H, D) memory read through strides
+    qm, km, vm = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    strided = flash_attention_kernel(qm, km, vm, **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(strided, out), "strided flash attention differs"
+    assert strided.transpose(1, 2).is_contiguous()
+    if not timed:
+        return err, None
+    bms, by = bound_ms(*flash_work(shape, q.element_size()), sheet, "bf16")
+    rec = dict(
+        ms=time_ms(lambda: flash_attention_kernel(q, k, v, **opts)),
+        plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, **opts),
+                         iters=5, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)))
+    return err, rec
+
+
+def scan_case(shape: dict, gen, spread: float, shift: float):
+    """r, k, v, log-decay (B, T, H, K), u (H, K), init state (B, H, K, K);
+    logw = -exp(spread * N(0, 1) - shift)."""
+    import torch
+    B, T, H, K = (shape[k] for k in ("B", "T", "H", "K"))
+    n = lambda *d: torch.randn(d, generator=gen, device="cuda")  # noqa
+    return (n(B, T, H, K) * 0.5, n(B, T, H, K) * 0.5, n(B, T, H, K) * 0.5,
+            -torch.exp(spread * n(B, T, H, K) - shift), n(H, K) * 0.3,
+            n(B, H, K, K) * 0.1)
+
+
+def check_scan(shape: dict, gen, timed: bool, sheet: dict):
+    """The WKV-scan kernel against its chunked plain version (same math,
+    same clip), fp32, 1e-4: the bound of the JAX package's own scan tests.
+    At the smoke shape the decays stay inside the clip, so the sequential
+    recurrence must agree too (1e-4), and two calls with the state carried
+    must equal one call (1e-4)."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_chunked_ref,
+                                                rwkv6_scan_kernel,
+                                                rwkv6_scan_ref)
+    L = shape["L"]
+    # timed: rwkv6-3b's decay at init, per-token log-decay near -1 (chunk
+    # totals near -64, inside the clip); smoke: the JAX tests' range
+    r, k, v, lw, u, s0 = scan_case(shape, gen, *((0.1, 0.0) if timed
+                                                 else (1.0, 2.0)))
+    o, st = rwkv6_scan_kernel(r, k, v, lw, u, s0, chunk=L)
+    torch.cuda.synchronize()
+    o_r, st_r = rwkv6_chunked_ref(r, k, v, lw, u, s0, chunk=L)
+    for got, want in ((o, o_r), (st, st_r)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    err = max((o - o_r).abs().max().item(), (st - st_r).abs().max().item())
+    if not timed:
+        o_s, st_s = rwkv6_scan_ref(r, k, v, torch.exp(lw), u, s0)
+        torch.testing.assert_close(o, o_s, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(st, st_s, atol=1e-4, rtol=1e-4)
+        half = shape["T"] // 2
+        o1, st1 = rwkv6_scan_kernel(r[:, :half].contiguous(),
+                                    k[:, :half].contiguous(),
+                                    v[:, :half].contiguous(),
+                                    lw[:, :half].contiguous(), u, s0, chunk=L)
+        o2, st2 = rwkv6_scan_kernel(r[:, half:].contiguous(),
+                                    k[:, half:].contiguous(),
+                                    v[:, half:].contiguous(),
+                                    lw[:, half:].contiguous(), u, st1,
+                                    chunk=L)
+        torch.testing.assert_close(torch.cat([o1, o2], 1), o, atol=1e-4,
+                                   rtol=1e-4)
+        torch.testing.assert_close(st2, st, atol=1e-4, rtol=1e-4)
+        return err, None
+    bms, by = bound_ms(*scan_work(shape), sheet, "fp32")
+    rec = dict(
+        ms=time_ms(lambda: rwkv6_scan_kernel(r, k, v, lw, u, s0, chunk=L)),
+        plain_ms=time_ms(lambda: rwkv6_chunked_ref(r, k, v, lw, u, s0,
+                                                   chunk=L)),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    return err, rec
+
+
 def phase2(sheet: dict) -> dict:
-    """Returns {kernel name: record} at the full-width shapes."""
+    """Returns {kernel name: record} at the main paths' shapes."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = {}
@@ -299,6 +462,22 @@ def phase2(sheet: dict) -> dict:
             records["paged_decode_attention"]["max_abs_err"] = max(
                 records["paged_decode_attention"]["max_abs_err"], err)
             check_page_copy(smoke, False, sheet)
+
+    err, rec = check_flash(FLASH_MAIN, torch.bfloat16, gen, True, sheet)
+    records["flash_attention"] = dict(max_abs_err=err, **rec)
+    for shape in FLASH_OTHER:
+        for dtype in (torch.bfloat16, torch.float32):
+            err, _ = check_flash(shape, dtype, gen, False, sheet)
+            log(f"phase2 flash_attention {shape} {dtype}: max_abs_err "
+                f"{err:.3g}")
+            records["flash_attention"]["max_abs_err"] = max(
+                records["flash_attention"]["max_abs_err"], err)
+            torch.cuda.empty_cache()
+    err, rec = check_scan(SCAN_MAIN, gen, True, sheet)
+    records["rwkv6_scan"] = dict(max_abs_err=err, **rec)
+    err, _ = check_scan(SCAN_SMOKE, gen, False, sheet)
+    records["rwkv6_scan"]["max_abs_err"] = max(
+        records["rwkv6_scan"]["max_abs_err"], err)
     for name, rec in records.items():
         log(f"phase2 {name}: kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
@@ -489,9 +668,271 @@ def phase3(hw):
         / busy)
     log(f"phase3 throughput (measured step times, 3a prefill-only / "
         f"decode-only steps): {json.dumps(rates)}")
-    for name, n in counts.items():
-        assert n > 0, f"kernel {name} never launched on the main path"
+    for name in PATH_A:
+        assert counts[name] > 0, f"kernel {name} never launched on path A"
+    assert counts_a["flash_attention"] > 0, "no flash prefill in 3a"
+    assert counts["flash_attention"] > counts_a["flash_attention"], \
+        "no flash prefill in 3b"
     log(f"phase3 launches: 3a {reset_after_a}, 3a+3b {counts}")
+
+    del model
+    prefill_logit_checks(cfg, device)
+    return counts
+
+
+# The logit check of a fresh flash prefill against prefill + extend runs
+# on the first CHECK_DEPTH layers of the full-width model. This seeded
+# init (the JAX package's: N(0, 1/fan_in) with fan_in the stacked shape's
+# second-to-last dim, H = 12 for wq) gives attention scores of std ~100,
+# so the softmax is near one-hot and two exact-equivalent paths part
+# chaotically with depth: with the plain version in place of the kernel
+# the fp32 gap grows ~20x every two layers (logged by the sweep below).
+CHECK_DEPTH = 2
+SWEEP_DEPTHS = (1, 2, 4, 8, 28)
+# Bounds on |flash prefill - prefill + extend| at the last position, as a
+# share of the logits' rms. fp32: summation order only (~6e-5 measured at
+# two layers), 1e-3. bf16: the extend path rounds its scores to bf16 (as
+# the reference does), a rounding of up to 0.5 at |score| ~ 100 that
+# shifts softmax weights by e^0.5; 1/4 of the rms.
+PREFILL_BOUND = {"bfloat16": 0.25, "float32": 1e-3}
+
+
+def assert_prefill_vs_extend(check: dict, dtype: str) -> None:
+    assert check["argmax_equal"], check
+    assert check["max_abs_diff"] <= PREFILL_BOUND[dtype] * \
+        check["rms_logit"], check
+
+
+@contextlib.contextmanager
+def plain_prefill_attention():
+    """Within the block, the model's fresh-prefill attention runs the flash
+    plain version instead of the kernel (for the depth sweep only)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import attention
+    kernel_path = attention.attend_causal
+
+    def plain(q, k, v, *, scale, cap=0.0, **_):
+        return flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=scale, softcap=cap).transpose(1, 2)
+
+    attention.attend_causal = plain
+    try:
+        yield
+    finally:
+        attention.attend_causal = kernel_path
+
+
+def sweep_depths(depths, num_layers: int) -> list[int]:
+    """The sweep's depths that fit the model, ending at its full depth."""
+    return sorted({d for d in depths if d < num_layers} | {num_layers})
+
+
+def cut_model(params: dict, cfg, depth: int, dtype: str, device):
+    """The first ``depth`` layers of a model at full width."""
+    from repro_torch.models import Model
+    return Model(dataclasses.replace(cfg, num_layers=depth,
+                                     compute_dtype=dtype),
+                 {k: v[:depth] if k.startswith("blocks.") else v
+                  for k, v in params.items()}, device=device)
+
+
+def prefill_logit_checks(cfg, device) -> None:
+    """Flash prefill vs prefill + extend at CHECK_DEPTH layers in bf16 and
+    fp32 (asserted), and the fp32 depth sweep, kernel and plain (logged)."""
+    import torch
+    from repro_torch.models import Model
+    params = dict(Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                        device=device, seed=0).params)
+    depth = min(CHECK_DEPTH, cfg.num_layers)
+    for dtype in ("bfloat16", "float32"):
+        check = prefill_vs_extend(cut_model(params, cfg, depth, dtype,
+                                            device))
+        log(f"phase3 flash prefill vs prefill + extend, 1024-token prompt, "
+            f"{depth} full-width layers, {dtype}: {json.dumps(check)}")
+        assert_prefill_vs_extend(check, dtype)
+    sweep = {}
+    for depth in sweep_depths(SWEEP_DEPTHS, cfg.num_layers):
+        model = cut_model(params, cfg, depth, "float32", device)
+        kernel = prefill_vs_extend(model)
+        with plain_prefill_attention():
+            plain = prefill_vs_extend(model)
+        sweep[depth] = dict(kernel=kernel["max_abs_diff"],
+                            plain=plain["max_abs_diff"],
+                            rms=kernel["rms_logit"])
+        del model
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase3 fp32 depth sweep, max |prefill - prefill + extend| with "
+        f"the kernel and with the plain version: {json.dumps(sweep)}")
+
+
+def prefill_vs_extend(model, n: int = 1024, split: int = 512,
+                      seed: int = 1) -> dict:
+    """Final-position logits of a fresh prefill of an ``n``-token prompt
+    (flash attention) against prefill of the first ``split`` tokens then
+    extend of the rest (dense ``attend_decode`` over the cache)."""
+    import torch
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    toks = torch.randint(0, model.cfg.vocab_size, (1, n), generator=gen,
+                         device=model.device)
+    full, _ = model.forward(toks, cache=model.init_cache(1, n),
+                            mode="prefill", logits_slice=1)
+    cache = model.init_cache(1, n)
+    model.forward(toks[:, :split], cache=cache, mode="prefill",
+                  logits_slice=1)
+    ext, _ = model.forward(toks[:, split:], cache=cache, cache_len=split,
+                           mode="extend", logits_slice=1)
+    full, ext = full[0, -1], ext[0, -1]
+    assert torch.isfinite(full).all() and torch.isfinite(ext).all()
+    return dict(argmax_equal=bool(full.argmax() == ext.argmax()),
+                max_abs_diff=(full - ext).abs().max().item(),
+                rms_logit=full.square().mean().sqrt().item())
+
+
+# ---------------------------------------------------------------- phase 4
+def synchronize(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def rwkv_throughput(model, toks, n_dec: int) -> dict:
+    """A timed prefill of ``toks`` (B, T) and ``n_dec`` timed greedy decode
+    steps, each timed after the device has finished."""
+    import torch
+    B, T = toks.shape
+    synchronize(model.device)
+    t0 = time.perf_counter()
+    logits, cache = model.forward(toks, cache=model.init_cache(B, T),
+                                  mode="prefill", logits_slice=1)
+    synchronize(model.device)
+    t_pre = time.perf_counter() - t0
+    nxt = logits[:, -1].argmax(-1, keepdim=True)
+    t0 = time.perf_counter()
+    for _ in range(n_dec):
+        logits, cache = model.forward(nxt, cache=cache, mode="decode")
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+    synchronize(model.device)
+    t_dec = time.perf_counter() - t0
+    assert torch.isfinite(logits).all() and torch.isfinite(
+        cache["wkv"]).all()
+    return dict(prefill_tokens_per_s=B * T / t_pre,
+                decode_tokens_per_s=B * n_dec / t_dec, prefill_s=t_pre,
+                decode_step_ms=t_dec / n_dec * 1e3, batch=B, prompt=T)
+
+
+def rwkv_equivalence(model, toks, tail: int = 64) -> dict:
+    """Final WKV states and last logits of one prefill of ``toks`` against
+    (a) prefill of all but ``tail`` tokens then ``tail`` one-token decode
+    steps (the plain recurrence) and (b) two prefill calls split
+    mid-chunk with the state carried in the cache."""
+    import torch
+    B, T = toks.shape
+    full, c_full = model.forward(toks, cache=model.init_cache(B, T),
+                                 mode="prefill", logits_slice=1)
+    seq, c_seq = model.forward(toks[:, :T - tail],
+                               cache=model.init_cache(B, T),
+                               mode="prefill", logits_slice=1)
+    for t in range(T - tail, T):
+        seq, c_seq = model.forward(toks[:, t:t + 1], cache=c_seq,
+                                   mode="decode")
+    split = T // 2 + 7
+    _, c_two = model.forward(toks[:, :split], cache=model.init_cache(B, T),
+                             mode="prefill", logits_slice=1)
+    two, c_two = model.forward(toks[:, split:], cache=c_two,
+                               mode="prefill", logits_slice=1)
+    out = {}
+    for name, (logit, c) in (("recurrence", (seq, c_seq)),
+                             ("two_calls", (two, c_two))):
+        out[name] = dict(
+            argmax_equal=bool(torch.equal(full[:, -1].argmax(-1),
+                                          logit[:, -1].argmax(-1))),
+            max_abs_logit_diff=(full[:, -1] - logit[:, -1]).abs().max()
+            .item(),
+            rms_logit=full[:, -1].square().mean().sqrt().item(),
+            max_abs_wkv_diff=(c_full["wkv"] - c["wkv"]).abs().max().item(),
+            max_abs_wkv=c_full["wkv"].abs().max().item())
+    return out
+
+
+# The fp32 equivalence checks are asserted on the first RWKV_CHECK_DEPTH
+# layers at full width: at this seeded init each layer amplifies a
+# perturbation of the residual stream ~1.3x (the logged sweep), so at 32
+# layers summation-order noise alone reaches ~4% of the logits' rms. At
+# full depth the greedy token must still agree.
+RWKV_CHECK_DEPTH = 4
+RWKV_SWEEP_DEPTHS = (1, 4, 8, 16, 32)
+
+
+def assert_rwkv_equivalence(checks: dict) -> None:
+    """fp32 on both sides, the same function summed in other orders (the
+    chunked scan reassociates up to 64-term sums): within 1e-3 of each
+    quantity's scale, argmax equal."""
+    for name, c in checks.items():
+        assert c["argmax_equal"], (name, c)
+        assert c["max_abs_logit_diff"] <= 1e-3 * c["rms_logit"], (name, c)
+        assert c["max_abs_wkv_diff"] <= 1e-3 * c["max_abs_wkv"], (name, c)
+
+
+def rwkv_equivalence_checks(params: dict, cfg, toks, device) -> None:
+    """The fp32 checks at RWKV_CHECK_DEPTH layers (asserted), then the
+    depth sweep (logged; argmax asserted at full depth)."""
+    depth = min(RWKV_CHECK_DEPTH, cfg.num_layers)
+    checks = rwkv_equivalence(cut_model(params, cfg, depth, "float32",
+                                        device), toks)
+    log(f"phase4 fp32, {depth} full-width layers, prefill of "
+        f"{toks.shape[1]} tokens against {json.dumps(checks)}")
+    assert_rwkv_equivalence(checks)
+    sweep = {}
+    for depth in sweep_depths(RWKV_SWEEP_DEPTHS, cfg.num_layers):
+        checks = rwkv_equivalence(cut_model(params, cfg, depth, "float32",
+                                            device), toks)
+        sweep[depth] = {name: [c["max_abs_logit_diff"], c["argmax_equal"]]
+                        for name, c in checks.items()}
+    log(f"phase4 fp32 depth sweep, [max |logit diff|, argmax equal] "
+        f"(logits' rms ~1): {json.dumps(sweep)}")
+    assert all(ok for _, ok in sweep[depth].values()), sweep
+
+
+def phase4(smi: str) -> dict:
+    """Path B: rwkv6-3b at full width through ``Model.forward``. Returns
+    the launch counts of one bf16 prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    cfg = get_config("rwkv6-3b")
+    B, T, n_dec = RWKV_RUN["B"], RWKV_RUN["T"], RWKV_RUN["decode_steps"]
+    t0 = time.perf_counter()
+    m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                device="cuda", seed=0)
+    m16 = Model(cfg, dict(m32.params), device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase4 model {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.d_model // cfg.rwkv.head_size} heads of "
+        f"{cfg.rwkv.head_size}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{sum(p.numel() for p in m16.parameters()) / 1e9:.3f} B params, "
+        f"fp32 and bf16 copies built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         device="cuda")
+
+    # bf16, the serving dtype: one prefill with the counts zeroed
+    reset_launch_counts()
+    logits, _ = m16.forward(toks, cache=m16.init_cache(B, T),
+                            mode="prefill", logits_slice=1)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["rwkv6_scan"] == cfg.num_layers, counts
+    assert torch.isfinite(logits).all()
+    rates = rwkv_throughput(m16, toks, n_dec)
+    log(f"phase4 throughput (bf16, measured after synchronize) on {smi}: "
+        f"{json.dumps(rates)}")
+    del m16
+    rwkv_equivalence_checks(dict(m32.params), cfg, toks, "cuda")
+    del m32
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -525,6 +966,7 @@ def main() -> int:
 
     records = phase2(sheet)
     counts = phase3(hardware_profile(kind))
+    counts.update(rwkv6_scan=phase4(smi)["rwkv6_scan"])
 
     sources = {
         "paged_decode_attention": (
@@ -536,6 +978,11 @@ def main() -> int:
                          "src/repro/kernels/page_copy/kernel.py:70"),
         "token_append": ("src/repro_torch/csrc/page_copy.cu",
                          "src/repro/kernels/page_copy/kernel.py:114"),
+        "flash_attention": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:85"),
+        "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                       "src/repro/kernels/rwkv6_scan/kernel.py:75"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **records[name])

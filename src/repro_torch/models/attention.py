@@ -1,10 +1,12 @@
 """Attention: GQA with RoPE / QKV bias / QK-norm / softcap.
 
-Plain tensor code, as in the JAX package (where this lives outside any
-Pallas kernel): ``attend_causal`` is the q-chunked online-softmax prefill,
-``attend_decode`` is dense attention of new tokens against a contiguous
-cache with length masking. The paged decode path goes through the CUDA
-kernel instead (:mod:`repro_torch.kernels.decode_attention`).
+Plain tensor code, as in the JAX package, with one dispatch point:
+``attend_causal`` (fresh prefill) runs the hand-written flash-attention
+kernel on CUDA tensors (:mod:`repro_torch.kernels.flash_attention`) and
+the q-chunked online-softmax blocks on CPU tensors. ``attend_decode`` is
+dense attention of new tokens against a contiguous cache with length
+masking (extend mode, as in the reference). The paged decode path goes
+through its own CUDA kernel (:mod:`repro_torch.kernels.decode_attention`).
 
 Layouts: q (B, S, H, Dh); k/v (B, S, KV, Dh); caches (B, S_max, KV, Dh).
 """
@@ -15,6 +17,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.models.common import (ParamSpec, apply_rope, rms_norm,
                                        rope_tables, softcap)
 
@@ -122,8 +125,16 @@ def _finalize(o, m, l):
 # ---------------------------------------------------------------------------
 def attend_causal(q, k, v, *, scale: float, cap: float = 0.0,
                   q_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
-    """Causal attention over the full sequence, in q x kv blocks with an
-    online-softmax merge; blocks entirely above the diagonal are skipped."""
+    """Causal attention over the full sequence. q (B,S,H,Dh), k/v
+    (B,S,KV,Dh) -> (B,S,H,Dh). On CUDA tensors: the flash-attention kernel,
+    fed (B,H,S,Dh) views of the same memory (no copy). On CPU tensors: q x
+    kv blocks with an online-softmax merge, blocks entirely above the
+    diagonal skipped (the JAX package's bf16 arithmetic, op for op)."""
+    if q.is_cuda:
+        return flash_attention_kernel(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=scale, causal=True, window=0,
+            softcap=cap).transpose(1, 2)
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV

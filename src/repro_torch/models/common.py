@@ -34,15 +34,18 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
-    init: str = "normal"                    # normal | zeros | embed
+    init: str = "normal"                    # normal | zeros | embed | small
+    scale: float = 1.0
     dtype: str = "float32"
+    keep_dtype: bool = False                # never cast to the compute dtype
 
 
 def init_param(spec: ParamSpec, generator: torch.Generator,
                device: torch.device) -> torch.Tensor:
     """Same distributions as the JAX package's ``init_param``: zeros,
-    N(0, 1) for embeddings, N(0, 1/fan_in) otherwise, with fan_in the
-    second-to-last dimension of the (stacked) shape."""
+    N(0, 1) for embeddings, N(0, 1/fan_in) otherwise (``small`` too), with
+    fan_in the second-to-last dimension of the (stacked) shape, times the
+    spec's ``scale``."""
     dtype = torch_dtype(spec.dtype)
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
@@ -50,7 +53,7 @@ def init_param(spec: ParamSpec, generator: torch.Generator,
     std = 1.0 if spec.init == "embed" else 1.0 / math.sqrt(fan_in)
     x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return (x * std).to(dtype)
+    return (x * std * spec.scale).to(dtype)
 
 
 def init_params(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:
@@ -93,13 +96,15 @@ def params_from_numpy(tree) -> dict[str, torch.Tensor]:
     return out
 
 
-def cast_params(params: dict[str, torch.Tensor],
+def cast_params(params: dict[str, torch.Tensor], specs: dict[str, ParamSpec],
                 compute_dtype: str) -> dict[str, torch.Tensor]:
-    """Cast every leaf to the compute dtype. Done once, when a model is
-    built: the JAX package casts on every forward call inside ``jit``.
-    (No dense-family leaf is ``keep_dtype``.)"""
+    """Cast every leaf to the compute dtype except the ``keep_dtype`` ones
+    (RWKV6's decay base ``w0`` and bonus ``u`` stay fp32). Done once, when
+    a model is built: the JAX package casts on every forward call inside
+    ``jit``."""
     cd = torch_dtype(compute_dtype)
-    return {k: v.to(cd) for k, v in params.items()}
+    return {k: v if specs[k].keep_dtype else v.to(cd)
+            for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,15 @@
-"""Config-driven decoder LM: the dense family of the JAX package's
-``Model``, as an ``nn.Module``.
+"""Config-driven decoder LM: the dense and RWKV6 (``ssm``) families of the
+JAX package's ``Model``, as an ``nn.Module``.
 
 Parameters mirror ``Model.specs()`` of the JAX package (same dotted keys,
 same layouts, ``blocks.*`` stacked over a leading L) and are cast to the
-compute dtype once, when the model is built. The layer stack is a Python
-loop over L. Modes: "prefill" (fresh causal attention, optional cache
-write), "extend" (a chunk against an existing cache) and "decode".
+compute dtype once, when the model is built (``keep_dtype`` leaves stay
+fp32). The layer stack is a Python loop over L. Modes: "prefill" (fresh
+causal attention or a fresh WKV scan, optional cache write), "extend" (a
+chunk against an existing cache) and "decode".
 
-Only the dense family is ported; the others raise and name the ROADMAP
-item that ports them.
+The families not ported yet raise and name the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -20,29 +21,56 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv6
 from repro_torch.models.common import (ParamSpec, add_rms_norm, cast_params,
                                        init_params, rms_norm, softcap,
                                        torch_dtype)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
 
+#: the families whose ``Model.forward`` the port runs
+PORTED_FAMILIES = ("dense", "ssm")
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise for the families this slice of the port does not cover."""
+
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise for the families ``Model`` does not cover yet: the dense and
+    RWKV6 (``ssm``) families are ported."""
     if cfg.family in ("moe", "audio", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP queue 1 item 9)")
-    if cfg.family in ("ssm", "hybrid") or cfg.local_global_alternating \
+            f"(ROADMAP queue 1 item 9); ported: {PORTED_FAMILIES}")
+    if cfg.family == "hybrid" or cfg.local_global_alternating \
             or cfg.sandwich_norm:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (local/global, SSM, hybrid) "
-            f"is not ported yet (ROADMAP queue 1 item 11)")
+            f"{cfg.name}: family {cfg.family!r} (gemma2's local/global "
+            f"layers, zamba2's mamba2 hybrid) is not ported yet (ROADMAP "
+            f"queue 1 item 11); ported: {PORTED_FAMILIES}")
+
+
+def require_dense(cfg: ModelConfig) -> None:
+    """Raise for the families the paged runtime does not serve: it pages
+    attention KV, so beyond the unported families it refuses RWKV6, which
+    runs through ``Model.forward`` only, as the JAX package's engine
+    backend refuses SSM families."""
+    require_ported(cfg)
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: the RWKV6 family runs through Model.forward only "
+            f"(ROADMAP queue 1 item 11); the paged runtime holds attention "
+            f"KV pages, and the reference's engine backend refuses SSM "
+            f"families too")
+
+
+def _stacked(layer: dict[str, ParamSpec], L: int) -> dict[str, ParamSpec]:
+    return {f"blocks.{k}": ParamSpec((L,) + s.shape, init=s.init,
+                                     scale=s.scale, dtype=s.dtype,
+                                     keep_dtype=s.keep_dtype)
+            for k, s in layer.items()}
 
 
 def model_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
-    """Flat {dotted name: ParamSpec} of the dense family, the same tree as
-    the JAX package's ``Model.specs()``."""
-    require_dense(cfg)
+    """Flat {dotted name: ParamSpec}, the same tree as the JAX package's
+    ``Model.specs()``."""
+    require_ported(cfg)
     dt = cfg.param_dtype
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     specs = {"embed": ParamSpec((V, D), init="embed", dtype=dt),
@@ -51,18 +79,19 @@ def model_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
         specs["lm_head"] = ParamSpec((D, V), dtype=dt)
     layer = {"ln1": ParamSpec((D,), init="zeros", dtype=dt),
              "ln2": ParamSpec((D,), init="zeros", dtype=dt)}
-    layer.update({f"attn.{k}": s
-                  for k, s in attn.attention_specs(cfg, dt).items()})
-    layer.update({f"mlp.{k}": s
-                  for k, s in mlp_specs(D, cfg.d_ff, dt).items()})
-    for k, s in layer.items():
-        specs[f"blocks.{k}"] = ParamSpec((L,) + s.shape, init=s.init,
-                                         dtype=s.dtype)
+    if cfg.family == "ssm":
+        layer.update(rwkv6.rwkv_specs(cfg, dt))
+    else:
+        layer.update({f"attn.{k}": s
+                      for k, s in attn.attention_specs(cfg, dt).items()})
+        layer.update({f"mlp.{k}": s
+                      for k, s in mlp_specs(D, cfg.d_ff, dt).items()})
+    specs.update(_stacked(layer, L))
     return specs
 
 
 class Model(nn.Module):
-    """The dense decoder. ``params`` is a flat dict (e.g. from
+    """The decoder (dense or RWKV6). ``params`` is a flat dict (e.g. from
     :func:`~repro_torch.models.common.params_from_numpy`); without it the
     weights are drawn from ``seed`` on ``device``. Either way they are cast
     to ``cfg.compute_dtype`` once, here, and never change device."""
@@ -84,7 +113,8 @@ class Model(nn.Module):
                 raise ValueError(f"{name}: shape {tuple(params[name].shape)}"
                                  f" != {spec.shape}")
         params = {k: v.to(self.device) for k, v in params.items()}
-        for name, t in cast_params(params, cfg.compute_dtype).items():
+        for name, t in cast_params(params, specs,
+                                   cfg.compute_dtype).items():
             self._register(name, t)
         self.params: dict[str, torch.Tensor] = dict(self.named_parameters())
         # per-layer views of the stacked blocks: {"ln1", "attn": {...}, ...}
@@ -117,8 +147,13 @@ class Model(nn.Module):
         """Tree of (shape, dtype) for the serving cache."""
         cfg = self.cfg
         cd = cfg.kv_cache_dtype or cfg.compute_dtype
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-                 cfg.head_dim)
+        L = cfg.num_layers
+        if cfg.family == "ssm":
+            H, K = rwkv6.rwkv_dims(cfg)
+            return {"shift1": ((L, batch, cfg.d_model), cd),
+                    "wkv": ((L, batch, H, K, K), "float32"),
+                    "shift2": ((L, batch, cfg.d_model), cd)}
+        shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
         return {"k": (shape, cd), "v": (shape, cd)}
 
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -145,6 +180,25 @@ class Model(nn.Module):
                             cfg.norm_eps)
         return x + mlp_apply(p["mlp"], h, cfg.activation)
 
+    def _rwkv_layer(self, i: int, x, cache, mode):
+        """Time mix + channel mix; the layer's token-shift and WKV states
+        are read from and written back into ``cache`` in place."""
+        cfg = self.cfg
+        p = self.layers[i]
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        tm_state = None if cache is None else {"shift": cache["shift1"][i],
+                                               "wkv": cache["wkv"][i]}
+        a, tm_new = rwkv6.time_mix_apply(p["tmix"], h, cfg, tm_state, mode)
+        x, h = add_rms_norm(x, a, p["ln2"], cfg.norm_eps)
+        f, cm_new = rwkv6.channel_mix_apply(
+            p["cmix"], h, cfg, None if cache is None else cache["shift2"][i],
+            mode)
+        if cache is not None:
+            cache["shift1"][i] = tm_new["shift"]
+            cache["wkv"][i] = tm_new["wkv"]
+            cache["shift2"][i] = cm_new
+        return x + f
+
     # --------------------------------------------------------------- forward
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
@@ -163,6 +217,10 @@ class Model(nn.Module):
         x = self.params["embed"][tokens]
         if cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        if cfg.family == "ssm":
+            for i in range(cfg.num_layers):
+                x = self._rwkv_layer(i, x, cache, mode)
+            return self._logits(x, logits_slice), cache
         steps = torch.arange(S, device=self.device)
         if cache is None or isinstance(cache_len, int):
             # a host offset stays on the host: reading a device offset
@@ -173,13 +231,17 @@ class Model(nn.Module):
             positions = cl[..., None] + steps if cl.dim() else cl + steps
         for i in range(cfg.num_layers):
             x = self._attn_layer(i, x, cache, cache_len, positions, mode)
+        return self._logits(x, logits_slice), cache
+
+    def _logits(self, x, logits_slice):
+        cfg = self.cfg
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         if logits_slice is not None:
             x = x[:, -logits_slice:]
         logits = (x @ self.head()).float()
         if cfg.final_softcap:
             logits = softcap(logits, cfg.final_softcap)
-        return logits, cache
+        return logits
 
     def head(self) -> torch.Tensor:
         """The (D, V) output projection in the compute dtype."""

@@ -83,3 +83,63 @@ def test_serve_measured_on_cpu(smoke):
     assert summary.n_programs == n == 8
     assert st["staging_ok"] and st["copy_ok"]
     eng.backend.runtime.check(eng.backend.prefix_index)
+
+
+def test_flash_and_scan_work_at_the_main_shapes():
+    """The bounds' arithmetic at path A's and path B's shapes: ~12.9 GFLOP
+    and ~15 MB for qwen2-1.5b's 2048-token prefill attention; ~106 MB and
+    ~2 GFLOP a layer for rwkv6-3b's 2048-token scan."""
+    nbytes, ops = chip_smoke.flash_work(chip_smoke.FLASH_MAIN, 2)
+    assert ops == pytest.approx(12.89e9, rel=1e-3)
+    assert nbytes == 2 * 2048 * (2 * 12 + 2 * 2) * 128
+    sheet = chip_smoke.card_datasheet("NVIDIA H100 80GB HBM3")
+    assert chip_smoke.bound_ms(nbytes, ops, sheet, "bf16")[1] == \
+        "operations"
+    nbytes, ops = chip_smoke.scan_work(chip_smoke.SCAN_MAIN)
+    assert nbytes == pytest.approx(106.2e6, rel=1e-3)
+    assert ops == pytest.approx(2.01e9, rel=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_prefill_vs_extend_on_cpu(dtype):
+    """Phase 3's logit check at smoke width (the CPU takes the blocked
+    plain attention where the card runs the flash kernel)."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              compute_dtype=dtype)
+    check = chip_smoke.prefill_vs_extend(Model(cfg, device="cpu"), n=96,
+                                         split=40)
+    chip_smoke.assert_prefill_vs_extend(check, dtype)
+
+
+def test_rwkv_phase_on_cpu():
+    """Phase 4's driver at rwkv6-3b smoke width on the CPU: a timed
+    prefill and decode in bf16, and the fp32 checks of one prefill
+    against the recurrence and against two carried-state calls."""
+    import dataclasses
+    cfg = get_config("rwkv6-3b", smoke=True)
+    m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                device="cpu", seed=0)
+    m16 = Model(cfg, dict(m32.params), device="cpu")
+    assert m16.params["blocks.tmix.wr"].dtype == torch.bfloat16
+    assert m16.params["blocks.tmix.u"].dtype == torch.float32
+    toks = torch.randint(0, cfg.vocab_size, (2, 128),
+                         generator=torch.Generator().manual_seed(2))
+    rates = chip_smoke.rwkv_throughput(m16, toks, n_dec=4)
+    assert rates["batch"] == 2 and rates["prompt"] == 128
+    checks = chip_smoke.rwkv_equivalence(m32, toks)
+    assert set(checks) == {"recurrence", "two_calls"}
+    chip_smoke.assert_rwkv_equivalence(checks)
+    chip_smoke.rwkv_equivalence_checks(dict(m32.params), cfg, toks, "cpu")
+
+
+def test_prefill_logit_checks_on_cpu(capsys):
+    """Phase 3's asserted check and logged depth sweep at smoke width; the
+    sweep's plain-version swap is undone afterwards."""
+    from repro_torch.models import attention
+    before = attention.attend_causal
+    chip_smoke.prefill_logit_checks(get_config("qwen2-1.5b", smoke=True),
+                                    "cpu")
+    assert attention.attend_causal is before
+    out = capsys.readouterr().out
+    assert "depth sweep" in out and '"2": {"kernel"' in out

@@ -17,9 +17,11 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import _build, kernel_wrappers, launch_counts
 from repro_torch.kernels.decode_attention import (
     paged_decode_attention_kernel)
+from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.page_copy import (page_gather_kernel,
                                            page_scatter_kernel,
                                            token_append_kernel)
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_kernel
 from repro_torch.models import Model
 from repro_torch.serving.backend import TorchModelBackend
 from repro_torch.serving.paged_runtime import PagedKVRuntime
@@ -91,6 +93,20 @@ def test_port_runs_with_jax_blocked():
         out = rt.decode(model, "p")
         assert torch.isfinite(first).all() and torch.isfinite(out.float()).all()
         assert rt.programs["p"].length == 11
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+        q = torch.randn(1, 4, 9, 16)
+        assert flash_attention(q, q[:, :2], q[:, :2]).shape == q.shape
+        x = torch.rand(1, 8, 2, 4)
+        o, s = rwkv6_scan(x, x, x, x, torch.zeros(2, 4), chunk=4)
+        assert o.shape == x.shape and s.shape == (1, 2, 4, 4)
+        rwkv = Model(get_config("rwkv6-3b", smoke=True), device="cpu")
+        cache = rwkv.init_cache(1, 16)
+        logits, cache = rwkv.forward(torch.arange(10)[None], cache=cache)
+        logits, cache = rwkv.forward(torch.tensor([[3]]), cache=cache,
+                                     mode="decode")
+        assert torch.isfinite(logits).all()
+        assert torch.isfinite(cache["wkv"]).all()
         loaded = [m for m, v in sys.modules.items() if v is not None
                   and m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not loaded, loaded
@@ -120,7 +136,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 def test_cpu_tensors_take_the_plain_versions():
     """A whole CPU serving cycle — prefill, decode, COW split, stage-out,
-    restore — launches no kernel and builds nothing."""
+    restore — and an RWKV6 prefill and decode launch no kernel and build
+    nothing."""
     cfg = get_config("qwen2-1.5b", smoke=True)
     backend = TorchModelBackend(cfg, max_len=64, page_size=8, n_pages=16,
                                 device="cpu")
@@ -138,6 +155,10 @@ def test_cpu_tensors_take_the_plain_versions():
     backend.restore_program("a")
     assert rt.cow_splits == 1 and backend.restores == 1
     assert backend.staging_checks == [("a", True)]
+    rwkv = Model(get_config("rwkv6-3b", smoke=True), device="cpu")
+    _, cache = rwkv.forward(torch.arange(20)[None],
+                            cache=rwkv.init_cache(1, 0))
+    rwkv.forward(torch.tensor([[5]]), cache=cache, mode="decode")
     assert launch_counts() == {name: 0 for name in kernel_wrappers()}
     assert not _build._libs
 
@@ -151,6 +172,10 @@ def test_cpu_tensors_take_the_plain_versions():
     lambda t: paged_decode_attention_kernel(
         torch.zeros(1, 4, 16), t, t, torch.zeros(1, 1, dtype=torch.int32),
         torch.ones(1, dtype=torch.int32)),
+    lambda t: flash_attention_kernel(t[0, :1, :4].transpose(1, 2),
+                                     t[0, :1], t[0, :1]),
+    lambda t: rwkv6_scan_kernel(t[0], t[0], t[0], t[0], t[0, 0, 0],
+                                chunk=8),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """The CUDA wrappers check before they build or launch: a CPU tensor
