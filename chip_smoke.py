@@ -7,7 +7,10 @@ Run from the root of a checkout, on a machine with one card::
 
 Phase 0  the device: name and power limit (nvidia-smi), TF32 off.
 Phase 1  build every CUDA kernel from ``src/repro_torch/csrc`` (nvcc,
-         sm_90a), all sources in parallel.
+         sm_90a), all sources in parallel; log each kernel's registers and
+         spills, and the HGMMA (wgmma) count of each flash kernel in the
+         built library's SASS, which must be > 0 for the bf16 kernels
+         (where the toolkit has ``cuobjdump``; else "not checked").
 Phase 2  every kernel against its plain PyTorch version on the card, at
          the main paths' shapes, timed beside the least time the card
          could take and, where one exists, the one PyTorch call computing
@@ -19,10 +22,14 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          attention at qwen2-1.5b's prefill shape (B=1, H=12, KV=2, S=2048,
          D=128, bf16), through the model's strided layout too, at D=80 with
          S not a multiple of the tile and at a gemma2-like shape (D=256,
-         window 4096, softcap 50, S=8192), in bf16 and fp32; the RWKV6 scan
-         at rwkv6-3b's prefill shape (T=2048, H=40, K=64) and at the smoke
-         shape (K=L=16) with a carried state, where it is also held against
-         the sequential recurrence.
+         window 4096, softcap 50, S=8192), in bf16 (both query-tile
+         heights) and fp32, timed (eager loop and CUDA-graph replay)
+         beside SDPA at the prefill shape, at the serving path's 512-token
+         chunk and at the gemma2-like shape, with bf16 inputs TMA cannot
+         take refused; token append also at 300 rows (two launches); the
+         RWKV6 scan at rwkv6-3b's prefill shape (T=2048, H=40, K=64) and
+         at the smoke shape (K=L=16) with a carried state, where it is also
+         held against the sequential recurrence.
 Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          seeded random weights cast once to bf16) serving agent programs
          through the unchanged ``Engine`` with a ``TorchModelBackend``:
@@ -59,6 +66,8 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -96,6 +105,13 @@ FLASH_MAIN = dict(B=1, H=12, KV=2, S=2048, D=128, window=0, softcap=0.0)
 FLASH_OTHER = (dict(B=2, H=8, KV=2, S=1000, D=80, window=0, softcap=0.0),
                dict(B=1, H=16, KV=8, S=8192, D=256, window=4096,
                     softcap=50.0))
+FLASH_TILES = (64, 128)   # the bf16 kernel's query-tile heights
+# The serving path's fresh prefill chunk (chunk_size=512 in replay_config):
+# timed beside FLASH_MAIN, with both query-tile heights, to choose one.
+FLASH_BUCKET = dict(B=1, H=12, KV=2, S=512, D=128, window=0, softcap=0.0)
+# Token append past one launch's capacity (K_MAX_APPEND = 256 rows), at
+# the smoke width.
+APPEND_WIDE = dict(L=2, P=320, page=8, KV=2, Dh=8, B=300)
 # RWKV6 scan: rwkv6-3b's prefill (timed), and the smoke model's heads
 # (K = L = 16) with a carried state, decays inside the +-38 clip.
 SCAN_MAIN = dict(B=1, T=2048, H=40, K=64, L=64)
@@ -144,12 +160,79 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
+    """Device milliseconds per call: ``iters`` calls captured in one CUDA
+    graph after ``warmup`` eager ones, ``reps`` replays timed with CUDA
+    events, so no host work falls inside the timed span."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * iters)
+    del graph
+    return ms
+
+
 def bound_ms(nbytes: float, ops: float, sheet: dict, op_rate: str):
     """The least time for the work: the larger of bytes / HBM bandwidth
     and operations / the peak rate of their type. Returns (ms, bound_by)."""
     t_bytes = nbytes / sheet["hbm_bw"] * 1e3
     t_ops = ops / sheet[op_rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------- phase 1
+def cuobjdump() -> str | None:
+    """The toolkit's ``cuobjdump`` beside ``nvcc``, or None."""
+    from repro_torch.kernels import _build
+    cand = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    return str(cand) if cand.exists() else shutil.which("cuobjdump")
+
+
+def count_sass(text: str, opcode: str = "HGMMA") -> dict[str, int]:
+    """Per function of a ``cuobjdump -sass`` listing, the number of
+    instructions whose opcode is ``opcode`` (any suffix, any predicate)."""
+    counts: dict[str, int] = {}
+    fn = None
+    pattern = re.compile(r"\*/\s+(?:@!?U?P\w+\s+)?" + opcode + r"[.\s]")
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and pattern.search(line):
+            counts[fn] += 1
+    return counts
+
+
+def check_hgmma(library: pathlib.Path) -> None:
+    """The bf16 flash kernels run on the tensor cores: every
+    ``flash_wgmma_kernel`` instance of the built library holds HGMMA
+    instructions (checked where the toolkit has ``cuobjdump``)."""
+    tool = cuobjdump()
+    if tool is None:
+        log("phase1 flash_attention HGMMA count: not checked (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = count_sass(sass)
+    for fn, n in sorted(counts.items()):
+        log(f"phase1 flash_attention {fn}: {n} HGMMA")
+    wgmma = {fn: n for fn, n in counts.items() if "flash_wgmma_kernel" in fn}
+    assert wgmma and all(n > 0 for n in wgmma.values()), counts
 
 
 # ---------------------------------------------------------------- phase 2
@@ -313,17 +396,23 @@ def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
         plain_ms=time_ms(lambda: append_tokens_ref(
             kr, vr, case["k_tok"], case["v_tok"], case["app_pages"],
             case["app_offs"])),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(library_append)))
+        bound_ms=bms, bound_by=by, library_ms=time_ms(library_append),
+        device_ms=graph_ms(lambda: token_append_kernel(
+            kp, vp, case["k_tok"], case["v_tok"], case["app_pages"],
+            case["app_offs"])),
+        library_device_ms=graph_ms(library_append)))
     return out
 
 
 def flash_work(shape: dict, esz: int) -> tuple[int, float]:
     """(bytes, flops) causal flash attention must move and do: q, k, v
     read once and o written once; 4 * D flops (q.k and p.v) per live
-    (query, key) pair."""
+    (query, key) pair, query i seeing min(i + 1, window) keys."""
     B, H, KV, S, D = (shape[k] for k in ("B", "H", "KV", "S", "D"))
     nbytes = (2 * B * H * S * D + 2 * B * KV * S * D) * esz
-    pairs = S * (S + 1) // 2
+    W = shape.get("window") or S
+    n = min(S, W)
+    pairs = n * (n + 1) // 2 + (S - n) * W
     return nbytes, 4.0 * D * pairs * B * H
 
 
@@ -347,10 +436,15 @@ def flash_case(shape: dict, dtype, gen):
 
 
 def check_flash(shape: dict, dtype, gen, timed: bool, sheet: dict):
-    """Flash attention against its plain version. Tolerances: fp32
-    outputs 1e-3 (both are fp32 softmaxes over the same scores, summed in
-    other orders over up to 8192 keys: n * 2^-24 * max|v| ~ 2e-3 at
-    worst, ~1e-6 typical); bf16 outputs 1e-2, one bf16 rounding apart."""
+    """Flash attention against its plain version; in bf16 with each
+    query-tile height. Tolerances: fp32 outputs 1e-3 (both are fp32
+    softmaxes over the same scores, summed in other orders over up to 8192
+    keys: n * 2^-24 * max|v| ~ 2e-3 at worst, ~1e-6 typical); bf16
+    outputs 1e-2, one bf16 rounding of the output apart plus the kernel's
+    rounding of P to bf16 before P.V (bounded on the CPU by
+    tests/test_torch_flash_attention.py). Timed like every kernel, an
+    eager loop (``ms``, SDPA's ``library_ms``), and also by CUDA-graph
+    replay (``device_ms``, ``library_device_ms``: device time alone)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
@@ -363,6 +457,13 @@ def check_flash(shape: dict, dtype, gen, timed: bool, sheet: dict):
     tol = 1e-3 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     err = (out.float() - ref.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        for q_tile in FLASH_TILES:
+            tiled = flash_attention_kernel(q, k, v, _q_tile=q_tile, **opts)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(tiled.float(), ref.float(), atol=tol,
+                                       rtol=tol)
+            err = max(err, (tiled.float() - ref.float()).abs().max().item())
     del ref
     # the model's layout: (B, S, H, D) memory read through strides
     qm, km, vm = (x.transpose(1, 2).contiguous().transpose(1, 2)
@@ -374,14 +475,127 @@ def check_flash(shape: dict, dtype, gen, timed: bool, sheet: dict):
     if not timed:
         return err, None
     bms, by = bound_ms(*flash_work(shape, q.element_size()), sheet, "bf16")
+
+    def kern():
+        return flash_attention_kernel(q, k, v, **opts)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
     rec = dict(
-        ms=time_ms(lambda: flash_attention_kernel(q, k, v, **opts)),
+        ms=time_ms(kern),
         plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, **opts),
                          iters=5, warmup=1),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)))
+        bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa),
+        device_ms=graph_ms(kern), library_device_ms=graph_ms(sdpa))
     return err, rec
+
+
+def flash_tile_times(gen, sheet: dict) -> dict:
+    """Device ms (CUDA-graph replay) of the bf16 kernel with each
+    query-tile height, and with the wrapper's own pick, at qwen2-1.5b's
+    2048-token prefill, at the serving path's 512-token chunk and at the
+    gemma2-like layer, SDPA beside each (at the gemma2-like layer SDPA is
+    plain causal, no window or softcap: it visits more keys than the
+    kernel). Also the eager, host-inclusive time of a call of each.
+    Logged."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.kernel import plan_bf16
+    out = {}
+    for label, shape in (("S2048", FLASH_MAIN), ("S512", FLASH_BUCKET),
+                         ("gemma2_like", FLASH_OTHER[1])):
+        q, k, v = flash_case(shape, torch.bfloat16, gen)
+        opts = dict(window=shape["window"], softcap=shape["softcap"])
+        row = {}
+        for q_tile in FLASH_TILES:
+            row[f"q_tile_{q_tile}_ms"] = graph_ms(
+                lambda: flash_attention_kernel(q, k, v, _q_tile=q_tile,
+                                               **opts))
+        row["picked_q_tile"] = plan_bf16(
+            *(shape[x] for x in ("B", "H", "S", "D")),
+            num_sms=torch.cuda.get_device_properties(0)
+            .multi_processor_count).q_tile
+        row["eager_ms"] = time_ms(
+            lambda: flash_attention_kernel(q, k, v, **opts))
+        row["sdpa_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        row["sdpa_eager_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True))
+        row["bound_ms"] = bound_ms(*flash_work(shape, 2), sheet, "bf16")[0]
+        out[label] = row
+        del q, k, v
+    return out
+
+
+def expect_value_error(fn, what: str) -> None:
+    try:
+        fn()
+    except ValueError:
+        return
+    raise AssertionError(f"{what}: no ValueError")
+
+
+def check_flash_refusals(gen) -> None:
+    """bf16 inputs TMA cannot take raise ValueError before any launch: a
+    position stride that is not a whole number of 16 bytes, a base
+    address off 16 bytes, a head dim not a multiple of 8."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    q, k, v = flash_case(dict(B=1, H=4, KV=2, S=128, D=128),
+                         torch.bfloat16, gen)
+    padded = torch.zeros((1, 4, 128, 129), dtype=torch.bfloat16,
+                         device="cuda")[..., :128]
+    padded.copy_(q)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    before = flash_attention_kernel.launches
+    for what, args in (("misaligned stride", (padded, k, v)),
+                       ("misaligned address", (shifted, k, v)),
+                       ("head dim 100", tuple(x[..., :100].contiguous()
+                                              for x in (q, k, v)))):
+        expect_value_error(lambda: flash_attention_kernel(*args), what)
+    assert flash_attention_kernel.launches == before
+
+
+def check_append_wide(gen) -> float:
+    """Token append of APPEND_WIDE's 300 rows, past one launch's capacity:
+    one launch per K_MAX_APPEND rows, bit-exact against the plain
+    version; out-of-range or repeated ids raise before any launch.
+    Returns the max abs error (0)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.page_copy import append_tokens_ref
+    from repro_torch.kernels.page_copy.kernel import (K_MAX_APPEND,
+                                                      token_append_kernel)
+    L, P, page, KV, Dh, B = (APPEND_WIDE[x] for x in
+                             ("L", "P", "page", "KV", "Dh", "B"))
+    pools = [torch.randn((L, P, page, KV, Dh), generator=gen,
+                         device="cuda").to(torch.bfloat16) for _ in range(2)]
+    toks = [torch.randn((L, B, KV, Dh), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2)]
+    rng = np.random.default_rng(3)
+    ids, offs = rng.permutation(P)[:B], rng.integers(0, page, size=B)
+    refs = [x.clone() for x in pools]
+    before = token_append_kernel.launches
+    token_append_kernel(*pools, *toks, ids, offs)
+    assert token_append_kernel.launches - before == math.ceil(
+        B / K_MAX_APPEND)
+    append_tokens_ref(*refs, *toks, ids, offs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(pools, refs)), "append"
+    before = token_append_kernel.launches
+    for what, bad in (("repeated id", np.concatenate([ids[:-1], ids[:1]])),
+                      ("id out of range", np.where(ids == ids[5], P,
+                                                   ids))):
+        expect_value_error(lambda: token_append_kernel(
+            *pools, *toks, bad, offs), what)
+    assert token_append_kernel.launches == before
+    return 0.0
 
 
 def scan_case(shape: dict, gen, spread: float, shift: float):
@@ -463,8 +677,17 @@ def phase2(sheet: dict) -> dict:
                 records["paged_decode_attention"]["max_abs_err"], err)
             check_page_copy(smoke, False, sheet)
 
+    records["token_append"]["max_abs_err"] = max(
+        records["token_append"]["max_abs_err"], check_append_wide(gen))
+    log(f"phase2 token_append: {APPEND_WIDE['B']} rows in "
+        f"{math.ceil(APPEND_WIDE['B'] / 256)} launches bit-exact, bad ids "
+        f"refused")
+
     err, rec = check_flash(FLASH_MAIN, torch.bfloat16, gen, True, sheet)
     records["flash_attention"] = dict(max_abs_err=err, **rec)
+    check_flash_refusals(gen)
+    log("phase2 flash_attention: misaligned stride, misaligned address and "
+        "head dim 100 refused in bf16")
     for shape in FLASH_OTHER:
         for dtype in (torch.bfloat16, torch.float32):
             err, _ = check_flash(shape, dtype, gen, False, sheet)
@@ -473,6 +696,8 @@ def phase2(sheet: dict) -> dict:
             records["flash_attention"]["max_abs_err"] = max(
                 records["flash_attention"]["max_abs_err"], err)
             torch.cuda.empty_cache()
+    log(f"phase2 flash_attention device ms by query tile (CUDA-graph "
+        f"replay): {json.dumps(flash_tile_times(gen, sheet))}")
     err, rec = check_scan(SCAN_MAIN, gen, True, sheet)
     records["rwkv6_scan"] = dict(max_abs_err=err, **rec)
     err, _ = check_scan(SCAN_SMOKE, gen, False, sheet)
@@ -483,7 +708,10 @@ def phase2(sheet: dict) -> dict:
             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), library "
             f"{'n/a' if rec['library_ms'] is None else '%.4f ms' % rec['library_ms']}"
-            f", max_abs_err {rec['max_abs_err']:.3g}")
+            f", max_abs_err {rec['max_abs_err']:.3g}"
+            + (f"; device (CUDA-graph replay) kernel {rec['device_ms']:.4f}"
+               f" ms, library {rec['library_device_ms']:.4f} ms"
+               if "device_ms" in rec else ""))
     return records
 
 
@@ -961,8 +1189,10 @@ def main() -> int:
     log(f"phase1 built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
     for name in sorted(paths):
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "error", "C75")):
                 log(f"phase1 {name}: {line.strip()}")
+    check_hgmma(paths["flash_attention"])
 
     records = phase2(sheet)
     counts = phase3(hardware_profile(kind))

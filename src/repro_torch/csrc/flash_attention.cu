@@ -5,74 +5,86 @@
 // kernel.py: flash_attention_kernel (with _flash_kernel).
 //
 // Bound: operations. Causal attention does 4 * D flops per live (query,
-// key) pair (q.k and p.v) on inputs it reads once: at the serving path's
+// key) pair (q.k and p.v) on inputs it reads once: at qwen2-1.5b's
 // prefill shape (B=1, H=12, KV=2, S=2048, D=128) that is ~12.9 GFLOP
 // against ~15 MB of q, k, v and output, ~13 us at the bf16 tensor-core
-// peak against ~4.4 us of HBM traffic. Design of this first, plain
-// kernel: one thread block per (query tile of 64 rows, head, batch row);
-// a loop inside the block walks the key/value tiles of the head's KV
-// group (the TPU grid's sequential key axis), 64 keys per step, from the
-// first tile the window reaches to the causal diagonal, so tiles above
-// the diagonal or wholly outside the window are never read (the Pallas
-// kernel's `live` test). Tiles are staged in shared memory as fp32 (q and
-// k rows padded to D+1 floats so the threads of a warp hit distinct
-// banks); each of the 256 threads computes a 4 x 4 patch of the 64 x 64
-// scores and a 4 x ceil(D/16) patch of the output with fp32 FMAs on the
-// CUDA cores, and keeps its rows' online-softmax state (m, l) and the
-// fp32 accumulator in registers, reduced across the 16 lanes of a row
-// with shuffles. Ragged edges (S not a multiple of 64, D not a multiple
-// of 16) are masked, so any S and any D up to 256 work; q, k, v and o are
-// read and written through element strides, so the model's (B, S, H, D)
-// activations need no transpose copy. Query tiles launch heaviest first
-// (the last tiles see the most keys). No tensor cores, TMA or pipelining
-// yet: the kernel is far above its bound, and making it fast is later
-// work.
+// peak against ~4.4 us of HBM traffic. Only the tensor cores reach that
+// rate, so the bf16 kernel is built around Hopper's wgmma:
+//
+// - one CTA per (query tile of 64 x NWG rows, head, batch row), heaviest
+//   tiles (the last, which see the most keys) launched first; the key
+//   tiles walked are the live ones only, from the first tile the window
+//   reaches to the causal diagonal (the Pallas kernel's `live` test);
+// - q, k and v are read by TMA through 4-D tensor maps over the (D, S,
+//   heads, B) view with the caller's strides, so the model's (B, S, H, D)
+//   activations need no transpose copy. Tiles land in shared memory in
+//   bf16 with the 128-byte swizzle wgmma descriptors expect, as panels of
+//   64 columns: D is padded to the next multiple of 64 by the TMA's zero
+//   fill past D (and past S), and the zeros add nothing to q.k or p.v;
+// - a ring of K/V stages, each with an mbarrier that counts its TMA
+//   bytes, runs `stages` key tiles ahead of NWG warpgroups that each own
+//   64 query rows; the group that releases a stage last refills it. Two
+//   groups take turns on the tensor cores (named barriers), so one's
+//   softmax runs under the other's products;
+// - S = Q K^T is m64 x BK x k16 wgmma steps over the padded D (both
+//   operands K-major in shared memory), fp32 accumulators in registers,
+//   issued together with the previous tile's P V so that the softmax of
+//   one tile runs while the tensor cores finish the other;
+//   scale, softcap, mask and the online softmax run on those registers,
+//   the row statistics reduced over the 4 lanes that share a row;
+// - O += P V is wgmma with P from registers: the fp32 score accumulator
+//   layout is the bf16 A-fragment layout, so P is packed in place (the one
+//   rounding the reference does not make: P to bf16). V's tile is the B
+//   operand as it lies, made MN-major through the descriptor;
+// - the epilogue divides by l (clamped at 1e-30), converts to bf16 and
+//   stores through the output's strides, masked to i < S and d < D.
+//
+// fp32 inputs (used by the equivalence checks only) take the CUDA-core
+// kernel below, which stages fp32 tiles in shared memory and does both
+// products as fp32 FMAs in 4 x 4 patches a thread. The wrapper picks the
+// kernel by dtype alone.
+//
+// The tensor-map encoder is fetched through cudaGetDriverEntryPoint, so
+// the library needs no -lcuda.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+
 namespace {
 
+struct Strides {  // element strides of a (B, heads, S, D) view; D is unit
+  long long b, h, s;
+};
+
+// ------------------------------------------------------------ fp32 kernel
 constexpr float kNegInf = -2.0e38f;
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per loop step
 constexpr int kThreads = 256;  // 16 x 16 threads, each a 4-row patch
 constexpr int kPS = kBK + 1;   // padded row stride of the probability tile
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-struct Strides {  // element strides of a (B, heads, S, D) view; D is unit
-  long long b, h, s;
-};
-
 // rows [row0, row0 + n) of one head into an fp32 [n][stride] tile; rows
 // at or past S are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           long long row_stride, int row0,
                                           int n, int S, int D, int stride) {
   for (int i = threadIdx.x; i < n * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
     dst[r * stride + d] =
-        row0 + r < S ? to_float(src[(long long)(row0 + r) * row_stride + d])
-                     : 0.f;
+        row0 + r < S ? src[(long long)(row0 + r) * row_stride + d] : 0.f;
   }
 }
 
-template <typename T, int NJ>  // NJ = output columns per thread, >= D / 16
-__global__ void __launch_bounds__(kThreads) flash_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
-    Strides vs, Strides os, int G, int S, int D, float scale, int causal,
-    int window, float softcap) {
+template <int NJ>  // NJ = output columns per thread, >= D / 16
+__global__ void __launch_bounds__(kThreads) flash_fp32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, Strides qs,
+    Strides ks, Strides vs, Strides os, int G, int S, int D, float scale,
+    int causal, int window, float softcap) {
   extern __shared__ float smem[];
   const int QS = D + 1;
   float* q_s = smem;              // [kBQ][D + 1]
@@ -85,9 +97,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
   const int q0 = qt * kBQ;
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
   load_tile(q_s, qb, qs.s, q0, kBQ, S, D, QS);
 
   float m[4], l[4], acc[4][NJ];
@@ -177,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     __syncthreads();
   }
 
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = q0 + tr + 16 * a;
@@ -186,26 +198,26 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tc + 16 * j;
-      if (d < D) store(ob + (long long)i * os.s + d, acc[a][j] * inv);
+      if (d < D) ob[(long long)i * os.s + d] = acc[a][j] * inv;
     }
   }
 }
 
-size_t smem_bytes(int D) {
+size_t fp32_smem_bytes(int D) {
   return sizeof(float) * ((size_t)(kBQ + kBK) * (D + 1) + (size_t)kBK * D +
                           (size_t)kBQ * kPS);
 }
 
-template <typename T, int NJ>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const long long* st, int B, int H, int KV, int S, int D,
-           float scale, int causal, int window, float softcap,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+template <int NJ>
+int launch_fp32(const float* q, const float* k, const float* v, float* o,
+                const long long* st, int B, int H, int KV, int S, int D,
+                float scale, int causal, int window, float softcap,
+                cudaStream_t stream) {
+  const size_t smem = fp32_smem_bytes(D);
   static size_t smem_allowed = 48 * 1024;  // per instantiation
   if (smem > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fp32_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
@@ -213,56 +225,816 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, H / KV,
-      S, D, scale, causal, window, softcap);
+  flash_fp32_kernel<NJ><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, qs, ks, vs, os, H / KV, S, D, scale, causal, window,
+      softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o,
-             const long long* st, int B, int H, int KV, int S, int D,
-             float scale, int causal, int window, float softcap,
-             cudaStream_t s) {
-  if (D <= 64)
-    return launch<T, 4>(q, k, v, o, st, B, H, KV, S, D, scale, causal,
-                        window, softcap, s);
-  if (D <= 128)
-    return launch<T, 8>(q, k, v, o, st, B, H, KV, S, D, scale, causal,
-                        window, softcap, s);
-  return launch<T, 16>(q, k, v, o, st, B, H, KV, S, D, scale, causal, window,
-                       softcap, s);
+// ----------------------------------------------------- bf16 tensor cores
+constexpr int kMaxStages = 4;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kEncodeFailed = 10000;  // + the CUresult of the encoder
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D tensor map into shared memory; completion counted in
+// bytes on ``bar``. Boxes past the tensor's edge are zero-filled.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (start
+// address, leading and stride byte offsets in 16-byte units, layout 1 =
+// 128B swizzle).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Reads of an accumulator after a wgmma wait stay after it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The A fragments of a register-A wgmma are read until its wait: keep
+// them live and unchanged up to the fence.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero
+// (probabilities below 2^-126 of the row's largest add nothing).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int N>
+struct WgmmaSS;
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaSS<64> {
+  // D (64 x 64, fp32 regs) (+)= A (smem desc, K-major) . B (smem desc, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<128> {
+  // D (64 x 128, fp32 regs) (+)= A (smem desc, K-major) . B (smem desc, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  // D (64 x 64, fp32 regs) (+)= A (bf16 regs) . B (smem desc, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  // D (64 x 128, fp32 regs) (+)= A (bf16 regs) . B (smem desc, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<192> {
+  // D (64 x 192, fp32 regs) (+)= A (bf16 regs) . B (smem desc, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[96],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<256> {
+  // D (64 x 256, fp32 regs) (+)= A (bf16 regs) . B (smem desc, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+// Tile shapes of the tensor-core kernel for a padded head dim DP and NWG
+// warpgroups (64 query rows each). Mirrored by
+// kernels/flash_attention/kernel.plan_bf16, which picks the stage count.
+//
+// Registers decide the shapes. A warpgroup holds the O accumulator (DP /
+// 2 fp32 a thread), the scores (BK / 2) and P (BK / 4): ~190 registers a
+// thread at DP = 128 with 128-key tiles, ~205 at DP = 256 with 64. The
+// card allocates registers to warps in groups of four, so a dedicated
+// producer warp would be charged a whole warpgroup and cap two consumer
+// groups at 65536 / 384 = 168 registers; setmaxnreg does not lift that
+// cap for the compiler (measured with nvcc 12.9: ptxas compiled the
+// consumers of a 384-thread kernel at 168 registers whatever
+// setmaxnreg.inc asked for, spilling and serializing the wgmmas at D >=
+// 128). So the CTA is the consumer warpgroups alone, up to 255 registers
+// a thread, and the ring is refilled by whichever group releases a stage
+// last (see the kernel).
+template <int DP, int NWG>
+struct TcConfig {
+  static constexpr int kBQ = 64 * NWG;
+  static constexpr int kBK = DP <= 128 ? 128 : 64;
+  static constexpr int kPanels = DP / 64;  // 64-column swizzled panels
+  static constexpr int kThreads = 128 * NWG;
+  static constexpr int kQBytes = kBQ * DP * 2;
+  static constexpr int kTileBytes = kBK * DP * 2;  // K or V of one stage
+  static constexpr int kStageBytes = 2 * kTileBytes;
+};
+
+// Phase probes: built with -DREPRO_FLASH_PHASES (launch/flash_phases.py),
+// the first warp of each warpgroup of the heaviest CTA (blockIdx 0) stamps
+// clock64() at 8 points of each key-tile iteration into g_phases, read
+// back through flash_phases_read. Compiled out otherwise.
+#ifdef REPRO_FLASH_PHASES
+constexpr int kPhaseTiles = 64;
+__device__ long long g_phases[2][kPhaseTiles][8];
+#define PHASE(t, k)                                                     \
+  do {                                                                  \
+    if (blockIdx.x + blockIdx.y + blockIdx.z == 0 &&                    \
+        threadIdx.x % 128 == 0 && (t) < kPhaseTiles)                    \
+      g_phases[threadIdx.x / 128][(t)][(k)] = clock64();                \
+  } while (0)
+#else
+#define PHASE(t, k) \
+  do {              \
+  } while (0)
+#endif
+
+struct TcParams {
+  long long os_b, os_h, os_s;  // output element strides
+  int S, D, G, stages, causal, window;
+  float scale, softcap;
+};
+
+// Named barriers 1 and 2 pass the tensor cores between two warpgroups.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// S = Q K^T for one warpgroup: k16 steps over the padded D, 32 bytes
+// apart inside a 64-column panel; both operands K-major.
+template <int BK, int DP, int BQ>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2],
+                                         const uint8_t* sq,
+                                         const uint8_t* sk) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int off = (kk % 4) * 32;
+    WgmmaSS<BK>::ss(sc, desc_sw128(sq + (kk / 4) * BQ * 128 + off, 16, 1024),
+                    desc_sw128(sk + (kk / 4) * BK * 128 + off, 16, 1024),
+                    kk > 0);
+  }
+}
+
+// O += P V: k16 steps over the tile's keys, 16 rows (2048 B) apart; V is
+// MN-major, its 64-column panels BK * 128 bytes apart.
+template <int BK, int DP>
+__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2],
+                                         const uint32_t (&pa)[BK / 16][4],
+                                         const uint8_t* sv) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    WgmmaRS<DP>::rs(acc, pa[kk], desc_sw128(sv + kk * 2048, BK * 128, 1024),
+                    1);
+}
+
+// The online softmax of one key tile on the score registers: scale,
+// softcap, mask (where the tile crosses the diagonal, the window's edge or
+// S), the row max over the 4 lanes of a row, then p = exp(x - m) in
+// place. Updates m and the per-thread partial row sums l (the 4 lanes of
+// a row are added at the end) and returns the factors alpha that rescale
+// the output accumulated so far. Without a softcap (and with a positive
+// scale, which the max commutes with) the raw scores are used as they
+// are and the scale is folded into the exponent's FMA. Maxima and sums
+// run in four independent chains a row, so that the dependent latency of
+// 32 steps does not serialize them.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2],
+                                               const TcParams& p, int k0,
+                                               int row, int col, int wrow0) {
+  const bool masked = k0 + BK > p.S || (p.causal && k0 + BK - 1 > wrow0) ||
+                      (p.window > 0 && k0 <= wrow0 + 63 - p.window);
+  const bool raw = p.softcap <= 0.f && p.scale > 0.f;
+  float mx[2][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) mx[0][c] = mx[1][c] = -INFINITY;
+  if (!raw || masked) {
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) {
+      float x = sc[j];
+      if (!raw) {
+        x *= p.scale;
+        if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
+      }
+      if (masked) {
+        const int i = row + 8 * ((j % 4) / 2);
+        const int key = k0 + 8 * (j / 4) + col + (j % 2);
+        const bool live = key < p.S && (!p.causal || key <= i) &&
+                          (p.window <= 0 || key > i - p.window);
+        if (!live) x = -INFINITY;
+      }
+      sc[j] = x;
+      mx[(j % 4) / 2][(j / 4) % 4] = fmaxf(mx[(j % 4) / 2][(j / 4) % 4], x);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j)
+      mx[(j % 4) / 2][(j / 4) % 4] =
+          fmaxf(mx[(j % 4) / 2][(j / 4) % 4], sc[j]);
+  }
+  const float unit = raw ? p.scale : 1.f;  // sc * unit is the scaled score
+  float mlog[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    const float m_new = fmaxf(m[r], v * unit);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = fast_exp2((m[r] - m_use) * kLog2e);
+    m[r] = m_new;
+    mlog[r] = m_use * kLog2e;
+  }
+  const float coef = unit * kLog2e;
+  float sum[2][4] = {};
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) {
+    const int r = (j % 4) / 2;
+    sc[j] = fast_exp2(fmaf(sc[j], coef, -mlog[r]));
+    sum[r][(j / 4) % 4] += sc[j];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * alpha[r] +
+           ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+}
+
+// P to bf16 A fragments, in place: score registers 8kk .. 8kk + 7 are the
+// four fragment registers of key step kk (rows r and r + 8, keys 2c, 2c+1
+// and 8 + 2c, 8 + 2c + 1 of the step).
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
+                                       uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < BK / 2; j += 2)
+    pa[j / 8][(j % 8) / 2] = pack_bf16(sc[j], sc[j + 1]);
+}
+
+template <int DP, int NWG>
+__global__ void __launch_bounds__(TcConfig<DP, NWG>::kThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ o, const TcParams p) {
+  using C = TcConfig<DP, NWG>;
+  constexpr int BK = C::kBK;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + kMaxStages];
+  __shared__ int released[kMaxStages];  // warpgroups done with a stage
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sQ = smem;                // [panel][kBQ rows][128 B]
+  uint8_t* sKV = smem + C::kQBytes;  // [stage]{K, V}[panel][BK rows][128 B]
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.G;
+  const int q0 = qt * C::kBQ;
+  // live key range: the causal diagonal above, the window below
+  const int kv_end = p.causal ? min(p.S, q0 + C::kBQ) : p.S;
+  const int kv_begin =
+      (p.causal && p.window > 0) ? max(0, q0 - p.window + 1) : 0;
+  const int t_first = kv_begin / BK;
+  const int n_tiles = (kv_end + BK - 1) / BK - t_first;
+  auto kv_stage = [&](int t) {
+    return sKV + (t % p.stages) * C::kStageBytes;
+  };
+  // K and V of key tile t into its stage, by TMA, counted on full[stage]
+  auto load_kv = [&](int t) {
+    uint64_t* bar = &full[t % p.stages];
+    uint8_t* sk = kv_stage(t);
+    const int k0 = (t_first + t) * BK;
+    mbar_expect_tx(bar, C::kStageBytes);
+    for (int pn = 0; pn < C::kPanels; ++pn) {
+      tma_load_4d(sk + pn * BK * 128, &tm_k, bar, pn * 64, k0, kvh, b);
+      tma_load_4d(sk + C::kTileBytes + pn * BK * 128, &tm_v, bar, pn * 64,
+                  k0, kvh, b);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // Q, and the ring's first stages
+    mbar_expect_tx(q_full, C::kQBytes);
+    for (int pn = 0; pn < C::kPanels; ++pn)
+      tma_load_4d(sQ + pn * C::kBQ * 128, &tm_q, q_full, pn * 64, q0, h, b);
+    for (int t = 0; t < min(p.stages, n_tiles); ++t) load_kv(t);
+  }
+  // A stage is refilled (with the tile `stages` ahead) by the warpgroup
+  // that releases it last: one thread of each group counts its release
+  // after the group's wgmma_wait<0>, when its reads of the stage are over.
+  auto release = [&](int t) {
+    if (threadIdx.x % 128 == 0 &&
+        atomicAdd(&released[t % p.stages], 1) % NWG == NWG - 1 &&
+        t + p.stages < n_tiles)
+      load_kv(t + p.stages);
+  };
+
+  {
+    // ---- warpgroup wg: query rows q0 + 64 wg .. + 63
+    const int wg = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int wrow0 = q0 + 64 * wg;                 // first row of the group
+    const int row = wrow0 + 16 * (tid / 32) + lane / 4;  // and row + 8
+    const int col = 2 * (lane % 4);  // + 8 n: this thread's column pairs
+    const uint8_t* sQw = sQ + wg * 64 * 128;
+
+    float acc[DP / 2];
+#pragma unroll
+    for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    // Software-pipelined over key tiles: S_t = Q K_t^T and O += P_{t-1}
+    // V_{t-1} are issued together, and the softmax of S_t runs on the CUDA
+    // cores while P_{t-1} V_{t-1} is still on the tensor cores.
+    float sc[BK / 2], alpha[2];
+    uint32_t pa[BK / 16][4];
+    // Two warpgroups take turns on the tensor cores: each issues its
+    // products after named_sync(its barrier) and hands over with
+    // named_arrive(the other's), so one group's softmax runs while the
+    // other's products do. Group 0 goes first.
+    constexpr bool kPingPong = NWG == 2;
+    auto take_turn = [&] {
+      if (kPingPong) named_sync(1 + wg);
+    };
+    auto pass_turn = [&] {
+      if (kPingPong) named_arrive(2 - wg);
+    };
+    if (kPingPong && wg == 1) named_arrive(1);
+    mbar_wait(q_full, 0);
+    mbar_wait(&full[0], 0);
+    take_turn();
+    wgmma_fence();
+    issue_qk<BK, DP, C::kBQ>(sc, sQw, kv_stage(0));
+    wgmma_commit();
+    pass_turn();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    online_softmax<BK>(sc, m, l, alpha, p, t_first * BK, row, col, wrow0);
+    pack_p<BK>(sc, pa);
+    for (int t = 1; t < n_tiles; ++t) {
+      PHASE(t, 0);
+      mbar_wait(&full[t % p.stages], (t / p.stages) & 1);
+      PHASE(t, 1);
+      take_turn();
+      PHASE(t, 2);
+      wgmma_fence();
+      issue_qk<BK, DP, C::kBQ>(sc, sQw, kv_stage(t));
+      wgmma_commit();
+      issue_pv<BK, DP>(acc, pa, kv_stage(t - 1) + C::kTileBytes);
+      wgmma_commit();
+      pass_turn();
+      PHASE(t, 3);
+      wgmma_wait<1>();  // S_t is done, P_{t-1} V_{t-1} may still run
+      fence_regs(sc);
+      PHASE(t, 4);
+      online_softmax<BK>(sc, m, l, alpha, p, (t_first + t) * BK, row, col,
+                         wrow0);
+      PHASE(t, 5);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      PHASE(t, 6);
+      release(t - 1);
+#pragma unroll
+      for (int j = 0; j < DP / 2; ++j) acc[j] *= alpha[(j % 4) / 2];
+      pack_p<BK>(sc, pa);
+      PHASE(t, 7);
+    }
+    take_turn();
+    wgmma_fence();
+    issue_pv<BK, DP>(acc, pa, kv_stage(n_tiles - 1) + C::kTileBytes);
+    wgmma_commit();
+    if (wg == 0) pass_turn();  // group 1's last turn has no taker
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+    __nv_bfloat16* ob = o + b * p.os_b + h * p.os_h;
+#pragma unroll
+    for (int j = 0; j < DP / 2; j += 2) {
+      const int r = (j % 4) / 2;
+      const int i = row + 8 * r;
+      const int d = 8 * (j / 4) + col;
+      if (i < p.S && d < p.D)
+        *reinterpret_cast<__nv_bfloat162*>(ob + i * p.os_s + d) =
+            __floats2bfloat162_rn(acc[j] * inv[r], acc[j + 1] * inv[r]);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 tensor map over the (D, S, heads, B) view of ``base`` (element
+// strides st = {batch, head, position}), boxes of 64 columns x ``rows``
+// rows with the 128-byte swizzle; reads past D or S are zero-filled.
+int encode(CUtensorMap* map, const void* base, const long long* st, int B,
+           int heads, int S, int D, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2,
+                                 (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(res);
+}
+
+template <int DP, int NWG>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 const long long* st, int B, int H, int KV, int S, int D,
+                 float scale, int causal, int window, float softcap,
+                 int stages, cudaStream_t stream) {
+  using C = TcConfig<DP, NWG>;
+  if (stages < 2 || stages > kMaxStages)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      1024 + C::kQBytes + static_cast<size_t>(stages) * C::kStageBytes;
+  static size_t smem_allowed = 48 * 1024;  // per instantiation
+  if (smem > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_wgmma_kernel<DP, NWG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = smem;
+  }
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, st, B, H, S, D, C::kBQ);
+  if (err == 0) err = encode(&tk, k, st + 3, B, KV, S, D, C::kBK);
+  if (err == 0) err = encode(&tv, v, st + 6, B, KV, S, D, C::kBK);
+  if (err != 0) return err;
+  const TcParams p{st[9], st[10], st[11], S,     D,     H / KV,
+                   stages, causal, window, scale, softcap};
+  const dim3 grid((S + C::kBQ - 1) / C::kBQ, H, B);
+  flash_wgmma_kernel<DP, NWG><<<grid, C::kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NWG>
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
+                   const long long* st, int B, int H, int KV, int S, int D,
+                   float scale, int causal, int window, float softcap,
+                   int stages, cudaStream_t s) {
+  switch ((D + 63) / 64) {
+    case 1:
+      return launch_wgmma<64, NWG>(q, k, v, o, st, B, H, KV, S, D, scale,
+                                   causal, window, softcap, stages, s);
+    case 2:
+      return launch_wgmma<128, NWG>(q, k, v, o, st, B, H, KV, S, D, scale,
+                                    causal, window, softcap, stages, s);
+    case 3:
+      return launch_wgmma<192, NWG>(q, k, v, o, st, B, H, KV, S, D, scale,
+                                    causal, window, softcap, stages, s);
+    default:
+      return launch_wgmma<256, NWG>(q, k, v, o, st, B, H, KV, S, D, scale,
+                                    causal, window, softcap, stages, s);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
+#ifdef REPRO_FLASH_PHASES
+int flash_phases_read(void* out) {  // long long [2][kPhaseTiles][8]
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_phases, sizeof(g_phases)));
+}
+#endif
+
 const char* repro_error_string(int err) {
+  if (err >= kEncodeFailed) return "cuTensorMapEncodeTiled failed";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q (B, H, S, D), k/v (B, KV, S, D), o (B, H, S, D), all of one dtype
-// (0 = float32, 1 = bfloat16) with unit stride along D; strides holds the
-// element strides (batch, head, position) of q, k, v and o, in that
-// order. 1 <= D <= 256, H a multiple of KV; window <= 0 means none,
-// softcap <= 0 means none.
-int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, const long long* strides, int B, int H,
-                           int KV, int S, int D, float scale, int causal,
-                           int window, float softcap, int dtype,
-                           void* stream) {
+// q (B, H, S, D), k/v (B, KV, S, D), o (B, H, S, D), all float32 with unit
+// stride along D; strides holds the element strides (batch, head,
+// position) of q, k, v and o, in that order. 1 <= D <= 256, H a multiple
+// of KV; window <= 0 means none, softcap <= 0 means none.
+int flash_attention_fp32_launch(const void* q, const void* k, const void* v,
+                                void* o, const long long* strides, int B,
+                                int H, int KV, int S, int D, float scale,
+                                int causal, int window, float softcap,
+                                void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (D < 1 || D > 256 || KV < 1 || H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, strides, B, H, KV, S, D, scale, causal,
-                           window, softcap, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, strides, B, H, KV, S, D,
-                                   scale, causal, window, softcap, s);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  if (D <= 64)
+    return launch_fp32<4>(qf, kf, vf, of, strides, B, H, KV, S, D, scale,
+                          causal, window, softcap, s);
+  if (D <= 128)
+    return launch_fp32<8>(qf, kf, vf, of, strides, B, H, KV, S, D, scale,
+                          causal, window, softcap, s);
+  return launch_fp32<16>(qf, kf, vf, of, strides, B, H, KV, S, D, scale,
+                         causal, window, softcap, s);
+}
+
+// The same contract in bfloat16, on the tensor cores. Also: D a multiple
+// of 8, q, k and v 16-byte aligned with strides of whole 16-byte units
+// (TMA's rules, checked by the wrapper); q_tile 64 or 128 query rows a
+// CTA; stages the K/V ring's depth (2..4, planned by the wrapper so that
+// the shared memory fits).
+int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
+                                void* o, const long long* strides, int B,
+                                int H, int KV, int S, int D, float scale,
+                                int causal, int window, float softcap,
+                                int q_tile, int stages, void* stream) {
+  if (B == 0 || S == 0 || H == 0) return 0;
+  if (D < 8 || D > 256 || D % 8 || KV < 1 || H % KV)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_tile == 64)
+    return dispatch_wgmma<1>(q, k, v, o, strides, B, H, KV, S, D, scale,
+                             causal, window, softcap, stages, s);
+  if (q_tile == 128)
+    return dispatch_wgmma<2>(q, k, v, o, strides, B, H, KV, S, D, scale,
+                             causal, window, softcap, stages, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

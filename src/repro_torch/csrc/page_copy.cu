@@ -14,6 +14,13 @@
 // Page ids and offsets are validated on the host by the wrapper; a block
 // whose id is out of range copies nothing, so a bad id can never become
 // an out-of-bounds access. The pools are updated in place.
+//
+// Token append moves a few hundred bytes a row, so its time is launch
+// latency and the host work around it: its page ids and offsets travel by
+// value in the launch's parameter block (a __grid_constant__ struct of
+// kMaxAppend pairs, 2 KB of the 4 KB limit), with no index tensor and no
+// host-to-device copy; a larger batch is launched once per slice of
+// kMaxAppend rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,19 +81,26 @@ __global__ void scatter_kernel(char* __restrict__ pool,
            staging + ((long long)l * n + i) * row_bytes, row_bytes);
 }
 
-// grid (B, L): pool[l, page_ids[b], offsets[b]] = tok[l, b], K and V
+constexpr int kMaxAppend = 256;
+
+struct AppendSlots {  // rows [b0, b0 + n) of the batch, n <= kMaxAppend
+  int page[kMaxAppend];
+  int offset[kMaxAppend];
+};
+
+// grid (n, L): pool[l, page[i], offset[i]] = tok[l, b0 + i], K and V
 __global__ void append_kernel(char* __restrict__ k_pool,
                               char* __restrict__ v_pool,
                               const char* __restrict__ k_tok,
                               const char* __restrict__ v_tok,
-                              const int* __restrict__ page_ids,
-                              const int* __restrict__ offsets, int B, int P,
-                              int page, long long tok_bytes) {
-  const int b = blockIdx.x, l = blockIdx.y;
-  const int pid = page_ids[b], off = offsets[b];
+                              const __grid_constant__ AppendSlots slots,
+                              int b0, int B, int P, int page,
+                              long long tok_bytes) {
+  const int i = blockIdx.x, l = blockIdx.y;
+  const int pid = slots.page[i], off = slots.offset[i];
   if (pid < 0 || pid >= P || off < 0 || off >= page) return;
   const long long dst = (((long long)l * P + pid) * page + off) * tok_bytes;
-  const long long src = ((long long)l * B + b) * tok_bytes;
+  const long long src = ((long long)l * B + b0 + i) * tok_bytes;
   copy_row(k_pool + dst, k_tok + src, tok_bytes);
   copy_row(v_pool + dst, v_tok + src, tok_bytes);
 }
@@ -121,17 +135,25 @@ int page_scatter_launch(void* pool, const void* ids, const void* staging,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Rows [b0, b0 + n) of a batch of B token rows, n <= kMaxAppend; the ids
+// and offsets are host arrays of n ints, copied into the launch.
 int token_append_launch(void* k_pool, void* v_pool, const void* k_tok,
-                        const void* v_tok, const void* page_ids,
-                        const void* offsets, int B, int L, int P, int page,
-                        long long tok_bytes, void* stream) {
-  if (B == 0 || L == 0) return 0;
-  append_kernel<<<dim3(B, L), kTokenThreads, 0,
+                        const void* v_tok, const int* page_ids,
+                        const int* offsets, int b0, int n, int B, int L,
+                        int P, int page, long long tok_bytes, void* stream) {
+  if (n == 0 || L == 0) return 0;
+  if (n < 0 || n > kMaxAppend || b0 < 0 || b0 + n > B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  AppendSlots slots{};
+  for (int i = 0; i < n; ++i) {
+    slots.page[i] = page_ids[i];
+    slots.offset[i] = offsets[i];
+  }
+  append_kernel<<<dim3(n, L), kTokenThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<char*>(k_pool), static_cast<char*>(v_pool),
-      static_cast<const char*>(k_tok), static_cast<const char*>(v_tok),
-      static_cast<const int*>(page_ids), static_cast<const int*>(offsets), B,
-      P, page, tok_bytes);
+      static_cast<const char*>(k_tok), static_cast<const char*>(v_tok), slots,
+      b0, B, P, page, tok_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,6 +10,8 @@ the CUDA sources are compiled on the first launch (:mod:`._build`).
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -50,6 +52,21 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
+def device_guard(device: torch.device):
+    """``torch.cuda.device(device)``, or no guard when ``device`` is
+    already the current one (the usual case, and ~2 us cheaper a call)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of the current stream on ``device``: what
+    ``torch.cuda.current_stream(device).cuda_stream`` returns, without
+    building a ``Stream`` object (~4 us a call on the card's host)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def kernel_wrappers() -> dict:
     """name -> CUDA wrapper, for every kernel of the port. Each wrapper
     carries ``launches``: the number of kernel launches it has made."""
@@ -78,5 +95,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["host_index", "kernel_wrappers", "launch_counts",
-           "reset_launch_counts", "resolve_device", "to_device"]
+__all__ = ["device_guard", "host_index", "kernel_wrappers", "launch_counts",
+           "reset_launch_counts", "resolve_device", "stream_handle",
+           "to_device"]

@@ -42,10 +42,10 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> pathlib.Path:
+def library_path(name: str, flags: tuple = ()) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(
+        NVCC_FLAGS + tuple(flags)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -91,11 +91,39 @@ def build_all() -> dict[str, pathlib.Path]:
     return {name: library_path(name) for name in SOURCES}
 
 
+def load_variant(lib: str, flags: tuple) -> ctypes.CDLL:
+    """Build source ``lib`` with the extra ``nvcc`` ``flags`` (for
+    example a ``-D`` that compiles in measurement probes) into a library
+    of its own and bind it in place of the default build for the rest of
+    the process: entry points looked up after this call come from the
+    variant. Returns the loaded library."""
+    path = library_path(lib, flags)
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+                               str(CSRC / f"{lib}.cu")],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {lib} {flags}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    with _lock:
+        _libs[lib] = ctypes.CDLL(str(path))
+        for key in [k for k in _funcs if k[0] == lib]:
+            del _funcs[key]
+        return _libs[lib]
+
+
 def function(lib: str, name: str, argtypes: list, restype=ctypes.c_int):
     """The C entry point ``name`` of library ``lib`` with its argument
     and result types declared; the library is built and loaded on first
-    use."""
+    use. A resolved entry point is returned without taking the lock."""
     key = (lib, name)
+    fn = _funcs.get(key)
+    if fn is not None:
+        return fn
     with _lock:
         fn = _funcs.get(key)
         if fn is None:

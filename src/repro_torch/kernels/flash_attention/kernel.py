@@ -1,42 +1,134 @@
-"""CUDA flash attention: the checked launcher of
+"""CUDA flash attention: the checked launchers of
 ``csrc/flash_attention.cu``, the port of the Pallas
 ``flash_attention_kernel`` (``src/repro/kernels/flash_attention/
 kernel.py``).
 
-One thread block per (64-row query tile, head, batch row) walks the live
-key tiles of its KV group with an fp32 online softmax; see the source for
-its bound and design. The tensors are read and written through their
-strides (unit stride along D only), so a caller holding (B, S, H, D)
-activations passes ``x.transpose(1, 2)`` views and no copy is made.
+The kernel is picked by dtype alone. bf16 runs on the tensor cores: TMA
+loads q, k and v tiles into swizzled shared memory, a ring of K/V stages
+runs ahead of one or two warpgroups, and each warpgroup runs both
+products with ``wgmma`` and an fp32 online softmax (see the source).
+fp32, used by the equivalence checks, runs the CUDA-core kernel. The
+tensors are read through their strides (unit stride along D), so a caller
+holding (B, S, H, D) activations passes ``x.transpose(1, 2)`` views and no
+copy is made.
+
+:func:`plan_bf16` and :func:`tma_strides` are the host side of the
+bf16 launch as pure functions of integers, so the CPU tests reach them.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, device_guard, stream_handle
 
 _LIB = "flash_attention"
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-    [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_int, ctypes.c_void_p]
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_COMMON_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+_FP32_ARGS = _COMMON_ARGS + [ctypes.c_void_p]
+_BF16_ARGS = _COMMON_ARGS + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 MAX_HEAD_DIM = 256
+
+# Hopper's shared memory (H100, H200): 227 KB a block. Every tile shape
+# holds one CTA an SM (registers: see ``TcConfig`` in the source).
+SMEM_PER_BLOCK = 232_448
+MAX_STAGES = 4        # kMaxStages in the source
+ALIGN_SLACK = 1024    # the tiles are aligned to 1024 bytes in the kernel
+STATIC_SMEM = 256     # the mbarriers, rounded up
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16Plan:
+    """The tensor-core launch: ``q_tile`` query rows a CTA (64 per
+    consumer warpgroup), D padded to ``head_pad`` in shared memory,
+    ``block_k`` keys a stage, ``stages`` stages in the K/V ring."""
+    q_tile: int
+    head_pad: int
+    block_k: int
+    stages: int
+    threads: int
+    smem_bytes: int
+    grid: tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=256)
+def plan_bf16(B: int, H: int, S: int, D: int, q_tile: int | None = None,
+              num_sms: int = 132) -> Bf16Plan:
+    """Tile shapes and shared memory of the bf16 kernel (``TcConfig`` in
+    the source): 64 query rows a warpgroup, 128-key tiles up to D = 128
+    and 64-key tiles above. ``q_tile`` None picks 128 rows (two
+    warpgroups) when their grid alone fills the card's ``num_sms`` SMs,
+    else 64 (twice the CTAs). The K/V ring takes as many stages (up to 4)
+    as fit 227 KB."""
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash attention in bf16 takes a head dim that is "
+                         f"a multiple of 8 in [8, {MAX_HEAD_DIM}] (TMA moves "
+                         f"whole 16-byte rows), got {D}")
+    if q_tile is None:
+        q_tile = 128 if math.ceil(S / 128) * H * B >= num_sms else 64
+    if q_tile not in (64, 128):
+        raise ValueError(f"q_tile must be 64 or 128, got {q_tile}")
+    head_pad = math.ceil(D / 64) * 64
+    block_k = 128 if head_pad <= 128 else 64
+    q_bytes = q_tile * head_pad * 2
+    stage_bytes = 2 * block_k * head_pad * 2
+    stages = min(MAX_STAGES, (SMEM_PER_BLOCK - ALIGN_SLACK - STATIC_SMEM
+                              - q_bytes) // stage_bytes)
+    return Bf16Plan(q_tile=q_tile, head_pad=head_pad, block_k=block_k,
+                    stages=stages, threads=2 * q_tile,
+                    smem_bytes=ALIGN_SLACK + q_bytes + stages * stage_bytes,
+                    grid=(math.ceil(S / q_tile), H, B))
+
+
+def tma_strides(name: str, shape, strides, data_ptr: int,
+                esz: int = 2) -> tuple[int, int, int]:
+    """Element strides (batch, head, position) of a (B, heads, S, D)
+    operand as its tensor map will hold them, raising ``ValueError`` where
+    TMA cannot read it: a base address or a stride that is not a whole
+    number of 16 bytes. A dimension of size 1 is never stepped, so its
+    stride is replaced by an aligned one."""
+    if data_ptr % 16:
+        raise ValueError(f"flash_attention_kernel: {name}'s base address is "
+                         f"not 16-byte aligned (TMA needs it)")
+    span = math.ceil(math.prod(shape) * esz / 16) * 16 // esz
+    out = []
+    for size, stride, what in zip(shape[:3], strides[:3],
+                                  ("batch", "head", "position")):
+        if size == 1:
+            stride = span
+        elif (stride * esz) % 16:
+            raise ValueError(f"flash_attention_kernel: {name}'s {what} "
+                             f"stride {stride} is not a whole number of "
+                             f"16 bytes (TMA needs it)")
+        out.append(stride)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_attention_kernel(q, k, v, *, scale: float | None = None,
                            causal: bool = True, window: int = 0,
-                           softcap: float = 0.0) -> torch.Tensor:
+                           softcap: float = 0.0,
+                           _q_tile: int | None = None) -> torch.Tensor:
     """q (B, H, S, D); k/v (B, KV, S, D) on one GPU, float32 or bfloat16,
-    any strides with a unit stride along D. Returns (B, H, S, D) in q's
-    dtype, laid out like q (``torch.empty_like``). Launches on the current
-    stream and does not synchronize."""
+    any strides with a unit stride along D (bf16 also: D a multiple of 8
+    and 16-byte-aligned addresses and strides). Returns (B, H, S, D) in
+    q's dtype, laid out like q (``torch.empty_like``). Launches on the
+    current stream and does not synchronize. ``_q_tile`` is a measurement
+    hook, set by no caller of the port: it forces the bf16 kernel's query
+    tile to 64 or 128 rows instead of :func:`plan_bf16`'s pick."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_kernel: q, k and v must be on the "
                          "same CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -57,15 +149,25 @@ def flash_attention_kernel(q, k, v, *, scale: float | None = None,
     if H > 65535 or B > 65535:
         raise ValueError(f"grid limits: heads {H}, batch {B}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    fn = _build.function(_LIB, "flash_attention_launch", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        plan = plan_bf16(B, H, S, D, _q_tile, _num_sms(q.device.index))
+        st = [s for name, t in (("q", q), ("k", k), ("v", v))
+              for s in tma_strides(name, t.shape, t.stride(),
+                                        t.data_ptr())]
+        st += out.stride()[:3]
+        extra = (plan.q_tile, plan.stages)
+        fn = _build.function(_LIB, "flash_attention_bf16_launch", _BF16_ARGS)
+    else:
+        st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        extra = ()
+        fn = _build.function(_LIB, "flash_attention_fp32_launch", _FP32_ARGS)
+    strides = (ctypes.c_longlong * 12)(*st)
+    with device_guard(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  ctypes.addressof(strides), B, H, KV, S, D, float(scale),
-                 int(bool(causal)), int(window), float(softcap),
-                 _DTYPES[q.dtype], stream)
+                 int(bool(causal)), int(window), float(softcap), *extra,
+                 stream_handle(q.device))
     _build.check(_LIB, err, "flash_attention_kernel")
     flash_attention_kernel.launches += 1
     return out

@@ -5,23 +5,28 @@
 
 Index arguments arrive as host arrays (:func:`repro_torch.kernels.
 host_index`): they are range- and distinctness-checked here, on the host,
-before any pointer reaches a kernel, then uploaded without waiting for the
-stream. Scatter and append update the pool tensors in place (the JAX
-kernels alias them with ``input_output_aliases`` and return new arrays).
+before any pointer reaches a kernel. Gather and scatter upload them
+without waiting for the stream; token append passes its few ids and
+offsets by value in the launch (:func:`pack_append_args`). Scatter and
+append update the pool tensors in place (the JAX kernels alias them with
+``input_output_aliases`` and return new arrays).
 """
 from __future__ import annotations
 
+import array
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, to_device
+from repro_torch.kernels import _build, device_guard, stream_handle, to_device
 
 _LIB = "page_copy"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _COPY_ARGS = [_P, _P, _P, _I, _I, _I, _L, _P]
-_APPEND_ARGS = [_P] * 6 + [_I] * 4 + [_L, _P]
+_APPEND_ARGS = [_P] * 6 + [_I] * 6 + [_L, _P]
+K_MAX_APPEND = 256    # kMaxAppend in csrc/page_copy.cu
 
 
 def _check_pool(pages: torch.Tensor, what: str) -> None:
@@ -97,17 +102,56 @@ def page_scatter_kernel(pages: torch.Tensor, staging: torch.Tensor,
     return pages
 
 
+@dataclasses.dataclass(frozen=True)
+class AppendSlice:
+    """Rows ``start .. start + len(page_ids)`` of a token append, with
+    their page ids and slot offsets as the int32 host arrays one launch
+    copies into its parameters."""
+    start: int
+    page_ids: array.array
+    offsets: array.array
+
+
+def _ints(x) -> list[int]:
+    return x.tolist() if hasattr(x, "tolist") else [int(i) for i in x]
+
+
+def pack_append_args(page_ids, offsets, P: int,
+                     page: int) -> list[AppendSlice]:
+    """Validate the ids and offsets of a token append on the host (ids in
+    [0, P) and pairwise distinct, offsets in [0, page)) and cut them into
+    launches of at most ``K_MAX_APPEND`` rows each."""
+    ids, offs = _ints(page_ids), _ints(offsets)
+    if len(offs) != len(ids):
+        raise ValueError(f"token_append_kernel: {len(ids)} page ids but "
+                         f"{len(offs)} offsets")
+    if ids and (min(ids) < 0 or max(ids) >= P):
+        raise ValueError(f"token_append_kernel: page ids outside [0, {P})")
+    if offs and (min(offs) < 0 or max(offs) >= page):
+        raise ValueError(f"token_append_kernel: offsets outside [0, {page})")
+    if len(set(ids)) != len(ids):
+        raise ValueError("token_append_kernel: page ids must be pairwise "
+                         "distinct")
+    out = []
+    for start in range(0, len(ids), K_MAX_APPEND):
+        n = min(K_MAX_APPEND, len(ids) - start)
+        out.append(AppendSlice(start, array.array("i", ids[start:start + n]),
+                               array.array("i", offs[start:start + n])))
+    return out
+
+
 def token_append_kernel(k_pages: torch.Tensor, v_pages: torch.Tensor,
                         k_tok: torch.Tensor, v_tok: torch.Tensor,
-                        page_ids: np.ndarray, offsets: np.ndarray):
+                        page_ids, offsets):
     """Write each of B new tokens' K/V rows for all L layers into slot
-    ``offsets[b]`` of page ``page_ids[b]``, in place, in one launch:
-    k/v_pages (L, P, page, KV, Dh); k/v_tok (L, B, KV, Dh) in the pools'
-    dtype; page_ids pairwise distinct. Returns ``(k_pages, v_pages)``."""
+    ``offsets[b]`` of page ``page_ids[b]``, in place, one launch per
+    ``K_MAX_APPEND`` rows: k/v_pages (L, P, page, KV, Dh); k/v_tok (L, B,
+    KV, Dh) in the pools' dtype; page_ids pairwise distinct. Returns
+    ``(k_pages, v_pages)``."""
     _check_pool(k_pages, "token_append_kernel")
     _check_pool(v_pages, "token_append_kernel")
     L, P, page, KV, Dh = k_pages.shape
-    B = int(page_ids.size)
+    B = len(page_ids)
     if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype \
             or v_pages.device != k_pages.device:
         raise ValueError("token_append_kernel: k and v pools differ")
@@ -117,21 +161,21 @@ def token_append_kernel(k_pages: torch.Tensor, v_pages: torch.Tensor,
             raise ValueError(f"token_append_kernel: token rows "
                              f"{tuple(tok.shape)} {tok.dtype} do not fit "
                              f"pools {tuple(k_pages.shape)} {k_pages.dtype}")
-    _check_ids(page_ids, P, "token_append_kernel", distinct=True)
-    if offsets.shape != (B,) or (B and (offsets.min() < 0
-                                        or offsets.max() >= page)):
-        raise ValueError(f"token_append_kernel: offsets outside [0, {page})")
+    slices = pack_append_args(page_ids, offsets, P, page)
     if B == 0 or L == 0:
         return k_pages, v_pages
-    ids = to_device(page_ids, k_pages.device)
-    offs = to_device(offsets, k_pages.device)
-    fn = _build.function(_LIB, "token_append_launch", _APPEND_ARGS)
-    with torch.cuda.device(k_pages.device):
-        err = fn(k_pages.data_ptr(), v_pages.data_ptr(), k_tok.data_ptr(),
-                 v_tok.data_ptr(), ids.data_ptr(), offs.data_ptr(), B, L, P,
-                 page, KV * Dh * k_pages.element_size(), _stream(k_pages))
-    _build.check(_LIB, err, "token_append_kernel")
-    token_append_kernel.launches += 1
+    launch = _build.function(_LIB, "token_append_launch", _APPEND_ARGS)
+    args = (k_pages.data_ptr(), v_pages.data_ptr(), k_tok.data_ptr(),
+            v_tok.data_ptr())
+    tok_bytes = KV * Dh * k_pages.element_size()
+    with device_guard(k_pages.device):
+        stream = stream_handle(k_pages.device)
+        for sl in slices:
+            err = launch(*args, sl.page_ids.buffer_info()[0],
+                         sl.offsets.buffer_info()[0], sl.start,
+                         len(sl.page_ids), B, L, P, page, tok_bytes, stream)
+            _build.check(_LIB, err, "token_append_kernel")
+            token_append_kernel.launches += 1
     return k_pages, v_pages
 
 

@@ -143,3 +143,48 @@ def test_prefill_logit_checks_on_cpu(capsys):
     assert attention.attend_causal is before
     out = capsys.readouterr().out
     assert "depth sweep" in out and '"2": {"kernel"' in out
+
+
+def test_flash_work_at_the_serving_bucket_and_with_a_window():
+    """The serving path's 512-token chunk (B=1, H=12, KV=2, D=128): 512 x
+    513 / 2 live pairs a head, ~0.81 GFLOP, 3.5 MB; with a window, query
+    i sees min(i + 1, window) keys."""
+    nbytes, ops = chip_smoke.flash_work(chip_smoke.FLASH_BUCKET, 2)
+    assert ops == 4.0 * 128 * (512 * 513 // 2) * 12
+    assert nbytes == 2 * 512 * (2 * 12 + 2 * 2) * 128
+    shape = dict(chip_smoke.FLASH_BUCKET, S=10, window=4)
+    assert chip_smoke.flash_work(shape, 2)[1] == \
+        4.0 * 128 * 12 * (1 + 2 + 3 + 4 * 7)
+    gemma = chip_smoke.FLASH_OTHER[1]
+    pairs = 4096 * 4097 // 2 + 4096 * 4096
+    assert chip_smoke.flash_work(gemma, 2)[1] == 4.0 * 256 * pairs * 16
+
+
+SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_118flash_wgmma_kernelILi128ELi2EEEv
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0a70*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;  /* 0x00e00004181879f0 */
+        /*0a80*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;  /* 0x00e00008181879f0 */
+        /*0a90*/              @P0  HGMMA.64x128x16.F32.BF16 R24, R152, gdesc[UR8], R24 ;
+        /*0aa0*/                   WARPGROUP.ARRIVE ;
+        /*0ab0*/                   MOV R2, 0x0 ;  /* HGMMA in a comment */
+		Function : _ZN12_GLOBAL__N_117flash_fp32_kernelILi8EEEv
+        /*0010*/                   FFMA R1, R2, R3, R4 ;
+"""
+
+
+def test_count_sass_counts_hgmma_per_function():
+    counts = chip_smoke.count_sass(SASS)
+    assert counts == {
+        "_ZN12_GLOBAL__N_118flash_wgmma_kernelILi128ELi2EEEv": 3,
+        "_ZN12_GLOBAL__N_117flash_fp32_kernelILi8EEEv": 0}
+    assert chip_smoke.count_sass(SASS, "FFMA")[
+        "_ZN12_GLOBAL__N_117flash_fp32_kernelILi8EEEv"] == 1
+
+
+def test_flash_tiles_follow_the_planner():
+    from repro_torch.kernels.flash_attention.kernel import plan_bf16
+    for D in (8, 80, 128, 192, 256):
+        for q_tile in chip_smoke.FLASH_TILES:
+            assert plan_bf16(1, 4, 256, D, q_tile).q_tile == q_tile

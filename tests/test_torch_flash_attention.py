@@ -160,3 +160,43 @@ def test_attend_causal_is_the_flash_function(S, cap):
                               v.transpose(1, 2), scale=0.2, softcap=cap)
     np.testing.assert_allclose(out.numpy(), ref.transpose(1, 2).numpy(),
                                rtol=2e-5, atol=2e-5)
+
+
+def attention_p_bf16(q, k, v, *, window=0, softcap=0.0):
+    """Plain attention with the one rounding the tensor-core kernel adds:
+    the unnormalised probabilities P are rounded to bf16 before P.V (the
+    wgmma A operand), while the row sums l stay fp32 and unrounded. q
+    (B, H, S, D), k/v (B, KV, S, D), bf16 -> bf16."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    qg = q.float().reshape(B, KV, H // KV, S, D)
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / D ** 0.5
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    pos = torch.arange(S)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bkgst,bktd->bkgsd", p.bfloat16().float(), v.float())
+    return (o / p.sum(-1, keepdim=True)).reshape(B, H, S, D).bfloat16()
+
+
+@pytest.mark.parametrize("D,window,softcap", [
+    (80, 0, 0.0), (128, 0, 0.0), (256, 0, 0.0), (256, 96, 50.0),
+    (128, 64, 30.0)])
+def test_bf16_probabilities_stay_within_the_chip_tolerance(D, window,
+                                                           softcap):
+    """The tensor-core kernel's numerics, P rounded to bf16, against the
+    JAX package's Pallas kernel (P in fp32) in interpret mode: within
+    1e-2, the tolerance ``chip_smoke.py`` phase 2 holds the kernel to."""
+    (qj, qt), (kj, kt), (vj, vt) = qkv(1, 4, 2, 256, D, "bfloat16", seed=D)
+    out = attention_p_bf16(qt, kt, vt, window=window, softcap=softcap)
+    pallas = jax_flash(qj, kj, vj, window=window, softcap=softcap,
+                       block_q=128, block_k=128, interpret=True)
+    err = np.abs(as_np(out) - as_np(pallas)).max()
+    print(f"D={D} window={window} softcap={softcap}: max |P-in-bf16 - "
+          f"Pallas| = {err:.3g}")
+    np.testing.assert_allclose(as_np(out), as_np(pallas), rtol=1e-2,
+                               atol=1e-2)

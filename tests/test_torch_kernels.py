@@ -10,6 +10,8 @@ an online softmax over pages): 2e-5 on fp32 inputs, and on bf16 inputs
 2e-2, one bf16 rounding of the output (the bound the JAX package's own
 kernel tests use).
 """
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,11 @@ from repro.kernels.page_copy import (append_tokens as jax_append,
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.decode_attention import (paged_decode_attention,
                                                   sanitize_block_tables)
+from repro_torch.kernels.flash_attention.kernel import (MAX_STAGES,
+                                                        SMEM_PER_BLOCK,
+                                                        STATIC_SMEM,
+                                                        plan_bf16,
+                                                        tma_strides)
 from repro_torch.kernels.page_copy import (append_tokens, copy_pages,
                                            gather_pages, scatter_pages)
 
@@ -275,3 +282,79 @@ class TestPageCopy:
                                    "page_gather": 0, "page_scatter": 0,
                                    "token_append": 0, "flash_attention": 0,
                                    "rwkv6_scan": 0}
+
+
+class TestFlashPlan:
+    """The host side of the bf16 flash launch, as pure functions: the
+    tile plan (padded D, ring depth, shared memory, grid) and the strides
+    the tensor maps take, with the ValueError TMA's alignment rules call
+    for. The kernel itself runs on the card only (``chip_smoke.py``)."""
+
+    @pytest.mark.parametrize("q_tile", [None, 64, 128])
+    def test_every_head_dim_fits_shared_memory(self, q_tile):
+        for D in range(1, 257):
+            if D % 8:
+                with pytest.raises(ValueError, match="multiple of 8"):
+                    plan_bf16(1, 12, 512, D, q_tile)
+                continue
+            plan = plan_bf16(1, 12, 512, D, q_tile)
+            assert plan.head_pad % 64 == 0 and 0 <= plan.head_pad - D < 64
+            assert 2 <= plan.stages <= MAX_STAGES
+            assert plan.smem_bytes + STATIC_SMEM <= SMEM_PER_BLOCK == 232_448
+            assert plan.block_k in (64, 128) and plan.q_tile in (64, 128)
+            assert plan.threads == 2 * plan.q_tile
+            # a warpgroup's registers: O (head_pad / 2), the scores
+            # (block_k / 2) and P (block_k / 4), at most 224 a thread
+            # with room for addressing and the softmax state
+            assert plan.head_pad / 2 + plan.block_k * 3 / 4 <= 224
+
+    @pytest.mark.parametrize("B,H,S,D,q_tile,grid", [
+        (1, 12, 512, 128, None, (8, 12, 1)),    # serving bucket: 96 CTAs
+        (1, 12, 2048, 128, None, (16, 12, 1)),  # qwen2-1.5b's prefill
+        (1, 16, 8192, 256, None, (64, 16, 1)),  # the gemma2-like layer
+        (2, 8, 1000, 80, 128, (8, 8, 2)), (2, 8, 1000, 80, 64, (16, 8, 2))])
+    def test_grid(self, B, H, S, D, q_tile, grid):
+        assert plan_bf16(B, H, S, D, q_tile).grid == grid
+
+    def test_head_dims_of_the_repo(self):
+        """No head dim of a repo config is refused: 8, 16, 80, 128, 256."""
+        for D, pad in ((8, 64), (16, 64), (80, 128), (128, 128), (256, 256)):
+            assert plan_bf16(1, 4, 256, D).head_pad == pad
+
+    def test_ring_depth_matches_the_source(self):
+        src = (pathlib.Path(__file__).resolve().parents[1] / "src" /
+               "repro_torch" / "csrc" / "flash_attention.cu").read_text()
+        assert f"constexpr int kMaxStages = {MAX_STAGES};" in src
+
+    def test_model_layout_strides(self):
+        """(B, S, H, D) activations seen as (B, H, S, D): the strides pass
+        through, and a size-1 batch gets an aligned stride."""
+        x = torch.zeros((1, 300, 12, 128), dtype=torch.bfloat16)
+        v = x.transpose(1, 2)
+        st = tma_strides("q", v.shape, v.stride(), 4096)
+        assert st[1:] == (128, 12 * 128)
+        assert (st[0] * 2) % 16 == 0 and st[0] >= v.numel()
+        x = torch.zeros((3, 8, 40, 80), dtype=torch.bfloat16)
+        assert tma_strides("k", x.shape, x.stride(), 0) == x.stride()[:3]
+
+    def test_misaligned_operands_raise(self):
+        x = torch.zeros((2, 4, 64, 129), dtype=torch.bfloat16)[..., :128]
+        with pytest.raises(ValueError, match="position stride 129"):
+            tma_strides("q", x.shape, x.stride(), 4096)
+        y = torch.zeros((2, 4, 64, 128), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="base address"):
+            tma_strides("v", y.shape, y.stride(), 4096 + 2)
+        with pytest.raises(ValueError, match="q_tile"):
+            plan_bf16(1, 4, 64, 128, q_tile=96)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            plan_bf16(1, 4, 64, 100)
+
+
+def test_variant_builds_get_their_own_library():
+    """A measurement build (extra nvcc flags, ``_build.load_variant``)
+    lands in a library of its own, never over the default build."""
+    from repro_torch.kernels import _build
+    plain = _build.library_path("flash_attention")
+    probed = _build.library_path("flash_attention", ("-DREPRO_FLASH_PHASES",))
+    assert plain != probed and plain.parent == probed.parent
+    assert plain == _build.library_path("flash_attention", ())
