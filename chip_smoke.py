@@ -14,19 +14,32 @@ Phase 1  build every CUDA kernel from ``src/repro_torch/csrc`` (nvcc,
 Phase 2  every kernel against its plain PyTorch version on the card, at
          the main paths' shapes, timed beside the least time the card
          could take and, where one exists, the one PyTorch call computing
-         the same function: paged decode attention and the page moves at
+         the same function, each by an eager loop (``ms``) and by CUDA-graph
+         replay (``device_ms``, device time alone); a bound share over 100%
+         fails the run. Paged decode attention and the page moves at
          full-width qwen2-1.5b (L=28, KV=2, Dh=128, H=12, page=16, bf16
          pools, B=8, ragged lengths up to 4096 with a zero-length row and
-         garbage in dead table slots) and at the smoke models' shapes (Dh=8,
-         G=3, page=8; Dh=16, G=2, page=16), in bf16 and fp32; flash
-         attention at qwen2-1.5b's prefill shape (B=1, H=12, KV=2, S=2048,
-         D=128, bf16), through the model's strided layout too, at D=80 with
-         S not a multiple of the tile and at a gemma2-like shape (D=256,
-         window 4096, softcap 50, S=8192), in bf16 (both query-tile
-         heights) and fp32, timed (eager loop and CUDA-graph replay)
-         beside SDPA at the prefill shape, at the serving path's 512-token
-         chunk and at the gemma2-like shape, with bf16 inputs TMA cannot
-         take refused; token append also at 300 rows (two launches); the
+         garbage in dead table slots), decode timed with the layer rotating
+         over all 28 (cold in L2, as a decode step's layer loop finds its
+         pages) and beside it at the serve step (B=4 x 2048 tokens), with
+         the device time of each split length of SPLIT_CHOICES logged; the
+         page moves timed over 4 id sets and staging buffers (cold too).
+         Decode also at glm4-9b's width (G=16) with rows up to 8k tokens,
+         one 16k-token row, stablelm-3b's, musicgen-large's and a gemma2-
+         like layer's heads (Dh 80, 64, 256) and the smoke models' shapes
+         (Dh=8, G=3, page=8; Dh=16, G=2, page=16), in bf16 and fp32; at
+         every shape
+         batched equals one-row and a table widened with garbage changes
+         nothing, bit for bit, empty rows are exact and a live id outside
+         the pool turns its row (only) to NaN. Flash attention at qwen2-
+         1.5b's prefill shape (B=1, H=12, KV=2, S=2048, D=128, bf16),
+         through the model's strided layout too, at D=80 with S not a
+         multiple of the tile and at a gemma2-like shape (D=256, window
+         4096, softcap 50, S=8192), in bf16 (both query-tile heights) and
+         fp32, beside SDPA at the prefill shape, at the serving path's
+         512-token chunk and at the gemma2-like shape, with bf16 inputs TMA
+         cannot take refused; token append also at 300 rows (two launches)
+         and page scatter at 600 pages (two launches), bad ids refused; the
          RWKV6 scan at rwkv6-3b's prefill shape (T=2048, H=40, K=64) and
          at the smoke shape (K=L=16) with a carried state, where it is also
          held against the sequential recurrence.
@@ -98,6 +111,31 @@ SMOKE = dict(L=2, KV=2, G=3, Dh=8, page=8, B=4, lens=(0, 5, 17, 40),
              stage_pages=5)
 GLM4_SMOKE = dict(L=2, KV=2, G=2, Dh=16, page=16, B=3, lens=(7, 0, 33),
                   stage_pages=3)
+# Decode attention, beside FULL: the serve path's step (B 4 x 2048 tokens,
+# timed), glm4-9b's width (G 16) with rows up to 8k tokens, and one 16k-
+# token row at qwen2-1.5b's width.
+SERVE_DECODE = dict(FULL, B=4, lens=(2048,) * 4)
+GLM4_WIDE = dict(L=2, KV=2, G=16, Dh=128, page=16, B=4,
+                 lens=(8192, 5000, 257, 0), stage_pages=4)
+LONG_ROW = dict(FULL, L=2, B=1, lens=(16384,), stage_pages=1)
+# and the other head dims of the tensor-core kernel: stablelm-3b's (G 1,
+# Dh 80), musicgen-large's (G 1, Dh 64) and a gemma2-9b-like layer's (G 2,
+# Dh 256), each at its own page size
+DECODE_WIDTHS = (
+    GLM4_WIDE, LONG_ROW,
+    dict(L=2, KV=4, G=1, Dh=80, page=32, B=3, lens=(300, 0, 77),
+         stage_pages=3),
+    dict(L=2, KV=4, G=1, Dh=64, page=64, B=3, lens=(1000, 64, 0),
+         stage_pages=3),
+    dict(L=2, KV=4, G=2, Dh=256, page=16, B=2, lens=(700, 129),
+         stage_pages=2))
+# split lengths (tokens) timed at FULL and SERVE_DECODE, the kernel's
+# (kSplitTokens) among them
+SPLIT_CHOICES = (64, 128, 256, 512)
+# Page scatter past one launch's capacity (K_MAX_SCATTER = 512 pages), at
+# the smoke width.
+SCATTER_WIDE = dict(L=2, P=700, page=8, KV=2, Dh=8, n=600)
+MOVE_SETS = 4     # id sets and staging buffers a page-move timing rotates
 # Flash attention: qwen2-1.5b's fresh prefill (timed), then D=80 with S not
 # a multiple of the 64-row tile, and a gemma2-9b-like layer (16 heads of
 # 256, 8 KV heads, window 4096, softcap 50) at S=8192.
@@ -270,14 +308,20 @@ def make_case(shape: dict, dtype, gen, device):
         app_offs=rng.integers(0, page, size=B))
 
 
+def decode_args(case: dict) -> tuple:
+    """(q, k pool, v pool, block tables, lengths) of a case on its device."""
+    import torch
+    dev = case["q"].device
+    return (case["q"], case["k"], case["v"],
+            torch.from_numpy(case["tables"]).to(dev),
+            torch.from_numpy(case["lens"]).to(dev))
+
+
 def check_decode(case: dict, layer: int, timed: bool, sheet: dict):
     import torch
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention_kernel, paged_decode_attention_ref)
-    dev = case["q"].device
-    tables = torch.from_numpy(case["tables"]).to(dev)
-    lens = torch.from_numpy(case["lens"]).to(dev)
-    args = (case["q"], case["k"], case["v"], tables, lens)
+    args = decode_args(case)
     acc, m, l = paged_decode_attention_kernel(*args, layer=layer,
                                               return_residuals=True)
     out = paged_decode_attention_kernel(*args, layer=layer)
@@ -286,7 +330,7 @@ def check_decode(case: dict, layer: int, timed: bool, sheet: dict):
                                                  return_residuals=True)
     out_r = paged_decode_attention_ref(*args, layer=layer)
     # fp32 residuals from identical inputs differ only in summation order
-    # over at most 4096 terms: 2e-3 covers it with a wide margin
+    # over at most 16384 terms: 2e-3 covers it with a wide margin
     for got, ref in ((acc, acc_r), (m, m_r), (l, l_r)):
         torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
     # the normalized output is rounded to q's dtype on both sides: one
@@ -297,31 +341,126 @@ def check_decode(case: dict, layer: int, timed: bool, sheet: dict):
     for b in empty:                 # exact empty-row contract
         assert (m[b] == -2.0e38).all() and (l[b] == 0).all() \
             and (acc[b] == 0).all(), "empty row residuals"
+    check_decode_contracts(args, layer, (acc, m, l), out)
     err = max((acc - acc_r).abs().max().item(),
               (out.float() - out_r.float()).abs().max().item())
     if not timed:
         return err, None
+    return err, time_decode(case, sheet)
+
+
+def check_decode_contracts(args: tuple, layer: int, residuals: tuple,
+                           out) -> None:
+    """Bit for bit on the card: each row alone gives its row of the
+    batched call; a table widened with garbage in 300 more dead slots
+    changes nothing; a live id outside the pool turns its row, and only
+    its row, to NaN."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attention import \
+        paged_decode_attention_kernel as kernel
+    q, k, v, tables, lens = args
+    B = q.shape[0]
+    for b in range(B):
+        row = kernel(q[b:b + 1], k, v, tables[b:b + 1].contiguous(),
+                     lens[b:b + 1], layer=layer, return_residuals=True)
+        assert all(torch.equal(r[0], full[b]) for r, full in
+                   zip(row, residuals)), f"row {b} alone differs"
+    garbage = np.random.default_rng(5).integers(
+        -2 ** 31, 2 ** 31 - 1, size=(B, 300), dtype=np.int64)
+    wide = torch.cat([tables, torch.from_numpy(garbage.astype(np.int32))
+                      .to(tables.device)], 1).contiguous()
+    assert all(torch.equal(a, b) for a, b in zip(
+        kernel(q, k, v, wide, lens, layer=layer, return_residuals=True),
+        residuals)), "a wider table changed the residuals"
+    assert torch.equal(kernel(q, k, v, wide, lens, layer=layer), out), \
+        "a wider table changed the output"
+    lens_h = lens.cpu().tolist()
+    b = int(np.argmax(lens_h))
+    if lens_h[b] == 0:
+        return
+    page = k.shape[-3]
+    bad = tables.clone()
+    bad[b, (lens_h[b] - 1) // page] = k.shape[-4]      # P: outside the pool
+    poisoned = kernel(q, k, v, bad, lens, layer=layer, return_residuals=True)
+    others = [i for i in range(B) if i != b]
+    for got, want in zip(poisoned, residuals):
+        assert torch.isnan(got[b]).all(), "a bad live id did not give NaN"
+        assert torch.equal(got[others], want[others]), "poison spread"
+    assert torch.isnan(kernel(q, k, v, bad, lens, layer=layer)[b]).all()
+
+
+def decode_bound(case: dict, sheet: dict) -> tuple[float, str]:
+    """q and the live K/V rows read once, the live table slots and the
+    lengths, the fp32 residuals written once; 4 * Dh flops a (query
+    head, live token)."""
     B, H, Dh = case["q"].shape
-    KV = case["k"].shape[3]
+    KV, page = case["k"].shape[3], case["k"].shape[2]
     live = int(case["lens"].sum())
     esz = case["q"].element_size()
-    n_live = sum(math.ceil(n / case["k"].shape[2]) for n in case["lens"])
+    n_live = sum(math.ceil(n / page) for n in case["lens"])
     nbytes = (B * H * Dh * esz + 2 * live * KV * Dh * esz + 4 * n_live
               + 4 * B + B * H * Dh * 4 + 2 * B * H * 4)
-    ops = 4.0 * live * H * Dh             # q.k and p.v, fp32 on CUDA cores
-    bms, by = bound_ms(nbytes, ops, sheet, "fp32")
-    rec = dict(
-        ms=time_ms(lambda: paged_decode_attention_kernel(
-            *args, layer=layer, return_residuals=True)),
+    return bound_ms(nbytes, 4.0 * live * H * Dh, sheet, "fp32")
+
+
+def time_decode(case: dict, sheet: dict) -> dict:
+    """Decode attention's residual call with the layer rotating over all
+    the pool's layers, so that every call finds its pages cold in the 50
+    MB L2, as a decode step's layer loop does: an eager loop (``ms``) and
+    the same calls replayed from a CUDA graph (``device_ms``), beside the
+    plain version and the bound."""
+    import itertools
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention_kernel, paged_decode_attention_ref)
+    args = decode_args(case)
+    L = case["k"].shape[0]
+    layers = itertools.cycle(range(L))
+
+    def kern():
+        return paged_decode_attention_kernel(*args, layer=next(layers),
+                                             return_residuals=True)
+
+    bms, by = decode_bound(case, sheet)
+    return dict(
+        ms=time_ms(kern, iters=L),
         plain_ms=time_ms(lambda: paged_decode_attention_ref(
-            *args, layer=layer, return_residuals=True), iters=3, warmup=1),
-        bound_ms=bms, bound_by=by, library_ms=None)
-    return err, rec
+            *args, layer=next(layers), return_residuals=True), iters=3,
+            warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        device_ms=graph_ms(kern, iters=L))
+
+
+def decode_split_times(case: dict) -> dict:
+    """Device ms (CUDA-graph replay, layers rotating) of the kernel with
+    each split length of SPLIT_CHOICES, each checked against the plain
+    version first (residuals, 2e-3): how the split length was chosen."""
+    import itertools
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention_kernel, paged_decode_attention_ref)
+    args = decode_args(case)
+    L = case["k"].shape[0]
+    ref = paged_decode_attention_ref(*args, layer=0, return_residuals=True)
+    out = {}
+    for split in SPLIT_CHOICES:
+        got = paged_decode_attention_kernel(*args, layer=0,
+                                            return_residuals=True,
+                                            _split_tokens=split)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, atol=2e-3, rtol=2e-3)
+        layers = itertools.cycle(range(L))
+        out[split] = graph_ms(lambda: paged_decode_attention_kernel(
+            *args, layer=next(layers), return_residuals=True,
+            _split_tokens=split), iters=L)
+    return out
 
 
 def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
     """Gather, scatter, copy (gather + scatter) and append: bit-exact
     against the plain versions. Returns {kernel: (err, timing or None)}."""
+    import itertools
+    import numpy as np
     import torch
     from repro_torch.kernels.page_copy import (
         append_tokens_ref, copy_pages, copy_pages_ref, page_gather_kernel,
@@ -330,7 +469,6 @@ def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
     k = case["k"]
     dev = k.device
     ids = case["stage_ids"]
-    ids_dev = torch.from_numpy(ids).to(dev)
     res = {}
 
     staging = page_gather_kernel(k, ids)
@@ -367,18 +505,34 @@ def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
     L, P = k.shape[:2]
     row = k[0, 0].numel() * k.element_size()
     moved = len(ids) * L * row
+    # every timed call takes the next of MOVE_SETS id sets and staging
+    # buffers (4 x 29 MB at the phase-2 shape), so that it finds its pages
+    # and its staging cold in the 50 MB L2, as a restore does
+    rng = np.random.default_rng(9)
+    sets = [rng.permutation(P)[:len(ids)] for _ in range(MOVE_SETS)]
+    sets_dev = [torch.from_numpy(x).to(dev) for x in sets]
+    sets32 = [x.int() for x in sets_dev]
+    stages = [staging.clone() for _ in range(MOVE_SETS)]
+    turn = itertools.cycle(range(MOVE_SETS))
     out = {}
-    for name, kern, plain, lib in (
-            ("page_gather", lambda: page_gather_kernel(k, ids),
-             lambda: page_gather_ref(k, ids),
-             lambda: torch.index_select(k, 1, ids_dev)),
-            ("page_scatter", lambda: page_scatter_kernel(pool, staging, ids),
-             lambda: page_scatter_ref(pool_r, staging, ids),
-             lambda: pool_r.index_copy_(1, ids_dev, staging))):
+    for name, kern, device_kern, plain, lib in (
+            ("page_gather",
+             lambda i: page_gather_kernel(k, sets[i]),
+             lambda i: gather_launch(k, sets32[i], stages[i]),
+             lambda i: page_gather_ref(k, sets[i]),
+             lambda i: torch.index_select(k, 1, sets_dev[i])),
+            ("page_scatter",
+             lambda i: page_scatter_kernel(pool, stages[i], sets[i]),
+             lambda i: page_scatter_kernel(pool, stages[i], sets[i]),
+             lambda i: page_scatter_ref(pool_r, stages[i], sets[i]),
+             lambda i: pool_r.index_copy_(1, sets_dev[i], stages[i]))):
         bms, by = bound_ms(2 * moved + 4 * len(ids), 0, sheet, "bf16")
-        out[name] = (res[name], dict(ms=time_ms(kern), plain_ms=time_ms(plain),
-                                     bound_ms=bms, bound_by=by,
-                                     library_ms=time_ms(lib)))
+        out[name] = (res[name], dict(
+            ms=time_ms(lambda: kern(next(turn))),
+            plain_ms=time_ms(lambda: plain(next(turn))), bound_ms=bms,
+            bound_by=by, library_ms=time_ms(lambda: lib(next(turn))),
+            device_ms=graph_ms(lambda: device_kern(next(turn))),
+            library_device_ms=graph_ms(lambda: lib(next(turn)))))
     pid_dev = torch.from_numpy(case["app_pages"]).to(dev)
     off_dev = torch.from_numpy(case["app_offs"]).to(dev)
 
@@ -402,6 +556,56 @@ def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
             case["app_offs"])),
         library_device_ms=graph_ms(library_append)))
     return out
+
+
+def gather_launch(pages, ids32, staging) -> None:
+    """The gather kernel alone, its int32 ids already on the device: what
+    a CUDA graph of the wrapper would replay, without the per-call id
+    upload the wrapper makes (a host-to-device copy that a graph cannot
+    take from a temporary pinned buffer)."""
+    from repro_torch.kernels import _build, stream_handle
+    from repro_torch.kernels.page_copy import kernel
+    fn = _build.function(kernel._LIB, "page_gather_launch",
+                         kernel._GATHER_ARGS)
+    L, P = pages.shape[:2]
+    err = fn(pages.data_ptr(), ids32.data_ptr(), staging.data_ptr(),
+             ids32.numel(), L, P, pages[0, 0].numel() * pages.element_size(),
+             stream_handle(pages.device))
+    _build.check(kernel._LIB, err, "page_gather")
+
+
+def check_scatter_wide(gen) -> float:
+    """Page scatter of SCATTER_WIDE's 600 pages, past one launch's
+    capacity: one launch per K_MAX_SCATTER pages, bit-exact against the
+    plain version; out-of-range or repeated ids raise before any launch.
+    Returns the max abs error (0)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.page_copy import page_scatter_ref
+    from repro_torch.kernels.page_copy.kernel import (K_MAX_SCATTER,
+                                                      page_scatter_kernel)
+    L, P, page, KV, Dh, n = (SCATTER_WIDE[x] for x in
+                             ("L", "P", "page", "KV", "Dh", "n"))
+    pool = torch.randn((L, P, page, KV, Dh), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    staging = torch.randn((L, n, page, KV, Dh), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    ids = np.random.default_rng(4).permutation(P)[:n]
+    ref = pool.clone()
+    before = page_scatter_kernel.launches
+    page_scatter_kernel(pool, staging, ids)
+    assert page_scatter_kernel.launches - before == math.ceil(
+        n / K_MAX_SCATTER)
+    page_scatter_ref(ref, staging, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(pool, ref), "scatter past one launch"
+    before = page_scatter_kernel.launches
+    for what, bad in (("repeated id", np.concatenate([ids[:-1], ids[:1]])),
+                      ("id out of range", np.where(ids == ids[7], P, ids))):
+        expect_value_error(lambda: page_scatter_kernel(pool, staging, bad),
+                           what)
+    assert page_scatter_kernel.launches == before
+    return 0.0
 
 
 def flash_work(shape: dict, esz: int) -> tuple[int, float]:
@@ -653,7 +857,9 @@ def check_scan(shape: dict, gen, timed: bool, sheet: dict):
         ms=time_ms(lambda: rwkv6_scan_kernel(r, k, v, lw, u, s0, chunk=L)),
         plain_ms=time_ms(lambda: rwkv6_chunked_ref(r, k, v, lw, u, s0,
                                                    chunk=L)),
-        bound_ms=bms, bound_by=by, library_ms=None)
+        bound_ms=bms, bound_by=by, library_ms=None,
+        device_ms=graph_ms(lambda: rwkv6_scan_kernel(r, k, v, lw, u, s0,
+                                                     chunk=L)))
     return err, rec
 
 
@@ -666,9 +872,28 @@ def phase2(sheet: dict) -> dict:
     err, rec = check_decode(full, layer=FULL["L"] - 1, timed=True,
                             sheet=sheet)
     records["paged_decode_attention"] = dict(max_abs_err=err, **rec)
+    log(f"phase2 paged_decode_attention device ms by split length "
+        f"(tokens; CUDA-graph replay, layers rotating) at the phase-2 "
+        f"shape: {json.dumps(decode_split_times(full))}")
     for name, (err, rec) in check_page_copy(full, True, sheet).items():
         records[name] = dict(max_abs_err=err, **rec)
     del full
+    serve = make_case(SERVE_DECODE, torch.bfloat16, gen, "cuda")
+    err, rec = check_decode(serve, layer=0, timed=True, sheet=sheet)
+    log(f"phase2 paged_decode_attention at the serve step (B 4 x 2048 "
+        f"tokens): {json.dumps(dict(max_abs_err=err, **rec))}; device ms "
+        f"by split length: {json.dumps(decode_split_times(serve))}")
+    del serve
+    for shape in DECODE_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            case = make_case(shape, dtype, gen, "cuda")
+            err, _ = check_decode(case, layer=1, timed=False, sheet=sheet)
+            log(f"phase2 paged_decode_attention {dtype} G={shape['G']} "
+                f"Dh={shape['Dh']} page={shape['page']} lens "
+                f"{shape['lens']}: max_abs_err {err:.3g}")
+            records["paged_decode_attention"]["max_abs_err"] = max(
+                records["paged_decode_attention"]["max_abs_err"], err)
+            del case
     for shape in (SMOKE, GLM4_SMOKE):
         for dtype in (torch.bfloat16, torch.float32):
             smoke = make_case(shape, dtype, gen, "cuda")
@@ -676,11 +901,19 @@ def phase2(sheet: dict) -> dict:
             records["paged_decode_attention"]["max_abs_err"] = max(
                 records["paged_decode_attention"]["max_abs_err"], err)
             check_page_copy(smoke, False, sheet)
+    log("phase2 paged_decode_attention: batched = one-row and padding-"
+        "invariant bitwise, empty rows exact, a bad live id gives NaN, at "
+        "every shape")
 
     records["token_append"]["max_abs_err"] = max(
         records["token_append"]["max_abs_err"], check_append_wide(gen))
     log(f"phase2 token_append: {APPEND_WIDE['B']} rows in "
         f"{math.ceil(APPEND_WIDE['B'] / 256)} launches bit-exact, bad ids "
+        f"refused")
+    records["page_scatter"]["max_abs_err"] = max(
+        records["page_scatter"]["max_abs_err"], check_scatter_wide(gen))
+    log(f"phase2 page_scatter: {SCATTER_WIDE['n']} pages in "
+        f"{math.ceil(SCATTER_WIDE['n'] / 512)} launches bit-exact, bad ids "
         f"refused")
 
     err, rec = check_flash(FLASH_MAIN, torch.bfloat16, gen, True, sheet)
@@ -703,16 +936,26 @@ def phase2(sheet: dict) -> dict:
     err, _ = check_scan(SCAN_SMOKE, gen, False, sheet)
     records["rwkv6_scan"]["max_abs_err"] = max(
         records["rwkv6_scan"]["max_abs_err"], err)
+    check_bound_shares(records)
     for name, rec in records.items():
         log(f"phase2 {name}: kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), library "
             f"{'n/a' if rec['library_ms'] is None else '%.4f ms' % rec['library_ms']}"
             f", max_abs_err {rec['max_abs_err']:.3g}"
-            + (f"; device (CUDA-graph replay) kernel {rec['device_ms']:.4f}"
-               f" ms, library {rec['library_device_ms']:.4f} ms"
-               if "device_ms" in rec else ""))
+            + f"; device (CUDA-graph replay) kernel {rec['device_ms']:.4f} ms"
+            + (f", library {rec['library_device_ms']:.4f} ms"
+               if "library_device_ms" in rec else ""))
     return records
+
+
+def check_bound_shares(records: dict) -> None:
+    """No kernel beats the least time the card could take: a bound share
+    over 100% means a wrong bound or a timing that misses work."""
+    for name, rec in records.items():
+        for key in ("ms", "device_ms"):
+            assert rec["bound_ms"] <= rec[key], \
+                f"{name}: {key} {rec[key]} below its bound {rec['bound_ms']}"
 
 
 # ---------------------------------------------------------------- phase 3

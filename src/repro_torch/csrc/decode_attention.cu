@@ -1,30 +1,54 @@
-// Paged GQA decode attention over a layer-stacked KV page pool.
+// Paged GQA decode attention over a layer-stacked KV page pool, split-KV.
 //
 // Replaces the Pallas TPU kernel in src/repro/kernels/decode_attention/
 // kernel.py: paged_decode_attention_kernel (with _decode_kernel).
 //
 // Bound: bytes. A decode step reads every live K and V row of each
-// sequence once and does 4*G flops per element it reads, far below the
-// card's flop:byte balance, so the floor is (live K/V bytes) / HBM
-// bandwidth. Design: one thread block per (sequence, KV head). The block
-// walks the sequence's live pages in table order, a tile of 64 tokens
-// (several pages) per step: it stages the tile's K and V rows of its KV
-// head in shared memory with 16-byte loads and serves all G query heads
-// of that KV head from that single read (what the TPU kernel's shared
-// page fetch did). Scores are fp32 dot products over Dh, one thread per
-// (head, token) against rows padded to Dh+1 floats so the threads of a
-// warp hit distinct banks; max and sum reduce one warp per head with a
-// fixed shuffle tree; the online softmax keeps m, l and the accumulator
-// in fp32, with NEG_INF = -2e38. Fewer, larger steps amortize the block
-// barriers and load latency that a page-per-step loop pays per 16 tokens.
+// sequence once and does 4*G flops per element it reads (about G flops a
+// byte in bf16), far below the card's flop:byte balance, so the floor is
+// (live K/V bytes) / HBM bandwidth. What it takes is many blocks with
+// bytes in flight.
 //
-// Only live slots (ip * page < len) are read, so dead table slots may
-// hold anything; a live id outside the pool poisons the row's outputs
-// with NaN instead of faulting. A zero-length row reads nothing and
-// yields m = -2e38, l = 0, acc = 0. A row's result depends on nothing
-// but its own pages and length (no split-KV, fixed reduction order), so
-// a batched call and one-row calls agree bit for bit. No split-KV, TMA or
-// wgmma yet: with B*KV blocks a small batch leaves most SMs idle.
+// Design. The TPU kernel walks a row's pages in sequence, carrying m, l
+// and acc from one grid step to the next. Here each row's live tokens are
+// cut into splits of kSplitTokens tokens (a whole number of pages: the
+// split depends on `page` alone, never on the batch, the table width or
+// the lengths), and one block takes one (split, KV head, row): grid
+// (max_splits, KV, B), max_splits from the table width, so the host never
+// reads the lengths. A block whose split starts at or past the row's
+// length exits at once. Inside a block, K and V tiles are copied in their
+// stored dtype into a ring of kStages shared-memory stages with 16-byte
+// cp.async copies, so the next tiles load while one is computed, and each
+// warp keeps an fp32 online softmax (m, l, acc; NEG_INF = -2e38) over its
+// own tokens, rescaling only when the max grows (a factor of exactly 1
+// otherwise). Two split kernels, picked by dtype and head dim:
+// - tc_split_kernel, bf16 at the head dims of the repo's paged families
+//   and smoke models: the G heads of the KV head are the 16 rows of an
+//   mma.sync m16n8k16 product (rows past G are zero), S = Q K^T and
+//   O += P V on the tensor cores, P split into bf16 hi + lo parts so that
+//   P V keeps ~16 bits of each probability. The flops are few (about G a
+//   byte); what the tensor cores remove is the per-token instruction
+//   stream of the CUDA-core kernel, which held its time at ~30 us a block
+//   of 256 tokens even with no loads.
+// - split_kernel, fp32 (the equivalence checks) and any other head dim:
+//   every lane holds the G query heads for its 4-element slices of D in
+//   registers, dots them with its slice of a K row, and a xor-shuffle tree
+//   gives every lane the same scores, CS tokens at a time.
+// At the end of the split the warps merge in warp order and the block
+// writes the split's partial (acc, m, l) and a poison flag to an fp32
+// workspace the wrapper allocates. combine_kernel then merges a row's
+// splits 0, 1, ..., n-1 in that order (m = max m_s; l = sum l_s
+// e^(m_s - m); acc likewise) and writes the residuals or the normalized
+// output. One call is two launches.
+//
+// Contracts. Only live slots (ip * page < len) are read, so dead table
+// slots may hold anything. A live id outside the pool marks its split
+// poisoned by an explicit flag (fmaxf would drop a NaN m), and the combine
+// then writes NaN to all of the row's outputs. A zero-length row has no
+// split: the combine over zero splits yields exactly m = -2e38, l = 0,
+// acc = 0. A row's result depends on its own pages and length alone (its
+// splits, each warp's tokens and every reduction order are fixed by them),
+// so a batched call, one-row calls and wider tables agree bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,10 +57,51 @@
 namespace {
 
 constexpr float kNegInf = -2.0e38f;
-constexpr int kThreads = 512;  // 16 warps: latency hiding for one block/SM
+constexpr int kSplitTokens = 128;  // tokens a split, rounded to whole pages
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileTokens = 64;
+constexpr int kStages = 3;         // K/V tiles in flight a block
+constexpr int kStageBytes = 32768; // bytes of K (and of V) a stage
+constexpr int kMaxTile = 64;       // tokens a stage, at most
 
+__host__ __device__ __forceinline__ int split_pages(int page) {
+  return page >= kSplitTokens ? 1 : kSplitTokens / page;
+}
+
+// Tokens a stage: a power of two, at most kMaxTile, K rows within
+// kStageBytes (D <= 256, so at least 32 for fp32 and 64 for bf16).
+__host__ __device__ __forceinline__ int tile_tokens(int D, int esz) {
+  int t = kMaxTile;
+  while (t > kWarps && t * D * esz > kStageBytes) t >>= 1;
+  return t;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four consecutive elements of a row as floats.
+__device__ __forceinline__ void load4(const float* p, float* x) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* x) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+}
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -46,181 +111,679 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// rows x D elements (row r at src + r * row_stride; D and the row starts
-// 16-byte aligned) into an fp32 [rows][stride] shared-memory tile.
+__device__ __forceinline__ int live_len(const int* lens, int b, int n_tab,
+                                        int page) {
+  return max(0, min(lens[b], n_tab * page));
+}
+
+// One workspace record a (row, KV head, split): acc [G][D], m [G], l [G],
+// poison flag.
+__host__ __device__ __forceinline__ int record_floats(int G, int D) {
+  return G * D + 2 * G + 1;
+}
+
+// The split this block takes: tokens [t0, t1) of its row. False when the
+// split starts at or past the row's length (nothing to do), or when a
+// live page id of the split lies outside the pool (its record's poison
+// flag is set). Uniform across the block.
+__device__ __forceinline__ bool begin_split(
+    const int* __restrict__ tables, const int* __restrict__ lens,
+    float* __restrict__ ws, int KV, int G, int D, int P, int page, int n_tab,
+    int spp, int max_splits, int& t0, int& t1, const int*& row_table,
+    float*& rec) {
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int len = live_len(lens, b, n_tab, page);
+  t0 = split * spp * page;
+  if (t0 >= len) return false;
+  t1 = min(len, t0 + spp * page);
+  row_table = tables + (long long)b * n_tab;
+  const int R = record_floats(G, D);
+  rec = ws + (((long long)b * KV + kvh) * max_splits + split) * R;
+  int out_of_pool = 0;
+  for (int ip = t0 / page + threadIdx.x; ip < (t1 + page - 1) / page;
+       ip += blockDim.x) {
+    const int pid = row_table[ip];
+    out_of_pool |= (pid < 0 || pid >= P);
+  }
+  if (__syncthreads_or(out_of_pool)) {
+    if (threadIdx.x == 0) rec[R - 1] = 1.f;
+    return false;
+  }
+  return true;
+}
+
+// One K/V tile of `rows` live tokens from token `first` of the row into a
+// ring stage (rows `rs` elements apart): a warp issues whole rows, one
+// page-table read a row, lanes on its 16-byte chunks. With zero_tail, the
+// stage's rows past `rows` are zeroed (a tensor-core product multiplies
+// them by a probability of 0, which must not meet a NaN).
 template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
-                                          int rows, long long row_stride,
-                                          int D, int stride) {
+__device__ __forceinline__ void issue_tile(
+    T* ks, T* vs, int rs, int first, int rows, int tile, bool zero_tail,
+    const int* __restrict__ row_table, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, long long layer_offset, int KV, int kvh,
+    int D, int page) {
   constexpr int V = 16 / sizeof(T);
-  const int per_row = D / V;
-  for (int c = threadIdx.x; c < rows * per_row; c += blockDim.x) {
-    const int r = c / per_row, j = c - r * per_row;
-    const uint4 raw =
-        *reinterpret_cast<const uint4*>(src + r * row_stride + j * V);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int u = 0; u < V; ++u) dst[r * stride + j * V + u] = to_float(e[u]);
+  const int chunks = D / V;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  for (int r = warp; r < rows; r += warps) {
+    const int tok = first + r;
+    const long long base =
+        layer_offset +
+        ((long long)row_table[tok / page] * page + tok % page) *
+            ((long long)KV * D) +
+        (long long)kvh * D;
+    for (int j = lane; j < chunks; j += 32) {
+      cp_async16(ks + r * rs + j * V, k_pool + base + j * V);
+      cp_async16(vs + r * rs + j * V, v_pool + base + j * V);
+    }
+  }
+  if (zero_tail) {
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    for (int c = threadIdx.x; c < (tile - rows) * chunks; c += blockDim.x) {
+      const int r = rows + c / chunks, j = c % chunks;
+      *reinterpret_cast<uint4*>(ks + r * rs + j * V) = zero;
+      *reinterpret_cast<uint4*>(vs + r * rs + j * V) = zero;
+    }
   }
 }
 
-// Tokens per loop step: whole pages, about kTileTokens of them.
-__host__ __device__ __forceinline__ int tile_pages(int page) {
-  return page >= kTileTokens ? 1 : kTileTokens / page;
+// The block's warps hold partial (acc, m, l) over their tokens in shared
+// memory, acc_w [warps][hs][D], m_w and l_w [warps][hs] (head g of warp w
+// at w * hs + g): merge them in warp order into the split's record.
+__device__ __forceinline__ void finish_split(
+    float* __restrict__ rec, const float* acc_w, const float* m_w,
+    const float* l_w, int warps, int hs, int G, int D) {
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D, d = i - g * D;
+    float mx = kNegInf;
+    for (int w = 0; w < warps; ++w) mx = fmaxf(mx, m_w[w * hs + g]);
+    float a = 0.f;
+    for (int w = 0; w < warps; ++w)
+      a += acc_w[(w * hs + g) * D + d] * expf(m_w[w * hs + g] - mx);
+    rec[i] = a;
+  }
+  const int g = threadIdx.x;
+  if (g < G) {
+    float mx = kNegInf;
+    for (int w = 0; w < warps; ++w) mx = fmaxf(mx, m_w[w * hs + g]);
+    float sum = 0.f;
+    for (int w = 0; w < warps; ++w)
+      sum += l_w[w * hs + g] * expf(m_w[w * hs + g] - mx);
+    rec[G * D + g] = mx;
+    rec[G * D + G + g] = sum;
+  }
+  if (threadIdx.x == 0) rec[record_floats(G, D) - 1] = 0.f;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) decode_kernel(
+// grid (max_splits, KV, B). GMAX >= G heads, NU 4-element slices of D a
+// lane (D <= 128 * NU).
+template <typename T, int GMAX, int NU>
+__global__ void __launch_bounds__(kThreads) split_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const int* __restrict__ tables,
-    const int* __restrict__ lens, float* __restrict__ acc_out,
-    T* __restrict__ o_out, float* __restrict__ m_out,
-    float* __restrict__ l_out, int KV, int G, int D, int P, int page,
-    int n_tab, long long layer_offset, float scale) {
-  const int tp = tile_pages(page);
-  const int tile = tp * page;        // tokens per step
-  const int S = D + 1;               // padded shared-memory row stride
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // [G][D]
-  float* acc_s = q_s + G * D;        // [G][D]
-  float* k_s = acc_s + G * D;        // [tile][S]
-  float* v_s = k_s + tile * S;       // [tile][S]
-  float* p_s = v_s + tile * S;       // [G][tile] scores, then probabilities
-  float* m_s = p_s + G * tile;       // [G] running max
-  float* l_s = m_s + G;              // [G] running denominator
-  float* a_s = l_s + G;              // [G] this step's rescale factor
-  __shared__ int bad;
+    const int* __restrict__ lens, float* __restrict__ ws, int KV, int G,
+    int D, int P, int page, int n_tab, int spp, int max_splits, int tile,
+    long long layer_offset, float scale) {
+  // tokens a warp scores together: their scores live in registers
+  constexpr int CS = GMAX >= 16 ? 2 : (GMAX >= 8 ? 4 : 8);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int t0, t1;
+  const int* row_table;
+  float* rec;
+  if (!begin_split(tables, lens, ws, KV, G, D, P, page, n_tab, spp,
+                   max_splits, t0, t1, row_table, rec))
+    return;
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long H = (long long)KV * G;
-
-  load_rows(q_s, q + ((long long)b * H + (long long)kvh * G) * D, G,
-            (long long)D, D, D);
-  for (int i = tid; i < G * D; i += blockDim.x) acc_s[i] = 0.f;
-  if (tid < G) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
+  // the G query heads of this KV head, this lane's slices of D
+  float qr[GMAX][NU][4];
+  const T* qh = q + ((long long)b * KV * G + (long long)kvh * G) * D;
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int e = (u * 32 + lane) * 4 + c;
+        qr[g][u][c] = (g < G && e < D) ? to_float(qh[g * D + e]) : 0.f;
+      }
+  float m[GMAX], l[GMAX], acc[GMAX][NU][4];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[g][u][c] = 0.f;
   }
-  if (tid == 0) bad = 0;
-  __syncthreads();
 
-  const int len = lens[b];
-  int n_live = len > 0 ? (len + page - 1) / page : 0;
-  if (n_live > n_tab) n_live = n_tab;
-  const int* row_table = tables + (long long)b * n_tab;
-  const long long token_stride = (long long)KV * D;
-  for (int ip0 = 0; ip0 < n_live; ip0 += tp) {
-    const int np = min(tp, n_live - ip0);
-    int out_of_pool = 0;             // same value in every thread: uniform
-    for (int j = 0; j < np; ++j) {
-      const int pid = row_table[ip0 + j];
-      out_of_pool |= (pid < 0 || pid >= P);
+  T* ring = reinterpret_cast<T*>(smem_raw);   // [kStages][K, V][tile][D]
+  const int n_tiles = (t1 - t0 + tile - 1) / tile;
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      T* ks = ring + (size_t)(it % kStages) * 2 * tile * D;
+      issue_tile(ks, ks + (size_t)tile * D, D, t0 + it * tile,
+                 min(tile, t1 - t0 - it * tile), tile, false, row_table,
+                 k_pool, v_pool, layer_offset, KV, kvh, D, page);
     }
-    if (out_of_pool) {
-      if (tid == 0) bad = 1;
-      break;
-    }
-    const int valid = min(np * page, len - ip0 * page);
-    for (int j = 0; j < np; ++j) {
-      const int rows = min(page, valid - j * page);
-      const long long base = layer_offset +
-          (long long)row_table[ip0 + j] * page * token_stride + kvh * D;
-      load_rows(k_s + j * page * S, k_pool + base, rows, token_stride, D, S);
-      load_rows(v_s + j * page * S, v_pool + base, rows, token_stride, D, S);
-    }
+    cp_async_commit();   // an empty group past the end keeps the count
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  const int per_warp = tile / kWarps;
+  for (int it = 0; it < n_tiles; ++it) {
+    issue(it + kStages - 1);
+    cp_async_wait<kStages - 1>();
     __syncthreads();
-
-    for (int pr = tid; pr < G * valid; pr += blockDim.x) {
-      const int g = pr / valid, t = pr - g * valid;
-      const float* qg = q_s + g * D;
-      const float* kt = k_s + t * S;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s += qg[d] * kt[d];
-      p_s[g * tile + t] = s * scale;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += kWarps) {
-      float* pg = p_s + g * tile;
-      float mx = kNegInf;
-      for (int t = lane; t < valid; t += 32) mx = fmaxf(mx, pg[t]);
+    const T* ks = ring + (size_t)(it % kStages) * 2 * tile * D;
+    const T* vs = ks + (size_t)tile * D;
+    const int first = t0 + it * tile;
+    // the warp's tokens of the tile, CS at a time: CS independent dots
+    // and shuffle trees in flight, then one max, rescale and P.V update
+    for (int i0 = 0; i0 < per_warp; i0 += CS) {
+      const int r0 = warp * per_warp + i0;
+      if (first + r0 >= t1) break;
+      float s[CS][GMAX], vf[CS][NU][4];
+#pragma unroll
+      for (int j = 0; j < CS; ++j) {
+        const bool live = i0 + j < per_warp && first + r0 + j < t1;
+        float kf[NU][4];
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          const int e = (u * 32 + lane) * 4;
+          if (live && e < D) {
+            load4(ks + (r0 + j) * D + e, kf[u]);
+            load4(vs + (r0 + j) * D + e, vf[j][u]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) kf[u][c] = vf[j][u][c] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) {
+          float d = 0.f;
+#pragma unroll
+          for (int u = 0; u < NU; ++u)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) d = fmaf(qr[g][u][c], kf[u][c], d);
+          s[j][g] = d;
+        }
+      }
+      // xor tree: every lane ends with the same sums (a + b == b + a)
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < valid; t += 32) {
-        const float p = expf(pg[t] - m_new);
-        pg[t] = p;
-        sum += p;
-      }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-        a_s[g] = alpha;
+        for (int j = 0; j < CS; ++j)
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g)
+            s[j][g] += __shfl_xor_sync(0xffffffffu, s[j][g], off);
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        if (g >= G) continue;    // unrolled: g stays a constant
+        float mx = m[g];
+#pragma unroll
+        for (int j = 0; j < CS; ++j)
+          if (i0 + j < per_warp && first + r0 + j < t1)
+            mx = fmaxf(mx, s[j][g] * scale);
+        if (mx > m[g]) {         // warp-uniform: rescale when the max grows
+          const float alpha = expf(m[g] - mx);
+          l[g] *= alpha;
+#pragma unroll
+          for (int u = 0; u < NU; ++u)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[g][u][c] *= alpha;
+          m[g] = mx;
+        }
+#pragma unroll
+        for (int j = 0; j < CS; ++j) {
+          const float p = (i0 + j < per_warp && first + r0 + j < t1)
+                              ? expf(s[j][g] * scale - m[g])
+                              : 0.f;
+          l[g] += p;
+#pragma unroll
+          for (int u = 0; u < NU; ++u)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[g][u][c] = fmaf(p, vf[j][u][c], acc[g][u][c]);
+        }
       }
     }
-    __syncthreads();
+    __syncthreads();   // the stage is refilled by the next iteration
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 
-    for (int i = tid; i < G * D; i += blockDim.x) {
-      const int g = i / D, d = i - g * D;
-      const float* pg = p_s + g * tile;
-      float a = acc_s[i] * a_s[g];
-      for (int t = 0; t < valid; ++t) a += pg[t] * v_s[t * S + d];
-      acc_s[i] = a;
+  // merge the warps in warp order, through the (drained) ring
+  float* acc_w = reinterpret_cast<float*>(smem_raw);  // [kWarps][G][D]
+  float* m_w = acc_w + kWarps * G * D;                 // [kWarps][G]
+  float* l_w = m_w + kWarps * G;                       // [kWarps][G]
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    if (g >= G) continue;
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int e = (u * 32 + lane) * 4 + c;
+        if (e < D) acc_w[(warp * G + g) * D + e] = acc[g][u][c];
+      }
+    if (lane == 0) {
+      m_w[warp * G + g] = m[g];
+      l_w[warp * G + g] = l[g];
+    }
+  }
+  __syncthreads();
+  finish_split(rec, acc_w, m_w, l_w, kWarps, G, G, D);
+}
+
+constexpr int kTcThreads = 128;    // 4 warps, 16 tokens of a tile each
+constexpr int kTcTile = 64;
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// bf16 pools, D = 16 * DT: the same split on the tensor cores
+// (mma.sync m16n8k16, fp32 accumulators). A warp takes 16 tokens of each
+// 64-token tile: S = Q K^T with the G heads as the 16 rows of A (rows
+// past G are zero), K^T's fragments read straight from the padded rows
+// (one 32-bit load each), masked and scaled, then the online softmax on
+// the accumulator fragments (a quad of lanes holds a head's row), and
+// O += P V with P taken from S's registers and V through ldmatrix.trans.
+// P enters the product as bf16 hi + lo parts, two products, so P V keeps
+// ~16 bits of each probability (not bf16's 8): the residuals stay those
+// of an fp32 softmax.
+template <int DT>
+__global__ void __launch_bounds__(kTcThreads) tc_split_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k_pool,
+    const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ tables,
+    const int* __restrict__ lens, float* __restrict__ ws, int KV, int G,
+    int P, int page, int n_tab, int spp, int max_splits,
+    long long layer_offset, float scale) {
+  constexpr int D = 16 * DT;
+  constexpr int RS = D + 8;      // padded rows: conflict-free 16-byte rows
+  constexpr int TW = kTcThreads / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;      // fragment row / column
+  int t0, t1;
+  const int* row_table;
+  float* rec;
+  if (!begin_split(tables, lens, ws, KV, G, D, P, page, n_tab, spp,
+                   max_splits, t0, t1, row_table, rec))
+    return;
+
+  // A fragments of Q (16 heads x D), zero past G
+  uint32_t qa[DT][4];
+  const __nv_bfloat16* qh =
+      q + ((long long)b * KV * G + (long long)kvh * G) * D;
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = gq + 8 * (r & 1), col = 16 * kk + 2 * tq + 8 * (r >> 1);
+      qa[kk][r] = row < G ? *reinterpret_cast<const uint32_t*>(
+                                qh + row * D + col)
+                          : 0u;
+    }
+  float o[2 * DT][4];
+#pragma unroll
+  for (int n = 0; n < 2 * DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // heads gq, gq + 8
+
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int n_tiles = (t1 - t0 + kTcTile - 1) / kTcTile;
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      __nv_bfloat16* ks = ring + (size_t)(it % kStages) * 2 * kTcTile * RS;
+      issue_tile(ks, ks + kTcTile * RS, RS, t0 + it * kTcTile,
+                 min(kTcTile, t1 - t0 - it * kTcTile), kTcTile, true,
+                 row_table, k_pool, v_pool, layer_offset, KV, kvh, D, page);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int it = 0; it < n_tiles; ++it) {
+    issue(it + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const __nv_bfloat16* ks =
+        ring + (size_t)(it % kStages) * 2 * kTcTile * RS;
+    const __nv_bfloat16* vs = ks + kTcTile * RS;
+    const int r0 = warp * 16;
+    const int live = t1 - (t0 + it * kTcTile) - r0;   // of the warp's 16
+    if (live > 0) {
+      float sc[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+        const __nv_bfloat16* kr = ks + (r0 + nt * 8 + gq) * RS + 2 * tq;
+#pragma unroll
+        for (int kk = 0; kk < DT; ++kk)
+          mma_bf16(sc[nt], qa[kk],
+                   *reinterpret_cast<const uint32_t*>(kr + 16 * kk),
+                   *reinterpret_cast<const uint32_t*>(kr + 16 * kk + 8));
+      }
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {          // head gq + 8h
+        float mx = kNegInf;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool ok = nt * 8 + 2 * tq + e < live;
+            const float x = sc[nt][2 * h + e] * scale;
+            sc[nt][2 * h + e] = x;
+            if (ok) mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        if (mx > m[h]) {
+          const float alpha = expf(m[h] - mx);
+          l[h] *= alpha;
+#pragma unroll
+          for (int n = 0; n < 2 * DT; ++n) {
+            o[n][2 * h] *= alpha;
+            o[n][2 * h + 1] *= alpha;
+          }
+          m[h] = mx;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            p[e] = nt * 8 + 2 * tq + e < live
+                       ? expf(sc[nt][2 * h + e] - m[h]) : 0.f;
+            l[h] += p[e];
+          }
+          // A fragment register: row gq + 8h, tokens 8nt + 2tq, +1
+          const uint32_t hi = pack_bf16(p[0], p[1]);
+          const __nv_bfloat162 hv =
+              *reinterpret_cast<const __nv_bfloat162*>(&hi);
+          ph[h + 2 * nt] = hi;
+          pl[h + 2 * nt] = pack_bf16(p[0] - __low2float(hv),
+                                     p[1] - __high2float(hv));
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < DT; ++nd) {      // d columns 16nd .. 16nd + 15
+        uint32_t vb[4];
+        // matrices: tokens +0..7 / +8..15 x d +0..7, then d +8..15
+        const int row = r0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+        ldmatrix_x4_trans(vb, vs + row * RS + 16 * nd + 8 * (lane >> 4));
+        mma_bf16(o[2 * nd], ph, vb[0], vb[1]);
+        mma_bf16(o[2 * nd], pl, vb[0], vb[1]);
+        mma_bf16(o[2 * nd + 1], ph, vb[2], vb[3]);
+        mma_bf16(o[2 * nd + 1], pl, vb[2], vb[3]);
+      }
     }
     __syncthreads();
   }
+  cp_async_wait<0>();
   __syncthreads();
+
+  // a head's l: the quad's partial sums, in a fixed tree
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  float* acc_w = reinterpret_cast<float*>(smem_raw);   // [TW][16][D]
+  float* m_w = acc_w + TW * 16 * D;                      // [TW][16]
+  float* l_w = m_w + TW * 16;                            // [TW][16]
+#pragma unroll
+  for (int n = 0; n < 2 * DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc_w[(warp * 16 + gq + 8 * (e >> 1)) * D + 8 * n + 2 * tq + (e & 1)] =
+          o[n][e];
+  if (tq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_w[warp * 16 + gq + 8 * h] = m[h];
+      l_w[warp * 16 + gq + 8 * h] = l[h];
+    }
+  }
+  __syncthreads();
+  finish_split(rec, acc_w, m_w, l_w, TW, 16, G, D);
+}
+
+constexpr int kCombineChunk = 64;   // splits whose weights a block stages
+
+// grid (ceil((G*D + G) / kThreads), KV, B): one output element a thread
+// (acc or out element i < G*D, or head i - G*D's m and l), each the merge
+// of the row's splits 0 .. n-1 in that order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) combine_kernel(
+    const float* __restrict__ ws, const int* __restrict__ lens,
+    float* __restrict__ acc_out, T* __restrict__ o_out,
+    float* __restrict__ m_out, float* __restrict__ l_out, int KV, int G,
+    int D, int page, int n_tab, int spp, int max_splits) {
+  __shared__ float m_row[16], l_row[16];
+  __shared__ float w_s[kCombineChunk][16];   // e^(m_s - m) of a chunk
+  const int kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int len = live_len(lens, b, n_tab, page);
+  const int split_tokens = spp * page;
+  const int n = (len + split_tokens - 1) / split_tokens;
+  const int R = record_floats(G, D);
+  const float* rec = ws + ((long long)b * KV + kvh) * max_splits * R;
+
+  int poisoned = 0;
+  for (int g = warp; g < G; g += kWarps) {   // m = max over the splits
+    float mx = kNegInf;
+    for (int s = lane; s < n; s += 32) {
+      mx = fmaxf(mx, rec[(long long)s * R + G * D + g]);
+      poisoned |= rec[(long long)s * R + R - 1] != 0.f;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane == 0) {
+      m_row[g] = mx;
+      l_row[g] = 0.f;
+    }
+  }
+  const bool bad = __syncthreads_or(poisoned);
+
+  const int i = blockIdx.x * kThreads + tid;
+  const bool elem = i < G * D;
+  const int g = elem ? i / D : 0;
+  float a = 0.f;
+  for (int s0 = 0; s0 < n; s0 += kCombineChunk) {
+    const int cnt = min(kCombineChunk, n - s0);
+    for (int k = tid; k < cnt * G; k += kThreads) {
+      const int s = k / G, h = k - s * G;
+      w_s[s][h] = expf(rec[(long long)(s0 + s) * R + G * D + h] - m_row[h]);
+    }
+    __syncthreads();
+    if (elem) {
+      const float* col = rec + (long long)s0 * R + i;
+#pragma unroll 8
+      for (int s = 0; s < cnt; ++s) a += col[(long long)s * R] * w_s[s][g];
+    }
+    if (tid < G) {                       // l, in the same split order
+      const float* col = rec + (long long)s0 * R + G * D + G + tid;
+      float sum = l_row[tid];
+#pragma unroll 8
+      for (int s = 0; s < cnt; ++s) sum += col[(long long)s * R] * w_s[s][tid];
+      l_row[tid] = sum;
+    }
+    __syncthreads();
+  }
 
   const float nan = __int_as_float(0x7fc00000);
   const long long row = ((long long)b * KV + kvh) * G;
-  for (int i = tid; i < G * D; i += blockDim.x) {
-    const float a = bad ? nan : acc_s[i];
+  if (elem) {
     if (o_out != nullptr) {
-      store(o_out + row * D + i, a / fmaxf(l_s[i / D], 1e-30f));
+      store(o_out + row * D + i, bad ? nan : a / fmaxf(l_row[g], 1e-30f));
     } else {
-      acc_out[row * D + i] = a;
+      acc_out[row * D + i] = bad ? nan : a;
     }
   }
-  if (m_out != nullptr && tid < G) {
-    m_out[row + tid] = bad ? nan : m_s[tid];
-    l_out[row + tid] = bad ? nan : l_s[tid];
+  if (blockIdx.x == 0 && tid < G && m_out != nullptr) {
+    m_out[row + tid] = bad ? nan : m_row[tid];
+    l_out[row + tid] = bad ? nan : l_row[tid];
   }
+}
+
+// One instantiation's dynamic shared memory, raised past 48 KB once.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
+  if (smem <= allowed) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) allowed = smem;
+  return static_cast<int>(err);
+}
+
+template <typename T, int GMAX, int NU>
+int launch_split(dim3 grid, size_t smem, cudaStream_t stream, const T* q,
+                 const T* k_pool, const T* v_pool, const int* tables,
+                 const int* lens, float* ws, int KV, int G, int D, int P,
+                 int page, int n_tab, int spp, int max_splits, int tile,
+                 long long layer_offset, float scale) {
+  static size_t allowed = 48 * 1024;
+  const int err = allow_smem(split_kernel<T, GMAX, NU>, smem, allowed);
+  if (err != 0) return err;
+  split_kernel<T, GMAX, NU><<<grid, kThreads, smem, stream>>>(
+      q, k_pool, v_pool, tables, lens, ws, KV, G, D, P, page, n_tab, spp,
+      max_splits, tile, layer_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NU>
+int dispatch_heads(int G, dim3 grid, size_t smem, cudaStream_t stream,
+                   const T* q, const T* k, const T* v, const int* tables,
+                   const int* lens, float* ws, int KV, int D, int P, int page,
+                   int n_tab, int spp, int max_splits, int tile,
+                   long long layer_offset, float scale) {
+#define REPRO_SPLIT(GM)                                                      \
+  return launch_split<T, GM, NU>(grid, smem, stream, q, k, v, tables, lens, \
+                                 ws, KV, G, D, P, page, n_tab, spp,         \
+                                 max_splits, tile, layer_offset, scale)
+  if (G <= 1) REPRO_SPLIT(1);
+  if (G <= 2) REPRO_SPLIT(2);
+  if (G <= 4) REPRO_SPLIT(4);
+  if (G <= 8) REPRO_SPLIT(8);
+  if (NU == 1 && G <= 16) REPRO_SPLIT(16);
+#undef REPRO_SPLIT
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DT>
+int launch_tc(dim3 grid, cudaStream_t stream, const __nv_bfloat16* q,
+              const __nv_bfloat16* k, const __nv_bfloat16* v,
+              const int* tables, const int* lens, float* ws, int KV, int G,
+              int P, int page, int n_tab, int spp, int max_splits,
+              long long layer_offset, float scale) {
+  constexpr int D = 16 * DT;
+  const size_t ring = (size_t)kStages * 2 * kTcTile * (D + 8) * 2;
+  const size_t merge = sizeof(float) * (kTcThreads / 32) * 16 * (D + 2);
+  const size_t smem = ring > merge ? ring : merge;
+  static size_t allowed = 48 * 1024;
+  const int err = allow_smem(tc_split_kernel<DT>, smem, allowed);
+  if (err != 0) return err;
+  tc_split_kernel<DT><<<grid, kTcThreads, smem, stream>>>(
+      q, k, v, tables, lens, ws, KV, G, P, page, n_tab, spp, max_splits,
+      layer_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core split for bf16 at the head dims of the repo's paged
+// families and smoke models; -1 where it has no instantiation.
+int dispatch_tc(int D, dim3 grid, cudaStream_t stream,
+                const __nv_bfloat16* q, const __nv_bfloat16* k,
+                const __nv_bfloat16* v, const int* tables, const int* lens,
+                float* ws, int KV, int G, int P, int page, int n_tab,
+                int spp, int max_splits, long long layer_offset,
+                float scale) {
+#define REPRO_TC(HD)                                                        \
+  if (D == HD)                                                              \
+    return launch_tc<HD / 16>(grid, stream, q, k, v, tables, lens, ws, KV, \
+                              G, P, page, n_tab, spp, max_splits,          \
+                              layer_offset, scale);
+  REPRO_TC(16) REPRO_TC(64) REPRO_TC(80) REPRO_TC(128) REPRO_TC(256)
+#undef REPRO_TC
+  return -1;
 }
 
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* lens, void* acc_out, void* o_out,
-           void* m_out, void* l_out, int B, int KV, int G, int D, int P,
-           int page, int n_tab, int layer, float scale, cudaStream_t stream) {
-  const size_t tile = (size_t)tile_pages(page) * page;
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)G * D + 2 * tile * (D + 1) +
-                       (size_t)G * tile + 3 * (size_t)G);
-  static size_t smem_allowed = 48 * 1024;  // per instantiation of T
-  if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
-  }
+           const void* tables, const void* lens, void* ws, void* acc_out,
+           void* o_out, void* m_out, void* l_out, int B, int KV, int G,
+           int D, int P, int page, int n_tab, int layer, float scale,
+           int spp, cudaStream_t stream) {
+  const int esz = sizeof(T);
+  if (D < 1 || D > 256 || D % (16 / esz) || G < 1 || G > 16 ||
+      (D > 128 && G > 8) || page < 1 || n_tab < 1 || spp < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int max_splits = (n_tab + spp - 1) / spp;
   const long long layer_offset =
       (long long)layer * P * page * (long long)KV * D;
-  decode_kernel<T><<<dim3(KV, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(lens), static_cast<float*>(acc_out),
-      static_cast<T*>(o_out), static_cast<float*>(m_out),
-      static_cast<float*>(l_out), KV, G, D, P, page, n_tab, layer_offset,
-      scale);
+  const dim3 grid(max_splits, KV, B);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k_pool);
+  const T* vt = static_cast<const T*>(v_pool);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lens);
+  float* w = static_cast<float*>(ws);
+  int err = -1;
+  if constexpr (sizeof(T) == 2)
+    err = dispatch_tc(D, grid, stream, qt, kt, vt, tb, ln, w, KV, G, P, page,
+                      n_tab, spp, max_splits, layer_offset, scale);
+  if (err == -1) {   // fp32, or a head dim without a tensor-core kernel
+    const int tile = tile_tokens(D, esz);
+    const size_t ring = (size_t)kStages * 2 * tile * D * esz;
+    const size_t merge = sizeof(float) * (size_t)kWarps * G * (D + 2);
+    const size_t smem = ring > merge ? ring : merge;
+    err = D <= 128
+              ? dispatch_heads<T, 1>(G, grid, smem, stream, qt, kt, vt, tb,
+                                     ln, w, KV, D, P, page, n_tab, spp,
+                                     max_splits, tile, layer_offset, scale)
+              : dispatch_heads<T, 2>(G, grid, smem, stream, qt, kt, vt, tb,
+                                     ln, w, KV, D, P, page, n_tab, spp,
+                                     max_splits, tile, layer_offset, scale);
+  }
+  if (err != 0) return err;
+  combine_kernel<T><<<dim3((G * D + kThreads - 1) / kThreads, KV, B),
+                      kThreads, 0, stream>>>(
+      w, ln, static_cast<float*>(acc_out), static_cast<T*>(o_out),
+      static_cast<float*>(m_out), static_cast<float*>(l_out), KV, G, D, page,
+      n_tab, spp, max_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -232,25 +795,31 @@ const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q and both pools). With o_out set the
-// normalized output (B, KV*G, D) in q's dtype is written and m_out/l_out
-// may be null; otherwise acc_out (B, KV, G, D) fp32 and m_out, l_out
-// (B, KV, G) fp32 are the unnormalized online-softmax residuals.
+// dtype: 0 = float32, 1 = bfloat16 (q and both pools). ws: fp32
+// workspace of B * KV * max_splits * (G*D + 2G + 1) floats, max_splits =
+// ceil(n_tab / split pages). split_pages: pages a split, 0 for the
+// default (kSplitTokens tokens); other values are for measurements. With
+// o_out set the normalized output (B, KV*G, D) in q's dtype is written
+// and m_out/l_out may be null; otherwise acc_out (B, KV, G, D) fp32 and
+// m_out, l_out (B, KV, G) fp32 are the unnormalized online-softmax
+// residuals. Two launches: the splits, then their combine.
 int paged_decode_launch(const void* q, const void* k_pool, const void* v_pool,
-                        const void* tables, const void* lens, void* acc_out,
-                        void* o_out, void* m_out, void* l_out, int B, int KV,
-                        int G, int D, int P, int page, int n_tab, int layer,
-                        float scale, int dtype, void* stream) {
+                        const void* tables, const void* lens, void* ws,
+                        void* acc_out, void* o_out, void* m_out, void* l_out,
+                        int B, int KV, int G, int D, int P, int page,
+                        int n_tab, int layer, float scale, int dtype,
+                        int split_pages_arg, void* stream) {
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int spp = split_pages_arg > 0 ? split_pages_arg : split_pages(page);
   if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, tables, lens, acc_out, o_out,
+    return launch<float>(q, k_pool, v_pool, tables, lens, ws, acc_out, o_out,
                          m_out, l_out, B, KV, G, D, P, page, n_tab, layer,
-                         scale, s);
+                         scale, spp, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lens, acc_out,
-                                 o_out, m_out, l_out, B, KV, G, D, P, page,
-                                 n_tab, layer, scale, s);
+    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lens, ws,
+                                 acc_out, o_out, m_out, l_out, B, KV, G, D,
+                                 P, page, n_tab, layer, scale, spp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -15,12 +15,13 @@
 // whose id is out of range copies nothing, so a bad id can never become
 // an out-of-bounds access. The pools are updated in place.
 //
-// Token append moves a few hundred bytes a row, so its time is launch
-// latency and the host work around it: its page ids and offsets travel by
-// value in the launch's parameter block (a __grid_constant__ struct of
-// kMaxAppend pairs, 2 KB of the 4 KB limit), with no index tensor and no
-// host-to-device copy; a larger batch is launched once per slice of
-// kMaxAppend rows.
+// Token append and page scatter are short (a few hundred bytes a row for
+// append; ~140 pages of a restore for scatter), so the host work around a
+// launch weighs: their page ids (and append's offsets) travel by value in
+// the launch's parameter block, a __grid_constant__ struct of 2 KB (of the
+// 4 KB limit: kMaxAppend pairs, or kMaxScatter ids), with no index tensor
+// and no host-to-device copy; a larger call is launched once per slice.
+// Gather still reads its ids from a device array.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,16 +70,24 @@ __global__ void gather_kernel(const char* __restrict__ pool,
            pool + ((long long)l * P + id) * row_bytes, row_bytes);
 }
 
-// grid (n, L): pool[l, ids[i]] = staging[l, i]
+constexpr int kMaxScatter = 512;
+
+struct ScatterIds {  // pages [i0, i0 + n) of the staging buffer
+  int id[kMaxScatter];
+};
+
+// grid (n, L): pool[l, ids.id[i]] = staging[l, i0 + i], staging holding
+// n_total pages a layer
 __global__ void scatter_kernel(char* __restrict__ pool,
-                               const int* __restrict__ ids,
-                               const char* __restrict__ staging, int n, int P,
-                               long long row_bytes) {
+                               const char* __restrict__ staging,
+                               const __grid_constant__ ScatterIds ids, int i0,
+                               int n_total, int P, long long row_bytes) {
   const int i = blockIdx.x, l = blockIdx.y;
-  const int id = ids[i];
+  const int id = ids.id[i];
   if (id < 0 || id >= P) return;
   copy_row(pool + ((long long)l * P + id) * row_bytes,
-           staging + ((long long)l * n + i) * row_bytes, row_bytes);
+           staging + ((long long)l * n_total + i0 + i) * row_bytes,
+           row_bytes);
 }
 
 constexpr int kMaxAppend = 256;
@@ -124,14 +133,20 @@ int page_gather_launch(const void* pool, const void* ids, void* staging,
   return static_cast<int>(cudaGetLastError());
 }
 
-int page_scatter_launch(void* pool, const void* ids, const void* staging,
-                        int n, int L, int P, long long row_bytes,
-                        void* stream) {
+// Pages [i0, i0 + n) of a staging buffer of n_total pages a layer, n <=
+// kMaxScatter; the ids are a host array of n ints, copied into the launch.
+int page_scatter_launch(void* pool, const void* staging, const int* page_ids,
+                        int i0, int n, int n_total, int L, int P,
+                        long long row_bytes, void* stream) {
   if (n == 0 || L == 0) return 0;
+  if (n < 0 || n > kMaxScatter || i0 < 0 || i0 + n > n_total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ScatterIds ids{};
+  for (int i = 0; i < n; ++i) ids.id[i] = page_ids[i];
   scatter_kernel<<<dim3(n, L), kPageThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<char*>(pool), static_cast<const int*>(ids),
-      static_cast<const char*>(staging), n, P, row_bytes);
+      static_cast<char*>(pool), static_cast<const char*>(staging), ids, i0,
+      n_total, P, row_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 

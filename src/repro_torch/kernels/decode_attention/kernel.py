@@ -3,25 +3,91 @@
 ``paged_decode_attention_kernel`` (``src/repro/kernels/decode_attention/
 kernel.py``).
 
-The kernel runs one thread block per (sequence, KV head) over the
-sequence's live pages only, ~64 tokens per step; see the source for its
-bound and design.
+The kernel is split-KV: one thread block a (split, KV head, row), each
+split ``split_pages(page)`` whole pages of the row's live tokens, then a
+combine that merges a row's splits in split order; one call is two
+launches. bf16 at the head dims of ``TC_HEAD_DIMS`` runs the splits on the
+tensor cores, fp32 and other head dims on the CUDA cores. See the source
+for its bound and design. :func:`plan_decode` is the host side of the
+launch as a pure function of integers, so the CPU tests reach it.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, device_guard, stream_handle
+from repro_torch.kernels.decode_attention.ref import SPLIT_TOKENS
 
 _LIB = "decode_attention"
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + \
-    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
-_TILE_TOKENS = 64             # kTileTokens in the source: tokens per step
+SMEM_PER_BLOCK = 232_448      # bytes of shared memory a Hopper block may use
+# constants of the source: threads (warps) a block, K/V stages in flight,
+# bytes of K (and of V) a stage, tokens a stage at most
+THREADS, STAGES, STAGE_BYTES, MAX_TILE = 256, 3, 32768, 64
+MAX_HEAD_DIM = 256
+HEAD_GROUPS = (1, 2, 4, 8, 16)   # the CUDA-core kernel's bounds on G
+# bf16 at these head dims runs the tensor-core split kernel (kTcThreads
+# threads, kTcTile tokens a stage, rows padded by 8 elements); the rest
+# the CUDA-core one
+TC_HEAD_DIMS = (16, 64, 80, 128, 256)
+TC_THREADS, TC_TILE = 128, 64
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """The two launches of one call: ``split_pages`` pages a split,
+    ``max_splits`` split blocks a (row, KV head) of the tensor-core or
+    the CUDA-core kernel, ``tile`` tokens a K/V stage, ``smem_bytes`` of
+    dynamic shared memory a split block, and a workspace of
+    ``workspace_floats`` fp32."""
+    split_pages: int
+    max_splits: int
+    tensor_cores: bool
+    tile: int
+    smem_bytes: int
+    workspace_floats: int
+    grid: tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=256)
+def plan_decode(B: int, KV: int, G: int, D: int, esz: int, page: int,
+                n_tab: int, split_tokens: int = SPLIT_TOKENS) -> DecodePlan:
+    """The launch of a call as the source computes it; raises
+    ``ValueError`` on what the kernel does not take."""
+    if not 1 <= D <= MAX_HEAD_DIM or D % (16 // esz):
+        raise ValueError(f"head_dim {D} must be a multiple of {16 // esz} "
+                         f"in [1, {MAX_HEAD_DIM}]")
+    if not 1 <= G <= HEAD_GROUPS[-1] or (D > 128 and G > 8):
+        raise ValueError(f"{G} query heads a KV head at head_dim {D}: at "
+                         f"most 16 (8 above head_dim 128)")
+    if page < 1 or n_tab < 1 or B > 65535 or KV > 65535:
+        raise ValueError(f"page {page}, table width {n_tab}, batch {B}, "
+                         f"KV heads {KV}")
+    spp = max(1, split_tokens // page)
+    tensor_cores = esz == 2 and D in TC_HEAD_DIMS
+    if tensor_cores:
+        tile = TC_TILE
+        smem = max(STAGES * 2 * tile * (D + 8) * esz,
+                   4 * (TC_THREADS // 32) * 16 * (D + 2))
+    else:
+        tile = MAX_TILE
+        while tile > THREADS // 32 and tile * D * esz > STAGE_BYTES:
+            tile //= 2
+        smem = max(STAGES * 2 * tile * D * esz,
+                   4 * (THREADS // 32) * G * (D + 2))
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"head_dim {D} needs {smem} bytes of shared memory")
+    max_splits = -(-n_tab // spp)
+    return DecodePlan(spp, max_splits, tensor_cores, tile, smem,
+                      B * KV * max_splits * (G * D + 2 * G + 1),
+                      (max_splits, KV, B))
 
 
 def _ptr(t: torch.Tensor | None):
@@ -31,7 +97,8 @@ def _ptr(t: torch.Tensor | None):
 def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
                                   seq_lens, *, layer: int = 0,
                                   scale: float | None = None,
-                                  return_residuals: bool = False):
+                                  return_residuals: bool = False,
+                                  _split_tokens: int | None = None):
     """q (B, H, D) on the GPU; k/v_pages (P, page, KV, D) or layer-stacked
     (L, P, page, KV, D) in q's dtype (float32 or bfloat16); block_tables
     (B, n_tab) and seq_lens (B,) int32 on the same GPU.
@@ -40,7 +107,9 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
     ``return_residuals=True`` the unnormalized fp32 ``(acc (B, KV, G, D),
     m (B, KV, G), l (B, KV, G))``. Live table slots (``ip * page <
     seq_lens[b]``) must hold valid page ids; dead slots are never read.
-    Launches on the current stream and does not synchronize."""
+    Launches on the current stream and does not synchronize; two launches
+    a call. ``_split_tokens`` overrides the split length for measurements
+    only."""
     if k_pages.dim() == 4:
         k_pages, v_pages = k_pages[None], v_pages[None]
     if not (q.is_cuda and k_pages.device == q.device
@@ -70,42 +139,38 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
                          f"seq_lens {tuple(seq_lens.shape)} for batch {B}")
     if not 0 <= int(layer) < L:
         raise ValueError(f"layer {layer} outside [0, {L})")
-    vec = 16 // q.element_size()
-    if D % vec:
-        raise ValueError(f"head_dim {D} must be a multiple of {vec}")
     for t in (q, k_pages, v_pages, block_tables, seq_lens):
         if not t.is_contiguous():
             raise ValueError("paged_decode_attention_kernel takes "
                              "contiguous tensors")
-    if q.data_ptr() % 16 or k_pages.data_ptr() % 16 \
-            or v_pages.data_ptr() % 16:
-        raise ValueError("q and the pools must be 16-byte aligned")
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the grid's y limit")
-    tile = (1 if page >= _TILE_TOKENS else _TILE_TOKENS // page) * page
-    smem = 4 * (2 * G * D + 2 * tile * (D + 1) + G * tile + 3 * G)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"page {page} x head_dim {D} needs {smem} bytes "
-                         f"of shared memory")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the pools must be 16-byte aligned")
+    n_tab = block_tables.shape[1]
+    plan = plan_decode(B, KV, G, D, q.element_size(), page, n_tab,
+                       _split_tokens or SPLIT_TOKENS)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
 
+    dev = q.device
+    ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=dev)
     if return_residuals:
-        acc = torch.empty((B, KV, G, D), dtype=torch.float32, device=q.device)
-        m = torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+        acc = torch.empty((B, KV, G, D), dtype=torch.float32, device=dev)
+        m = torch.empty((B, KV, G), dtype=torch.float32, device=dev)
         l = torch.empty_like(m)
         out = None
     else:
         acc = m = l = None
         out = torch.empty_like(q)
     fn = _build.function(_LIB, "paged_decode_launch", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with device_guard(dev):
         err = fn(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
-                 _ptr(seq_lens), _ptr(acc), _ptr(out), _ptr(m), _ptr(l),
-                 B, KV, G, D, P, page, block_tables.shape[1], int(layer),
-                 float(scale), _DTYPES[q.dtype], stream)
+                 _ptr(seq_lens), _ptr(ws), _ptr(acc), _ptr(out), _ptr(m),
+                 _ptr(l), B, KV, G, D, P, page, n_tab, int(layer),
+                 float(scale), _DTYPES[q.dtype],
+                 plan.split_pages if _split_tokens else 0,
+                 stream_handle(dev))
     _build.check(_LIB, err, "paged_decode_attention_kernel")
-    paged_decode_attention_kernel.launches += 1
+    if B:
+        paged_decode_attention_kernel.launches += 2   # splits, combine
     if return_residuals:
         return acc, m, l
     return out

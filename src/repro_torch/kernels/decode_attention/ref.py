@@ -7,6 +7,23 @@ import math
 import torch
 
 NEG_INF = -2.0e38
+# Tokens a split of the CUDA kernel (kSplitTokens in
+# csrc/decode_attention.cu), rounded to whole pages.
+SPLIT_TOKENS = 128
+
+
+def split_pages(page: int) -> int:
+    """Pages a split: a function of ``page`` alone, so a row's splits never
+    depend on the batch, the table width or the other rows."""
+    return max(1, SPLIT_TOKENS // page)
+
+
+def split_plan(length: int, page: int) -> list[tuple[int, int]]:
+    """The CUDA kernel's splits of a row of ``length`` live tokens: token
+    ranges ``[start, end)`` of ``split_pages(page)`` whole pages, the last
+    one cut at ``length``; none for an empty row."""
+    step = split_pages(page) * page
+    return [(s, min(s + step, length)) for s in range(0, max(0, length), step)]
 
 
 def sanitize_block_tables(block_tables: torch.Tensor, seq_lens,
@@ -60,6 +77,74 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens,
         p = torch.exp(s - m[b][..., None])
         l[b] = p.sum(-1)
         acc[b] = torch.einsum("kgt,tkd->kgd", p, v)
+    if return_residuals:
+        return acc, m, l
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def combine_splits(acc_s, m_s, l_s, bad_s):
+    """Merge a row's split partials in split order, as the CUDA combine
+    does: acc_s (S, KV, G, D), m_s and l_s (S, KV, G) fp32, bad_s (S,)
+    poison flags. m = max m_s, l = sum l_s e^(m_s - m), acc likewise,
+    summed split 0, 1, ... in turn. No split gives exactly m = -2e38,
+    l = 0, acc = 0; a poisoned split makes every output NaN (a flag, not
+    m: ``max`` would drop a NaN)."""
+    m = torch.full(m_s.shape[1:], NEG_INF, dtype=torch.float32)
+    for ms in m_s:
+        m = torch.maximum(m, ms)
+    acc = torch.zeros(acc_s.shape[1:], dtype=torch.float32)
+    l = torch.zeros(m_s.shape[1:], dtype=torch.float32)
+    for a, ms, ls in zip(acc_s, m_s, l_s):
+        w = torch.exp(ms - m)
+        l = l + ls * w
+        acc = acc + a * w[..., None]
+    if bool(torch.as_tensor(bad_s).any()):
+        acc, m, l = (torch.full_like(x, float("nan")) for x in (acc, m, l))
+    return acc, m, l
+
+
+def paged_decode_split_ref(q, k_pages, v_pages, block_tables, seq_lens, *,
+                           layer: int | None = None,
+                           scale: float | None = None,
+                           return_residuals: bool = False):
+    """The CUDA kernel's arithmetic in plain PyTorch, for the tests: each
+    row cut by :func:`split_plan`, one fp32 online-softmax partial a split
+    (a live page id outside the pool poisons its split), merged by
+    :func:`combine_splits`. Same shapes and results as
+    :func:`paged_decode_attention_ref`, up to fp32 summation order."""
+    if k_pages.dim() == 5:
+        li = 0 if layer is None else int(layer)
+        k_pages, v_pages = k_pages[li], v_pages[li]
+    B, H, D = q.shape
+    P, page, KV, _ = k_pages.shape
+    G = H // KV
+    n_tab = block_tables.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    tables = torch.as_tensor(block_tables).long()
+    acc = torch.empty((B, KV, G, D), dtype=torch.float32)
+    m = torch.empty((B, KV, G), dtype=torch.float32)
+    l = torch.empty((B, KV, G), dtype=torch.float32)
+    for b, n in enumerate(torch.as_tensor(seq_lens).tolist()):
+        qg = q[b].reshape(KV, G, D).float()
+        splits = split_plan(max(0, min(int(n), n_tab * page)), page)
+        acc_s = torch.zeros((len(splits), KV, G, D))
+        m_s = torch.zeros((len(splits), KV, G))
+        l_s = torch.zeros((len(splits), KV, G))
+        bad = torch.zeros(len(splits), dtype=torch.bool)
+        for i, (t0, t1) in enumerate(splits):      # t0: a page boundary
+            ids = tables[b, t0 // page:-(-t1 // page)]
+            if bool(((ids < 0) | (ids >= P)).any()):
+                bad[i] = True
+                continue
+            k = k_pages[ids].reshape(-1, KV, D)[:t1 - t0].float()
+            v = v_pages[ids].reshape(-1, KV, D)[:t1 - t0].float()
+            s = torch.einsum("kgd,tkd->kgt", qg, k) * scale
+            m_s[i] = s.amax(-1)
+            p = torch.exp(s - m_s[i][..., None])
+            l_s[i] = p.sum(-1)
+            acc_s[i] = torch.einsum("kgt,tkd->kgd", p, v)
+        acc[b], m[b], l[b] = combine_splits(acc_s, m_s, l_s, bad)
     if return_residuals:
         return acc, m, l
     out = acc / l.clamp_min(1e-30)[..., None]

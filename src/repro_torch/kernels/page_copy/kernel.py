@@ -5,10 +5,11 @@
 
 Index arguments arrive as host arrays (:func:`repro_torch.kernels.
 host_index`): they are range- and distinctness-checked here, on the host,
-before any pointer reaches a kernel. Gather and scatter upload them
-without waiting for the stream; token append passes its few ids and
-offsets by value in the launch (:func:`pack_append_args`). Scatter and
-append update the pool tensors in place (the JAX kernels alias them with
+before any pointer reaches a kernel. Scatter and token append pass their
+ids (and append's offsets) by value in the launch, cut into slices of
+the parameter struct's capacity (:func:`pack_ids`); gather uploads its ids
+without waiting for the stream. Scatter and append update the pool
+tensors in place (the JAX kernels alias them with
 ``input_output_aliases`` and return new arrays).
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import array
 import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -24,9 +26,11 @@ from repro_torch.kernels import _build, device_guard, stream_handle, to_device
 
 _LIB = "page_copy"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_COPY_ARGS = [_P, _P, _P, _I, _I, _I, _L, _P]
+_GATHER_ARGS = [_P, _P, _P, _I, _I, _I, _L, _P]
+_SCATTER_ARGS = [_P] * 3 + [_I] * 5 + [_L, _P]
 _APPEND_ARGS = [_P] * 6 + [_I] * 6 + [_L, _P]
 K_MAX_APPEND = 256    # kMaxAppend in csrc/page_copy.cu
+K_MAX_SCATTER = 512   # kMaxScatter in csrc/page_copy.cu
 
 
 def _check_pool(pages: torch.Tensor, what: str) -> None:
@@ -38,12 +42,9 @@ def _check_pool(pages: torch.Tensor, what: str) -> None:
                          f"{tuple(pages.shape)}")
 
 
-def _check_ids(ids: np.ndarray, P: int, what: str,
-               distinct: bool = False) -> None:
+def _check_ids(ids: np.ndarray, P: int, what: str) -> None:
     if ids.size and (ids.min() < 0 or ids.max() >= P):
         raise ValueError(f"{what}: page ids outside [0, {P})")
-    if distinct and np.unique(ids).size != ids.size:
-        raise ValueError(f"{what}: page ids must be pairwise distinct")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -63,7 +64,7 @@ def page_gather_kernel(pages: torch.Tensor,
     if n == 0 or L == 0:
         return staging
     ids = to_device(page_ids, pages.device)
-    fn = _build.function(_LIB, "page_gather_launch", _COPY_ARGS)
+    fn = _build.function(_LIB, "page_gather_launch", _GATHER_ARGS)
     with torch.cuda.device(pages.device):
         err = fn(pages.data_ptr(), ids.data_ptr(), staging.data_ptr(), n, L,
                  P, pages[0, 0].numel() * pages.element_size(),
@@ -74,14 +75,16 @@ def page_gather_kernel(pages: torch.Tensor,
 
 
 def page_scatter_kernel(pages: torch.Tensor, staging: torch.Tensor,
-                        page_ids: np.ndarray) -> torch.Tensor:
+                        page_ids) -> torch.Tensor:
     """pages[:, ids[i]] = staging[:, i] in place (other pages untouched);
-    staging (L, n, page, KV, Dh) on the pool's GPU; ids pairwise distinct.
-    Returns ``pages``."""
+    staging (L, n, page, KV, Dh) on the pool's GPU; ids pairwise distinct,
+    passed by value, one launch per ``K_MAX_SCATTER`` pages. Returns
+    ``pages``."""
     _check_pool(pages, "page_scatter_kernel")
     L, P = pages.shape[:2]
-    _check_ids(page_ids, P, "page_scatter_kernel", distinct=True)
-    n = int(page_ids.size)
+    slices = pack_ids(page_ids, P, what="page_scatter_kernel",
+                      capacity=K_MAX_SCATTER)
+    n = sum(len(sl.page_ids) for sl in slices)
     if staging.device != pages.device or staging.dtype != pages.dtype \
             or tuple(staging.shape) != (L, n) + tuple(pages.shape[2:]) \
             or not staging.is_contiguous():
@@ -91,53 +94,60 @@ def page_scatter_kernel(pages: torch.Tensor, staging: torch.Tensor,
                          f"{tuple(pages.shape)} {pages.dtype}")
     if n == 0 or L == 0:
         return pages
-    ids = to_device(page_ids, pages.device)
-    fn = _build.function(_LIB, "page_scatter_launch", _COPY_ARGS)
-    with torch.cuda.device(pages.device):
-        err = fn(pages.data_ptr(), ids.data_ptr(), staging.data_ptr(), n, L,
-                 P, pages[0, 0].numel() * pages.element_size(),
-                 _stream(pages))
-    _build.check(_LIB, err, "page_scatter_kernel")
-    page_scatter_kernel.launches += 1
+    launch = _build.function(_LIB, "page_scatter_launch", _SCATTER_ARGS)
+    row_bytes = math.prod(pages.shape[2:]) * pages.element_size()
+    with device_guard(pages.device):
+        stream = stream_handle(pages.device)
+        for sl in slices:
+            err = launch(pages.data_ptr(), staging.data_ptr(),
+                         sl.page_ids.buffer_info()[0], sl.start,
+                         len(sl.page_ids), n, L, P, row_bytes, stream)
+            _build.check(_LIB, err, "page_scatter_kernel")
+            page_scatter_kernel.launches += 1
     return pages
 
 
 @dataclasses.dataclass(frozen=True)
-class AppendSlice:
-    """Rows ``start .. start + len(page_ids)`` of a token append, with
-    their page ids and slot offsets as the int32 host arrays one launch
-    copies into its parameters."""
+class IdSlice:
+    """Entries ``start .. start + len(page_ids)`` of a by-value launch,
+    with their page ids (and, for token append, slot offsets) as the int32
+    host arrays one launch copies into its parameters."""
     start: int
     page_ids: array.array
-    offsets: array.array
+    offsets: array.array | None = None
 
 
 def _ints(x) -> list[int]:
     return x.tolist() if hasattr(x, "tolist") else [int(i) for i in x]
 
 
-def pack_append_args(page_ids, offsets, P: int,
-                     page: int) -> list[AppendSlice]:
-    """Validate the ids and offsets of a token append on the host (ids in
-    [0, P) and pairwise distinct, offsets in [0, page)) and cut them into
-    launches of at most ``K_MAX_APPEND`` rows each."""
-    ids, offs = _ints(page_ids), _ints(offsets)
-    if len(offs) != len(ids):
-        raise ValueError(f"token_append_kernel: {len(ids)} page ids but "
-                         f"{len(offs)} offsets")
+def pack_ids(page_ids, P: int, *, what: str, capacity: int, offsets=None,
+             page: int = 0) -> list[IdSlice]:
+    """Validate the page ids of a by-value launch on the host (in [0, P)
+    and pairwise distinct; with ``offsets``, one offset in [0, page) an
+    id) and cut them into launches of at most ``capacity`` entries."""
+    ids = _ints(page_ids)
+    offs = None if offsets is None else _ints(offsets)
+    if offs is not None and len(offs) != len(ids):
+        raise ValueError(f"{what}: {len(ids)} page ids but {len(offs)} "
+                         f"offsets")
     if ids and (min(ids) < 0 or max(ids) >= P):
-        raise ValueError(f"token_append_kernel: page ids outside [0, {P})")
+        raise ValueError(f"{what}: page ids outside [0, {P})")
     if offs and (min(offs) < 0 or max(offs) >= page):
-        raise ValueError(f"token_append_kernel: offsets outside [0, {page})")
+        raise ValueError(f"{what}: offsets outside [0, {page})")
     if len(set(ids)) != len(ids):
-        raise ValueError("token_append_kernel: page ids must be pairwise "
-                         "distinct")
-    out = []
-    for start in range(0, len(ids), K_MAX_APPEND):
-        n = min(K_MAX_APPEND, len(ids) - start)
-        out.append(AppendSlice(start, array.array("i", ids[start:start + n]),
-                               array.array("i", offs[start:start + n])))
-    return out
+        raise ValueError(f"{what}: page ids must be pairwise distinct")
+    return [IdSlice(start, array.array("i", ids[start:start + capacity]),
+                    None if offs is None else
+                    array.array("i", offs[start:start + capacity]))
+            for start in range(0, len(ids), capacity)]
+
+
+def pack_append_args(page_ids, offsets, P: int, page: int) -> list[IdSlice]:
+    """The ids and offsets of a token append, validated and cut into
+    launches of at most ``K_MAX_APPEND`` rows (:func:`pack_ids`)."""
+    return pack_ids(page_ids, P, what="token_append_kernel",
+                    capacity=K_MAX_APPEND, offsets=offsets, page=page)
 
 
 def token_append_kernel(k_pages: torch.Tensor, v_pages: torch.Tensor,

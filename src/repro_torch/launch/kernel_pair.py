@@ -1,0 +1,161 @@
+"""Paged decode attention and page scatter timed the same way on any tree of
+the port, so that two trees can be compared in one call on one card.
+
+It calls only the wrappers' public signatures, which every tree of the
+port shares, so this file times whichever tree ``PYTHONPATH`` names; run
+it from the root of the tree that holds it::
+
+    PYTHONPATH=<tree>/src python3 src/repro_torch/launch/kernel_pair.py
+
+Cases (seeded inputs, bf16 pools of qwen2-1.5b's 28 layers, KV 2, Dh 128,
+G 6, page 16):
+
+- decode attention at ``chip_smoke.py``'s phase-2 shape (B 8, lengths
+  4096, 0, 1, 17, 1000, 2048, 3333, 4095) and at the serve path's (B 4,
+  2048 tokens each), the layer rotating over all 28 so that every call
+  finds its pages cold in the 50 MB L2, as a decode step does;
+- page scatter of 128 pages x 28 layers, beside ``index_copy_`` with the
+  ids already on the device.
+
+Each is timed eager (CUDA events around a loop of calls, host work
+included where it is the slower side) and on the device (``torch.profiler``:
+the device time of the kernels and copies a call enqueues, summed, gaps
+excluded), beside the least time the card could take (bytes over 3.35
+TB/s). Prints one JSON object with the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import math
+import subprocess
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.kernels.decode_attention import paged_decode_attention_kernel
+from repro_torch.kernels.page_copy import page_scatter_kernel
+
+HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
+LAYERS, KV, G, DH, PAGE = 28, 2, 6, 128, 16
+DECODE_CASES = {"phase2": (4096, 0, 1, 17, 1000, 2048, 3333, 4095),
+                "serve": (2048,) * 4}
+SCATTER_PAGES = 128
+
+
+def eager_ms(fn, iters: int = 28, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 28, warmup: int = 3) -> float:
+    """Device time a call: every kernel's and copy's time in a profiled
+    loop of ``iters`` calls, summed, over ``iters``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            v = getattr(e, "self_device_time_total", None)
+            us += float(v if v is not None else e.self_cuda_time_total)
+    return us / 1e3 / iters
+
+
+def decode_case(lens, gen) -> dict:
+    rng = np.random.default_rng(0)
+    n_live = [math.ceil(n / PAGE) for n in lens]
+    n_tab = max(1, max(n_live))
+    P = sum(n_live) + 16
+    tables = rng.integers(-2 ** 31, 2 ** 31 - 1, size=(len(lens), n_tab),
+                          dtype=np.int64).astype(np.int32)
+    perm, used = rng.permutation(P), 0
+    for b, n in enumerate(n_live):
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    pool = (LAYERS, P, PAGE, KV, DH)
+    rand = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                  device="cuda").to(torch.bfloat16)
+    live = int(sum(lens))
+    nbytes = (len(lens) * KV * G * DH * 2 + 2 * live * KV * DH * 2
+              + 4 * sum(n_live) + 4 * len(lens) + len(lens) * KV * G * DH * 4
+              + 2 * len(lens) * KV * G * 4)
+    return dict(q=rand(len(lens), KV * G, DH), k=rand(*pool), v=rand(*pool),
+                tables=torch.from_numpy(tables).cuda(),
+                lens=torch.tensor(lens, dtype=torch.int32, device="cuda"),
+                bound_ms=nbytes / HBM_BW * 1e3)
+
+
+def time_decode(case: dict) -> dict:
+    layers = itertools.cycle(range(LAYERS))
+
+    def call():
+        return paged_decode_attention_kernel(
+            case["q"], case["k"], case["v"], case["tables"], case["lens"],
+            layer=next(layers), return_residuals=True)
+
+    return dict(eager_ms=eager_ms(call), device_ms=device_ms(call),
+                bound_ms=case["bound_ms"])
+
+
+def time_scatter(gen) -> dict:
+    P = 1024
+    pool = torch.randn((LAYERS, P, PAGE, KV, DH), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    lib_pool = pool.clone()
+    ids = np.random.default_rng(1).permutation(P)[:SCATTER_PAGES]
+    ids_dev = torch.from_numpy(ids).cuda()
+    staging = torch.randn((LAYERS, SCATTER_PAGES, PAGE, KV, DH),
+                          generator=gen, device="cuda").to(torch.bfloat16)
+    kern = lambda: page_scatter_kernel(pool, staging, ids)  # noqa: E731
+    lib = lambda: lib_pool.index_copy_(1, ids_dev, staging)  # noqa: E731
+    kern()
+    lib()
+    torch.cuda.synchronize()
+    assert torch.equal(pool, lib_pool), "scatter differs from index_copy_"
+    moved = 2 * staging.numel() * staging.element_size() + 4 * len(ids)
+    return dict(eager_ms=eager_ms(kern), device_ms=device_ms(kern),
+                library_ms=eager_ms(lib), library_device_ms=device_ms(lib),
+                bound_ms=moved / HBM_BW * 1e3)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_pair: CUDA is not available")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"label": args.label, "card": smi}
+    for name, lens in DECODE_CASES.items():
+        case = decode_case(lens, gen)
+        out[f"decode_{name}"] = time_decode(case)
+        del case
+        torch.cuda.empty_cache()
+    out["page_scatter"] = time_scatter(gen)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

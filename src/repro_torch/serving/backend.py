@@ -258,7 +258,8 @@ class TorchModelBackend:
             self._materialize(req, target, expected=target)
             decode_pids.append(pid)
         if decode_pids:
-            # the whole decode batch through ONE kernel launch per layer
+            # the whole decode batch through ONE decode-attention call a
+            # layer
             rt.decode_batch(self.model, decode_pids)
             self.decode_tokens_computed += len(decode_pids)
         if self.device.type == "cuda":

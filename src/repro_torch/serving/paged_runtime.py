@@ -394,8 +394,8 @@ class PagedKVRuntime:
         return logits, logits.argmax(-1)
 
     def decode_batch(self, model, program_ids: list[str]) -> list:
-        """One decode step for the WHOLE batch through one kernel launch
-        per layer. Returns each program's next-token logits, in
+        """One decode step for the WHOLE batch through one decode-attention
+        call a layer. Returns each program's next-token logits, in
         ``program_ids`` order.
 
         Per-row results are independent of batch composition and of the

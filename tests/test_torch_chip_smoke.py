@@ -188,3 +188,35 @@ def test_flash_tiles_follow_the_planner():
     for D in (8, 80, 128, 192, 256):
         for q_tile in chip_smoke.FLASH_TILES:
             assert plan_bf16(1, 4, 256, D, q_tile).q_tile == q_tile
+
+
+def test_decode_bound_at_the_phase2_shape():
+    """Decode attention's bound at the phase-2 shape: the live K/V rows
+    (14,590 tokens x 2 KV heads x 128 x 2 bytes, twice) dominate, ~4.48 us
+    at 3.35 TB/s; the same bytes on the CPU case as on the card's."""
+    case = chip_smoke.make_case(chip_smoke.FULL, torch.bfloat16,
+                                torch.Generator().manual_seed(0), "cpu")
+    sheet = chip_smoke.card_datasheet("NVIDIA H100 80GB HBM3")
+    ms, by = chip_smoke.decode_bound(case, sheet)
+    assert by == "bytes" and ms == pytest.approx(0.0044831, rel=1e-4)
+
+
+@pytest.mark.parametrize("rec,ok", [
+    (dict(ms=0.05, device_ms=0.02, bound_ms=0.0175), True),
+    (dict(ms=0.05, device_ms=0.0175, bound_ms=0.0175), True),
+    (dict(ms=0.05, device_ms=0.015, bound_ms=0.0175), False),
+    (dict(ms=0.01, device_ms=0.02, bound_ms=0.0175), False)])
+def test_a_bound_share_over_100_percent_fails_the_run(rec, ok):
+    if ok:
+        chip_smoke.check_bound_shares({"k": rec})
+    else:
+        with pytest.raises(AssertionError, match="below its bound"):
+            chip_smoke.check_bound_shares({"k": rec})
+
+
+def test_decode_widths_cover_every_tensor_core_head_dim():
+    from repro_torch.kernels.decode_attention.kernel import TC_HEAD_DIMS
+    dims = {s["Dh"] for s in chip_smoke.DECODE_WIDTHS + (
+        chip_smoke.FULL, chip_smoke.SMOKE, chip_smoke.GLM4_SMOKE)}
+    assert set(TC_HEAD_DIMS) <= dims
+    assert {s["G"] for s in chip_smoke.DECODE_WIDTHS} >= {1, 2, 6, 16}
