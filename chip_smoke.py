@@ -42,7 +42,10 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          and page scatter at 600 pages (two launches), bad ids refused; the
          RWKV6 scan at rwkv6-3b's prefill shape (T=2048, H=40, K=64) and
          at the smoke shape (K=L=16) with a carried state, where it is also
-         held against the sequential recurrence.
+         held against the sequential recurrence; at one chunk, K=64 with
+         L=32 and K=10 (4-byte copies), with and without an initial state;
+         a B=2 call's rows equal B=1 calls bit for bit; and its device time
+         logged for each carry-pass slice width at B=1 and B=2.
 Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          seeded random weights cast once to bf16) serving agent programs
          through the unchanged ``Engine`` with a ``TorchModelBackend``:
@@ -61,7 +64,8 @@ Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
 Phase 4  path B: full-width rwkv6-3b (32 layers, seeded random weights)
          through ``Model.forward``: B=2, a 2048-token prompt, then 32
          decode steps, for tokens/s in bf16, with the counts zeroed before
-         and read after (one WKV-scan launch per layer and prefill); then,
+         and read after (two WKV-scan launches, chunk and carry pass, per
+         layer and prefill); then,
          in fp32 on the first 4 layers at full width, the prefill's final
          WKV states and last logits against prefill of all but 64 tokens
          followed by 64 decode steps (the plain recurrence), and against
@@ -154,6 +158,15 @@ APPEND_WIDE = dict(L=2, P=320, page=8, KV=2, Dh=8, B=300)
 # (K = L = 16) with a carried state, decays inside the +-38 clip.
 SCAN_MAIN = dict(B=1, T=2048, H=40, K=64, L=64)
 SCAN_SMOKE = dict(B=2, T=256, H=4, K=16, L=16)
+# and its edges: one chunk (T = L), K = 64 in 32-token chunks, a head size
+# the 16-byte copies cannot take (K = 10: 4-byte copies, a ragged slice);
+# batch rows checked one by one at rwkv6-3b's heads; the carry pass's
+# slice widths timed at SCAN_MAIN and at phase 4's prefill (B = 2)
+SCAN_EDGES = (dict(B=2, T=64, H=4, K=64, L=64),
+              dict(B=2, T=256, H=4, K=64, L=32),
+              dict(B=2, T=96, H=3, K=10, L=8))
+SCAN_ROWS = dict(B=2, T=512, H=40, K=64, L=64)
+SCAN_PREFILL = dict(SCAN_MAIN, B=2)
 # Path A's kernels (the serving path) and path B's run (rwkv6-3b).
 PATH_A = ("paged_decode_attention", "page_gather", "page_scatter",
           "token_append", "flash_attention")
@@ -863,6 +876,51 @@ def check_scan(shape: dict, gen, timed: bool, sheet: dict):
     return err, rec
 
 
+def check_scan_edges(gen) -> float:
+    """The scan at SCAN_EDGES with and without an initial state (1e-4
+    against the chunked plain version), and a batch row of a B = 2 call
+    against a B = 1 call on that row, bit for bit: every sum of the
+    kernel stays inside one (row, head). Returns the largest error."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_chunked_ref,
+                                                rwkv6_scan_kernel)
+    err = 0.0
+    for shape in SCAN_EDGES:
+        r, k, v, lw, u, s0 = scan_case(shape, gen, 1.0, 2.0)
+        for init in (s0, None):
+            got = rwkv6_scan_kernel(r, k, v, lw, u, init, chunk=shape["L"])
+            torch.cuda.synchronize()
+            want = rwkv6_chunked_ref(r, k, v, lw, u, init, chunk=shape["L"])
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+                err = max(err, (g - w).abs().max().item())
+    r, k, v, lw, u, s0 = scan_case(SCAN_ROWS, gen, 0.1, 0.0)
+    both = rwkv6_scan_kernel(r, k, v, lw, u, s0, chunk=SCAN_ROWS["L"])
+    for b in range(SCAN_ROWS["B"]):
+        one = rwkv6_scan_kernel(*(x[b:b + 1].contiguous()
+                                  for x in (r, k, v, lw)), u,
+                                s0[b:b + 1].contiguous(),
+                                chunk=SCAN_ROWS["L"])
+        torch.cuda.synchronize()
+        for g, w in zip(one, both):
+            assert torch.equal(g[0], w[b]), f"scan row {b} depends on B"
+    return err
+
+
+def scan_slice_times(gen) -> dict:
+    """Device ms (CUDA-graph replay) of the scan at each carry-pass slice
+    width, at SCAN_MAIN and SCAN_PREFILL, the timed decays."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_kernel
+    from repro_torch.kernels.rwkv6_scan.kernel import SLICES
+    out = {}
+    for name, shape in (("B1", SCAN_MAIN), ("B2", SCAN_PREFILL)):
+        r, k, v, lw, u, s0 = scan_case(shape, gen, 0.1, 0.0)
+        out[name] = {vs: graph_ms(lambda vs=vs: rwkv6_scan_kernel(
+            r, k, v, lw, u, s0, chunk=shape["L"], _slice=vs))
+            for vs in SLICES}
+    return out
+
+
 def phase2(sheet: dict) -> dict:
     """Returns {kernel name: record} at the main paths' shapes."""
     import torch
@@ -935,7 +993,13 @@ def phase2(sheet: dict) -> dict:
     records["rwkv6_scan"] = dict(max_abs_err=err, **rec)
     err, _ = check_scan(SCAN_SMOKE, gen, False, sheet)
     records["rwkv6_scan"]["max_abs_err"] = max(
-        records["rwkv6_scan"]["max_abs_err"], err)
+        records["rwkv6_scan"]["max_abs_err"], err, check_scan_edges(gen))
+    log(f"phase2 rwkv6_scan: T = L, K 64 with L 32 and K 10 with L 8, each "
+        f"with and without an initial state, within 1e-4; a B = 2 call's "
+        f"rows equal B = 1 calls bitwise")
+    log(f"phase2 rwkv6_scan device ms by carry slice width (state columns "
+        f"a block; CUDA-graph replay) at B 1 and B 2, T 2048, H 40, K = L = "
+        f"64: {json.dumps(scan_slice_times(gen))}")
     check_bound_shares(records)
     for name, rec in records.items():
         log(f"phase2 {name}: kernel {rec['ms']:.4f} ms, plain "
@@ -1395,7 +1459,7 @@ def phase4(smi: str) -> dict:
                             mode="prefill", logits_slice=1)
     torch.cuda.synchronize()
     counts = launch_counts()
-    assert counts["rwkv6_scan"] == cfg.num_layers, counts
+    assert counts["rwkv6_scan"] == 2 * cfg.num_layers, counts
     assert torch.isfinite(logits).all()
     rates = rwkv_throughput(m16, toks, n_dec)
     log(f"phase4 throughput (bf16, measured after synchronize) on {smi}: "

@@ -1,5 +1,6 @@
-"""Paged decode attention and page scatter timed the same way on any tree of
-the port, so that two trees can be compared in one call on one card.
+"""Paged decode attention, page scatter and the RWKV6 WKV scan timed the same
+way on any tree of the port, so that two trees can be compared in one call
+on one card.
 
 It calls only the wrappers' public signatures, which every tree of the
 port shares, so this file times whichever tree ``PYTHONPATH`` names; run
@@ -15,13 +16,19 @@ G 6, page 16):
   2048 tokens each), the layer rotating over all 28 so that every call
   finds its pages cold in the 50 MB L2, as a decode step does;
 - page scatter of 128 pages x 28 layers, beside ``index_copy_`` with the
-  ids already on the device.
+  ids already on the device;
+- the WKV scan at rwkv6-3b's prefill (fp32, T 2048, H 40, K = L = 64,
+  with an initial state) at B 1 (``chip_smoke.py``'s ``SCAN_MAIN``) and at
+  B 2 (its phase 4), with the decays ``chip_smoke.check_scan`` times
+  (log-decay -exp(0.1 N(0, 1)), near -1 a token).
 
 Each is timed eager (CUDA events around a loop of calls, host work
 included where it is the slower side) and on the device (``torch.profiler``:
 the device time of the kernels and copies a call enqueues, summed, gaps
-excluded), beside the least time the card could take (bytes over 3.35
-TB/s). Prints one JSON object with the card's name and power limit.
+excluded; for the scan also kernel by kernel), beside the least time the
+card could take (bytes over 3.35 TB/s; for the scan the larger of that and
+its fp32 flops over 67 TFLOP/s). Prints one JSON object with the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -38,12 +45,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels.decode_attention import paged_decode_attention_kernel
 from repro_torch.kernels.page_copy import page_scatter_kernel
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_kernel
 
 HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
+FP32_PEAK = 67e12           # H100 SXM data sheet, fp32 FLOP/s
 LAYERS, KV, G, DH, PAGE = 28, 2, 6, 128, 16
 DECODE_CASES = {"phase2": (4096, 0, 1, 17, 1000, 2048, 3333, 4095),
                 "serve": (2048,) * 4}
 SCATTER_PAGES = 128
+SCAN_CASES = {"rwkv6_scan": dict(B=1, T=2048, H=40, K=64, L=64),
+              "rwkv6_scan_b2": dict(B=2, T=2048, H=40, K=64, L=64)}
 
 
 def eager_ms(fn, iters: int = 28, warmup: int = 3) -> float:
@@ -60,9 +71,9 @@ def eager_ms(fn, iters: int = 28, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 28, warmup: int = 3) -> float:
-    """Device time a call: every kernel's and copy's time in a profiled
-    loop of ``iters`` calls, summed, over ``iters``."""
+def device_profile(fn, iters: int = 28, warmup: int = 3) -> dict:
+    """Device time a call by kernel or copy name: each one's time in a
+    profiled loop of ``iters`` calls, over ``iters``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -70,12 +81,18 @@ def device_ms(fn, iters: int = 28, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    out = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             v = getattr(e, "self_device_time_total", None)
-            us += float(v if v is not None else e.self_cuda_time_total)
-    return us / 1e3 / iters
+            v = float(v if v is not None else e.self_cuda_time_total)
+            out[e.key] = out.get(e.key, 0.0) + v / 1e3 / iters
+    return out
+
+
+def device_ms(fn, iters: int = 28, warmup: int = 3) -> float:
+    """Device time a call: every kernel's and copy's time, summed."""
+    return sum(device_profile(fn, iters, warmup).values())
 
 
 def decode_case(lens, gen) -> dict:
@@ -135,6 +152,26 @@ def time_scatter(gen) -> dict:
                 bound_ms=moved / HBM_BW * 1e3)
 
 
+def time_scan(shape: dict, gen) -> dict:
+    """The scan's public call at ``shape``; the bound is the function's:
+    r, k, v, log-decay read and o written once, u and the states in and
+    out; the strictly-lower scores and their product with v, the readout
+    and the state update (``chip_smoke.scan_work``)."""
+    B, T, H, K, L = (shape[x] for x in ("B", "T", "H", "K", "L"))
+    n = lambda *d: torch.randn(d, generator=gen, device="cuda")  # noqa
+    r, k, v = n(B, T, H, K) * 0.5, n(B, T, H, K) * 0.5, n(B, T, H, K) * 0.5
+    lw, u, s0 = -torch.exp(0.1 * n(B, T, H, K)), n(H, K) * 0.3, \
+        n(B, H, K, K) * 0.1
+    call = lambda: rwkv6_scan_kernel(r, k, v, lw, u, s0, chunk=L)  # noqa
+    nbytes = 4 * (5 * B * T * H * K + 2 * B * H * K * K + H * K)
+    flops = 2.0 * B * H * (T // L) * (2 * (L * (L - 1) // 2) * K
+                                      + 2 * L * K * K)
+    by_kernel = device_profile(call)
+    return dict(eager_ms=eager_ms(call), device_ms=sum(by_kernel.values()),
+                device_ms_by_kernel=by_kernel,
+                bound_ms=max(nbytes / HBM_BW, flops / FP32_PEAK) * 1e3)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
@@ -153,6 +190,9 @@ def main(argv=None) -> int:
         del case
         torch.cuda.empty_cache()
     out["page_scatter"] = time_scatter(gen)
+    for name, shape in SCAN_CASES.items():
+        out[name] = time_scan(shape, gen)
+        torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
 
