@@ -39,7 +39,16 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          fp32, beside SDPA at the prefill shape, at the serving path's
          512-token chunk and at the gemma2-like shape, with bf16 inputs TMA
          cannot take refused; token append also at 300 rows (two launches)
-         and page scatter at 600 pages (two launches), bad ids refused; the
+         and page scatter at 600 pages (two launches), bad ids refused;
+         page gather at 700 pages with repeated ids (two launches), rows
+         of several bulk pieces and rows the bulk copy cannot take, an id
+         out of range refused, and its device time on the bulk path beside
+         the row kernel's (an edited build of the source); the tier-move
+         legs at qwen2-1.5b width, 128 pages x 28 layers, both pools: the
+         stage-out (two gathers, then a blocking copy of each pool's
+         staging into fresh pinned memory) and the reload (the H2D copy
+         and two scatters), each in ms with its gather or scatter share
+         and its host-link GB/s against the profile's h2d_bw; the
          RWKV6 scan at rwkv6-3b's prefill shape (T=2048, H=40, K=64) and
          at the smoke shape (K=L=16) with a carried state, where it is also
          held against the sequential recurrence; at one chunk, K=64 with
@@ -54,7 +63,10 @@ Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          logical leg's decisions with every restore and COW split bit-exact
          and with pins, TTL hits, demotions, restores and COW splits all
          exercised; (b) the same programs on the measured clock, for JCT
-         and throughput. Launch counts are zeroed before phase 3 and read
+         and throughput; between them, the card's mfu and decode_eff
+         fitted to 3a's measured step times (``calibrate_hardware``) and
+         logged with their residuals (3b keeps the datasheet profile).
+         Launch counts are zeroed before phase 3 and read
          after it: every kernel of the path (decode attention, the page
          moves, flash attention in each fresh prefill) must have run there,
          flash attention in 3a and in 3b. Then the prefill logits through
@@ -139,6 +151,21 @@ SPLIT_CHOICES = (64, 128, 256, 512)
 # Page scatter past one launch's capacity (K_MAX_SCATTER = 512 pages), at
 # the smoke width.
 SCATTER_WIDE = dict(L=2, P=700, page=8, KV=2, Dh=8, n=600)
+# Page gather past one launch's capacity (K_MAX_GATHER = 512 pages) with
+# repeated ids, at the smoke width (256-byte rows, one bulk piece each);
+# then rows of several 4 KB bulk pieces (10 KB: the last piece 2 KB;
+# stablelm-3b's 80 KB) and rows the bulk copy cannot take (30 and 12
+# bytes: the row kernel, 2- and 4-byte units).
+GATHER_WIDE = dict(L=2, P=600, page=8, KV=2, Dh=8, n=700)
+GATHER_ROWS = (dict(L=2, P=40, page=16, KV=4, Dh=80, n=50, dtype="bfloat16"),
+               dict(L=2, P=24, page=16, KV=32, Dh=80, n=30,
+                    dtype="bfloat16"),
+               dict(L=2, P=50, page=3, KV=1, Dh=5, n=60, dtype="bfloat16"),
+               dict(L=3, P=50, page=1, KV=1, Dh=3, n=60, dtype="float32"))
+# The tier-move legs: a program of 128 pages (2048 tokens) of a 1024-page
+# qwen2-1.5b pool, staged out and reloaded this many times (the first of
+# each leg allocates its pinned buffers; the rest reuse the cache).
+TIER_PAGES, TIER_POOL, TIER_REPS = 128, 1024, 6
 MOVE_SETS = 4     # id sets and staging buffers a page-move timing rotates
 # Flash attention: qwen2-1.5b's fresh prefill (timed), then D=80 with S not
 # a multiple of the 64-row tile, and a gemma2-9b-like layer (16 heads of
@@ -524,18 +551,15 @@ def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
     rng = np.random.default_rng(9)
     sets = [rng.permutation(P)[:len(ids)] for _ in range(MOVE_SETS)]
     sets_dev = [torch.from_numpy(x).to(dev) for x in sets]
-    sets32 = [x.int() for x in sets_dev]
     stages = [staging.clone() for _ in range(MOVE_SETS)]
     turn = itertools.cycle(range(MOVE_SETS))
     out = {}
-    for name, kern, device_kern, plain, lib in (
+    for name, kern, plain, lib in (
             ("page_gather",
              lambda i: page_gather_kernel(k, sets[i]),
-             lambda i: gather_launch(k, sets32[i], stages[i]),
              lambda i: page_gather_ref(k, sets[i]),
              lambda i: torch.index_select(k, 1, sets_dev[i])),
             ("page_scatter",
-             lambda i: page_scatter_kernel(pool, stages[i], sets[i]),
              lambda i: page_scatter_kernel(pool, stages[i], sets[i]),
              lambda i: page_scatter_ref(pool_r, stages[i], sets[i]),
              lambda i: pool_r.index_copy_(1, sets_dev[i], stages[i]))):
@@ -544,8 +568,9 @@ def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
             ms=time_ms(lambda: kern(next(turn))),
             plain_ms=time_ms(lambda: plain(next(turn))), bound_ms=bms,
             bound_by=by, library_ms=time_ms(lambda: lib(next(turn))),
-            device_ms=graph_ms(lambda: device_kern(next(turn))),
+            device_ms=graph_ms(lambda: kern(next(turn))),
             library_device_ms=graph_ms(lambda: lib(next(turn)))))
+    out["page_gather"][1]["device_ms_by_path"] = gather_path_times(k, sets)
     pid_dev = torch.from_numpy(case["app_pages"]).to(dev)
     off_dev = torch.from_numpy(case["app_offs"]).to(dev)
 
@@ -571,20 +596,25 @@ def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
     return out
 
 
-def gather_launch(pages, ids32, staging) -> None:
-    """The gather kernel alone, its int32 ids already on the device: what
-    a CUDA graph of the wrapper would replay, without the per-call id
-    upload the wrapper makes (a host-to-device copy that a graph cannot
-    take from a temporary pinned buffer)."""
-    from repro_torch.kernels import _build, stream_handle
-    from repro_torch.kernels.page_copy import kernel
-    fn = _build.function(kernel._LIB, "page_gather_launch",
-                         kernel._GATHER_ARGS)
-    L, P = pages.shape[:2]
-    err = fn(pages.data_ptr(), ids32.data_ptr(), staging.data_ptr(),
-             ids32.numel(), L, P, pages[0, 0].numel() * pages.element_size(),
-             stream_handle(pages.device))
-    _build.check(kernel._LIB, err, "page_gather")
+def gather_path_times(k, sets) -> dict:
+    """Device ms (``torch.profiler``, the wrapper rotating over the id
+    sets) of the gather's two device paths at the phase-2 shape, each
+    bit-exact against the plain version first: the bulk copies (the
+    default build), the row kernel taking every row (an edited copy of
+    the source, ``launch/gather_probes.py``), the bulk copies again. The
+    default is bound again afterwards."""
+    from repro_torch.launch import gather_probes
+    rows = gather_probes.build_probes(["rows"])["rows"]
+    out = {}
+    try:
+        for name, bind in (("bulk", gather_probes.bind_default),
+                           ("rows", lambda: gather_probes.bind(rows)),
+                           ("bulk_again", gather_probes.bind_default)):
+            bind()
+            out[name] = gather_probes.gather_ms(k, sets)
+    finally:
+        gather_probes.bind_default()
+    return out
 
 
 def check_scatter_wide(gen) -> float:
@@ -619,6 +649,136 @@ def check_scatter_wide(gen) -> float:
                            what)
     assert page_scatter_kernel.launches == before
     return 0.0
+
+
+def check_gather_wide(gen) -> float:
+    """Page gather of GATHER_WIDE's 700 pages with repeated ids, past one
+    launch's capacity: one launch per K_MAX_GATHER pages, bit-exact
+    against the plain version; the same at GATHER_ROWS (rows of several
+    bulk pieces, rows for the row kernel) and from a pool whose address
+    is off 16 bytes; an id out of range raises before any launch.
+    Returns the max abs error (0)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.page_copy import page_gather_ref
+    from repro_torch.kernels.page_copy.kernel import (K_MAX_GATHER,
+                                                      page_gather_kernel)
+    rng = np.random.default_rng(6)
+
+    def pool_of(shape, dtype=torch.bfloat16):
+        dims = tuple(shape[x] for x in ("L", "P", "page", "KV", "Dh"))
+        return torch.randn(dims, generator=gen, device="cuda").to(dtype)
+
+    P, n = GATHER_WIDE["P"], GATHER_WIDE["n"]
+    pool = pool_of(GATHER_WIDE)
+    ids = rng.permutation(np.concatenate([np.arange(P),
+                                          rng.integers(0, P, n - P)]))
+    assert len(set(ids.tolist())) < n
+    before = page_gather_kernel.launches
+    got = page_gather_kernel(pool, ids)
+    assert page_gather_kernel.launches - before == math.ceil(
+        n / K_MAX_GATHER)
+    torch.cuda.synchronize()
+    assert torch.equal(got, page_gather_ref(pool, ids)), \
+        "gather past one launch"
+    for shape in GATHER_ROWS:
+        other = pool_of(shape, getattr(torch, shape["dtype"]))
+        sel = rng.integers(0, shape["P"], shape["n"])
+        got = page_gather_kernel(other, sel)
+        torch.cuda.synchronize()
+        assert torch.equal(got, page_gather_ref(other, sel)), shape
+    flat = torch.zeros(pool.numel() + 1, dtype=pool.dtype, device="cuda")
+    shifted = flat[1:].view(pool.shape)
+    shifted.copy_(pool)
+    got = page_gather_kernel(shifted, ids[:40])
+    torch.cuda.synchronize()
+    assert torch.equal(got, page_gather_ref(pool, ids[:40])), "misaligned"
+    before = page_gather_kernel.launches
+    for bad in (np.where(ids == ids[7], P, ids), np.append(ids[:5], -1)):
+        expect_value_error(lambda: page_gather_kernel(pool, bad),
+                           "id out of range")
+    assert page_gather_kernel.launches == before
+    return 0.0
+
+
+def tier_move_legs(hw) -> dict:
+    """The tier-move legs at qwen2-1.5b width: a program of TIER_PAGES
+    scattered pages in a TIER_POOL-page runtime, both pools. Stage-out:
+    ``PagedKVRuntime.stage_out`` (two gathers) then
+    ``TorchModelBackend._to_host`` of each pool (a blocking copy into
+    fresh pinned memory); reload: ``PagedKVRuntime.restore`` (the H2D copy
+    and two scatters), bit-exact. Each leg TIER_REPS times on the host
+    clock (the first allocates its pinned buffers); the gather, scatter
+    and host-link shares each timed apart with CUDA events. GB/s: the
+    bytes of both staging buffers over the time."""
+    import random
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.page_copy import scatter_pages
+    from repro_torch.serving.backend import TorchModelBackend
+    from repro_torch.serving.paged_runtime import PagedKVRuntime
+    cfg = get_config("qwen2-1.5b")
+    rt = PagedKVRuntime(cfg, n_pages=TIER_POOL, page_size=16, device="cuda")
+    random.Random(0).shuffle(rt.free)    # the program's pages scattered
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    k0, v0 = (torch.randn((cfg.num_layers, TIER_PAGES)
+                          + tuple(rt.k_pages.shape[2:]), generator=gen,
+                          device="cuda").to(rt.k_pages.dtype)
+              for _ in range(2))
+    rt.restore("p", k0, v0, TIER_PAGES * 16)
+    nbytes = 2 * k0.numel() * k0.element_size()
+
+    def events_ms(fn) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    out_ms, in_ms = [], []
+    for _ in range(TIER_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k, v, n = rt.stage_out("p")
+        hk, hv = TorchModelBackend._to_host(k), TorchModelBackend._to_host(v)
+        out_ms.append((time.perf_counter() - t0) * 1e3)
+        rt.evict("p", force=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = rt.restore("p", hk, hv, n)
+        torch.cuda.synchronize()
+        in_ms.append((time.perf_counter() - t0) * 1e3)
+        back_k, back_v, _ = rt.stage_out("p")
+        assert torch.equal(back_k, k0) and torch.equal(back_v, v0), \
+            "tier move not bit-exact"
+    gather = events_ms(lambda: rt.stage_out("p"))
+    pinned = [torch.empty(k0.shape, dtype=k0.dtype, pin_memory=True)
+              for _ in range(2)]
+    d2h = events_ms(lambda: [h.copy_(d, non_blocking=True)
+                             for h, d in zip(pinned, (k0, v0))])
+    h2d = events_ms(lambda: [h.to("cuda", non_blocking=True)
+                             for h in pinned])
+    dev = [k0.clone(), v0.clone()]
+    scatter = events_ms(lambda: [scatter_pages(pool, d, ids) for pool, d in
+                                 zip((rt.k_pages, rt.v_pages), dev)])
+
+    def leg(times, part_name, part_ms, link_ms):
+        warm = statistics.median(times[1:])
+        return {"ms": warm, "first_ms": times[0], "all_ms": times,
+                f"{part_name}_ms": part_ms,
+                f"{part_name}_share": part_ms / warm,
+                "link_ms": link_ms,
+                "link_GBps": nbytes / link_ms / 1e6,
+                "leg_GBps": nbytes / warm / 1e6,
+                "link_vs_h2d_bw": nbytes / link_ms * 1e3 / hw.h2d_bw}
+
+    return {"bytes": nbytes, "h2d_bw_GBps": hw.h2d_bw / 1e9,
+            "stage_out": leg(out_ms, "gather", gather, d2h),
+            "reload": leg(in_ms, "scatter", scatter, h2d)}
 
 
 def flash_work(shape: dict, esz: int) -> tuple[int, float]:
@@ -921,7 +1081,7 @@ def scan_slice_times(gen) -> dict:
     return out
 
 
-def phase2(sheet: dict) -> dict:
+def phase2(sheet: dict, hw) -> dict:
     """Returns {kernel name: record} at the main paths' shapes."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -973,6 +1133,17 @@ def phase2(sheet: dict) -> dict:
     log(f"phase2 page_scatter: {SCATTER_WIDE['n']} pages in "
         f"{math.ceil(SCATTER_WIDE['n'] / 512)} launches bit-exact, bad ids "
         f"refused")
+    records["page_gather"]["max_abs_err"] = max(
+        records["page_gather"]["max_abs_err"], check_gather_wide(gen))
+    log(f"phase2 page_gather: {GATHER_WIDE['n']} pages with repeated ids in "
+        f"{math.ceil(GATHER_WIDE['n'] / 512)} launches bit-exact; rows of "
+        f"10 and 80 KB (several bulk pieces), of 30 and 12 bytes and from a "
+        f"pool off 16 bytes (the row kernel) bit-exact; bad ids refused")
+    log(f"phase2 page_gather device ms by path at the phase-2 shape "
+        f"(torch.profiler, the wrapper over 4 id sets): "
+        f"{json.dumps(records['page_gather'].pop('device_ms_by_path'))}")
+    log(f"phase2 tier-move legs, qwen2-1.5b width, {TIER_PAGES} pages x 28 "
+        f"layers, both pools: {json.dumps(tier_move_legs(hw))}")
 
     err, rec = check_flash(FLASH_MAIN, torch.bfloat16, gen, True, sheet)
     records["flash_attention"] = dict(max_abs_err=err, **rec)
@@ -1121,6 +1292,29 @@ def serve_measured(cfg, hw, model, device):
     return eng, summary, len(progs)
 
 
+def calibration(shadow, hw) -> dict:
+    """``mfu`` and ``decode_eff`` fitted to a shadow-clocked leg's step
+    samples (``ShadowClockBackend.calibrate``), with the step-time gap
+    before and after and the residuals: summarized by step kind (prefill
+    only, decode only, both), the largest five listed."""
+    from repro_torch.serving.profiler import calibration_report
+    fit = shadow.calibrate()
+    assert 0 < fit.mfu < math.inf and 0 < fit.decode_eff < math.inf, fit
+    report = calibration_report(shadow.samples, shadow.cost.prof, hw, fit)
+    residuals = report.pop("residuals")
+    kinds = {}
+    for r in residuals:
+        kind = ("prefill" if not r["decode_batch"] else "decode"
+                if not r["prefill_tokens"] else "mixed")
+        kinds.setdefault(kind, []).append(r["residual_s"])
+    report["residual_s_by_kind"] = {
+        kind: {"steps": len(v), "median": sorted(v)[len(v) // 2],
+               "min": min(v), "max": max(v)} for kind, v in kinds.items()}
+    report["largest_residuals"] = sorted(
+        residuals, key=lambda r: -abs(r["residual_s"]))[:5]
+    return report
+
+
 def mechanism_stats(eng) -> dict:
     b = eng.backend.inner if hasattr(eng.backend, "inner") else eng.backend
     st = eng.scheduler.stats
@@ -1172,6 +1366,9 @@ def phase3(hw):
     assert st_a["shortfall_tokens"] == 0, st_a["shortfall_tokens"]
     b = eng_a.backend.inner
     b.runtime.check(b.prefix_index)
+    log(f"phase3a calibration of the card's profile to 3a's measured "
+        f"steps (3b keeps the datasheet profile): "
+        f"{json.dumps(calibration(eng_a.backend, hw))}")
 
     reset_after_a = dict(counts_a)
     t0 = time.perf_counter()
@@ -1501,8 +1698,9 @@ def main() -> int:
                 log(f"phase1 {name}: {line.strip()}")
     check_hgmma(paths["flash_attention"])
 
-    records = phase2(sheet)
-    counts = phase3(hardware_profile(kind))
+    hw = hardware_profile(kind)
+    records = phase2(sheet, hw)
+    counts = phase3(hw)
     counts.update(rwkv6_scan=phase4(smi)["rwkv6_scan"])
 
     sources = {

@@ -5,23 +5,34 @@
 //
 // Bound: bytes. The kernels do no arithmetic; each copied byte is read
 // once and written once, so the floor is 2 x (copied bytes) / HBM
-// bandwidth. Design: one thread block per (page or token row, layer),
-// which spreads a stage-out of n pages over n*L blocks; each block moves
-// its contiguous row with the widest access that both addresses and the
-// row length allow (16-byte vectors for the bf16 pools' 16-byte-aligned
-// rows, narrower scalar units otherwise), consecutive threads on
-// consecutive addresses. The copies are byte-exact whatever the dtype.
-// Page ids and offsets are validated on the host by the wrapper; a block
-// whose id is out of range copies nothing, so a bad id can never become
-// an out-of-bounds access. The pools are updated in place.
+// bandwidth. The copies are byte-exact whatever the dtype. Page ids and
+// offsets are validated on the host by the wrapper; a block whose id is
+// out of range copies nothing, so a bad id can never become an
+// out-of-bounds access. Scatter and append update the pools in place.
 //
-// Token append and page scatter are short (a few hundred bytes a row for
-// append; ~140 pages of a restore for scatter), so the host work around a
-// launch weighs: their page ids (and append's offsets) travel by value in
-// the launch's parameter block, a __grid_constant__ struct of 2 KB (of the
-// 4 KB limit: kMaxAppend pairs, or kMaxScatter ids), with no index tensor
-// and no host-to-device copy; a larger call is launched once per slice.
-// Gather still reads its ids from a device array.
+// Every kernel here takes its page ids (and append's offsets) by value,
+// in the launch's parameter block: a __grid_constant__ struct of 2 KB (of
+// the 4 KB limit: kMaxGather or kMaxScatter ids, or kMaxAppend pairs),
+// with no index tensor and no host-to-device copy; a larger call is
+// launched once per slice. The host work around a launch weighs: a
+// restore's scatter or a stage-out's gather moves ~140 pages.
+//
+// Gather (the stage-out unit, 8 KB rows at qwen2-1.5b width) moves each
+// contiguous (layer, page) row with Hopper's 1-D bulk asynchronous copy
+// (TMA): one thread a block loads row pieces of at most kBulkChunk bytes
+// into a ring of kBulkSlots shared-memory buffers, completing on an
+// mbarrier's transaction count, and stores each arrived piece back to
+// global memory with a bulk store (commit / wait groups), so kBulkSlots - 1
+// loads and a store are in flight in every block; kBulkBlocksPerSM blocks
+// an SM walk the list of pieces in turn. At the stage-out shape it runs
+// level with a contiguous device copy of the same bytes, ~84% of the HBM
+// bound, and 2-3% under the row kernel (PERF.md §6). A bulk copy needs
+// 16-byte aligned addresses and a length a multiple of 16: rows that fail
+// that take the row kernel, one block per (page, layer) with the widest
+// access that both addresses and the row length allow. Scatter and
+// append use the row kernel's copy (copy_row): one block per (page or
+// token row, layer), 16-byte vectors for the bf16 pools' rows,
+// consecutive threads on consecutive addresses.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,16 +69,168 @@ __device__ __forceinline__ void copy_row(char* dst, const char* src,
   }
 }
 
-// grid (n, L): staging[l, i] = pool[l, ids[i]]
-__global__ void gather_kernel(const char* __restrict__ pool,
-                              const int* __restrict__ ids,
-                              char* __restrict__ staging, int n, int P,
-                              long long row_bytes) {
+constexpr int kMaxGather = 512;
+
+struct GatherIds {  // pages [i0, i0 + n) of the staging buffer
+  int id[kMaxGather];
+};
+
+// grid (n, L): staging[l, i0 + i] = pool[l, ids.id[i]], staging holding
+// n_total pages a layer. The path of rows a bulk copy cannot take.
+__global__ void gather_rows_kernel(const char* __restrict__ pool,
+                                   char* __restrict__ staging,
+                                   const __grid_constant__ GatherIds ids,
+                                   int i0, int n_total, int P,
+                                   long long row_bytes) {
   const int i = blockIdx.x, l = blockIdx.y;
-  const int id = ids[i];
+  const int id = ids.id[i];
   if (id < 0 || id >= P) return;
-  copy_row(staging + ((long long)l * n + i) * row_bytes,
+  copy_row(staging + ((long long)l * n_total + i0 + i) * row_bytes,
            pool + ((long long)l * P + id) * row_bytes, row_bytes);
+}
+
+// Ring depth, piece size and blocks an SM by measurement at the stage-out
+// shape (launch/gather_probes.py): 8 x 4 KB, four blocks an SM (seven
+// pieces, 28 KB, in flight a block), level with a contiguous copy of the
+// same bytes; 4 x 8 KB within 2%, 2 x 16 KB slower.
+constexpr int kBulkSlots = 8;          // ring buffers a block
+constexpr int kBulkChunk = 4096;       // bytes a ring buffer: a row piece
+constexpr int kBulkBlocksPerSM = 4;    // 4 x 32 KB of shared memory an SM
+constexpr int kBulkThreads = 32;       // one warp; its first thread issues
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// global -> shared, completing `bytes` on the barrier's transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// shared -> global, in the thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// All but the newest N bulk groups have finished reading shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// All bulk groups have completed (their writes are done).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+struct BulkGather {
+  const char* pool;
+  char* staging;
+  int i0, n, n_total, P, parts;
+  long long row_bytes;
+
+  // Piece q (row r = l * n + i, part q % parts) of the launch: its source,
+  // destination and length; false for an id out of range (nothing moves).
+  __device__ __forceinline__ bool piece(const GatherIds& ids, int q,
+                                        const char*& src, char*& dst,
+                                        uint32_t& bytes) const {
+    const int r = q / parts, part = q - r * parts;
+    const int l = r / n, i = r - l * n;
+    const int id = ids.id[i];
+    if (id < 0 || id >= P) return false;
+    const long long off = (long long)part * kBulkChunk;
+    const long long left = row_bytes - off;
+    bytes = static_cast<uint32_t>(left < kBulkChunk ? left : kBulkChunk);
+    src = pool + ((long long)l * P + id) * row_bytes + off;
+    dst = staging + ((long long)l * n_total + i0 + i) * row_bytes + off;
+    return true;
+  }
+};
+
+// grid (a few blocks an SM): block b moves pieces b, b + G, b + 2G, ...
+// (G = gridDim.x) of the n x L rows, each row cut into `parts` pieces of
+// at most kBulkChunk bytes. Piece j of the block lives in ring slot
+// j % kBulkSlots; the slot of piece j - 1 is refilled with piece
+// j - 1 + kBulkSlots once piece j - 1's store has read it.
+__global__ void __launch_bounds__(kBulkThreads)
+    gather_bulk_kernel(const __grid_constant__ GatherIds ids, BulkGather g,
+                       int pieces) {
+  __shared__ alignas(128) char ring[kBulkSlots][kBulkChunk];
+  __shared__ alignas(8) uint64_t full[kBulkSlots];
+  if (threadIdx.x != 0) return;
+  const int G = gridDim.x, first = blockIdx.x;
+  const int count = first < pieces ? (pieces - 1 - first) / G + 1 : 0;
+  for (int s = 0; s < kBulkSlots; ++s) mbar_init(&full[s], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+
+  const char* src;
+  char* dst;
+  uint32_t bytes;
+  auto load = [&](int j) {
+    if (!g.piece(ids, first + j * G, src, dst, bytes)) return;
+    uint64_t* bar = &full[j % kBulkSlots];
+    mbar_expect_tx(bar, bytes);
+    bulk_load(ring[j % kBulkSlots], src, bytes, bar);
+  };
+  for (int j = 0; j < kBulkSlots && j < count; ++j) load(j);
+  uint32_t phase = 0;  // bit s: the parity slot s waits for next
+  for (int j = 0; j < count; ++j) {
+    const int s = j % kBulkSlots;
+    if (g.piece(ids, first + j * G, src, dst, bytes)) {
+      mbar_wait(&full[s], (phase >> s) & 1u);
+      phase ^= 1u << s;
+      bulk_store(dst, ring[s], bytes);
+    }
+    bulk_commit();  // one group a piece, empty for a skipped one
+    const int next = j - 1 + kBulkSlots;
+    if (j >= 1 && next < count) {
+      bulk_wait_read<1>();  // piece j - 1's store has read its slot
+      load(next);
+    }
+  }
+  bulk_wait_all();
 }
 
 constexpr int kMaxScatter = 512;
@@ -122,14 +285,45 @@ const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int page_gather_launch(const void* pool, const void* ids, void* staging,
-                       int n, int L, int P, long long row_bytes,
-                       void* stream) {
+// Pages [i0, i0 + n) of a staging buffer of n_total pages a layer, n <=
+// kMaxGather; the ids are a host array of n ints (repeats allowed),
+// copied into the launch. Rows of 16-byte-aligned addresses and a length
+// a multiple of 16 go through the bulk copies, the rest through the row
+// kernel.
+int page_gather_launch(const void* pool, void* staging, const int* page_ids,
+                       int i0, int n, int n_total, int L, int P,
+                       long long row_bytes, void* stream) {
   if (n == 0 || L == 0) return 0;
-  gather_kernel<<<dim3(n, L), kPageThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(pool), static_cast<const int*>(ids),
-      static_cast<char*>(staging), n, P, row_bytes);
+  if (n < 0 || n > kMaxGather || i0 < 0 || i0 + n > n_total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GatherIds ids{};
+  for (int i = 0; i < n; ++i) ids.id[i] = page_ids[i];
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(pool) |
+                      reinterpret_cast<uintptr_t>(staging) |
+                      static_cast<uintptr_t>(row_bytes);
+  if ((a & 15) == 0) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int parts =
+        static_cast<int>((row_bytes + kBulkChunk - 1) / kBulkChunk);
+    const long long pieces = (long long)n * L * parts;
+    if (pieces > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    const int grid = static_cast<int>(
+        pieces < (long long)kBulkBlocksPerSM * sms ? pieces
+                                                   : kBulkBlocksPerSM * sms);
+    BulkGather g{static_cast<const char*>(pool), static_cast<char*>(staging),
+                 i0, n, n_total, P, parts, row_bytes};
+    gather_bulk_kernel<<<grid, kBulkThreads, 0, st>>>(
+        ids, g, static_cast<int>(pieces));
+    return static_cast<int>(cudaGetLastError());
+  }
+  gather_rows_kernel<<<dim3(n, L), kPageThreads, 0, st>>>(
+      static_cast<const char*>(pool), static_cast<char*>(staging), ids, i0,
+      n_total, P, row_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 

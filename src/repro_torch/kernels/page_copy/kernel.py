@@ -4,11 +4,12 @@
 (``src/repro/kernels/page_copy/kernel.py``).
 
 Index arguments arrive as host arrays (:func:`repro_torch.kernels.
-host_index`): they are range- and distinctness-checked here, on the host,
-before any pointer reaches a kernel. Scatter and token append pass their
-ids (and append's offsets) by value in the launch, cut into slices of
-the parameter struct's capacity (:func:`pack_ids`); gather uploads its ids
-without waiting for the stream. Scatter and append update the pool
+host_index`): they are range-checked here, on the host, before any pointer
+reaches a kernel, and for scatter and token append, whose writes would
+race, checked pairwise distinct (a gather may read a page twice). All
+three pass their ids (and append's offsets) by value in the launch, cut
+into slices of the parameter struct's capacity (:func:`pack_ids`): no
+index tensor, no host-to-device copy. Scatter and append update the pool
 tensors in place (the JAX kernels alias them with
 ``input_output_aliases`` and return new arrays).
 """
@@ -19,18 +20,17 @@ import ctypes
 import dataclasses
 import math
 
-import numpy as np
 import torch
 
-from repro_torch.kernels import _build, device_guard, stream_handle, to_device
+from repro_torch.kernels import _build, device_guard, stream_handle
 
 _LIB = "page_copy"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_GATHER_ARGS = [_P, _P, _P, _I, _I, _I, _L, _P]
-_SCATTER_ARGS = [_P] * 3 + [_I] * 5 + [_L, _P]
+_MOVE_ARGS = [_P] * 3 + [_I] * 5 + [_L, _P]   # gather and scatter
 _APPEND_ARGS = [_P] * 6 + [_I] * 6 + [_L, _P]
 K_MAX_APPEND = 256    # kMaxAppend in csrc/page_copy.cu
 K_MAX_SCATTER = 512   # kMaxScatter in csrc/page_copy.cu
+K_MAX_GATHER = 512    # kMaxGather in csrc/page_copy.cu
 
 
 def _check_pool(pages: torch.Tensor, what: str) -> None:
@@ -42,35 +42,34 @@ def _check_pool(pages: torch.Tensor, what: str) -> None:
                          f"{tuple(pages.shape)}")
 
 
-def _check_ids(ids: np.ndarray, P: int, what: str) -> None:
-    if ids.size and (ids.min() < 0 or ids.max() >= P):
-        raise ValueError(f"{what}: page ids outside [0, {P})")
+def _row_bytes(pages: torch.Tensor) -> int:
+    return math.prod(pages.shape[2:]) * pages.element_size()
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def page_gather_kernel(pages: torch.Tensor,
-                       page_ids: np.ndarray) -> torch.Tensor:
-    """pages (L, P, page, KV, Dh) on the GPU; page_ids (n,) host ints ->
-    staging (L, n, page, KV, Dh) with staging[:, i] = pages[:, ids[i]]."""
+def page_gather_kernel(pages: torch.Tensor, page_ids) -> torch.Tensor:
+    """pages (L, P, page, KV, Dh) on the GPU; page_ids (n,) host ints in
+    [0, P), repeats allowed -> staging (L, n, page, KV, Dh) with
+    staging[:, i] = pages[:, ids[i]]; the ids passed by value, one launch
+    per ``K_MAX_GATHER`` pages."""
     _check_pool(pages, "page_gather_kernel")
     L, P = pages.shape[:2]
-    _check_ids(page_ids, P, "page_gather_kernel")
-    n = int(page_ids.size)
+    slices = pack_ids(page_ids, P, what="page_gather_kernel",
+                      capacity=K_MAX_GATHER, distinct=False)
+    n = sum(len(sl.page_ids) for sl in slices)
     staging = torch.empty((L, n) + tuple(pages.shape[2:]), dtype=pages.dtype,
                           device=pages.device)
     if n == 0 or L == 0:
         return staging
-    ids = to_device(page_ids, pages.device)
-    fn = _build.function(_LIB, "page_gather_launch", _GATHER_ARGS)
-    with torch.cuda.device(pages.device):
-        err = fn(pages.data_ptr(), ids.data_ptr(), staging.data_ptr(), n, L,
-                 P, pages[0, 0].numel() * pages.element_size(),
-                 _stream(pages))
-    _build.check(_LIB, err, "page_gather_kernel")
-    page_gather_kernel.launches += 1
+    launch = _build.function(_LIB, "page_gather_launch", _MOVE_ARGS)
+    row_bytes = _row_bytes(pages)
+    with device_guard(pages.device):
+        stream = stream_handle(pages.device)
+        for sl in slices:
+            err = launch(pages.data_ptr(), staging.data_ptr(),
+                         sl.page_ids.buffer_info()[0], sl.start,
+                         len(sl.page_ids), n, L, P, row_bytes, stream)
+            _build.check(_LIB, err, "page_gather_kernel")
+            page_gather_kernel.launches += 1
     return staging
 
 
@@ -94,8 +93,8 @@ def page_scatter_kernel(pages: torch.Tensor, staging: torch.Tensor,
                          f"{tuple(pages.shape)} {pages.dtype}")
     if n == 0 or L == 0:
         return pages
-    launch = _build.function(_LIB, "page_scatter_launch", _SCATTER_ARGS)
-    row_bytes = math.prod(pages.shape[2:]) * pages.element_size()
+    launch = _build.function(_LIB, "page_scatter_launch", _MOVE_ARGS)
+    row_bytes = _row_bytes(pages)
     with device_guard(pages.device):
         stream = stream_handle(pages.device)
         for sl in slices:
@@ -122,10 +121,11 @@ def _ints(x) -> list[int]:
 
 
 def pack_ids(page_ids, P: int, *, what: str, capacity: int, offsets=None,
-             page: int = 0) -> list[IdSlice]:
-    """Validate the page ids of a by-value launch on the host (in [0, P)
-    and pairwise distinct; with ``offsets``, one offset in [0, page) an
-    id) and cut them into launches of at most ``capacity`` entries."""
+             page: int = 0, distinct: bool = True) -> list[IdSlice]:
+    """Validate the page ids of a by-value launch on the host (in [0, P);
+    pairwise distinct unless ``distinct`` is False, as for a gather, whose
+    reads of a page do not race; with ``offsets``, one offset in [0, page)
+    an id) and cut them into launches of at most ``capacity`` entries."""
     ids = _ints(page_ids)
     offs = None if offsets is None else _ints(offsets)
     if offs is not None and len(offs) != len(ids):
@@ -135,7 +135,7 @@ def pack_ids(page_ids, P: int, *, what: str, capacity: int, offsets=None,
         raise ValueError(f"{what}: page ids outside [0, {P})")
     if offs and (min(offs) < 0 or max(offs) >= page):
         raise ValueError(f"{what}: offsets outside [0, {page})")
-    if len(set(ids)) != len(ids):
+    if distinct and len(set(ids)) != len(ids):
         raise ValueError(f"{what}: page ids must be pairwise distinct")
     return [IdSlice(start, array.array("i", ids[start:start + capacity]),
                     None if offs is None else

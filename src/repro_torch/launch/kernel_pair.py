@@ -1,6 +1,6 @@
-"""Paged decode attention, page scatter and the RWKV6 WKV scan timed the same
-way on any tree of the port, so that two trees can be compared in one call
-on one card.
+"""Paged decode attention, page gather, page scatter and the RWKV6 WKV scan
+timed the same way on any tree of the port, so that two trees can be
+compared in one call on one card.
 
 It calls only the wrappers' public signatures, which every tree of the
 port shares, so this file times whichever tree ``PYTHONPATH`` names; run
@@ -15,6 +15,11 @@ G 6, page 16):
   4096, 0, 1, 17, 1000, 2048, 3333, 4095) and at the serve path's (B 4,
   2048 tokens each), the layer rotating over all 28 so that every call
   finds its pages cold in the 50 MB L2, as a decode step does;
+- page gather of 128 pages x 28 layers out of a 1024-page pool, each call
+  taking the next of 4 id sets (so that it finds its pages cold in the 50
+  MB L2, as chip_smoke's page-move timings do), beside ``index_select``
+  with the ids already on the device; device time also kernel by kernel
+  (and copy by copy: a tree that uploads its ids shows the copy);
 - page scatter of 128 pages x 28 layers, beside ``index_copy_`` with the
   ids already on the device;
 - the WKV scan at rwkv6-3b's prefill (fp32, T 2048, H 40, K = L = 64,
@@ -44,7 +49,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels.decode_attention import paged_decode_attention_kernel
-from repro_torch.kernels.page_copy import page_scatter_kernel
+from repro_torch.kernels.page_copy import (page_gather_kernel,
+                                           page_scatter_kernel)
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_kernel
 
 HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
@@ -53,6 +59,7 @@ LAYERS, KV, G, DH, PAGE = 28, 2, 6, 128, 16
 DECODE_CASES = {"phase2": (4096, 0, 1, 17, 1000, 2048, 3333, 4095),
                 "serve": (2048,) * 4}
 SCATTER_PAGES = 128
+GATHER_PAGES, GATHER_POOL, GATHER_SETS = 128, 1024, 4
 SCAN_CASES = {"rwkv6_scan": dict(B=1, T=2048, H=40, K=64, L=64),
               "rwkv6_scan_b2": dict(B=2, T=2048, H=40, K=64, L=64)}
 
@@ -131,6 +138,29 @@ def time_decode(case: dict) -> dict:
                 bound_ms=case["bound_ms"])
 
 
+def time_gather(gen) -> dict:
+    pool = torch.randn((LAYERS, GATHER_POOL, PAGE, KV, DH), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    rng = np.random.default_rng(2)
+    sets = [rng.permutation(GATHER_POOL)[:GATHER_PAGES]
+            for _ in range(GATHER_SETS)]
+    sets_dev = [torch.from_numpy(ids).cuda() for ids in sets]
+    for ids, ids_dev in zip(sets, sets_dev):
+        assert torch.equal(page_gather_kernel(pool, ids),
+                           torch.index_select(pool, 1, ids_dev)), \
+            "gather differs from index_select"
+    turn = itertools.cycle(range(GATHER_SETS))
+    kern = lambda: page_gather_kernel(pool, sets[next(turn)])  # noqa: E731
+    lib = lambda: torch.index_select(pool, 1,  # noqa: E731
+                                     sets_dev[next(turn)])
+    moved = 2 * LAYERS * GATHER_PAGES * PAGE * KV * DH * 2 + 4 * GATHER_PAGES
+    by_kernel = device_profile(kern)
+    return dict(eager_ms=eager_ms(kern), device_ms=sum(by_kernel.values()),
+                device_ms_by_kernel=by_kernel, library_ms=eager_ms(lib),
+                library_device_ms=device_ms(lib),
+                bound_ms=moved / HBM_BW * 1e3)
+
+
 def time_scatter(gen) -> dict:
     P = 1024
     pool = torch.randn((LAYERS, P, PAGE, KV, DH), generator=gen,
@@ -189,6 +219,8 @@ def main(argv=None) -> int:
         out[f"decode_{name}"] = time_decode(case)
         del case
         torch.cuda.empty_cache()
+    out["page_gather"] = time_gather(gen)
+    torch.cuda.empty_cache()
     out["page_scatter"] = time_scatter(gen)
     for name, shape in SCAN_CASES.items():
         out[name] = time_scan(shape, gen)

@@ -149,7 +149,8 @@ class TorchModelBackend:
         dies; any live device cache stays untouched."""
         self.host_caches.pop(program_id, None)
 
-    def _to_host(self, staging: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _to_host(staging: torch.Tensor) -> torch.Tensor:
         host = torch.empty(staging.shape, dtype=staging.dtype,
                            pin_memory=staging.is_cuda)
         host.copy_(staging)

@@ -68,7 +68,9 @@ def _forbidden(mod: str) -> bool:
 
 
 def test_no_file_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert examples
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 30
     bad = {str(f.relative_to(ROOT)): sorted(filter(_forbidden,
                                                    _imported_modules(f)))
