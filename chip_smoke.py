@@ -84,7 +84,27 @@ Phase 4  path B: full-width rwkv6-3b (32 layers, seeded random weights)
          two prefill calls with the state carried; a depth sweep up to 32
          layers is logged, with the greedy token asserted at full depth.
 
-Prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
+Phase 5  path C, the cluster: the phase-3 model's weights shared by every
+         replica, each a shadow-clocked ``TorchModelBackend`` with phase
+         3's pool of 512 blocks, the telemetry plane attached, ``Cluster.
+         check`` after every step: (a) three replicas under
+         ``kv_aware_migrate`` on a skewed agent workload (3 tenants, tool
+         storms, churn; contexts up to ~2k tokens), (b) the elastic fleet
+         (two decode replicas and one prefill replica to start, the
+         autoscaler on thresholds scaled to the card). Each physical trace
+         must equal its logical trace byte for byte, with no conservation
+         violation, every staging and COW check bit-exact, no shortfall,
+         each replica's runtime events (stage-out, restore, COW split)
+         equal to its backend's counters and a valid Perfetto export; at
+         least one migration and one host copy restored on another
+         replica than the one that staged it out in each leg, a scale-up
+         and a prefill handoff in (b), and every kernel of path A launched
+         in each leg (counts zeroed before it and read after). Logs the
+         per-replica counts, migrations, cold re-homes, launches, pinned
+         host allocations and wall time.
+
+Prints a ``{"kernels": [...]}`` line (``launches``: phases 3 and 4;
+``launches_phase5``: each leg of phase 5), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 then exits non-zero and prints no result line.
 """
@@ -1194,6 +1214,20 @@ def check_bound_shares(records: dict) -> None:
 
 
 # ---------------------------------------------------------------- phase 3
+def agent_spec(name: str):
+    """Agent turns of up to ~2k tokens of context with tool pauses on the
+    scale of a step on the card: short local tools (milliseconds: ls /
+    cat) and slow ones (seconds: pytest)."""
+    from repro_torch.sim.workload import WorkloadSpec
+    return WorkloadSpec(
+        name=name, mean_turns=2.6, std_turns=0.5,
+        tool_mean_s=0.5, tool_std_s=1.0, tokens_mean=1500, tokens_std=300,
+        output_frac=0.02, max_context=2048,
+        tools=(("ls", 0.35, 0.002, 0.3), ("cat", 0.3, 0.004, 0.3),
+               ("pytest", 0.35, 2.0, 0.3)),
+        min_turn_tokens=64, min_output_tokens=6, min_new_tokens=32)
+
+
 def agent_programs(seed: int = 0):
     """Eight agent programs of 2-3 turns with contexts up to ~2.2k
     tokens, a fleet-wide shared preamble, and a twin pair whose second
@@ -1202,14 +1236,8 @@ def agent_programs(seed: int = 0):
     ones (seconds: pytest), on the millisecond scale of a step on the
     card, so that TTL pins are both kept and left to expire."""
     from repro_torch.core.types import Program, Turn
-    from repro_torch.sim.workload import WorkloadSpec, generate_programs
-    spec = WorkloadSpec(
-        name="chip-smoke", mean_turns=2.6, std_turns=0.5,
-        tool_mean_s=0.5, tool_std_s=1.0, tokens_mean=1500, tokens_std=300,
-        output_frac=0.02, max_context=2048,
-        tools=(("ls", 0.35, 0.002, 0.3), ("cat", 0.3, 0.004, 0.3),
-               ("pytest", 0.35, 2.0, 0.3)),
-        min_turn_tokens=64, min_output_tokens=6, min_new_tokens=32)
+    from repro_torch.sim.workload import generate_programs
+    spec = agent_spec("chip-smoke")
     # a burst (8 sessions within ~40 ms): returning turns queue behind
     # the others' prefills, which is when the TTL solver pins
     progs = generate_programs(spec, n=6, rate_jps=200.0, seed=seed,
@@ -1332,7 +1360,9 @@ def mechanism_stats(eng) -> dict:
 
 
 def phase3(hw):
-    """The main path at full qwen2-1.5b width on the card."""
+    """The main path at full qwen2-1.5b width on the card. Returns the
+    launch counts of the two serve legs and the model (phase 5 serves
+    on the same weights)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1407,9 +1437,8 @@ def phase3(hw):
         "no flash prefill in 3b"
     log(f"phase3 launches: 3a {reset_after_a}, 3a+3b {counts}")
 
-    del model
     prefill_logit_checks(cfg, device)
-    return counts
+    return counts, model
 
 
 # The logit check of a fresh flash prefill against prefill + extend runs
@@ -1668,6 +1697,149 @@ def phase4(smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 5
+#: the cluster workload: phase 3's agent turns (contexts up to ~2k tokens,
+#: millisecond local tools and seconds-long pytest) in the skewed shape of
+#: the replay harness's ``cluster_programs`` (3 tenants with Zipf skew and
+#: a preamble each, tool storms, churn), with arrivals and storm gaps
+#: scaled to steps of milliseconds on the card
+CLUSTER_RUN = dict(n=10, rate_jps=100.0, storm_gap_s=0.1)
+#: the elastic workload: ``elastic_programs``' diurnal wave and bursts on
+#: the same turns, over a 1 s period in place of 40 s
+ELASTIC_RUN = dict(n=12, rate_jps=50.0, period_s=1.0)
+
+
+def cluster_agent_programs(seed: int = 0):
+    """Phase 5a's programs: ``replay.cluster_programs``' skew (tenants,
+    storms, churn) at ``CLUSTER_RUN``'s size and time scale."""
+    from repro_torch.sim.workload import generate_skewed_programs
+    run = CLUSTER_RUN
+    return generate_skewed_programs(
+        agent_spec("chip-cluster"), n=run["n"], rate_jps=run["rate_jps"],
+        seed=seed, tenants=3, tenant_skew=1.4, share_ratio=0.3, storm_frac=0.4,
+        storm_gap_s=run["storm_gap_s"], churn_frac=0.3, churn_scale=6.0)
+
+
+def elastic_agent_programs(seed: int = 0):
+    """Phase 5b's programs: ``replay.elastic_programs``' diurnal wave,
+    bursts and skew, with every time scaled by ``period_s`` / 40 s."""
+    from repro_torch.sim.workload import generate_diurnal_programs
+    run = ELASTIC_RUN
+    scale = run["period_s"] / 40.0
+    return generate_diurnal_programs(
+        agent_spec("chip-cluster"), n=run["n"], rate_jps=run["rate_jps"],
+        seed=seed, period_s=run["period_s"], peak_mult=5.0, burst_frac=0.25,
+        burst_size=3, burst_span_s=0.5 * scale, tenants=3, tenant_skew=1.4,
+        share_ratio=0.3, storm_frac=0.3, storm_gap_s=2.0 * scale,
+        churn_frac=0.2, churn_scale=4.0)
+
+
+def card_scaling_config():
+    """``replay.elastic_scaling_config`` with its queue-ETA thresholds and
+    holds cut from seconds (a CPU-slow virtual chip) to tens of
+    milliseconds (a step on the card is milliseconds)."""
+    from repro_torch.serving.cluster import ScalingConfig
+    return ScalingConfig(min_replicas=1, max_replicas=5,
+                         scale_up_eta_s=0.03, scale_down_eta_s=0.005,
+                         pool_pressure=0.9, up_hold_s=0.01,
+                         down_hold_s=0.06, cooldown_s=0.06)
+
+
+def cluster_legs(cfg, hw, model, device, elastic: bool) -> dict:
+    """One phase-5 leg: the logical cluster trace, then the physical one
+    (every replica a shadow-clocked ``TorchModelBackend`` over ``model``,
+    the telemetry plane attached, ``Cluster.check`` after every step).
+    Asserts what holds at any width: the traces byte-identical, no
+    conservation violation, every staging and COW check bit-exact, no
+    shortfall, one model and one stream seed for the fleet, each
+    replica's runtime events equal to its backend's counters, and a
+    valid Perfetto export. Returns the leg's counts."""
+    import torch
+    from repro_torch.obs import export as obs_export
+    from repro_torch.sim import replay
+    rc = replay_config()
+    if elastic:
+        progs = elastic_agent_programs()
+        kw = dict(replicas=2, scaling=card_scaling_config(),
+                  prefill_replicas=1)
+    else:
+        progs = cluster_agent_programs()
+        kw = dict(replicas=3)
+    lines_l, viol_l, _ = replay.run_cluster_trace(progs, rc, cfg=cfg, hw=hw,
+                                                  **kw)
+    host0 = torch.cuda.host_memory_stats() \
+        if torch.device(device).type == "cuda" else None
+    t0 = time.perf_counter()
+    lines_p, viol_p, cluster = replay.run_cluster_trace(
+        progs, rc, telemetry=True, physical=True, device=device, cfg=cfg,
+        hw=hw, model=model, **kw)
+    wall = time.perf_counter() - t0
+    assert lines_p == lines_l, next(
+        (i, a, b) for i, (a, b) in enumerate(
+            zip(lines_l + [None], lines_p + [None])) if a != b)
+    assert not viol_l and not viol_p, (viol_l[:3], viol_p[:3])
+    fleet = cluster.all_engines()
+    backends = [e.backend.inner for e in fleet]
+    assert all(b.model is model and b.seed == 0 for b in backends), \
+        "replicas must share one Model and one stream seed"
+    per = replay.physical_stats(cluster)
+    for eid, r in per.items():
+        assert r["staging_failures"] == 0 and r["cow_failures"] == 0, \
+            (eid, r)
+        assert r["shortfall_tokens"] == 0, (eid, r)
+        assert r["stage_out_events"] == r["demotions"], (eid, r)
+        assert r["restore_events"] == r["restores"], (eid, r)
+        assert r["cow_split_events"] == r["cow_splits"], (eid, r)
+    errors = obs_export.validate(obs_export.to_chrome(cluster.obs.trace))
+    assert not errors, errors[:5]
+    cross = replay.cross_replica_restores(cluster.obs)
+    out = dict(
+        wall_s=wall, steps=sum(e.steps for e in fleet),
+        trace_lines=len(lines_p), migrations=cluster.stats.migrations,
+        cold_rehomes=cluster.stats.cold_rehomes,
+        scale_ups=cluster.stats.scale_ups,
+        retired=cluster.stats.retired,
+        prefill_handoffs=cluster.stats.prefill_handoffs,
+        cross_replica_restores=len(cross), replicas=per,
+        telemetry_events=len(cluster.obs.trace.events))
+    if host0 is not None:       # pinned buffers the stage-outs allocated
+        host1 = torch.cuda.host_memory_stats()
+        for key in ("num_host_alloc", "host_alloc_time.total"):
+            out[f"pinned_{key}"] = host1[key] - host0[key] \
+                if key in host0 and key in host1 else "not measured"
+    return out
+
+
+def phase5(model, hw) -> dict:
+    """Path C: the cluster on the card. (a) three full-width qwen2-1.5b
+    replicas under ``kv_aware_migrate``, (b) the elastic fleet (two
+    decode replicas and one prefill replica to start, the autoscaler
+    adding and draining replicas), each leg's physical run held to its
+    logical run, with the launch counts zeroed before it and read after.
+    Returns ``{leg: counts}``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    counts = {}
+    for leg, elastic in (("5a", False), ("5b", True)):
+        reset_launch_counts()
+        st = cluster_legs(cfg, hw, model, "cuda", elastic)
+        counts[leg] = launch_counts()
+        log(f"phase{leg} {'elastic fleet' if elastic else 'fixed fleet'}: "
+            f"{json.dumps(st)}; launches {counts[leg]}")
+        assert st["migrations"] >= 1, f"phase {leg}: no migration"
+        assert st["cross_replica_restores"] >= 1, \
+            f"phase {leg}: no host copy restored on another replica"
+        if elastic:
+            assert st["scale_ups"] >= 1, "phase 5b: no scale-up"
+            assert st["prefill_handoffs"] >= 1, "phase 5b: no handoff"
+        for name in PATH_A:
+            assert counts[leg][name] > 0, \
+                f"kernel {name} never launched in phase {leg}"
+    log(f"phase5 wall {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -1700,8 +1872,9 @@ def main() -> int:
 
     hw = hardware_profile(kind)
     records = phase2(sheet, hw)
-    counts = phase3(hw)
+    counts, qwen = phase3(hw)
     counts.update(rwkv6_scan=phase4(smi)["rwkv6_scan"])
+    path_c = phase5(qwen, hw)
 
     sources = {
         "paged_decode_attention": (
@@ -1720,7 +1893,10 @@ def main() -> int:
                        "src/repro/kernels/rwkv6_scan/kernel.py:75"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=counts[name], **records[name])
+                    launches=counts[name],
+                    launches_phase5={leg: c[name]
+                                     for leg, c in path_c.items()},
+                    **records[name])
                for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

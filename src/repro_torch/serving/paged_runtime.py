@@ -79,11 +79,18 @@ class PagedKVRuntime:
         # verified bit-exact (copied page == source page) and recorded
         self.verify_copies = False
         self.copy_checks: list[bool] = []
-        # telemetry hooks of the JAX runtime, kept inert: the port has no
-        # telemetry plane yet
+        # telemetry (repro_torch.obs): COW splits / stage-out / restore
+        # land on the owning replica's lane; obs_clock supplies the
+        # virtual time (the runtime itself is clockless)
         self.obs = None
         self.obs_replica = ""
         self.obs_clock = None  # type: Optional[callable]
+
+    def _obs_event(self, name: str, program_id: str, args: dict) -> None:
+        if self.obs is not None:
+            now = self.obs_clock() if self.obs_clock is not None else 0.0
+            self.obs.tier_event(self.obs_replica, name, program_id, now,
+                                args)
 
     # ------------------------------------------------------------- alloc
     def _alloc_page(self) -> int:
@@ -141,6 +148,10 @@ class PagedKVRuntime:
         self.refs[pi] -= 1
         e.pages[idx] = new
         self.cow_splits += 1
+        if self.obs is not None:
+            self.obs.cow_splits.inc(1.0, (self.obs_replica,))
+            self._obs_event("cow_split", "", {"src_page": int(pi),
+                                              "dst_page": int(new)})
         return new
 
     def evict(self, program_id: str, force: bool = False) -> bool:
@@ -253,6 +264,8 @@ class PagedKVRuntime:
         tier move copies to host memory in one transfer. Returns
         ``(k_staging, v_staging, length)``."""
         e = self.programs[program_id]
+        self._obs_event("stage_out", program_id, {"pages": len(e.pages),
+                                                  "length": e.length})
         return (gather_pages(self.k_pages, e.pages),
                 gather_pages(self.v_pages, e.pages), e.length)
 
@@ -279,6 +292,8 @@ class PagedKVRuntime:
         scatter_pages(self.k_pages, k_dev, pages)
         scatter_pages(self.v_pages, v_dev, pages)
         self.programs[program_id] = ProgramEntry(pages, length)
+        self._obs_event("restore", program_id, {"pages": len(pages),
+                                                "length": length})
         return pages
 
     # ----------------------------------------------------------- prefill

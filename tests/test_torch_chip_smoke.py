@@ -220,3 +220,74 @@ def test_decode_widths_cover_every_tensor_core_head_dim():
         chip_smoke.FULL, chip_smoke.SMOKE, chip_smoke.GLM4_SMOKE)}
     assert set(TC_HEAD_DIMS) <= dims
     assert {s["G"] for s in chip_smoke.DECODE_WIDTHS} >= {1, 2, 6, 16}
+
+
+def test_cluster_workloads():
+    """Phase 5's programs: phase 3's turns (contexts up to ~2.2k tokens)
+    in the cluster harness's skewed shape (three tenant preambles, storm
+    and churn tools) and, for 5b, its diurnal wave."""
+    for progs, n in ((chip_smoke.cluster_agent_programs(),
+                      chip_smoke.CLUSTER_RUN["n"]),
+                     (chip_smoke.elastic_agent_programs(),
+                      chip_smoke.ELASTIC_RUN["n"])):
+        assert len(progs) == n
+        assert max(p.total_tokens() for p in progs) <= 2300
+        assert len({p.shared_prefix_id for p in progs
+                    if p.shared_prefix_id}) >= 2
+        assert {t.tool for p in progs for t in p.turns if t.tool} >= \
+            {"ls", "pytest"}
+    cfg = chip_smoke.card_scaling_config()
+    assert cfg.scale_up_eta_s < 0.1 and cfg.down_hold_s < 0.1
+
+
+@pytest.mark.parametrize("elastic", [False, True])
+def test_phase5_sizing_at_full_width(elastic):
+    """Phase 5's legs on the logical stack at full qwen2-1.5b width under
+    the H100 profile (what the card's physical legs must reproduce): a
+    migration, and a migrated program reloaded on its destination; for
+    the elastic fleet a scale-up and a prefill handoff."""
+    import json
+    from repro_torch.sim import replay
+    cfg = get_config("qwen2-1.5b")
+    hw = chip_smoke.hardware_profile("NVIDIA H100 80GB HBM3")
+    if elastic:
+        progs = chip_smoke.elastic_agent_programs()
+        kw = dict(replicas=2, scaling=chip_smoke.card_scaling_config(),
+                  prefill_replicas=1)
+    else:
+        progs = chip_smoke.cluster_agent_programs()
+        kw = dict(replicas=3)
+    lines, violations, cluster = replay.run_cluster_trace(
+        progs, chip_smoke.replay_config(), cfg=cfg, hw=hw, **kw)
+    assert violations == []
+    st = cluster.stats
+    assert st.migrations >= 1
+    arrived, reloaded = {}, []
+    for rec in map(json.loads, lines):
+        if rec["ev"] == "migrate":
+            arrived[rec["pid"]] = rec["dst"]
+        elif rec["ev"] == "step":
+            reloaded += [d[1] for d in rec["events"] if d[0] == "reload"
+                         and arrived.get(d[1]) == rec["replica"]]
+    assert reloaded
+    if elastic:
+        assert st.scale_ups >= 1 and st.prefill_handoffs >= 1
+    # ~50 ms a host-bound step on the card: keep phase 5 near 30 s
+    assert sum(e.steps for e in cluster.all_engines()) <= 400
+
+
+@pytest.mark.parametrize("elastic", [False, True])
+def test_cluster_legs_on_cpu(smoke, elastic):
+    """Phase 5's driver at smoke width on the CPU: the physical leg equals
+    the logical one, with every check the card's run makes except the
+    non-vacuity ones, which hold at full width (the test above)."""
+    cfg, hw, model = smoke
+    st = chip_smoke.cluster_legs(cfg, hw, model, "cpu", elastic)
+    assert st["steps"] > 0 and st["trace_lines"] > 0
+    assert "pinned_num_host_alloc" not in st
+    assert sum(r["stage_out_events"] for r in st["replicas"].values()) > 0
+    if elastic:     # at smoke width the fixed fleet re-homes cold instead
+        assert st["scale_ups"] >= 1 and st["prefill_handoffs"] >= 1
+        assert st["cross_replica_restores"] >= 1
+        assert sum(r["staging_checks"]
+                   for r in st["replicas"].values()) > 0

@@ -49,6 +49,12 @@ COPIES = [
     "serving/metrics.py", "serving/router.py", "serving/engine.py",
     "serving/kvstore/__init__.py", "serving/kvstore/store.py",
     "serving/kvstore/transfer.py", "sim/workload.py", "sim/runner.py",
+    "obs/trace.py", "obs/registry.py", "obs/audit.py", "obs/drift.py",
+    "obs/slo.py", "obs/attribution.py", "obs/export.py", "obs/regret.py",
+    "obs/server.py", "obs/__init__.py", "obs/trace_schema.json",
+    "serving/cluster/clock.py", "serving/cluster/peer.py",
+    "serving/cluster/router.py", "serving/cluster/scaling.py",
+    "serving/cluster/cluster.py", "serving/cluster/__init__.py",
 ]
 
 
@@ -72,6 +78,8 @@ def test_no_file_imports_jax_or_repro():
     assert examples
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 30
+    for package in ("obs", "serving/cluster"):
+        assert PORT / package / "__init__.py" in files
     bad = {str(f.relative_to(ROOT)): sorted(filter(_forbidden,
                                                    _imported_modules(f)))
            for f in files}
@@ -88,6 +96,8 @@ def test_port_runs_with_jax_blocked():
         from repro_torch.models import Model
         from repro_torch.serving.paged_runtime import PagedKVRuntime
         import repro_torch.serving.backend, repro_torch.sim.replay
+        import repro_torch.obs, repro_torch.obs.server
+        import repro_torch.serving.cluster
         cfg = get_config("qwen2-1.5b", smoke=True)
         model = Model(cfg, device="cpu")
         rt = PagedKVRuntime(cfg, n_pages=8, page_size=8, device="cpu")
