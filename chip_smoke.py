@@ -34,8 +34,9 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          the pool turns its row (only) to NaN. Flash attention at qwen2-
          1.5b's prefill shape (B=1, H=12, KV=2, S=2048, D=128, bf16),
          through the model's strided layout too, at D=80 with S not a
-         multiple of the tile and at a gemma2-like shape (D=256, window
-         4096, softcap 50, S=8192), in bf16 (both query-tile heights) and
+         multiple of the tile, at a gemma2-like shape (D=256, window
+         4096, softcap 50, S=8192) and at qwen3-moe's heads (H=64, KV=4,
+         D=128; S=512 and 16), in bf16 (both query-tile heights) and
          fp32, beside SDPA at the prefill shape, at the serving path's
          512-token chunk and at the gemma2-like shape, with bf16 inputs TMA
          cannot take refused; token append also at 300 rows (two launches)
@@ -103,8 +104,31 @@ Phase 5  path C, the cluster: the phase-3 model's weights shared by every
          per-replica counts, migrations, cold re-homes, launches, pinned
          host allocations and wall time.
 
+Phase 6  path D, the MoE, VLM and audio families, after phase 3's model
+         is freed: (a) full-width qwen3-moe-235b-a22b (d_model 4096, 64
+         heads / 4 KV heads of 128, 128 experts top-8 of 1536, vocab
+         151936) cut to 6 of its 94 layers, seeded weights cast to bf16
+         leaf by leaf as they are drawn, serving phase 3's agent
+         programs (block bytes from its own KV width) through the
+         unchanged ``Engine``: the physical decision stream must equal
+         the logical leg's, with pins, TTL hits, demotions, restores and
+         COW splits exercised, every check bit-exact, no shortfall, every
+         kernel of path A launched (counts zeroed before it and read
+         after), padded prefill chunks dropping expert copies and decode
+         steps dropping none; logs steps, the physical leg's wall time
+         and ms a step, the dropped copies and the peak memory. (b) qwen3-moe, moonshot-v1-
+         16b-a3b (its leading dense layer and two MoE layers, shared
+         experts), pixtral-12b and musicgen-large at full width and cut
+         depth in fp32: a 256-token prompt's prefill against prefill of
+         all but 8 tokens and 8 decode steps with the cache (capacity
+         where no copy drops); for the three the paged runtime serves,
+         its prefill and 8 decode steps against ``Model.forward``; for
+         pixtral, the ``embeds`` input against the token path (bit for
+         bit). Each gap within 1e-3 of the logits' rms, argmax equal.
+
 Prints a ``{"kernels": [...]}`` line (``launches``: phases 3 and 4;
-``launches_phase5``: each leg of phase 5), the nvidia-smi line and, last,
+``launches_phase5``: each leg of phase 5; ``launches_phase6``: phase
+6a), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 then exits non-zero and prints no result line.
 """
@@ -112,6 +136,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -198,6 +223,10 @@ FLASH_TILES = (64, 128)   # the bf16 kernel's query-tile heights
 # The serving path's fresh prefill chunk (chunk_size=512 in replay_config):
 # timed beside FLASH_MAIN, with both query-tile heights, to choose one.
 FLASH_BUCKET = dict(B=1, H=12, KV=2, S=512, D=128, window=0, softcap=0.0)
+# Phase 6a's fresh prefills at qwen3-moe's heads (64 of 128 over 4 KV
+# heads, G = 16): the 512-token chunk and the smallest padded bucket.
+FLASH_MOE = (dict(B=1, H=64, KV=4, S=512, D=128, window=0, softcap=0.0),
+             dict(B=1, H=64, KV=4, S=16, D=128, window=0, softcap=0.0))
 # Token append past one launch's capacity (K_MAX_APPEND = 256 rows), at
 # the smoke width.
 APPEND_WIDE = dict(L=2, P=320, page=8, KV=2, Dh=8, B=300)
@@ -1170,7 +1199,7 @@ def phase2(sheet: dict, hw) -> dict:
     check_flash_refusals(gen)
     log("phase2 flash_attention: misaligned stride, misaligned address and "
         "head dim 100 refused in bf16")
-    for shape in FLASH_OTHER:
+    for shape in FLASH_OTHER + FLASH_MOE:
         for dtype in (torch.bfloat16, torch.float32):
             err, _ = check_flash(shape, dtype, gen, False, sheet)
             log(f"phase2 flash_attention {shape} {dtype}: max_abs_err "
@@ -1255,15 +1284,18 @@ def agent_programs(seed: int = 0):
     return progs
 
 
-def replay_config():
+def replay_config(cfg=None):
     """Engine and tier sizing of the serve phase: the replay harness's
     ReplayConfig scaled to 2k contexts on the card. A KV pool of 512
     blocks (8k tokens) for 8 programs of ~2k, at most 4 running, a DRAM
     tier that takes every demotion, tier links at PCIe Gen5 and NVMe
-    rates, and TTLs capped at 0.5 s with a 2 ms cold-start unit, the
-    scale of a step on the card."""
+    rates (in blocks of ``cfg``, qwen2-1.5b's by default), and TTLs
+    capped at 0.5 s with a 2 ms cold-start unit, the scale of a step on
+    the card."""
+    from repro_torch.configs import get_config
     from repro_torch.core.ttl import TTLConfig
     from repro_torch.sim.replay import ReplayConfig
+    cfg = cfg if cfg is not None else get_config("qwen2-1.5b")
 
     @dataclasses.dataclass
     class ServeConfig(ReplayConfig):
@@ -1275,24 +1307,29 @@ def replay_config():
                 ttl=TTLConfig(cold_start_k=4, max_ttl=self.max_ttl,
                               exp_unit_mean=self.exp_unit_mean))
 
-    block = 16 * 28672                # bytes of one 16-token qwen2-1.5b block
-    return ServeConfig(arch="qwen2-1.5b", chunk_size=512, max_batch=4,
+    block = 16 * cfg.kv_bytes_per_token()     # bytes of one 16-token block
+    return ServeConfig(arch=cfg.name, chunk_size=512, max_batch=4,
                        total_blocks=512, dram_blocks=2048, ssd_blocks=256,
                        h2d_bw_blocks=64e9 / block, ssd_bw_blocks=3e9 / block,
                        max_ttl=0.5, max_len=4096)
 
 
 def serve_differential(cfg, hw, model, device):
-    """Phase 3a: logical leg vs physical leg on the analytic clock."""
+    """Phase 3a: logical leg vs physical leg on the analytic clock.
+    Returns the physical leg's engine, its decision steps and its wall
+    seconds (the physical leg alone, ending in a device sync)."""
     from repro_torch.sim import replay
-    rc = replay_config()
+    rc = replay_config(cfg)
     progs = agent_programs()
     log_l, _ = replay.run_engine(progs, rc, physical=False, cfg=cfg, hw=hw)
+    t0 = time.perf_counter()
     log_p, eng = replay.run_engine(progs, rc, device=device, cfg=cfg, hw=hw,
                                    model=model)
+    synchronize(device)
+    wall = time.perf_counter() - t0
     div = replay._first_divergence(log_l, log_p)
     assert div is None, f"decision streams diverge: {div}"
-    return eng, len(log_p)
+    return eng, len(log_p), wall
 
 
 def serve_measured(cfg, hw, model, device):
@@ -1302,7 +1339,7 @@ def serve_measured(cfg, hw, model, device):
     from repro_torch.serving.profiler import CostModel, build_profile
     from repro_torch.serving.router import Router
     from repro_torch.sim.runner import Simulator
-    rc = replay_config()
+    rc = replay_config(cfg)
     prof = build_profile(cfg, 1)
     cost = CostModel(prof, hw)
     ecfg = rc.engine_config(rc.block_size * prof.kv_bytes_per_token)
@@ -1381,7 +1418,7 @@ def phase3(hw):
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    eng_a, steps = serve_differential(cfg, hw, model, device)
+    eng_a, steps, _ = serve_differential(cfg, hw, model, device)
     wall_a = time.perf_counter() - t0
     counts_a = launch_counts()
     st_a = mechanism_stats(eng_a)
@@ -1757,7 +1794,7 @@ def cluster_legs(cfg, hw, model, device, elastic: bool) -> dict:
     import torch
     from repro_torch.obs import export as obs_export
     from repro_torch.sim import replay
-    rc = replay_config()
+    rc = replay_config(cfg)
     if elastic:
         progs = elastic_agent_programs()
         kw = dict(replicas=2, scaling=card_scaling_config(),
@@ -1840,6 +1877,267 @@ def phase5(model, hw) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 6
+#: path D: full-width qwen3-moe-235b-a22b with its depth cut from 94 to 6
+#: layers (every layer is alike: one layer is a whole period), bf16
+MOE_ARCH, MOE_DEPTH = "qwen3-moe-235b-a22b", 6
+#: phase 6b's models at full width in fp32, each cut to this depth (P5):
+#: two layers, moonshot its leading dense layer and two MoE layers
+FAMILY_DEPTHS = {"qwen3-moe-235b-a22b": 2, "moonshot-v1-16b-a3b": 3,
+                 "pixtral-12b": 2, "musicgen-large": 2}
+#: the ones the paged runtime serves (moonshot's leading dense layer is
+#: refused, ROADMAP R4)
+FAMILY_PAGED = ("qwen3-moe-235b-a22b", "pixtral-12b", "musicgen-large")
+#: 6b's prompt: ``FAMILY_PROMPT`` tokens, the last ``FAMILY_TAIL`` of
+#: them decoded one at a time in the split path
+FAMILY_PROMPT, FAMILY_TAIL = 256, 8
+#: fp32 bound on |a - b| at the last position as a share of the logits'
+#: rms, for two exact-equivalent paths that differ in summation order
+#: (flash or the paged kernel against dense attention), as phase 3's
+FAMILY_BOUND = PREFILL_BOUND["float32"]
+
+
+@contextlib.contextmanager
+def moe_drop_counts():
+    """Within the block, the token-copies each MoE dispatch drops are
+    summed on the device, apart for the paged runtime's decode steps and
+    for everything else (prefill and extend chunks). Yields the dict of
+    0-d tensors' lists; read it after the block."""
+    from repro_torch.models import moe
+    from repro_torch.serving.paged_runtime import PagedKVRuntime
+    drops = {"prefill": [], "decode": []}
+    kind = ["prefill"]
+    plan, step = moe._dispatch_plan, PagedKVRuntime._decode_step
+
+    def counted_plan(flat_ids, E, C):
+        src, dest = plan(flat_ids, E, C)
+        drops[kind[0]].append((dest == E * C).sum())
+        return src, dest
+
+    def decode_step(self, *args, **kwargs):
+        kind[0] = "decode"
+        try:
+            return step(self, *args, **kwargs)
+        finally:
+            kind[0] = "prefill"
+
+    moe._dispatch_plan = counted_plan
+    PagedKVRuntime._decode_step = decode_step
+    try:
+        yield drops
+    finally:
+        moe._dispatch_plan = plan
+        PagedKVRuntime._decode_step = step
+
+
+def summed(tensors: list) -> int:
+    import torch
+    return int(torch.stack(tensors).sum()) if tensors else 0
+
+
+def serve_moe(cfg, hw, device) -> tuple[dict, dict]:
+    """Phase 6a's leg: ``cfg`` (a MoE model, bf16) serving phase 3's agent
+    programs through the unchanged ``Engine``, the physical decision
+    stream held to the logical leg's, with the launch counts zeroed before
+    it and the MoE dispatches' dropped copies counted. Its wall time and
+    ms a step are the physical leg's alone, and include the drop count's
+    two device ops a MoE dispatch (a compare and a sum, no sync). Asserts
+    what holds at any width: no divergence, every staging and COW check
+    bit-exact, no shortfall, refcounts conserved, no copy dropped in a
+    decode step. Returns the leg's counts and its launch counts."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device, seed=0)
+    synchronize(device)
+    built_s = time.perf_counter() - t0
+    reset_launch_counts()
+    with moe_drop_counts() as drops:
+        eng, steps, wall = serve_differential(cfg, hw, model, device)
+    counts = launch_counts()
+    st = mechanism_stats(eng)
+    out = dict(decision_steps=steps, engine_steps=eng.steps,
+               physical_wall_s=wall, ms_per_step=1e3 * wall / eng.steps,
+               dropped_copies_prefill=summed(drops["prefill"]),
+               dropped_copies_decode=summed(drops["decode"]),
+               moe_dispatches={k: len(v) for k, v in drops.items()},
+               params=sum(p.numel() for p in model.parameters()),
+               model_built_s=built_s, **st)
+    if cuda:
+        out["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+    assert all(p.finish_time >= 0 for p in eng.programs.values())
+    assert st["staging_ok"] and st["copy_ok"], "staging / COW mismatch"
+    assert st["shortfall_tokens"] == 0, st["shortfall_tokens"]
+    b = eng.backend.inner
+    b.runtime.check(b.prefix_index)
+    assert out["dropped_copies_decode"] == 0, "a decode step dropped"
+    return out, counts
+
+
+def family_checks(cfg, device) -> dict:
+    """Phase 6b for one model (at full width and cut depth on the card),
+    in fp32: ``Model.forward``'s prefill of the whole prompt against
+    prefill of all but the tail followed by decode steps with the cache
+    (k0/v0 too); for the families the paged runtime serves, its prefill
+    and decode against ``Model.forward`` on the same tokens; for the VLM
+    family, the ``embeds`` input against the token path fed the same
+    embedding rows. The split check runs with the capacity factor at E /
+    top_k, where no copy can drop: a whole prefill groups its tokens
+    otherwise than one-token decode steps do, and a copy dropped in one
+    grouping and kept in the other is the reference's semantics, not a
+    fault (the paged checks group tokens alike and keep the config's
+    capacity). Returns the measured gaps."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.serving.paged_runtime import require_paged
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    model = Model(cfg, device=device, seed=0)
+    gen = torch.Generator(device=model.device).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (1, FAMILY_PROMPT),
+                         generator=gen, device=model.device)
+    out = {}
+    split = model
+    if cfg.moe:
+        m = cfg.moe
+        split = Model(dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k)),
+            dict(model.params), device=device)
+    with moe_drop_counts() as drops:
+        out["prefill_vs_decode"] = prefill_vs_decode(split, toks,
+                                                     FAMILY_TAIL)
+    out["prefill_vs_decode"]["dropped_copies"] = summed(
+        drops["prefill"] + drops["decode"])
+    del split
+    try:
+        require_paged(cfg)
+        paged = True
+    except ValueError:          # leading dense layers (ROADMAP R4)
+        paged = False
+    if paged:
+        out["paged_vs_forward"] = paged_vs_forward(model, toks, FAMILY_TAIL)
+    if cfg.family == "vlm":
+        rows = model.params["embed"][toks]
+        by_tokens, _ = model.forward(toks, cache=model.init_cache(
+            1, FAMILY_PROMPT), logits_slice=1)
+        by_embeds, _ = model.forward(embeds=rows, cache=model.init_cache(
+            1, FAMILY_PROMPT), logits_slice=1)
+        out["embeds_vs_tokens"] = gap(by_tokens[0, -1], by_embeds[0, -1])
+    cuda = model.device.type == "cuda"
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def gap(a, b) -> dict:
+    """The last position's logits of two paths: argmax agreement, max
+    |a - b| and the rms of ``a``."""
+    import torch
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    return dict(argmax_equal=bool(a.argmax() == b.argmax()),
+                max_abs_diff=(a - b).abs().max().item(),
+                rms_logit=a.square().mean().sqrt().item())
+
+
+def prefill_vs_decode(model, toks, tail: int) -> dict:
+    """Prefill of the whole prompt against prefill of all but ``tail``
+    tokens followed by ``tail`` decode steps with the cache."""
+    import torch
+    n = toks.shape[1]
+    full, _ = model.forward(toks, cache=model.init_cache(1, n),
+                            logits_slice=1)
+    cache = model.init_cache(1, n)
+    model.forward(toks[:, :n - tail], cache=cache, logits_slice=1)
+    for t in range(n - tail, n):
+        step, cache = model.forward(toks[:, t:t + 1], cache=cache,
+                                    cache_len=torch.full((1,), t),
+                                    mode="decode")
+    return gap(full[0, -1], step[0, -1])
+
+
+def paged_vs_forward(model, toks, steps: int) -> dict:
+    """The paged runtime's prefill of the prompt and ``steps`` greedy
+    decode steps against ``Model.forward`` on the same tokens; the worst
+    step's gap."""
+    import torch
+    from repro_torch.serving.paged_runtime import PagedKVRuntime
+    n = toks.shape[1]
+    cache = model.init_cache(1, n + steps)
+    ref, cache = model.forward(toks, cache=cache, logits_slice=1)
+    rt = PagedKVRuntime(model.cfg, n_pages=(n + steps) // 16 + 2,
+                        page_size=16, device=model.device)
+    gaps = [gap(ref[0, -1], rt.prefill(model, "p", toks[0]))]
+    tok = ref[0, -1].argmax()
+    for t in range(n, n + steps):
+        ref, cache = model.forward(tok.reshape(1, 1), cache=cache,
+                                   cache_len=torch.full((1,), t),
+                                   mode="decode")
+        gaps.append(gap(ref[0, -1], rt.decode(model, "p")))
+        tok = ref[0, -1].argmax()
+    worst = max(gaps, key=lambda g: g["max_abs_diff"] / g["rms_logit"])
+    return dict(worst, steps=steps,
+                argmax_equal=all(g["argmax_equal"] for g in gaps))
+
+
+def assert_family_checks(checks: dict) -> None:
+    for name, g in checks.items():
+        assert g["argmax_equal"], (name, g)
+        if name == "embeds_vs_tokens":      # the same ops on the same rows
+            assert g["max_abs_diff"] == 0, (name, g)
+        else:
+            assert g["max_abs_diff"] <= FAMILY_BOUND * g["rms_logit"], \
+                (name, g)
+    assert checks["prefill_vs_decode"]["dropped_copies"] == 0, checks
+
+
+def phase6(hw) -> dict:
+    """Path D: (a) full-width qwen3-moe (``MOE_DEPTH`` layers) served on
+    the card, with every mechanism and every kernel of path A exercised
+    and prefill chunks dropping copies; (b) the four new families'
+    equivalence checks at full width and cut depth. Returns 6a's launch
+    counts."""
+    import torch
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_DEPTH)
+    st, counts = serve_moe(cfg, hw, "cuda")
+    log(f"phase6a {cfg.name}, {cfg.num_layers} of 94 layers at full width "
+        f"(d_model {cfg.d_model}, {cfg.num_heads} heads / "
+        f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
+        f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab_size}), bf16: "
+        f"{json.dumps(st)}; launches {counts}")
+    for key in ("pins", "ttl_hits", "demotions", "restores", "cow_splits",
+                "staging_checks", "copy_checks", "dropped_copies_prefill"):
+        assert st[key] > 0, f"phase 6a exercised no {key}"
+    for name in PATH_A:
+        assert counts[name] > 0, f"kernel {name} never launched in phase 6a"
+    # 6a's engine and backends refer to each other: only the cycle
+    # collector frees their model's weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase6a freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"still allocated")
+    torch.cuda.reset_peak_memory_stats()
+    for arch, depth in FAMILY_DEPTHS.items():
+        t0 = time.perf_counter()
+        checks = family_checks(
+            dataclasses.replace(get_config(arch), num_layers=depth), "cuda")
+        log(f"phase6b {arch}, {depth} full-width layers, fp32, "
+            f"{FAMILY_PROMPT}-token prompt, tail {FAMILY_TAIL}: "
+            f"{json.dumps(checks)} ({time.perf_counter() - t0:.1f} s)")
+        assert_family_checks(checks)
+        assert ("paged_vs_forward" in checks) == (arch in FAMILY_PAGED)
+    log(f"phase6 wall {time.perf_counter() - t_phase:.1f} s, 6b peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    return counts
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -1875,6 +2173,10 @@ def main() -> int:
     counts, qwen = phase3(hw)
     counts.update(rwkv6_scan=phase4(smi)["rwkv6_scan"])
     path_c = phase5(qwen, hw)
+    del qwen                  # phase 6 needs the card's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_d = phase6(hw)
 
     sources = {
         "paged_decode_attention": (
@@ -1896,6 +2198,7 @@ def main() -> int:
                     launches=counts[name],
                     launches_phase5={leg: c[name]
                                      for leg, c in path_c.items()},
+                    launches_phase6=path_d[name],
                     **records[name])
                for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))

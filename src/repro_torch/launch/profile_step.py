@@ -12,14 +12,21 @@ chunk on top of that context:
   kernels against the traced wall time (the device's busy share), and the
   operators with the most device and host time.
 
+``--layers N`` cuts the depth to N layers at full width (a full-width
+qwen3-moe step fits the card at 6 of its 94). The JSON also gives the
+bytes of weights a step reads: every layer's and the head's (a MoE
+layer's products read all its experts, whatever the routing).
+
 Prints one JSON object. Needs one GPU::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
-        [--arch qwen2-1.5b] [--batch 4] [--context 2048] [--steps 8]
+        [--arch qwen2-1.5b] [--layers N] [--batch 4] [--context 2048] \\
+        [--steps 8]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -87,6 +94,8 @@ def _traced(fn, top: int = 12) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--context", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=8)
@@ -95,7 +104,13 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = Model(cfg, device=dev, seed=args.seed)
+    head = model.head()
+    weight_bytes = head.numel() * head.element_size() + sum(
+        t.numel() * t.element_size() for name, t in model.params.items()
+        if name.startswith(("blocks.", "dense_layers.")))
     page = 16
     per_prog = (args.context + CHUNK + 64 * args.steps) // page + 2
     rt = PagedKVRuntime(cfg, n_pages=(args.batch + 1) * per_prog,
@@ -122,6 +137,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     before = launch_counts()
     out = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
+           "layers": cfg.num_layers, "weight_bytes_per_step": weight_bytes,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "batch": args.batch, "context": args.context, "chunk": CHUNK,
            "decode": {**_timed(decode, args.steps), **_traced(decode)},
            "prefill": {**_timed(prefill, args.steps), **_traced(prefill)}}

@@ -53,19 +53,32 @@ def init_param(spec: ParamSpec, generator: torch.Generator,
     std = 1.0 if spec.init == "embed" else 1.0 / math.sqrt(fan_in)
     x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return (x * std * spec.scale).to(dtype)
+    # in place, in the order of ``x * std * scale``: the same roundings
+    # without two more fp32 temporaries of the leaf's size
+    return x.mul_(std).mul_(spec.scale).to(dtype)
 
 
-def init_params(cfg, generator: torch.Generator) -> dict[str, torch.Tensor]:
+def init_params(cfg, generator: torch.Generator,
+                compute_dtype: str | None = None) -> dict[str, torch.Tensor]:
     """The port's own init: every parameter of ``cfg``'s model, in name
     order, drawn from one seeded generator on the generator's device, in
     the param dtype. (Different numbers from ``jax.random``; tests that
     compare the two implementations pass one tree through
-    :func:`params_from_numpy` instead.)"""
+    :func:`params_from_numpy` instead.)
+
+    With ``compute_dtype`` each leaf is cast as soon as it is drawn
+    (``keep_dtype`` leaves stay as they are): the same values as
+    :func:`cast_params` of the whole tree, with one fp32 leaf alive at a
+    time instead of the fp32 tree (~64 GB for six qwen3-moe layers)."""
     from repro_torch.models.transformer import model_specs
     specs = model_specs(cfg)
-    return {name: init_param(specs[name], generator, generator.device)
-            for name in sorted(specs)}
+    out = {}
+    for name in sorted(specs):
+        leaf = init_param(specs[name], generator, generator.device)
+        if compute_dtype is not None and not specs[name].keep_dtype:
+            leaf = leaf.to(torch_dtype(compute_dtype))
+        out[name] = leaf
+    return out
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -162,6 +175,16 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
     freqs = 1.0 / (theta ** exps)
     angles = positions[..., None].float() * freqs
     return torch.cos(angles), torch.sin(angles)
+
+
+def sinusoidal_emb(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """(...,) int positions -> (..., dim) fp32 sinusoidal embedding, sin
+    then cos (musicgen)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    angles = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,

@@ -1,12 +1,13 @@
-"""Config-driven decoder LM: the dense and RWKV6 (``ssm``) families of the
-JAX package's ``Model``, as an ``nn.Module``.
+"""Config-driven decoder LM: the dense, MoE, audio, VLM and RWKV6
+(``ssm``) families of the JAX package's ``Model``, as an ``nn.Module``.
 
 Parameters mirror ``Model.specs()`` of the JAX package (same dotted keys,
-same layouts, ``blocks.*`` stacked over a leading L) and are cast to the
-compute dtype once, when the model is built (``keep_dtype`` leaves stay
-fp32). The layer stack is a Python loop over L. Modes: "prefill" (fresh
-causal attention or a fresh WKV scan, optional cache write), "extend" (a
-chunk against an existing cache) and "decode".
+same layouts, ``blocks.*`` stacked over a leading L, ``dense_layers.*``
+over the leading dense layers of a ``first_k_dense`` MoE model) and are
+cast to the compute dtype once, when the model is built (``keep_dtype``
+leaves stay fp32). The layer stack is a Python loop. Modes: "prefill"
+(fresh causal attention or a fresh WKV scan, optional cache write),
+"extend" (a chunk against an existing cache) and "decode".
 
 The families not ported yet raise and name the ROADMAP item that ports
 them.
@@ -23,21 +24,18 @@ from repro_torch.kernels import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv6
 from repro_torch.models.common import (ParamSpec, add_rms_norm, cast_params,
-                                       init_params, rms_norm, softcap,
-                                       torch_dtype)
+                                       init_params, rms_norm, sinusoidal_emb,
+                                       softcap, torch_dtype)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
+from repro_torch.models.moe import moe_apply, moe_specs
 
 #: the families whose ``Model.forward`` the port runs
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "audio", "vlm", "ssm")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for the families ``Model`` does not cover yet: the dense and
-    RWKV6 (``ssm``) families are ported."""
-    if cfg.family in ("moe", "audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP queue 1 item 9); ported: {PORTED_FAMILIES}")
+    """Raise for the families ``Model`` does not cover yet: gemma2's
+    local/global layers and zamba2's hybrid."""
     if cfg.family == "hybrid" or cfg.local_global_alternating \
             or cfg.sandwich_norm:
         raise NotImplementedError(
@@ -46,24 +44,16 @@ def require_ported(cfg: ModelConfig) -> None:
             f"queue 1 item 11); ported: {PORTED_FAMILIES}")
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise for the families the paged runtime does not serve: it pages
-    attention KV, so beyond the unported families it refuses RWKV6, which
-    runs through ``Model.forward`` only, as the JAX package's engine
-    backend refuses SSM families."""
-    require_ported(cfg)
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the RWKV6 family runs through Model.forward only "
-            f"(ROADMAP queue 1 item 11); the paged runtime holds attention "
-            f"KV pages, and the reference's engine backend refuses SSM "
-            f"families too")
+def first_k_dense(cfg: ModelConfig) -> int:
+    """Leading dense layers of a MoE model (0 for every other model)."""
+    return cfg.moe.first_k_dense if cfg.moe else 0
 
 
-def _stacked(layer: dict[str, ParamSpec], L: int) -> dict[str, ParamSpec]:
-    return {f"blocks.{k}": ParamSpec((L,) + s.shape, init=s.init,
-                                     scale=s.scale, dtype=s.dtype,
-                                     keep_dtype=s.keep_dtype)
+def _stacked(layer: dict[str, ParamSpec], L: int,
+             prefix: str) -> dict[str, ParamSpec]:
+    return {f"{prefix}.{k}": ParamSpec((L,) + s.shape, init=s.init,
+                                       scale=s.scale, dtype=s.dtype,
+                                       keep_dtype=s.keep_dtype)
             for k, s in layer.items()}
 
 
@@ -77,24 +67,35 @@ def model_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
              "final_norm": ParamSpec((D,), init="zeros", dtype=dt)}
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((D, V), dtype=dt)
-    layer = {"ln1": ParamSpec((D,), init="zeros", dtype=dt),
+    norms = {"ln1": ParamSpec((D,), init="zeros", dtype=dt),
              "ln2": ParamSpec((D,), init="zeros", dtype=dt)}
     if cfg.family == "ssm":
-        layer.update(rwkv6.rwkv_specs(cfg, dt))
-    else:
-        layer.update({f"attn.{k}": s
-                      for k, s in attn.attention_specs(cfg, dt).items()})
-        layer.update({f"mlp.{k}": s
-                      for k, s in mlp_specs(D, cfg.d_ff, dt).items()})
-    specs.update(_stacked(layer, L))
+        specs.update(_stacked({**norms, **rwkv6.rwkv_specs(cfg, dt)}, L,
+                              "blocks"))
+        return specs
+
+    def layer(ffn: dict[str, ParamSpec]) -> dict[str, ParamSpec]:
+        return {**norms,
+                **{f"attn.{k}": s
+                   for k, s in attn.attention_specs(cfg, dt).items()},
+                **{f"mlp.{k}": s for k, s in ffn.items()}}
+
+    first_k = first_k_dense(cfg)
+    if first_k:
+        dff = cfg.moe.dense_d_ff or cfg.d_ff
+        specs.update(_stacked(layer(mlp_specs(D, dff, dt)), first_k,
+                              "dense_layers"))
+    ffn = moe_specs(cfg, dt) if cfg.moe else mlp_specs(D, cfg.d_ff, dt)
+    specs.update(_stacked(layer(ffn), L - first_k, "blocks"))
     return specs
 
 
 class Model(nn.Module):
-    """The decoder (dense or RWKV6). ``params`` is a flat dict (e.g. from
-    :func:`~repro_torch.models.common.params_from_numpy`); without it the
-    weights are drawn from ``seed`` on ``device``. Either way they are cast
-    to ``cfg.compute_dtype`` once, here, and never change device."""
+    """The decoder. ``params`` is a flat dict (e.g. from
+    :func:`~repro_torch.models.common.params_from_numpy`), cast to
+    ``cfg.compute_dtype`` here; without it the weights are drawn from
+    ``seed`` on ``device`` leaf by leaf, each cast as it is drawn (the
+    same values). Either way they never change device."""
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
                  device="cuda", seed: int = 0):
@@ -104,7 +105,7 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(cfg, gen)
+            params = init_params(cfg, gen, cfg.compute_dtype)
         if set(params) != set(specs):
             raise ValueError(f"parameter names differ from the specs: "
                              f"{sorted(set(params) ^ set(specs))}")
@@ -117,8 +118,13 @@ class Model(nn.Module):
                                    cfg.compute_dtype).items():
             self._register(name, t)
         self.params: dict[str, torch.Tensor] = dict(self.named_parameters())
-        # per-layer views of the stacked blocks: {"ln1", "attn": {...}, ...}
-        self.layers = [self._layer(i) for i in range(cfg.num_layers)]
+        # per-layer views of the stacked leaves: {"ln1", "attn": {...}, ...}:
+        # the leading dense layers (first_k_dense), then the blocks
+        first_k = first_k_dense(cfg)
+        self.first_layers = [self._layer("dense_layers", i)
+                             for i in range(first_k)]
+        self.layers = [self._layer("blocks", i)
+                       for i in range(cfg.num_layers - first_k)]
 
     def _register(self, name: str, tensor: torch.Tensor) -> None:
         *path, leaf = name.split(".")
@@ -130,10 +136,10 @@ class Model(nn.Module):
         mod.register_parameter(leaf, nn.Parameter(tensor,
                                                   requires_grad=False))
 
-    def _layer(self, i: int) -> dict:
+    def _layer(self, stack: str, i: int) -> dict:
         out: dict = {}
         for name, t in self.params.items():
-            if not name.startswith("blocks."):
+            if not name.startswith(stack + "."):
                 continue
             *path, leaf = name.split(".")[1:]
             node = out
@@ -144,7 +150,9 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------ cache
     def cache_shapes(self, batch: int, max_len: int) -> dict:
-        """Tree of (shape, dtype) for the serving cache."""
+        """Tree of (shape, dtype) for the serving cache: ``k``/``v`` of the
+        ``blocks`` layers and, for a ``first_k_dense`` model, ``k0``/``v0``
+        of its leading dense layers."""
         cfg = self.cfg
         cd = cfg.kv_cache_dtype or cfg.compute_dtype
         L = cfg.num_layers
@@ -153,8 +161,14 @@ class Model(nn.Module):
             return {"shift1": ((L, batch, cfg.d_model), cd),
                     "wkv": ((L, batch, H, K, K), "float32"),
                     "shift2": ((L, batch, cfg.d_model), cd)}
-        shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": (shape, cd), "v": (shape, cd)}
+        first_k = first_k_dense(cfg)
+        tail = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        out = {"k": ((L - first_k,) + tail, cd),
+               "v": ((L - first_k,) + tail, cd)}
+        if first_k:
+            out["k0"] = ((first_k,) + tail, cd)
+            out["v0"] = ((first_k,) + tail, cd)
+        return out
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return {k: torch.zeros(shape, dtype=torch_dtype(dt),
@@ -163,22 +177,32 @@ class Model(nn.Module):
                                                         max_len).items()}
 
     # ---------------------------------------------------------------- layers
-    def _attn_layer(self, i: int, x, cache, cache_len, positions, mode):
+    def _attn_layer(self, p: dict, x, kv, cache_len, positions, mode,
+                    fused: bool = True):
+        """One attention layer; ``kv`` is the layer's (k, v) cache pair or
+        None. The FFN is MoE where the layer has a router. ``fused``: ln2
+        reads the fp32 residual sum before it is rounded, as XLA's fusion
+        computes the reference's scanned layers (ROADMAP P2); the
+        reference runs its leading dense layers outside the scan, op by
+        op, where ln2 reads the rounded sum (``fused=False``)."""
         cfg = self.cfg
-        p = self.layers[i]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = attn.qkv_project(p["attn"], h, cfg, positions)
         scale = 1.0 / math.sqrt(cfg.head_dim)
-        if cache is not None:
-            attn.write_cache(cache["k"][i], cache["v"][i], k, v, cache_len)
+        if kv is not None:
+            attn.write_cache(kv[0], kv[1], k, v, cache_len)
         if mode == "prefill":
             o = attn.attend_causal(q, k, v, scale=scale, cap=cfg.attn_softcap)
         else:
-            o = attn.attend_decode(q, cache["k"][i], cache["v"][i], cache_len,
-                                   scale=scale, cap=cfg.attn_softcap)
-        x, h = add_rms_norm(x, attn.out_project(p["attn"], o), p["ln2"],
-                            cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], h, cfg.activation)
+            o = attn.attend_decode(q, kv[0], kv[1], cache_len, scale=scale,
+                                   cap=cfg.attn_softcap)
+        a = attn.out_project(p["attn"], o)
+        if fused:
+            x, h = add_rms_norm(x, a, p["ln2"], cfg.norm_eps)
+        else:
+            x = x + a
+            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + ffn_apply(p["mlp"], h, cfg)
 
     def _rwkv_layer(self, i: int, x, cache, mode):
         """Time mix + channel mix; the layer's token-shift and WKV states
@@ -201,23 +225,31 @@ class Model(nn.Module):
 
     # --------------------------------------------------------------- forward
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, cache: dict | None = None,
+    def forward(self, tokens: torch.Tensor | None = None,
+                embeds: torch.Tensor | None = None, cache: dict | None = None,
                 cache_len=0, mode: str = "prefill",
                 logits_slice: int | None = None):
-        """tokens (B, S) -> (fp32 logits (B, S or logits_slice, V), cache).
-        The cache is written in place and returned. ``cache_len`` is a
-        scalar or a (B,) tensor of per-sequence offsets."""
+        """tokens (B, S), or embeds (B, S, D) for the VLM family's patch
+        embeddings (no position embedding added) -> (fp32 logits (B, S or
+        logits_slice, V), cache). The cache is written in place and
+        returned. ``cache_len`` is a scalar or a (B,) tensor of
+        per-sequence offsets."""
         cfg = self.cfg
         if mode not in ("prefill", "extend", "decode"):
             raise ValueError(f"mode {mode!r}")
         if mode != "prefill" and cache is None:
             raise ValueError(f"mode {mode!r} needs a cache")
-        tokens = tokens.to(self.device)
-        S = tokens.shape[-1]
-        x = self.params["embed"][tokens]
-        if cfg.scale_embeddings:
-            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        if (tokens is None) == (embeds is None):
+            raise ValueError("pass exactly one of tokens or embeds")
+        if embeds is None:
+            tokens = tokens.to(self.device)
+            S = tokens.shape[-1]
+            x = self.params["embed"][tokens]
+        else:
+            x = embeds.to(self.device, torch_dtype(cfg.compute_dtype))
+            S = x.shape[1]
         if cfg.family == "ssm":
+            x = self._scale_embeddings(x)
             for i in range(cfg.num_layers):
                 x = self._rwkv_layer(i, x, cache, mode)
             return self._logits(x, logits_slice), cache
@@ -229,9 +261,21 @@ class Model(nn.Module):
         else:
             cl = torch.as_tensor(cache_len, device=self.device)
             positions = cl[..., None] + steps if cl.dim() else cl + steps
-        for i in range(cfg.num_layers):
-            x = self._attn_layer(i, x, cache, cache_len, positions, mode)
+        if embeds is None and cfg.pos_emb == "sinusoidal":
+            x = x + sinusoidal_emb(positions, cfg.d_model).to(x.dtype)
+        x = self._scale_embeddings(x)
+        for stack, k, v, fused in ((self.first_layers, "k0", "v0", False),
+                                   (self.layers, "k", "v", True)):
+            for i, p in enumerate(stack):
+                kv = None if cache is None else (cache[k][i], cache[v][i])
+                x = self._attn_layer(p, x, kv, cache_len, positions, mode,
+                                     fused)
         return self._logits(x, logits_slice), cache
+
+    def _scale_embeddings(self, x):
+        if self.cfg.scale_embeddings:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+        return x
 
     def _logits(self, x, logits_slice):
         cfg = self.cfg
@@ -248,3 +292,11 @@ class Model(nn.Module):
         if self.cfg.tie_embeddings:
             return self.params["embed"].t()
         return self.params["lm_head"]
+
+
+def ffn_apply(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A layer's FFN: MoE where its params hold a router, else the dense
+    gated MLP (the reference's ``"router" in p["mlp"]``)."""
+    if "router" in p:
+        return moe_apply(p, h, cfg)
+    return mlp_apply(p, h, cfg.activation)

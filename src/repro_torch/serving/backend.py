@@ -49,7 +49,7 @@ class TorchModelBackend:
                  n_pages: Optional[int] = None, page_size: int = 16,
                  device="cuda"):
         self.device = resolve_device(device)
-        if runtime is None:           # raises for the families not ported
+        if runtime is None:   # raises for what the runtime does not serve
             runtime = PagedKVRuntime(
                 cfg, n_pages=n_pages or max(64, 2 * max_len // page_size),
                 page_size=page_size, device=self.device)

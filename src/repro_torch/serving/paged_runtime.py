@@ -22,7 +22,8 @@ operations gives identical page ids and refcounts. The pools live on
 ``device`` and are updated in place (the JAX runtime rebinds new
 arrays). On a CUDA device every page copy, append and decode attention
 launches a hand-written kernel; ``device="cpu"`` runs their plain
-versions. Dense family only (ROADMAP queue 1 item 9 adds the rest).
+versions. It serves the reference's ``PAGED_FAMILIES``: dense, MoE (no
+leading dense layers, ROADMAP R4), audio and VLM.
 """
 from __future__ import annotations
 
@@ -39,9 +40,36 @@ from repro_torch.kernels.decode_attention import paged_decode_attention
 from repro_torch.kernels.page_copy import (append_tokens, copy_pages,
                                            gather_pages, scatter_pages)
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import add_rms_norm, rms_norm, torch_dtype
-from repro_torch.models.mlp import mlp_apply
-from repro_torch.models.transformer import require_dense
+from repro_torch.models.common import (add_rms_norm, rms_norm,
+                                       sinusoidal_emb, torch_dtype)
+from repro_torch.models.transformer import (ffn_apply, first_k_dense,
+                                            require_ported)
+
+#: families whose per-token KV lives in uniform pages (the runtime's, and
+#: therefore TorchModelBackend's, supported set), as in the reference
+PAGED_FAMILIES = ("dense", "moe", "audio", "vlm")
+
+
+def require_paged(cfg: ModelConfig) -> None:
+    """Raise for what the runtime does not serve, before any pool is
+    allocated: the families ``Model`` does not run yet; RWKV6, which runs
+    through ``Model.forward`` only (the reference's engine backend refuses
+    SSM families too); and a MoE model with leading dense layers, whose
+    ``dense_layers`` and ``k0``/``v0`` cache the reference runtime never
+    reads (ROADMAP R4)."""
+    require_ported(cfg)
+    if cfg.family not in PAGED_FAMILIES:            # RWKV6
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family runs through "
+            f"Model.forward only (ROADMAP queue 1 item 11); the paged "
+            f"runtime holds attention KV pages, and the reference's engine "
+            f"backend refuses SSM families too")
+    if first_k_dense(cfg):
+        raise ValueError(
+            f"{cfg.name}: {first_k_dense(cfg)} leading dense layer(s) "
+            f"(first_k_dense): the reference runtime pages only the "
+            f"uniform blocks and ignores dense_layers and the k0/v0 cache "
+            f"(ROADMAP R4), so the port serves no such model either")
 
 
 @dataclasses.dataclass
@@ -54,7 +82,7 @@ class ProgramEntry:
 class PagedKVRuntime:
     def __init__(self, cfg: ModelConfig, n_pages: int = 64,
                  page_size: int = 16, device="cuda"):
-        require_dense(cfg)
+        require_paged(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.page_size = page_size
@@ -371,10 +399,14 @@ class PagedKVRuntime:
         KV, Dh, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
         G = H // KV
         scale = 1.0 / math.sqrt(Dh)
+        positions = lens.long()[:, None]   # (B, 1): new token at `length`
         x = model.params["embed"][toks][:, None]
+        if cfg.pos_emb == "sinusoidal":
+            # as Model.forward adds it; the reference runtime omits it
+            # (ROADMAP R3)
+            x = x + sinusoidal_emb(positions, cfg.d_model).to(x.dtype)
         if cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-        positions = lens.long()[:, None]   # (B, 1): new token at `length`
         ks, vs = [], []
         for li, p in enumerate(model.layers):
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -397,7 +429,7 @@ class PagedKVRuntime:
             o = (acc2 / l2.clamp_min(1e-30)[..., None]).reshape(B, H, Dh)
             a = attn_mod.out_project(p["attn"], o.to(x.dtype)[:, None])
             x, h2 = add_rms_norm(x, a, p["ln2"], cfg.norm_eps)
-            x = x + mlp_apply(p["mlp"], h2, cfg.activation)
+            x = x + ffn_apply(p["mlp"], h2, cfg)
             ks.append(k_new)
             vs.append(v_new)
         # every layer's new-token k/v (L, B, KV, Dh) into the (exclusive)

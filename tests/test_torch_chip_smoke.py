@@ -69,9 +69,9 @@ def smoke():
 
 
 def test_serve_differential_on_cpu(smoke):
-    eng, steps = chip_smoke.serve_differential(*smoke, "cpu")
+    eng, steps, wall = chip_smoke.serve_differential(*smoke, "cpu")
     st = chip_smoke.mechanism_stats(eng)
-    assert steps > 0
+    assert steps > 0 and wall > 0
     assert all(p.finish_time >= 0 for p in eng.programs.values())
     assert st["staging_ok"] and st["copy_ok"] and st["cow_splits"] > 0
     assert st["shortfall_tokens"] == 0
@@ -291,3 +291,48 @@ def test_cluster_legs_on_cpu(smoke, elastic):
         assert st["cross_replica_restores"] >= 1
         assert sum(r["staging_checks"]
                    for r in st["replicas"].values()) > 0
+
+
+def test_phase6_serve_sizing_at_full_width():
+    """Phase 6a's programs on the logical stack at full qwen3-moe width,
+    cut to ``MOE_DEPTH`` layers, under the H100 profile (what the card's
+    physical leg must reproduce): pins, TTL hits, demotions, reloads and
+    prefix hits, in few enough steps to keep phase 6 near a minute."""
+    import dataclasses
+    from repro_torch.sim import replay
+    cfg = dataclasses.replace(get_config(chip_smoke.MOE_ARCH),
+                              num_layers=chip_smoke.MOE_DEPTH)
+    hw = chip_smoke.hardware_profile("NVIDIA H100 80GB HBM3")
+    rc = chip_smoke.replay_config(cfg)
+    assert rc.h2d_bw_blocks == pytest.approx(64e9 / (16 * 12288))
+    _, eng = replay.run_engine(chip_smoke.agent_programs(), rc,
+                               physical=False, cfg=cfg, hw=hw)
+    st = eng.scheduler.stats
+    assert st.pins > 0 and st.ttl_hits > 0 and st.prefix_hits > 0
+    assert st.demotions > 0 and st.offload_reloads > 0
+    assert eng.steps <= 200
+
+
+def test_serve_moe_on_cpu():
+    """Phase 6a's leg at qwen3-moe smoke width on the CPU: the
+    physical leg equals the logical one with every check bit-exact, the
+    padded prefill chunks drop copies and decode steps drop none."""
+    cfg = get_config(chip_smoke.MOE_ARCH, smoke=True)
+    hw = chip_smoke.hardware_profile("NVIDIA H100 80GB HBM3")
+    st, counts = chip_smoke.serve_moe(cfg, hw, "cpu")
+    assert st["decision_steps"] > 0 and st["engine_steps"] > 0
+    assert st["staging_checks"] > 0 and st["copy_checks"] > 0
+    assert st["dropped_copies_prefill"] > 0
+    assert st["dropped_copies_decode"] == 0
+    assert st["moe_dispatches"]["decode"] > 0
+    assert set(counts) >= set(chip_smoke.PATH_A)
+
+
+@pytest.mark.parametrize("arch", list(chip_smoke.FAMILY_DEPTHS))
+def test_family_checks_on_cpu(arch):
+    """Phase 6b's checks at smoke width on the CPU, with their bounds."""
+    checks = chip_smoke.family_checks(get_config(arch, smoke=True), "cpu")
+    chip_smoke.assert_family_checks(checks)
+    assert ("paged_vs_forward" in checks) == \
+        (arch in chip_smoke.FAMILY_PAGED)
+    assert ("embeds_vs_tokens" in checks) == (arch == "pixtral-12b")

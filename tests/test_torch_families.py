@@ -1,0 +1,258 @@
+"""The MoE, VLM and audio families of the port's ``Model`` against the JAX
+package's ``Model.forward``: qwen3-moe (MoE, QK-norm), moonshot (MoE with
+shared experts and a leading dense layer: ``dense_layers``, ``k0``/``v0``),
+pixtral (VLM: tokens and the ``embeds`` input) and musicgen (audio:
+sinusoidal positions, gelu), all at smoke size. One JAX ``Model.init``
+tree is carried over with ``params_from_numpy``; the same token ids go
+through prefill, extend and decode.
+
+Tolerances (those of ``tests/test_torch_model.py``): under the fp32
+override the two differ only in summation order, logits (magnitude up to
+~4) within rtol 2e-5 / atol 5e-4. In bf16: argmax agreement and max
+|dlogit| <= 0.25 (two bf16 ulps at this logit scale; qwen3-moe, moonshot
+and pixtral are measured bit-equal or within 2e-5, musicgen within 0.04).
+
+Also here: the streaming init (bit-equal to drawing the fp32 tree and
+casting it), and the CUDA kernels' domains for each new family's head
+shape (ROADMAP P7), checked on the host before any launch.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.models import Model as JaxModel
+from repro.models.common import sinusoidal_emb as jax_sinusoidal_emb
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.models import Model
+from repro_torch.models.common import (cast_params, flatten_tree,
+                                       init_params, params_from_numpy,
+                                       sinusoidal_emb)
+from repro_torch.models.transformer import model_specs
+
+# the suite runs in several worker processes at once: one intra-op
+# thread each keeps torch's CPU thread pools from oversubscribing
+# the cores (tiny eager ops then spend their time spinning)
+torch.set_num_threads(1)
+
+ARCHS = ["qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b", "pixtral-12b",
+         "musicgen-large"]
+FP32 = dict(rtol=2e-5, atol=5e-4)
+BF16_MAX_ABS = 0.25
+
+
+def _pair(arch: str, dtype: str):
+    jcfg = dataclasses.replace(jax_config(arch, smoke=True),
+                               compute_dtype=dtype)
+    jm = JaxModel(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tcfg = dataclasses.replace(get_config(arch, smoke=True),
+                               compute_dtype=dtype)
+    tm = Model(tcfg, params_from_numpy(jax.tree.map(np.asarray, jp)),
+               device="cpu")
+    return jm, jp, tm
+
+
+def _three_modes(jm, jp, tm, seed: int):
+    """Logits of prefill(12) -> extend(7) -> decode(1) on both sides, and
+    the caches after them."""
+    toks = np.random.default_rng(seed).integers(
+        0, jm.cfg.vocab_size, size=(1, 20))
+    jc, tc = jm.init_cache(1, 32), tm.init_cache(1, 32)
+    out = []
+    for lo, hi, mode in ((0, 12, "prefill"), (12, 19, "extend"),
+                         (19, 20, "decode")):
+        cl_j = jnp.full((1,), lo, jnp.int32) if mode == "decode" else lo
+        cl_t = torch.full((1,), lo) if mode == "decode" else lo
+        lj, jc = jm.forward(jp, tokens=jnp.asarray(toks[:, lo:hi]), cache=jc,
+                            cache_len=cl_j, mode=mode)
+        lt, tc = tm.forward(torch.from_numpy(toks[:, lo:hi]), cache=tc,
+                            cache_len=cl_t, mode=mode)
+        assert lt.dtype == torch.float32 and lt.shape == (1, hi - lo,
+                                                          jm.cfg.vocab_size)
+        out.append((np.asarray(lj), lt.numpy(), mode))
+    return out, jc, tc
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_logits_match_fp32(arch):
+    jm, jp, tm = _pair(arch, "float32")
+    modes, jc, tc = _three_modes(jm, jp, tm, seed=0)
+    for lj, lt, mode in modes:
+        np.testing.assert_allclose(lt, lj, err_msg=f"{arch} {mode}", **FP32)
+    assert set(jc) == set(tc)
+    for key in jc:              # k/v and, for moonshot, k0/v0: 20 tokens
+        np.testing.assert_allclose(tc[key][:, :, :20].numpy(),
+                                   np.asarray(jc[key])[:, :, :20],
+                                   err_msg=key, **FP32)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_logits_match_bf16(arch):
+    jm, jp, tm = _pair(arch, "bfloat16")
+    for seed in (0, 1):
+        modes, _, _ = _three_modes(jm, jp, tm, seed=seed)
+        for lj, lt, mode in modes:
+            assert np.array_equal(lj.argmax(-1), lt.argmax(-1)), (arch, mode)
+            assert np.abs(lj - lt).max() <= BF16_MAX_ABS, (arch, mode)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pixtral_embeds_input(dtype):
+    """The VLM family's ``embeds`` input: against the JAX ``embeds`` path,
+    and equal bit for bit to the token path fed the same embedding rows
+    (pixtral adds no position embedding; RoPE is in attention)."""
+    jm, jp, tm = _pair("pixtral-12b", dtype)
+    toks = np.random.default_rng(2).integers(0, jm.cfg.vocab_size, (2, 14))
+    rows = tm.params["embed"][torch.from_numpy(toks)]
+    by_tokens, _ = tm.forward(torch.from_numpy(toks),
+                              cache=tm.init_cache(2, 16))
+    by_embeds, _ = tm.forward(embeds=rows, cache=tm.init_cache(2, 16))
+    assert torch.equal(by_tokens, by_embeds)
+    lj, _ = jm.forward(jp, embeds=jnp.asarray(rows.float().numpy()),
+                       cache=jm.init_cache(2, 16), mode="prefill")
+    if dtype == "float32":
+        np.testing.assert_allclose(by_embeds.numpy(), np.asarray(lj), **FP32)
+    else:
+        assert np.array_equal(np.asarray(lj).argmax(-1),
+                              by_embeds.numpy().argmax(-1))
+        assert np.abs(np.asarray(lj) - by_embeds.numpy()).max() <= \
+            BF16_MAX_ABS
+    with pytest.raises(ValueError, match="tokens or embeds"):
+        tm.forward(torch.from_numpy(toks), embeds=rows)
+
+
+def test_sinusoidal_emb_matches_jax():
+    """Same angles in fp32, sin then cos; the two libraries' sin and cos
+    of angles up to 4096 rad differ in the last bits (atol 2e-5)."""
+    pos = np.array([[0, 1, 7, 300], [5, 4096, 2, 9]])
+    got = sinusoidal_emb(torch.from_numpy(pos), 64)
+    want = np.asarray(jax_sinusoidal_emb(jnp.asarray(pos), 64))
+    assert got.dtype == torch.float32 and got.shape == (2, 4, 64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+    assert torch.equal(got[0, 0, :32], torch.zeros(32))      # sin(0)
+    assert torch.equal(got[0, 0, 32:], torch.ones(32))       # cos(0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_specs_and_cache_shapes_mirror_jax(arch):
+    """``model_specs`` equals the flattened ``Model.specs()`` (shape, init,
+    scale, dtype, keep_dtype), and the cache shapes are equal (k0/v0 for
+    the leading dense layers)."""
+    cfg = get_config(arch, smoke=True)
+    jm = JaxModel(jax_config(arch, smoke=True))
+    want = {k: (s.shape, s.init, s.scale, s.dtype, s.keep_dtype)
+            for k, s in flatten_tree(jm.specs()).items()}
+    got = {k: (s.shape, s.init, s.scale, s.dtype, s.keep_dtype)
+           for k, s in model_specs(cfg).items()}
+    assert got == want
+    tm = Model(cfg, device="cpu")
+    assert tm.cache_shapes(2, 48) == jm.cache_shapes(2, 48)
+    cache = tm.init_cache(2, 48)
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {k: s for k, (s, _) in jm.cache_shapes(2, 48).items()}
+    assert len(tm.first_layers) + len(tm.layers) == cfg.num_layers
+
+
+# --------------------------------------------------------- streaming init
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-235b-a22b",
+                                  "rwkv6-3b"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_streaming_init_equals_cast_of_the_fp32_tree(arch, dtype):
+    """Each leaf cast as it is drawn gives the values of drawing the whole
+    fp32 tree and casting it, bit for bit, and ``Model`` builds from it
+    (``keep_dtype`` leaves stay fp32)."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              compute_dtype=dtype)
+    specs = model_specs(cfg)
+    streamed = init_params(cfg, torch.Generator().manual_seed(3), dtype)
+    tree = cast_params(init_params(cfg, torch.Generator().manual_seed(3)),
+                       specs, dtype)
+    assert streamed.keys() == tree.keys()
+    for name in tree:
+        assert streamed[name].dtype == tree[name].dtype, name
+        assert torch.equal(streamed[name], tree[name]), name
+    model = Model(cfg, device="cpu", seed=3)
+    for name, t in model.params.items():
+        assert torch.equal(t, tree[name]), name
+
+
+# ------------------------------------------------- kernel domains (P7)
+#: (arch, G = H / KV, head_dim) at published width
+DOMAINS = [("qwen3-moe-235b-a22b", 16, 128), ("moonshot-v1-16b-a3b", 1, 128),
+           ("pixtral-12b", 4, 128), ("musicgen-large", 1, 64)]
+
+
+@pytest.mark.parametrize("arch,G,D", DOMAINS)
+def test_kernel_plans_take_each_new_family(arch, G, D):
+    cfg = get_config(arch)
+    assert (cfg.num_heads // cfg.num_kv_heads, cfg.head_dim) == (G, D)
+    for esz in (2, 4):       # bf16 pools (serving) and fp32 (checks)
+        plan = decode_kernel.plan_decode(8, cfg.num_kv_heads, G, D, esz, 16,
+                                         256)
+        assert plan.smem_bytes <= decode_kernel.SMEM_PER_BLOCK
+        assert plan.tensor_cores == (esz == 2)
+    plan = flash_kernel.plan_bf16(1, cfg.num_heads, 512, D)
+    assert plan.head_pad % 64 == 0 and plan.grid[1] == cfg.num_heads
+    # the model's prefill layout: (B, H, S, D) views of (B, S, H, D)
+    q = torch.zeros(1, 512, cfg.num_heads, D, dtype=torch.bfloat16)
+    k = torch.zeros(1, 512, cfg.num_kv_heads, D, dtype=torch.bfloat16)
+    for name, t in (("q", q), ("k", k)):
+        v = t.transpose(1, 2)
+        assert flash_kernel.tma_strides(name, v.shape, v.stride(), 4096) \
+            == v.stride()[:3]
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on the card: it walks a wrapper's host
+    checks up to the launch, which no test here may reach."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _on_card(t: torch.Tensor) -> torch.Tensor:
+    return torch.Tensor._make_subclass(_OnCard, t)
+
+
+@pytest.fixture
+def no_launch(monkeypatch):
+    def launched(*_args, **_kw):
+        raise AssertionError("a kernel was looked up for a launch")
+    monkeypatch.setattr(_build, "function", launched)
+    monkeypatch.setattr(flash_kernel, "_num_sms", lambda index: 132)
+
+
+@pytest.mark.parametrize("H,KV,D,dtype", [
+    (68, 4, 128, torch.bfloat16),    # G 17
+    (32, 2, 256, torch.bfloat16),    # G 16 above head_dim 128
+    (8, 2, 12, torch.bfloat16),      # head_dim not a multiple of 8
+    (8, 2, 264, torch.float32)])     # head_dim over 256
+def test_decode_refuses_outside_its_domain_before_launch(no_launch, H, KV, D,
+                                                         dtype):
+    q = _on_card(torch.zeros(2, H, D, dtype=dtype))
+    pool = _on_card(torch.zeros(1, 4, 16, KV, D, dtype=dtype))
+    tables = _on_card(torch.zeros(2, 2, dtype=torch.int32))
+    lens = _on_card(torch.ones(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        decode_kernel.paged_decode_attention_kernel(q, pool, pool, tables,
+                                                    lens)
+
+
+@pytest.mark.parametrize("D,stride_pad", [(12, 0), (128, 4)])
+def test_flash_refuses_outside_its_domain_before_launch(no_launch, D,
+                                                        stride_pad):
+    """bf16 flash: a head_dim not a multiple of 8, and a position stride
+    that is not a whole number of 16 bytes."""
+    base = torch.zeros(1, 64, 4, D + stride_pad, dtype=torch.bfloat16)
+    x = _on_card(base[..., :D]).transpose(1, 2)
+    with pytest.raises(ValueError):
+        flash_kernel.flash_attention_kernel(x, x, x)

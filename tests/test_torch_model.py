@@ -122,9 +122,8 @@ def test_init_params_is_seeded():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("qwen3-moe-235b-a22b", "item 9"), ("musicgen-large", "item 9"),
-    ("pixtral-12b", "item 9"), ("gemma2-9b", "item 11"),
-    ("rwkv6-3b", "item 11"), ("zamba2-2.7b", "item 11")])
+    ("gemma2-9b", "item 11"), ("rwkv6-3b", "item 11"),
+    ("zamba2-2.7b", "item 11")])
 def test_unported_families_raise(arch, item):
     cfg = get_config(arch, smoke=True)
     # RWKV6's Model is ported (item 11); what it still refuses, as the
