@@ -35,8 +35,9 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          1.5b's prefill shape (B=1, H=12, KV=2, S=2048, D=128, bf16),
          through the model's strided layout too, at D=80 with S not a
          multiple of the tile, at a gemma2-like shape (D=256, window
-         4096, softcap 50, S=8192) and at qwen3-moe's heads (H=64, KV=4,
-         D=128; S=512 and 16), in bf16 (both query-tile heights) and
+         4096, softcap 50, S=8192), at qwen3-moe's heads (H=64, KV=4,
+         D=128; S=512 and 16) and at zamba2-2.7b's shared blocks (B=2,
+         H=KV=32, D=80, S=2000), in bf16 (both query-tile heights) and
          fp32, beside SDPA at the prefill shape, at the serving path's
          512-token chunk and at the gemma2-like shape, with bf16 inputs TMA
          cannot take refused; token append also at 300 rows (two launches)
@@ -126,9 +127,29 @@ Phase 6  path D, the MoE, VLM and audio families, after phase 3's model
          pixtral, the ``embeds`` input against the token path (bit for
          bit). Each gap within 1e-3 of the logits' rms, argmax equal.
 
+Phase 7  path E, the families the engine does not page, through
+         ``Model.forward`` after phase 6 is freed: (a) gemma2-9b at full
+         width and depth (42 local/global layers, 16 heads / 8 KV heads
+         of 256, window 4096, softcaps, sandwich norms; ~9.24 B params,
+         seeded, bf16), B=1, a 4600-token prompt into a 4672-position
+         cache (the local layers' 4096-slot rings wrap in prefill), then
+         32 greedy decode steps; (c) zamba2-2.7b (54 Mamba2 layers in 9
+         groups of 6, each led by one of 2 shared attention blocks, MHA
+         at D=80; ~2.45 B params, bf16), B=2, a 2000-token prompt, 32
+         decode steps. Each is timed after an untimed warm-up run and
+         logs prefill s and tokens/s, decode ms a step and tokens/s, flash
+         launches (counts zeroed before, read after: 42 and 9 a prefill,
+         asserted), weight GB and peak memory.
+         (b, d) each at full width cut to 2 and 4 (gemma2: 1 and 2 pairs)
+         and 6 and 12 layers (zamba2: 1 and 2 groups) in fp32: the
+         prompt's prefill against prefill of all but 64 tokens and 64
+         decode steps (across gemma2's ring), and the prefill through the
+         flash kernel against the plain version; each gap within 1e-3 of
+         the logits' rms, argmax equal.
+
 Prints a ``{"kernels": [...]}`` line (``launches``: phases 3 and 4;
 ``launches_phase5``: each leg of phase 5; ``launches_phase6``: phase
-6a), the nvidia-smi line and, last,
+6a; ``launches_phase7``: legs 7a and 7c), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 then exits non-zero and prints no result line.
 """
@@ -227,6 +248,15 @@ FLASH_BUCKET = dict(B=1, H=12, KV=2, S=512, D=128, window=0, softcap=0.0)
 # heads, G = 16): the 512-token chunk and the smallest padded bucket.
 FLASH_MOE = (dict(B=1, H=64, KV=4, S=512, D=128, window=0, softcap=0.0),
              dict(B=1, H=64, KV=4, S=16, D=128, window=0, softcap=0.0))
+# Phase 7c's fresh prefill in zamba2-2.7b's shared blocks: MHA (G = 1) at
+# D = 80, S not a multiple of either tile height.
+FLASH_ZAMBA = dict(B=2, H=32, KV=32, S=2000, D=80, window=0, softcap=0.0)
+# Phase 7a's fresh prefill in gemma2-9b's layers: 4600 tokens, not a
+# multiple of either tile height; the local layers' window 4096 and the
+# global layers' none, both under the attention softcap 50.
+FLASH_GEMMA2 = (dict(B=1, H=16, KV=8, S=4600, D=256, window=4096,
+                     softcap=50.0),
+                dict(B=1, H=16, KV=8, S=4600, D=256, window=0, softcap=50.0))
 # Token append past one launch's capacity (K_MAX_APPEND = 256 rows), at
 # the smoke width.
 APPEND_WIDE = dict(L=2, P=320, page=8, KV=2, Dh=8, B=300)
@@ -1199,7 +1229,7 @@ def phase2(sheet: dict, hw) -> dict:
     check_flash_refusals(gen)
     log("phase2 flash_attention: misaligned stride, misaligned address and "
         "head dim 100 refused in bf16")
-    for shape in FLASH_OTHER + FLASH_MOE:
+    for shape in FLASH_OTHER + FLASH_MOE + (FLASH_ZAMBA,) + FLASH_GEMMA2:
         for dtype in (torch.bfloat16, torch.float32):
             err, _ = check_flash(shape, dtype, gen, False, sheet)
             log(f"phase2 flash_attention {shape} {dtype}: max_abs_err "
@@ -1503,22 +1533,23 @@ def assert_prefill_vs_extend(check: dict, dtype: str) -> None:
 
 @contextlib.contextmanager
 def plain_prefill_attention():
-    """Within the block, the model's fresh-prefill attention runs the flash
-    plain version instead of the kernel (for the depth sweep only)."""
+    """Within the block, the model's fresh-prefill attention (causal and
+    sliding-window) runs the flash plain version instead of the kernel
+    (for the depth sweep and phase 7's checks)."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.models import attention
-    kernel_path = attention.attend_causal
+    kernel_paths = attention.attend_causal, attention.attend_windowed
 
-    def plain(q, k, v, *, scale, cap=0.0, **_):
+    def plain(q, k, v, *, scale, cap=0.0, window=0, **_):
         return flash_attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            scale=scale, softcap=cap).transpose(1, 2)
+            scale=scale, window=window, softcap=cap).transpose(1, 2)
 
-    attention.attend_causal = plain
+    attention.attend_causal = attention.attend_windowed = plain
     try:
         yield
     finally:
-        attention.attend_causal = kernel_path
+        attention.attend_causal, attention.attend_windowed = kernel_paths
 
 
 def sweep_depths(depths, num_layers: int) -> list[int]:
@@ -1526,12 +1557,26 @@ def sweep_depths(depths, num_layers: int) -> list[int]:
     return sorted({d for d in depths if d < num_layers} | {num_layers})
 
 
+def layers_per_block(cfg) -> int:
+    """Layers a ``blocks.*`` slice holds: a (local, global) pair for
+    gemma2, a group of ``shared_attn_every`` Mamba2 layers for zamba2,
+    else one layer."""
+    if cfg.family == "hybrid":
+        return cfg.shared_attn_every
+    return 2 if cfg.local_global_alternating else 1
+
+
 def cut_model(params: dict, cfg, depth: int, dtype: str, device):
-    """The first ``depth`` layers of a model at full width."""
+    """The first ``depth`` layers of a model at full width (whole pairs or
+    groups of a stack of them; zamba2 keeps both shared blocks)."""
     from repro_torch.models import Model
+    per = layers_per_block(cfg)
+    if depth % per:
+        raise ValueError(f"{cfg.name}: depth {depth} is not a whole number "
+                         f"of {per}-layer blocks")
     return Model(dataclasses.replace(cfg, num_layers=depth,
                                      compute_dtype=dtype),
-                 {k: v[:depth] if k.startswith("blocks.") else v
+                 {k: v[:depth // per] if k.startswith("blocks.") else v
                   for k, v in params.items()}, device=device)
 
 
@@ -1595,26 +1640,29 @@ def synchronize(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def rwkv_throughput(model, toks, n_dec: int) -> dict:
-    """A timed prefill of ``toks`` (B, T) and ``n_dec`` timed greedy decode
-    steps, each timed after the device has finished."""
+def forward_throughput(model, toks, n_dec: int,
+                       max_len: int | None = None) -> dict:
+    """A timed prefill of ``toks`` (B, T) into a cache of ``max_len``
+    (default T) positions and ``n_dec`` timed greedy decode steps, each
+    timed after the device has finished."""
     import torch
     B, T = toks.shape
     synchronize(model.device)
     t0 = time.perf_counter()
-    logits, cache = model.forward(toks, cache=model.init_cache(B, T),
-                                  mode="prefill", logits_slice=1)
+    logits, cache = model.forward(toks, cache=model.init_cache(
+        B, max_len or T), mode="prefill", logits_slice=1)
     synchronize(model.device)
     t_pre = time.perf_counter() - t0
     nxt = logits[:, -1].argmax(-1, keepdim=True)
     t0 = time.perf_counter()
-    for _ in range(n_dec):
-        logits, cache = model.forward(nxt, cache=cache, mode="decode")
+    for i in range(n_dec):
+        logits, cache = model.forward(nxt, cache=cache, cache_len=T + i,
+                                      mode="decode")
         nxt = logits[:, -1].argmax(-1, keepdim=True)
     synchronize(model.device)
     t_dec = time.perf_counter() - t0
-    assert torch.isfinite(logits).all() and torch.isfinite(
-        cache["wkv"]).all()
+    assert torch.isfinite(logits).all()
+    assert all(torch.isfinite(c).all() for c in cache.values())
     return dict(prefill_tokens_per_s=B * T / t_pre,
                 decode_tokens_per_s=B * n_dec / t_dec, prefill_s=t_pre,
                 decode_step_ms=t_dec / n_dec * 1e3, batch=B, prompt=T)
@@ -1724,7 +1772,7 @@ def phase4(smi: str) -> dict:
     counts = launch_counts()
     assert counts["rwkv6_scan"] == 2 * cfg.num_layers, counts
     assert torch.isfinite(logits).all()
-    rates = rwkv_throughput(m16, toks, n_dec)
+    rates = forward_throughput(m16, toks, n_dec)
     log(f"phase4 throughput (bf16, measured after synchronize) on {smi}: "
         f"{json.dumps(rates)}")
     del m16
@@ -2138,6 +2186,130 @@ def phase6(hw) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 7
+#: path E: the families the engine does not page, through Model.forward
+#: at full published width and depth (bf16, seeded weights): a prompt
+#: past gemma2's 4096-token window into a cache whose local rings wrap in
+#: prefill, and zamba2 at B = 2; neither prompt a whole number of 64-row
+#: flash tiles or 64-token SSD chunks. ``flash``: launches a prefill (one
+#: a gemma2 layer, one a zamba2 shared block: 9 groups of 6). ``depths``:
+#: the fp32 checks' cut depths (P5): 1 and 2 pairs, 1 and 2 groups.
+PATH_E = {"7a": dict(arch="gemma2-9b", B=1, prompt=4600, max_len=4672,
+                     flash=42, check="7b", depths=(2, 4)),
+          "7c": dict(arch="zamba2-2.7b", B=2, prompt=2000, max_len=2032,
+                     flash=9, check="7d", depths=(6, 12))}
+PATH_E_DECODE = 32
+#: 7b / 7d: the last PATH_E_TAIL prompt tokens decoded one at a time in
+#: the split path (across gemma2's ring: the prefill of 4536 tokens wraps
+#: it, every decode step overwrites its oldest slot)
+PATH_E_TAIL = 64
+
+
+def kernel_vs_plain(model, toks) -> dict:
+    """The last position's logits of a fresh prefill with the flash
+    kernel (on the card; the blocked plain attention on the CPU) against
+    the same prefill under ``plain_prefill_attention``."""
+    n = toks.shape[1]
+    kern, _ = model.forward(toks, cache=model.init_cache(1, n),
+                            logits_slice=1)
+    with plain_prefill_attention():
+        plain, _ = model.forward(toks, cache=model.init_cache(1, n),
+                                 logits_slice=1)
+    return gap(kern[0, -1], plain[0, -1])
+
+
+def path_e_checks(params: dict, cfg, depth: int, prompt: int, tail: int,
+                  device) -> dict:
+    """Phase 7b / 7d at one cut depth, fp32: the prefill of ``prompt``
+    tokens against prefill of all but ``tail`` and ``tail`` decode steps,
+    and the prefill through the flash kernel against the plain version
+    (on the card the flash launches are counted and asserted)."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    model = cut_model(params, cfg, depth, "float32", device)
+    gen = torch.Generator(device=model.device).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                         device=model.device)
+    before = launch_counts()["flash_attention"]
+    out = dict(prefill_vs_decode=prefill_vs_decode(model, toks, tail),
+               kernel_vs_plain=kernel_vs_plain(model, toks))
+    if model.device.type == "cuda":
+        assert launch_counts()["flash_attention"] > before, "no flash"
+    del model
+    return out
+
+
+def assert_path_e_checks(checks: dict) -> None:
+    """fp32 on both sides, the same function summed in other orders:
+    within 1e-3 of the logits' rms, argmax equal (as phase 6b)."""
+    for name, g in checks.items():
+        assert g["argmax_equal"], (name, g)
+        assert g["max_abs_diff"] <= FAMILY_BOUND * g["rms_logit"], (name, g)
+
+
+def phase7(smi: str) -> dict:
+    """Path E: gemma2-9b (7a) and zamba2-2.7b (7c) at full width and depth
+    in bf16 through ``Model.forward``, a timed prefill and
+    ``PATH_E_DECODE`` greedy decode steps each after an untimed warm-up
+    (a prefill and two steps), with the counts zeroed before and read
+    after (flash launched ``flash`` times); then each at its cut depths in
+    fp32 (7b, 7d). Returns each leg's launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    t_phase = time.perf_counter()
+    counts = {}
+    for leg, run in PATH_E.items():
+        cfg = get_config(run["arch"])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        toks = torch.randint(0, cfg.vocab_size, (run["B"], run["prompt"]),
+                             generator=gen, device="cuda")
+        warm = forward_throughput(model, toks, 2, run["max_len"])
+        reset_launch_counts()
+        rates = forward_throughput(model, toks, PATH_E_DECODE,
+                                   run["max_len"])
+        rates["first_call_prefill_s"] = warm["prefill_s"]
+        counts[leg] = launch_counts()
+        rates.update(flash_launches=counts[leg]["flash_attention"],
+                     params=sum(p.numel() for p in model.parameters()),
+                     weight_gb=sum(p.numel() * p.element_size()
+                                   for p in model.parameters()) / 1e9,
+                     model_built_s=built_s,
+                     max_memory_allocated_gb=torch.cuda
+                     .max_memory_allocated() / 1e9)
+        log(f"phase{leg} {cfg.name}, {cfg.num_layers} layers at full width "
+            f"(d_model {cfg.d_model}, {cfg.num_heads} heads / "
+            f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}), bf16, "
+            f"max_len {run['max_len']}, on {smi}: {json.dumps(rates)}; "
+            f"launches {counts[leg]}")
+        assert counts[leg]["flash_attention"] == run["flash"], counts[leg]
+        del model, toks
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        top = max(run["depths"])
+        params = dict(Model(dataclasses.replace(
+            cfg, num_layers=top, compute_dtype="float32"), device="cuda",
+            seed=0).params)
+        for depth in run["depths"]:
+            checks = path_e_checks(params, cfg, depth, run["prompt"],
+                                   PATH_E_TAIL, "cuda")
+            log(f"phase{run['check']} {cfg.name}, {depth} full-width "
+                f"layers, fp32, {run['prompt']}-token prompt, tail "
+                f"{PATH_E_TAIL}: {json.dumps(checks)}")
+            assert_path_e_checks(checks)
+        del params
+        torch.cuda.empty_cache()
+        log(f"phase{run['check']} wall {time.perf_counter() - t0:.1f} s")
+    log(f"phase7 wall {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -2177,6 +2349,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path_d = phase6(hw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_e = phase7(smi)
 
     sources = {
         "paged_decode_attention": (
@@ -2199,6 +2374,8 @@ def main() -> int:
                     launches_phase5={leg: c[name]
                                      for leg, c in path_c.items()},
                     launches_phase6=path_d[name],
+                    launches_phase7={leg: c[name]
+                                     for leg, c in path_e.items()},
                     **records[name])
                for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))

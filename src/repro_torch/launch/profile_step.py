@@ -17,6 +17,12 @@ qwen3-moe step fits the card at 6 of its 94). The JSON also gives the
 bytes of weights a step reads: every layer's and the head's (a MoE
 layer's products read all its experts, whatever the routing).
 
+A family the paged runtime does not serve (gemma2, RWKV6, zamba2) is
+stepped through ``Model.forward`` instead, as it is served: a decode
+step of the batch against a contiguous cache of ``--context`` tokens, and
+a fresh prefill of the whole ``--context``-token prompt in place of the
+chunk.
+
 Prints one JSON object. Needs one GPU::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
@@ -38,7 +44,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import get_config
 from repro_torch.kernels import launch_counts, resolve_device
 from repro_torch.models import Model
-from repro_torch.serving.paged_runtime import PagedKVRuntime
+from repro_torch.serving.paged_runtime import PagedKVRuntime, require_paged
 
 CHUNK = 512                       # the serve phase's prefill chunk
 
@@ -110,7 +116,36 @@ def main(argv=None) -> int:
     head = model.head()
     weight_bytes = head.numel() * head.element_size() + sum(
         t.numel() * t.element_size() for name, t in model.params.items()
-        if name.startswith(("blocks.", "dense_layers.")))
+        if name.startswith(("blocks.", "dense_layers.", "shared.")))
+    try:
+        require_paged(cfg)
+    except NotImplementedError:            # served by Model.forward only
+        steps = _forward_steps
+    else:
+        steps = _paged_steps
+    decode, prefill, chunk_len = steps(model, args, dev)
+
+    for fn in (decode, prefill):           # warm-up: allocator, cuBLAS
+        fn()
+        fn()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    out = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
+           "layers": cfg.num_layers, "weight_bytes_per_step": weight_bytes,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "batch": args.batch, "context": args.context, "chunk": chunk_len,
+           "decode": {**_timed(decode, args.steps), **_traced(decode)},
+           "prefill": {**_timed(prefill, args.steps), **_traced(prefill)}}
+    after = launch_counts()
+    out["kernel_launches"] = {k: after[k] - before[k] for k in after}
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+def _paged_steps(model, args, dev):
+    """A decode step of ``--batch`` programs of ``--context`` tokens in a
+    ``PagedKVRuntime``, and one prefill chunk on top of that context."""
+    cfg = model.cfg
     page = 16
     per_prog = (args.context + CHUNK + 64 * args.steps) // page + 2
     rt = PagedKVRuntime(cfg, n_pages=(args.batch + 1) * per_prog,
@@ -131,21 +166,28 @@ def main(argv=None) -> int:
         rt.prefill(model, "extend", chunk, pad_to=CHUNK)
         rt.programs["extend"].length = args.context   # same context each time
 
-    for fn in (decode, prefill):           # warm-up: allocator, cuBLAS
-        fn()
-        fn()
-    torch.cuda.synchronize()
-    before = launch_counts()
-    out = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
-           "layers": cfg.num_layers, "weight_bytes_per_step": weight_bytes,
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "batch": args.batch, "context": args.context, "chunk": CHUNK,
-           "decode": {**_timed(decode, args.steps), **_traced(decode)},
-           "prefill": {**_timed(prefill, args.steps), **_traced(prefill)}}
-    after = launch_counts()
-    out["kernel_launches"] = {k: after[k] - before[k] for k in after}
-    print(json.dumps(out, indent=1))
-    return 0
+    return decode, prefill, CHUNK
+
+
+def _forward_steps(model, args, dev):
+    """``Model.forward``: a decode step of the batch at position
+    ``--context`` of a contiguous cache (the same position every step),
+    and a fresh prefill of the ``--context``-token prompts."""
+    rng = np.random.default_rng(args.seed)
+    toks = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, (args.batch, args.context))).to(dev)
+    cache = model.init_cache(args.batch, args.context + 1)
+    model.forward(toks, cache=cache, logits_slice=1)
+    nxt = toks[:, -1:]
+
+    def decode():
+        model.forward(nxt, cache=cache, cache_len=args.context,
+                      mode="decode")
+
+    def prefill():
+        model.forward(toks, cache=cache, logits_slice=1)
+
+    return decode, prefill, args.context
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """Attention: GQA with RoPE / QKV bias / QK-norm / softcap.
 
 Plain tensor code, as in the JAX package, with one dispatch point:
-``attend_causal`` (fresh prefill) runs the hand-written flash-attention
-kernel on CUDA tensors (:mod:`repro_torch.kernels.flash_attention`) and
-the q-chunked online-softmax blocks on CPU tensors. ``attend_decode`` is
-dense attention of new tokens against a contiguous cache with length
-masking (extend mode, as in the reference). The paged decode path goes
-through its own CUDA kernel (:mod:`repro_torch.kernels.decode_attention`).
+``attend_causal`` and ``attend_windowed`` (fresh prefill; the second with
+gemma2's sliding window) run the hand-written flash-attention kernel on
+CUDA tensors (:mod:`repro_torch.kernels.flash_attention`) and the
+reference's q-chunked online-softmax blocks on CPU tensors.
+``attend_decode`` is dense attention of new tokens against a contiguous
+or ring cache with length and window masking (extend and decode mode, as
+in the reference). The paged decode path goes through its own CUDA kernel
+(:mod:`repro_torch.kernels.decode_attention`).
 
 Layouts: q (B, S, H, Dh); k/v (B, S, KV, Dh); caches (B, S_max, KV, Dh).
 """
@@ -170,27 +172,113 @@ def attend_causal(q, k, v, *, scale: float, cap: float = 0.0,
 
 
 # ---------------------------------------------------------------------------
-# decode / extend: new tokens vs a contiguous cache
+# sliding-window causal attention (gemma2's local layers)
 # ---------------------------------------------------------------------------
-def write_cache(cache_k, cache_v, k_new, v_new, cache_len) -> None:
-    """Write k/v (B,C,KV,Dh) into the caches (B,W,KV,Dh) in place at
-    per-sequence offsets ``cache_len`` ((B,) or a scalar), clamped to
-    ``W - C`` like ``dynamic_update_slice``."""
-    W, C = cache_k.shape[1], k_new.shape[1]
+def attend_windowed(q, k, v, *, scale: float, window: int, cap: float = 0.0,
+                    q_chunk: int = 1024) -> torch.Tensor:
+    """Causal attention where query i sees keys i - window < j <= i. q
+    (B,S,H,Dh), k/v (B,S,KV,Dh) -> (B,S,H,Dh). On CUDA tensors: the
+    flash-attention kernel with its window. On CPU tensors: the
+    reference's arithmetic, :func:`attend_causal` while S <= window, else
+    one block a q chunk against the static span of ``window + q_chunk``
+    keys ending at the chunk's last row."""
+    if q.is_cuda:
+        return flash_attention_kernel(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=scale, causal=True, window=window,
+            softcap=cap).transpose(1, 2)
+    B, S, H, Dh = q.shape
+    if S <= window:
+        return attend_causal(q, k, v, scale=scale, cap=cap, q_chunk=q_chunk,
+                             kv_chunk=q_chunk)
+    q_chunk = min(q_chunk, S)
+    nq = math.ceil(S / q_chunk)
+    Sq = nq * q_chunk
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, Sq - S))
+    span = window + q_chunk
+    # left-pad K/V by a span so that every chunk's span is in range
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, span, Sq - S))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, span, Sq - S))
+    outs = []
+    for qi in range(nq):
+        first = qi * q_chunk + q_chunk - span       # position of the span
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
+        k_pos = first + torch.arange(span, device=q.device)
+        mask = (k_pos[None, :] <= q_pos[:, None]) & \
+            (k_pos[None, :] > q_pos[:, None] - window) & (k_pos[None, :] >= 0)
+        o, m, l = _block_attn(q[:, qi * q_chunk:(qi + 1) * q_chunk],
+                              kp[:, first + span:first + 2 * span],
+                              vp[:, first + span:first + 2 * span], mask,
+                              scale, cap)
+        outs.append(_finalize(o, m, l))
+    return torch.cat(outs, dim=1)[:, :S]
+
+
+# ---------------------------------------------------------------------------
+# decode / extend: new tokens vs a contiguous or ring cache
+# ---------------------------------------------------------------------------
+def is_ring(cache_k: torch.Tensor, window: int) -> bool:
+    """A sliding-window layer's cache of exactly ``window`` slots is a
+    ring (the reference's condition): a shorter one holds every position
+    from 0 and is written and masked like a global layer's."""
+    return window > 0 and cache_k.shape[1] == window
+
+
+def _offsets(cache_len, B: int) -> list[int]:
     starts = torch.as_tensor(cache_len).reshape(-1).tolist()
-    if len(starts) == 1:
-        starts = starts * cache_k.shape[0]
-    for b, s in enumerate(starts):
-        s = max(0, min(int(s), W - C))
-        cache_k[b, s:s + C] = k_new[b].to(cache_k.dtype)
-        cache_v[b, s:s + C] = v_new[b].to(cache_v.dtype)
+    return starts * B if len(starts) == 1 else starts
+
+
+def refuse_ring_extend(cache_len, C: int, slots: int) -> None:
+    """Raise ``ValueError`` for a chunk of C > 1 tokens after a prefill
+    (mode extend, or decode given more than one token) that runs past a
+    ring's ``slots`` (cache_len + C > slots). The reference writes
+    the chunk into the ring before its queries read it, so the chunk's
+    later keys overwrite keys its earlier queries still need, and its
+    logits are wrong (ROADMAP R7); the port refuses that case instead of
+    copying the wrong answer. A one-token step, and a chunk that stays
+    inside the ring, are exact."""
+    if C > 1 and max(_offsets(cache_len, 1)) + C > slots:
+        raise ValueError(
+            f"a chunk of {C} tokens at cache_len {cache_len} runs "
+            f"past the {slots}-slot ring of a sliding-window layer: the "
+            f"reference overwrites keys the chunk's earlier queries need "
+            f"(ROADMAP R7), so the port refuses it; extend at most "
+            f"{slots} - cache_len tokens at a time, or decode one by one")
+
+
+def write_cache(cache_k, cache_v, k_new, v_new, cache_len, *,
+                ring: bool = False) -> None:
+    """Write k/v (B,C,KV,Dh) into the caches (B,W,KV,Dh) in place at
+    per-sequence offsets ``cache_len`` ((B,) or a scalar). A plain cache
+    is written at slots s..s+C-1, s clamped to ``W - C`` like
+    ``dynamic_update_slice``. A ring (a sliding-window layer's W =
+    window slots) holds position p in slot p mod W: of a chunk longer
+    than W only its last W tokens are written, which is what the
+    reference's scatter with repeated slots leaves ("later writes win")."""
+    W, C = cache_k.shape[1], k_new.shape[1]
+    k_new, v_new = k_new.to(cache_k.dtype), v_new.to(cache_v.dtype)
+    for b, s in enumerate(_offsets(cache_len, cache_k.shape[0])):
+        s = int(s)
+        if ring:
+            n = min(C, W)
+            slots = (s + C - n + torch.arange(n, device=cache_k.device)) % W
+            cache_k[b, slots] = k_new[b, C - n:]
+            cache_v[b, slots] = v_new[b, C - n:]
+        else:
+            s = max(0, min(s, W - C))
+            cache_k[b, s:s + C] = k_new[b]
+            cache_v[b, s:s + C] = v_new[b]
 
 
 def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
-                  cap: float = 0.0) -> torch.Tensor:
+                  cap: float = 0.0, window: int = 0) -> torch.Tensor:
     """q (B,C,H,Dh) new queries at absolute positions kv_len..kv_len+C-1
     (per batch); the cache (B,T,KV,Dh) already holds the new keys. Dense
-    over the cache with validity masking."""
+    over the cache with validity masking, and with ``window`` the sliding
+    window: in a ring (T == window) slot s holds the latest position p =
+    s (mod T) below kv_len + C, in a plain cache slot s holds position
+    s. The reference's two masks."""
     B, C, H, Dh = q.shape
     T = cache_k.shape[1]
     if isinstance(kv_len, int):          # no host-to-device copy
@@ -202,8 +290,19 @@ def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
     total = kv_len + C                                         # (B,)
     q_pos = kv_len[:, None, None] + torch.arange(C, device=q.device)[
         None, :, None]                                         # (B,C,1)
-    mask = (slot[:, None, :] <= q_pos) & \
-        (slot[:, None, :] < total[:, None, None])              # (B,C,T)
+    if window > 0 and T == window:
+        n_wrap = torch.div(total[:, None] - 1 - slot, T,
+                           rounding_mode="floor")
+        pos = slot + n_wrap.clamp_min(0) * T                   # (B,T)
+        valid = (pos < total[:, None]) & \
+            (pos >= (total - window).clamp_min(0)[:, None])
+        mask = valid[:, None, :] & (pos[:, None, :] <= q_pos) & \
+            (pos[:, None, :] > q_pos - window)
+    else:
+        mask = (slot[:, None, :] <= q_pos) & \
+            (slot[:, None, :] < total[:, None, None])          # (B,C,T)
+        if window > 0:
+            mask = mask & (slot[:, None, :] > q_pos - window)
     o, m, l = _block_attn(q, cache_k, cache_v, mask[:, None, None], scale,
                           cap)
     return _finalize(o, m, l)

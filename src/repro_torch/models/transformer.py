@@ -1,16 +1,19 @@
-"""Config-driven decoder LM: the dense, MoE, audio, VLM and RWKV6
-(``ssm``) families of the JAX package's ``Model``, as an ``nn.Module``.
+"""Config-driven decoder LM: every family of the JAX package's ``Model``
+(dense, MoE, audio, VLM, gemma2's local/global layers, RWKV6 ``ssm`` and
+zamba2's Mamba2 ``hybrid``), as an ``nn.Module``.
 
 Parameters mirror ``Model.specs()`` of the JAX package (same dotted keys,
-same layouts, ``blocks.*`` stacked over a leading L, ``dense_layers.*``
-over the leading dense layers of a ``first_k_dense`` MoE model) and are
-cast to the compute dtype once, when the model is built (``keep_dtype``
-leaves stay fp32). The layer stack is a Python loop. Modes: "prefill"
-(fresh causal attention or a fresh WKV scan, optional cache write),
-"extend" (a chunk against an existing cache) and "decode".
-
-The families not ported yet raise and name the ROADMAP item that ports
-them.
+same layouts) and are cast to the compute dtype once, when the model is
+built (``keep_dtype`` leaves stay fp32). The stacks are the reference's:
+``blocks.*`` over a leading L (``dense_layers.*`` over the leading dense
+layers of a ``first_k_dense`` MoE model); gemma2's ``blocks.{local,
+global}.*`` over L / 2 (local, global) pairs; zamba2's ``blocks.mamba.*``
+over (L / E, E) groups of E = ``shared_attn_every`` Mamba2 layers, each
+group led by shared attention block g mod ``num_shared_blocks``
+(``shared.*``). The layer stack is a Python loop over per-layer views.
+Modes: "prefill" (fresh causal or windowed attention, a fresh WKV or SSD
+scan, optional cache write), "extend" (a chunk against an existing cache)
+and "decode".
 """
 from __future__ import annotations
 
@@ -22,26 +25,15 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import rwkv6
+from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.common import (ParamSpec, add_rms_norm, cast_params,
                                        init_params, rms_norm, sinusoidal_emb,
                                        softcap, torch_dtype)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
 from repro_torch.models.moe import moe_apply, moe_specs
 
-#: the families whose ``Model.forward`` the port runs
-PORTED_FAMILIES = ("dense", "moe", "audio", "vlm", "ssm")
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for the families ``Model`` does not cover yet: gemma2's
-    local/global layers and zamba2's hybrid."""
-    if cfg.family == "hybrid" or cfg.local_global_alternating \
-            or cfg.sandwich_norm:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (gemma2's local/global "
-            f"layers, zamba2's mamba2 hybrid) is not ported yet (ROADMAP "
-            f"queue 1 item 11); ported: {PORTED_FAMILIES}")
+#: the families whose ``Model.forward`` the port runs: all of them
+PORTED_FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
 
 
 def first_k_dense(cfg: ModelConfig) -> int:
@@ -60,7 +52,6 @@ def _stacked(layer: dict[str, ParamSpec], L: int,
 def model_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
     """Flat {dotted name: ParamSpec}, the same tree as the JAX package's
     ``Model.specs()``."""
-    require_ported(cfg)
     dt = cfg.param_dtype
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     specs = {"embed": ParamSpec((V, D), init="embed", dtype=dt),
@@ -79,6 +70,24 @@ def model_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
                 **{f"attn.{k}": s
                    for k, s in attn.attention_specs(cfg, dt).items()},
                 **{f"mlp.{k}": s for k, s in ffn.items()}}
+
+    if cfg.family == "hybrid":
+        E = cfg.shared_attn_every
+        mamba = {"ln": norms["ln1"], **mamba2.mamba_specs(cfg, dt)}
+        specs.update(_stacked(_stacked(mamba, E, "mamba"), L // E,
+                              "blocks"))
+        shared = {"win": ParamSpec((2 * D, D), dtype=dt),
+                  **layer(mlp_specs(D, cfg.d_ff, dt))}
+        specs.update(_stacked(shared, cfg.num_shared_blocks, "shared"))
+        return specs
+    if cfg.sandwich_norm:
+        norms.update(ln1_post=norms["ln1"], ln2_post=norms["ln1"])
+    if cfg.local_global_alternating:
+        one = layer(mlp_specs(D, cfg.d_ff, dt))
+        pair = {f"{kind}.{k}": s for kind in ("local", "global")
+                for k, s in one.items()}
+        specs.update(_stacked(pair, L // 2, "blocks"))
+        return specs
 
     first_k = first_k_dense(cfg)
     if first_k:
@@ -119,12 +128,29 @@ class Model(nn.Module):
             self._register(name, t)
         self.params: dict[str, torch.Tensor] = dict(self.named_parameters())
         # per-layer views of the stacked leaves: {"ln1", "attn": {...}, ...}:
-        # the leading dense layers (first_k_dense), then the blocks
+        # the leading dense layers (first_k_dense), then the blocks; gemma2
+        # local, global, local, ...; zamba2 its Mamba2 layers in order, and
+        # the shared blocks apart
         first_k = first_k_dense(cfg)
         self.first_layers = [self._layer("dense_layers", i)
                              for i in range(first_k)]
-        self.layers = [self._layer("blocks", i)
-                       for i in range(cfg.num_layers - first_k)]
+        self.shared_blocks = [self._layer("shared", j)
+                              for j in range(cfg.num_shared_blocks
+                                             if cfg.family == "hybrid"
+                                             else 0)]
+        if cfg.family == "hybrid":
+            E = cfg.shared_attn_every
+            groups = [self._layer("blocks", g)["mamba"]
+                      for g in range(cfg.num_layers // E)]
+            self.layers = [{k: t[e] for k, t in grp.items()}
+                           for grp in groups for e in range(E)]
+        elif cfg.local_global_alternating:
+            self.layers = [self._layer("blocks", g)[kind]
+                           for g in range(cfg.num_layers // 2)
+                           for kind in ("local", "global")]
+        else:
+            self.layers = [self._layer("blocks", i)
+                           for i in range(cfg.num_layers - first_k)]
 
     def _register(self, name: str, tensor: torch.Tensor) -> None:
         *path, leaf = name.split(".")
@@ -150,9 +176,13 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------ cache
     def cache_shapes(self, batch: int, max_len: int) -> dict:
-        """Tree of (shape, dtype) for the serving cache: ``k``/``v`` of the
-        ``blocks`` layers and, for a ``first_k_dense`` model, ``k0``/``v0``
-        of its leading dense layers."""
+        """Tree of (shape, dtype) for the serving cache, the reference's:
+        ``k``/``v`` of the ``blocks`` layers and, for a ``first_k_dense``
+        model, ``k0``/``v0`` of its leading dense layers; gemma2's
+        ``k_local``/``v_local`` rings of min(window, max_len) slots beside
+        ``k_global``/``v_global``; zamba2's Mamba2 ``conv`` and fp32
+        ``ssm`` states over (groups, E) and its shared blocks'
+        ``shared_k``/``shared_v`` a group."""
         cfg = self.cfg
         cd = cfg.kv_cache_dtype or cfg.compute_dtype
         L = cfg.num_layers
@@ -163,6 +193,19 @@ class Model(nn.Module):
                     "shift2": ((L, batch, cfg.d_model), cd)}
         first_k = first_k_dense(cfg)
         tail = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.family == "hybrid":
+            E = cfg.shared_attn_every
+            st = mamba2.mamba_state_shapes(cfg, batch)
+            return {"conv": ((L // E, E) + st["conv"][0], st["conv"][1]),
+                    "ssm": ((L // E, E) + st["ssm"][0], st["ssm"][1]),
+                    "shared_k": ((L // E,) + tail, cd),
+                    "shared_v": ((L // E,) + tail, cd)}
+        if cfg.local_global_alternating:
+            ring = (L // 2, batch, min(cfg.sliding_window, max_len)) + \
+                tail[2:]
+            return {"k_local": (ring, cd), "v_local": (ring, cd),
+                    "k_global": ((L // 2,) + tail, cd),
+                    "v_global": ((L // 2,) + tail, cd)}
         out = {"k": ((L - first_k,) + tail, cd),
                "v": ((L - first_k,) + tail, cd)}
         if first_k:
@@ -177,32 +220,98 @@ class Model(nn.Module):
                                                         max_len).items()}
 
     # ---------------------------------------------------------------- layers
+    def _attn_apply(self, p: dict, h, kv, cache_len, positions, mode,
+                    window: int = 0):
+        """One attention sublayer on the normed input ``h``; ``kv`` is the
+        layer's (k, v) cache pair, written in place, or None. ``window``
+        > 0: gemma2's sliding window (its cache a ring when it has exactly
+        ``window`` slots)."""
+        cfg = self.cfg
+        q, k, v = attn.qkv_project(p, h, cfg, positions)
+        scale = 1.0 / math.sqrt(cfg.head_dim)
+        if kv is not None:
+            attn.write_cache(kv[0], kv[1], k, v, cache_len,
+                             ring=attn.is_ring(kv[0], window))
+        if mode != "prefill":
+            o = attn.attend_decode(q, kv[0], kv[1], cache_len, scale=scale,
+                                   cap=cfg.attn_softcap, window=window)
+        elif window:
+            o = attn.attend_windowed(q, k, v, scale=scale, window=window,
+                                     cap=cfg.attn_softcap)
+        else:
+            o = attn.attend_causal(q, k, v, scale=scale, cap=cfg.attn_softcap)
+        return attn.out_project(p, o)
+
     def _attn_layer(self, p: dict, x, kv, cache_len, positions, mode,
-                    fused: bool = True):
+                    fused: bool = True, window: int = 0, delta=None):
         """One attention layer; ``kv`` is the layer's (k, v) cache pair or
-        None. The FFN is MoE where the layer has a router. ``fused``: ln2
+        None. Returns the residual stream before the FFN's output and that
+        output, for the caller to add. The FFN is MoE where the layer has
+        a router; gemma2's sandwich norms (``ln1_post``, ``ln2_post``) norm
+        each sublayer's output before its residual add. ``fused``: ln2
         reads the fp32 residual sum before it is rounded, as XLA's fusion
         computes the reference's scanned layers (ROADMAP P2); the
         reference runs its leading dense layers outside the scan, op by
-        op, where ln2 reads the rounded sum (``fused=False``)."""
+        op, where ln2 reads the rounded sum (``fused=False``). ``delta``:
+        the previous layer's FFN output, added here, ln1 reading the sum
+        unrounded (gemma2's global layer after its local one: the
+        reference's pair is one fused scan body)."""
         cfg = self.cfg
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(p["attn"], h, cfg, positions)
-        scale = 1.0 / math.sqrt(cfg.head_dim)
-        if kv is not None:
-            attn.write_cache(kv[0], kv[1], k, v, cache_len)
-        if mode == "prefill":
-            o = attn.attend_causal(q, k, v, scale=scale, cap=cfg.attn_softcap)
+        if delta is None:
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
         else:
-            o = attn.attend_decode(q, kv[0], kv[1], cache_len, scale=scale,
-                                   cap=cfg.attn_softcap)
-        a = attn.out_project(p["attn"], o)
+            x, h = add_rms_norm(x, delta, p["ln1"], cfg.norm_eps)
+        a = self._attn_apply(p["attn"], h, kv, cache_len, positions, mode,
+                             window)
+        if cfg.sandwich_norm:
+            a = rms_norm(a, p["ln1_post"], cfg.norm_eps)
         if fused:
             x, h = add_rms_norm(x, a, p["ln2"], cfg.norm_eps)
         else:
             x = x + a
             h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + ffn_apply(p["mlp"], h, cfg)
+        f = ffn_apply(p["mlp"], h, cfg)
+        if cfg.sandwich_norm:
+            f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
+        return x, f
+
+    def _shared_block(self, p: dict, x, x0, kv, cache_len, positions,
+                      mode):
+        """zamba2's shared attention + MLP block: its input is
+        ``concat(x, x0) @ win``, with x0 the (scaled) embeddings; its
+        output is added to the residual stream."""
+        cfg = self.cfg
+        h = torch.cat([x, x0], dim=-1) @ p["win"]
+        a = self._attn_apply(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
+                             kv, cache_len, positions, mode)
+        h, h2 = add_rms_norm(h, a, p["ln2"], cfg.norm_eps)
+        return x + (h + mlp_apply(p["mlp"], h2, cfg.activation))
+
+    def _hybrid(self, x, cache, cache_len, positions, mode):
+        """zamba2's stack: per group g, shared block g mod
+        ``num_shared_blocks`` (its KV in ``shared_k/v[g]``), then the
+        group's E Mamba2 layers (their states in ``conv/ssm[g, e]``,
+        written back in place)."""
+        cfg = self.cfg
+        E = cfg.shared_attn_every
+        x0 = x
+        for g in range(cfg.num_layers // E):
+            kv = None if cache is None else (cache["shared_k"][g],
+                                             cache["shared_v"][g])
+            shared = self.shared_blocks[g % len(self.shared_blocks)]
+            x = self._shared_block(shared, x, x0, kv, cache_len, positions,
+                                   mode)
+            for e in range(E):
+                p = self.layers[g * E + e]
+                state = None if cache is None else {
+                    "conv": cache["conv"][g, e], "ssm": cache["ssm"][g, e]}
+                out, new = mamba2.mamba_apply(
+                    p, rms_norm(x, p["ln"], cfg.norm_eps), cfg, state, mode)
+                if cache is not None:
+                    cache["conv"][g, e] = new["conv"]
+                    cache["ssm"][g, e] = new["ssm"]
+                x = x + out
+        return x
 
     def _rwkv_layer(self, i: int, x, cache, mode):
         """Time mix + channel mix; the layer's token-shift and WKV states
@@ -264,12 +373,33 @@ class Model(nn.Module):
         if embeds is None and cfg.pos_emb == "sinusoidal":
             x = x + sinusoidal_emb(positions, cfg.d_model).to(x.dtype)
         x = self._scale_embeddings(x)
-        for stack, k, v, fused in ((self.first_layers, "k0", "v0", False),
-                                   (self.layers, "k", "v", True)):
-            for i, p in enumerate(stack):
-                kv = None if cache is None else (cache[k][i], cache[v][i])
-                x = self._attn_layer(p, x, kv, cache_len, positions, mode,
-                                     fused)
+        if cfg.family == "hybrid":
+            x = self._hybrid(x, cache, cache_len, positions, mode)
+        elif cfg.local_global_alternating:
+            W = cfg.sliding_window
+            # extend and decode both read the ring after the chunk's write
+            if mode != "prefill" and attn.is_ring(cache["k_local"][0], W):
+                attn.refuse_ring_extend(cache_len, S, W)
+            for i, p in enumerate(self.layers):
+                kind, g = ("local", "global")[i % 2], i // 2
+                kv = None if cache is None else (cache[f"k_{kind}"][g],
+                                                 cache[f"v_{kind}"][g])
+                if kind == "local":
+                    x, f = self._attn_layer(p, x, kv, cache_len, positions,
+                                            mode, window=W)
+                else:
+                    x, f = self._attn_layer(p, x, kv, cache_len, positions,
+                                            mode, delta=f)
+                    x = x + f
+        else:
+            for stack, k, v, fused in ((self.first_layers, "k0", "v0", False),
+                                       (self.layers, "k", "v", True)):
+                for i, p in enumerate(stack):
+                    kv = None if cache is None else (cache[k][i],
+                                                     cache[v][i])
+                    x, f = self._attn_layer(p, x, kv, cache_len, positions,
+                                            mode, fused)
+                    x = x + f
         return self._logits(x, logits_slice), cache
 
     def _scale_embeddings(self, x):

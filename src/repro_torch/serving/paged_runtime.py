@@ -22,8 +22,9 @@ operations gives identical page ids and refcounts. The pools live on
 ``device`` and are updated in place (the JAX runtime rebinds new
 arrays). On a CUDA device every page copy, append and decode attention
 launches a hand-written kernel; ``device="cpu"`` runs their plain
-versions. It serves the reference's ``PAGED_FAMILIES``: dense, MoE (no
-leading dense layers, ROADMAP R4), audio and VLM.
+versions. It serves the reference's ``PAGED_FAMILIES``: dense (not
+gemma2's local/global layers), MoE (no leading dense layers, ROADMAP R4),
+audio and VLM.
 """
 from __future__ import annotations
 
@@ -42,8 +43,7 @@ from repro_torch.kernels.page_copy import (append_tokens, copy_pages,
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (add_rms_norm, rms_norm,
                                        sinusoidal_emb, torch_dtype)
-from repro_torch.models.transformer import (ffn_apply, first_k_dense,
-                                            require_ported)
+from repro_torch.models.transformer import ffn_apply, first_k_dense
 
 #: families whose per-token KV lives in uniform pages (the runtime's, and
 #: therefore TorchModelBackend's, supported set), as in the reference
@@ -52,18 +52,22 @@ PAGED_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 def require_paged(cfg: ModelConfig) -> None:
     """Raise for what the runtime does not serve, before any pool is
-    allocated: the families ``Model`` does not run yet; RWKV6, which runs
-    through ``Model.forward`` only (the reference's engine backend refuses
-    SSM families too); and a MoE model with leading dense layers, whose
-    ``dense_layers`` and ``k0``/``v0`` cache the reference runtime never
-    reads (ROADMAP R4)."""
-    require_ported(cfg)
-    if cfg.family not in PAGED_FAMILIES:            # RWKV6
+    allocated. As the reference's engine backend (``JaxModelBackend``
+    requires a uniform-attention family), it refuses RWKV6 (``ssm``) and
+    zamba2 (``hybrid``), which are not in ``PAGED_FAMILIES``, and gemma2,
+    whose local layers keep a sliding-window ring (``local_global_
+    alternating``): each runs through ``Model.forward`` only. It also
+    refuses a MoE model with leading dense layers, whose ``dense_layers``
+    and ``k0``/``v0`` cache the reference runtime never reads (ROADMAP
+    R4)."""
+    if cfg.family not in PAGED_FAMILIES or cfg.local_global_alternating:
+        what = ("local/global layers" if cfg.local_global_alternating
+                else f"the {cfg.family!r} family")
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family runs through "
-            f"Model.forward only (ROADMAP queue 1 item 11); the paged "
-            f"runtime holds attention KV pages, and the reference's engine "
-            f"backend refuses SSM families too")
+            f"{cfg.name} ({what}) runs through Model.forward only; the "
+            f"paged runtime serves the uniform-attention families "
+            f"{PAGED_FAMILIES} (the reference's engine backend refuses the "
+            f"others: use SimBackend for SSM and hybrid models)")
     if first_k_dense(cfg):
         raise ValueError(
             f"{cfg.name}: {first_k_dense(cfg)} leading dense layer(s) "

@@ -125,7 +125,7 @@ def test_rwkv_phase_on_cpu():
     assert m16.params["blocks.tmix.u"].dtype == torch.float32
     toks = torch.randint(0, cfg.vocab_size, (2, 128),
                          generator=torch.Generator().manual_seed(2))
-    rates = chip_smoke.rwkv_throughput(m16, toks, n_dec=4)
+    rates = chip_smoke.forward_throughput(m16, toks, n_dec=4)
     assert rates["batch"] == 2 and rates["prompt"] == 128
     checks = chip_smoke.rwkv_equivalence(m32, toks)
     assert set(checks) == {"recurrence", "two_calls"}
@@ -336,3 +336,87 @@ def test_family_checks_on_cpu(arch):
     assert ("paged_vs_forward" in checks) == \
         (arch in chip_smoke.FAMILY_PAGED)
     assert ("embeds_vs_tokens" in checks) == (arch == "pixtral-12b")
+
+
+# ------------------------------------------------ phase 7 (path E) on CPU
+#: smoke-width stand-ins for phase 7's legs: gemma2's prompt past its
+#: 32-token window (the split path's prefill wraps the ring, its decode
+#: steps cross it), zamba2's not a whole number of 16-token SSD chunks
+PATH_E_SMOKE = {"gemma2-9b": dict(prompt=48, depths=(2, 4)),
+                "zamba2-2.7b": dict(prompt=40, depths=(2, 4))}
+
+
+@pytest.mark.parametrize("arch", list(PATH_E_SMOKE))
+def test_cut_model_takes_whole_pairs_and_groups(arch):
+    """``cut_model`` slices gemma2's pair stack and zamba2's group stack
+    by blocks of layers (zamba2 keeps its shared blocks), and refuses a
+    depth that splits a block."""
+    cfg = get_config(arch, smoke=True)
+    params = dict(Model(cfg, device="cpu", seed=0).params)
+    per = chip_smoke.layers_per_block(cfg)
+    assert per == 2
+    cut = chip_smoke.cut_model(params, cfg, per, "float32", "cpu")
+    assert cut.cfg.num_layers == per and len(cut.layers) == per
+    for name, t in cut.params.items():
+        want = params[name][:1] if name.startswith("blocks.") \
+            else params[name]
+        assert torch.equal(t, want.float()), name
+    with pytest.raises(ValueError, match="whole number"):
+        chip_smoke.cut_model(params, cfg, per + 1, "float32", "cpu")
+
+
+def test_plain_prefill_attention_swaps_both_paths():
+    """Within the block, causal and windowed prefill attention are the
+    flash plain version (with the window); after it, the model's own."""
+    from repro_torch.models import attention
+    before = attention.attend_causal, attention.attend_windowed
+    q = torch.randn(1, 40, 4, 16, generator=torch.Generator().manual_seed(0))
+    k, v = q[:, :, :2], q[:, :, 2:]
+    want = attention.attend_windowed(q, k, v, scale=0.25, window=8, cap=5.0)
+    with chip_smoke.plain_prefill_attention():
+        assert attention.attend_windowed is not before[1]
+        assert attention.attend_causal is attention.attend_windowed
+        got = attention.attend_windowed(q, k, v, scale=0.25, window=8,
+                                        cap=5.0)
+    assert (attention.attend_causal, attention.attend_windowed) == before
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", list(PATH_E_SMOKE))
+def test_path_e_checks_on_cpu(arch):
+    """Phase 7b / 7d's checks at smoke width on the CPU, with their
+    bounds, and 7a / 7c's timed prefill and decode."""
+    import dataclasses
+    cfg = get_config(arch, smoke=True)
+    run = PATH_E_SMOKE[arch]
+    params = dict(Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                        device="cpu", seed=0).params)
+    for depth in run["depths"]:
+        checks = chip_smoke.path_e_checks(params, cfg, depth, run["prompt"],
+                                          chip_smoke.PATH_E_TAIL // 8, "cpu")
+        assert set(checks) == {"prefill_vs_decode", "kernel_vs_plain"}
+        chip_smoke.assert_path_e_checks(checks)
+    model = Model(cfg, device="cpu", seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (2, run["prompt"]),
+                         generator=torch.Generator().manual_seed(2))
+    rates = chip_smoke.forward_throughput(model, toks, n_dec=3,
+                                          max_len=run["prompt"] + 3)
+    assert rates["batch"] == 2 and rates["decode_step_ms"] > 0
+
+
+def test_path_e_legs_at_full_width():
+    """Phase 7's legs at the published configs: the flash launches a
+    prefill it asserts, the cut depths whole blocks, gemma2's prompt past
+    its window and into a cache whose local layers are rings."""
+    from repro_torch.configs import get_config as cfg_of
+    for leg, run in chip_smoke.PATH_E.items():
+        cfg = cfg_of(run["arch"])
+        per = chip_smoke.layers_per_block(cfg)
+        assert run["flash"] == (cfg.num_layers if per == 2
+                                else cfg.num_layers // per)
+        assert all(d % per == 0 for d in run["depths"])
+        assert run["prompt"] % 64 and run["max_len"] >= \
+            run["prompt"] + chip_smoke.PATH_E_DECODE
+    gemma = cfg_of("gemma2-9b")
+    assert chip_smoke.PATH_E["7a"]["prompt"] - chip_smoke.PATH_E_TAIL > \
+        gemma.sliding_window

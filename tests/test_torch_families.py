@@ -10,7 +10,8 @@ Tolerances (those of ``tests/test_torch_model.py``): under the fp32
 override the two differ only in summation order, logits (magnitude up to
 ~4) within rtol 2e-5 / atol 5e-4. In bf16: argmax agreement and max
 |dlogit| <= 0.25 (two bf16 ulps at this logit scale; qwen3-moe, moonshot
-and pixtral are measured bit-equal or within 2e-5, musicgen within 0.04).
+and pixtral are measured bit-equal or within 2e-5, musicgen bit-equal
+since its GELU is spelled as ``jax.nn.gelu``'s).
 
 Also here: the streaming init (bit-equal to drawing the fp32 tree and
 casting it), and the CUDA kernels' domains for each new family's head
@@ -141,11 +142,13 @@ def test_sinusoidal_emb_matches_jax():
     assert torch.equal(got[0, 0, 32:], torch.ones(32))       # cos(0)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["gemma2-9b", "zamba2-2.7b"])
 def test_specs_and_cache_shapes_mirror_jax(arch):
     """``model_specs`` equals the flattened ``Model.specs()`` (shape, init,
     scale, dtype, keep_dtype), and the cache shapes are equal (k0/v0 for
-    the leading dense layers)."""
+    the leading dense layers; gemma2's local rings and global caches over
+    its pairs; zamba2's conv / SSM states over (groups, E) and its shared
+    blocks' K/V)."""
     cfg = get_config(arch, smoke=True)
     jm = JaxModel(jax_config(arch, smoke=True))
     want = {k: (s.shape, s.init, s.scale, s.dtype, s.keep_dtype)
@@ -185,15 +188,19 @@ def test_streaming_init_equals_cast_of_the_fp32_tree(arch, dtype):
 
 
 # ------------------------------------------------- kernel domains (P7)
-#: (arch, G = H / KV, head_dim) at published width
+#: (arch, G = H / KV, head_dim) at published width; gemma2's prefill
+#: runs flash with its window and softcap, zamba2's shared blocks MHA
 DOMAINS = [("qwen3-moe-235b-a22b", 16, 128), ("moonshot-v1-16b-a3b", 1, 128),
-           ("pixtral-12b", 4, 128), ("musicgen-large", 1, 64)]
+           ("pixtral-12b", 4, 128), ("musicgen-large", 1, 64),
+           ("gemma2-9b", 2, 256), ("zamba2-2.7b", 1, 80)]
 
 
 @pytest.mark.parametrize("arch,G,D", DOMAINS)
 def test_kernel_plans_take_each_new_family(arch, G, D):
     cfg = get_config(arch)
     assert (cfg.num_heads // cfg.num_kv_heads, cfg.head_dim) == (G, D)
+    if arch == "gemma2-9b":
+        assert (cfg.sliding_window, cfg.attn_softcap) == (4096, 50.0)
     for esz in (2, 4):       # bf16 pools (serving) and fp32 (checks)
         plan = decode_kernel.plan_decode(8, cfg.num_kv_heads, G, D, esz, 16,
                                          256)

@@ -23,6 +23,7 @@ from repro_torch.models import Model
 from repro_torch.models.common import (init_params, params_from_numpy,
                                        torch_dtype)
 from repro_torch.models.transformer import model_specs
+from repro_torch.serving.backend import TorchModelBackend
 from repro_torch.serving.paged_runtime import PagedKVRuntime
 
 # the suite runs in several worker processes at once: one intra-op
@@ -121,13 +122,23 @@ def test_init_params_is_seeded():
     assert abs(w.std().item() * np.sqrt(w.shape[-2]) - 1.0) < 0.05
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("gemma2-9b", "item 11"), ("rwkv6-3b", "item 11"),
-    ("zamba2-2.7b", "item 11")])
-def test_unported_families_raise(arch, item):
+@pytest.mark.parametrize("arch,what", [
+    ("gemma2-9b", "local/global layers"), ("rwkv6-3b", "'ssm' family"),
+    ("zamba2-2.7b", "'hybrid' family")])
+def test_unported_families_raise(arch, what, monkeypatch):
+    """``Model`` builds every family; what the port refuses, as the
+    reference's engine backend does, is serving gemma2, RWKV6 and zamba2
+    through the paged runtime and ``TorchModelBackend``, before any pool
+    or weight is allocated."""
     cfg = get_config(arch, smoke=True)
-    # RWKV6's Model is ported (item 11); what it still refuses, as the
-    # reference does, is the paged serving runtime
-    build = PagedKVRuntime if cfg.family == "ssm" else Model
-    with pytest.raises(NotImplementedError, match=item):
-        build(cfg, device="cpu")
+    model = Model(cfg, device="cpu")
+    assert len(model.layers) == cfg.num_layers
+
+    def allocated(*_args, **_kw):
+        raise AssertionError("allocated before refusing")
+
+    monkeypatch.setattr(torch, "zeros", allocated)
+    for build in (PagedKVRuntime, TorchModelBackend):
+        with pytest.raises(NotImplementedError,
+                           match=f"{what}.*Model.forward only"):
+            build(cfg, device="cpu")
