@@ -147,9 +147,33 @@ Phase 7  path E, the families the engine does not page, through
          flash kernel against the plain version; each gap within 1e-3 of
          the logits' rms, argmax equal.
 
+Phase 8  path F, training and the roofline cost source, after phase 7 is
+         freed: (a) full-width, full-depth qwen2-1.5b (28 layers, ~1.54 B
+         params, drawn with its published initializer, N(0, 0.02))
+         trained by ``Trainer`` on ``TokenStream`` batches: fp32
+         masters and moments, bf16 compute, remat "full", two
+         microbatches; train_4k's 4096-token rows with its global batch
+         cut from 256 to 2; a warm-up step and 6 timed ones, each
+         logging loss, grad norm, step ms, tokens/s and the model-FLOPs
+         share 6 N tokens / (step s x the bf16 peak), then the peak
+         memory and the launch counts (zeroed before: every kernel 0, the
+         training forward runs the reference's plain arithmetic); every
+         loss finite, the last three's mean below the first. (b) The same
+         config cut to 2 layers at full width, fp32, B 1 x 128 tokens, 2
+         steps on the card and on the CPU from one set of seeded params:
+         losses and grad norms within 1e-4 relative; a run saved at step
+         1 and resumed into a fresh trainer equals the uninterrupted
+         step 2 within 1e-4. (c) ``CostModel.from_roofline`` at full
+         width (the port's steps counted on the meta device) beside
+         ``build_profile``, within 2x, both pricing phase 3a's measured
+         prefill-only and decode-only steps; then ``Engine(cost_source=
+         "roofline")`` on 12 SWE-Bench programs under the virtual clock
+         must pin.
+
 Prints a ``{"kernels": [...]}`` line (``launches``: phases 3 and 4;
 ``launches_phase5``: each leg of phase 5; ``launches_phase6``: phase
-6a; ``launches_phase7``: legs 7a and 7c), the nvidia-smi line and, last,
+6a; ``launches_phase7``: legs 7a and 7c; ``launches_phase8``: phase 8a),
+the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 then exits non-zero and prints no result line.
 """
@@ -1428,8 +1452,9 @@ def mechanism_stats(eng) -> dict:
 
 def phase3(hw):
     """The main path at full qwen2-1.5b width on the card. Returns the
-    launch counts of the two serve legs and the model (phase 5 serves
-    on the same weights)."""
+    launch counts of the two serve legs, the model (phase 5 serves on the
+    same weights) and 3a's measured step samples (phase 8c prices
+    them)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1505,7 +1530,7 @@ def phase3(hw):
     log(f"phase3 launches: 3a {reset_after_a}, 3a+3b {counts}")
 
     prefill_logit_checks(cfg, device)
-    return counts, model
+    return counts, model, samples
 
 
 # The logit check of a fresh flash prefill against prefill + extend runs
@@ -2310,6 +2335,286 @@ def phase7(smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 8
+#: path F, 8a: training at qwen2-1.5b's full width and depth, bf16 compute
+#: over fp32 masters and moments, remat "full": train_4k's 4096-token rows
+#: with its global batch of 256 cut to 2 (one row a microbatch at the
+#: config's train_microbatches = 2), a warm-up step and then ``steps``
+#: timed; 10 made phase 8 take 72.0 s (3.0-3.9 s a step, host-bound), 6
+#: keep it near 60
+TRAIN_F = dict(arch="qwen2-1.5b", seq=4096, batch=2, full_batch=256,
+               steps=6)
+#: 8b: the card against the CPU, the same config cut to 2 layers at full
+#: width (P5), fp32 compute, one 128-token row, two steps; checkpoint at
+#: step 1 and resume into a fresh trainer for step 2
+TRAIN_CHECK = dict(layers=2, seq=128, batch=1, steps=2)
+#: 8b's bound on the card-vs-CPU and resumed-vs-uninterrupted gaps
+#: (relative): fp32 on both sides, other summation orders (and the
+#: embedding's backward accumulates with atomics on the card); the
+#: reference's own resume bound (tests/test_train.py)
+TRAIN_RTOL = 1e-4
+
+
+#: path F's weights: qwen2-1.5b's published initializer (initializer_range
+#: 0.02 in its Hugging Face config), N(0, 0.02) for every matrix and
+#: embedding, zeros for biases and norm offsets. The port's seeded init
+#: (the reference's, fan_in the stacked shape's second-to-last dim) gives
+#: a full-depth grad norm past fp32's range and a 2-layer model whose
+#: step-2 grad norm moves 2% when half the weights move one ulp (P5)
+INIT_STD = 0.02
+
+
+def published_init(cfg, gen) -> dict:
+    """Every fp32 master of ``cfg``'s model drawn from ``gen`` on its
+    device, leaf by leaf in name order, with ``INIT_STD``."""
+    import torch
+    from repro_torch.models.transformer import model_specs
+    out = {}
+    for name, spec in sorted(model_specs(cfg).items()):
+        if spec.init in ("zeros", "ones"):
+            out[name] = torch.full(spec.shape, float(spec.init == "ones"),
+                                   device=gen.device)
+        else:
+            out[name] = torch.randn(spec.shape, generator=gen,
+                                    device=gen.device).mul_(INIT_STD)
+    return out
+
+
+def train_adamw(steps: int):
+    """A short run's schedule: the reference's AdamW defaults (lr 3e-4),
+    warmup of one step, cosine decay to 0 one step past the run (its
+    last step still updates). At lr 1e-3 the first steps overshoot: the
+    loss of a 4-layer full-width cut went 12.17 -> 15.28 by step 5 (my
+    CPU run), 12.20 -> 14.78 at full depth (my chip call 2)."""
+    from repro_torch.train.optimizer import AdamWConfig
+    return AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps + 1)
+
+
+def make_trainer(cfg, shape, steps: int, device, ckpt_dir,
+                 ckpt_every: int = 10 ** 9):
+    from repro_torch.train.train_loop import TrainConfig, Trainer
+    tcfg = TrainConfig(steps=steps, ckpt_every=ckpt_every,
+                       ckpt_dir=str(ckpt_dir), log_every=10 ** 9,
+                       adamw=train_adamw(steps))
+    return Trainer(cfg, None, shape, tcfg, log_fn=log, device=device)
+
+
+def train_steps(cfg, shape, steps: int, device, ckpt_dir,
+                peak_flops: float | None = None) -> list[dict]:
+    """8a: a trainer from :func:`published_init` (seed 0), its warm-up
+    step and ``steps`` more through ``Trainer.run``, one step a call.
+    Each record: loss, grad norm,
+    ``step_ms`` (the trainer's own time of the step, which ends in the
+    loss's read back and so waits for the stream, AdamW update
+    included), ``wall_ms`` (with the host's batch and a device sync),
+    tokens/s and, with ``peak_flops``, the model-FLOPs share ``6 N
+    tokens / (step s x peak)``."""
+    import torch
+    tr = make_trainer(cfg, shape, steps + 1, device, ckpt_dir)
+    tr.init_state(published_init(
+        cfg, torch.Generator(device=tr.device).manual_seed(0)))
+    tokens = shape.global_batch * shape.seq_len
+    n = cfg.param_count()
+    out = []
+    for _ in range(steps + 1):
+        t0 = time.perf_counter()
+        rec = dict(tr.run(steps=tr.step + 1)[-1])
+        synchronize(device)
+        rec["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["step_ms"] = rec.pop("sec") * 1e3
+        rec["tokens_per_s"] = tokens / rec["step_ms"] * 1e3
+        if peak_flops:
+            rec["flops_share"] = 6 * n * tokens / (
+                rec["step_ms"] / 1e3 * peak_flops)
+        out.append(rec)
+    return out
+
+
+def assert_training(recs: list[dict]) -> None:
+    """Every loss finite, and the mean of the last three below the
+    first."""
+    losses = [r["loss"] for r in recs]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert sum(losses[-3:]) / 3 < losses[0], losses
+
+
+def card_vs_cpu(cfg, device, ckpt_dir, layers: int, seq: int, batch: int,
+                steps: int) -> dict:
+    """8b: ``cfg`` cut to ``layers`` at full width, fp32, one microbatch,
+    from one set of fp32 params (:func:`published_init`, seed 0, drawn on
+    ``device`` and copied to the host): ``steps`` steps
+    on ``device`` and on the CPU; then ``device`` again, saving at step 1,
+    and a fresh trainer resumed from it for the rest. Returns the
+    histories' relative gaps."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    cut = dataclasses.replace(cfg, num_layers=layers,
+                              compute_dtype="float32", train_microbatches=1)
+    params = {k: v.cpu() for k, v in published_init(
+        cut, torch.Generator(device=device).manual_seed(0)).items()}
+    shape = ShapeSpec("f_check", "train", seq, batch)
+    ckpt_dir = pathlib.Path(ckpt_dir)
+
+    def run(dev, sub, init=True, ckpt_every=10 ** 9, upto=steps):
+        tr = make_trainer(cut, shape, steps, dev, ckpt_dir / sub, ckpt_every)
+        if init:
+            tr.init_state(params)
+        else:
+            assert tr.resume() and tr.step == 1, tr.step
+        return tr.run(steps=upto)
+
+    card = run(device, "card")
+    host = run("cpu", "cpu")
+    run(device, "resume", ckpt_every=1, upto=1)
+    resumed = run(device, "resume", init=False)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    return dict(losses=[r["loss"] for r in card],
+                loss_gaps=[rel(a["loss"], b["loss"])
+                           for a, b in zip(card, host)],
+                grad_norm_gaps=[rel(a["grad_norm"], b["grad_norm"])
+                                for a, b in zip(card, host)],
+                resume_gap=rel(resumed[-1]["loss"], card[-1]["loss"]))
+
+
+def assert_card_vs_cpu(gaps: dict) -> None:
+    worst = max(gaps["loss_gaps"] + gaps["grad_norm_gaps"] +
+                [gaps["resume_gap"]])
+    assert worst <= TRAIN_RTOL and all(map(math.isfinite, gaps["losses"])), \
+        gaps
+
+
+def roofline_checks(cfg, hw, samples) -> dict:
+    """8c: ``CostModel.from_roofline`` at ``cfg``'s full width (counted on
+    the meta device) beside the analytic profile; both cost models'
+    seconds for phase 3a's prefill-only and decode-only steps beside the
+    measured ones; then ``Engine(cost_source="roofline")`` under the
+    virtual-clock simulator on 12 SWE-Bench programs (the reference's
+    ``test_engine_runs_with_roofline_cost_source`` on this card's
+    profile), which must pin."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.profiler import CostModel, build_profile
+    from repro_torch.sim.runner import run_workload
+    from repro_torch.sim.workload import SWE_BENCH, generate_programs
+    t0 = time.perf_counter()
+    roof = CostModel.from_roofline(cfg, hw=hw)
+    counted_s = time.perf_counter() - t0
+    models = {"roofline": roof, "analytic": CostModel(build_profile(cfg), hw)}
+    out = {"count_s": counted_s, "profiles": {
+        name: dict(flops_per_token=m.prof.flops_per_token,
+                   active_param_bytes=m.prof.active_param_bytes)
+        for name, m in models.items()}}
+    kinds = {"prefill": (lambda s: s.decode_batch == 0,
+                         lambda m, s: m.prefill_seconds(s.prefill_tokens,
+                                                        s.prefill_context)),
+             "decode": (lambda s: s.prefill_tokens == 0 and s.decode_batch,
+                        lambda m, s: m.decode_step_seconds(
+                            s.decode_batch, s.decode_avg_context))}
+    for kind, (pick, seconds) in kinds.items():
+        chosen = [s for s in samples if pick(s)]
+        measured = sum(s.measured_s for s in chosen)
+        rec = {"steps": len(chosen), "measured_s": measured}
+        for name, m in models.items():
+            rec[f"{name}_s"] = sum(seconds(m, s) for s in chosen)
+            rec[f"measured_over_{name}"] = measured / rec[f"{name}_s"] \
+                if rec[f"{name}_s"] else None
+        out[kind] = rec
+    programs = generate_programs(SWE_BENCH, n=12, rate_jps=0.2, seed=0)
+    eng = Engine(cfg, EngineConfig(policy="continuum", chips=1,
+                                   kv_budget_bytes=10e9,
+                                   cost_source="roofline"), hw)
+    summary = run_workload(programs, [eng], max_seconds=1e6)
+    out["engine"] = dict(programs=summary.n_programs,
+                         pins=eng.scheduler.stats.pins,
+                         ttl_hits=eng.scheduler.stats.ttl_hits,
+                         avg_jct_s=summary.avg_jct)
+    return out
+
+
+def assert_roofline(checks: dict) -> None:
+    """The counted profile within 2x of the analytic one (the bound of
+    tests/test_dist_cost.py), and the roofline-priced engine pinned."""
+    a, r = (checks["profiles"][k] for k in ("analytic", "roofline"))
+    for key in ("flops_per_token", "active_param_bytes"):
+        assert 0.5 < r[key] / a[key] < 2.0, (key, r, a)
+    assert checks["engine"]["programs"] == 12, checks["engine"]
+    assert checks["engine"]["pins"] > 0, checks["engine"]
+
+
+def phase8(hw, smi: str, sheet: dict, samples) -> dict:
+    """Path F: 8a trains full-width, full-depth qwen2-1.5b on the card
+    (counts zeroed before, read after: no kernel launches, the training
+    forward runs the reference's plain arithmetic); 8b holds the card
+    against the CPU and a resumed run against an uninterrupted one; 8c
+    builds the roofline cost model at full width and prices phase 3a's
+    steps with it. Returns 8a's launch counts."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_F["arch"])
+    shape = ShapeSpec("train_4k_cut", "train", TRAIN_F["seq"],
+                      TRAIN_F["batch"])
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = train_steps(cfg, shape, TRAIN_F["steps"], "cuda",
+                           pathlib.Path(tmp) / "8a", sheet["bf16"])
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        for i, rec in enumerate(recs):
+            log(f"phase8a step {i} ({'warm-up' if i == 0 else 'timed'}): "
+                f"{json.dumps(rec)}")
+        timed = recs[1:]
+        step_ms = sorted(r["step_ms"] for r in timed)
+        log(f"phase8a {cfg.name} training, {cfg.num_layers} layers at full "
+            f"width (d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B "
+            f"params), fp32 masters and {cfg.opt_state_dtype} moments, "
+            f"{cfg.compute_dtype} compute, remat {cfg.remat}, "
+            f"{cfg.train_microbatches} microbatches; train_4k's "
+            f"{TRAIN_F['seq']}-token rows, global batch cut from "
+            f"{TRAIN_F['full_batch']} to {TRAIN_F['batch']}; on {smi}: "
+            + json.dumps(dict(
+                timed_steps=len(timed), median_step_ms=step_ms[len(step_ms)
+                                                              // 2],
+                min_step_ms=step_ms[0], max_step_ms=step_ms[-1],
+                median_tokens_per_s=sorted(r["tokens_per_s"] for r in timed)
+                [len(timed) // 2],
+                median_flops_share=sorted(r["flops_share"] for r in timed)
+                [len(timed) // 2],
+                first_loss=recs[0]["loss"], last_loss=recs[-1]["loss"],
+                max_memory_allocated_gb=peak))
+            + f"; launches {counts}")
+        assert_training(recs)
+        assert not any(counts.values()), f"a kernel ran on path F: {counts}"
+
+        t0 = time.perf_counter()
+        gaps = card_vs_cpu(cfg, "cuda", pathlib.Path(tmp) / "8b",
+                           **TRAIN_CHECK)
+        log(f"phase8b {cfg.name} cut to {TRAIN_CHECK['layers']} full-width "
+            f"layers, fp32, B {TRAIN_CHECK['batch']} x {TRAIN_CHECK['seq']} "
+            f"tokens, {TRAIN_CHECK['steps']} steps, card vs CPU and resumed "
+            f"vs uninterrupted (bound {TRAIN_RTOL} relative): "
+            f"{json.dumps(gaps)}; {time.perf_counter() - t0:.1f} s")
+        assert_card_vs_cpu(gaps)
+    torch.cuda.empty_cache()
+
+    roof = roofline_checks(cfg, hw, samples)
+    log(f"phase8c roofline cost model of {cfg.name} at full width (counted "
+        f"on the meta device) beside the analytic profile, and phase 3a's "
+        f"measured steps priced by each, hardware profile {hw.name}: "
+        f"{json.dumps(roof)}")
+    assert_roofline(roof)
+    log(f"phase8 wall {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -2342,7 +2647,7 @@ def main() -> int:
 
     hw = hardware_profile(kind)
     records = phase2(sheet, hw)
-    counts, qwen = phase3(hw)
+    counts, qwen, samples = phase3(hw)
     counts.update(rwkv6_scan=phase4(smi)["rwkv6_scan"])
     path_c = phase5(qwen, hw)
     del qwen                  # phase 6 needs the card's memory
@@ -2352,6 +2657,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path_e = phase7(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_f = phase8(hw, smi, sheet, samples)
 
     sources = {
         "paged_decode_attention": (
@@ -2376,6 +2684,7 @@ def main() -> int:
                     launches_phase6=path_d[name],
                     launches_phase7={leg: c[name]
                                      for leg, c in path_e.items()},
+                    launches_phase8=path_f[name],
                     **records[name])
                for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))

@@ -16,16 +16,18 @@ import numpy as np
 import torch
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, allow_meta: bool = False) -> torch.device:
     """The device an entry point runs on. ``"cuda"`` (every entry point's
     default) raises when no GPU is visible: the CPU is used only when the
-    caller asks for it."""
+    caller asks for it. ``meta`` (shapes without storage) only where
+    ``allow_meta``: the model, which the step counter builds there, never
+    a serving or training entry point."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu") + (("meta",) if allow_meta else ()):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

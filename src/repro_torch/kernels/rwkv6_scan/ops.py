@@ -1,6 +1,7 @@
 """RWKV6 WKV, dispatched by device: a CUDA tensor launches the hand-written
 kernel (:mod:`.kernel`), a CPU tensor takes the plain chunked version
-(:mod:`.ref`)."""
+(:mod:`.ref`), and so does a ``meta`` tensor (shapes only: the step
+counter counts the plain arithmetic)."""
 from __future__ import annotations
 
 import torch
@@ -15,7 +16,7 @@ def wkv_chunked(r, k, v, logw, u, init_state=None, *, chunk: int = 64):
     None -> (o (B, T, H, K), final_state (B, H, K, K) fp32)."""
     if r.device.type == "cuda":
         return rwkv6_scan_kernel(r, k, v, logw, u, init_state, chunk=chunk)
-    if r.device.type == "cpu":
+    if r.device.type in ("cpu", "meta"):
         return rwkv6_chunked_ref(r, k, v, logw, u, init_state, chunk=chunk)
     raise ValueError(f"wkv_chunked: unsupported device {r.device}")
 

@@ -23,11 +23,15 @@ step of the batch against a contiguous cache of ``--context`` tokens, and
 a fresh prefill of the whole ``--context``-token prompt in place of the
 chunk.
 
+``--train`` measures a training step instead: ``Trainer.run`` of one
+step on a ``--batch`` x ``--context`` batch (fp32 masters, the config's
+compute dtype, remat and microbatches; seeded weights).
+
 Prints one JSON object. Needs one GPU::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         [--arch qwen2-1.5b] [--layers N] [--batch 4] [--context 2048] \\
-        [--steps 8]
+        [--steps 8] [--train]
 """
 from __future__ import annotations
 
@@ -106,12 +110,16 @@ def main(argv=None) -> int:
     ap.add_argument("--context", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train", action="store_true",
+                    help="a training step instead of serving steps")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if args.train:
+        return _train(cfg, args, dev)
     model = Model(cfg, device=dev, seed=args.seed)
     head = model.head()
     weight_bytes = head.numel() * head.element_size() + sum(
@@ -138,6 +146,37 @@ def main(argv=None) -> int:
            "prefill": {**_timed(prefill, args.steps), **_traced(prefill)}}
     after = launch_counts()
     out["kernel_launches"] = {k: after[k] - before[k] for k in after}
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+def _train(cfg, args, dev) -> int:
+    """One training step of ``Trainer.run``, timed and traced."""
+    import tempfile
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train.train_loop import TrainConfig, Trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(cfg, None,
+                     ShapeSpec("profile", "train", args.context, args.batch),
+                     TrainConfig(ckpt_every=10 ** 9, ckpt_dir=tmp,
+                                 seed=args.seed),
+                     log_fn=lambda s: None, device=dev)
+
+        def step():
+            tr.run(steps=tr.step + 1)
+
+        step()                             # warm-up: allocator, cuBLAS
+        torch.cuda.synchronize()
+        out = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
+               "layers": cfg.num_layers, "batch": args.batch,
+               "context": args.context, "params": cfg.param_count(),
+               "microbatches": cfg.train_microbatches, "remat": cfg.remat,
+               "compute_dtype": cfg.compute_dtype,
+               "train": {**_timed(step, args.steps),
+                         **_traced(step, top=20)},
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "kernel_launches": launch_counts()}
     print(json.dumps(out, indent=1))
     return 0
 

@@ -4,7 +4,11 @@ Plain tensor code, as in the JAX package, with one dispatch point:
 ``attend_causal`` and ``attend_windowed`` (fresh prefill; the second with
 gemma2's sliding window) run the hand-written flash-attention kernel on
 CUDA tensors (:mod:`repro_torch.kernels.flash_attention`) and the
-reference's q-chunked online-softmax blocks on CPU tensors.
+reference's q-chunked online-softmax blocks (:func:`causal_blocks`,
+:func:`windowed_blocks`) on CPU tensors. A training forward calls the
+blocks on any device, each block recomputed in backward where its layer
+is not (the reference's ``_block_attn_remat``): the kernel has no
+backward, and the reference's train step runs its jnp blocks too.
 ``attend_decode`` is dense attention of new tokens against a contiguous
 or ring cache with length and window masking (extend and decode mode, as
 in the reference). The paged decode path goes through its own CUDA kernel
@@ -17,6 +21,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention_kernel
@@ -129,14 +134,32 @@ def attend_causal(q, k, v, *, scale: float, cap: float = 0.0,
                   q_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
     """Causal attention over the full sequence. q (B,S,H,Dh), k/v
     (B,S,KV,Dh) -> (B,S,H,Dh). On CUDA tensors: the flash-attention kernel,
-    fed (B,H,S,Dh) views of the same memory (no copy). On CPU tensors: q x
-    kv blocks with an online-softmax merge, blocks entirely above the
-    diagonal skipped (the JAX package's bf16 arithmetic, op for op)."""
+    fed (B,H,S,Dh) views of the same memory (no copy). On CPU tensors:
+    :func:`causal_blocks`."""
     if q.is_cuda:
         return flash_attention_kernel(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             scale=scale, causal=True, window=0,
             softcap=cap).transpose(1, 2)
+    return causal_blocks(q, k, v, scale=scale, cap=cap, q_chunk=q_chunk,
+                         kv_chunk=kv_chunk)
+
+
+def _blocks(remat: bool):
+    """The block function: recomputed in backward under ``remat``."""
+    if not remat:
+        return _block_attn
+    return lambda *args: checkpoint(_block_attn, *args, use_reentrant=False)
+
+
+def causal_blocks(q, k, v, *, scale: float, cap: float = 0.0,
+                  q_chunk: int = 1024, kv_chunk: int = 1024,
+                  remat: bool = False) -> torch.Tensor:
+    """Causal attention as q x kv blocks with an online-softmax merge,
+    blocks entirely above the diagonal skipped (the JAX package's bf16
+    arithmetic, op for op), on any device. ``remat``: each block is
+    recomputed in backward instead of keeping its scores."""
+    block_attn = _blocks(remat)
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -163,9 +186,9 @@ def attend_causal(q, k, v, *, scale: float, cap: float = 0.0,
                 continue                          # above the causal diagonal
             k_pos = k_start + torch.arange(kv_chunk, device=q.device)
             mask = (k_pos[None, :] <= q_pos[:, None]) & (k_pos[None, :] < S)
-            o, m, l = _block_attn(q_blk, k[:, k_start:k_start + kv_chunk],
-                                  v[:, k_start:k_start + kv_chunk], mask,
-                                  scale, cap)
+            o, m, l = block_attn(q_blk, k[:, k_start:k_start + kv_chunk],
+                                 v[:, k_start:k_start + kv_chunk], mask,
+                                 scale, cap)
             acc_o, acc_m, acc_l = _combine(acc_o, acc_m, acc_l, o, m, l)
         outs.append(_finalize(acc_o, acc_m, acc_l))
     return torch.cat(outs, dim=1)[:, :S]
@@ -178,19 +201,27 @@ def attend_windowed(q, k, v, *, scale: float, window: int, cap: float = 0.0,
                     q_chunk: int = 1024) -> torch.Tensor:
     """Causal attention where query i sees keys i - window < j <= i. q
     (B,S,H,Dh), k/v (B,S,KV,Dh) -> (B,S,H,Dh). On CUDA tensors: the
-    flash-attention kernel with its window. On CPU tensors: the
-    reference's arithmetic, :func:`attend_causal` while S <= window, else
-    one block a q chunk against the static span of ``window + q_chunk``
-    keys ending at the chunk's last row."""
+    flash-attention kernel with its window. On CPU tensors:
+    :func:`windowed_blocks`."""
     if q.is_cuda:
         return flash_attention_kernel(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             scale=scale, causal=True, window=window,
             softcap=cap).transpose(1, 2)
+    return windowed_blocks(q, k, v, scale=scale, window=window, cap=cap,
+                           q_chunk=q_chunk)
+
+
+def windowed_blocks(q, k, v, *, scale: float, window: int, cap: float = 0.0,
+                    q_chunk: int = 1024, remat: bool = False) -> torch.Tensor:
+    """Sliding-window causal attention, the reference's arithmetic on any
+    device: :func:`causal_blocks` while S <= window, else one block a q
+    chunk against the static span of ``window + q_chunk`` keys ending at
+    the chunk's last row. ``remat`` as in :func:`causal_blocks`."""
     B, S, H, Dh = q.shape
     if S <= window:
-        return attend_causal(q, k, v, scale=scale, cap=cap, q_chunk=q_chunk,
-                             kv_chunk=q_chunk)
+        return causal_blocks(q, k, v, scale=scale, cap=cap, q_chunk=q_chunk,
+                             kv_chunk=q_chunk, remat=remat)
     q_chunk = min(q_chunk, S)
     nq = math.ceil(S / q_chunk)
     Sq = nq * q_chunk
@@ -206,10 +237,10 @@ def attend_windowed(q, k, v, *, scale: float, window: int, cap: float = 0.0,
         k_pos = first + torch.arange(span, device=q.device)
         mask = (k_pos[None, :] <= q_pos[:, None]) & \
             (k_pos[None, :] > q_pos[:, None] - window) & (k_pos[None, :] >= 0)
-        o, m, l = _block_attn(q[:, qi * q_chunk:(qi + 1) * q_chunk],
-                              kp[:, first + span:first + 2 * span],
-                              vp[:, first + span:first + 2 * span], mask,
-                              scale, cap)
+        o, m, l = _blocks(remat)(q[:, qi * q_chunk:(qi + 1) * q_chunk],
+                                 kp[:, first + span:first + 2 * span],
+                                 vp[:, first + span:first + 2 * span], mask,
+                                 scale, cap)
         outs.append(_finalize(o, m, l))
     return torch.cat(outs, dim=1)[:, :S]
 

@@ -83,6 +83,21 @@ def init_params(cfg, generator: torch.Generator,
     return out
 
 
+def meta_params(cfg, compute_dtype: str | None = None
+                ) -> dict[str, torch.Tensor]:
+    """Every parameter of ``cfg``'s model as a tensor on the ``meta``
+    device: the shapes and dtypes :func:`init_params` gives, with no
+    storage and nothing drawn (what the step counter runs on)."""
+    from repro_torch.models.transformer import model_specs
+    out = {}
+    for name, spec in sorted(model_specs(cfg).items()):
+        dt = spec.dtype if compute_dtype is None or spec.keep_dtype \
+            else compute_dtype
+        out[name] = torch.empty(spec.shape, dtype=torch_dtype(dt),
+                                device="meta")
+    return out
+
+
 def flatten_tree(tree, prefix: str = "") -> dict:
     """Nested dict -> {dotted name: leaf}."""
     out = {}
@@ -115,8 +130,8 @@ def cast_params(params: dict[str, torch.Tensor], specs: dict[str, ParamSpec],
                 compute_dtype: str) -> dict[str, torch.Tensor]:
     """Cast every leaf to the compute dtype except the ``keep_dtype`` ones
     (RWKV6's decay base ``w0`` and bonus ``u`` stay fp32). Done once, when
-    a model is built: the JAX package casts on every forward call inside
-    ``jit``."""
+    a serving model is built, and in every forward of a trainable one (the
+    JAX package casts on every forward call inside ``jit``)."""
     cd = torch_dtype(compute_dtype)
     return {k: v if specs[k].keep_dtype else v.to(cd)
             for k, v in params.items()}

@@ -15,8 +15,7 @@ One device holds every expert, so there is no mesh and a chunk's tokens
 are one dispatch group: every ``sharding_mode`` takes the grouped path
 with one group, as the reference does without a mesh (its ``G`` axis, the
 mesh's data shards, comes back with the multi-device path, ROADMAP queue
-1 item 14, beside ``moe_apply_a2a``). The load-balance loss waits for
-item 13.
+1 item 14, beside ``moe_apply_a2a``).
 """
 from __future__ import annotations
 
@@ -150,3 +149,16 @@ def _moe_group(p: dict, xt: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if m.num_shared_experts:
         out = out + mlp_apply(p["shared"], xt, cfg.activation)
     return out.to(xt.dtype)
+
+
+def aux_load_balance_loss(p: dict, x: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss (the reference's, used in
+    training examples): E * sum over experts of the share of tokens whose
+    top expert it is times its mean router probability."""
+    m = cfg.moe
+    logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.argmax(logits, dim=-1)          # ties to the lower id
+    frac = torch.nn.functional.one_hot(top, m.num_experts).float().mean(0)
+    return m.num_experts * torch.sum(frac * probs.mean(0))

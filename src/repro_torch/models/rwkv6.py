@@ -8,8 +8,10 @@ Recurrence per head (K = V = head_size)::
 
 with w_t = exp(-exp(w0 + lora_w(x_t))) in (0, 1). A prompt runs the
 chunked form (:func:`_wkv_chunked`): on CUDA tensors the hand-written WKV
-scan kernel, on CPU tensors its plain chunked version; a one-token decode
-step runs the recurrence directly, as in the reference. Token-shift and
+scan kernel, on CPU tensors its plain chunked version, and in a training
+forward (mode "train") the plain version on any device (the kernel has no
+backward; the reference's train step runs its jnp ``_wkv_chunked``); a
+one-token decode step runs the recurrence directly, as in the reference. Token-shift and
 WKV states are carried for serving. Parameter names and layouts follow
 the JAX package's spec tree.
 """
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rwkv6_scan import wkv_chunked
+from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_ref, wkv_chunked
 from repro_torch.models.common import ParamSpec, _silu
 
 LORA_MIX = 32
@@ -80,20 +82,22 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor | None):
     return shifted, x[:, -1]
 
 
-def _wkv_chunked(r, k, v, logw, u, init_state, chunk: int):
+def _wkv_chunked(r, k, v, logw, u, init_state, chunk: int,
+                 scan=wkv_chunked):
     """Chunked WKV. r/k/v (B,S,H,K) fp32, logw (B,S,H,K) (< 0), u (H,K),
     init_state (B,H,K,V). Pads S to a multiple of the chunk (k = 0 adds
-    nothing, logw = 0 is decay 1), as the reference does. Returns (o
-    (B,S,H,V), state)."""
+    nothing, logw = 0 is decay 1), as the reference does. ``scan``: the
+    device dispatch, or the plain version for a training forward. Returns
+    (o (B,S,H,V), state)."""
     S = r.shape[1]
     L = min(chunk, S)
     pad = -S % L
     if pad:
         r, k, v, logw = (F.pad(t, (0, 0, 0, 0, 0, pad))
                          for t in (r, k, v, logw))
-    o, state = wkv_chunked(r.contiguous(), k.contiguous(), v.contiguous(),
-                           logw.contiguous(), u.contiguous(),
-                           init_state.float().contiguous(), chunk=L)
+    o, state = scan(r.contiguous(), k.contiguous(), v.contiguous(),
+                    logw.contiguous(), u.contiguous(),
+                    init_state.float().contiguous(), chunk=L)
     return o[:, :S], state
 
 
@@ -149,7 +153,9 @@ def time_mix_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
         new_wkv = w1[..., None] * wkv0 + kv
         o = o[:, None]                                    # (B,1,H,V)
     else:
-        o, new_wkv = _wkv_chunked(r, k, v, logw, u, wkv0, cfg.rwkv.chunk)
+        o, new_wkv = _wkv_chunked(
+            r, k, v, logw, u, wkv0, cfg.rwkv.chunk,
+            rwkv6_chunked_ref if mode == "train" else wkv_chunked)
 
     o = _group_norm(o.to(x.dtype), p["ln_scale"], p["ln_bias"], 64e-5)
     o = o * g

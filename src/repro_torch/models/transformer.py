@@ -3,8 +3,10 @@
 zamba2's Mamba2 ``hybrid``), as an ``nn.Module``.
 
 Parameters mirror ``Model.specs()`` of the JAX package (same dotted keys,
-same layouts) and are cast to the compute dtype once, when the model is
-built (``keep_dtype`` leaves stay fp32). The stacks are the reference's:
+same layouts). A serving model casts them to the compute dtype once, when
+it is built (``keep_dtype`` leaves stay fp32); a trainable one keeps fp32
+masters and casts them in every forward, as the reference does. The
+stacks are the reference's:
 ``blocks.*`` over a leading L (``dense_layers.*`` over the leading dense
 layers of a ``first_k_dense`` MoE model); gemma2's ``blocks.{local,
 global}.*`` over L / 2 (local, global) pairs; zamba2's ``blocks.mamba.*``
@@ -12,23 +14,27 @@ over (L / E, E) groups of E = ``shared_attn_every`` Mamba2 layers, each
 group led by shared attention block g mod ``num_shared_blocks``
 (``shared.*``). The layer stack is a Python loop over per-layer views.
 Modes: "prefill" (fresh causal or windowed attention, a fresh WKV or SSD
-scan, optional cache write), "extend" (a chunk against an existing cache)
-and "decode".
+scan, optional cache write), "extend" (a chunk against an existing cache),
+"decode", and "train" (:meth:`Model.loss`: no cache, the plain attention
+blocks and WKV scan on any device, layers recomputed in backward).
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.common import (ParamSpec, add_rms_norm, cast_params,
-                                       init_params, rms_norm, sinusoidal_emb,
-                                       softcap, torch_dtype)
+                                       init_params, meta_params, rms_norm,
+                                       sinusoidal_emb, softcap, torch_dtype)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
 from repro_torch.models.moe import moe_apply, moe_specs
 
@@ -99,22 +105,48 @@ def model_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
     return specs
 
 
+class Weights(NamedTuple):
+    """What a forward reads: the flat parameter dict in the forward's
+    dtypes and the per-layer views of its stacked leaves ({"ln1", "attn":
+    {...}, ...}): the leading dense layers (first_k_dense), then the
+    blocks (gemma2 local, global, local, ...; zamba2 its Mamba2 layers in
+    order), and zamba2's shared blocks apart."""
+    params: dict
+    first_layers: list
+    layers: list
+    shared_blocks: list
+
+
 class Model(nn.Module):
     """The decoder. ``params`` is a flat dict (e.g. from
-    :func:`~repro_torch.models.common.params_from_numpy`), cast to
-    ``cfg.compute_dtype`` here; without it the weights are drawn from
-    ``seed`` on ``device`` leaf by leaf, each cast as it is drawn (the
-    same values). Either way they never change device."""
+    :func:`~repro_torch.models.common.params_from_numpy`); without it the
+    weights are drawn from ``seed`` on ``device`` leaf by leaf (on the
+    ``meta`` device, for the step counter, they are shapes alone). Either
+    way they never change device.
+
+    Serving (the default) casts the leaves to ``cfg.compute_dtype`` once,
+    here, each as it is drawn (the same values), and ``forward`` reads
+    per-layer views built once. ``trainable=True`` keeps fp32 masters
+    (``cfg.param_dtype``) that require grad; each forward casts them to
+    the compute dtype and takes its per-layer views from that cast, as
+    the reference's ``cast_params`` does on every call, so the grads
+    arrive in fp32. :meth:`loss` is the training forward."""
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, trainable: bool = False):
         super().__init__()
         specs = model_specs(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
-        if params is None:
+        self.specs = specs
+        self.trainable = trainable
+        self.device = resolve_device(device, allow_meta=True)
+        store = None if trainable else cfg.compute_dtype
+        given = params is not None
+        if params is None and self.device.type == "meta":
+            params = meta_params(cfg, store)
+        elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(cfg, gen, cfg.compute_dtype)
+            params = init_params(cfg, gen, store)
         if set(params) != set(specs):
             raise ValueError(f"parameter names differ from the specs: "
                              f"{sorted(set(params) ^ set(specs))}")
@@ -122,35 +154,19 @@ class Model(nn.Module):
             if tuple(params[name].shape) != spec.shape:
                 raise ValueError(f"{name}: shape {tuple(params[name].shape)}"
                                  f" != {spec.shape}")
-        params = {k: v.to(self.device) for k, v in params.items()}
-        for name, t in cast_params(params, specs,
-                                   cfg.compute_dtype).items():
+        if trainable:       # copied: training writes the masters in place
+            params = {k: v.to(self.device, torch_dtype(specs[k].dtype),
+                              copy=given) for k, v in params.items()}
+        else:
+            params = cast_params({k: v.to(self.device)
+                                  for k, v in params.items()}, specs,
+                                 cfg.compute_dtype)
+        for name, t in params.items():
             self._register(name, t)
         self.params: dict[str, torch.Tensor] = dict(self.named_parameters())
-        # per-layer views of the stacked leaves: {"ln1", "attn": {...}, ...}:
-        # the leading dense layers (first_k_dense), then the blocks; gemma2
-        # local, global, local, ...; zamba2 its Mamba2 layers in order, and
-        # the shared blocks apart
-        first_k = first_k_dense(cfg)
-        self.first_layers = [self._layer("dense_layers", i)
-                             for i in range(first_k)]
-        self.shared_blocks = [self._layer("shared", j)
-                              for j in range(cfg.num_shared_blocks
-                                             if cfg.family == "hybrid"
-                                             else 0)]
-        if cfg.family == "hybrid":
-            E = cfg.shared_attn_every
-            groups = [self._layer("blocks", g)["mamba"]
-                      for g in range(cfg.num_layers // E)]
-            self.layers = [{k: t[e] for k, t in grp.items()}
-                           for grp in groups for e in range(E)]
-        elif cfg.local_global_alternating:
-            self.layers = [self._layer("blocks", g)[kind]
-                           for g in range(cfg.num_layers // 2)
-                           for kind in ("local", "global")]
-        else:
-            self.layers = [self._layer("blocks", i)
-                           for i in range(cfg.num_layers - first_k)]
+        with torch.no_grad():
+            self._built = self._weights(self.params)
+        self.first_layers, self.layers, self.shared_blocks = self._built[1:]
 
     def _register(self, name: str, tensor: torch.Tensor) -> None:
         *path, leaf = name.split(".")
@@ -159,20 +175,53 @@ class Model(nn.Module):
             if part not in mod._modules:
                 mod.add_module(part, nn.Module())
             mod = mod._modules[part]
-        mod.register_parameter(leaf, nn.Parameter(tensor,
-                                                  requires_grad=False))
+        mod.register_parameter(leaf, nn.Parameter(
+            tensor, requires_grad=self.trainable))
 
-    def _layer(self, stack: str, i: int) -> dict:
-        out: dict = {}
-        for name, t in self.params.items():
+    @staticmethod
+    def _unstack(params: dict, stack: str) -> list[dict]:
+        """Per-layer nested dicts of views of the ``stack.*`` leaves: one
+        ``unbind`` a leaf (under autograd its backward is one stack of the
+        layers' grads, not a full-size zero tensor a layer)."""
+        out: list[dict] = []
+        for name, t in params.items():
             if not name.startswith(stack + "."):
                 continue
             *path, leaf = name.split(".")[1:]
-            node = out
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = t[i]
+            parts = t.unbind(0)
+            out = out or [{} for _ in parts]
+            for node, part in zip(out, parts):
+                for key in path:
+                    node = node.setdefault(key, {})
+                node[leaf] = part
         return out
+
+    def _weights(self, params: dict) -> Weights:
+        cfg = self.cfg
+        shared = self._unstack(params, "shared") \
+            if cfg.family == "hybrid" else []
+        blocks = self._unstack(params, "blocks")
+        if cfg.family == "hybrid":
+            layers = [dict(zip(grp["mamba"], views))
+                      for grp in blocks
+                      for views in zip(*(t.unbind(0)
+                                         for t in grp["mamba"].values()))]
+        elif cfg.local_global_alternating:
+            layers = [pair[kind] for pair in blocks
+                      for kind in ("local", "global")]
+        else:
+            layers = blocks
+        return Weights(params, self._unstack(params, "dense_layers"),
+                       layers, shared)
+
+    def _forward_weights(self) -> Weights:
+        """Serving: the views built with the model. A trainable model: the
+        masters cast to the compute dtype, viewed anew on every call, so
+        no step backpropagates through an earlier step's views."""
+        if not self.trainable:
+            return self._built
+        return self._weights(cast_params(self.params, self.specs,
+                                         self.cfg.compute_dtype))
 
     # ------------------------------------------------------------------ cache
     def cache_shapes(self, batch: int, max_len: int) -> dict:
@@ -220,21 +269,42 @@ class Model(nn.Module):
                                                         max_len).items()}
 
     # ---------------------------------------------------------------- layers
+    def _step(self, mode: str, fn, *args):
+        """``fn(*args)``, recomputed in backward (non-reentrant activation
+        checkpointing) in a training forward when ``cfg.remat`` is not
+        "none": the reference's ``jax.checkpoint`` of its scan body, taken
+        per layer. ``fn`` binds its layer's weights (a partial), never a
+        loop variable."""
+        if mode == "train" and self.cfg.remat != "none":
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def _attn_apply(self, p: dict, h, kv, cache_len, positions, mode,
                     window: int = 0):
         """One attention sublayer on the normed input ``h``; ``kv`` is the
         layer's (k, v) cache pair, written in place, or None. ``window``
         > 0: gemma2's sliding window (its cache a ring when it has exactly
-        ``window`` slots)."""
+        ``window`` slots). Mode "train" runs the plain blocks on any
+        device, each recomputed in backward unless the whole layer is
+        (``cfg.remat``): nested, the blocks' forward would run a third
+        time for nothing the backward needs."""
         cfg = self.cfg
         q, k, v = attn.qkv_project(p, h, cfg, positions)
         scale = 1.0 / math.sqrt(cfg.head_dim)
         if kv is not None:
             attn.write_cache(kv[0], kv[1], k, v, cache_len,
                              ring=attn.is_ring(kv[0], window))
-        if mode != "prefill":
+        if mode in ("extend", "decode"):
             o = attn.attend_decode(q, kv[0], kv[1], cache_len, scale=scale,
                                    cap=cfg.attn_softcap, window=window)
+        elif mode == "train" and window:
+            o = attn.windowed_blocks(q, k, v, scale=scale, window=window,
+                                     cap=cfg.attn_softcap,
+                                     remat=cfg.remat == "none")
+        elif mode == "train":
+            o = attn.causal_blocks(q, k, v, scale=scale,
+                                   cap=cfg.attn_softcap,
+                                   remat=cfg.remat == "none")
         elif window:
             o = attn.attend_windowed(q, k, v, scale=scale, window=window,
                                      cap=cfg.attn_softcap)
@@ -275,6 +345,12 @@ class Model(nn.Module):
             f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
         return x, f
 
+    def _dense_layer(self, p: dict, x, kv, cache_len, positions, mode,
+                     fused: bool):
+        """An attention layer with its FFN's output added."""
+        x, f = self._attn_layer(p, x, kv, cache_len, positions, mode, fused)
+        return x + f
+
     def _shared_block(self, p: dict, x, x0, kv, cache_len, positions,
                       mode):
         """zamba2's shared attention + MLP block: its input is
@@ -287,7 +363,14 @@ class Model(nn.Module):
         h, h2 = add_rms_norm(h, a, p["ln2"], cfg.norm_eps)
         return x + (h + mlp_apply(p["mlp"], h2, cfg.activation))
 
-    def _hybrid(self, x, cache, cache_len, positions, mode):
+    def _mamba_layer(self, p: dict, x, state, mode):
+        """One Mamba2 layer and its residual add; returns (x, new state)."""
+        out, new = mamba2.mamba_apply(
+            p, rms_norm(x, p["ln"], self.cfg.norm_eps), self.cfg, state,
+            mode)
+        return x + out, new
+
+    def _hybrid(self, w: Weights, x, cache, cache_len, positions, mode):
         """zamba2's stack: per group g, shared block g mod
         ``num_shared_blocks`` (its KV in ``shared_k/v[g]``), then the
         group's E Mamba2 layers (their states in ``conv/ssm[g, e]``,
@@ -298,26 +381,25 @@ class Model(nn.Module):
         for g in range(cfg.num_layers // E):
             kv = None if cache is None else (cache["shared_k"][g],
                                              cache["shared_v"][g])
-            shared = self.shared_blocks[g % len(self.shared_blocks)]
-            x = self._shared_block(shared, x, x0, kv, cache_len, positions,
-                                   mode)
+            shared = w.shared_blocks[g % len(w.shared_blocks)]
+            x = self._step(mode, functools.partial(
+                self._shared_block, shared, kv=kv, cache_len=cache_len,
+                positions=positions, mode=mode), x, x0)
             for e in range(E):
-                p = self.layers[g * E + e]
                 state = None if cache is None else {
                     "conv": cache["conv"][g, e], "ssm": cache["ssm"][g, e]}
-                out, new = mamba2.mamba_apply(
-                    p, rms_norm(x, p["ln"], cfg.norm_eps), cfg, state, mode)
+                x, new = self._step(mode, functools.partial(
+                    self._mamba_layer, w.layers[g * E + e], state=state,
+                    mode=mode), x)
                 if cache is not None:
                     cache["conv"][g, e] = new["conv"]
                     cache["ssm"][g, e] = new["ssm"]
-                x = x + out
         return x
 
-    def _rwkv_layer(self, i: int, x, cache, mode):
-        """Time mix + channel mix; the layer's token-shift and WKV states
+    def _rwkv_layer(self, p: dict, x, cache, i: int, mode):
+        """Time mix + channel mix; layer ``i``'s token-shift and WKV states
         are read from and written back into ``cache`` in place."""
         cfg = self.cfg
-        p = self.layers[i]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         tm_state = None if cache is None else {"shift": cache["shift1"][i],
                                                "wkv": cache["wkv"][i]}
@@ -343,25 +425,34 @@ class Model(nn.Module):
         logits_slice, V), cache). The cache is written in place and
         returned. ``cache_len`` is a scalar or a (B,) tensor of
         per-sequence offsets."""
-        cfg = self.cfg
         if mode not in ("prefill", "extend", "decode"):
             raise ValueError(f"mode {mode!r}")
         if mode != "prefill" and cache is None:
             raise ValueError(f"mode {mode!r} needs a cache")
         if (tokens is None) == (embeds is None):
             raise ValueError("pass exactly one of tokens or embeds")
+        w = self._forward_weights()
+        x = self._hidden(w, tokens, embeds, cache, cache_len, mode)
+        if logits_slice is not None:
+            x = x[:, -logits_slice:]
+        return self._logits(w, x), cache
+
+    def _hidden(self, w: Weights, tokens, embeds, cache, cache_len, mode):
+        """Embedding, the layer stack and the final norm."""
+        cfg = self.cfg
         if embeds is None:
             tokens = tokens.to(self.device)
             S = tokens.shape[-1]
-            x = self.params["embed"][tokens]
+            x = w.params["embed"][tokens]
         else:
             x = embeds.to(self.device, torch_dtype(cfg.compute_dtype))
             S = x.shape[1]
         if cfg.family == "ssm":
             x = self._scale_embeddings(x)
-            for i in range(cfg.num_layers):
-                x = self._rwkv_layer(i, x, cache, mode)
-            return self._logits(x, logits_slice), cache
+            for i, p in enumerate(w.layers):
+                x = self._step(mode, functools.partial(
+                    self._rwkv_layer, p, cache=cache, i=i, mode=mode), x)
+            return rms_norm(x, w.params["final_norm"], cfg.norm_eps)
         steps = torch.arange(S, device=self.device)
         if cache is None or isinstance(cache_len, int):
             # a host offset stays on the host: reading a device offset
@@ -374,54 +465,105 @@ class Model(nn.Module):
             x = x + sinusoidal_emb(positions, cfg.d_model).to(x.dtype)
         x = self._scale_embeddings(x)
         if cfg.family == "hybrid":
-            x = self._hybrid(x, cache, cache_len, positions, mode)
+            x = self._hybrid(w, x, cache, cache_len, positions, mode)
         elif cfg.local_global_alternating:
             W = cfg.sliding_window
             # extend and decode both read the ring after the chunk's write
-            if mode != "prefill" and attn.is_ring(cache["k_local"][0], W):
+            if mode in ("extend", "decode") and \
+                    attn.is_ring(cache["k_local"][0], W):
                 attn.refuse_ring_extend(cache_len, S, W)
-            for i, p in enumerate(self.layers):
+            for i, p in enumerate(w.layers):
                 kind, g = ("local", "global")[i % 2], i // 2
                 kv = None if cache is None else (cache[f"k_{kind}"][g],
                                                  cache[f"v_{kind}"][g])
+                layer = functools.partial(self._attn_layer, p, kv=kv,
+                                          cache_len=cache_len,
+                                          positions=positions, mode=mode)
                 if kind == "local":
-                    x, f = self._attn_layer(p, x, kv, cache_len, positions,
-                                            mode, window=W)
+                    x, f = self._step(mode, functools.partial(
+                        layer, window=W), x)
                 else:
-                    x, f = self._attn_layer(p, x, kv, cache_len, positions,
-                                            mode, delta=f)
+                    x, f = self._step(mode, lambda x, f, layer=layer:
+                                      layer(x, delta=f), x, f)
                     x = x + f
         else:
-            for stack, k, v, fused in ((self.first_layers, "k0", "v0", False),
-                                       (self.layers, "k", "v", True)):
+            for stack, k, v, fused in ((w.first_layers, "k0", "v0", False),
+                                       (w.layers, "k", "v", True)):
                 for i, p in enumerate(stack):
                     kv = None if cache is None else (cache[k][i],
                                                      cache[v][i])
-                    x, f = self._attn_layer(p, x, kv, cache_len, positions,
-                                            mode, fused)
-                    x = x + f
-        return self._logits(x, logits_slice), cache
+                    x = self._step(mode, functools.partial(
+                        self._dense_layer, p, kv=kv, cache_len=cache_len,
+                        positions=positions, mode=mode, fused=fused), x)
+        return rms_norm(x, w.params["final_norm"], cfg.norm_eps)
 
     def _scale_embeddings(self, x):
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         return x
 
-    def _logits(self, x, logits_slice):
-        cfg = self.cfg
-        x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
-        if logits_slice is not None:
-            x = x[:, -logits_slice:]
-        logits = (x @ self.head()).float()
-        if cfg.final_softcap:
-            logits = softcap(logits, cfg.final_softcap)
+    def _logits(self, w: Weights, x):
+        logits = (x @ self._head(w)).float()
+        if self.cfg.final_softcap:
+            logits = softcap(logits, self.cfg.final_softcap)
         return logits
+
+    def _head(self, w: Weights) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return w.params["embed"].t()
+        return w.params["lm_head"]
 
     def head(self) -> torch.Tensor:
         """The (D, V) output projection in the compute dtype."""
-        if self.cfg.tie_embeddings:
-            return self.params["embed"].t()
-        return self.params["lm_head"]
+        return self._head(self._built)
+
+    # ------------------------------------------------------------------ loss
+    def _train_weights(self) -> Weights:
+        if not self.trainable:
+            raise ValueError("the training forward needs a "
+                             "Model(..., trainable=True): a serving model "
+                             "holds no fp32 masters")
+        return self._forward_weights()
+
+    def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Final-norm hidden states of the training forward (no logits)."""
+        return self._hidden(self._train_weights(), tokens, None, None, 0,
+                            "train")
+
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor | None = None,
+             loss_chunk: int = 1024) -> torch.Tensor:
+        """Mean next-token cross entropy (the reference's ``Model.loss``),
+        differentiable with respect to the fp32 masters. The logits are
+        computed a chunk of ``loss_chunk`` positions at a time and each
+        chunk is recomputed in backward, so the (B, S, V) fp32 logits
+        never exist whole (a length not a multiple of the chunk is one
+        chunk, as in the reference)."""
+        w = self._train_weights()
+        hidden = self._hidden(w, tokens, None, None, 0, "train")
+        head = self._head(w)
+        labels = labels.to(self.device).long()
+        S = hidden.shape[1]
+        C = min(loss_chunk, S)
+        if S % C:
+            C = S
+        nll = torch.cat([checkpoint(self._chunk_nll, hidden[:, i:i + C],
+                                    labels[:, i:i + C], head,
+                                    use_reentrant=False)
+                         for i in range(0, S, C)], dim=1)
+        if mask is not None:
+            mask = mask.to(self.device, nll.dtype)
+            return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return nll.mean()
+
+    def _chunk_nll(self, h, labels, head):
+        """-log p(label) at each position of one chunk, from its fp32
+        logits."""
+        logits = (h @ head).float()
+        if self.cfg.final_softcap:
+            logits = softcap(logits, self.cfg.final_softcap)
+        picked = logits.gather(-1, labels[..., None])[..., 0]
+        return torch.logsumexp(logits, dim=-1) - picked
 
 
 def ffn_apply(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

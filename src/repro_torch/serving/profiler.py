@@ -72,12 +72,48 @@ class CostModel:
                       chips: int = 1, prefill_tokens: int = 64,
                       decode_batch: int = 4, decode_context: int = 128
                       ) -> "CostModel":
-        """Roofline-calibrated cost model: not ported yet (ROADMAP queue 1
-        item 12 counts the port's prefill and decode steps instead of the
-        compiled-HLO analyzer). Use the analytic ``CostModel(prof, hw)``."""
-        raise NotImplementedError(
-            "CostModel.from_roofline is not ported yet (ROADMAP queue 1 "
-            "item 12); use cost_source='analytic'")
+        """Build a cost model whose per-token FLOPs and per-step bytes are
+        *counted from the port's steps* (via
+        :mod:`repro_torch.dist.roofline`) instead of derived from the
+        config's analytic param counts.
+
+        A small prefill step and a small decode step are built for ``cfg``
+        on the ``meta`` device (shapes only: nothing is drawn or
+        allocated, and the count is the same on any machine) and run once
+        under the counter, which takes the analyzer's byte model (operand
+        + output bytes of the matmul family, elementwise chains fused at 0
+        bytes); the serving profile is calibrated from the two counts:
+
+        - ``flops_per_token``   <- prefill FLOPs / prefill tokens
+        - ``active_param_bytes``<- decode bytes minus the KV-cache read
+        - ``kv_bytes_per_token``/``state_bytes`` stay exact-from-config
+          (they are structural, not measured).
+
+        ``mesh`` must be None: one device (ROADMAP queue 1 item 14)."""
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.dist.roofline import count_step
+        from repro_torch.models.steps import (build_decode_step,
+                                              build_prefill_step)
+
+        p_cost = count_step(build_prefill_step(
+            cfg, mesh, ShapeSpec("cal_p", "prefill", prefill_tokens, 1),
+            device="meta"))
+        d_cost = count_step(build_decode_step(
+            cfg, mesh, ShapeSpec("cal_d", "decode", decode_context,
+                                 decode_batch), device="meta"))
+
+        kvpt = cfg.kv_bytes_per_token(2)
+        state = cfg.state_bytes()
+        kv_read = decode_batch * (decode_context * kvpt + state)
+        prof = ModelServingProfile(
+            param_bytes=2.0 * cfg.param_count(),
+            active_param_bytes=max(d_cost.bytes - kv_read, 1.0),
+            kv_bytes_per_token=kvpt,
+            state_bytes=state,
+            flops_per_token=p_cost.flops / prefill_tokens,
+            chips=chips,
+        )
+        return cls(prof, hw)
 
     # ---- primitive costs -------------------------------------------------
     def prefill_seconds(self, tokens: int, context: int = 0) -> float:

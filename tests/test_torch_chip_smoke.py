@@ -2,6 +2,7 @@
 datasheet table and workload are what its docstrings say, and its two
 serve legs run end to end on the CPU at smoke width (the card runs them
 at full qwen2-1.5b width)."""
+import math
 import pathlib
 import sys
 
@@ -420,3 +421,67 @@ def test_path_e_legs_at_full_width():
     gemma = cfg_of("gemma2-9b")
     assert chip_smoke.PATH_E["7a"]["prompt"] - chip_smoke.PATH_E_TAIL > \
         gemma.sliding_window
+
+
+# ------------------------------------------------ phase 8 (path F) on CPU
+def test_path_f_sizing_at_full_width():
+    """8a's shape is train_4k's row with its global batch cut (and one row
+    a microbatch at qwen2-1.5b's train_microbatches); 8b's cut keeps
+    whole layers."""
+    from repro_torch.configs.base import SHAPES
+    cfg = get_config(chip_smoke.TRAIN_F["arch"])
+    full = SHAPES["train_4k"]
+    assert chip_smoke.TRAIN_F["seq"] == full.seq_len
+    assert chip_smoke.TRAIN_F["full_batch"] == full.global_batch
+    assert chip_smoke.TRAIN_F["batch"] == cfg.train_microbatches == 2
+    assert cfg.remat == "full" and cfg.compute_dtype == "bfloat16"
+    assert chip_smoke.TRAIN_CHECK["layers"] < cfg.num_layers
+
+
+def test_train_steps_on_cpu(tmp_path):
+    """Phase 8a's loop at smoke width: a warm-up step and timed ones, each
+    record with its rates, no kernel launched; a flat history fails the
+    check (the smoke model's losses fall over tens of steps, the
+    full-width model's on the card within its ten)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import launch_counts
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    recs = chip_smoke.train_steps(cfg, ShapeSpec("t", "train", 64, 2), 3,
+                                  "cpu", tmp_path, peak_flops=989e12)
+    assert [r["step"] for r in recs] == [1, 2, 3, 4]
+    for r in recs:
+        assert r["step_ms"] > 0 and r["wall_ms"] >= r["step_ms"]
+        assert r["tokens_per_s"] > 0 and 0 < r["flops_share"] < 1
+    assert all(math.isfinite(r["loss"]) for r in recs)
+    assert not any(launch_counts().values())
+    chip_smoke.assert_training([dict(r, loss=5.0 - i)
+                                for i, r in enumerate(recs)])
+    with pytest.raises(AssertionError):
+        chip_smoke.assert_training([dict(r, loss=1.0) for r in recs])
+
+
+def test_card_vs_cpu_on_cpu(tmp_path):
+    """Phase 8b's legs at smoke width with the CPU on both sides: equal
+    histories, and the resumed step 2 equal to the uninterrupted one."""
+    gaps = chip_smoke.card_vs_cpu(get_config("qwen2-1.5b", smoke=True),
+                                  "cpu", tmp_path,
+                                  **chip_smoke.TRAIN_CHECK)
+    assert len(gaps["losses"]) == chip_smoke.TRAIN_CHECK["steps"]
+    assert max(gaps["loss_gaps"] + gaps["grad_norm_gaps"]) == 0
+    chip_smoke.assert_card_vs_cpu(gaps)
+
+
+def test_roofline_checks_at_full_width():
+    """Phase 8c off the card: full qwen2-1.5b counted on the meta device
+    within 2x of the analytic profile, 3a-like steps priced by both, and
+    the roofline-priced engine pinning under the H100's profile."""
+    from repro_torch.serving.profiler import StepSample
+    hw = chip_smoke.hardware_profile("NVIDIA H100 80GB HBM3")
+    samples = [StepSample(0.06, 512, 0, 0, 0),
+               StepSample(0.045, 0, 0, 4, 2048),
+               StepSample(0.07, 512, 1024, 2, 900)]
+    checks = chip_smoke.roofline_checks(get_config("qwen2-1.5b"), hw,
+                                        samples)
+    chip_smoke.assert_roofline(checks)
+    assert checks["prefill"]["steps"] == checks["decode"]["steps"] == 1
+    assert checks["prefill"]["measured_over_roofline"] > 0

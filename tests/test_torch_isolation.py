@@ -36,7 +36,8 @@ PORT = ROOT / "src" / "repro_torch"
 ORIG = ROOT / "src" / "repro"
 
 #: modules carried verbatim from the JAX package (``repro.`` read as
-#: ``repro_torch.``); serving/profiler.py differs only in from_roofline
+#: ``repro_torch.``); serving/profiler.py differs only in from_roofline,
+#: which counts the port's steps in place of the reference's HLO
 COPIES = [
     "configs/__init__.py", "configs/base.py", "configs/gemma2_9b.py",
     "configs/glm4_9b.py", "configs/moonshot_v1_16b_a3b.py",
@@ -55,6 +56,7 @@ COPIES = [
     "serving/cluster/clock.py", "serving/cluster/peer.py",
     "serving/cluster/router.py", "serving/cluster/scaling.py",
     "serving/cluster/cluster.py", "serving/cluster/__init__.py",
+    "data/tokens.py",
 ]
 
 
@@ -225,5 +227,8 @@ def test_profiler_copy_differs_only_in_from_roofline():
     assert _without_from_roofline(PORT / rel) == \
         _as_port(_without_from_roofline(ORIG / rel))
     from repro_torch.serving.profiler import CostModel
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        CostModel.from_roofline(get_config("qwen2-1.5b", smoke=True))
+    cost = CostModel.from_roofline(get_config("qwen2-1.5b", smoke=True))
+    assert cost.prof.flops_per_token > 0 and cost.prof.active_param_bytes > 1
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        CostModel.from_roofline(get_config("qwen2-1.5b", smoke=True),
+                                mesh=object())
