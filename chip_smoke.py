@@ -170,9 +170,35 @@ Phase 8  path F, training and the roofline cost source, after phase 7 is
          "roofline")`` on 12 SWE-Bench programs under the virtual clock
          must pin.
 
+Phase 9  path G, the sharded steps, after phase 8: a one-rank NCCL
+         process group (a free local port) and ``make_host_mesh()``, a
+         (1, 1) ("data", "model") DeviceMesh. (a) Full-width, full-depth
+         qwen2-1.5b in bf16: the sharded prefill step (B 1 x 2048, every
+         weight and cache a DTensor, the flash kernel launched on each
+         rank's local pieces) and 16 sharded decode steps beside the
+         meshless steps on the same weights: next tokens equal and logits
+         bit-equal, flash launches > 0, the wall ms a step of both legs
+         (a warm-up run of each first). (b) The same config cut to 2
+         layers, fp32, from its published init: step 1 of a sharded
+         Trainer against a meshless one (loss and grad norm within 1e-6
+         relative), then ``reshard_for_mesh(make_host_mesh())`` and 2
+         more steps, each loss finite. (c) One full-width qwen3-moe layer
+         (E 128, top 8) in bf16 with ``sharding_mode="ep_a2a"`` under the
+         mesh's rules (NCCL's all-to-all, seen by the step counter)
+         against the grouped layer on the same input; one EP shard, so
+         the same plan and drops; the error and both times logged. (d)
+         In subprocesses, one a cell, all started together (the fake
+         process group cannot share a process with NCCL's): the dry run
+         on the meta device of qwen2-1.5b x {train_4k, prefill_32k,
+         decode_32k} on 16 x 16 and qwen3-moe-235b-a22b x train_4k on
+         2 x 16 x 16: per-device FLOPs, bytes, collective bytes and
+         argument bytes (also as a share of the card's memory), each
+         finite and positive. The process group is torn down at the end.
+
 Prints a ``{"kernels": [...]}`` line (``launches``: phases 3 and 4;
 ``launches_phase5``: each leg of phase 5; ``launches_phase6``: phase
-6a; ``launches_phase7``: legs 7a and 7c; ``launches_phase8``: phase 8a),
+6a; ``launches_phase7``: legs 7a and 7c; ``launches_phase8``: phase 8a;
+``launches_phase9``: the sharded prefill and decode steps of 9a),
 the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 then exits non-zero and prints no result line.
@@ -2615,6 +2641,341 @@ def phase8(hw, smi: str, sheet: dict, samples) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ phase 9
+#: path G: 9a's serving legs, 9b's training cut, 9c's MoE layer, 9d's
+#: production dry-run cells (arch, shape, two pods)
+PATH_G = dict(arch="qwen2-1.5b", batch=1, prompt=2048, steps=16)
+PATH_G_TRAIN = dict(layers=2, seq=128, batch=1, steps=2)
+PATH_G_TRAIN_RTOL = 1e-6
+PATH_G_MOE = dict(arch="qwen3-moe-235b-a22b", batch=1, tokens=512)
+#: 9c's bound: bf16 outputs, the max error over the reference's rms
+PATH_G_MOE_BOUND = 1e-2
+PATH_G_DRYRUN = (("qwen2-1.5b", "train_4k", False),
+                 ("qwen2-1.5b", "prefill_32k", False),
+                 ("qwen2-1.5b", "decode_32k", False),
+                 ("qwen3-moe-235b-a22b", "train_4k", True))
+DRYRUN_TIMEOUT_S = 600
+
+
+def wall_ms(fn, device, iters: int = 5, warmup: int = 1) -> float:
+    """Mean wall milliseconds per call (host included), ``device``
+    synchronised around ``iters`` calls after ``warmup`` untimed ones."""
+    for _ in range(warmup):
+        fn()
+    synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    synchronize(device)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def init_group(backend: str, device) -> None:
+    """A one-rank process group on a free local port (``device``'s
+    card bound for NCCL)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    kw = {}
+    if backend == "nccl":
+        torch.cuda.set_device(torch.device(device))
+        kw["device_id"] = torch.device(device)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, **kw)
+
+
+def serve_legs(pf, dc, toks, steps: int, device) -> dict:
+    """A prefill step then ``steps`` decode steps from its tokens: each
+    step's next tokens and fp32 logits, and its wall ms."""
+    import torch
+    B, prompt = toks.shape
+    cache = pf.model.init_cache(B, prompt + steps, pf.rules)
+    synchronize(device)
+    t0 = time.perf_counter()
+    nxt, cache, lg = pf.fn(cache, toks, logits=True)
+    synchronize(device)
+    ms = [(time.perf_counter() - t0) * 1e3]
+    tokens, logits = [nxt], [lg]
+    for i in range(steps):
+        t0 = time.perf_counter()
+        nxt, cache, lg = dc.fn(cache, nxt[:, None].long(),
+                               torch.full((B,), prompt + i,
+                                          dtype=torch.int32), logits=True)
+        synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        tokens.append(nxt)
+        logits.append(lg)
+    return dict(tokens=tokens, logits=logits, prefill_ms=ms[0],
+                decode_ms=sorted(ms[1:])[len(ms[1:]) // 2])
+
+
+def sharded_serving(cfg, mesh, device, batch: int, prompt: int, steps: int,
+                    seed: int = 0) -> dict:
+    """9a: ``cfg``'s model drawn from ``seed``, its meshless prefill and
+    decode steps and the same steps on ``mesh`` (the weights copied into
+    DTensors), a warm-up run of each leg, then a timed one, the sharded
+    leg's kernel launches counted. Returns the legs' times, the launch
+    counts and whether tokens and logits agree bit for bit."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.models.steps import build_decode_step, build_prefill_step
+    model = Model(cfg, device=device, seed=seed)
+    pshape = ShapeSpec("g_prefill", "prefill", prompt + steps, batch)
+    dshape = ShapeSpec("g_decode", "decode", prompt + steps, batch)
+    legs = {}
+    for name, m in (("meshless", None), ("sharded", mesh)):
+        pf = build_prefill_step(cfg, m, pshape, model=model, device=device)
+        legs[name] = (pf, build_decode_step(cfg, m, dshape, model=pf.model,
+                                            device=device))
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                         generator=torch.Generator().manual_seed(seed)
+                         ).to(device)
+    for name in legs:                                   # warm-up
+        serve_legs(*legs[name], toks, steps, device)
+    reset_launch_counts()
+    runs = {"sharded": serve_legs(*legs["sharded"], toks, steps, device)}
+    counts = launch_counts()
+    runs["meshless"] = serve_legs(*legs["meshless"], toks, steps, device)
+    a, b = runs["sharded"], runs["meshless"]
+    return dict(
+        tokens_equal=all(torch.equal(x, y) for x, y in zip(a["tokens"],
+                                                           b["tokens"])),
+        logits_bit_equal=all(torch.equal(x, y) for x, y in
+                             zip(a["logits"], b["logits"])),
+        max_abs_logit_gap=max(float((x - y).abs().max()) for x, y in
+                              zip(a["logits"], b["logits"])),
+        **{f"{leg}_{k}": runs[leg][k] for leg in runs
+           for k in ("prefill_ms", "decode_ms")},
+        launches=counts)
+
+
+def assert_sharded_serving(check: dict) -> None:
+    assert check["tokens_equal"] and check["logits_bit_equal"], check
+    assert check["launches"]["flash_attention"] > 0, check
+
+
+def sharded_training(cfg, mesh_fn, device, ckpt_dir, layers: int, seq: int,
+                     batch: int, steps: int) -> dict:
+    """9b: ``cfg`` cut to ``layers`` at full width, fp32, one microbatch,
+    from :func:`published_init` (seed 0): step 1 of a meshless trainer
+    and of one on ``mesh_fn()``; then the sharded one moved to a fresh
+    ``mesh_fn()`` (``reshard_for_mesh``) and run ``steps`` more steps.
+    Returns the step-1 gaps and the later losses."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train.train_loop import TrainConfig, Trainer
+    cut = dataclasses.replace(cfg, num_layers=layers,
+                              compute_dtype="float32", train_microbatches=1)
+    params = {k: v.cpu() for k, v in published_init(
+        cut, torch.Generator(device=device).manual_seed(0)).items()}
+    shape = ShapeSpec("g_train", "train", seq, batch)
+
+    def trainer(mesh, sub):
+        tcfg = TrainConfig(steps=steps + 1, ckpt_every=10 ** 9,
+                           ckpt_dir=str(pathlib.Path(ckpt_dir) / sub),
+                           log_every=10 ** 9, adamw=train_adamw(steps + 1))
+        tr = Trainer(cut, mesh, shape, tcfg, log_fn=log, device=device)
+        tr.init_state(params)
+        return tr
+
+    (plain,) = trainer(None, "plain").run(steps=1)
+    tr = trainer(mesh_fn(), "sharded")
+    (first,) = tr.run(steps=1)
+    tr.reshard_for_mesh(mesh_fn())
+    later = tr.run(steps=1 + steps)[1:]
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+
+    return dict(loss=first["loss"], meshless_loss=plain["loss"],
+                loss_gap=rel(first["loss"], plain["loss"]),
+                grad_norm_gap=rel(first["grad_norm"], plain["grad_norm"]),
+                resharded_losses=[r["loss"] for r in later])
+
+
+def assert_sharded_training(check: dict) -> None:
+    assert max(check["loss_gap"], check["grad_norm_gap"]) <= \
+        PATH_G_TRAIN_RTOL, check
+    assert len(check["resharded_losses"]) == PATH_G_TRAIN["steps"] and \
+        all(map(math.isfinite, check["resharded_losses"])), check
+
+
+def a2a_vs_grouped(cfg, mesh, device, batch: int, tokens: int,
+                   seed: int = 0) -> dict:
+    """9c: one MoE layer of ``cfg`` (``sharding_mode="ep_a2a"``) in its
+    compute dtype, drawn from ``seed``: the all-to-all path under the
+    mesh's prefill rules (run under the step counter, which sees the
+    collectives) against the grouped path without a mesh on the same
+    input. Returns the error, both times and the collective bytes."""
+    import torch
+    from repro_torch.dist.roofline import _Counter
+    from repro_torch.dist.sharding import (axis_rules, default_rules,
+                                           distribute, distribute_params,
+                                           placements_of)
+    from repro_torch.models.common import init_param, torch_dtype
+    from repro_torch.models.moe import moe_apply, moe_specs
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, sharding_mode="ep_a2a"))
+    cd = torch_dtype(cfg.compute_dtype)
+    specs = moe_specs(cfg, cfg.compute_dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flat = {k: init_param(s, gen, torch.device(device)).to(cd)
+            for k, s in sorted(specs.items())}
+    x = torch.randn((batch, tokens, cfg.d_model), generator=gen,
+                    device=device).to(cd)
+
+    def nest(d):
+        out = {k: v for k, v in d.items() if "." not in k}
+        shared = {k.split(".", 1)[1]: v for k, v in d.items()
+                  if k.startswith("shared.")}
+        return {**out, "shared": shared} if shared else out
+
+    rules = default_rules(cfg, mesh, "prefill")
+    sharded = nest(distribute_params(flat, specs, mesh, rules))
+    xd = distribute(x, mesh, placements_of(("act_batch", None, None), rules,
+                                           x.shape))
+
+    def a2a():
+        with axis_rules(rules):
+            return moe_apply(sharded, xd, cfg).full_tensor()
+
+    def grouped():
+        return moe_apply(nest(flat), x, cfg)
+
+    with torch.no_grad():
+        ref = grouped()
+        with _Counter() as counter:
+            got = a2a()
+        err = float((got.float() - ref.float()).abs().max())
+        rms = float(ref.float().square().mean().sqrt())
+        times = {name: wall_ms(fn, device)
+                 for name, fn in (("a2a_ms", a2a), ("grouped_ms", grouped))}
+    return dict(max_abs_err=err, ref_rms=rms, rel_err=err / rms,
+                bound=PATH_G_MOE_BOUND, bit_equal=bool(torch.equal(got, ref)),
+                coll_bytes=counter.cost.coll_bytes, **times)
+
+
+def assert_a2a(check: dict) -> None:
+    assert check["rel_err"] <= PATH_G_MOE_BOUND, check
+    assert check["coll_bytes"] > 0, check
+
+
+def dryrun_cells(cells, out_dir, smoke: bool = False,
+                 timeout: float = DRYRUN_TIMEOUT_S) -> list[dict]:
+    """9d: ``python -m repro_torch.launch.dryrun`` a cell a subprocess,
+    all started together, records written under ``out_dir``; every
+    process is waited for or killed. Returns the records."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    try:
+        for arch, shape, two_pods in cells:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--out", str(out_dir),
+                 "--multipod-only" if two_pods else "--single-pod-only"]
+                + (["--smoke"] if smoke else []), env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        t_end = time.monotonic() + timeout
+        for proc in procs:
+            out, err = proc.communicate(
+                timeout=max(1.0, t_end - time.monotonic()))
+            assert proc.returncode == 0, (proc.args, err[-3000:])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tags = {True: "2x16x16", False: "16x16"}
+    return [json.loads((pathlib.Path(out_dir) / (
+        f"{arch}_{shape}_{'2x4smoke' if smoke else tags[two_pods]}.json"))
+        .read_text()) for arch, shape, two_pods in cells]
+
+
+def assert_dryrun(records: list[dict]) -> None:
+    keys = ("flops_per_device", "bytes_accessed_per_device", "coll_bytes",
+            "argument_bytes")
+    for rec in records:
+        assert all(math.isfinite(rec[k]) and rec[k] > 0 for k in keys), rec
+
+
+def phase9(smi: str) -> dict:
+    """Path G: the sharded steps on a one-rank NCCL mesh (9a-9c) and the
+    production dry run (9d). Returns 9a's sharded-leg launch counts."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    init_group("nccl", "cuda:0")
+    try:
+        mesh = make_host_mesh()
+        assert tuple(mesh.shape) == (1, 1), mesh
+        cfg = get_config(PATH_G["arch"])
+        check = sharded_serving(cfg, mesh, "cuda", PATH_G["batch"],
+                                PATH_G["prompt"], PATH_G["steps"])
+        log(f"phase9a {cfg.name} at full width and depth ({cfg.num_layers} "
+            f"layers, {cfg.compute_dtype}), B {PATH_G['batch']} x "
+            f"{PATH_G['prompt']} prefill + {PATH_G['steps']} decode steps, "
+            f"sharded on a {tuple(mesh.shape)} NCCL mesh vs meshless on the "
+            f"same weights, on {smi}: {json.dumps(check)}")
+        assert_sharded_serving(check)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            train = sharded_training(cfg, make_host_mesh, "cuda", tmp,
+                                     **PATH_G_TRAIN)
+        log(f"phase9b {cfg.name} cut to {PATH_G_TRAIN['layers']} full-width "
+            f"layers, fp32, B {PATH_G_TRAIN['batch']} x {PATH_G_TRAIN['seq']}"
+            f", sharded trainer vs meshless (bound {PATH_G_TRAIN_RTOL} "
+            f"relative), then reshard_for_mesh(make_host_mesh()): "
+            f"{json.dumps(train)}")
+        assert_sharded_training(train)
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_cfg = get_config(PATH_G_MOE["arch"])
+        moe = a2a_vs_grouped(moe_cfg, mesh, "cuda", PATH_G_MOE["batch"],
+                             PATH_G_MOE["tokens"])
+        log(f"phase9c one {moe_cfg.name} MoE layer at full width (E "
+            f"{moe_cfg.moe.num_experts}, top {moe_cfg.moe.top_k}, d_model "
+            f"{moe_cfg.d_model}, {moe_cfg.compute_dtype}), B "
+            f"{PATH_G_MOE['batch']} x {PATH_G_MOE['tokens']} tokens, ep_a2a "
+            f"(NCCL all-to-all) vs the grouped layer, on {smi}: "
+            f"{json.dumps(moe)}")
+        assert_a2a(moe)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            records = dryrun_cells(PATH_G_DRYRUN, tmp)
+        memory = torch.cuda.get_device_properties(0).total_memory
+        for rec in records:
+            log(f"phase9d dry run {rec['arch']} x {rec['shape']} on "
+                f"{rec['mesh']} ({rec['chips']} ranks, meta device, counted "
+                f"not timed): " + json.dumps(dict(
+                    {k: rec[k] for k in (
+                        "flops_per_device", "bytes_accessed_per_device",
+                        "coll_bytes", "argument_bytes", "output_bytes",
+                        "lower_s", "counted")},
+                    argument_share_of_card=rec["argument_bytes"] / memory)))
+        log(f"phase9d {len(records)} cells in "
+            f"{time.perf_counter() - t0:.1f} s (card memory {memory} B)")
+        assert_dryrun(records)
+    finally:
+        dist.destroy_process_group()
+    log(f"phase9 wall {time.perf_counter() - t_phase:.1f} s")
+    return check["launches"]
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -2660,6 +3021,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path_f = phase8(hw, smi, sheet, samples)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_g = phase9(smi)
 
     sources = {
         "paged_decode_attention": (
@@ -2685,6 +3049,7 @@ def main() -> int:
                     launches_phase7={leg: c[name]
                                      for leg, c in path_e.items()},
                     launches_phase8=path_f[name],
+                    launches_phase9=path_g[name],
                     **records[name])
                for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,9 @@ backward, and the reference's train step runs its jnp blocks too.
 ``attend_decode`` is dense attention of new tokens against a contiguous
 or ring cache with length and window masking (extend and decode mode, as
 in the reference). The paged decode path goes through its own CUDA kernel
-(:mod:`repro_torch.kernels.decode_attention`).
+(:mod:`repro_torch.kernels.decode_attention`). On a mesh,
+:func:`attend_sharded` runs the same functions on each rank's local
+pieces (the flash kernel on CUDA tensors, never on a DTensor).
 
 Layouts: q (B, S, H, Dh); k/v (B, S, KV, Dh); caches (B, S_max, KV, Dh).
 """
@@ -24,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import matmul_in, matmul_out
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.models.common import (ParamSpec, apply_rope, rms_norm,
                                        rope_tables, softcap)
@@ -37,31 +40,34 @@ NEG_INF = -2.0e38  # fp32 mask value (safe under bf16->fp32 upcast)
 def attention_specs(cfg: ModelConfig, dtype: str) -> dict[str, ParamSpec]:
     D, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs = {
-        "wq": ParamSpec((D, H, Dh), dtype=dtype),
-        "wk": ParamSpec((D, KV, Dh), dtype=dtype),
-        "wv": ParamSpec((D, KV, Dh), dtype=dtype),
-        "wo": ParamSpec((H, Dh, D), dtype=dtype),
+        "wq": ParamSpec((D, H, Dh), ("embed", "q_heads", "head_dim"),
+                        dtype=dtype),
+        "wk": ParamSpec((D, KV, Dh), ("embed", "kv_heads", "head_dim"),
+                        dtype=dtype),
+        "wv": ParamSpec((D, KV, Dh), ("embed", "kv_heads", "head_dim"),
+                        dtype=dtype),
+        "wo": ParamSpec((H, Dh, D), ("q_heads", "head_dim", "embed"),
+                        dtype=dtype),
     }
     if cfg.qkv_bias:
-        specs["bq"] = ParamSpec((H, Dh), init="zeros", dtype=dtype)
-        specs["bk"] = ParamSpec((KV, Dh), init="zeros", dtype=dtype)
-        specs["bv"] = ParamSpec((KV, Dh), init="zeros", dtype=dtype)
+        specs["bq"] = ParamSpec((H, Dh), ("q_heads", "head_dim"),
+                                init="zeros", dtype=dtype)
+        specs["bk"] = ParamSpec((KV, Dh), ("kv_heads", "head_dim"),
+                                init="zeros", dtype=dtype)
+        specs["bv"] = ParamSpec((KV, Dh), ("kv_heads", "head_dim"),
+                                init="zeros", dtype=dtype)
     if cfg.qk_norm:
-        specs["q_norm"] = ParamSpec((Dh,), init="zeros", dtype=dtype)
-        specs["k_norm"] = ParamSpec((Dh,), init="zeros", dtype=dtype)
+        specs["q_norm"] = ParamSpec((Dh,), ("head_dim",), init="zeros",
+                                    dtype=dtype)
+        specs["k_norm"] = ParamSpec((Dh,), ("head_dim",), init="zeros",
+                                    dtype=dtype)
     return specs
-
-
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, S, D) @ w (D, N, Dh) -> (B, S, N, Dh)."""
-    D, N, Dh = w.shape
-    return (x @ w.reshape(D, N * Dh)).unflatten(-1, (N, Dh))
 
 
 def qkv_project(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor):
     """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh) with RoPE applied."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = (matmul_in(x, p[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -77,8 +83,7 @@ def qkv_project(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def out_project(p: dict, o: torch.Tensor) -> torch.Tensor:
     """o (B, S, H, Dh) @ wo (H, Dh, D) -> (B, S, D)."""
-    H, Dh, D = p["wo"].shape
-    return o.flatten(-2) @ p["wo"].reshape(H * Dh, D)
+    return matmul_out(o, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -279,16 +284,24 @@ def refuse_ring_extend(cache_len, C: int, slots: int) -> None:
 
 
 def write_cache(cache_k, cache_v, k_new, v_new, cache_len, *,
-                ring: bool = False) -> None:
+                ring: bool = False, slot0: int = 0,
+                slots: int | None = None) -> None:
     """Write k/v (B,C,KV,Dh) into the caches (B,W,KV,Dh) in place at
     per-sequence offsets ``cache_len`` ((B,) or a scalar). A plain cache
     is written at slots s..s+C-1, s clamped to ``W - C`` like
     ``dynamic_update_slice``. A ring (a sliding-window layer's W =
     window slots) holds position p in slot p mod W: of a chunk longer
     than W only its last W tokens are written, which is what the
-    reference's scatter with repeated slots leaves ("later writes win")."""
+    reference's scatter with repeated slots leaves ("later writes win").
+    ``slots``: the caches are the W slots from ``slot0`` of a cache of
+    ``slots`` (one rank's piece of a cache sharded on its sequence), and
+    only the tokens that land in them are written."""
     W, C = cache_k.shape[1], k_new.shape[1]
     k_new, v_new = k_new.to(cache_k.dtype), v_new.to(cache_v.dtype)
+    if slots is not None:
+        _write_piece(cache_k, cache_v, k_new, v_new, cache_len, ring, slot0,
+                     slots)
+        return
     for b, s in enumerate(_offsets(cache_len, cache_k.shape[0])):
         s = int(s)
         if ring:
@@ -302,6 +315,29 @@ def write_cache(cache_k, cache_v, k_new, v_new, cache_len, *,
             cache_v[b, s:s + C] = v_new[b]
 
 
+def _write_piece(cache_k, cache_v, k_new, v_new, cache_len, ring: bool,
+                 slot0: int, slots: int) -> None:
+    """:func:`write_cache` into the W slots from ``slot0`` of a cache of
+    ``slots``: each token's slot in the whole cache worked out on the
+    host, those in the piece written."""
+    W, C = cache_k.shape[1], k_new.shape[1]
+    for b, s in enumerate(_offsets(cache_len, cache_k.shape[0])):
+        s = int(s)
+        if ring:
+            n = min(C, slots)
+            pairs = [((s + i) % slots - slot0, i) for i in range(C - n, C)]
+        else:
+            s = max(0, min(s, slots - C))
+            pairs = [(s + i - slot0, i) for i in range(C)]
+        pairs = [(d, i) for d, i in pairs if 0 <= d < W]
+        if not pairs:
+            continue
+        dst, src = (torch.tensor(t, device=cache_k.device)
+                    for t in zip(*pairs))
+        cache_k[b, dst] = k_new[b, src]
+        cache_v[b, dst] = v_new[b, src]
+
+
 def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
                   cap: float = 0.0, window: int = 0) -> torch.Tensor:
     """q (B,C,H,Dh) new queries at absolute positions kv_len..kv_len+C-1
@@ -310,14 +346,27 @@ def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
     window: in a ring (T == window) slot s holds the latest position p =
     s (mod T) below kv_len + C, in a plain cache slot s holds position
     s. The reference's two masks."""
+    return _finalize(*decode_stats(q, cache_k, cache_v, kv_len, scale=scale,
+                                   cap=cap, window=window))
+
+
+def decode_stats(q, cache_k, cache_v, kv_len, *, scale: float,
+                 cap: float = 0.0, window: int = 0, slot0: int = 0,
+                 slots: int | None = None):
+    """:func:`attend_decode` before its normalisation: (o, m, l) as
+    :func:`_block_attn` gives them. ``slots``: the cache is the slots from
+    ``slot0`` of a cache of ``slots`` (a piece of a cache sharded on its
+    sequence); the pieces' stats merge as :func:`_combine` merges
+    blocks."""
     B, C, H, Dh = q.shape
-    T = cache_k.shape[1]
+    T = cache_k.shape[1] if slots is None else slots
     if isinstance(kv_len, int):          # no host-to-device copy
         kv_len = torch.full((B,), kv_len, dtype=torch.int32, device=q.device)
     else:
         kv_len = torch.as_tensor(kv_len, dtype=torch.int32,
                                  device=q.device).reshape(-1).expand(B)
-    slot = torch.arange(T, device=q.device)[None, :]           # (1,T)
+    slot = slot0 + torch.arange(cache_k.shape[1],
+                                device=q.device)[None, :]      # (1,T)
     total = kv_len + C                                         # (B,)
     q_pos = kv_len[:, None, None] + torch.arange(C, device=q.device)[
         None, :, None]                                         # (B,C,1)
@@ -334,6 +383,148 @@ def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
             (slot[:, None, :] < total[:, None, None])          # (B,C,T)
         if window > 0:
             mask = mask & (slot[:, None, :] > q_pos - window)
-    o, m, l = _block_attn(q, cache_k, cache_v, mask[:, None, None], scale,
-                          cap)
-    return _finalize(o, m, l)
+    return _block_attn(q, cache_k, cache_v, mask[:, None, None], scale, cap)
+
+
+# ---------------------------------------------------------------------------
+# attention under a mesh: the local pieces of q, k, v and the cache
+# ---------------------------------------------------------------------------
+def padded_group(G: int, KV: int, width: int) -> int:
+    """G' >= G, the query heads a KV group gets when a model axis of
+    ``width`` shards the heads and does not divide H = KV * G: the least
+    G' with ``width`` dividing KV * G' and the local head count KV * G' /
+    width dividing G' or a multiple of it, so each shard reads whole GQA
+    groups (ROADMAP R8: padding H as a whole, as the reference does,
+    moves real heads to another KV head)."""
+    fits = [Gp for Gp in range(G, G * width + 1) if KV * Gp % width == 0]
+    for Gp in fits:
+        local = KV * Gp // width
+        if Gp % local == 0 or local % Gp == 0:
+            return Gp
+    return fits[0]
+
+
+def _pad_heads(q, KV: int, Gp: int):
+    """q (B,S,KV*G,Dh) -> (B,S,KV*Gp,Dh): zero heads at the end of each KV
+    group (heads replicated, so the padding is local)."""
+    from repro_torch.dist.sharding import from_local, place
+    q = place(q, "act_batch", None, None, None)
+    ql = q.to_local().unflatten(2, (KV, -1))
+    ql = torch.nn.functional.pad(ql, (0, 0, 0, Gp - ql.shape[3]))
+    return from_local(ql.flatten(2, 3), q)
+
+
+def _unpad_heads(o, KV: int, G: int):
+    """The inverse of :func:`_pad_heads` (heads gathered first)."""
+    from repro_torch.dist.sharding import from_local, place
+    o = place(o, "act_batch", None, None, None)
+    ol = o.to_local().unflatten(2, (KV, -1))[:, :, :, :G].flatten(2, 3)
+    return from_local(ol, o)
+
+
+def _kv_for(q, k, Gp: int):
+    """The KV heads this rank's query heads read, and their group size:
+    a slice of the local KV heads when the local query heads are whole
+    groups or within one group, else one KV head gathered per query
+    head."""
+    from repro_torch.dist.sharding import local_offset
+    Hl = q.to_local().shape[2]
+    h0, c0 = local_offset(q)[2], local_offset(k)[2]
+    idx = [(h0 + i) // Gp - c0 for i in range(Hl)]
+    n = idx[-1] - idx[0] + 1
+    per = Hl // n
+    if Hl % n == 0 and idx == [idx[0] + i // per for i in range(Hl)]:
+        return slice(idx[0], idx[0] + n), per
+    return torch.tensor(idx, device=q.to_local().device), 1
+
+
+def _take(t: torch.Tensor, heads):
+    return t[:, :, heads] if isinstance(heads, slice) else \
+        t.index_select(2, heads)
+
+
+def attend_sharded(q, k, v, kv, cache_len, *, mode: str, scale: float,
+                   cap: float = 0.0, window: int = 0,
+                   remat: bool = False):
+    """The attention core on DTensors: q (B,S,H,Dh), k/v (B,S,KV,Dh), kv
+    the layer's (cache_k, cache_v) DTensors (B,T,KV,Dh) or None. Returns
+    o (B,S,H,Dh).
+
+    q is placed on ("act_batch", None, "act_heads", None), k and v on
+    ("act_batch", None, "act_kv_heads", None): the reference's constrain
+    sites. Each rank then attends on its local pieces, through the same
+    functions as one device (on CUDA tensors the flash kernel, which
+    never sees a DTensor): its batch rows, its query heads and the KV
+    heads they read. A cache sharded on its sequence is written where
+    each token's slot lies, and the pieces' softmax stats are merged
+    across the ranks that hold it. When the model axis does not divide
+    H, each KV group is padded with zero query heads (:func:`padded_group`)
+    and the padding is dropped before the out-projection."""
+    from torch.distributed._functional_collectives import all_reduce
+    from torch.distributed.tensor import Replicate
+    from repro_torch.dist.sharding import (current_rules, from_local,
+                                           local_offset, place, to_local)
+    rules = current_rules()
+    KV, H = k.shape[2], q.shape[2]
+    G = H // KV
+    width = rules.get("__attn_head_pad__", 0)
+    Gp = padded_group(G, KV, width) if width else G
+    if Gp != G:
+        q = _pad_heads(q, KV, Gp)
+    q = place(q, "act_batch", None, "act_heads", None)
+    k = place(k, "act_batch", None, "act_kv_heads", None)
+    v = place(v, "act_batch", None, "act_kv_heads", None)
+    heads, _ = _kv_for(q, k, Gp)
+    ql = q.to_local()
+    b0 = local_offset(q)[0]
+    if kv is None:
+        kl = _take(to_local(k, q.placements), heads)
+        vl = _take(to_local(v, q.placements), heads)
+        if mode == "train":
+            fn = windowed_blocks if window else causal_blocks
+            kw = {"window": window} if window else {}
+            ol = fn(ql, kl, vl, scale=scale, cap=cap, remat=remat, **kw)
+        elif window:
+            ol = attend_windowed(ql, kl, vl, scale=scale, window=window,
+                                 cap=cap)
+        else:
+            ol = attend_causal(ql, kl, vl, scale=scale, cap=cap)
+    else:
+        ck, cv = kv
+        T = ck.shape[1]
+        ckl, cvl = ck.to_local(), cv.to_local()
+        t0 = local_offset(ck)[1]
+        offs = _offsets(cache_len, q.shape[0])[b0:b0 + ql.shape[0]]
+        write_cache(ckl, cvl, k.to_local(), v.to_local(), offs,
+                    ring=is_ring(ck, window), slot0=t0, slots=T)
+        if mode == "prefill":
+            kl, vl = _take(k.to_local(), heads), _take(v.to_local(), heads)
+            ol = (attend_windowed(ql, kl, vl, scale=scale, window=window,
+                                  cap=cap) if window else
+                  attend_causal(ql, kl, vl, scale=scale, cap=cap))
+        else:
+            # the ranks that split the cache's sequence each attend every
+            # query head they serve to their piece, and merge the stats
+            seq = [i for i, pl in enumerate(ck.placements) if pl.is_shard(1)]
+            if any(q.placements[i].is_shard(2) for i in seq):
+                q = q.redistribute(q.device_mesh, [
+                    Replicate() if i in seq else pl
+                    for i, pl in enumerate(q.placements)])
+                heads, _ = _kv_for(q, k, Gp)
+                ql = q.to_local()
+            o, m, l = decode_stats(
+                ql, _take(ckl, heads), _take(cvl, heads),
+                torch.tensor(offs, dtype=torch.int32, device=ql.device),
+                scale=scale, cap=cap, window=window, slot0=t0, slots=T)
+            names = ck.device_mesh.mesh_dim_names
+            for i in seq:
+                group = ck.device_mesh.get_group(names[i])
+                m_all = all_reduce(m, "max", group)
+                c = torch.exp(m - m_all)
+                l = all_reduce(l * c, "sum", group)
+                o = all_reduce(o * _per_query(c).to(o.dtype), "sum", group)
+                m = m_all
+            ol = _finalize(o, m, l)
+    o = from_local(ol.contiguous(), q)
+    o = place(o, "act_batch", None, "act_heads", None)
+    return _unpad_heads(o, KV, G) if Gp != G else o

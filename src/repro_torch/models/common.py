@@ -33,11 +33,18 @@ def torch_dtype(name: str) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
+    """A leaf's shape, its logical axes (one name a dim, which
+    :mod:`repro_torch.dist.sharding` maps onto mesh axes), its init and
+    its dtype."""
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]            # logical axis names, len == ndim
     init: str = "normal"            # normal | zeros | ones | embed | small
     scale: float = 1.0
     dtype: str = "float32"
     keep_dtype: bool = False                # never cast to the compute dtype
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def init_param(spec: ParamSpec, generator: torch.Generator,
@@ -230,6 +237,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, Dh); cos/sin: (B, S, rot/2) or (S, rot/2). Rotates the
     leading ``rot`` channels (partial rotary), in x's dtype."""
+    from repro_torch.dist.sharding import replicated_like
+    cos, sin = replicated_like(cos, x), replicated_like(sin, x)
     rot = cos.shape[-1] * 2
     xr, xp = x[..., :rot], x[..., rot:]
     x1, x2 = xr[..., :rot // 2], xr[..., rot // 2:]

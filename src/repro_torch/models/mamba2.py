@@ -12,14 +12,19 @@ the chunks (the same products, summed in another order).
 
 Layouts: x (B, S, D); SSM heads H = expand * D / head_dim; state (B, H,
 P, N) with P = head_dim, N = d_state; the conv state (B, K - 1, C) holds
-the last K - 1 inputs of the depthwise causal convolution.
+the last K - 1 inputs of the depthwise causal convolution. On a mesh
+the SSD runs on each rank's batch rows and heads (:func:`_ssd_sharded`).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import matmul, matmul_in, matmul_out
 from repro_torch.models.common import ParamSpec, _silu, rms_norm
 
 
@@ -42,19 +47,26 @@ def mamba_specs(cfg: ModelConfig, dtype: str) -> dict[str, ParamSpec]:
     _, H, conv_dim = mamba_dims(cfg)
     P, N, G = s.head_dim, s.d_state, s.n_groups
     return {
-        "wz": ParamSpec((D, H, P), dtype=dtype),
-        "wx": ParamSpec((D, H, P), dtype=dtype),
-        "wB": ParamSpec((D, G, N), dtype=dtype),
-        "wC": ParamSpec((D, G, N), dtype=dtype),
-        "wdt": ParamSpec((D, H), dtype=dtype),
-        "conv_w": ParamSpec((s.d_conv, conv_dim), init="small", scale=0.1,
+        "wz": ParamSpec((D, H, P), ("embed", "ssm_heads", None), dtype=dtype),
+        "wx": ParamSpec((D, H, P), ("embed", "ssm_heads", None), dtype=dtype),
+        "wB": ParamSpec((D, G, N), ("embed", "ssm_groups", "ssm_state"),
+                        dtype=dtype),
+        "wC": ParamSpec((D, G, N), ("embed", "ssm_groups", "ssm_state"),
+                        dtype=dtype),
+        "wdt": ParamSpec((D, H), ("embed", "ssm_heads"), dtype=dtype),
+        "conv_w": ParamSpec((s.d_conv, conv_dim), (None, "conv_dim"),
+                            init="small", scale=0.1,
                             dtype=dtype),
-        "conv_b": ParamSpec((conv_dim,), init="zeros", dtype=dtype),
-        "A_log": ParamSpec((H,), init="zeros", dtype="float32"),
-        "D": ParamSpec((H,), init="ones", dtype="float32"),
-        "dt_bias": ParamSpec((H,), init="zeros", dtype="float32"),
-        "norm": ParamSpec((H, P), init="zeros", dtype=dtype),
-        "wo": ParamSpec((H, P, D), dtype=dtype),
+        "conv_b": ParamSpec((conv_dim,), ("conv_dim",), init="zeros",
+                            dtype=dtype),
+        "A_log": ParamSpec((H,), ("ssm_heads",), init="zeros",
+                           dtype="float32"),
+        "D": ParamSpec((H,), ("ssm_heads",), init="ones", dtype="float32"),
+        "dt_bias": ParamSpec((H,), ("ssm_heads",), init="zeros",
+                             dtype="float32"),
+        "norm": ParamSpec((H, P), ("ssm_heads", None), init="zeros",
+                          dtype=dtype),
+        "wo": ParamSpec((H, P, D), ("ssm_heads", None, "embed"), dtype=dtype),
     }
 
 
@@ -151,6 +163,56 @@ def ssd_chunked(xh, dt, A, Bm, Cm, init_state, chunk: int):
     return y.reshape(B_, S, H, P)[:, :S0], run
 
 
+def _ssd(xr, dt, A, Bm, Cm, ssm, *, chunk: int, mode: str):
+    """The SSD from the state ``ssm`` (B,H,P,N): one recurrence step for a
+    one-token decode, else :func:`ssd_chunked`. Returns (y (B,S,H,P)
+    fp32, state)."""
+    if mode == "decode" and xr.shape[1] == 1:
+        H, G = xr.shape[2], Bm.shape[2]
+        dA = torch.exp(dt[:, 0] * A)                          # (B,H)
+        xb = xr[:, 0].float() * dt[:, 0, :, None]             # (B,H,P)
+        Bh = Bm[:, 0].float().repeat_interleave(H // G, dim=1)  # (B,H,N)
+        Ch = Cm[:, 0].float().repeat_interleave(H // G, dim=1)
+        new_ssm = dA[..., None, None] * ssm + xb[..., None] * Bh[:, :, None]
+        return torch.einsum("bhn,bhpn->bhp", Ch, new_ssm)[:, None], new_ssm
+    return ssd_chunked(xr, dt, A, Bm, Cm, ssm, chunk)
+
+
+def _ssd_sharded(scan, xr, dt, A, Bm, Cm, ssm):
+    """:func:`_ssd` on a mesh: per batch row and head the scan is
+    independent, so the inputs are placed on "act_batch" and "ssm_heads"
+    (the reference's constrain sites) and each rank scans its rows and
+    heads, B and C taken for its heads' groups (one group a head: the
+    same values the repeat gives)."""
+    from repro_torch.dist.sharding import (from_local, local_offset, place,
+                                           to_local)
+    xr = place(xr, "act_batch", None, "ssm_heads", None)
+    out = xr.placements
+    dt = place(dt, "act_batch", None, "ssm_heads")
+    Bm, Cm = (place(t, "act_batch", None, None, None) for t in (Bm, Cm))
+    xl = to_local(xr, out)
+    Hl, h0 = xl.shape[2], local_offset(xr)[2]
+    groups = torch.tensor([(h0 + i) // (xr.shape[2] // Bm.shape[2])
+                           for i in range(Hl)], device=xl.device)
+    Bl, Cl = (to_local(t, out).index_select(2, groups) for t in (Bm, Cm))
+    Al = to_local(place(A, "ssm_heads"), out)
+    if ssm is None:
+        s0 = xl.new_zeros((xl.shape[0], Hl, xl.shape[3], Bl.shape[3]),
+                          dtype=torch.float32)
+        state_like = None
+    else:
+        state_like = place(ssm, "act_batch", "ssm_heads", None, None)
+        s0 = to_local(state_like, out)
+    yl, sl = scan(xl, to_local(dt, out), Al, Bl, Cl, s0)
+    y = from_local(yl.contiguous(), xr)
+    if state_like is None:
+        from torch.distributed.tensor import Shard
+        return y, DTensor.from_local(sl, xr.device_mesh, [
+            Shard(1) if pl.is_shard(2) else pl for pl in out],
+            run_check=False)
+    return y, from_local(sl, state_like)
+
+
 def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 state: dict | None, mode: str):
     """x (B, S, D) -> (out (B, S, D), {"conv", "ssm"}). ``state`` holds the
@@ -162,14 +224,11 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     _, H, _ = mamba_dims(cfg)
     P, N, G = s.head_dim, s.d_state, s.n_groups
 
-    def proj(w):                                  # (D, ...) -> (B, S, ...)
-        return (x @ w.reshape(D, -1)).unflatten(-1, w.shape[1:])
-
-    z = proj(p["wz"])                                         # (B,S,H,P)
-    conv_in = torch.cat([x @ p["wx"].reshape(D, -1),
-                         x @ p["wB"].reshape(D, -1),
-                         x @ p["wC"].reshape(D, -1)], dim=-1)
-    dt = x @ p["wdt"]                                         # (B,S,H)
+    z = matmul_in(x, p["wz"])                                 # (B,S,H,P)
+    conv_in = torch.cat([matmul(x, p["wx"].reshape(D, -1)),
+                         matmul(x, p["wB"].reshape(D, -1)),
+                         matmul(x, p["wC"].reshape(D, -1))], dim=-1)
+    dt = matmul(x, p["wdt"])                                         # (B,S,H)
     conv_out, new_conv = _causal_conv(
         conv_in, p["conv_w"], p["conv_b"],
         None if state is None else state["conv"])
@@ -180,22 +239,19 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-    ssm = (x.new_zeros((B_, H, P, N), dtype=torch.float32) if state is None
-           else state["ssm"].float())
-    if mode == "decode" and S == 1:
-        dA = torch.exp(dt[:, 0] * A)                          # (B,H)
-        xb = xr[:, 0].float() * dt[:, 0, :, None]             # (B,H,P)
-        Bh = Bm[:, 0].float().repeat_interleave(H // G, dim=1)  # (B,H,N)
-        Ch = Cm[:, 0].float().repeat_interleave(H // G, dim=1)
-        new_ssm = dA[..., None, None] * ssm + xb[..., None] * Bh[:, :, None]
-        y = torch.einsum("bhn,bhpn->bhp", Ch, new_ssm)[:, None]
+    ssm = None if state is None else state["ssm"].float()
+    scan = functools.partial(_ssd, chunk=s.chunk, mode=mode)
+    if isinstance(xr, DTensor):
+        y, new_ssm = _ssd_sharded(scan, xr, dt, A, Bm, Cm, ssm)
     else:
-        y, new_ssm = ssd_chunked(xr, dt, A, Bm, Cm, ssm, s.chunk)
+        if ssm is None:
+            ssm = x.new_zeros((B_, H, P, N), dtype=torch.float32)
+        y, new_ssm = scan(xr, dt, A, Bm, Cm, ssm)
 
     y = y + xr.float() * p["D"].float()[:, None]
     # the gate's product feeds the norm unrounded, as XLA's fusion of the
     # reference computes it (bf16 outputs then match it bit for bit)
     y = y.to(x.dtype).float() * _silu(z).float()
     y = rms_norm(y, p["norm"], cfg.norm_eps).to(x.dtype)
-    out = y.flatten(-2) @ p["wo"].reshape(H * P, D)
+    out = matmul_out(y, p["wo"])
     return out, {"conv": new_conv, "ssm": new_ssm}

@@ -13,14 +13,19 @@ forward (mode "train") the plain version on any device (the kernel has no
 backward; the reference's train step runs its jnp ``_wkv_chunked``); a
 one-token decode step runs the recurrence directly, as in the reference. Token-shift and
 WKV states are carried for serving. Parameter names and layouts follow
-the JAX package's spec tree.
+the JAX package's spec tree. On a mesh the recurrence runs on each
+rank's batch rows and heads (:func:`_wkv_sharded`).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import matmul, matmul_in, matmul_out
 from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_ref, wkv_chunked
 from repro_torch.models.common import ParamSpec, _silu
 
@@ -39,35 +44,43 @@ def rwkv_specs(cfg: ModelConfig, dtype: str) -> dict[str, ParamSpec]:
     H, K = rwkv_dims(cfg)
     tm = {
         # token-shift ddlerp: base mix + 5-way LoRA (w, k, v, r, g)
-        "mix_base": ParamSpec((D,), init="zeros", dtype=dtype),
-        "mix": ParamSpec((5, D), init="zeros", dtype=dtype),
-        "mix_w1": ParamSpec((D, 5, LORA_MIX), init="small", scale=0.1,
-                            dtype=dtype),
-        "mix_w2": ParamSpec((5, LORA_MIX, D), init="small", scale=0.1,
-                            dtype=dtype),
-        "wr": ParamSpec((D, H, K), dtype=dtype),
-        "wk": ParamSpec((D, H, K), dtype=dtype),
-        "wv": ParamSpec((D, H, K), dtype=dtype),
-        "wg": ParamSpec((D, H, K), dtype=dtype),
-        "wo": ParamSpec((H, K, D), dtype=dtype),
+        "mix_base": ParamSpec((D,), ("embed",), init="zeros", dtype=dtype),
+        "mix": ParamSpec((5, D), (None, "embed"), init="zeros", dtype=dtype),
+        "mix_w1": ParamSpec((D, 5, LORA_MIX), ("embed", None, None),
+                            init="small", scale=0.1, dtype=dtype),
+        "mix_w2": ParamSpec((5, LORA_MIX, D), (None, None, "embed"),
+                            init="small", scale=0.1, dtype=dtype),
+        "wr": ParamSpec((D, H, K), ("embed", "rwkv_heads", "rwkv_k"),
+                        dtype=dtype),
+        "wk": ParamSpec((D, H, K), ("embed", "rwkv_heads", "rwkv_k"),
+                        dtype=dtype),
+        "wv": ParamSpec((D, H, K), ("embed", "rwkv_heads", "rwkv_v"),
+                        dtype=dtype),
+        "wg": ParamSpec((D, H, K), ("embed", "rwkv_heads", "rwkv_v"),
+                        dtype=dtype),
+        "wo": ParamSpec((H, K, D), ("rwkv_heads", "rwkv_v", "embed"),
+                        dtype=dtype),
         # decay w = exp(-exp(w0 + lora)); bonus u (both kept in fp32)
-        "w0": ParamSpec((H, K), init="zeros", dtype="float32",
-                        keep_dtype=True),
-        "dec_w1": ParamSpec((D, LORA_DECAY), init="small", scale=0.1,
-                            dtype=dtype),
-        "dec_w2": ParamSpec((LORA_DECAY, H, K), init="small", scale=0.1,
-                            dtype=dtype),
-        "u": ParamSpec((H, K), init="zeros", dtype="float32",
-                       keep_dtype=True),
-        "ln_scale": ParamSpec((H, K), init="zeros", dtype=dtype),
-        "ln_bias": ParamSpec((H, K), init="zeros", dtype=dtype),
+        "w0": ParamSpec((H, K), ("rwkv_heads", "rwkv_k"), init="zeros",
+                        dtype="float32", keep_dtype=True),
+        "dec_w1": ParamSpec((D, LORA_DECAY), ("embed", None), init="small",
+                            scale=0.1, dtype=dtype),
+        "dec_w2": ParamSpec((LORA_DECAY, H, K),
+                            (None, "rwkv_heads", "rwkv_k"), init="small",
+                            scale=0.1, dtype=dtype),
+        "u": ParamSpec((H, K), ("rwkv_heads", "rwkv_k"), init="zeros",
+                       dtype="float32", keep_dtype=True),
+        "ln_scale": ParamSpec((H, K), ("rwkv_heads", "rwkv_v"),
+                              init="zeros", dtype=dtype),
+        "ln_bias": ParamSpec((H, K), ("rwkv_heads", "rwkv_v"),
+                             init="zeros", dtype=dtype),
     }
     cm = {
-        "mix_k": ParamSpec((D,), init="zeros", dtype=dtype),
-        "mix_r": ParamSpec((D,), init="zeros", dtype=dtype),
-        "wk": ParamSpec((D, F_), dtype=dtype),
-        "wv": ParamSpec((F_, D), dtype=dtype),
-        "wr": ParamSpec((D, D), dtype=dtype),
+        "mix_k": ParamSpec((D,), ("embed",), init="zeros", dtype=dtype),
+        "mix_r": ParamSpec((D,), ("embed",), init="zeros", dtype=dtype),
+        "wk": ParamSpec((D, F_), ("embed", "mlp"), dtype=dtype),
+        "wv": ParamSpec((F_, D), ("mlp", "embed"), dtype=dtype),
+        "wr": ParamSpec((D, D), ("embed", "embed_out"), dtype=dtype),
     }
     return {**{f"tmix.{k}": s for k, s in tm.items()},
             **{f"cmix.{k}": s for k, s in cm.items()}}
@@ -101,6 +114,51 @@ def _wkv_chunked(r, k, v, logw, u, init_state, chunk: int,
     return o[:, :S], state
 
 
+def _wkv(r, k, v, logw, u, wkv0, *, chunk: int, mode: str):
+    """The WKV recurrence over r/k/v/logw (B,S,H,K) from the state wkv0
+    (B,H,K,V): one step for a one-token decode, else the chunked scan
+    (the kernel's dispatch, or its plain version for a training
+    forward). Returns (o (B,S,H,V), state)."""
+    if mode == "decode" and r.shape[1] == 1:
+        r1, k1, v1, w1 = r[:, 0], k[:, 0], v[:, 0], torch.exp(logw[:, 0])
+        kv = torch.einsum("bhk,bhv->bhkv", k1, v1)
+        o = torch.einsum("bhk,bhkv->bhv", r1, wkv0 + u[None, :, :, None] * kv)
+        return o[:, None], w1[..., None] * wkv0 + kv
+    return _wkv_chunked(r, k, v, logw, u, wkv0, chunk,
+                        rwkv6_chunked_ref if mode == "train" else wkv_chunked)
+
+
+def _wkv_sharded(scan, r, k, v, logw, u, wkv0):
+    """:func:`_wkv` on a mesh. The recurrence is independent per batch row
+    and head, so r/k/v/logw are placed on ("act_batch", None,
+    "rwkv_heads", None) (the reference's constrain sites; its scan
+    rides the chunk dim instead, which the port's sequential carry over
+    chunks cannot split) and each rank scans its own rows and heads."""
+    from repro_torch.dist.sharding import from_local, place, to_local
+    r, k, v, logw = (place(t, "act_batch", None, "rwkv_heads", None)
+                     for t in (r, k, v, logw))
+    out = r.placements
+    ul = to_local(place(u, "rwkv_heads", None), out)
+    rl, kl, vl, wl = (to_local(t, out) for t in (r, k, v, logw))
+    if wkv0 is None:
+        B, _, H, K = rl.shape
+        s0 = rl.new_zeros((B, H, K, K))
+        state_like = None
+    else:
+        state_like = place(wkv0, "act_batch", "rwkv_heads", None, None)
+        s0 = to_local(state_like, out)
+    ol, sl = scan(rl, kl, vl, wl, ul, s0)
+    o = from_local(ol.contiguous(), r)
+    if state_like is None:
+        from torch.distributed.tensor import Shard
+        state = DTensor.from_local(sl, r.device_mesh, [
+            Shard(1) if pl.is_shard(2) else pl for pl in out],
+            run_check=False)
+    else:
+        state = from_local(sl, state_like)
+    return o, state
+
+
 def _group_norm(o: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 eps: float) -> torch.Tensor:
     """Per-head LayerNorm over the V dim. o (B,S,H,V)."""
@@ -109,12 +167,6 @@ def _group_norm(o: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = f.var(-1, keepdim=True, unbiased=False)
     out = (f - mu) * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float()) + bias.float()).to(o.dtype)
-
-
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B,S,D) @ w (D,H,K) -> (B,S,H,K)."""
-    D, H, K = w.shape
-    return (x @ w.reshape(D, H * K)).unflatten(-1, (H, K))
 
 
 def time_mix_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -134,34 +186,29 @@ def time_mix_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     mixes = p["mix"][None, None] + lora                   # (B,S,5,D)
     xw, xk, xv, xr, xg = (x + dx * mixes[:, :, i] for i in range(5))
 
-    r = _heads(xr, p["wr"]).float()
-    k = _heads(xk, p["wk"]).float()
-    v = _heads(xv, p["wv"]).float()
-    g = _silu(_heads(xg, p["wg"]))
+    r = matmul_in(xr, p["wr"]).float()
+    k = matmul_in(xk, p["wk"]).float()
+    v = matmul_in(xv, p["wv"]).float()
+    g = _silu(matmul_in(xg, p["wg"]))
 
-    dec = torch.tanh(xw @ p["dec_w1"])
-    dec = _heads(dec, p["dec_w2"])
+    dec = torch.tanh(matmul(xw, p["dec_w1"]))
+    dec = matmul_in(dec, p["dec_w2"])
     logw = -torch.exp((p["w0"].float() + dec.float()).clamp(-8.0, 1.0))
     u = p["u"].float()
 
-    wkv0 = torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device) \
-        if state is None else state["wkv"].float()
-    if mode == "decode" and S == 1:
-        r1, k1, v1, w1 = r[:, 0], k[:, 0], v[:, 0], torch.exp(logw[:, 0])
-        kv = torch.einsum("bhk,bhv->bhkv", k1, v1)
-        o = torch.einsum("bhk,bhkv->bhv", r1, wkv0 + u[None, :, :, None] * kv)
-        new_wkv = w1[..., None] * wkv0 + kv
-        o = o[:, None]                                    # (B,1,H,V)
+    wkv0 = None if state is None else state["wkv"].float()
+    scan = functools.partial(_wkv, chunk=cfg.rwkv.chunk, mode=mode)
+    if isinstance(r, DTensor):
+        o, new_wkv = _wkv_sharded(scan, r, k, v, logw, u, wkv0)
     else:
-        o, new_wkv = _wkv_chunked(
-            r, k, v, logw, u, wkv0, cfg.rwkv.chunk,
-            rwkv6_chunked_ref if mode == "train" else wkv_chunked)
+        if wkv0 is None:
+            wkv0 = torch.zeros((B, H, K, K), dtype=torch.float32,
+                               device=x.device)
+        o, new_wkv = scan(r, k, v, logw, u, wkv0)
 
     o = _group_norm(o.to(x.dtype), p["ln_scale"], p["ln_bias"], 64e-5)
     o = o * g
-    H_, K_, D_ = p["wo"].shape
-    out = o.flatten(-2) @ p["wo"].reshape(H_ * K_, D_)
-    return out, {"shift": new_shift, "wkv": new_wkv}
+    return matmul_out(o, p["wo"]), {"shift": new_shift, "wkv": new_wkv}
 
 
 def channel_mix_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -171,9 +218,9 @@ def channel_mix_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     dx = xprev - x
     xk = x + dx * p["mix_k"]
     xr = x + dx * p["mix_r"]
-    kk = torch.square(torch.relu(xk @ p["wk"]))
-    vv = kk @ p["wv"]
-    rr = torch.sigmoid(xr @ p["wr"])
+    kk = torch.square(torch.relu(matmul(xk, p["wk"])))
+    vv = matmul(kk, p["wv"])
+    rr = torch.sigmoid(matmul(xr, p["wr"]))
     return rr * vv, new_shift
 
 

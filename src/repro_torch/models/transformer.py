@@ -20,15 +20,22 @@ blocks and WKV scan on any device, layers recomputed in backward).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (axis_rules, constrain, current_rules,
+                                       default_rules, distribute_params,
+                                       matmul, placements_of,
+                                       recompute_context,
+                                       replicated_like)
 from repro_torch.kernels import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, rwkv6
@@ -49,9 +56,9 @@ def first_k_dense(cfg: ModelConfig) -> int:
 
 def _stacked(layer: dict[str, ParamSpec], L: int,
              prefix: str) -> dict[str, ParamSpec]:
-    return {f"{prefix}.{k}": ParamSpec((L,) + s.shape, init=s.init,
-                                       scale=s.scale, dtype=s.dtype,
-                                       keep_dtype=s.keep_dtype)
+    return {f"{prefix}.{k}": ParamSpec((L,) + s.shape, ("layers",) + s.axes,
+                                       init=s.init, scale=s.scale,
+                                       dtype=s.dtype, keep_dtype=s.keep_dtype)
             for k, s in layer.items()}
 
 
@@ -60,12 +67,13 @@ def model_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
     ``Model.specs()``."""
     dt = cfg.param_dtype
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
-    specs = {"embed": ParamSpec((V, D), init="embed", dtype=dt),
-             "final_norm": ParamSpec((D,), init="zeros", dtype=dt)}
+    norm = ParamSpec((D,), ("embed",), init="zeros", dtype=dt)
+    specs = {"embed": ParamSpec((V, D), ("vocab", "embed"), init="embed",
+                                dtype=dt),
+             "final_norm": norm}
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ParamSpec((D, V), dtype=dt)
-    norms = {"ln1": ParamSpec((D,), init="zeros", dtype=dt),
-             "ln2": ParamSpec((D,), init="zeros", dtype=dt)}
+        specs["lm_head"] = ParamSpec((D, V), ("embed", "vocab"), dtype=dt)
+    norms = {"ln1": norm, "ln2": norm}
     if cfg.family == "ssm":
         specs.update(_stacked({**norms, **rwkv6.rwkv_specs(cfg, dt)}, L,
                               "blocks"))
@@ -82,7 +90,8 @@ def model_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
         mamba = {"ln": norms["ln1"], **mamba2.mamba_specs(cfg, dt)}
         specs.update(_stacked(_stacked(mamba, E, "mamba"), L // E,
                               "blocks"))
-        shared = {"win": ParamSpec((2 * D, D), dtype=dt),
+        shared = {"win": ParamSpec((2 * D, D), ("embed_concat", "embed"),
+                                   dtype=dt),
                   **layer(mlp_specs(D, cfg.d_ff, dt))}
         specs.update(_stacked(shared, cfg.num_shared_blocks, "shared"))
         return specs
@@ -124,6 +133,13 @@ class Model(nn.Module):
     ``meta`` device, for the step counter, they are shapes alone). Either
     way they never change device.
 
+    ``mesh`` (a ``DeviceMesh`` with axes "data"/"model", and "pod"): every
+    rank holds the whole tree, and each leaf becomes a DTensor placed by
+    its spec's logical axes under ``rules`` (default: the mesh's serving
+    rules, or its training rules for a trainable model). The forward then
+    runs on DTensors under the rules (:mod:`repro_torch.dist.sharding`),
+    its attention and MoE dispatch on each rank's local pieces.
+
     Serving (the default) casts the leaves to ``cfg.compute_dtype`` once,
     here, each as it is drawn (the same values), and ``forward`` reads
     per-layer views built once. ``trainable=True`` keeps fp32 masters
@@ -133,12 +149,16 @@ class Model(nn.Module):
     arrive in fp32. :meth:`loss` is the training forward."""
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
-                 device="cuda", seed: int = 0, trainable: bool = False):
+                 device="cuda", seed: int = 0, trainable: bool = False,
+                 mesh=None, rules: dict | None = None):
         super().__init__()
         specs = model_specs(cfg)
         self.cfg = cfg
         self.specs = specs
         self.trainable = trainable
+        self.mesh = mesh
+        self.rules = None if mesh is None else rules or default_rules(
+            cfg, mesh, "train" if trainable else "prefill")
         self.device = resolve_device(device, allow_meta=True)
         store = None if trainable else cfg.compute_dtype
         given = params is not None
@@ -161,12 +181,27 @@ class Model(nn.Module):
             params = cast_params({k: v.to(self.device)
                                   for k, v in params.items()}, specs,
                                  cfg.compute_dtype)
+        if mesh is not None:
+            params = distribute_params(params, specs, mesh, self.rules)
         for name, t in params.items():
             self._register(name, t)
         self.params: dict[str, torch.Tensor] = dict(self.named_parameters())
         with torch.no_grad():
             self._built = self._weights(self.params)
         self.first_layers, self.layers, self.shared_blocks = self._built[1:]
+
+    def sharded(self, mesh, rules: dict | None = None) -> "Model":
+        """A model over ``mesh`` holding this one's weights (copied into
+        DTensors; a trainable model's masters and their dtype kept)."""
+        params = {k: v.detach() for k, v in self.params.items()}
+        return Model(self.cfg, params, device=self.device,
+                     trainable=self.trainable, mesh=mesh, rules=rules)
+
+    def _sharding(self):
+        """The model's rules while no step has installed its own."""
+        if self.mesh is None or current_rules() is not None:
+            return contextlib.nullcontext()
+        return axis_rules(self.rules)
 
     def _register(self, name: str, tensor: torch.Tensor) -> None:
         *path, leaf = name.split(".")
@@ -262,11 +297,46 @@ class Model(nn.Module):
             out["v0"] = ((first_k,) + tail, cd)
         return out
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        return {k: torch.zeros(shape, dtype=torch_dtype(dt),
-                               device=self.device)
-                for k, (shape, dt) in self.cache_shapes(batch,
-                                                        max_len).items()}
+    def cache_logical_axes(self) -> dict:
+        """Logical axes of each cache leaf (for its placement), the
+        reference's."""
+        cfg = self.cfg
+        kv_axes = ("layers", "act_batch", "cache_seq", "cache_kv_heads",
+                   None)
+        if cfg.family == "ssm":
+            return {"shift1": ("layers", "act_batch", None),
+                    "wkv": ("layers", "act_batch", "rwkv_heads", "rwkv_k",
+                            "rwkv_v"),
+                    "shift2": ("layers", "act_batch", None)}
+        if cfg.family == "hybrid":
+            return {"conv": ("layers", None, "act_batch", None, "conv_dim"),
+                    "ssm": ("layers", None, "act_batch", "ssm_heads", None,
+                            "ssm_state"),
+                    "shared_k": kv_axes, "shared_v": kv_axes}
+        if cfg.local_global_alternating:
+            return {"k_local": kv_axes, "v_local": kv_axes,
+                    "k_global": kv_axes, "v_global": kv_axes}
+        out = {"k": kv_axes, "v": kv_axes}
+        if first_k_dense(cfg):
+            out["k0"] = kv_axes
+            out["v0"] = kv_axes
+        return out
+
+    def init_cache(self, batch: int, max_len: int,
+                   rules: dict | None = None) -> dict:
+        """Zeros of :meth:`cache_shapes`. On a mesh each leaf is a DTensor
+        placed by :meth:`cache_logical_axes` under ``rules`` (default:
+        the model's), each rank allocating its own piece."""
+        shapes = self.cache_shapes(batch, max_len)
+        if self.mesh is None:
+            return {k: torch.zeros(shape, dtype=torch_dtype(dt),
+                                   device=self.device)
+                    for k, (shape, dt) in shapes.items()}
+        rules = rules or self.rules
+        axes = self.cache_logical_axes()
+        return {k: sharded_zeros(shape, torch_dtype(dt), self.device,
+                                 rules, axes[k])
+                for k, (shape, dt) in shapes.items()}
 
     # ---------------------------------------------------------------- layers
     def _step(self, mode: str, fn, *args):
@@ -276,7 +346,8 @@ class Model(nn.Module):
         per layer. ``fn`` binds its layer's weights (a partial), never a
         loop variable."""
         if mode == "train" and self.cfg.remat != "none":
-            return checkpoint(fn, *args, use_reentrant=False)
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=recompute_context())
         return fn(*args)
 
     def _attn_apply(self, p: dict, h, kv, cache_len, positions, mode,
@@ -291,6 +362,12 @@ class Model(nn.Module):
         cfg = self.cfg
         q, k, v = attn.qkv_project(p, h, cfg, positions)
         scale = 1.0 / math.sqrt(cfg.head_dim)
+        if isinstance(q, DTensor):
+            o = attn.attend_sharded(q, k, v, kv, cache_len, mode=mode,
+                                    scale=scale, cap=cfg.attn_softcap,
+                                    window=window,
+                                    remat=cfg.remat == "none")
+            return attn.out_project(p, o)
         if kv is not None:
             attn.write_cache(kv[0], kv[1], k, v, cache_len,
                              ring=attn.is_ring(kv[0], window))
@@ -357,7 +434,7 @@ class Model(nn.Module):
         ``concat(x, x0) @ win``, with x0 the (scaled) embeddings; its
         output is added to the residual stream."""
         cfg = self.cfg
-        h = torch.cat([x, x0], dim=-1) @ p["win"]
+        h = matmul(torch.cat([x, x0], dim=-1), p["win"])
         a = self._attn_apply(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
                              kv, cache_len, positions, mode)
         h, h2 = add_rms_norm(h, a, p["ln2"], cfg.norm_eps)
@@ -382,15 +459,16 @@ class Model(nn.Module):
             kv = None if cache is None else (cache["shared_k"][g],
                                              cache["shared_v"][g])
             shared = w.shared_blocks[g % len(w.shared_blocks)]
-            x = self._step(mode, functools.partial(
+            x = _act(self._step(mode, functools.partial(
                 self._shared_block, shared, kv=kv, cache_len=cache_len,
-                positions=positions, mode=mode), x, x0)
+                positions=positions, mode=mode), x, x0))
             for e in range(E):
                 state = None if cache is None else {
                     "conv": cache["conv"][g, e], "ssm": cache["ssm"][g, e]}
                 x, new = self._step(mode, functools.partial(
                     self._mamba_layer, w.layers[g * E + e], state=state,
                     mode=mode), x)
+                x = _act(x)
                 if cache is not None:
                     cache["conv"][g, e] = new["conv"]
                     cache["ssm"][g, e] = new["ssm"]
@@ -431,11 +509,12 @@ class Model(nn.Module):
             raise ValueError(f"mode {mode!r} needs a cache")
         if (tokens is None) == (embeds is None):
             raise ValueError("pass exactly one of tokens or embeds")
-        w = self._forward_weights()
-        x = self._hidden(w, tokens, embeds, cache, cache_len, mode)
-        if logits_slice is not None:
-            x = x[:, -logits_slice:]
-        return self._logits(w, x), cache
+        with self._sharding():
+            w = self._forward_weights()
+            x = self._hidden(w, tokens, embeds, cache, cache_len, mode)
+            if logits_slice is not None:
+                x = x[:, -logits_slice:]
+            return self._logits(w, x), cache
 
     def _hidden(self, w: Weights, tokens, embeds, cache, cache_len, mode):
         """Embedding, the layer stack and the final norm."""
@@ -443,15 +522,17 @@ class Model(nn.Module):
         if embeds is None:
             tokens = tokens.to(self.device)
             S = tokens.shape[-1]
-            x = w.params["embed"][tokens]
+            table = w.params["embed"]
+            x = _embed_sharded(table, tokens) \
+                if isinstance(table, DTensor) else table[tokens]
         else:
             x = embeds.to(self.device, torch_dtype(cfg.compute_dtype))
             S = x.shape[1]
         if cfg.family == "ssm":
-            x = self._scale_embeddings(x)
+            x = _act(self._scale_embeddings(x))
             for i, p in enumerate(w.layers):
-                x = self._step(mode, functools.partial(
-                    self._rwkv_layer, p, cache=cache, i=i, mode=mode), x)
+                x = _act(self._step(mode, functools.partial(
+                    self._rwkv_layer, p, cache=cache, i=i, mode=mode), x))
             return rms_norm(x, w.params["final_norm"], cfg.norm_eps)
         steps = torch.arange(S, device=self.device)
         if cache is None or isinstance(cache_len, int):
@@ -462,8 +543,9 @@ class Model(nn.Module):
             cl = torch.as_tensor(cache_len, device=self.device)
             positions = cl[..., None] + steps if cl.dim() else cl + steps
         if embeds is None and cfg.pos_emb == "sinusoidal":
-            x = x + sinusoidal_emb(positions, cfg.d_model).to(x.dtype)
-        x = self._scale_embeddings(x)
+            x = x + replicated_like(
+                sinusoidal_emb(positions, cfg.d_model).to(x.dtype), x)
+        x = _act(self._scale_embeddings(x))
         if cfg.family == "hybrid":
             x = self._hybrid(w, x, cache, cache_len, positions, mode)
         elif cfg.local_global_alternating:
@@ -485,16 +567,16 @@ class Model(nn.Module):
                 else:
                     x, f = self._step(mode, lambda x, f, layer=layer:
                                       layer(x, delta=f), x, f)
-                    x = x + f
+                    x = _act(x + f)
         else:
             for stack, k, v, fused in ((w.first_layers, "k0", "v0", False),
                                        (w.layers, "k", "v", True)):
                 for i, p in enumerate(stack):
                     kv = None if cache is None else (cache[k][i],
                                                      cache[v][i])
-                    x = self._step(mode, functools.partial(
+                    x = _act(self._step(mode, functools.partial(
                         self._dense_layer, p, kv=kv, cache_len=cache_len,
-                        positions=positions, mode=mode, fused=fused), x)
+                        positions=positions, mode=mode, fused=fused), x))
         return rms_norm(x, w.params["final_norm"], cfg.norm_eps)
 
     def _scale_embeddings(self, x):
@@ -503,10 +585,10 @@ class Model(nn.Module):
         return x
 
     def _logits(self, w: Weights, x):
-        logits = (x @ self._head(w)).float()
+        logits = matmul(x, self._head(w)).float()
         if self.cfg.final_softcap:
             logits = softcap(logits, self.cfg.final_softcap)
-        return logits
+        return constrain(logits, "act_batch", "act_seq", "vocab")
 
     def _head(self, w: Weights) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -527,8 +609,9 @@ class Model(nn.Module):
 
     def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
         """Final-norm hidden states of the training forward (no logits)."""
-        return self._hidden(self._train_weights(), tokens, None, None, 0,
-                            "train")
+        with self._sharding():
+            return self._hidden(self._train_weights(), tokens, None, None,
+                                0, "train")
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
              mask: torch.Tensor | None = None,
@@ -539,31 +622,97 @@ class Model(nn.Module):
         chunk is recomputed in backward, so the (B, S, V) fp32 logits
         never exist whole (a length not a multiple of the chunk is one
         chunk, as in the reference)."""
-        w = self._train_weights()
-        hidden = self._hidden(w, tokens, None, None, 0, "train")
-        head = self._head(w)
-        labels = labels.to(self.device).long()
-        S = hidden.shape[1]
-        C = min(loss_chunk, S)
-        if S % C:
-            C = S
-        nll = torch.cat([checkpoint(self._chunk_nll, hidden[:, i:i + C],
-                                    labels[:, i:i + C], head,
-                                    use_reentrant=False)
-                         for i in range(0, S, C)], dim=1)
-        if mask is not None:
-            mask = mask.to(self.device, nll.dtype)
-            return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-        return nll.mean()
+        with self._sharding():
+            w = self._train_weights()
+            hidden = self._hidden(w, tokens, None, None, 0, "train")
+            # the head's grad stays sharded like the head
+            head = constrain(self._head(w), "embed", "vocab")
+            labels = labels.to(self.device).long()
+            S = hidden.shape[1]
+            C = min(loss_chunk, S)
+            if S % C:
+                C = S
+            nll = torch.cat([checkpoint(self._chunk_nll, hidden[:, i:i + C],
+                                        labels[:, i:i + C], head,
+                                        use_reentrant=False,
+                                        context_fn=recompute_context())
+                             for i in range(0, S, C)], dim=1)
+            if mask is not None:
+                mask = mask.to(self.device, nll.dtype)
+                return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+            return nll.mean()
 
     def _chunk_nll(self, h, labels, head):
         """-log p(label) at each position of one chunk, from its fp32
         logits."""
-        logits = (h @ head).float()
+        logits = matmul(h, head).float()
         if self.cfg.final_softcap:
             logits = softcap(logits, self.cfg.final_softcap)
-        picked = logits.gather(-1, labels[..., None])[..., 0]
+        logits = constrain(logits, "act_batch", "act_seq", "vocab")
+        picked = _pick_sharded(logits, labels) \
+            if isinstance(logits, DTensor) else \
+            logits.gather(-1, labels[..., None])[..., 0]
         return torch.logsumexp(logits, dim=-1) - picked
+
+
+def _embed_sharded(table: DTensor, tokens) -> DTensor:
+    """The embedding lookup on a mesh, vocab-parallel: each rank looks up
+    the ids its rows of the table hold (zeros for the others), and the
+    pieces are a partial sum over the ranks that split the vocab (exact:
+    one nonzero term)."""
+    from torch.distributed.tensor import Partial, Shard
+    from repro_torch.dist.sharding import local_offset, place, to_local
+    table = place(table, "vocab", None)
+    tokens = place(tokens, "act_batch", None)
+    out = [Partial() if pt.is_shard(0) else
+           Shard(0) if pb.is_shard(0) else pb
+           for pt, pb in zip(table.placements, tokens.placements)]
+    tl, ids = to_local(table, out), tokens.to_local()
+    if tl.shape[0] == table.shape[0]:
+        xl = tl[ids]
+    else:
+        ids = ids - local_offset(table)[0]
+        hit = (ids >= 0) & (ids < tl.shape[0])
+        xl = tl[ids.clamp(0, tl.shape[0] - 1)] * hit[..., None].to(tl.dtype)
+    return DTensor.from_local(xl, table.device_mesh, out, run_check=False)
+
+
+def _pick_sharded(logits: DTensor, labels) -> DTensor:
+    """``logits[..., labels]`` on a mesh, vocab-parallel: each rank picks
+    the labels its vocab piece holds (zero for the others), a partial sum
+    over the ranks that split the vocab."""
+    from torch.distributed.tensor import Partial, Shard
+    from repro_torch.dist.sharding import local_offset, place
+    logits = place(logits, "act_batch", "act_seq", "vocab")
+    labels = place(labels, "act_batch", "act_seq")
+    ll, ids = logits.to_local(), labels.to_local()
+    ids = ids - local_offset(logits)[2]
+    hit = (ids >= 0) & (ids < ll.shape[2])
+    got = ll.gather(-1, ids.clamp(0, ll.shape[2] - 1)[..., None])[..., 0]
+    got = got * hit.to(got.dtype)
+    out = [Partial() if pl.is_shard(2) else pl for pl in logits.placements]
+    return DTensor.from_local(got, logits.device_mesh, out, run_check=False)
+
+
+def _act(x):
+    """The residual stream's placement (the reference's constrain after
+    the embedding and each layer)."""
+    return constrain(x, "act_batch", "act_seq", "act_embed")
+
+
+def sharded_zeros(shape, dtype, device, rules: dict, axes) -> DTensor:
+    """A DTensor of zeros placed by ``axes`` under ``rules``; each rank
+    allocates only its piece."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = rules["__mesh__"]
+    place = placements_of(axes, rules, shape)
+    local = compute_local_shape_and_global_offset(shape, mesh, place)[0]
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device),
+                              mesh, place, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def ffn_apply(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -89,7 +89,10 @@ class CostModel:
         - ``kv_bytes_per_token``/``state_bytes`` stay exact-from-config
           (they are structural, not measured).
 
-        ``mesh`` must be None: one device (ROADMAP queue 1 item 14)."""
+        ``mesh``: None (one device) or a ``DeviceMesh``: the two steps
+        are built on it (weights and caches as DTensors, still on the
+        meta device) and the counts are per device, as the reference's
+        are on its mesh."""
         from repro_torch.configs.base import ShapeSpec
         from repro_torch.dist.roofline import count_step
         from repro_torch.models.steps import (build_decode_step,

@@ -11,8 +11,11 @@ package's ``train/checkpoint.py``.
   trees, and the train loop resumes from the last durable step.
 
 Format: one ``.npz`` per tree (params, optimizer state) and a JSON
-manifest with the step and each tree's names. The port's trees are flat
-dicts of dotted names (the optimizer state's moments under ``m.`` and
+manifest with the step and each tree's names. A sharded state (DTensor
+leaves) is saved whole: every rank gathers each leaf (``full_tensor``,
+a collective) and rank 0 writes it, so a checkpoint loads into any mesh
+or none; ``restore`` places each leaf like the tree it is given. The
+port's trees are flat dicts of dotted names (the optimizer state's moments under ``m.`` and
 ``v.``), so the names are the structure. numpy has no bfloat16: a bf16
 leaf is stored as fp32 (exactly) and cast back on restore.
 """
@@ -27,6 +30,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.dist.sharding import placed_like
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -43,11 +50,21 @@ def _to_host(tree: dict) -> dict[str, np.ndarray]:
     """A copy of every leaf on the host (never a view of a live tensor)."""
     def one(t: torch.Tensor) -> np.ndarray:
         t = t.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.to("cpu", copy=True).numpy()
 
     return {k: one(v) for k, v in _flatten(tree).items()}
+
+
+def _ranks() -> tuple[int, int]:
+    """(rank, world size) of the default process group ((0, 1) without
+    one)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 class CheckpointManager:
@@ -64,24 +81,36 @@ class CheckpointManager:
     def save(self, step: int, params: dict, opt_state: dict,
              extra: dict | None = None):
         t0 = time.time()
-        self._write(step, _to_host(params), _to_host(opt_state), extra or {})
+        host_params, host_opt = _to_host(params), _to_host(opt_state)
+        if _ranks()[0] == 0:
+            self._write(step, host_params, host_opt, extra or {})
+        self._barrier()
         self.save_seconds += time.time() - t0
 
     def save_async(self, step: int, params: dict, opt_state: dict,
                    extra: dict | None = None):
         """Snapshot on the caller's thread (device to host), write in the
-        background."""
+        background (on rank 0 only)."""
         self.wait()
         host_params, host_opt = _to_host(params), _to_host(opt_state)
+        if _ranks()[0] != 0:
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, host_params, host_opt,
                                       extra or {}), daemon=True)
         self._thread.start()
 
     def wait(self):
+        """The pending write done (and, with several ranks, seen by all)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
+
+    @staticmethod
+    def _barrier():
+        if _ranks()[1] > 1:
+            dist.barrier()
 
     def _write(self, step: int, params: dict, opt_state: dict, extra: dict):
         tmp = self.dir / f"step_{step:010d}.tmp"
@@ -129,7 +158,8 @@ class CheckpointManager:
                 name = prefix + k
                 if name not in names:
                     raise KeyError(f"checkpoint step {step} has no {name!r}")
-                out[k] = torch.from_numpy(npz[name]).to(v.device, v.dtype)
+                out[k] = placed_like(
+                    torch.from_numpy(npz[name]).to(v.dtype), v)
             return out
 
         with np.load(d / f"params_{self.shard_id}.npz") as p_npz, \

@@ -7,6 +7,9 @@ Params, grads and the moments are flat ``{dotted name: tensor}`` dicts
 "count": int32 scalar}``; the moments are kept in ``state_dtype``
 (``cfg.opt_state_dtype``: bf16 for the 235B MoE config) and every update
 is computed in fp32. ``apply_updates`` writes params and state in place.
+On a mesh the params are DTensors: the moments take their placements,
+and the global grad norm sums every shard's squares over the ranks (the
+reference's jitted step reduces it over the whole array too).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist.sharding import full
 from repro_torch.models.common import torch_dtype
 
 
@@ -55,9 +59,10 @@ def schedule_lr(cfg: AdamWConfig, step) -> torch.Tensor:
 def init_state(params: dict[str, torch.Tensor], cfg: AdamWConfig) -> dict:
     dt = torch_dtype(cfg.state_dtype)
 
-    def zeros():
-        return {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-                for k, p in params.items()}
+    def zeros():            # a DTensor param: zeros on its placement
+        return {k: torch.zeros_like(p, dtype=dt,
+                                    memory_format=torch.contiguous_format)
+                .detach() for k, p in params.items()}
 
     device = next(iter(params.values())).device
     return {"m": zeros(), "v": zeros(),
@@ -66,7 +71,7 @@ def init_state(params: dict[str, torch.Tensor], cfg: AdamWConfig) -> dict:
 
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.stack(
-        [x.float().square().sum() for x in tree.values()]).sum())
+        [full(x.float().square().sum()) for x in tree.values()]).sum())
 
 
 @torch.no_grad()

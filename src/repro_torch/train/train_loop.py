@@ -7,10 +7,10 @@
   (fp32 masters, compute-dtype forward, AdamW in place), on the card
   unless the caller asks for the CPU;
 - data: the synthetic ``TokenStream``, stateless by step, so a restart
-  resumes mid-stream with nothing lost or repeated.
-
-The elastic remesh (``reshard_for_mesh``) comes with the multi-device
-steps (ROADMAP queue 1 item 14).
+  resumes mid-stream with nothing lost or repeated;
+- elastic remesh: ``reshard_for_mesh`` rebuilds the step for a new mesh
+  (a change of chip count) and moves the masters and moments onto it;
+  training goes on with the global batch kept.
 """
 from __future__ import annotations
 
@@ -21,9 +21,11 @@ import time
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.data.tokens import DataConfig, TokenStream
+from repro_torch.dist.sharding import full, placed_like
 from repro_torch.kernels import resolve_device
 from repro_torch.models.steps import build_train_step
 from repro_torch.models.transformer import Model
@@ -44,16 +46,16 @@ class TrainConfig:
 
 
 class Trainer:
-    """``mesh`` must be None (one device). ``device``: "cuda" (the default;
-    raises without a GPU) or "cpu"."""
+    """``mesh``: None (one device) or a ``DeviceMesh`` over the process
+    group (every rank runs the same loop, the masters and moments are
+    DTensors). ``device``: "cuda" (the default; raises without a GPU) or
+    "cpu"."""
 
     def __init__(self, cfg: ModelConfig, mesh, shape: ShapeSpec,
                  tcfg: TrainConfig = TrainConfig(),
                  log_fn: Callable[[str], None] = print, *, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port trains on one device: a mesh comes with ROADMAP "
-                "queue 1 item 14")
+        _check_mesh(mesh)
+        self.mesh = mesh
         self.cfg = cfg
         self.shape = shape
         self.tcfg = tcfg
@@ -74,12 +76,36 @@ class Trainer:
         """The model's fp32 masters drawn from ``tcfg.seed`` (the port's
         init), or ``params`` (a flat dict, e.g. ``params_from_numpy`` of a
         JAX ``Model.init`` tree), and a fresh optimizer state."""
-        self.model = Model(self.cfg, params, device=self.device,
-                           seed=self.tcfg.seed, trainable=True)
-        self.built = build_train_step(self.cfg, None, self.shape,
-                                      adamw=self.tcfg.adamw, model=self.model)
-        self.params = self.model.params
+        self._build(Model(self.cfg, params, device=self.device,
+                          seed=self.tcfg.seed, trainable=True,
+                          mesh=self.mesh))
         self.opt_state = opt_mod.init_state(self.params, self.tcfg.adamw)
+
+    def _build(self, model: Model) -> None:
+        self.model = model
+        self.built = build_train_step(self.cfg, self.mesh, self.shape,
+                                      adamw=self.tcfg.adamw, model=model,
+                                      rules=model.rules)
+        self.params = model.params
+
+    def reshard_for_mesh(self, new_mesh) -> None:
+        """Elastic scaling: the step rebuilt for ``new_mesh`` (None: one
+        device), the masters and moments gathered whole and placed on it
+        (a DTensor cannot be redistributed across meshes)."""
+        _check_mesh(new_mesh)
+        if self.model is None:
+            self.init_state()
+        whole = {k: full(v).detach() for k, v in self.params.items()}
+        moments = {m: {k: full(v) for k, v in self.opt_state[m].items()}
+                   for m in ("m", "v")}
+        self.mesh = new_mesh
+        self._build(Model(self.cfg, whole, device=self.device,
+                          trainable=True, mesh=new_mesh))
+        for m in ("m", "v"):
+            self.opt_state[m] = {
+                k: placed_like(t, self.params[k]) for k, t in moments[m].items()}
+        self.log(f"[trainer] resharded for mesh "
+                 f"{None if new_mesh is None else tuple(new_mesh.shape)}")
 
     def resume(self) -> bool:
         """Restore the latest checkpoint; True if one was found."""
@@ -120,3 +146,11 @@ class Trainer:
                 self.ckpt.save_async(self.step, self.params, self.opt_state)
         self.ckpt.wait()
         return self.history
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch DeviceMesh (launch/mesh.py), "
+                        f"not {type(mesh).__name__}")
+
+

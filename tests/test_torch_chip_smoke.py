@@ -485,3 +485,60 @@ def test_roofline_checks_at_full_width():
     chip_smoke.assert_roofline(checks)
     assert checks["prefill"]["steps"] == checks["decode"]["steps"] == 1
     assert checks["prefill"]["measured_over_roofline"] > 0
+
+
+PHASE9_CPU = """
+import json, sys, tempfile, warnings
+warnings.filterwarnings("ignore")
+import torch
+torch.set_num_threads(1)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh
+chip_smoke.init_group("gloo", "cpu")
+mesh = make_host_mesh()
+assert tuple(mesh.shape) == (1, 1)
+cfg = get_config("qwen2-1.5b", smoke=True)
+out = {"serve": chip_smoke.sharded_serving(cfg, mesh, "cpu", 2, 16, 4)}
+with tempfile.TemporaryDirectory() as tmp:
+    out["train"] = chip_smoke.sharded_training(
+        cfg, make_host_mesh, "cpu", tmp, layers=2, seq=32, batch=2,
+        steps=chip_smoke.PATH_G_TRAIN["steps"])
+out["moe"] = chip_smoke.a2a_vs_grouped(
+    get_config("qwen3-moe-235b-a22b", smoke=True), mesh, "cpu", 2, 16)
+with tempfile.TemporaryDirectory() as tmp:
+    out["dryrun"] = chip_smoke.dryrun_cells(
+        (("qwen2-1.5b", "decode_32k", False),), tmp, smoke=True)
+torch.distributed.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_phase9_on_cpu_gloo():
+    """Phase 9 (path G) off the card: its functions on a one-rank gloo
+    group with the CPU as the device, at smoke width (the card runs 9a-c
+    at full width on NCCL, 9d at full width): the sharded serving legs
+    bit-equal to the meshless ones, the sharded trainer's step 1 equal and
+    its remesh going on, the all-to-all layer against the grouped one and
+    a smoke dry-run cell, each through the phase's own checks (the flash
+    kernel does not run on the CPU, so 9a's launches are 0 here)."""
+    import json
+    import os
+    import subprocess
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", PHASE9_CPU, str(ROOT)],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    serve = out["serve"]
+    assert serve["tokens_equal"] and serve["logits_bit_equal"], serve
+    assert not any(serve["launches"].values()), serve
+    chip_smoke.assert_sharded_training(out["train"])
+    assert out["train"]["loss_gap"] == 0, out["train"]
+    chip_smoke.assert_a2a(out["moe"])
+    assert out["moe"]["bit_equal"], out["moe"]
+    chip_smoke.assert_dryrun(out["dryrun"])
+    assert chip_smoke.PATH_G_DRYRUN[-1] == ("qwen3-moe-235b-a22b",
+                                            "train_4k", True)

@@ -145,7 +145,8 @@ def test_count_is_the_analyzers_byte_model():
 def test_steps_match_the_references_steps():
     """The prefill and decode steps of qwen2-1.5b smoke in fp32, the
     port's from the reference's params: the same greedy tokens, caches
-    within 1e-5; the step builders refuse a mesh (ROADMAP item 14)."""
+    within 1e-5; the step builders refuse the reference's JAX mesh (they
+    take a torch ``DeviceMesh``)."""
     jcfg = dataclasses.replace(jax_config("qwen2-1.5b", smoke=True),
                                compute_dtype="float32")
     cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
@@ -181,6 +182,6 @@ def test_steps_match_the_references_steps():
                                    rtol=1e-5, atol=1e-5)
     assert input_specs(cfg, ShapeSpec("d", "decode", S, B)) == {
         "tokens": ((B, 1), "int32"), "cache_len": ((B,), "int32")}
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_prefill_step(cfg, mesh, ShapeSpec("p", "prefill", S, B),
                            model=model)

@@ -37,7 +37,10 @@ ORIG = ROOT / "src" / "repro"
 
 #: modules carried verbatim from the JAX package (``repro.`` read as
 #: ``repro_torch.``); serving/profiler.py differs only in from_roofline,
-#: which counts the port's steps in place of the reference's HLO
+#: which counts the port's steps in place of the reference's HLO.
+#: dist/sharding.py is not a copy (the reference's imports jax.sharding):
+#: tests/test_torch_sharding.py holds its rules, specs and axes equal to
+#: the reference's instead
 COPIES = [
     "configs/__init__.py", "configs/base.py", "configs/gemma2_9b.py",
     "configs/glm4_9b.py", "configs/moonshot_v1_16b_a3b.py",
@@ -100,6 +103,8 @@ def test_port_runs_with_jax_blocked():
         import repro_torch.serving.backend, repro_torch.sim.replay
         import repro_torch.obs, repro_torch.obs.server
         import repro_torch.serving.cluster
+        import repro_torch.dist.sharding, repro_torch.launch.mesh
+        import repro_torch.launch.dryrun, repro_torch.models.moe_a2a
         cfg = get_config("qwen2-1.5b", smoke=True)
         model = Model(cfg, device="cpu")
         rt = PagedKVRuntime(cfg, n_pages=8, page_size=8, device="cpu")
@@ -229,6 +234,6 @@ def test_profiler_copy_differs_only_in_from_roofline():
     from repro_torch.serving.profiler import CostModel
     cost = CostModel.from_roofline(get_config("qwen2-1.5b", smoke=True))
     assert cost.prof.flops_per_token > 0 and cost.prof.active_param_bytes > 1
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         CostModel.from_roofline(get_config("qwen2-1.5b", smoke=True),
                                 mesh=object())

@@ -296,8 +296,9 @@ def test_train_step_accumulates_microbatches_like_jax():
     """``train_microbatches`` = 2: the port's step accumulates the two
     halves' fp32 grads as the reference's scan does. Two steps, each's
     loss and grad norm within 1e-5 relative of the reference's (the
-    second read after the first's AdamW update of every leaf); a mesh is
-    refused."""
+    second read after the first's AdamW update of every leaf); the
+    reference's JAX mesh is refused (the port takes a torch
+    ``DeviceMesh``)."""
     jcfg = dataclasses.replace(jax_config("qwen2-1.5b", smoke=True),
                                compute_dtype="float32")
     cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
@@ -327,13 +328,13 @@ def test_train_step_accumulates_microbatches_like_jax():
         assert rel(float(met["loss"]), float(jmet["loss"])) <= 1e-5
         assert rel(float(met["grad_norm"]),
                    float(jmet["grad_norm"])) <= 1e-5
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_train_step(cfg, mesh, ShapeSpec(*SHAPE), model=model)
 
 
 class TestTraining:
     """The reference's ``TestTraining`` cases, on the port (its elastic
-    remesh case waits for ROADMAP queue 1 item 14)."""
+    remesh case needs a process group: ``tests/test_torch_dist.py``)."""
 
     def test_loss_decreases(self, tmp_path):
         tr = make_trainer(tmp_path, steps=40)
@@ -400,7 +401,7 @@ def test_trainer_defaults_to_cuda(monkeypatch, tmp_path):
     tcfg = TrainConfig(ckpt_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(cfg, None, ShapeSpec(*SHAPE), tcfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(cfg, object(), ShapeSpec(*SHAPE), tcfg, device="cpu")
 
 
