@@ -42,6 +42,11 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          512-token chunk and at the gemma2-like shape, with bf16 inputs TMA
          cannot take refused; token append also at 300 rows (two launches)
          and page scatter at 600 pages (two launches), bad ids refused;
+         the device-indexed token append (its slots int32 tensors on the
+         card, the captured decode step's) bit-exact against the plain
+         version at the phase-2 shape and at 300 rows (one launch), timed
+         beside the by-value launch, slots of the wrong dtype, shape,
+         layout or device refused;
          page gather at 700 pages with repeated ids (two launches), rows
          of several bulk pieces and rows the bulk copy cannot take, an id
          out of range refused, and its device time on the bulk path beside
@@ -68,10 +73,27 @@ Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          and throughput; between them, the card's mfu and decode_eff
          fitted to 3a's measured step times (``calibrate_hardware``) and
          logged with their residuals (3b keeps the datasheet profile).
-         Launch counts are zeroed before phase 3 and read
-         after it: every kernel of the path (decode attention, the page
-         moves, flash attention in each fresh prefill) must have run there,
-         flash attention in 3a and in 3b. Then the prefill logits through
+         The decode steps are CUDA graphs, one per (B, table width)
+         bucket, captured on first use and replayed (the captures, their
+         seconds and the graph pool's bytes are logged). Launch counts are
+         zeroed before 3a and read after 3b (the kernels line's): every
+         kernel of the path (decode attention, the page moves, the
+         indexed token append, flash attention in each fresh prefill)
+         must have run, flash attention in 3a and in 3b, and the by-value
+         append, which no runtime path calls, never. Then 3b twice more,
+         eager (``cuda_graphs=False``) and graphed, for JCT, busy seconds
+         and capture seconds paired in one call, each with its launches.
+         (c) On the same weights, programs of 2040, 1000 and 500 tokens
+         and a twin of the second on its pages: 20 decode steps eager
+         (``cuda_graphs=False``), the runtime's state restored, the same
+         steps graphed; logits, next tokens and both pools must be equal
+         (``torch.equal``) across four buckets, a page boundary (offset
+         15 -> 0) where a table widens from 128 to 256 pages, and a COW
+         split; each bucket captured once, no replay growing the graph
+         pool, both legs appending through the indexed launch once a
+         step; wall ms of an eager and a replayed step and each leg's
+         launches logged.
+         Then the prefill logits through
          the flash kernel against prefill + extend (dense attention) of
          the same 1024-token prompt, in bf16 and fp32, on the first 2
          layers at full width, and a logged depth sweep.
@@ -116,8 +138,11 @@ Phase 6  path D, the MoE, VLM and audio families, after phase 3's model
          COW splits exercised, every check bit-exact, no shortfall, every
          kernel of path A launched (counts zeroed before it and read
          after), padded prefill chunks dropping expert copies and decode
-         steps dropping none; logs steps, the physical leg's wall time
-         and ms a step, the dropped copies and the peak memory. (b) qwen3-moe, moonshot-v1-
+         steps dropping none (the drops summed in place, so replays add
+         to them); logs steps, the physical leg's wall time and ms a
+         step, the dropped copies and the peak memory; then the graphed
+         decode step against the eager one over 6 steps and two buckets,
+         as in 3c. (b) qwen3-moe, moonshot-v1-
          16b-a3b (its leading dense layer and two MoE layers, shared
          experts), pixtral-12b and musicgen-large at full width and cut
          depth in fp32: a 256-token prompt's prefill against prefill of
@@ -195,7 +220,8 @@ Phase 9  path G, the sharded steps, after phase 8: a one-rank NCCL
          argument bytes (also as a share of the card's memory), each
          finite and positive. The process group is torn down at the end.
 
-Prints a ``{"kernels": [...]}`` line (``launches``: phases 3 and 4;
+Prints a ``{"kernels": [...]}`` line (``launches``: phases 3a and 3b,
+and 4; the by-value token append has no runtime caller and reads 0;
 ``launches_phase5``: each leg of phase 5; ``launches_phase6``: phase
 6a; ``launches_phase7``: legs 7a and 7c; ``launches_phase8``: phase 8a;
 ``launches_phase9``: the sharded prefill and decode steps of 9a),
@@ -323,9 +349,25 @@ SCAN_EDGES = (dict(B=2, T=64, H=4, K=64, L=64),
               dict(B=2, T=96, H=3, K=10, L=8))
 SCAN_ROWS = dict(B=2, T=512, H=40, K=64, L=64)
 SCAN_PREFILL = dict(SCAN_MAIN, B=2)
-# Path A's kernels (the serving path) and path B's run (rwkv6-3b).
+# Path A's kernels (the serving path, its decode step a replayed CUDA
+# graph, whose token append is the device-indexed one) and path B's run
+# (rwkv6-3b). The by-value append has no caller in the runtime: the decode
+# step appends through the indexed launch, graphed or eager
+# (``cuda_graphs=False``); phase 2 holds it against its plain version.
 PATH_A = ("paged_decode_attention", "page_gather", "page_scatter",
-          "token_append", "flash_attention")
+          "token_append_indexed", "flash_attention")
+BY_VALUE_APPEND = "token_append"
+# Phase 3c: the graphed decode step against the eager one at full width.
+# Prompts of p0..p2; p3 is p1's twin on shared pages, so p1's first
+# append COW-splits its last page mid-batch. Steps run as (count, rows):
+# p0 (2040 tokens) appends at offset 15 in step 7 and at offset 0 of a
+# new page in step 8, its table widening from 128 to 256 pages there.
+GRAPH_PROMPTS = (2040, 1000, 500)
+GRAPH_SCHEDULE = ((6, (0, 1, 2)), (6, (0, 1, 2, 3)), (8, (2, 0, 3)))
+# Phase 6a's check at qwen3-moe width: a capture and replays, and a
+# second bucket.
+MOE_GRAPH_PROMPTS = (300, 200, 100)
+MOE_GRAPH_SCHEDULE = ((3, (0, 1, 2)), (3, (0, 1, 2, 3)))
 RWKV_RUN = dict(B=2, T=2048, decode_steps=32)
 
 
@@ -634,7 +676,7 @@ def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
     from repro_torch.kernels.page_copy import (
         append_tokens_ref, copy_pages, copy_pages_ref, page_gather_kernel,
         page_gather_ref, page_scatter_kernel, page_scatter_ref,
-        token_append_kernel)
+        token_append_indexed_kernel, token_append_kernel)
     k = case["k"]
     dev = k.device
     ids = case["stage_ids"]
@@ -668,6 +710,16 @@ def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
     torch.cuda.synchronize()
     assert torch.equal(kp, kr) and torch.equal(vp, vr), "append"
     res["token_append"] = 0.0
+
+    # the device-indexed append: its slots as int32 tensors on the card
+    pid_i32 = torch.from_numpy(case["app_pages"].astype(np.int32)).to(dev)
+    off_i32 = torch.from_numpy(case["app_offs"].astype(np.int32)).to(dev)
+    ki, vi = k.clone(), case["v"].clone()
+    token_append_indexed_kernel(ki, vi, case["k_tok"], case["v_tok"],
+                                pid_i32, off_i32)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, kr) and torch.equal(vi, vr), "indexed append"
+    res["token_append_indexed"] = 0.0
     if not timed:
         return {name: (err, None) for name, err in res.items()}
 
@@ -721,6 +773,16 @@ def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
         device_ms=graph_ms(lambda: token_append_kernel(
             kp, vp, case["k_tok"], case["v_tok"], case["app_pages"],
             case["app_offs"])),
+        library_device_ms=graph_ms(library_append)))
+    # the same rows and bound through the indexed launch
+    out["token_append_indexed"] = (res["token_append_indexed"], dict(
+        ms=time_ms(lambda: token_append_indexed_kernel(
+            ki, vi, case["k_tok"], case["v_tok"], pid_i32, off_i32)),
+        plain_ms=time_ms(lambda: append_tokens_ref(
+            kr, vr, case["k_tok"], case["v_tok"], pid_i32, off_i32)),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(library_append),
+        device_ms=graph_ms(lambda: token_append_indexed_kernel(
+            ki, vi, case["k_tok"], case["v_tok"], pid_i32, off_i32)),
         library_device_ms=graph_ms(library_append)))
     return out
 
@@ -1104,6 +1166,47 @@ def check_append_wide(gen) -> float:
     return 0.0
 
 
+def check_append_indexed_refusals(gen) -> float:
+    """The device-indexed token append at APPEND_WIDE's 300 rows in one
+    launch, bit-exact against the plain version with the same device
+    slots; slots of the wrong dtype, shape or layout, or on the host,
+    raise ``ValueError`` before any launch. Returns the max abs error
+    (0)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.page_copy import (append_tokens_ref,
+                                               token_append_indexed_kernel)
+    L, P, page, KV, Dh, B = (APPEND_WIDE[x] for x in
+                             ("L", "P", "page", "KV", "Dh", "B"))
+    pools = [torch.randn((L, P, page, KV, Dh), generator=gen,
+                         device="cuda").to(torch.bfloat16) for _ in range(2)]
+    toks = [torch.randn((L, B, KV, Dh), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2)]
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.permutation(P)[:B].astype(np.int32)).cuda()
+    offs = torch.from_numpy(rng.integers(0, page, size=B).astype(
+        np.int32)).cuda()
+    refs = [x.clone() for x in pools]
+    before = token_append_indexed_kernel.launches
+    token_append_indexed_kernel(*pools, *toks, ids, offs)
+    assert token_append_indexed_kernel.launches - before == 1
+    append_tokens_ref(*refs, *toks, ids, offs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(pools, refs)), "append"
+    before = token_append_indexed_kernel.launches
+    for what, bad_ids, bad_offs in (
+            ("int64 ids", ids.long(), offs),
+            ("int64 offsets", ids, offs.long()),
+            ("2-D ids", ids[:, None], offs),
+            ("ids of another length", ids[:-1], offs[:-1]),
+            ("strided ids", torch.stack([ids, ids], 1)[:, 0], offs),
+            ("ids on the host", ids.cpu(), offs.cpu())):
+        expect_value_error(lambda: token_append_indexed_kernel(
+            *pools, *toks, bad_ids, bad_offs), what)
+    assert token_append_indexed_kernel.launches == before
+    return 0.0
+
+
 def scan_case(shape: dict, gen, spread: float, shift: float):
     """r, k, v, log-decay (B, T, H, K), u (H, K), init state (B, H, K, K);
     logw = -exp(spread * N(0, 1) - shift)."""
@@ -1256,6 +1359,12 @@ def phase2(sheet: dict, hw) -> dict:
         records["token_append"]["max_abs_err"], check_append_wide(gen))
     log(f"phase2 token_append: {APPEND_WIDE['B']} rows in "
         f"{math.ceil(APPEND_WIDE['B'] / 256)} launches bit-exact, bad ids "
+        f"refused")
+    records["token_append_indexed"]["max_abs_err"] = max(
+        records["token_append_indexed"]["max_abs_err"],
+        check_append_indexed_refusals(gen))
+    log(f"phase2 token_append_indexed: {APPEND_WIDE['B']} rows in one "
+        f"launch bit-exact; int64, 2-D, short, strided and host slots "
         f"refused")
     records["page_scatter"]["max_abs_err"] = max(
         records["page_scatter"]["max_abs_err"], check_scatter_wide(gen))
@@ -1412,8 +1521,9 @@ def serve_differential(cfg, hw, model, device):
     return eng, len(log_p), wall
 
 
-def serve_measured(cfg, hw, model, device):
-    """Phase 3b: the same programs on the measured clock."""
+def serve_measured(cfg, hw, model, device, graphs: bool = True):
+    """Phase 3b: the same programs on the measured clock, the decode step
+    graphed or (``graphs=False``) eager."""
     from repro_torch.serving.backend import TorchModelBackend
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.profiler import CostModel, build_profile
@@ -1427,6 +1537,7 @@ def serve_measured(cfg, hw, model, device):
                                 page_size=rc.block_size, device=device)
     backend.verify_staging = True
     backend.runtime.verify_copies = True
+    backend.runtime.cuda_graphs = graphs
     eng = Engine(cfg, ecfg, hw, backend=backend, cost=cost)
     progs = agent_programs()
     router = Router([eng])
@@ -1435,6 +1546,167 @@ def serve_measured(cfg, hw, model, device):
     sim.add_programs(progs)
     summary = sim.run()
     return eng, summary, len(progs)
+
+
+def serve_pair_leg(cfg, hw, model, device, graphs: bool) -> dict:
+    """3b again with the decode step graphed or eager, to pair the two in
+    one call: JCT and TTFT on the measured clock, engine busy seconds and
+    steps, the graphs' captures, their seconds (inside the busy seconds)
+    and replays, and the leg's launch counts."""
+    from repro_torch.kernels import launch_counts
+    before = launch_counts()
+    t0 = time.perf_counter()
+    eng, summary, n_progs = serve_measured(cfg, hw, model, device, graphs)
+    wall = time.perf_counter() - t0
+    after = launch_counts()
+    assert summary.n_programs == n_progs == len(eng.programs)
+    g = eng.backend.runtime.graphs
+    return dict(cuda_graphs=graphs, avg_jct_s=summary.avg_jct,
+                p90_jct_s=summary.p90_jct, avg_ttft_s=summary.avg_ttft,
+                steps=eng.steps, busy_s=eng.busy_seconds, wall_s=wall,
+                captures=g.captures, capture_s=g.capture_s,
+                replays=g.replays,
+                launches={k: after[k] - before[k] for k in after})
+
+
+def runtime_state(rt) -> dict:
+    """A copy of everything a decode step reads or changes in ``rt``."""
+    return dict(k=rt.k_pages.clone(), v=rt.v_pages.clone(),
+                free=list(rt.free), refs=dict(rt.refs),
+                programs={pid: dataclasses.replace(e, pages=list(e.pages))
+                          for pid, e in rt.programs.items()},
+                last={pid: t.clone() for pid, t in rt._last.items()},
+                cow_splits=rt.cow_splits)
+
+
+def restore_state(rt, st: dict) -> None:
+    """Put ``runtime_state``'s copy back, the pools in place (their
+    addresses, which the graphs hold, unchanged)."""
+    rt.k_pages.copy_(st["k"])
+    rt.v_pages.copy_(st["v"])
+    rt.free, rt.refs = list(st["free"]), dict(st["refs"])
+    rt.programs = {pid: dataclasses.replace(e, pages=list(e.pages))
+                   for pid, e in st["programs"].items()}
+    rt._last = {pid: t.clone() for pid, t in st["last"].items()}
+    rt.cow_splits = st["cow_splits"]
+
+
+def decode_leg(rt, model, schedule, device, graphs: bool) -> dict:
+    """The schedule's decode steps with ``rt.cuda_graphs = graphs``: each
+    step's logits and next tokens, its wall ms (ending in a device sync),
+    whether it captured a graph, the graph pool's bytes after it, the
+    launch counts of the leg and the pools at its end."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    rt.cuda_graphs = graphs
+    before = launch_counts()
+    steps = []
+    for count, rows in schedule:
+        pids = [f"p{i}" for i in rows]
+        for _ in range(count):
+            e = [rt.programs[pid] for pid in pids]
+            ps = rt.page_size
+            pages = max(max(len(x.pages), -(-(x.length + 1) // ps))
+                        for x in e)
+            n_tab = 1 << max(0, pages - 1).bit_length()
+            offs = [x.length % ps for x in e]
+            captures = rt.graphs.captures
+            synchronize(device)
+            t0 = time.perf_counter()
+            logits = torch.stack(rt.decode_batch(model, pids))
+            synchronize(device)
+            steps.append(dict(
+                ms=1e3 * (time.perf_counter() - t0), B=len(pids),
+                n_tab=n_tab, offsets=offs, logits=logits,
+                nxt=torch.stack([rt._last[pid] for pid in pids]),
+                captured=rt.graphs.captures > captures,
+                pool_bytes=rt.graphs.pool_bytes()))
+    after = launch_counts()
+    return dict(steps=steps, pools=(rt.k_pages.clone(), rt.v_pages.clone()),
+                launches={k: after[k] - before[k] for k in after})
+
+
+def graph_vs_eager(model, device, prompts, schedule, seed: int = 0) -> dict:
+    """The paged runtime's decode step, eager (``cuda_graphs=False``) and
+    graphed, over the same steps from the same state: programs p0.. of
+    ``prompts`` tokens (seeded), p<n> a twin of p1 on its pages (p1's
+    first append COW-splits), ``schedule`` the steps as (count, rows).
+    The state is snapshot after the prefills and restored between the
+    legs. Returns the comparison, the buckets, the captures and their
+    seconds, the graph pool's bytes, the median wall ms of an eager step
+    and of a replayed one, and each leg's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.paged_runtime import (PagedKVRuntime,
+                                                   ProgramEntry)
+    cfg = model.cfg
+    steps = sum(c for c, _ in schedule)
+    rt = PagedKVRuntime(cfg, n_pages=sum(-(-(n + steps) // 16) + 1
+                                         for n in prompts) + 8,
+                        page_size=16, device=device)
+    rng = np.random.default_rng(seed)
+    for i, n in enumerate(prompts):
+        rt.prefill(model, f"p{i}", torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, n)))
+    twin, src = f"p{len(prompts)}", rt.programs["p1"]
+    for pi in src.pages:
+        rt.refs[pi] += 1
+    rt.programs[twin] = ProgramEntry(list(src.pages), src.length)
+    rt._last[twin] = rt._last["p1"].clone()
+    st = runtime_state(rt)
+    eager = decode_leg(rt, model, schedule, device, graphs=False)
+    cow_eager = rt.cow_splits - st["cow_splits"]
+    restore_state(rt, st)
+    graph = decode_leg(rt, model, schedule, device, graphs=True)
+    rt.check()
+    es, gs = eager["steps"], graph["steps"]
+    replayed = [g["ms"] for g in gs if not g["captured"]]
+    pool = [g["pool_bytes"] for g in gs]
+    out = dict(
+        steps=len(gs),
+        logits_equal=all(torch.equal(a["logits"], b["logits"])
+                         for a, b in zip(es, gs)),
+        nxt_equal=all(torch.equal(a["nxt"], b["nxt"]) for a, b in zip(es, gs)),
+        pools_equal=all(torch.equal(a, b) for a, b in zip(eager["pools"],
+                                                          graph["pools"])),
+        finite=all(bool(torch.isfinite(g["logits"]).all()) for g in gs),
+        buckets=sorted({(g["B"], g["n_tab"]) for g in gs}),
+        page_boundary=any(o == 0 for g in gs for o in g["offsets"]),
+        cow_splits=(cow_eager, rt.cow_splits - st["cow_splits"]),
+        captures=rt.graphs.captures,
+        capture_s=rt.graphs.capture_s,
+        pool_bytes=pool[-1],
+        pool_grew_on_replay=any(
+            b["pool_bytes"] != a["pool_bytes"]
+            for a, b in zip(gs, gs[1:]) if not b["captured"]),
+        eager_ms_median=float(np.median([e["ms"] for e in es[1:]])),
+        replay_ms_median=float(np.median(replayed)) if replayed else None,
+        launches_eager=eager["launches"], launches_graph=graph["launches"])
+    del rt
+    return out
+
+
+def assert_graph_vs_eager(check: dict, cuda: bool) -> None:
+    """Bitwise equal, across a bucket change, a page boundary and a COW
+    split; on the card every bucket captured once, the replays growing
+    no pool, and both legs appending through the indexed launch alone,
+    once a step."""
+    assert check["logits_equal"] and check["nxt_equal"], check
+    assert check["pools_equal"] and check["finite"], check
+    assert len(check["buckets"]) >= 2 and check["page_boundary"], check
+    assert check["cow_splits"][0] == check["cow_splits"][1] >= 1, check
+    le, lg = check["launches_eager"], check["launches_graph"]
+    if cuda:
+        assert check["captures"] == len(check["buckets"]), check
+        assert not check["pool_grew_on_replay"], check
+        for leg in (le, lg):
+            assert leg["token_append_indexed"] == check["steps"], check
+            assert leg[BY_VALUE_APPEND] == 0, check
+        assert lg["paged_decode_attention"] == \
+            le["paged_decode_attention"] > 0, check
+    else:
+        assert check["captures"] == 0 and sum(le.values()) == 0 == \
+            sum(lg.values()), check
 
 
 def calibration(shadow, hw) -> dict:
@@ -1518,7 +1790,6 @@ def phase3(hw):
         f"steps (3b keeps the datasheet profile): "
         f"{json.dumps(calibration(eng_a.backend, hw))}")
 
-    reset_after_a = dict(counts_a)
     t0 = time.perf_counter()
     eng_b, summary, n_progs = serve_measured(cfg, hw, model, device)
     wall_b = time.perf_counter() - t0
@@ -1550,10 +1821,37 @@ def phase3(hw):
         f"decode-only steps): {json.dumps(rates)}")
     for name in PATH_A:
         assert counts[name] > 0, f"kernel {name} never launched on path A"
+    # the decode step appends through the indexed launch alone
+    assert counts[BY_VALUE_APPEND] == 0, counts
     assert counts_a["flash_attention"] > 0, "no flash prefill in 3a"
     assert counts["flash_attention"] > counts_a["flash_attention"], \
         "no flash prefill in 3b"
-    log(f"phase3 launches: 3a {reset_after_a}, 3a+3b {counts}")
+    graphs = [eng_a.backend.inner.runtime.graphs,
+              eng_b.backend.runtime.graphs]
+    log(f"phase3 decode graphs: 3a/3b captures "
+        f"{[g.captures for g in graphs]} in "
+        f"{[round(g.capture_s, 3) for g in graphs]} s, replays "
+        f"{[g.replays for g in graphs]}, buckets "
+        f"{[sorted(g.buckets()) for g in graphs]}, graph pool bytes "
+        f"{[g.pool_bytes() for g in graphs]}")
+    log(f"phase3 launches (the kernels line's): 3a {counts_a}, 3a+3b "
+        f"{counts}")
+    del eng_a, eng_b, b, graphs
+    gc.collect()
+
+    pair = [serve_pair_leg(cfg, hw, model, device, graphs)
+            for graphs in (False, True)]
+    log(f"phase3b pair, eager then graphed, after 3b (graphed): "
+        f"{json.dumps(pair)}")
+    assert pair[0]["captures"] == 0 < pair[1]["captures"], pair
+    for leg in pair:
+        assert leg["launches"]["token_append_indexed"] > 0, pair
+        assert leg["launches"][BY_VALUE_APPEND] == 0, pair
+
+    check = graph_vs_eager(model, device, GRAPH_PROMPTS, GRAPH_SCHEDULE)
+    log(f"phase3c graphed decode step vs eager, {cfg.name} full width: "
+        f"{json.dumps(check)}")
+    assert_graph_vs_eager(check, cuda=True)
 
     prefill_logit_checks(cfg, device)
     return counts, model, samples
@@ -1997,20 +2295,27 @@ FAMILY_BOUND = PREFILL_BOUND["float32"]
 
 
 @contextlib.contextmanager
-def moe_drop_counts():
-    """Within the block, the token-copies each MoE dispatch drops are
-    summed on the device, apart for the paged runtime's decode steps and
-    for everything else (prefill and extend chunks). Yields the dict of
-    0-d tensors' lists; read it after the block."""
+def moe_drop_counts(device):
+    """Within the block, the token-copies each MoE dispatch drops, and
+    the dispatches, are summed on ``device``, apart for the paged
+    runtime's decode steps and for everything else (prefill and extend
+    chunks). Yields {kind: (2,) int64 tensor of (dropped copies,
+    dispatches)}; read it after the block. The sums are in-place adds to
+    tensors made before the block, so a captured decode step adds to
+    them at every replay."""
+    import torch
     from repro_torch.models import moe
     from repro_torch.serving.paged_runtime import PagedKVRuntime
-    drops = {"prefill": [], "decode": []}
+    totals = {kind: torch.zeros(2, dtype=torch.long, device=device)
+              for kind in ("prefill", "decode")}
     kind = ["prefill"]
     plan, step = moe._dispatch_plan, PagedKVRuntime._decode_step
 
     def counted_plan(flat_ids, E, C):
         src, dest = plan(flat_ids, E, C)
-        drops[kind[0]].append((dest == E * C).sum())
+        t = totals[kind[0]]
+        t[0] += (dest == E * C).sum()
+        t[1] += 1
         return src, dest
 
     def decode_step(self, *args, **kwargs):
@@ -2023,15 +2328,10 @@ def moe_drop_counts():
     moe._dispatch_plan = counted_plan
     PagedKVRuntime._decode_step = decode_step
     try:
-        yield drops
+        yield totals
     finally:
         moe._dispatch_plan = plan
         PagedKVRuntime._decode_step = step
-
-
-def summed(tensors: list) -> int:
-    import torch
-    return int(torch.stack(tensors).sum()) if tensors else 0
 
 
 def serve_moe(cfg, hw, device) -> tuple[dict, dict]:
@@ -2055,15 +2355,15 @@ def serve_moe(cfg, hw, device) -> tuple[dict, dict]:
     synchronize(device)
     built_s = time.perf_counter() - t0
     reset_launch_counts()
-    with moe_drop_counts() as drops:
+    with moe_drop_counts(model.device) as drops:
         eng, steps, wall = serve_differential(cfg, hw, model, device)
     counts = launch_counts()
     st = mechanism_stats(eng)
     out = dict(decision_steps=steps, engine_steps=eng.steps,
                physical_wall_s=wall, ms_per_step=1e3 * wall / eng.steps,
-               dropped_copies_prefill=summed(drops["prefill"]),
-               dropped_copies_decode=summed(drops["decode"]),
-               moe_dispatches={k: len(v) for k, v in drops.items()},
+               dropped_copies_prefill=int(drops["prefill"][0]),
+               dropped_copies_decode=int(drops["decode"][0]),
+               moe_dispatches={k: int(v[1]) for k, v in drops.items()},
                params=sum(p.numel() for p in model.parameters()),
                model_built_s=built_s, **st)
     if cuda:
@@ -2075,6 +2375,10 @@ def serve_moe(cfg, hw, device) -> tuple[dict, dict]:
     b = eng.backend.inner
     b.runtime.check(b.prefix_index)
     assert out["dropped_copies_decode"] == 0, "a decode step dropped"
+    del eng, b
+    out["graph_vs_eager"] = check = graph_vs_eager(
+        model, device, MOE_GRAPH_PROMPTS, MOE_GRAPH_SCHEDULE)
+    assert_graph_vs_eager(check, cuda)
     return out, counts
 
 
@@ -2106,11 +2410,11 @@ def family_checks(cfg, device) -> dict:
         split = Model(dataclasses.replace(cfg, moe=dataclasses.replace(
             m, capacity_factor=m.num_experts / m.top_k)),
             dict(model.params), device=device)
-    with moe_drop_counts() as drops:
+    with moe_drop_counts(model.device) as drops:
         out["prefill_vs_decode"] = prefill_vs_decode(split, toks,
                                                      FAMILY_TAIL)
-    out["prefill_vs_decode"]["dropped_copies"] = summed(
-        drops["prefill"] + drops["decode"])
+    out["prefill_vs_decode"]["dropped_copies"] = int(
+        drops["prefill"][0] + drops["decode"][0])
     del split
     try:
         require_paged(cfg)
@@ -3035,6 +3339,8 @@ def main() -> int:
                          "src/repro/kernels/page_copy/kernel.py:70"),
         "token_append": ("src/repro_torch/csrc/page_copy.cu",
                          "src/repro/kernels/page_copy/kernel.py:114"),
+        "token_append_indexed": ("src/repro_torch/csrc/page_copy.cu",
+                                 "src/repro/kernels/page_copy/kernel.py:114"),
         "flash_attention": (
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:85"),

@@ -1,20 +1,23 @@
 // Page gather, page scatter and token append for the paged KV pools.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/page_copy/kernel.py:
-// page_gather_kernel, page_scatter_kernel and token_append_kernel.
+// page_gather_kernel, page_scatter_kernel and token_append_kernel (twice:
+// by value, and with its slots in device arrays as the Pallas kernel takes
+// them through scalar prefetch, for the captured decode step).
 //
 // Bound: bytes. The kernels do no arithmetic; each copied byte is read
 // once and written once, so the floor is 2 x (copied bytes) / HBM
 // bandwidth. The copies are byte-exact whatever the dtype. Page ids and
-// offsets are validated on the host by the wrapper; a block whose id is
+// offsets are validated on the host (by the wrapper, or for the indexed
+// append by its caller before the upload); a block whose id is
 // out of range copies nothing, so a bad id can never become an
 // out-of-bounds access. Scatter and append update the pools in place.
 //
-// Every kernel here takes its page ids (and append's offsets) by value,
-// in the launch's parameter block: a __grid_constant__ struct of 2 KB (of
-// the 4 KB limit: kMaxGather or kMaxScatter ids, or kMaxAppend pairs),
-// with no index tensor and no host-to-device copy; a larger call is
-// launched once per slice. The host work around a launch weighs: a
+// Every kernel here but append_indexed_kernel takes its page ids (and
+// append's offsets) by value, in the launch's parameter block: a
+// __grid_constant__ struct of 2 KB (of the 4 KB limit: kMaxGather or
+// kMaxScatter ids, or kMaxAppend pairs), with no index tensor and no
+// host-to-device copy; a larger call is launched once per slice. The host work around a launch weighs: a
 // restore's scatter or a stage-out's gather moves ~140 pages.
 //
 // Gather (the stage-out unit, 8 KB rows at qwen2-1.5b width) moves each
@@ -260,6 +263,20 @@ struct AppendSlots {  // rows [b0, b0 + n) of the batch, n <= kMaxAppend
   int offset[kMaxAppend];
 };
 
+// pool[l, pid, off] = tok[l, b] for K and V; a slot out of range copies
+// nothing
+__device__ __forceinline__ void append_row(char* k_pool, char* v_pool,
+                                           const char* k_tok,
+                                           const char* v_tok, int b, int l,
+                                           int pid, int off, int B, int P,
+                                           int page, long long tok_bytes) {
+  if (pid < 0 || pid >= P || off < 0 || off >= page) return;
+  const long long dst = (((long long)l * P + pid) * page + off) * tok_bytes;
+  const long long src = ((long long)l * B + b) * tok_bytes;
+  copy_row(k_pool + dst, k_tok + src, tok_bytes);
+  copy_row(v_pool + dst, v_tok + src, tok_bytes);
+}
+
 // grid (n, L): pool[l, page[i], offset[i]] = tok[l, b0 + i], K and V
 __global__ void append_kernel(char* __restrict__ k_pool,
                               char* __restrict__ v_pool,
@@ -269,12 +286,24 @@ __global__ void append_kernel(char* __restrict__ k_pool,
                               int b0, int B, int P, int page,
                               long long tok_bytes) {
   const int i = blockIdx.x, l = blockIdx.y;
-  const int pid = slots.page[i], off = slots.offset[i];
-  if (pid < 0 || pid >= P || off < 0 || off >= page) return;
-  const long long dst = (((long long)l * P + pid) * page + off) * tok_bytes;
-  const long long src = ((long long)l * B + b0 + i) * tok_bytes;
-  copy_row(k_pool + dst, k_tok + src, tok_bytes);
-  copy_row(v_pool + dst, v_tok + src, tok_bytes);
+  append_row(k_pool, v_pool, k_tok, v_tok, b0 + i, l, slots.page[i],
+             slots.offset[i], B, P, page, tok_bytes);
+}
+
+// grid (B, L): pool[l, page[b], offset[b]] = tok[l, b], K and V, the slots
+// read from int32 device arrays. A captured graph replays this launch with
+// whatever the arrays hold at replay time, where the by-value launch would
+// keep the slots of the step it was captured in.
+__global__ void append_indexed_kernel(char* __restrict__ k_pool,
+                                      char* __restrict__ v_pool,
+                                      const char* __restrict__ k_tok,
+                                      const char* __restrict__ v_tok,
+                                      const int* __restrict__ pages,
+                                      const int* __restrict__ offsets, int B,
+                                      int P, int page, long long tok_bytes) {
+  const int b = blockIdx.x, l = blockIdx.y;
+  append_row(k_pool, v_pool, k_tok, v_tok, b, l, pages[b], offsets[b], B, P,
+             page, tok_bytes);
 }
 
 }  // namespace
@@ -363,6 +392,24 @@ int token_append_launch(void* k_pool, void* v_pool, const void* k_tok,
       static_cast<char*>(k_pool), static_cast<char*>(v_pool),
       static_cast<const char*>(k_tok), static_cast<const char*>(v_tok), slots,
       b0, B, P, page, tok_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// All B token rows in one launch; page_ids and offsets are (B,) int32
+// arrays on the device, read by the kernel (the wrapper checks their
+// shape and dtype, the caller their values).
+int token_append_indexed_launch(void* k_pool, void* v_pool, const void* k_tok,
+                                const void* v_tok, const int* page_ids,
+                                const int* offsets, int B, int L, int P,
+                                int page, long long tok_bytes, void* stream) {
+  if (B == 0 || L == 0) return 0;
+  if (B < 0 || L < 0 || L > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  append_indexed_kernel<<<dim3(B, L), kTokenThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<char*>(k_pool), static_cast<char*>(v_pool),
+      static_cast<const char*>(k_tok), static_cast<const char*>(v_tok),
+      page_ids, offsets, B, P, page, tok_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 

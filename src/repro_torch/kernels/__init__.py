@@ -76,14 +76,15 @@ def kernel_wrappers() -> dict:
         paged_decode_attention_kernel
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_kernel
-    from repro_torch.kernels.page_copy.kernel import (page_gather_kernel,
-                                                      page_scatter_kernel,
-                                                      token_append_kernel)
+    from repro_torch.kernels.page_copy.kernel import (
+        page_gather_kernel, page_scatter_kernel, token_append_indexed_kernel,
+        token_append_kernel)
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_kernel
     return {"paged_decode_attention": paged_decode_attention_kernel,
             "page_gather": page_gather_kernel,
             "page_scatter": page_scatter_kernel,
             "token_append": token_append_kernel,
+            "token_append_indexed": token_append_indexed_kernel,
             "flash_attention": flash_attention_kernel,
             "rwkv6_scan": rwkv6_scan_kernel}
 

@@ -12,6 +12,11 @@ into slices of the parameter struct's capacity (:func:`pack_ids`): no
 index tensor, no host-to-device copy. Scatter and append update the pool
 tensors in place (the JAX kernels alias them with
 ``input_output_aliases`` and return new arrays).
+
+:func:`token_append_indexed_kernel` is the one exception: its slots are
+int32 tensors on the device that the kernel reads, as the Pallas kernel
+takes them through scalar prefetch, so a captured CUDA graph replays it
+with each step's slots. Their values are the caller's to check.
 """
 from __future__ import annotations
 
@@ -165,12 +170,7 @@ def token_append_kernel(k_pages: torch.Tensor, v_pages: torch.Tensor,
     if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype \
             or v_pages.device != k_pages.device:
         raise ValueError("token_append_kernel: k and v pools differ")
-    for tok in (k_tok, v_tok):
-        if tuple(tok.shape) != (L, B, KV, Dh) or tok.dtype != k_pages.dtype \
-                or tok.device != k_pages.device or not tok.is_contiguous():
-            raise ValueError(f"token_append_kernel: token rows "
-                             f"{tuple(tok.shape)} {tok.dtype} do not fit "
-                             f"pools {tuple(k_pages.shape)} {k_pages.dtype}")
+    _check_tokens(k_pages, k_tok, v_tok, B, "token_append_kernel")
     slices = pack_append_args(page_ids, offsets, P, page)
     if B == 0 or L == 0:
         return k_pages, v_pages
@@ -189,6 +189,66 @@ def token_append_kernel(k_pages: torch.Tensor, v_pages: torch.Tensor,
     return k_pages, v_pages
 
 
+def _check_tokens(k_pages, k_tok, v_tok, B: int, what: str) -> None:
+    L, _, _, KV, Dh = k_pages.shape
+    for tok in (k_tok, v_tok):
+        if tuple(tok.shape) != (L, B, KV, Dh) or tok.dtype != k_pages.dtype \
+                or tok.device != k_pages.device or not tok.is_contiguous():
+            raise ValueError(f"{what}: token rows {tuple(tok.shape)} "
+                             f"{tok.dtype} do not fit pools "
+                             f"{tuple(k_pages.shape)} {k_pages.dtype}")
+
+
+def token_append_indexed_kernel(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                                k_tok: torch.Tensor, v_tok: torch.Tensor,
+                                page_ids: torch.Tensor,
+                                offsets: torch.Tensor):
+    """:func:`token_append_kernel` with its slots on the device: one
+    launch of grid (B, L) whose blocks read ``page_ids[b]`` and
+    ``offsets[b]``, (B,) contiguous int32 tensors on the pools' GPU. The
+    ids are not read on the host (that would sync, and a captured graph
+    would keep the first step's): the caller checks them before the
+    upload, and a slot out of range copies nothing. Returns ``(k_pages,
+    v_pages)``."""
+    what = "token_append_indexed_kernel"
+    for name, t in (("page_ids", page_ids), ("offsets", offsets)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 \
+                or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous 1-D "
+                             f"int32 tensor")
+    B = page_ids.shape[0]
+    if offsets.shape[0] != B:
+        raise ValueError(f"{what}: {B} page ids but {offsets.shape[0]} "
+                         f"offsets")
+    if k_pages.dim() != 5:
+        raise ValueError(f"{what}: the pool must be a (L, P, page, KV, Dh) "
+                         f"tensor, got {tuple(k_pages.shape)}")
+    if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype \
+            or v_pages.device != k_pages.device:
+        raise ValueError(f"{what}: k and v pools differ")
+    _check_tokens(k_pages, k_tok, v_tok, B, what)
+    _check_pool(k_pages, what)
+    _check_pool(v_pages, what)
+    if page_ids.device != k_pages.device or offsets.device != k_pages.device:
+        raise ValueError(f"{what}: page_ids and offsets must be on the "
+                         f"pools' device")
+    L, P, page = k_pages.shape[:3]
+    if B == 0 or L == 0:
+        return k_pages, v_pages
+    launch = _build.function(_LIB, "token_append_indexed_launch",
+                             [_P] * 6 + [_I] * 4 + [_L, _P])
+    with device_guard(k_pages.device):
+        err = launch(k_pages.data_ptr(), v_pages.data_ptr(), k_tok.data_ptr(),
+                     v_tok.data_ptr(), page_ids.data_ptr(),
+                     offsets.data_ptr(), B, L, P, page,
+                     math.prod(k_pages.shape[3:]) * k_pages.element_size(),
+                     stream_handle(k_pages.device))
+    _build.check(_LIB, err, what)
+    token_append_indexed_kernel.launches += 1
+    return k_pages, v_pages
+
+
 page_gather_kernel.launches = 0
 page_scatter_kernel.launches = 0
 token_append_kernel.launches = 0
+token_append_indexed_kernel.launches = 0

@@ -2,15 +2,17 @@
 a CUDA pool launches the hand-written kernels (:mod:`.kernel`), a CPU pool
 takes the plain versions (:mod:`.ref`). Page ids and offsets are host
 integer sequences (lists, arrays or CPU tensors). Scatter, copy and append
-update the pools in place, where the JAX package rebinds new arrays."""
+update the pools in place, where the JAX package rebinds new arrays.
+:func:`append_tokens_indexed` takes its slots as int32 tensors on the
+pools' device instead, for the decode step (graphed or eager)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import host_index
-from repro_torch.kernels.page_copy.kernel import (page_gather_kernel,
-                                                  page_scatter_kernel,
-                                                  token_append_kernel)
+from repro_torch.kernels.page_copy.kernel import (
+    page_gather_kernel, page_scatter_kernel, token_append_indexed_kernel,
+    token_append_kernel)
 from repro_torch.kernels.page_copy.ref import (append_tokens_ref,
                                                page_gather_ref,
                                                page_scatter_ref)
@@ -59,3 +61,17 @@ def append_tokens(k_pages, v_pages, k_tok, v_tok, page_ids, offsets):
             k_pages, v_pages, k_tok.to(k_pages.dtype).contiguous(),
             v_tok.to(v_pages.dtype).contiguous(), ids, offs)
     return append_tokens_ref(k_pages, v_pages, k_tok, v_tok, ids, offs)
+
+
+def append_tokens_indexed(k_pages, v_pages, k_tok, v_tok, page_ids,
+                          offsets):
+    """:func:`append_tokens` with ``page_ids`` and ``offsets`` as (B,)
+    int32 tensors on the pools' device, never read on the host: the form
+    a captured CUDA graph can replay with new slots. The caller checks
+    their values before it uploads them. Returns ``(k_pages, v_pages)``."""
+    if _on_cuda(k_pages, "append_tokens_indexed"):
+        return token_append_indexed_kernel(
+            k_pages, v_pages, k_tok.to(k_pages.dtype).contiguous(),
+            v_tok.to(v_pages.dtype).contiguous(), page_ids, offsets)
+    return append_tokens_ref(k_pages, v_pages, k_tok, v_tok, page_ids,
+                             offsets)

@@ -9,8 +9,14 @@ chunk on top of that context:
   enqueue seconds (returning before the device has finished), over
   ``--steps`` steps after warm-up;
 - a ``torch.profiler`` trace of three steps: device time summed over all
-  kernels against the traced wall time (the device's busy share), and the
+  kernels against the traced wall time (the device's busy share), the
+  kernels the device ran and the launch calls the host made a step
+  (``cudaLaunchKernel`` and its kin, ``cudaGraphLaunch``), and the
   operators with the most device and host time.
+
+The decode step is the paged runtime's CUDA graph, replayed, unless
+``--eager`` asks for the eager step (``PagedKVRuntime(cuda_graphs=
+False)``); run both in one call to compare them.
 
 ``--layers N`` cuts the depth to N layers at full width (a full-width
 qwen3-moe step fits the card at 6 of its 94). The JSON also gives the
@@ -31,7 +37,7 @@ Prints one JSON object. Needs one GPU::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         [--arch qwen2-1.5b] [--layers N] [--batch 4] [--context 2048] \\
-        [--steps 8] [--train]
+        [--steps 8] [--eager] [--train]
 """
 from __future__ import annotations
 
@@ -51,6 +57,10 @@ from repro_torch.models import Model
 from repro_torch.serving.paged_runtime import PagedKVRuntime, require_paged
 
 CHUNK = 512                       # the serve phase's prefill chunk
+# the CUDA API calls that put work on a stream, as the
+# profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def _device_us(evt) -> float:
@@ -86,6 +96,9 @@ def _traced(fn, top: int = 12) -> dict:
     # once; the host operators that launched them repeat it
     kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
     device_us = sum(_device_us(e) for e in kernels)
+    calls = {e.key: e.count / 3 for e in avgs
+             if e.device_type == DeviceType.CPU and e.key.startswith(
+                 LAUNCH_CALLS)}
     by_dev = sorted(kernels, key=_device_us, reverse=True)[:top]
     by_cpu = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
                     key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
@@ -93,6 +106,9 @@ def _traced(fn, top: int = 12) -> dict:
         "traced_wall_ms_per_step": wall_us / 3e3,
         "device_busy_ms_per_step": device_us / 3e3,
         "device_busy_share": device_us / wall_us,
+        "device_kernels_per_step": sum(e.count for e in kernels) / 3,
+        "host_launch_calls_per_step": sum(calls.values()),
+        "host_launch_calls": calls,
         "top_kernels": [{"op": e.key, "calls_per_step": e.count / 3,
                         "device_ms_per_step": _device_us(e) / 3e3}
                        for e in by_dev],
@@ -112,6 +128,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train", action="store_true",
                     help="a training step instead of serving steps")
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager decode step, not the CUDA graph")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -142,6 +160,8 @@ def main(argv=None) -> int:
            "layers": cfg.num_layers, "weight_bytes_per_step": weight_bytes,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "batch": args.batch, "context": args.context, "chunk": chunk_len,
+           "decode_step": "eager" if args.eager or steps is _forward_steps
+           else "cuda_graph",
            "decode": {**_timed(decode, args.steps), **_traced(decode)},
            "prefill": {**_timed(prefill, args.steps), **_traced(prefill)}}
     after = launch_counts()
@@ -188,7 +208,8 @@ def _paged_steps(model, args, dev):
     page = 16
     per_prog = (args.context + CHUNK + 64 * args.steps) // page + 2
     rt = PagedKVRuntime(cfg, n_pages=(args.batch + 1) * per_prog,
-                        page_size=page, device=dev)
+                        page_size=page, device=dev,
+                        cuda_graphs=not args.eager)
     rng = np.random.default_rng(args.seed)
     pids = [f"p{b}" for b in range(args.batch)]
     for pid in pids + ["extend"]:

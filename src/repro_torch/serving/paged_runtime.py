@@ -25,6 +25,11 @@ launches a hand-written kernel; ``device="cpu"`` runs their plain
 versions. It serves the reference's ``PAGED_FAMILIES``: dense (not
 gemma2's local/global layers), MoE (no leading dense layers, ROADMAP R4),
 audio and VLM.
+
+The batched decode step is captured as a CUDA graph per ``(model, B,
+n_tab)`` bucket and replayed (:mod:`.decode_graph`), as the reference
+jits it per ``(B, n_tab)``; ``cuda_graphs=False`` runs it eagerly, one
+launch at a time.
 """
 from __future__ import annotations
 
@@ -38,12 +43,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import resolve_device, to_device
 from repro_torch.kernels.decode_attention import paged_decode_attention
-from repro_torch.kernels.page_copy import (append_tokens, copy_pages,
-                                           gather_pages, scatter_pages)
+from repro_torch.kernels.page_copy import (append_tokens_indexed,
+                                           copy_pages, gather_pages,
+                                           scatter_pages)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (add_rms_norm, rms_norm,
                                        sinusoidal_emb, torch_dtype)
 from repro_torch.models.transformer import ffn_apply, first_k_dense
+from repro_torch.serving.decode_graph import (DecodeGraphs, pack_inputs,
+                                              unpack_inputs)
 
 #: families whose per-token KV lives in uniform pages (the runtime's, and
 #: therefore TorchModelBackend's, supported set), as in the reference
@@ -84,11 +92,19 @@ class ProgramEntry:
 
 
 class PagedKVRuntime:
+    """``cuda_graphs`` (default on): the batched decode step goes through
+    :class:`~repro_torch.serving.decode_graph.DecodeGraphs`, captured and
+    replayed on the card, on persistent buffers on the CPU; False runs
+    it eagerly. The flag is read at every step."""
+
     def __init__(self, cfg: ModelConfig, n_pages: int = 64,
-                 page_size: int = 16, device="cuda"):
+                 page_size: int = 16, device="cuda",
+                 cuda_graphs: bool = True):
         require_paged(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.cuda_graphs = cuda_graphs
+        self.graphs = DecodeGraphs(self)
         self.page_size = page_size
         self.n_pages = n_pages
         L, KV, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
@@ -160,6 +176,7 @@ class PagedKVRuntime:
             [self.k_pages, self.k_pages.new_zeros(pad)], dim=1)
         self.v_pages = torch.cat(
             [self.v_pages, self.v_pages.new_zeros(pad)], dim=1)
+        self.graphs.clear()          # the graphs hold the old pools
         self.free.extend(range(self.n_pages, n_pages_total))
         self.n_pages = n_pages_total
 
@@ -388,16 +405,21 @@ class PagedKVRuntime:
 
     # ------------------------------------------------------------ decode
     @torch.no_grad()
-    def _decode_step(self, model, toks, tables, lens, app_pages, app_offs):
+    def _decode_step(self, model, toks, tables, lens, app_pages, app_offs,
+                     out=None):
         """One decode step for a whole batch: toks (B,) last tokens on the
         device; tables (B, n_tab) sentinel-0-padded ragged block tables and
         lens (B,) CURRENT lengths, int32 on the device (the kernel attends
         over the old pages; the new token's own k/v is merged exactly);
-        app_pages/app_offs (B,) host arrays: where each new k/v lands. A
-        Python loop over layers, one ``paged_decode_attention`` per layer
-        for ALL B programs, and ONE ``append_tokens`` for all B x L new k/v
-        rows — the pools are read in their native layout, never sliced or
-        cast. Returns (logits (B, V) in the compute dtype, argmax (B,))."""
+        app_pages/app_offs (B,) int32 on the device: where each new k/v
+        lands, read by the indexed append on the device (so a captured
+        graph replays it with each step's slots). A Python loop over
+        layers, one ``paged_decode_attention`` per layer for ALL B
+        programs, and ONE append for all B x L new k/v rows — the pools
+        are read in their native layout, never sliced or cast. Returns
+        (logits (B, V) in the compute dtype, argmax (B,)), copied into
+        ``out`` when given. Nothing here reads a device value on the host,
+        so the step can be captured."""
         cfg = self.cfg
         B = toks.shape[0]
         KV, Dh, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
@@ -438,11 +460,16 @@ class PagedKVRuntime:
             vs.append(v_new)
         # every layer's new-token k/v (L, B, KV, Dh) into the (exclusive)
         # append pages in ONE launch
-        append_tokens(self.k_pages, self.v_pages, torch.stack(ks),
-                      torch.stack(vs), app_pages, app_offs)
+        append_tokens_indexed(self.k_pages, self.v_pages, torch.stack(ks),
+                              torch.stack(vs), app_pages, app_offs)
         x = rms_norm(x, model.params["final_norm"], cfg.norm_eps)
         logits = (x @ model.head())[:, 0]
-        return logits, logits.argmax(-1)
+        nxt = logits.argmax(-1)
+        if out is None:
+            return logits, nxt
+        out[0].copy_(logits)
+        out[1].copy_(nxt)
+        return out
 
     def decode_batch(self, model, program_ids: list[str]) -> list:
         """One decode step for the WHOLE batch through one decode-attention
@@ -452,7 +479,9 @@ class PagedKVRuntime:
         Per-row results are independent of batch composition and of the
         table padding width (dead table slots never reach the compute or
         the accumulators), so ``decode_batch(ids)`` is bit-identical to
-        ``[decode(pid) for pid in ids]`` in any order."""
+        ``[decode(pid) for pid in ids]`` in any order. The host work here
+        (capacity, COW splits, tables) is the same with and without
+        ``cuda_graphs``; only the step differs, and its results do not."""
         if not program_ids:
             return []
         assert len(set(program_ids)) == len(program_ids), \
@@ -468,7 +497,8 @@ class PagedKVRuntime:
         B = len(entries)
         # ragged tables, padded to a pow2 width with the valid sentinel
         # page 0 (the kernel reads live slots only; the padding keeps the
-        # plain version's gathers in bounds)
+        # plain version's gathers in bounds); pow2 widths keep the graph
+        # buckets few, as they bound the reference's retraces
         max_pages = max(len(e.pages) for e in entries)
         n_tab = 1 << max(0, max_pages - 1).bit_length()
         tables = np.zeros((B, n_tab), np.int32)
@@ -476,14 +506,23 @@ class PagedKVRuntime:
             tables[i, :len(e.pages)] = e.pages
         lens = np.asarray([e.length for e in entries], np.int32)
         app_pages = np.asarray([e.pages[e.length // ps] for e in entries],
-                               np.int64)
-        app_offs = np.asarray([e.length % ps for e in entries], np.int64)
+                               np.int32)
+        app_offs = np.asarray([e.length % ps for e in entries], np.int32)
         assert len(set(app_pages.tolist())) == B, \
             "append pages must be pairwise distinct (COW resolved above)"
-        toks = torch.stack([self._last[pid] for pid in program_ids])
-        logits, nxt = self._decode_step(
-            model, toks, to_device(tables, self.device),
-            to_device(lens, self.device), app_pages, app_offs)
+        # the append reads these slots on the device unchecked: check here
+        if app_pages.min() < 0 or app_pages.max() >= self.n_pages:
+            raise ValueError(f"append pages outside [0, {self.n_pages})")
+        last = [self._last[pid] for pid in program_ids]
+        if self.cuda_graphs:
+            # fresh tensors: the bucket's buffers are overwritten next step
+            logits, nxt = self.graphs.step(model, last, tables, lens,
+                                           app_pages, app_offs)
+        else:
+            ints = to_device(pack_inputs(tables, lens, app_pages, app_offs),
+                             self.device)
+            logits, nxt = self._decode_step(model, torch.stack(last),
+                                            *unpack_inputs(ints, B, n_tab))
         for i, pid in enumerate(program_ids):
             self.programs[pid].length += 1
             self._last[pid] = nxt[i]

@@ -14,6 +14,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import kernel_wrappers  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 
 # the suite runs in several worker processes at once: one intra-op
@@ -84,6 +85,19 @@ def test_serve_measured_on_cpu(smoke):
     assert summary.n_programs == n == 8
     assert st["staging_ok"] and st["copy_ok"]
     eng.backend.runtime.check(eng.backend.prefix_index)
+
+
+@pytest.mark.parametrize("graphs", [False, True])
+def test_serve_pair_leg_on_cpu(smoke, graphs):
+    """Phase 3's paired 3b leg, eager or on the bucket buffers: every
+    program finishes, nothing is captured on the CPU, and no kernel
+    launches."""
+    leg = chip_smoke.serve_pair_leg(*smoke, "cpu", graphs)
+    assert leg["cuda_graphs"] is graphs and leg["steps"] > 0
+    assert 0 < leg["avg_jct_s"] <= leg["p90_jct_s"] and leg["busy_s"] > 0
+    assert leg["captures"] == leg["replays"] == 0 == leg["capture_s"]
+    assert set(leg["launches"]) == set(kernel_wrappers())
+    assert sum(leg["launches"].values()) == 0
 
 
 def test_flash_and_scan_work_at_the_main_shapes():

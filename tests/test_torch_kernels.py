@@ -280,8 +280,9 @@ class TestPageCopy:
         """Everything above ran on CPU tensors: no CUDA kernel launched."""
         assert launch_counts() == {"paged_decode_attention": 0,
                                    "page_gather": 0, "page_scatter": 0,
-                                   "token_append": 0, "flash_attention": 0,
-                                   "rwkv6_scan": 0}
+                                   "token_append": 0,
+                                   "token_append_indexed": 0,
+                                   "flash_attention": 0, "rwkv6_scan": 0}
 
 
 class TestFlashPlan:
