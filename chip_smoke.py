@@ -74,15 +74,18 @@ Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          fitted to 3a's measured step times (``calibrate_hardware``) and
          logged with their residuals (3b keeps the datasheet profile).
          The decode steps are CUDA graphs, one per (B, table width)
-         bucket, captured on first use and replayed (the captures, their
-         seconds and the graph pool's bytes are logged). Launch counts are
+         bucket, captured on first use and replayed, and so are the
+         prefill chunks, one per (mode, padded length, capacity) bucket,
+         captured at second use (each family's captures, their seconds
+         and the graph pool's bytes are logged). Launch counts are
          zeroed before 3a and read after 3b (the kernels line's): every
          kernel of the path (decode attention, the page moves, the
          indexed token append, flash attention in each fresh prefill)
          must have run, flash attention in 3a and in 3b, and the by-value
          append, which no runtime path calls, never. Then 3b twice more,
          eager (``cuda_graphs=False``) and graphed, for JCT, busy seconds
-         and capture seconds paired in one call, each with its launches.
+         and each family's capture seconds paired in one call, each with
+         its launches.
          (c) On the same weights, programs of 2040, 1000 and 500 tokens
          and a twin of the second on its pages: 20 decode steps eager
          (``cuda_graphs=False``), the runtime's state restored, the same
@@ -93,6 +96,19 @@ Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          pool, both legs appending through the indexed launch once a
          step; wall ms of an eager and a replayed step and each leg's
          launches logged.
+         (d) The prefill chunk likewise (``PREFILL_OPS``): a fresh
+         2040-token prompt in 512-token chunks, three 2048-token prompts
+         and a 512-token extend each, a twin of the first, and extends at
+         Sp 16, 64 and 256 from a mid-page start, across page boundaries
+         and through a COW split; eager (on the buckets' buffers, under
+         torch's sync debug mode "error") and graphed from the same empty
+         runtime; logits, next tokens and both pools equal
+         (``torch.equal``), every bucket used twice captured once, no
+         replay growing the graph pool, flash launched as often in both
+         legs; wall ms of eager and replayed chunks a bucket, each leg's
+         launches, and the ms of a capture through ``capture_begin``
+         against ``torch.cuda.graph`` (3c's decode bucket too) with the
+         pinned blocks a stage-out allocates after each.
          Then the prefill logits through
          the flash kernel against prefill + extend (dense attention) of
          the same 1024-token prompt, in bf16 and fp32, on the first 2
@@ -142,7 +158,9 @@ Phase 6  path D, the MoE, VLM and audio families, after phase 3's model
          to them); logs steps, the physical leg's wall time and ms a
          step, the dropped copies and the peak memory; then the graphed
          decode step against the eager one over 6 steps and two buckets,
-         as in 3c. (b) qwen3-moe, moonshot-v1-
+         as in 3c, and the graphed prefill chunk against the eager one
+         over ``MOE_PREFILL_OPS`` (15 chunks, four buckets captured), as
+         in 3d. (b) qwen3-moe, moonshot-v1-
          16b-a3b (its leading dense layer and two MoE layers, shared
          experts), pixtral-12b and musicgen-large at full width and cut
          depth in fp32: a 256-token prompt's prefill against prefill of
@@ -368,6 +386,31 @@ GRAPH_SCHEDULE = ((6, (0, 1, 2)), (6, (0, 1, 2, 3)), (8, (2, 0, 3)))
 # second bucket.
 MOE_GRAPH_PROMPTS = (300, 200, 100)
 MOE_GRAPH_SCHEDULE = ((3, (0, 1, 2)), (3, (0, 1, 2, 3)))
+# Phase 3d: the graphed prefill chunk against the eager one at full width,
+# from the same empty runtime. Ops: (program, tokens, pad_to), or ("twin",
+# new, of). q0 is a fresh 2040-token prompt in 512-token chunks (the last
+# 504 padded); q1-q3 take 2048-token prompts and a 512-token extend in
+# turns (each bucket used 3-4 times: eager, captured, replayed; the extend
+# is profile_step's 512-on-2048 shape); q4 is q0's twin on its pages; then
+# q0 and q4 extend in turns at Sp 16, 64 and 256, three chunks a bucket:
+# q0's first, at its mid-page start 2040, COW-splits their shared last
+# page; S = 1 and S = Sp are among them, and chunks start on and cross
+# page boundaries. Every extend bucket's capacity is 2560 (unpadded).
+PREFILL_OPS = tuple(
+    [("q0", 512, 512)] * 3 + [("q0", 504, 512)]
+    + [(f"q{i}", 512, 512) for _ in range(5) for i in (1, 2, 3)]
+    + [("twin", "q4", "q0")]
+    + [(pid, n, pad) for pid, (n, pad) in zip(("q0", "q4") * 5, (
+        (1, 16), (16, 16), (7, 16), (50, 64), (33, 64), (64, 64),
+        (200, 256), (129, 256), (256, 256)))])
+# Phase 6a's: q0 300 tokens in 128-token chunks, q1 and q2 256 tokens and a
+# 128-token extend in turns, q3 q0's twin, then extends at Sp 16 and 32.
+MOE_PREFILL_OPS = tuple(
+    [("q0", 128, 128)] * 2 + [("q0", 44, 64)]
+    + [(f"q{i}", 128, 128) for _ in range(3) for i in (1, 2)]
+    + [("twin", "q3", "q0")]
+    + [(pid, n, pad) for pid, (n, pad) in zip(("q0", "q3") * 3, (
+        (1, 16), (16, 16), (7, 16), (20, 32), (32, 32), (9, 32)))])
 RWKV_RUN = dict(B=2, T=2048, decode_steps=32)
 
 
@@ -1549,10 +1592,11 @@ def serve_measured(cfg, hw, model, device, graphs: bool = True):
 
 
 def serve_pair_leg(cfg, hw, model, device, graphs: bool) -> dict:
-    """3b again with the decode step graphed or eager, to pair the two in
-    one call: JCT and TTFT on the measured clock, engine busy seconds and
-    steps, the graphs' captures, their seconds (inside the busy seconds)
-    and replays, and the leg's launch counts."""
+    """3b again with the decode step and the prefill chunk graphed or
+    eager, to pair the two in one call: JCT and TTFT on the measured
+    clock, engine busy seconds and steps, each graph family's captures,
+    their seconds (inside the busy seconds) and replays, the prefill
+    buckets, the graph pool's bytes and the leg's launch counts."""
     from repro_torch.kernels import launch_counts
     before = launch_counts()
     t0 = time.perf_counter()
@@ -1560,12 +1604,16 @@ def serve_pair_leg(cfg, hw, model, device, graphs: bool) -> dict:
     wall = time.perf_counter() - t0
     after = launch_counts()
     assert summary.n_programs == n_progs == len(eng.programs)
-    g = eng.backend.runtime.graphs
+    rt = eng.backend.runtime
+    g, pg = rt.graphs, rt.prefill_graphs
     return dict(cuda_graphs=graphs, avg_jct_s=summary.avg_jct,
                 p90_jct_s=summary.p90_jct, avg_ttft_s=summary.avg_ttft,
                 steps=eng.steps, busy_s=eng.busy_seconds, wall_s=wall,
                 captures=g.captures, capture_s=g.capture_s,
-                replays=g.replays,
+                replays=g.replays, prefill_captures=pg.captures,
+                prefill_capture_s=pg.capture_s, prefill_replays=pg.replays,
+                prefill_buckets=len(pg.buckets()),
+                graph_pool_bytes=g.pool_bytes(),
                 launches={k: after[k] - before[k] for k in after})
 
 
@@ -1589,6 +1637,17 @@ def restore_state(rt, st: dict) -> None:
                    for pid, e in st["programs"].items()}
     rt._last = {pid: t.clone() for pid, t in st["last"].items()}
     rt.cow_splits = st["cow_splits"]
+
+
+def add_twin(rt, twin: str, of: str) -> None:
+    """``twin``: a program on ``of``'s pages (refcounts bumped), so the
+    first write of either to their shared last page COW-splits it."""
+    from repro_torch.serving.paged_runtime import ProgramEntry
+    src = rt.programs[of]
+    for pi in src.pages:
+        rt.refs[pi] += 1
+    rt.programs[twin] = ProgramEntry(list(src.pages), src.length)
+    rt._last[twin] = rt._last[of].clone()
 
 
 def decode_leg(rt, model, schedule, device, graphs: bool) -> dict:
@@ -1637,8 +1696,7 @@ def graph_vs_eager(model, device, prompts, schedule, seed: int = 0) -> dict:
     and of a replayed one, and each leg's launch counts."""
     import numpy as np
     import torch
-    from repro_torch.serving.paged_runtime import (PagedKVRuntime,
-                                                   ProgramEntry)
+    from repro_torch.serving.paged_runtime import PagedKVRuntime
     cfg = model.cfg
     steps = sum(c for c, _ in schedule)
     rt = PagedKVRuntime(cfg, n_pages=sum(-(-(n + steps) // 16) + 1
@@ -1648,11 +1706,7 @@ def graph_vs_eager(model, device, prompts, schedule, seed: int = 0) -> dict:
     for i, n in enumerate(prompts):
         rt.prefill(model, f"p{i}", torch.from_numpy(
             rng.integers(0, cfg.vocab_size, n)))
-    twin, src = f"p{len(prompts)}", rt.programs["p1"]
-    for pi in src.pages:
-        rt.refs[pi] += 1
-    rt.programs[twin] = ProgramEntry(list(src.pages), src.length)
-    rt._last[twin] = rt._last["p1"].clone()
+    add_twin(rt, f"p{len(prompts)}", "p1")
     st = runtime_state(rt)
     eager = decode_leg(rt, model, schedule, device, graphs=False)
     cow_eager = rt.cow_splits - st["cow_splits"]
@@ -1682,6 +1736,10 @@ def graph_vs_eager(model, device, prompts, schedule, seed: int = 0) -> dict:
         eager_ms_median=float(np.median([e["ms"] for e in es[1:]])),
         replay_ms_median=float(np.median(replayed)) if replayed else None,
         launches_eager=eager["launches"], launches_graph=graph["launches"])
+    if torch.device(device).type == "cuda":
+        b = max(rt.graphs.buckets().values(), key=lambda b: b.tables.numel())
+        out["capture_cost"] = capture_cost(rt, lambda: rt._decode_step(
+            model, *b.inputs(), out=(b.logits, b.nxt)), "p0")
     del rt
     return out
 
@@ -1707,6 +1765,215 @@ def assert_graph_vs_eager(check: dict, cuda: bool) -> None:
     else:
         assert check["captures"] == 0 and sum(le.values()) == 0 == \
             sum(lg.values()), check
+
+
+@contextlib.contextmanager
+def sync_errors(device, on: bool = True):
+    """torch's CUDA sync debug mode "error" inside the block (when ``on``
+    and ``device`` is the card): a stream sync, such as reading a device
+    value on the host, raises."""
+    import torch
+    if not on or torch.device(device).type != "cuda":
+        yield
+        return
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+
+
+def chunk_leg(rt, model, ops, device, graphs: bool, seed: int = 0) -> dict:
+    """``ops``' prefill chunks with ``rt.cuda_graphs = graphs``, tokens
+    seeded per op: each chunk's logits and next token, its bucket, its
+    wall ms (ending in a device sync), whether it captured or replayed a
+    graph, the graph pool's bytes after it; the leg's launch counts and
+    the pools at its end. The eager leg's chunks run under the sync debug
+    mode "error" (``sync_errors``): none may read a device value on the
+    host."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving.prefill_graph import capacity
+    rt.cuda_graphs = graphs
+    g = rt.prefill_graphs
+    before = launch_counts()
+    chunks = []
+    for i, op in enumerate(ops):
+        if op[0] == "twin":
+            add_twin(rt, op[1], op[2])
+            continue
+        pid, n, pad = op
+        toks = torch.from_numpy(np.random.default_rng([seed, i]).integers(
+            0, model.cfg.vocab_size, n))
+        start = rt.programs[pid].length if pid in rt.programs else 0
+        captures, replays = g.captures, g.replays
+        synchronize(device)
+        t0 = time.perf_counter()
+        with sync_errors(device, on=not graphs):
+            logits = rt.prefill(model, pid, toks, pad_to=pad)
+        synchronize(device)
+        chunks.append(dict(
+            ms=1e3 * (time.perf_counter() - t0), start=start, S=n,
+            bucket=("extend" if start else "prefill", pad,
+                    capacity(start, pad)),
+            logits=logits, nxt=rt._last[pid].clone(),
+            captured=g.captures > captures, replayed=g.replays > replays,
+            pool_bytes=g.pool_bytes()))
+    after = launch_counts()
+    return dict(chunks=chunks, pools=(rt.k_pages.clone(),
+                                      rt.v_pages.clone()),
+                launches={k: after[k] - before[k] for k in after})
+
+
+def prefill_graph_vs_eager(model, device, ops, seed: int = 0) -> dict:
+    """The paged runtime's prefill chunk, eager (``cuda_graphs=False``,
+    on the same buckets' buffers) and graphed, over ``ops`` from the same
+    empty runtime (its state restored between the legs). Returns the
+    comparison, the buckets and their uses, the captures and their
+    seconds, the graph pool's bytes, the median wall ms of an eager and
+    of a replayed chunk of each bucket, each leg's launch counts and, on
+    the card, the cost of a capture (``capture_cost``)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.paged_runtime import PagedKVRuntime
+    tokens = {}
+    for op in ops:
+        if op[0] != "twin":
+            tokens[op[0]] = tokens.get(op[0], 0) + op[1]
+    rt = PagedKVRuntime(model.cfg, n_pages=sum(
+        -(-n // 16) + 1 for n in tokens.values()) + 8, page_size=16,
+        device=device)
+    st = runtime_state(rt)
+    eager = chunk_leg(rt, model, ops, device, graphs=False, seed=seed)
+    cow_eager = rt.cow_splits - st["cow_splits"]
+    restore_state(rt, st)
+    graph = chunk_leg(rt, model, ops, device, graphs=True, seed=seed)
+    rt.check()
+    es, gs = eager["chunks"], graph["chunks"]
+    uses = {}
+    for c in gs:
+        uses[c["bucket"]] = uses.get(c["bucket"], 0) + 1
+
+    def medians(chunks):
+        by = {}
+        for c in chunks:
+            by.setdefault(str(c["bucket"]), []).append(c["ms"])
+        return {k: float(np.median(v)) for k, v in by.items()}
+
+    g = rt.prefill_graphs
+    out = dict(
+        chunks=len(gs),
+        logits_equal=all(torch.equal(a["logits"], b["logits"])
+                         for a, b in zip(es, gs)),
+        nxt_equal=all(torch.equal(a["nxt"], b["nxt"]) for a, b in zip(es, gs)),
+        pools_equal=all(torch.equal(a, b) for a, b in zip(eager["pools"],
+                                                          graph["pools"])),
+        finite=all(bool(torch.isfinite(c["logits"]).all()) for c in gs),
+        buckets={str(k): n for k, n in sorted(uses.items())},
+        to_capture=sum(n >= g.capture_at for n in uses.values()),
+        replayed_chunks=sum(c["replayed"] for c in gs),
+        mid_page_start=any(c["start"] % 16 for c in gs),
+        page_start=any(c["start"] and not c["start"] % 16 for c in gs),
+        crosses_page=any(c["start"] // 16 != (c["start"] + c["S"] - 1) // 16
+                         for c in gs),
+        s_one=any(c["S"] == 1 for c in gs),
+        s_full=any(c["start"] and c["S"] == c["bucket"][1] for c in gs),
+        cow_splits=(cow_eager, rt.cow_splits - st["cow_splits"]),
+        captures=g.captures, capture_s=g.capture_s,
+        pool_bytes=gs[-1]["pool_bytes"],
+        pool_grew_on_replay=any(
+            b["pool_bytes"] != a["pool_bytes"]
+            for a, b in zip(gs, gs[1:]) if b["replayed"]),
+        eager_ms_median=medians(es),
+        replay_ms_median=medians([c for c in gs if c["replayed"]]),
+        launches_eager=eager["launches"], launches_graph=graph["launches"])
+    if torch.device(device).type == "cuda":
+        (b,) = [b for key, b in g.buckets().items()
+                if key == ("extend", 512, 2560)] or \
+            [max(g.buckets().values(), key=lambda b: b.k.shape[2])]
+        mode = "extend" if b.gather.numel() else "prefill"
+        out["capture_cost"] = capture_cost(rt, lambda: rt._prefill_step(
+            model, mode, *b.inputs(), out=(b.logits, b.nxt)),
+            next(iter(rt.programs)))
+    del rt
+    return out
+
+
+def assert_prefill_graph_vs_eager(check: dict, cuda: bool) -> None:
+    """Bitwise equal across the schedule's buckets, page starts and
+    crossings and a COW split; on the card every bucket used twice or
+    more captured once, the replays growing no pool, and flash launched
+    as often in both legs."""
+    assert check["logits_equal"] and check["nxt_equal"], check
+    assert check["pools_equal"] and check["finite"], check
+    for key in ("mid_page_start", "page_start", "crosses_page", "s_one",
+                "s_full"):
+        assert check[key], (key, check)
+    assert check["cow_splits"][0] == check["cow_splits"][1] >= 1, check
+    le, lg = check["launches_eager"], check["launches_graph"]
+    if cuda:
+        assert check["captures"] == check["to_capture"] >= 3, check
+        assert check["replayed_chunks"] > 0, check
+        assert not check["pool_grew_on_replay"], check
+        assert lg["flash_attention"] == le["flash_attention"] > 0, check
+    else:
+        assert check["captures"] == 0 and sum(le.values()) == 0 == \
+            sum(lg.values()), check
+
+
+def capture_cost(rt, step, pid: str, reps: int = 3) -> dict:
+    """The ms of capturing ``step`` (recorded, not run) into a throwaway
+    graph and memory pool after a device sync, ``reps`` times each way in
+    turns: through the runtime's ``capture`` and through ``torch.cuda.
+    graph`` (the way before, with its sync, ``gc.collect``,
+    ``empty_cache`` and release of the cached pinned host blocks). After
+    each way, the pinned host blocks a stage-out's host copy allocates
+    (``TorchModelBackend._to_host`` of ``pid``'s staging, warmed first;
+    ``host_memory_stats``' ``num_host_alloc``)."""
+    import torch
+    from repro_torch.kernels import kernel_wrappers, launch_counts
+    from repro_torch.serving.backend import TorchModelBackend
+    from repro_torch.serving.decode_graph import capture
+    counts = launch_counts()
+    staging = rt.stage_out(pid)[0]
+    TorchModelBackend._to_host(staging)
+    side = torch.cuda.Stream()
+
+    def allocs():
+        stats = getattr(torch.cuda, "host_memory_stats", lambda: {})()
+        return stats.get("num_host_alloc")
+
+    def by_capture(graph, pool):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            capture(graph, pool, step)
+
+    def by_context(graph, pool):
+        with torch.cuda.graph(graph, pool=pool, stream=side):
+            step()
+
+    ms = {"capture": [], "torch.cuda.graph": []}
+    pinned = {"capture": [], "torch.cuda.graph": []}
+    for _ in range(reps):
+        for name, how in (("capture", by_capture),
+                          ("torch.cuda.graph", by_context)):
+            graph = torch.cuda.CUDAGraph()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            how(graph, torch.cuda.graph_pool_handle())
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+            del graph
+            a0 = allocs()
+            TorchModelBackend._to_host(staging)
+            a1 = allocs()
+            pinned[name].append(None if a0 is None else a1 - a0)
+    torch.cuda.synchronize()
+    for name, fn in kernel_wrappers().items():
+        fn.launches = counts[name]
+    return dict(ms=ms, pinned_allocs_after=pinned,
+                staging_bytes=staging.numel() * staging.element_size())
 
 
 def calibration(shadow, hw) -> dict:
@@ -1826,17 +2093,18 @@ def phase3(hw):
     assert counts_a["flash_attention"] > 0, "no flash prefill in 3a"
     assert counts["flash_attention"] > counts_a["flash_attention"], \
         "no flash prefill in 3b"
-    graphs = [eng_a.backend.inner.runtime.graphs,
-              eng_b.backend.runtime.graphs]
-    log(f"phase3 decode graphs: 3a/3b captures "
-        f"{[g.captures for g in graphs]} in "
-        f"{[round(g.capture_s, 3) for g in graphs]} s, replays "
-        f"{[g.replays for g in graphs]}, buckets "
-        f"{[sorted(g.buckets()) for g in graphs]}, graph pool bytes "
-        f"{[g.pool_bytes() for g in graphs]}")
+    rts = [eng_a.backend.inner.runtime, eng_b.backend.runtime]
+    for what, graphs in (("decode", [rt.graphs for rt in rts]),
+                         ("prefill", [rt.prefill_graphs for rt in rts])):
+        log(f"phase3 {what} graphs: 3a/3b captures "
+            f"{[g.captures for g in graphs]} in "
+            f"{[round(g.capture_s, 3) for g in graphs]} s, replays "
+            f"{[g.replays for g in graphs]}, buckets "
+            f"{[sorted(g.buckets()) for g in graphs]}, graph pool bytes "
+            f"{[g.pool_bytes() for g in graphs]}")
     log(f"phase3 launches (the kernels line's): 3a {counts_a}, 3a+3b "
         f"{counts}")
-    del eng_a, eng_b, b, graphs
+    del eng_a, eng_b, b, graphs, rts
     gc.collect()
 
     pair = [serve_pair_leg(cfg, hw, model, device, graphs)
@@ -1844,6 +2112,8 @@ def phase3(hw):
     log(f"phase3b pair, eager then graphed, after 3b (graphed): "
         f"{json.dumps(pair)}")
     assert pair[0]["captures"] == 0 < pair[1]["captures"], pair
+    assert pair[0]["prefill_captures"] == 0 < pair[1]["prefill_captures"], \
+        pair
     for leg in pair:
         assert leg["launches"]["token_append_indexed"] > 0, pair
         assert leg["launches"][BY_VALUE_APPEND] == 0, pair
@@ -1852,6 +2122,11 @@ def phase3(hw):
     log(f"phase3c graphed decode step vs eager, {cfg.name} full width: "
         f"{json.dumps(check)}")
     assert_graph_vs_eager(check, cuda=True)
+
+    check = prefill_graph_vs_eager(model, device, PREFILL_OPS)
+    log(f"phase3d graphed prefill chunk vs eager, {cfg.name} full width: "
+        f"{json.dumps(check)}")
+    assert_prefill_graph_vs_eager(check, cuda=True)
 
     prefill_logit_checks(cfg, device)
     return counts, model, samples
@@ -2379,6 +2654,9 @@ def serve_moe(cfg, hw, device) -> tuple[dict, dict]:
     out["graph_vs_eager"] = check = graph_vs_eager(
         model, device, MOE_GRAPH_PROMPTS, MOE_GRAPH_SCHEDULE)
     assert_graph_vs_eager(check, cuda)
+    out["prefill_graph_vs_eager"] = check = prefill_graph_vs_eager(
+        model, device, MOE_PREFILL_OPS)
+    assert_prefill_graph_vs_eager(check, cuda)
     return out, counts
 
 

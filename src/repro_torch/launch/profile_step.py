@@ -14,9 +14,13 @@ chunk on top of that context:
   (``cudaLaunchKernel`` and its kin, ``cudaGraphLaunch``), and the
   operators with the most device and host time.
 
-The decode step is the paged runtime's CUDA graph, replayed, unless
-``--eager`` asks for the eager step (``PagedKVRuntime(cuda_graphs=
-False)``); run both in one call to compare them.
+The decode step and the prefill chunk are the paged runtime's CUDA
+graphs, replayed (the chunk's bucket is captured at its second use,
+inside the warm-up), unless ``--eager`` asks for the eager steps
+(``PagedKVRuntime(cuda_graphs=False)``); run both in one call to compare
+them. ``--capacity-step N`` sets the extend scratch's capacity
+granularity (``PagedKVRuntime.capacity_step``, 512 tokens by default),
+to measure what padding the chunk's capacity costs.
 
 ``--layers N`` cuts the depth to N layers at full width (a full-width
 qwen3-moe step fits the card at 6 of its 94). The JSON also gives the
@@ -37,7 +41,7 @@ Prints one JSON object. Needs one GPU::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         [--arch qwen2-1.5b] [--layers N] [--batch 4] [--context 2048] \\
-        [--steps 8] [--eager] [--train]
+        [--steps 8] [--eager] [--capacity-step N] [--train]
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import launch_counts, resolve_device
 from repro_torch.models import Model
 from repro_torch.serving.paged_runtime import PagedKVRuntime, require_paged
+from repro_torch.serving.prefill_graph import CAPACITY_STEP, capacity
 
 CHUNK = 512                       # the serve phase's prefill chunk
 # the CUDA API calls that put work on a stream, as the
@@ -129,7 +134,10 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true",
                     help="a training step instead of serving steps")
     ap.add_argument("--eager", action="store_true",
-                    help="the eager decode step, not the CUDA graph")
+                    help="the eager decode step and prefill chunk, not "
+                    "the CUDA graphs")
+    ap.add_argument("--capacity-step", type=int, default=None,
+                    help="the extend scratch's capacity granularity")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -160,8 +168,12 @@ def main(argv=None) -> int:
            "layers": cfg.num_layers, "weight_bytes_per_step": weight_bytes,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "batch": args.batch, "context": args.context, "chunk": chunk_len,
+           "chunk_capacity": capacity(
+               args.context, chunk_len, args.capacity_step or CAPACITY_STEP)
+           if steps is _paged_steps else None,
            "decode_step": "eager" if args.eager or steps is _forward_steps
            else "cuda_graph",
+           "capacity_step": args.capacity_step,
            "decode": {**_timed(decode, args.steps), **_traced(decode)},
            "prefill": {**_timed(prefill, args.steps), **_traced(prefill)}}
     after = launch_counts()
@@ -210,6 +222,8 @@ def _paged_steps(model, args, dev):
     rt = PagedKVRuntime(cfg, n_pages=(args.batch + 1) * per_prog,
                         page_size=page, device=dev,
                         cuda_graphs=not args.eager)
+    if args.capacity_step is not None:
+        rt.capacity_step = args.capacity_step
     rng = np.random.default_rng(args.seed)
     pids = [f"p{b}" for b in range(args.batch)]
     for pid in pids + ["extend"]:

@@ -295,12 +295,17 @@ def write_cache(cache_k, cache_v, k_new, v_new, cache_len, *,
     reference's scatter with repeated slots leaves ("later writes win").
     ``slots``: the caches are the W slots from ``slot0`` of a cache of
     ``slots`` (one rank's piece of a cache sharded on its sequence), and
-    only the tokens that land in them are written."""
+    only the tokens that land in them are written. A tensor
+    ``cache_len`` (and no ``slots``) is never read on the host: the
+    slots are worked out on its device (:func:`_write_indexed`)."""
     W, C = cache_k.shape[1], k_new.shape[1]
     k_new, v_new = k_new.to(cache_k.dtype), v_new.to(cache_v.dtype)
     if slots is not None:
         _write_piece(cache_k, cache_v, k_new, v_new, cache_len, ring, slot0,
                      slots)
+        return
+    if isinstance(cache_len, torch.Tensor):
+        _write_indexed(cache_k, cache_v, k_new, v_new, cache_len, ring)
         return
     for b, s in enumerate(_offsets(cache_len, cache_k.shape[0])):
         s = int(s)
@@ -313,6 +318,29 @@ def write_cache(cache_k, cache_v, k_new, v_new, cache_len, *,
             s = max(0, min(s, W - C))
             cache_k[b, s:s + C] = k_new[b]
             cache_v[b, s:s + C] = v_new[b]
+
+
+def _write_indexed(cache_k, cache_v, k_new, v_new, cache_len,
+                   ring: bool) -> None:
+    """:func:`write_cache` at offsets held in a tensor: each row's slots
+    computed on the device (a plain cache's start clamped to ``W - C``,
+    a ring's slots taken mod W), written with one indexed copy a cache.
+    No value is read back, so a captured step can write at offsets that
+    change between replays."""
+    B, W = cache_k.shape[:2]
+    C = k_new.shape[1]
+    dev = cache_k.device
+    s = cache_len.to(dev).reshape(-1).long().expand(B)
+    if ring:
+        n = min(C, W)
+        k_new, v_new = k_new[:, C - n:], v_new[:, C - n:]
+        slots = (s[:, None] + (C - n) + torch.arange(n, device=dev)) % W
+    else:
+        slots = s.clamp(max=W - C).clamp(min=0)[:, None] + \
+            torch.arange(C, device=dev)
+    rows = torch.arange(B, device=dev)[:, None]
+    cache_k[rows, slots] = k_new
+    cache_v[rows, slots] = v_new
 
 
 def _write_piece(cache_k, cache_v, k_new, v_new, cache_len, ring: bool,

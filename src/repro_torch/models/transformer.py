@@ -497,12 +497,16 @@ class Model(nn.Module):
     def forward(self, tokens: torch.Tensor | None = None,
                 embeds: torch.Tensor | None = None, cache: dict | None = None,
                 cache_len=0, mode: str = "prefill",
-                logits_slice: int | None = None):
+                logits_slice: int | None = None,
+                rows: torch.Tensor | None = None):
         """tokens (B, S), or embeds (B, S, D) for the VLM family's patch
         embeddings (no position embedding added) -> (fp32 logits (B, S or
         logits_slice, V), cache). The cache is written in place and
         returned. ``cache_len`` is a scalar or a (B,) tensor of
-        per-sequence offsets."""
+        per-sequence offsets. ``rows``: an (n,) index tensor; the logits
+        of those rows only (B, n, V), picked before the final norm, so the
+        norm and the head run on n rows (the paged runtime's chunk: its
+        last real row, an index on the device)."""
         if mode not in ("prefill", "extend", "decode"):
             raise ValueError(f"mode {mode!r}")
         if mode != "prefill" and cache is None:
@@ -511,13 +515,16 @@ class Model(nn.Module):
             raise ValueError("pass exactly one of tokens or embeds")
         with self._sharding():
             w = self._forward_weights()
-            x = self._hidden(w, tokens, embeds, cache, cache_len, mode)
+            x = self._hidden(w, tokens, embeds, cache, cache_len, mode,
+                             rows)
             if logits_slice is not None:
                 x = x[:, -logits_slice:]
             return self._logits(w, x), cache
 
-    def _hidden(self, w: Weights, tokens, embeds, cache, cache_len, mode):
-        """Embedding, the layer stack and the final norm."""
+    def _hidden(self, w: Weights, tokens, embeds, cache, cache_len, mode,
+                rows=None):
+        """Embedding, the layer stack and the final norm (of ``rows``
+        alone when given)."""
         cfg = self.cfg
         if embeds is None:
             tokens = tokens.to(self.device)
@@ -533,7 +540,7 @@ class Model(nn.Module):
             for i, p in enumerate(w.layers):
                 x = _act(self._step(mode, functools.partial(
                     self._rwkv_layer, p, cache=cache, i=i, mode=mode), x))
-            return rms_norm(x, w.params["final_norm"], cfg.norm_eps)
+            return self._final_norm(w, x, rows)
         steps = torch.arange(S, device=self.device)
         if cache is None or isinstance(cache_len, int):
             # a host offset stays on the host: reading a device offset
@@ -577,7 +584,12 @@ class Model(nn.Module):
                     x = _act(self._step(mode, functools.partial(
                         self._dense_layer, p, kv=kv, cache_len=cache_len,
                         positions=positions, mode=mode, fused=fused), x))
-        return rms_norm(x, w.params["final_norm"], cfg.norm_eps)
+        return self._final_norm(w, x, rows)
+
+    def _final_norm(self, w: Weights, x, rows=None):
+        if rows is not None:
+            x = x.index_select(1, rows)
+        return rms_norm(x, w.params["final_norm"], self.cfg.norm_eps)
 
     def _scale_embeddings(self, x):
         if self.cfg.scale_embeddings:

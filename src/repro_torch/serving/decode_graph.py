@@ -1,6 +1,7 @@
 """The paged runtime's batched decode step as one captured program: a CUDA
 graph per ``(model, B, n_tab)`` bucket, captured on the bucket's first
-step and replayed on every later one.
+step and replayed on every later one; and the machinery it shares with
+the prefill chunk's graphs (:mod:`.prefill_graph`).
 
 This is the counterpart of the reference's ``jax.jit(self._decode_step_
 impl)`` (``repro.serving.paged_runtime``), which compiles the step once
@@ -21,12 +22,18 @@ reads its slots from ``app_pages`` / ``app_offs`` on the device
 (``append_tokens_indexed``); the by-value launch would keep the slots of
 the captured step.
 
+Every graph of a runtime, decode and prefill, is captured on one side
+stream into one memory pool (:class:`CaptureSite`), through
+``CUDAGraph.capture_begin`` / ``capture_end`` (:func:`capture`), without
+what ``torch.cuda.graph`` adds around them.
+
 On a CPU runtime nothing is captured: the same buckets and buffers are
 filled and the step runs eagerly on them, so the tests on the CPU go
 through the buffer reuse and the clones that the card relies on.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import weakref
@@ -50,6 +57,7 @@ class Bucket:
     nxt: torch.Tensor           # (B,) int64
     graph: object = None        # torch.cuda.CUDAGraph once captured
     launches: dict = dataclasses.field(default_factory=dict)
+    uses: int = 0               # steps run before the capture
 
     def inputs(self) -> tuple:
         return (self.toks, self.tables, self.lens, self.app_pages,
@@ -81,27 +89,72 @@ def credit_launches(counts: dict[str, int]) -> None:
         wrappers[name].launches += n
 
 
-class DecodeGraphs:
-    """The buckets of one :class:`~repro_torch.serving.paged_runtime.
-    PagedKVRuntime`. ``step`` fills a bucket's input buffers and runs the
-    step: on the card it captures the bucket's graph on first use and
-    replays it after; on the CPU it runs the step eagerly on the buffers.
+def capture(graph, pool, step) -> None:
+    """Record ``step()`` into ``graph`` on the current stream, its
+    allocations drawn from ``pool``. ``torch.cuda.graph`` wraps the same
+    two calls in a device synchronize, ``gc.collect()``,
+    ``torch.cuda.empty_cache()`` and the release of the cached pinned
+    host blocks (which the next stage-out then allocates again); the
+    capture needs none of them, so none is done. A failure inside the
+    capture ends it and raises."""
+    graph.capture_begin(pool=pool)
+    try:
+        step()
+    except BaseException:
+        with contextlib.suppress(RuntimeError):    # already invalidated
+            graph.capture_end()
+        raise
+    graph.capture_end()
 
-    All buckets capture into one memory pool
-    (``torch.cuda.graph_pool_handle()``): each graph's intermediates are
-    dead when its replay ends and the graphs replay one at a time on one
-    stream, so they may share it. A capture failure (an op that syncs, a
-    launch error) raises; nothing falls back to the eager step."""
 
-    def __init__(self, runtime):
+class CaptureSite:
+    """The memory pool and the side stream that every graph of one
+    runtime is captured into and on, made at the first capture. The
+    graphs' intermediates are dead when a replay ends and the graphs
+    replay one at a time on one stream, so they may share the pool."""
+
+    def __init__(self):
+        self.pool = None
+        self.stream = None
+
+    def open(self, device) -> tuple:
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device)
+        return self.pool, self.stream
+
+    def pool_bytes(self) -> int | None:
+        """Bytes the caching allocator holds for the pool (its segments in
+        ``torch.cuda.memory_snapshot()``); None before the first capture
+        or on the CPU."""
+        if self.pool is None:
+            return None
+        pool = tuple(self.pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+class StepGraphs:
+    """The buckets of one family of captured steps of a :class:`~repro_
+    torch.serving.paged_runtime.PagedKVRuntime`, per model. A bucket
+    runs its first ``capture_at - 1`` uses eagerly on its buffers, is
+    captured at use ``capture_at`` and replayed after; on the CPU every
+    use runs eagerly on the buffers.
+
+    A capture failure (an op that syncs, a launch error) raises; nothing
+    falls back to the eager step."""
+
+    what = "step"
+    capture_at = 1
+
+    def __init__(self, runtime, site: CaptureSite | None = None):
         self.rt = runtime
+        self.site = site if site is not None else CaptureSite()
         self.capture = runtime.device.type == "cuda"
-        # model -> {(B, n_tab): Bucket}; a graph holds the model's weight
+        # model -> {key: bucket}; a graph holds the model's weight
         # addresses, so each model has its own buckets, dropped with it
         self._buckets: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
         self._pool_ptrs = None
-        self._mem_pool = None
-        self._stream = None
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
@@ -113,33 +166,113 @@ class DecodeGraphs:
         self._pool_ptrs = None
 
     def buckets(self) -> dict:
-        """(B, n_tab) -> Bucket over every model (for logging and
-        tests)."""
+        """key -> bucket over every model (for logging and tests)."""
         return {key: b for per in self._buckets.values()
                 for key, b in per.items()}
 
     def pool_bytes(self) -> int | None:
-        """Bytes the caching allocator holds for the graphs' memory pool
-        (its segments in ``torch.cuda.memory_snapshot()``); None before
-        the first capture or on the CPU."""
-        if self._mem_pool is None:
-            return None
-        pool = tuple(self._mem_pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
+        return self.site.pool_bytes()
 
-    def _bucket(self, model, B: int, n_tab: int) -> Bucket:
+    def refuse(self, model) -> None:
+        """Raise ``ValueError`` for a model no graph may capture."""
         if getattr(model, "trainable", False) or \
                 getattr(model, "mesh", None) is not None:
             raise ValueError(
-                "the captured decode step serves a plain serving Model: a "
-                "trainable model rebuilds its weight views every forward "
-                "and a meshed one runs DTensor; pass cuda_graphs=False")
+                f"the captured {self.what} serves a plain serving Model: a "
+                f"trainable model rebuilds its weight views every forward "
+                f"and a meshed one runs DTensor; pass cuda_graphs=False")
+
+    def _per_model(self, model, graphs: bool = True) -> dict:
+        """``model``'s buckets (refused unless it may be captured, when
+        ``graphs``), all dropped first if the pools moved."""
+        if graphs:
+            self.refuse(model)
         ptrs = (self.rt.k_pages.data_ptr(), self.rt.v_pages.data_ptr())
         if ptrs != self._pool_ptrs:
             self.clear()
             self._pool_ptrs = ptrs
-        per = self._buckets.setdefault(model, {})
+        return self._buckets.setdefault(model, {})
+
+    def _fill(self, ints: torch.Tensor, host: np.ndarray) -> None:
+        """One host-to-device copy of ``host`` into ``ints``; on the card
+        from pinned memory, not waiting for the stream."""
+        t = torch.from_numpy(host)
+        if self.capture:
+            t = t.pin_memory()
+        ints.copy_(t, non_blocking=self.capture)
+
+    def _run(self, b, step, graphs: bool = True) -> None:
+        """``step()`` for bucket ``b``: eagerly (the CPU, ``graphs``
+        False, or a use before ``capture_at``), captured, or replayed."""
+        if not (self.capture and graphs):
+            step()
+        elif b.graph is not None:
+            b.graph.replay()
+            self.replays += 1
+            credit_launches(b.launches)
+        elif b.uses + 1 < self.capture_at:
+            b.uses += 1
+            step()
+        else:
+            self._capture(b, step)
+
+    def _capture(self, b, step) -> None:
+        """Capture ``step`` into the bucket's graph on the capture stream.
+
+        A bucket's first use is its warm-up (the lazy set-up of libraries
+        and handles must not fall inside a capture): it runs the step
+        eagerly on the capture stream first, and that run is this use's
+        result; the capture after it relies on the step being idempotent
+        for fixed input buffers (each step's docstring says why), as the
+        graph's first replay comes with the next use's inputs. A bucket
+        that ran eagerly before is warm: it is captured at once, and its
+        first replay is this use's result."""
+        from repro_torch.kernels import kernel_wrappers, launch_counts
+        t0 = time.perf_counter()
+        dev = self.rt.device
+        pool, side = self.site.open(dev)
+        main = torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            if not b.uses:
+                step()
+            before = launch_counts()
+            try:
+                capture(graph, pool, step)
+            finally:
+                # capturing records launches without running them
+                after = launch_counts()
+                wrappers = kernel_wrappers()
+                for name, n in before.items():
+                    wrappers[name].launches = n
+        main.wait_stream(side)
+        b.graph = graph
+        b.launches = {name: after[name] - before[name] for name in after
+                      if after[name] != before[name]}
+        if b.uses:
+            graph.replay()
+            credit_launches(b.launches)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+
+
+class DecodeGraphs(StepGraphs):
+    """The decode buckets of one runtime, keyed ``(B, n_tab)``. ``step``
+    fills a bucket's input buffers and runs the step: on the card it
+    captures the bucket's graph on first use and replays it after; on
+    the CPU it runs the step eagerly on the buffers.
+
+    Capturing after the first eager run is safe: the step reads a row's
+    pages only below ``lens[b]`` (the decode kernel reads live slots
+    only, and the new token's own k/v is merged from registers, not from
+    its page) and writes only slot ``lens[b]`` of each append page, with
+    the same values."""
+
+    what = "decode step"
+
+    def _bucket(self, model, B: int, n_tab: int) -> Bucket:
+        per = self._per_model(model)
         b = per.get((B, n_tab))
         if b is None:
             dev = self.rt.device
@@ -166,60 +299,7 @@ class DecodeGraphs:
         B, n_tab = tables.shape
         b = self._bucket(model, B, n_tab)
         torch.stack(last, out=b.toks)
-        host = torch.from_numpy(pack_inputs(tables, lens, app_pages,
-                                            app_offs))
-        if self.capture:
-            host = host.pin_memory()
-        b.ints.copy_(host, non_blocking=self.capture)
-        if not self.capture:
-            self.rt._decode_step(model, *b.inputs(), out=(b.logits, b.nxt))
-        elif b.graph is None:
-            self._capture(model, b)
-        else:
-            b.graph.replay()
-            self.replays += 1
-            credit_launches(b.launches)
+        self._fill(b.ints, pack_inputs(tables, lens, app_pages, app_offs))
+        self._run(b, lambda: self.rt._decode_step(
+            model, *b.inputs(), out=(b.logits, b.nxt)))
         return b.logits.clone(), b.nxt.clone()
-
-    def _capture(self, model, b: Bucket) -> None:
-        """The bucket's first step: run it eagerly on the capture stream
-        (that run is this step's result), then capture the same step into
-        the bucket's graph without running it.
-
-        Capturing after the eager run relies on the step being idempotent
-        for fixed input buffers: it reads a row's pages only below
-        ``lens[b]`` (the decode kernel reads live slots only, and the new
-        token's own k/v is merged from registers, not from its page) and
-        writes only slot ``lens[b]`` of each append page, with the same
-        values. A replay on the same inputs would therefore leave the pools
-        and the outputs as the eager run did; the graph's first replay
-        comes with the bucket's next step's inputs."""
-        from repro_torch.kernels import kernel_wrappers, launch_counts
-        t0 = time.perf_counter()
-        dev = self.rt.device
-        if self._mem_pool is None:
-            self._mem_pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(dev)
-        main = torch.cuda.current_stream(dev)
-        side = self._stream
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self.rt._decode_step(model, *b.inputs(), out=(b.logits, b.nxt))
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=self._mem_pool, stream=side):
-                self.rt._decode_step(model, *b.inputs(),
-                                     out=(b.logits, b.nxt))
-        finally:
-            # capturing records launches without running them
-            after = launch_counts()
-            wrappers = kernel_wrappers()
-            for name, n in before.items():
-                wrappers[name].launches = n
-        main.wait_stream(side)
-        b.graph = graph
-        b.launches = {name: after[name] - before[name] for name in after
-                      if after[name] != before[name]}
-        self.captures += 1
-        self.capture_s += time.perf_counter() - t0

@@ -28,8 +28,10 @@ audio and VLM.
 
 The batched decode step is captured as a CUDA graph per ``(model, B,
 n_tab)`` bucket and replayed (:mod:`.decode_graph`), as the reference
-jits it per ``(B, n_tab)``; ``cuda_graphs=False`` runs it eagerly, one
-launch at a time.
+jits it per ``(B, n_tab)``; so is a prefill or extend chunk per ``(model,
+mode, Sp, T)`` bucket (:mod:`.prefill_graph`), as the reference compiles
+its scanned forward per padded chunk length. ``cuda_graphs=False`` runs
+both eagerly, one launch at a time.
 """
 from __future__ import annotations
 
@@ -50,8 +52,10 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (add_rms_norm, rms_norm,
                                        sinusoidal_emb, torch_dtype)
 from repro_torch.models.transformer import ffn_apply, first_k_dense
-from repro_torch.serving.decode_graph import (DecodeGraphs, pack_inputs,
-                                              unpack_inputs)
+from repro_torch.serving.decode_graph import (CaptureSite, DecodeGraphs,
+                                              pack_inputs, unpack_inputs)
+from repro_torch.serving.prefill_graph import (CAPACITY_STEP, PrefillGraphs,
+                                               capacity, pack_chunk)
 
 #: families whose per-token KV lives in uniform pages (the runtime's, and
 #: therefore TorchModelBackend's, supported set), as in the reference
@@ -93,9 +97,11 @@ class ProgramEntry:
 
 class PagedKVRuntime:
     """``cuda_graphs`` (default on): the batched decode step goes through
-    :class:`~repro_torch.serving.decode_graph.DecodeGraphs`, captured and
-    replayed on the card, on persistent buffers on the CPU; False runs
-    it eagerly. The flag is read at every step."""
+    :class:`~repro_torch.serving.decode_graph.DecodeGraphs` and a prefill
+    chunk through :class:`~repro_torch.serving.prefill_graph.
+    PrefillGraphs`, captured and replayed on the card, on persistent
+    buffers on the CPU; False runs both eagerly (the chunk on the same
+    buffers). The flag is read at every step."""
 
     def __init__(self, cfg: ModelConfig, n_pages: int = 64,
                  page_size: int = 16, device="cuda",
@@ -104,7 +110,12 @@ class PagedKVRuntime:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cuda_graphs = cuda_graphs
-        self.graphs = DecodeGraphs(self)
+        # an extend chunk's scratch capacity is a multiple of this many
+        # tokens (prefill_graph.capacity): each capacity is a bucket
+        self.capacity_step = CAPACITY_STEP
+        site = CaptureSite()
+        self.graphs = DecodeGraphs(self, site)
+        self.prefill_graphs = PrefillGraphs(self, site)
         self.page_size = page_size
         self.n_pages = n_pages
         L, KV, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
@@ -177,6 +188,7 @@ class PagedKVRuntime:
         self.v_pages = torch.cat(
             [self.v_pages, self.v_pages.new_zeros(pad)], dim=1)
         self.graphs.clear()          # the graphs hold the old pools
+        self.prefill_graphs.clear()
         self.free.extend(range(self.n_pages, n_pages_total))
         self.n_pages = n_pages_total
 
@@ -357,51 +369,78 @@ class PagedKVRuntime:
 
         ``pad_to`` pads the forward pass to a bucketed length (causal
         attention makes the trailing junk tokens invisible to the real
-        ones, and only the real KV is scattered into pages)."""
-        tokens = torch.as_tensor(tokens).to(self.device).reshape(-1)
-        S = tokens.shape[-1]
+        ones, and only the real KV is scattered into pages). The host
+        work here (capacity, the COW split of every page the chunk
+        writes, the indices) runs before the step; the step is
+        :meth:`_prefill_step` on a bucket's buffers
+        (:mod:`.prefill_graph`), captured and replayed as a CUDA graph
+        unless ``cuda_graphs`` is off, eager and bit-equal then."""
+        tokens = torch.as_tensor(tokens).reshape(-1)
+        S = tokens.shape[0]
+        if S == 0:
+            raise ValueError("an empty prefill chunk")
+        if self.cuda_graphs:            # before any page is touched
+            self.prefill_graphs.refuse(model)
         Sp = max(pad_to, S) if pad_to is not None else S
-        if Sp > S:
-            tokens = torch.cat([tokens, tokens.new_zeros(Sp - S)])
         e = self.programs.setdefault(program_id, ProgramEntry([], 0))
         start = e.length
         self._ensure_capacity(e, start + S)       # pages for REAL tokens only
-        cap = len(e.pages) * self.page_size
-        cache = model.init_cache(1, max(cap, start + Sp))
-        if start:
-            # re-materialize existing pages into the contiguous scratch
-            self._gather_into(cache, e)
-        # keep logits from the last real position onward (Sp - S + 1 rows)
-        logits, cache = model.forward(
-            tokens.reshape(1, Sp), cache=cache, cache_len=start,
-            mode="extend" if start else "prefill", logits_slice=Sp - S + 1)
-        self._scatter_from(cache, e, start, S)
+        ps = self.page_size
+        # every page the chunk writes exclusive before the indices are
+        # built (a shared page COW-split, as decode_batch does)
+        for idx in range(start // ps, (start + S - 1) // ps + 1):
+            self._writable_page(e, idx)
+        T = capacity(start, Sp, self.capacity_step)
+        on_host = tokens.device.type == "cpu"
+        host = pack_chunk(tokens.numpy() if on_host else (), start, S, Sp,
+                          T, e.pages, ps)
+        logits, nxt = self.prefill_graphs.step(
+            model, "extend" if start else "prefill", Sp, T, host,
+            None if on_host else tokens, graphs=self.cuda_graphs)
         e.length = start + S
-        self._last[program_id] = logits[0, 0].argmax()
-        return logits[0, 0]
+        self._last[program_id] = nxt
+        return logits
 
-    def _scatter_from(self, cache, e: ProgramEntry, start: int, count: int):
-        """Copy cache[k/v][:, 0, start:start+count] into physical pages."""
-        ps = self.page_size
-        k = cache["k"][:, 0]                       # (L, cap, KV, Dh)
-        v = cache["v"][:, 0]
-        pos = start
-        while pos < start + count:
-            off = pos % ps                 # mid-page when adoption was capped
-            n = min(ps - off, start + count - pos)
-            pi = self._writable_page(e, pos // ps)  # COW-split if shared
-            self.k_pages[:, pi, off:off + n] = k[:, pos:pos + n]
-            self.v_pages[:, pi, off:off + n] = v[:, pos:pos + n]
-            pos += n
+    @torch.no_grad()
+    def _prefill_step(self, model, mode, toks, start, last, gather, src,
+                      dst, k, v, out):
+        """One prefill or extend chunk of ``Sp = toks.shape[0]`` rows
+        (:func:`~repro_torch.serving.prefill_graph.pack_chunk`'s views):
+        the program's first ``start`` cached tokens gathered into the
+        scratch ``k``/``v`` (extend), the forward over the chunk with
+        ``start`` and the last real row ``last`` as device tensors (the
+        final norm and the head on that row alone), the chunk's real rows
+        scattered into their page slots. The last row's fp32 logits (V,)
+        and argmax are written into ``out``. Nothing here reads a device
+        value on the host, so the step can be captured."""
+        if mode == "extend":
+            self._gather_into(k, v, gather, start)
+        logits, _ = model.forward(toks[None], cache={"k": k, "v": v},
+                                  cache_len=start, mode=mode, rows=last)
+        self._scatter_from(k, v, src, dst)
+        out[0].copy_(logits[0, 0])
+        out[1].copy_(out[0].argmax())
 
-    def _gather_into(self, cache, e: ProgramEntry) -> None:
-        ps = self.page_size
-        for i, pi in enumerate(e.pages):
-            n = min(ps, e.length - i * ps)
-            if n <= 0:
-                break
-            cache["k"][:, 0, i * ps:i * ps + n] = self.k_pages[:, pi, :n]
-            cache["v"][:, 0, i * ps:i * ps + n] = self.v_pages[:, pi, :n]
+    def _pool_rows(self, pool: torch.Tensor) -> torch.Tensor:
+        """(L, P * page, KV, Dh): a pool's slots as rows, in place."""
+        return pool.view(pool.shape[0], -1, *pool.shape[3:])
+
+    def _scatter_from(self, k, v, src, dst) -> None:
+        """Scratch rows ``src`` of every layer into the pools' flat rows
+        ``dst`` (one gather and one indexed copy a pool)."""
+        for scratch, pool in ((k, self.k_pages), (v, self.v_pages)):
+            self._pool_rows(pool)[:, dst] = scratch[:, 0].index_select(1, src)
+
+    def _gather_into(self, k, v, gather, start) -> None:
+        """The pools' flat rows ``gather`` into scratch rows 0..T-1 of
+        every layer, and every row at or past ``start`` zeroed: the chunk
+        rewrites its own rows, and the rest are read masked, where a dead
+        page slot's NaN would survive its zero weight."""
+        live = (torch.arange(k.shape[2], device=k.device) < start)[:, None,
+                                                                   None]
+        for scratch, pool in ((k, self.k_pages), (v, self.v_pages)):
+            rows = self._pool_rows(pool).index_select(1, gather)
+            scratch[:, 0] = torch.where(live, rows, 0)
 
     # ------------------------------------------------------------ decode
     @torch.no_grad()

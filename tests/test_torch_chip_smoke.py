@@ -96,8 +96,46 @@ def test_serve_pair_leg_on_cpu(smoke, graphs):
     assert leg["cuda_graphs"] is graphs and leg["steps"] > 0
     assert 0 < leg["avg_jct_s"] <= leg["p90_jct_s"] and leg["busy_s"] > 0
     assert leg["captures"] == leg["replays"] == 0 == leg["capture_s"]
+    assert leg["prefill_captures"] == leg["prefill_replays"] == 0
+    assert leg["prefill_buckets"] > 0 and leg["graph_pool_bytes"] is None
     assert set(leg["launches"]) == set(kernel_wrappers())
     assert sum(leg["launches"].values()) == 0
+
+
+@pytest.mark.parametrize("ops", ["PREFILL_OPS", "MOE_PREFILL_OPS"])
+def test_prefill_schedules_cover_the_cases(ops):
+    """Phase 3d's and 6a's chunk schedules, walked on the host: a fresh
+    chunked prompt, every extend bucket used at least three times (eager,
+    captured, replayed), S = 1 and S = Sp, mid-page and page-aligned
+    starts, a twin whose shared last page the next extend COW-splits."""
+    from repro_torch.serving.prefill_graph import capacity
+    lengths, uses, twins = {}, {}, 0
+    for op in getattr(chip_smoke, ops):
+        if op[0] == "twin":
+            lengths[op[1]] = lengths[op[2]]
+            twins += 1
+            continue
+        pid, n, pad = op
+        start = lengths.get(pid, 0)
+        assert n <= pad
+        key = ("extend" if start else "prefill", pad, capacity(start, pad))
+        uses[key] = uses.get(key, 0) + 1
+        lengths[pid] = start + n
+    assert twins == 1 and uses[max(uses)] >= 3
+    assert sum(n >= 3 for n in uses.values()) >= 4
+    assert {k[1] for k in uses if k[0] == "extend"} >= {16, 32} or \
+        {k[1] for k in uses if k[0] == "extend"} >= {16, 64, 256}
+
+
+def test_prefill_graph_vs_eager_on_cpu(smoke):
+    """Phase 3d at smoke width on the CPU (6a's schedule, whose prompts
+    fit a smoke model's context): both legs on the bucket buffers, equal
+    bit for bit, a COW split in each, nothing captured or launched."""
+    check = chip_smoke.prefill_graph_vs_eager(smoke[2], "cpu",
+                                              chip_smoke.MOE_PREFILL_OPS)
+    chip_smoke.assert_prefill_graph_vs_eager(check, cuda=False)
+    assert check["chunks"] == 15 and check["to_capture"] == 4
+    assert "capture_cost" not in check
 
 
 def test_flash_and_scan_work_at_the_main_shapes():
