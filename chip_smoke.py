@@ -196,18 +196,28 @@ Phase 8  path F, training and the roofline cost source, after phase 7 is
          trained by ``Trainer`` on ``TokenStream`` batches: fp32
          masters and moments, bf16 compute, remat "full", two
          microbatches; train_4k's 4096-token rows with its global batch
-         cut from 256 to 2; a warm-up step and 6 timed ones, each
-         logging loss, grad norm, step ms, tokens/s and the model-FLOPs
-         share 6 N tokens / (step s x the bf16 peak), then the peak
-         memory and the launch counts (zeroed before: every kernel 0, the
-         training forward runs the reference's plain arithmetic); every
-         loss finite, the last three's mean below the first. (b) The same
-         config cut to 2 layers at full width, fp32, B 1 x 128 tokens, 2
-         steps on the card and on the CPU from one set of seeded params:
-         losses and grad norms within 1e-4 relative; a run saved at step
-         1 and resumed into a fresh trainer equals the uninterrupted
-         step 2 within 1e-4. (c) ``CostModel.from_roofline`` at full
-         width (the port's steps counted on the meta device) beside
+         cut from 256 to 2. The graph leg: the step a CUDA graph
+         (``train/train_graph.py``), its eager warm-up, the step that
+         captures, 6 timed replays and one traced; then an eager leg
+         from the same init on the same schedule: a warm-up, 3 timed
+         steps and one traced. Each step logs loss, grad norm, step,
+         wall and enqueue ms, tokens/s and the model-FLOPs share 6 N
+         tokens / (step s x the bf16 peak); each leg its device ms,
+         device ops and host launch calls a step (torch.profiler),
+         capture s, graph pool bytes and peak memory; then the launch
+         counts (zeroed before: every kernel 0, the training forward
+         runs the reference's plain arithmetic). Every loss of the graph
+         leg finite, the last three's mean below the first; a replay
+         under 10 host launch calls and as many device ops as the eager
+         step. (b) The same config cut to 2 layers at full width: two
+         eager legs and a graph leg of 3 steps from one init, bit for
+         bit equal (losses, grad norms, lr, masters, moments, count);
+         then in fp32, B 1 x 128 tokens, 2 steps on the card and on the
+         CPU from one set of seeded params: losses and grad norms within
+         1e-4 relative; a run saved at step 1 and resumed into a fresh
+         trainer equals the uninterrupted step 2 within 1e-4, graphs
+         on. (c) ``CostModel.from_roofline`` at full width (the port's
+         steps counted on the meta device) beside
          ``build_profile``, within 2x, both pricing phase 3a's measured
          prefill-only and decode-only steps; then ``Engine(cost_source=
          "roofline")`` on 12 SWE-Bench programs under the virtual clock
@@ -2947,20 +2957,41 @@ def phase7(smi: str) -> dict:
 #: path F, 8a: training at qwen2-1.5b's full width and depth, bf16 compute
 #: over fp32 masters and moments, remat "full": train_4k's 4096-token rows
 #: with its global batch of 256 cut to 2 (one row a microbatch at the
-#: config's train_microbatches = 2), a warm-up step and then ``steps``
-#: timed; 10 made phase 8 take 72.0 s (3.0-3.9 s a step, host-bound), 6
-#: keep it near 60
+#: config's train_microbatches = 2). The graph leg (the trainer's step a
+#: replayed CUDA graph) runs its eager warm-up step, the step that
+#: captures, ``steps`` timed replays and one traced step; the eager leg,
+#: from the same init on the same schedule, its warm-up, ``eager_steps``
+#: timed steps (3.0-3.9 s each, host-bound) and one traced
 TRAIN_F = dict(arch="qwen2-1.5b", seq=4096, batch=2, full_batch=256,
-               steps=6)
+               steps=6, eager_steps=3)
 #: 8b: the card against the CPU, the same config cut to 2 layers at full
 #: width (P5), fp32 compute, one 128-token row, two steps; checkpoint at
 #: step 1 and resume into a fresh trainer for step 2
 TRAIN_CHECK = dict(layers=2, seq=128, batch=1, steps=2)
+#: 8b: the graph leg against two eager legs, 8a's config (bf16, two
+#: microbatches, remat) and shape cut to 2 layers at full width; three
+#: steps a leg: the graph's warm-up, its capture and a replay
+TRAIN_EQUAL = dict(layers=2, seq=4096, batch=2, steps=3)
 #: 8b's bound on the card-vs-CPU and resumed-vs-uninterrupted gaps
 #: (relative): fp32 on both sides, other summation orders (and the
 #: embedding's backward accumulates with atomics on the card); the
 #: reference's own resume bound (tests/test_train.py)
 TRAIN_RTOL = 1e-4
+#: a replayed step's host launch calls: the graph launch and the batch's
+#: upload, and the copies that read the loss, grad norm and lr back
+MAX_GRAPH_LAUNCH_CALLS = 10
+#: device ops a traced 8a step runs beside the step's own: the graph
+#: leg's upload of the batch and the clones of its three outputs, the
+#: eager leg's uploads of the tokens and the labels and their casts to
+#: int64 (the reads of the three outputs are in both)
+GRAPH_LEG_OPS = 1 + 3
+EAGER_LEG_OPS = 2 + 2
+#: a one-step trace loses some of the step's first and last device ops
+#: (0-21 of ~90k seen, in either leg: the uploads, the first fills, the
+#: reads back), so the replay is held to the eager step within this share
+#: of its ops: a backward missing from the graph would be half of them.
+#: Three-step traces (``profile_step --train``) count both steps whole
+TRACE_LOST_SHARE = 1e-3
 
 
 #: path F's weights: qwen2-1.5b's published initializer (initializer_range
@@ -2999,42 +3030,127 @@ def train_adamw(steps: int):
 
 
 def make_trainer(cfg, shape, steps: int, device, ckpt_dir,
-                 ckpt_every: int = 10 ** 9):
+                 ckpt_every: int = 10 ** 9, cuda_graphs: bool = True):
     from repro_torch.train.train_loop import TrainConfig, Trainer
     tcfg = TrainConfig(steps=steps, ckpt_every=ckpt_every,
                        ckpt_dir=str(ckpt_dir), log_every=10 ** 9,
                        adamw=train_adamw(steps))
-    return Trainer(cfg, None, shape, tcfg, log_fn=log, device=device)
+    return Trainer(cfg, None, shape, tcfg, log_fn=log, device=device,
+                   cuda_graphs=cuda_graphs)
 
 
-def train_steps(cfg, shape, steps: int, device, ckpt_dir,
-                peak_flops: float | None = None) -> list[dict]:
-    """8a: a trainer from :func:`published_init` (seed 0), its warm-up
-    step and ``steps`` more through ``Trainer.run``, one step a call.
-    Each record: loss, grad norm,
-    ``step_ms`` (the trainer's own time of the step, which ends in the
-    loss's read back and so waits for the stream, AdamW update
-    included), ``wall_ms`` (with the host's batch and a device sync),
-    tokens/s and, with ``peak_flops``, the model-FLOPs share ``6 N
-    tokens / (step s x peak)``."""
+def warm_steps(cuda_graphs: bool) -> int:
+    """A leg's untimed first steps: the eager warm-up and, with graphs,
+    the step that captures the graph (then replays it once)."""
+    return 2 if cuda_graphs else 1
+
+
+def train_leg(cfg, shape, steps: int, device, ckpt_dir,
+              peak_flops: float | None = None, cuda_graphs: bool = True,
+              total: int | None = None, trace: bool = False) -> dict:
+    """8a, one leg: a trainer from :func:`published_init` (seed 0) through
+    ``Trainer.run``, one step a call: its :func:`warm_steps`, ``steps``
+    timed and, with ``trace``, one under ``torch.profiler`` (device ms,
+    device ops and host launch calls a step; the CUDA activity alone, no
+    host operators). The schedule is
+    ``total`` steps long (default: the leg's). Each record: loss, grad
+    norm, lr, ``kind`` (warm-up, capture, timed, traced), ``step_ms``
+    (the trainer's own time of the step, which ends in the loss's read
+    back and so waits for the stream, AdamW update included),
+    ``enqueue_ms`` (until the step function returns, before that read),
+    ``wall_ms`` (with the host's batch and a device sync), tokens/s and,
+    with ``peak_flops``, the model-FLOPs share ``6 N tokens / (step s x
+    peak)``. Returns the records, the trace and the leg's captures,
+    capture s, graph pool bytes and, on the card, its peak memory."""
     import torch
-    tr = make_trainer(cfg, shape, steps + 1, device, ckpt_dir)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    warm = warm_steps(cuda_graphs)
+    tr = make_trainer(cfg, shape, total or warm + steps + trace, device,
+                      ckpt_dir, cuda_graphs=cuda_graphs)
     tr.init_state(published_init(
         cfg, torch.Generator(device=tr.device).manual_seed(0)))
+    enqueue = []
+    inner = tr.built.fn if tr.graph is None else tr.graph.step
+
+    def step_fn(*args):
+        t0 = time.perf_counter()
+        out = inner(*args)
+        enqueue.append(time.perf_counter() - t0)
+        return out
+
+    if tr.graph is None:
+        tr.built.fn = step_fn
+    else:
+        tr.graph.step = step_fn
     tokens = shape.global_batch * shape.seq_len
     n = cfg.param_count()
-    out = []
-    for _ in range(steps + 1):
-        t0 = time.perf_counter()
-        rec = dict(tr.run(steps=tr.step + 1)[-1])
-        synchronize(device)
+    out = dict(cuda_graphs=cuda_graphs, records=[], trace=None)
+
+    def record(kind: str, t0: float) -> None:
+        rec = dict(tr.history[-1], kind=kind)
         rec["wall_ms"] = (time.perf_counter() - t0) * 1e3
         rec["step_ms"] = rec.pop("sec") * 1e3
+        rec["enqueue_ms"] = enqueue[-1] * 1e3
         rec["tokens_per_s"] = tokens / rec["step_ms"] * 1e3
         if peak_flops:
             rec["flops_share"] = 6 * n * tokens / (
                 rec["step_ms"] / 1e3 * peak_flops)
-        out.append(rec)
+        out["records"].append(rec)
+
+    for i in range(warm + steps):
+        t0 = time.perf_counter()
+        tr.run(steps=tr.step + 1)
+        synchronize(device)
+        record("timed" if i >= warm else "capture" if i else "warm-up", t0)
+    if trace:
+        from repro_torch.launch.profile_step import traced
+        t0 = time.perf_counter()
+        out["trace"] = traced(lambda: tr.run(steps=tr.step + 1), top=6,
+                              reps=1, cpu=False, counts=True)
+        record("traced", t0)
+    g = tr.graph
+    out.update(captures=int(g is not None and g.graph is not None),
+               capture_s=g.capture_s if g else 0.0,
+               replays=g.replays if g else 0,
+               graph_pool_bytes=g.pool_bytes() if g else None)
+    if cuda:
+        out.update(max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                   / 1e9,
+                   memory_reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    return out
+
+
+def leg_summary(leg: dict) -> dict:
+    """A leg's medians over its timed steps, its first and last loss and
+    what its trace and its graph recorded."""
+    timed = [r for r in leg["records"] if r["kind"] == "timed"]
+
+    def median(key):
+        vals = sorted(r[key] for r in timed if key in r)
+        return vals[len(vals) // 2] if vals else None
+
+    out = dict(cuda_graphs=leg["cuda_graphs"], timed_steps=len(timed),
+               **{f"median_{k}": median(k) for k in (
+                   "step_ms", "wall_ms", "enqueue_ms", "tokens_per_s",
+                   "flops_share")},
+               min_step_ms=min(r["step_ms"] for r in timed),
+               max_step_ms=max(r["step_ms"] for r in timed),
+               first_loss=leg["records"][0]["loss"],
+               last_loss=leg["records"][-1]["loss"])
+    tr = leg["trace"]
+    if tr is not None:
+        out.update(device_ms=tr["device_busy_ms_per_step"],
+                   device_busy_share=tr["device_busy_share"],
+                   traced_wall_ms=tr["traced_wall_ms_per_step"],
+                   kernels_run=tr["device_kernels_per_step"],
+                   host_launch_calls=tr["host_launch_calls_per_step"],
+                   host_launch_by_call=tr["host_launch_calls"],
+                   trace_read_s=tr["read_s"])
+    for k in ("captures", "capture_s", "replays", "graph_pool_bytes",
+              "max_memory_allocated_gb", "memory_reserved_gb"):
+        out[k] = leg.get(k)
     return out
 
 
@@ -3046,13 +3162,100 @@ def assert_training(recs: list[dict]) -> None:
     assert sum(losses[-3:]) / 3 < losses[0], losses
 
 
+def assert_train_pair(graph: dict, eager: dict) -> None:
+    """8a: the graph leg trains; a replay makes under
+    ``MAX_GRAPH_LAUNCH_CALLS`` host launch calls and runs as many device
+    ops as the eager step, as far as one-step traces count them."""
+    assert_training(graph["records"])
+    assert graph["captures"] == 1 and graph["replays"] >= 1, graph
+    g, e = graph["trace"], eager["trace"]
+    assert g["host_launch_calls_per_step"] < MAX_GRAPH_LAUNCH_CALLS, g
+    gap = (g["device_kernels_per_step"] - GRAPH_LEG_OPS) - \
+        (e["device_kernels_per_step"] - EAGER_LEG_OPS)
+    assert abs(gap) <= TRACE_LOST_SHARE * e["device_kernels_per_step"], \
+        kernel_diff(graph, eager)
+
+
+def kernel_diff(graph: dict, eager: dict) -> dict:
+    """The device ops whose runs a step differ between the legs' traces:
+    {op: (graph, eager)}."""
+    g, e = (leg["trace"]["kernel_counts"] for leg in (graph, eager))
+    return {k: (g.get(k, 0), e.get(k, 0)) for k in sorted(set(g) | set(e))
+            if g.get(k, 0) != e.get(k, 0)}
+
+
+def train_state(tr) -> dict:
+    """A trainer's masters, moments and count as one flat dict."""
+    st = tr.opt_state
+    return {**{f"p.{k}": t for k, t in tr.params.items()},
+            **{f"{m}.{k}": t for m in ("m", "v") for k, t in st[m].items()},
+            "count": st["count"]}
+
+
+def compare_legs(a: dict, b: dict) -> dict:
+    """Two legs' histories and final states: bit-equal or not, the leaves
+    that differ (by name) and the largest gaps."""
+    ha, hb = a["history"], b["history"]
+    keys = ("loss", "grad_norm", "lr")
+    differ = sorted(k for k in a["state"]
+                    if not bool((a["state"][k] == b["state"][k]).all()))
+    hist_equal = all(x[k] == y[k] for x, y in zip(ha, hb) for k in keys)
+    return dict(
+        bit_equal=hist_equal and not differ, history_equal=hist_equal,
+        n_differing=len(differ), differing=differ[:12],
+        max_abs=max((float((a["state"][k].double() - b["state"][k].double())
+                           .abs().max()) for k in differ), default=0.0),
+        loss_gap=max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                     for x, y in zip(ha, hb)),
+        grad_norm_gap=max(abs(x["grad_norm"] - y["grad_norm"]) /
+                          abs(y["grad_norm"]) for x, y in zip(ha, hb)))
+
+
+def graph_vs_eager_training(cfg, device, ckpt_dir, layers: int, seq: int,
+                            batch: int, steps: int) -> dict:
+    """8b: ``cfg`` cut to ``layers`` at full width (its compute dtype,
+    microbatches and remat kept), from one :func:`published_init` (seed
+    0): two eager legs and a graph leg of ``steps`` steps each. Returns
+    the eager legs against each other and the graph leg against the
+    first."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    shape = ShapeSpec("f_equal", "train", seq, batch)
+    params = published_init(cut, torch.Generator(device=device)
+                            .manual_seed(0))
+    legs = {}
+    for name, graphs in (("eager", False), ("eager_again", False),
+                         ("graph", True)):
+        tr = make_trainer(cut, shape, steps, device,
+                          pathlib.Path(ckpt_dir) / name, cuda_graphs=graphs)
+        tr.init_state({k: v.clone() for k, v in params.items()})
+        legs[name] = dict(history=tr.run(),
+                          state={k: t.detach().clone()
+                                 for k, t in train_state(tr).items()})
+        if graphs and tr.graph.capture:
+            assert tr.graph.replays == steps - 1, tr.graph.replays
+        del tr
+    return dict(eager_pair=compare_legs(legs["eager"], legs["eager_again"]),
+                graph=compare_legs(legs["graph"], legs["eager"]),
+                losses=[r["loss"] for r in legs["graph"]["history"]])
+
+
+def assert_graph_vs_eager_training(check: dict) -> None:
+    """Two eager legs bit-equal, and the graph leg bit-equal to them."""
+    assert check["eager_pair"]["bit_equal"], check["eager_pair"]
+    assert check["graph"]["bit_equal"], check["graph"]
+    assert all(map(math.isfinite, check["losses"])), check["losses"]
+
+
 def card_vs_cpu(cfg, device, ckpt_dir, layers: int, seq: int, batch: int,
                 steps: int) -> dict:
     """8b: ``cfg`` cut to ``layers`` at full width, fp32, one microbatch,
     from one set of fp32 params (:func:`published_init`, seed 0, drawn on
     ``device`` and copied to the host): ``steps`` steps
     on ``device`` and on the CPU; then ``device`` again, saving at step 1,
-    and a fresh trainer resumed from it for the rest. Returns the
+    and a fresh trainer resumed from it for the rest; every trainer's
+    step on its buffers, a CUDA graph on the card. Returns the
     histories' relative gaps."""
     import torch
     from repro_torch.configs.base import ShapeSpec
@@ -3152,12 +3355,14 @@ def assert_roofline(checks: dict) -> None:
 
 
 def phase8(hw, smi: str, sheet: dict, samples) -> dict:
-    """Path F: 8a trains full-width, full-depth qwen2-1.5b on the card
-    (counts zeroed before, read after: no kernel launches, the training
-    forward runs the reference's plain arithmetic); 8b holds the card
-    against the CPU and a resumed run against an uninterrupted one; 8c
-    builds the roofline cost model at full width and prices phase 3a's
-    steps with it. Returns 8a's launch counts."""
+    """Path F: 8a trains full-width, full-depth qwen2-1.5b on the card,
+    the step a replayed CUDA graph, beside an eager leg from the same
+    init (counts zeroed before, read after: no kernel launches, the
+    training forward runs the reference's plain arithmetic); 8b holds
+    the graph leg bit-equal to two eager legs, the card against the CPU
+    and a resumed run against an uninterrupted one; 8c builds the
+    roofline cost model at full width and prices phase 3a's steps with
+    it. Returns 8a's launch counts."""
     import tempfile
 
     import torch
@@ -3168,47 +3373,74 @@ def phase8(hw, smi: str, sheet: dict, samples) -> dict:
     cfg = get_config(TRAIN_F["arch"])
     shape = ShapeSpec("train_4k_cut", "train", TRAIN_F["seq"],
                       TRAIN_F["batch"])
+    total = warm_steps(True) + TRAIN_F["steps"] + 1
     reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
-        recs = train_steps(cfg, shape, TRAIN_F["steps"], "cuda",
-                           pathlib.Path(tmp) / "8a", sheet["bf16"])
+        legs = {}
+        for name, graphs, steps in (("graph", True, TRAIN_F["steps"]),
+                                    ("eager", False,
+                                     TRAIN_F["eager_steps"])):
+            t0 = time.perf_counter()
+            legs[name] = train_leg(cfg, shape, steps, "cuda",
+                                   pathlib.Path(tmp) / f"8a_{name}",
+                                   sheet["bf16"], cuda_graphs=graphs,
+                                   total=total, trace=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            for i, rec in enumerate(legs[name]["records"]):
+                log(f"phase8a {name} step {i} ({rec['kind']}): "
+                    f"{json.dumps(rec)}")
+            log(f"phase8a {name} leg {time.perf_counter() - t0:.1f} s")
         counts = launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        torch.cuda.empty_cache()
-        for i, rec in enumerate(recs):
-            log(f"phase8a step {i} ({'warm-up' if i == 0 else 'timed'}): "
-                f"{json.dumps(rec)}")
-        timed = recs[1:]
-        step_ms = sorted(r["step_ms"] for r in timed)
+        g_loss, e_loss = ([r["loss"] for r in legs[k]["records"]]
+                          for k in ("graph", "eager"))
         log(f"phase8a {cfg.name} training, {cfg.num_layers} layers at full "
             f"width (d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B "
             f"params), fp32 masters and {cfg.opt_state_dtype} moments, "
             f"{cfg.compute_dtype} compute, remat {cfg.remat}, "
             f"{cfg.train_microbatches} microbatches; train_4k's "
             f"{TRAIN_F['seq']}-token rows, global batch cut from "
-            f"{TRAIN_F['full_batch']} to {TRAIN_F['batch']}; on {smi}: "
-            + json.dumps(dict(
-                timed_steps=len(timed), median_step_ms=step_ms[len(step_ms)
-                                                              // 2],
-                min_step_ms=step_ms[0], max_step_ms=step_ms[-1],
-                median_tokens_per_s=sorted(r["tokens_per_s"] for r in timed)
-                [len(timed) // 2],
-                median_flops_share=sorted(r["flops_share"] for r in timed)
-                [len(timed) // 2],
-                first_loss=recs[0]["loss"], last_loss=recs[-1]["loss"],
-                max_memory_allocated_gb=peak))
-            + f"; launches {counts}")
-        assert_training(recs)
+            f"{TRAIN_F['full_batch']} to {TRAIN_F['batch']}; graph leg "
+            f"and eager leg from one init on one schedule; on {smi}: "
+            + json.dumps({name: leg_summary(leg)
+                          for name, leg in legs.items()})
+            + f"; the eager leg's {len(e_loss)} losses equal the graph "
+            f"leg's first: {g_loss[:len(e_loss)] == e_loss}; launches "
+            f"{counts}")
+        for name, leg in legs.items():
+            for rec in leg["trace"]["top_kernels"]:
+                log(f"phase8a {name} top kernel: {json.dumps(rec)}")
+            for rec in leg["trace"]["top_host"]:
+                log(f"phase8a {name} top host op: {json.dumps(rec)}")
+        log(f"phase8a device ops run a different number of times a step "
+            f"(graph, eager): {json.dumps(kernel_diff(*legs.values()))}; "
+            f"copies and fills a step: " + json.dumps({
+                name: {k: n for k, n in leg["trace"]["kernel_counts"].items()
+                       if k.startswith(("Memcpy", "Memset"))}
+                for name, leg in legs.items()}))
+        assert_train_pair(legs["graph"], legs["eager"])
         assert not any(counts.values()), f"a kernel ran on path F: {counts}"
+        del legs
+
+        t0 = time.perf_counter()
+        check = graph_vs_eager_training(cfg, "cuda", pathlib.Path(tmp) /
+                                        "8b_equal", **TRAIN_EQUAL)
+        log(f"phase8b {cfg.name} cut to {TRAIN_EQUAL['layers']} full-width "
+            f"layers, {cfg.compute_dtype}, B {TRAIN_EQUAL['batch']} x "
+            f"{TRAIN_EQUAL['seq']} tokens, {TRAIN_EQUAL['steps']} steps "
+            f"a leg, graph vs eager and eager vs eager (bit for bit): "
+            f"{json.dumps(check)}; {time.perf_counter() - t0:.1f} s")
+        assert_graph_vs_eager_training(check)
+        gc.collect()
+        torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
         gaps = card_vs_cpu(cfg, "cuda", pathlib.Path(tmp) / "8b",
                            **TRAIN_CHECK)
         log(f"phase8b {cfg.name} cut to {TRAIN_CHECK['layers']} full-width "
             f"layers, fp32, B {TRAIN_CHECK['batch']} x {TRAIN_CHECK['seq']} "
-            f"tokens, {TRAIN_CHECK['steps']} steps, card vs CPU and resumed "
-            f"vs uninterrupted (bound {TRAIN_RTOL} relative): "
+            f"tokens, {TRAIN_CHECK['steps']} steps, graphs on, card vs CPU "
+            f"and resumed vs uninterrupted (bound {TRAIN_RTOL} relative): "
             f"{json.dumps(gaps)}; {time.perf_counter() - t0:.1f} s")
         assert_card_vs_cpu(gaps)
     torch.cuda.empty_cache()

@@ -33,9 +33,10 @@ step of the batch against a contiguous cache of ``--context`` tokens, and
 a fresh prefill of the whole ``--context``-token prompt in place of the
 chunk.
 
-``--train`` measures a training step instead: ``Trainer.run`` of one
-step on a ``--batch`` x ``--context`` batch (fp32 masters, the config's
-compute dtype, remat and microbatches; seeded weights).
+``--train`` measures a training step instead: the trainer's step on a
+``--batch`` x ``--context`` batch (fp32 masters, the config's compute
+dtype, remat and microbatches; seeded weights), replayed as the
+trainer's CUDA graph, or eager with ``--eager``.
 
 Prints one JSON object. Needs one GPU::
 
@@ -68,11 +69,6 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                 "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
-def _device_us(evt) -> float:
-    v = getattr(evt, "self_device_time_total", None)
-    return float(v if v is not None else evt.self_cuda_time_total)
-
-
 def _timed(fn, steps: int) -> dict:
     enqueue, wall = [], []
     for _ in range(steps):
@@ -87,39 +83,57 @@ def _timed(fn, steps: int) -> dict:
             "steps": steps}
 
 
-def _traced(fn, top: int = 12) -> dict:
+def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
+           counts: bool = False) -> dict:
+    """``reps`` calls of ``fn`` under ``torch.profiler``: a step's device
+    time, device ops run and host launch calls, and the ops with the most
+    device time and host time (a host op's time includes what it calls).
+    ``cpu`` False records the CUDA activity alone (the device ops and the
+    runtime's calls, no host operators). ``counts``: every device op's
+    runs a step too. ``read_s``: the seconds the trace took to read back
+    after the steps. The profiler's raw events are read, not its parsed
+    ones: parsing ~180k events a step took 10-17 s."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    avgs = prof.key_averages()
-    # device-side events (kernels, memcpy/memset) carry the device time
-    # once; the host operators that launched them repeat it
-    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    device_us = sum(_device_us(e) for e in kernels)
-    calls = {e.key: e.count / 3 for e in avgs
-             if e.device_type == DeviceType.CPU and e.key.startswith(
-                 LAUNCH_CALLS)}
-    by_dev = sorted(kernels, key=_device_us, reverse=True)[:top]
-    by_cpu = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
-                    key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
-    return {
-        "traced_wall_ms_per_step": wall_us / 3e3,
-        "device_busy_ms_per_step": device_us / 3e3,
-        "device_busy_share": device_us / wall_us,
-        "device_kernels_per_step": sum(e.count for e in kernels) / 3,
+        t1 = time.perf_counter()
+    dev: dict[str, list] = {}
+    host: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation():
+            continue
+        side = dev if e.device_type() == DeviceType.CUDA else host
+        rec = side.setdefault(e.name(), [0, 0])
+        rec[0] += 1
+        rec[1] += e.duration_ns()
+    device_ns = sum(ns for _, ns in dev.values())
+    calls = {k: n / reps for k, (n, _) in host.items()
+             if k.startswith(LAUNCH_CALLS)}
+
+    def tops(side: dict, unit: str) -> list:
+        ranked = sorted(side.items(), key=lambda kv: kv[1][1],
+                        reverse=True)[:top]
+        return [{"op": k, "calls_per_step": n / reps,
+                 f"{unit}_ms_per_step": ns / reps / 1e6}
+                for k, (n, ns) in ranked]
+
+    out = {
+        "traced_wall_ms_per_step": (t1 - t0) / reps * 1e3,
+        "device_busy_ms_per_step": device_ns / reps / 1e6,
+        "device_busy_share": device_ns / 1e9 / (t1 - t0),
+        "device_kernels_per_step": sum(n for n, _ in dev.values()) / reps,
         "host_launch_calls_per_step": sum(calls.values()),
         "host_launch_calls": calls,
-        "top_kernels": [{"op": e.key, "calls_per_step": e.count / 3,
-                        "device_ms_per_step": _device_us(e) / 3e3}
-                       for e in by_dev],
-        "top_host": [{"op": e.key, "calls_per_step": e.count / 3,
-                      "host_ms_per_step": e.self_cpu_time_total / 3e3}
-                     for e in by_cpu]}
+        "top_kernels": tops(dev, "device"),
+        "top_host": tops(host, "host"),
+        "read_s": time.perf_counter() - t1}
+    if counts:
+        out["kernel_counts"] = {k: n / reps for k, (n, _) in dev.items()}
+    return out
 
 
 def main(argv=None) -> int:
@@ -134,8 +148,8 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true",
                     help="a training step instead of serving steps")
     ap.add_argument("--eager", action="store_true",
-                    help="the eager decode step and prefill chunk, not "
-                    "the CUDA graphs")
+                    help="the eager decode step and prefill chunk (or "
+                    "training step), not the CUDA graphs")
     ap.add_argument("--capacity-step", type=int, default=None,
                     help="the extend scratch's capacity granularity")
     args = ap.parse_args(argv)
@@ -174,8 +188,8 @@ def main(argv=None) -> int:
            "decode_step": "eager" if args.eager or steps is _forward_steps
            else "cuda_graph",
            "capacity_step": args.capacity_step,
-           "decode": {**_timed(decode, args.steps), **_traced(decode)},
-           "prefill": {**_timed(prefill, args.steps), **_traced(prefill)}}
+           "decode": {**_timed(decode, args.steps), **traced(decode)},
+           "prefill": {**_timed(prefill, args.steps), **traced(prefill)}}
     after = launch_counts()
     out["kernel_launches"] = {k: after[k] - before[k] for k in after}
     print(json.dumps(out, indent=1))
@@ -183,7 +197,11 @@ def main(argv=None) -> int:
 
 
 def _train(cfg, args, dev) -> int:
-    """One training step of ``Trainer.run``, timed and traced."""
+    """Training steps of ``Trainer.run``, timed and traced: replays of
+    the step's CUDA graph (after its eager warm-up step and the step that
+    captures it), or with ``--eager`` the eager step after one warm-up.
+    The enqueue time is the step function's (the trainer's own read of
+    the loss waits for the device)."""
     import tempfile
 
     from repro_torch.configs.base import ShapeSpec
@@ -193,22 +211,31 @@ def _train(cfg, args, dev) -> int:
                      ShapeSpec("profile", "train", args.context, args.batch),
                      TrainConfig(ckpt_every=10 ** 9, ckpt_dir=tmp,
                                  seed=args.seed),
-                     log_fn=lambda s: None, device=dev)
+                     log_fn=lambda s: None, device=dev,
+                     cuda_graphs=not args.eager)
+        tr.run(steps=1 if args.eager else 2)    # warm-up (and capture)
+        fn = tr.built.fn if tr.graph is None else tr.graph.step
 
         def step():
-            tr.run(steps=tr.step + 1)
+            tokens, labels = tr.data.batch_at(tr.step)
+            fn(tr.opt_state, tokens, labels)
+            tr.step += 1
 
-        step()                             # warm-up: allocator, cuBLAS
         torch.cuda.synchronize()
         out = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
                "layers": cfg.num_layers, "batch": args.batch,
                "context": args.context, "params": cfg.param_count(),
                "microbatches": cfg.train_microbatches, "remat": cfg.remat,
                "compute_dtype": cfg.compute_dtype,
+               "train_step": "eager" if tr.graph is None else "cuda_graph",
                "train": {**_timed(step, args.steps),
-                         **_traced(step, top=20)},
+                         **traced(step, top=20)},
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "memory_reserved": torch.cuda.memory_reserved(),
                "kernel_launches": launch_counts()}
+        if tr.graph is not None:
+            out.update(capture_s=tr.graph.capture_s,
+                       graph_pool_bytes=tr.graph.pool_bytes())
     print(json.dumps(out, indent=1))
     return 0
 

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --smoke --steps 200 --batch 8 --seq 256 [--resume] [--ckpt-dir DIR] \
-        [--device cpu]
+        [--device cpu] [--eager]
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch qwen2-1.5b --smoke --device cpu
 
@@ -11,7 +11,9 @@ without a GPU) or on the CPU, and demonstrates checkpoint/restart. Under
 ``torchrun`` (``WORLD_SIZE`` set) every rank joins the process group
 (NCCL on the cards, each rank on card ``LOCAL_RANK``; gloo on the CPU)
 and trains on ``make_host_mesh()``, a (world, 1) data-parallel mesh, as
-the reference does; alone it trains on one device with no mesh.
+the reference does; alone it trains on one device with no mesh, the
+step a CUDA graph replayed from the second step on (``--eager``: the
+eager step; a mesh's step is always eager).
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ def main() -> int:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager training step, not its CUDA graph")
     args = ap.parse_args()
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -60,7 +64,8 @@ def main() -> int:
                        ckpt_dir=args.ckpt_dir,
                        adamw=opt_mod.AdamWConfig(lr=args.lr,
                                                  total_steps=args.steps))
-    trainer = Trainer(cfg, mesh, shape, tcfg, device=device)
+    trainer = Trainer(cfg, mesh, shape, tcfg, device=device,
+                      cuda_graphs=not args.eager)
     if args.resume:
         trainer.resume()
     hist = trainer.run()

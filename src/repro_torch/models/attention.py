@@ -154,7 +154,8 @@ def _blocks(remat: bool):
     """The block function: recomputed in backward under ``remat``."""
     if not remat:
         return _block_attn
-    return lambda *args: checkpoint(_block_attn, *args, use_reentrant=False)
+    return lambda *args: checkpoint(_block_attn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
 
 
 def causal_blocks(q, k, v, *, scale: float, cap: float = 0.0,

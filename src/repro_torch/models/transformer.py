@@ -344,9 +344,12 @@ class Model(nn.Module):
         checkpointing) in a training forward when ``cfg.remat`` is not
         "none": the reference's ``jax.checkpoint`` of its scan body, taken
         per layer. ``fn`` binds its layer's weights (a partial), never a
-        loop variable."""
+        loop variable. No RNG state is stashed for the recomputation: the
+        training forward draws no random numbers, and the captured step
+        (``train/train_graph.py``) then touches no generator."""
         if mode == "train" and self.cfg.remat != "none":
             return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False,
                               context_fn=recompute_context())
         return fn(*args)
 
@@ -647,6 +650,7 @@ class Model(nn.Module):
             nll = torch.cat([checkpoint(self._chunk_nll, hidden[:, i:i + C],
                                         labels[:, i:i + C], head,
                                         use_reentrant=False,
+                                        preserve_rng_state=False,
                                         context_fn=recompute_context())
                              for i in range(0, S, C)], dim=1)
             if mask is not None:

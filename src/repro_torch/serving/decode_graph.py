@@ -107,6 +107,23 @@ def capture(graph, pool, step) -> None:
     graph.capture_end()
 
 
+def counted_capture(graph, pool, step) -> dict[str, int]:
+    """:func:`capture`, returning the wrappers' launches it recorded: one
+    replay's worth, for :func:`credit_launches`. Recording runs nothing,
+    so the wrappers' counts are put back as they were."""
+    from repro_torch.kernels import kernel_wrappers, launch_counts
+    before = launch_counts()
+    try:
+        capture(graph, pool, step)
+    finally:
+        after = launch_counts()
+        wrappers = kernel_wrappers()
+        for name, n in before.items():
+            wrappers[name].launches = n
+    return {name: after[name] - before[name] for name in after
+            if after[name] != before[name]}
+
+
 class CaptureSite:
     """The memory pool and the side stream that every graph of one
     runtime is captured into and on, made at the first capture. The
@@ -227,7 +244,6 @@ class StepGraphs:
         graph's first replay comes with the next use's inputs. A bucket
         that ran eagerly before is warm: it is captured at once, and its
         first replay is this use's result."""
-        from repro_torch.kernels import kernel_wrappers, launch_counts
         t0 = time.perf_counter()
         dev = self.rt.device
         pool, side = self.site.open(dev)
@@ -237,19 +253,10 @@ class StepGraphs:
         with torch.cuda.stream(side):
             if not b.uses:
                 step()
-            before = launch_counts()
-            try:
-                capture(graph, pool, step)
-            finally:
-                # capturing records launches without running them
-                after = launch_counts()
-                wrappers = kernel_wrappers()
-                for name, n in before.items():
-                    wrappers[name].launches = n
+            launches = counted_capture(graph, pool, step)
         main.wait_stream(side)
         b.graph = graph
-        b.launches = {name: after[name] - before[name] for name in after
-                      if after[name] != before[name]}
+        b.launches = launches
         if b.uses:
             graph.replay()
             credit_launches(b.launches)

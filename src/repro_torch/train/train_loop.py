@@ -5,7 +5,10 @@
   the latest durable step after a crash or preemption;
 - the step: ``models.steps.build_train_step`` over a trainable ``Model``
   (fp32 masters, compute-dtype forward, AdamW in place), on the card
-  unless the caller asks for the CPU;
+  unless the caller asks for the CPU; on one device a replayed CUDA
+  graph from the second step on (``train.train_graph``, the counterpart
+  of the reference's jitted step), eager with ``cuda_graphs=False`` or
+  on a mesh;
 - data: the synthetic ``TokenStream``, stateless by step, so a restart
   resumes mid-stream with nothing lost or repeated;
 - elastic remesh: ``reshard_for_mesh`` rebuilds the step for a new mesh
@@ -31,6 +34,7 @@ from repro_torch.models.steps import build_train_step
 from repro_torch.models.transformer import Model
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.train_graph import TrainGraph
 
 
 @dataclasses.dataclass
@@ -49,11 +53,14 @@ class Trainer:
     """``mesh``: None (one device) or a ``DeviceMesh`` over the process
     group (every rank runs the same loop, the masters and moments are
     DTensors). ``device``: "cuda" (the default; raises without a GPU) or
-    "cpu"."""
+    "cpu". ``cuda_graphs``: without a mesh, the step runs on a
+    :class:`TrainGraph` (``self.graph``), a CUDA graph on the card;
+    False keeps the eager step. A meshed step is always eager."""
 
     def __init__(self, cfg: ModelConfig, mesh, shape: ShapeSpec,
                  tcfg: TrainConfig = TrainConfig(),
-                 log_fn: Callable[[str], None] = print, *, device="cuda"):
+                 log_fn: Callable[[str], None] = print, *, device="cuda",
+                 cuda_graphs: bool = True):
         _check_mesh(mesh)
         self.mesh = mesh
         self.cfg = cfg
@@ -61,12 +68,15 @@ class Trainer:
         self.tcfg = tcfg
         self.log = log_fn
         self.device = resolve_device(device)
+        self.cuda_graphs = cuda_graphs
         self.data = TokenStream(DataConfig(cfg.vocab_size, shape.seq_len,
                                            shape.global_batch, seed=tcfg.seed))
         self.ckpt = CheckpointManager(tcfg.ckpt_dir)
         self.step = 0
         self.model: Optional[Model] = None
         self.built = None
+        self.graph: Optional[TrainGraph] = None
+        self._said_eager = False
         self.params = None
         self.opt_state = None
         self.history: list[dict] = []
@@ -87,6 +97,15 @@ class Trainer:
                                       adamw=self.tcfg.adamw, model=model,
                                       rules=model.rules)
         self.params = model.params
+        self.graph = None
+        if self.cuda_graphs and self.mesh is None:
+            self.graph = TrainGraph(self.built.fn, model,
+                                    self.shape.global_batch,
+                                    self.shape.seq_len)
+        elif self.cuda_graphs and not self._said_eager:
+            self._said_eager = True
+            self.log("[trainer] the step on a mesh runs eagerly: no CUDA "
+                     "graph of a DTensor step")
 
     def reshard_for_mesh(self, new_mesh) -> None:
         """Elastic scaling: the step rebuilt for ``new_mesh`` (None: one
@@ -108,17 +127,23 @@ class Trainer:
                  f"{None if new_mesh is None else tuple(new_mesh.shape)}")
 
     def resume(self) -> bool:
-        """Restore the latest checkpoint; True if one was found."""
+        """Restore the latest checkpoint; True if one was found. The
+        masters, moments and count are copied into the live tensors,
+        whose addresses a captured step holds."""
         latest = self.ckpt.latest_step()
         if latest is None:
             return False
         if self.model is None:
             self.init_state()
-        params, self.opt_state, manifest = self.ckpt.restore(
+        params, opt_state, manifest = self.ckpt.restore(
             latest, self.params, self.opt_state)
         with torch.no_grad():
-            for k, t in params.items():
-                self.params[k].copy_(t)
+            for live, new in ((self.params, params),
+                              (self.opt_state["m"], opt_state["m"]),
+                              (self.opt_state["v"], opt_state["v"])):
+                for k, t in new.items():
+                    live[k].copy_(t)
+            self.opt_state["count"].copy_(opt_state["count"])
         self.step = manifest["step"]
         self.log(f"[trainer] resumed at step {self.step}")
         return True
@@ -128,10 +153,11 @@ class Trainer:
         steps = steps or self.tcfg.steps
         if self.model is None:
             self.init_state()
+        step_fn = self.built.fn if self.graph is None else self.graph.step
         while self.step < steps:
             tokens, labels = self.data.batch_at(self.step)
             t0 = time.time()
-            metrics = self.built.fn(self.opt_state, tokens, labels)
+            metrics = step_fn(self.opt_state, tokens, labels)
             loss = float(metrics["loss"])
             dt = time.time() - t0
             self.step += 1

@@ -2,6 +2,7 @@
 datasheet table and workload are what its docstrings say, and its two
 serve legs run end to end on the CPU at smoke width (the card runs them
 at full qwen2-1.5b width)."""
+import dataclasses
 import math
 import pathlib
 import sys
@@ -478,8 +479,9 @@ def test_path_e_legs_at_full_width():
 # ------------------------------------------------ phase 8 (path F) on CPU
 def test_path_f_sizing_at_full_width():
     """8a's shape is train_4k's row with its global batch cut (and one row
-    a microbatch at qwen2-1.5b's train_microbatches); 8b's cut keeps
-    whole layers."""
+    a microbatch at qwen2-1.5b's train_microbatches); 8b's cuts keep
+    whole layers, the equality legs 8a's shape and a replay after the
+    graph's warm-up and capture."""
     from repro_torch.configs.base import SHAPES
     cfg = get_config(chip_smoke.TRAIN_F["arch"])
     full = SHAPES["train_4k"]
@@ -488,28 +490,131 @@ def test_path_f_sizing_at_full_width():
     assert chip_smoke.TRAIN_F["batch"] == cfg.train_microbatches == 2
     assert cfg.remat == "full" and cfg.compute_dtype == "bfloat16"
     assert chip_smoke.TRAIN_CHECK["layers"] < cfg.num_layers
+    eq = chip_smoke.TRAIN_EQUAL
+    assert eq["layers"] == chip_smoke.TRAIN_CHECK["layers"]
+    assert (eq["seq"], eq["batch"]) == (chip_smoke.TRAIN_F["seq"],
+                                        chip_smoke.TRAIN_F["batch"])
+    assert eq["steps"] == chip_smoke.warm_steps(True) + 1
 
 
 def test_train_steps_on_cpu(tmp_path):
-    """Phase 8a's loop at smoke width: a warm-up step and timed ones, each
-    record with its rates, no kernel launched; a flat history fails the
-    check (the smoke model's losses fall over tens of steps, the
+    """Phase 8a's graph leg at smoke width: its warm-up, the step that
+    captures on the card and timed steps, each record with its rates, no
+    kernel launched, nothing captured on the CPU; a flat history fails
+    the check (the smoke model's losses fall over tens of steps, the
     full-width model's on the card within its ten)."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels import launch_counts
     cfg = get_config("qwen2-1.5b", smoke=True)
-    recs = chip_smoke.train_steps(cfg, ShapeSpec("t", "train", 64, 2), 3,
-                                  "cpu", tmp_path, peak_flops=989e12)
-    assert [r["step"] for r in recs] == [1, 2, 3, 4]
+    leg = chip_smoke.train_leg(cfg, ShapeSpec("t", "train", 64, 2), 3,
+                               "cpu", tmp_path, peak_flops=989e12)
+    recs = leg["records"]
+    assert [r["step"] for r in recs] == [1, 2, 3, 4, 5]
+    assert [r["kind"] for r in recs] == ["warm-up", "capture"] + \
+        ["timed"] * 3
     for r in recs:
         assert r["step_ms"] > 0 and r["wall_ms"] >= r["step_ms"]
+        assert 0 < r["enqueue_ms"] <= r["step_ms"]
         assert r["tokens_per_s"] > 0 and 0 < r["flops_share"] < 1
     assert all(math.isfinite(r["loss"]) for r in recs)
+    assert leg["captures"] == leg["replays"] == 0 == leg["capture_s"]
+    assert leg["graph_pool_bytes"] is None and leg["trace"] is None
     assert not any(launch_counts().values())
     chip_smoke.assert_training([dict(r, loss=5.0 - i)
                                 for i, r in enumerate(recs)])
     with pytest.raises(AssertionError):
         chip_smoke.assert_training([dict(r, loss=1.0) for r in recs])
+
+
+def test_train_legs_pair_on_cpu(tmp_path):
+    """Phase 8a's two legs from one init on one schedule: the eager leg's
+    losses are the graph leg's first ones, bit for bit; each leg's
+    summary has its medians over the timed steps."""
+    from repro_torch.configs.base import ShapeSpec
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    shape = ShapeSpec("t", "train", 64, 2)
+    legs = {g: chip_smoke.train_leg(cfg, shape, n, "cpu", tmp_path / str(g),
+                                    cuda_graphs=g, total=6)
+            for g, n in ((True, 3), (False, 2))}
+    losses = {g: [r["loss"] for r in leg["records"]]
+              for g, leg in legs.items()}
+    assert len(losses[False]) == 3 and losses[True][:3] == losses[False]
+    assert [r["kind"] for r in legs[False]["records"]] == \
+        ["warm-up", "timed", "timed"]
+    for g, leg in legs.items():
+        summary = chip_smoke.leg_summary(leg)
+        assert summary["cuda_graphs"] is g and summary["timed_steps"] == \
+            (3 if g else 2)
+        assert summary["min_step_ms"] <= summary["median_step_ms"] <= \
+            summary["max_step_ms"]
+        assert summary["last_loss"] == losses[g][-1]
+
+
+def test_graph_vs_eager_training_on_cpu(tmp_path):
+    """Phase 8b's equality legs at smoke width (two microbatches, remat)
+    on the CPU: the eager legs and the graph path's equal bit for bit."""
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              train_microbatches=2)
+    assert cfg.remat == "full"
+    check = chip_smoke.graph_vs_eager_training(cfg, "cpu", tmp_path,
+                                               layers=2, seq=64, batch=2,
+                                               steps=3)
+    chip_smoke.assert_graph_vs_eager_training(check)
+    assert len(check["losses"]) == 3
+    assert check["graph"]["n_differing"] == 0 == check["graph"]["max_abs"]
+    bad = dict(check, graph=dict(check["graph"], bit_equal=False))
+    with pytest.raises(AssertionError):
+        chip_smoke.assert_graph_vs_eager_training(bad)
+
+
+def fake_leg(kernels: float, calls: float, graphs: bool) -> dict:
+    """An 8a leg as ``assert_train_pair`` reads it: falling losses, its
+    trace's device ops and host launch calls."""
+    recs = [dict(loss=5.0 - i) for i in range(5)]
+    return dict(records=recs, captures=int(graphs), replays=3 * graphs,
+                trace=dict(device_kernels_per_step=kernels,
+                           host_launch_calls_per_step=calls,
+                           kernel_counts={"k": kernels}))
+
+
+@pytest.mark.parametrize("graph,eager,ok", [
+    ((90604.0, 8.0), (90604.0, 90604.0), True),
+    ((90604.0, 8.0), (90586.0, 90604.0), True),      # ops lost by traces
+    ((90704.0, 8.0), (90604.0, 90604.0), False),     # 100 nodes too many
+    ((90504.0, 8.0), (90604.0, 90604.0), False),     # 100 too few
+    ((90604.0, 10.0), (90604.0, 90604.0), False)])   # host launches
+def test_train_pair_check(graph, eager, ok):
+    """8a's pair check: the replay runs the eager step's device ops (each
+    leg's own ops at the step's ends set apart, and the few a one-step
+    trace loses) with under 10 host launch calls."""
+    g, e = fake_leg(*graph, True), fake_leg(*eager, False)
+    if ok:
+        chip_smoke.assert_train_pair(g, e)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.assert_train_pair(g, e)
+
+
+@pytest.mark.parametrize("phase", ["8a", "8b equal", "8b card vs cpu"])
+def test_a_capture_failure_is_not_caught(tmp_path, monkeypatch, phase):
+    """Phase 8's legs let a failing graph step (a capture that raises)
+    through: nothing falls back to the eager step."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train.train_graph import TrainGraph
+
+    def fails(self, *args):
+        raise RuntimeError("capture failed")
+
+    monkeypatch.setattr(TrainGraph, "step", fails)
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    run = {"8a": lambda: chip_smoke.train_leg(
+               cfg, ShapeSpec("t", "train", 64, 2), 1, "cpu", tmp_path),
+           "8b equal": lambda: chip_smoke.graph_vs_eager_training(
+               cfg, "cpu", tmp_path, layers=2, seq=64, batch=2, steps=2),
+           "8b card vs cpu": lambda: chip_smoke.card_vs_cpu(
+               cfg, "cpu", tmp_path, **chip_smoke.TRAIN_CHECK)}[phase]
+    with pytest.raises(RuntimeError, match="capture failed"):
+        run()
 
 
 def test_card_vs_cpu_on_cpu(tmp_path):
