@@ -114,10 +114,20 @@ Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          the same 1024-token prompt, in bf16 and fp32, on the first 2
          layers at full width, and a logged depth sweep.
 Phase 4  path B: full-width rwkv6-3b (32 layers, seeded random weights)
-         through ``Model.forward``: B=2, a 2048-token prompt, then 32
-         decode steps, for tokens/s in bf16, with the counts zeroed before
-         and read after (two WKV-scan launches, chunk and carry pass, per
-         layer and prefill); then,
+         through ``Model.forward``: B=2, a 2048-token prompt in bf16, with
+         the counts zeroed before and read after (two WKV-scan launches,
+         chunk and carry pass, per layer and prefill); then the decode
+         pair: a timed prefill and, from its cache (cloned), 2 + 32 + 3
+         decode steps through ``build_decode_step``'s step as a replayed
+         CUDA graph (its first step eager, captured at the second; the 32
+         timed replays under torch's sync debug mode "error") and as the
+         eager step (``cuda_graphs=False``, offsets host ints): every
+         step's logits and the final caches bit-equal (``torch.equal``),
+         one capture, a replay at most 10 host launch calls; each leg's
+         wall ms and tokens/s over the 32 timed steps, and device ms,
+         busy share, device ops and host launch calls a step over 3
+         traced ones (torch.profiler), the capture's s and the graph
+         pool's bytes logged; then,
          in fp32 on the first 4 layers at full width, the prefill's final
          WKV states and last logits against prefill of all but 64 tokens
          followed by 64 decode steps (the plain recurrence), and against
@@ -179,10 +189,14 @@ Phase 7  path E, the families the engine does not page, through
          32 greedy decode steps; (c) zamba2-2.7b (54 Mamba2 layers in 9
          groups of 6, each led by one of 2 shared attention blocks, MHA
          at D=80; ~2.45 B params, bf16), B=2, a 2000-token prompt, 32
-         decode steps. Each is timed after an untimed warm-up run and
-         logs prefill s and tokens/s, decode ms a step and tokens/s, flash
-         launches (counts zeroed before, read after: 42 and 9 a prefill,
-         asserted), weight GB and peak memory.
+         decode steps. Each is timed after an untimed warm-up run (a
+         prefill and two decode steps) as phase 4's decode pair (a graph
+         leg and an eager leg from one prefill, bit-equal), and logs
+         prefill s and tokens/s, each leg's decode ms a step, tokens/s,
+         device ms, device ops and host launch calls, the capture's s,
+         the graph pool's bytes, flash launches (counts zeroed before,
+         read after: 42 and 9 a prefill, asserted), weight GB and peak
+         memory.
          (b, d) each at full width cut to 2 and 4 (gemma2: 1 and 2 pairs)
          and 6 and 12 layers (zamba2: 1 and 2 groups) in fp32: the
          prompt's prefill against prefill of all but 64 tokens and 64
@@ -2277,8 +2291,9 @@ def synchronize(device) -> None:
 def forward_throughput(model, toks, n_dec: int,
                        max_len: int | None = None) -> dict:
     """A timed prefill of ``toks`` (B, T) into a cache of ``max_len``
-    (default T) positions and ``n_dec`` timed greedy decode steps, each
-    timed after the device has finished."""
+    (default T) positions and ``n_dec`` timed greedy decode steps through
+    ``build_decode_step``'s step (on the card its CUDA graph, captured at
+    the second step), each timed after the device has finished."""
     import torch
     B, T = toks.shape
     synchronize(model.device)
@@ -2287,12 +2302,12 @@ def forward_throughput(model, toks, n_dec: int,
         B, max_len or T), mode="prefill", logits_slice=1)
     synchronize(model.device)
     t_pre = time.perf_counter() - t0
-    nxt = logits[:, -1].argmax(-1, keepdim=True)
+    step = decode_step_of(model, B, max_len or T)
+    nxt = logits[:, -1].argmax(-1).to(torch.int32)
     t0 = time.perf_counter()
     for i in range(n_dec):
-        logits, cache = model.forward(nxt, cache=cache, cache_len=T + i,
-                                      mode="decode")
-        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        nxt, cache, logits = step.fn(cache, nxt[:, None], T + i,
+                                     logits=True)
     synchronize(model.device)
     t_dec = time.perf_counter() - t0
     assert torch.isfinite(logits).all()
@@ -2300,6 +2315,153 @@ def forward_throughput(model, toks, n_dec: int,
     return dict(prefill_tokens_per_s=B * T / t_pre,
                 decode_tokens_per_s=B * n_dec / t_dec, prefill_s=t_pre,
                 decode_step_ms=t_dec / n_dec * 1e3, batch=B, prompt=T)
+
+
+def decode_step_of(model, B: int, max_len: int, cuda_graphs: bool = True):
+    """``build_decode_step`` over ``model`` for B rows of ``max_len``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.steps import build_decode_step
+    return build_decode_step(model.cfg, None,
+                             ShapeSpec("decode", "decode", max_len, B),
+                             model=model, cuda_graphs=cuda_graphs)
+
+
+#: decode steps each leg of :func:`decode_pair` runs before its timed
+#: ones (the graph leg's eager warm-up, and the step that captures its
+#: graph and replays it once), and under torch.profiler after them
+DECODE_WARM = 2
+DECODE_TRACED = 3
+
+
+def decode_positions(n_dec: int) -> int:
+    """Cache positions a :func:`decode_pair` leg of ``n_dec`` timed steps
+    writes past the prompt."""
+    return DECODE_WARM + n_dec + DECODE_TRACED
+
+
+def forward_leg(step, cache, nxt, T: int, n_dec: int, device,
+                graphs: bool) -> dict:
+    """One leg of :func:`decode_pair`: ``DECODE_WARM`` untimed steps from
+    the prefill's next tokens ``nxt``, ``n_dec`` timed (a graph leg's
+    under the sync debug mode "error": a replay reads nothing back) and,
+    on the card, ``DECODE_TRACED`` under torch.profiler (device ms,
+    device ops and host launch calls a step; the CUDA activity alone).
+    Returns every step's logits, the leg's wall ms a step and trace."""
+    import torch
+    logits = []
+    state = dict(nxt=nxt, t=T)
+
+    def one():
+        nxt, _, lg = step.fn(cache, state["nxt"][:, None], state["t"],
+                             logits=True)
+        state.update(nxt=nxt, t=state["t"] + 1)
+        logits.append(lg)
+
+    for _ in range(DECODE_WARM):
+        one()
+    synchronize(device)
+    t0 = time.perf_counter()
+    with sync_errors(device, graphs):
+        for _ in range(n_dec):
+            one()
+    synchronize(device)
+    t_dec = time.perf_counter() - t0
+    out = dict(cuda_graphs=graphs, wall_ms=t_dec / n_dec * 1e3,
+               decode_tokens_per_s=len(state["nxt"]) * n_dec / t_dec,
+               trace=None, logits=logits)
+    if torch.device(device).type == "cuda":
+        from repro_torch.launch.profile_step import traced
+        out["trace"] = traced(one, top=6, reps=DECODE_TRACED, cpu=False,
+                              counts=True)
+    g = step.graph
+    out.update(captures=g.captures if g else 0,
+               capture_s=g.capture_s if g else 0.0,
+               replays=g.replays if g else 0,
+               graph_pool_bytes=g.pool_bytes() if g else None)
+    return out
+
+
+def decode_pair(model, toks, n_dec: int, max_len: int | None = None) -> dict:
+    """One timed prefill of ``toks`` (B, T) into a cache of ``max_len``
+    (default T) positions, then its greedy decode twice from it, the
+    cache cloned after the prefill: the graph leg (``build_decode_step``'s
+    step, a replayed CUDA graph on the card) and the eager leg
+    (``cuda_graphs=False``, today's eager step, its offsets host ints),
+    each as :func:`forward_leg`. Returns the prefill's s and tokens/s,
+    each leg's summary and whether every step's logits, next tokens and
+    the final caches are bit-equal between the legs."""
+    import torch
+    B, T = toks.shape
+    max_len = max_len or T + decode_positions(n_dec)
+    synchronize(model.device)
+    t0 = time.perf_counter()
+    logits, cache = model.forward(toks, cache=model.init_cache(B, max_len),
+                                  mode="prefill", logits_slice=1)
+    synchronize(model.device)
+    t_pre = time.perf_counter() - t0
+    nxt = logits[:, -1].argmax(-1).to(torch.int32)
+    caches = {"graph": cache,
+              "eager": {k: v.clone() for k, v in cache.items()}}
+    legs = {leg: forward_leg(decode_step_of(model, B, max_len,
+                                            leg == "graph"),
+                             caches[leg], nxt, T, n_dec, model.device,
+                             leg == "graph")
+            for leg in ("graph", "eager")}
+    g, e = (legs[leg].pop("logits") for leg in ("graph", "eager"))
+    out = dict(prefill_s=t_pre, prefill_tokens_per_s=B * T / t_pre,
+               batch=B, prompt=T, max_len=max_len, timed_steps=n_dec,
+               steps=len(g),
+               logits_bit_equal=len(g) == len(e) and all(
+                   torch.equal(a, b) for a, b in zip(g, e)),
+               tokens_equal=all(torch.equal(a.argmax(-1), b.argmax(-1))
+                                for a, b in zip(g, e)),
+               caches_bit_equal=all(torch.equal(caches["graph"][k],
+                                                caches["eager"][k])
+                                    for k in cache),
+               finite=bool(torch.isfinite(g[-1]).all()),
+               legs={leg: leg_trace_summary(r) for leg, r in legs.items()})
+    if legs["graph"]["trace"] is not None:
+        out["device_ops_differ"] = kernel_diff(legs["graph"],
+                                               legs["eager"])
+    return out
+
+
+def leg_trace_summary(leg: dict) -> dict:
+    """A decode leg's numbers, its trace's as :func:`trace_fields`."""
+    out = {k: v for k, v in leg.items() if k != "trace"}
+    if leg["trace"] is not None:
+        out.update(trace_fields(leg["trace"]))
+    return out
+
+
+def trace_fields(tr: dict) -> dict:
+    """A ``profile_step.traced`` record reduced to a step's device ms,
+    busy share, device ops run and host launch calls."""
+    return dict(device_ms=tr["device_busy_ms_per_step"],
+                device_busy_share=tr["device_busy_share"],
+                traced_wall_ms=tr["traced_wall_ms_per_step"],
+                kernels_run=tr["device_kernels_per_step"],
+                host_launch_calls=tr["host_launch_calls_per_step"],
+                host_launch_by_call=tr["host_launch_calls"],
+                trace_read_s=tr["read_s"])
+
+
+def assert_decode_pair(check: dict, cuda: bool) -> None:
+    """The graph leg's logits at every step and its final caches equal the
+    eager leg's bit for bit; on the card its bucket was captured once
+    and replayed on every later step, a replay making at most
+    ``MAX_GRAPH_LAUNCH_CALLS`` host launch calls; on the CPU nothing was
+    captured."""
+    assert check["logits_bit_equal"] and check["tokens_equal"], check
+    assert check["caches_bit_equal"] and check["finite"], check
+    g, e = check["legs"]["graph"], check["legs"]["eager"]
+    assert e["captures"] == 0 and e["replays"] == 0, e
+    if cuda:
+        assert g["captures"] == 1, g
+        assert g["replays"] == check["steps"] - 1, g
+        assert g["host_launch_calls"] <= MAX_GRAPH_LAUNCH_CALLS, g
+    else:
+        assert g["captures"] == 0 and g["replays"] == 0, g
 
 
 def rwkv_equivalence(model, toks, tail: int = 64) -> dict:
@@ -2376,8 +2538,10 @@ def rwkv_equivalence_checks(params: dict, cfg, toks, device) -> None:
 
 
 def phase4(smi: str) -> dict:
-    """Path B: rwkv6-3b at full width through ``Model.forward``. Returns
-    the launch counts of one bf16 prefill."""
+    """Path B: rwkv6-3b at full width through ``Model.forward``: one bf16
+    prefill counted, then :func:`decode_pair` (the decode step graphed
+    and eager from one prefill). Returns the launch counts of the one
+    prefill."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2406,9 +2570,11 @@ def phase4(smi: str) -> dict:
     counts = launch_counts()
     assert counts["rwkv6_scan"] == 2 * cfg.num_layers, counts
     assert torch.isfinite(logits).all()
-    rates = forward_throughput(m16, toks, n_dec)
-    log(f"phase4 throughput (bf16, measured after synchronize) on {smi}: "
-        f"{json.dumps(rates)}")
+    pair = decode_pair(m16, toks, n_dec)
+    log(f"phase4 decode pair (bf16; a prefill, then the graph leg and the "
+        f"eager leg from its cache; ms after synchronize) on {smi}: "
+        f"{json.dumps(pair)}")
+    assert_decode_pair(pair, cuda=True)
     del m16
     rwkv_equivalence_checks(dict(m32.params), cfg, toks, "cuda")
     del m32
@@ -2839,7 +3005,7 @@ def phase6(hw) -> dict:
 #: the fp32 checks' cut depths (P5): 1 and 2 pairs, 1 and 2 groups.
 PATH_E = {"7a": dict(arch="gemma2-9b", B=1, prompt=4600, max_len=4672,
                      flash=42, check="7b", depths=(2, 4)),
-          "7c": dict(arch="zamba2-2.7b", B=2, prompt=2000, max_len=2032,
+          "7c": dict(arch="zamba2-2.7b", B=2, prompt=2000, max_len=2048,
                      flash=9, check="7d", depths=(6, 12))}
 PATH_E_DECODE = 32
 #: 7b / 7d: the last PATH_E_TAIL prompt tokens decoded one at a time in
@@ -2892,10 +3058,11 @@ def assert_path_e_checks(checks: dict) -> None:
 
 def phase7(smi: str) -> dict:
     """Path E: gemma2-9b (7a) and zamba2-2.7b (7c) at full width and depth
-    in bf16 through ``Model.forward``, a timed prefill and
-    ``PATH_E_DECODE`` greedy decode steps each after an untimed warm-up
-    (a prefill and two steps), with the counts zeroed before and read
-    after (flash launched ``flash`` times); then each at its cut depths in
+    in bf16 through ``Model.forward``: after an untimed warm-up (a
+    prefill and two decode steps), :func:`decode_pair`'s timed prefill and
+    its graph and eager decode legs of ``PATH_E_DECODE`` timed steps,
+    with the counts zeroed before and read after (flash launched
+    ``flash`` times, in the one prefill); then each at its cut depths in
     fp32 (7b, 7d). Returns each leg's launch counts."""
     import torch
     from repro_torch.configs import get_config
@@ -2915,8 +3082,7 @@ def phase7(smi: str) -> dict:
                              generator=gen, device="cuda")
         warm = forward_throughput(model, toks, 2, run["max_len"])
         reset_launch_counts()
-        rates = forward_throughput(model, toks, PATH_E_DECODE,
-                                   run["max_len"])
+        rates = decode_pair(model, toks, PATH_E_DECODE, run["max_len"])
         rates["first_call_prefill_s"] = warm["prefill_s"]
         counts[leg] = launch_counts()
         rates.update(flash_launches=counts[leg]["flash_attention"],
@@ -2932,6 +3098,7 @@ def phase7(smi: str) -> dict:
             f"max_len {run['max_len']}, on {smi}: {json.dumps(rates)}; "
             f"launches {counts[leg]}")
         assert counts[leg]["flash_attention"] == run["flash"], counts[leg]
+        assert_decode_pair(rates, cuda=True)
         del model, toks
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -3139,15 +3306,8 @@ def leg_summary(leg: dict) -> dict:
                max_step_ms=max(r["step_ms"] for r in timed),
                first_loss=leg["records"][0]["loss"],
                last_loss=leg["records"][-1]["loss"])
-    tr = leg["trace"]
-    if tr is not None:
-        out.update(device_ms=tr["device_busy_ms_per_step"],
-                   device_busy_share=tr["device_busy_share"],
-                   traced_wall_ms=tr["traced_wall_ms_per_step"],
-                   kernels_run=tr["device_kernels_per_step"],
-                   host_launch_calls=tr["host_launch_calls_per_step"],
-                   host_launch_by_call=tr["host_launch_calls"],
-                   trace_read_s=tr["read_s"])
+    if leg["trace"] is not None:
+        out.update(trace_fields(leg["trace"]))
     for k in ("captures", "capture_s", "replays", "graph_pool_bytes",
               "max_memory_allocated_gb", "memory_reserved_gb"):
         out[k] = leg.get(k)

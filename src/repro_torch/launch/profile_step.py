@@ -29,9 +29,11 @@ layer's products read all its experts, whatever the routing).
 
 A family the paged runtime does not serve (gemma2, RWKV6, zamba2) is
 stepped through ``Model.forward`` instead, as it is served: a decode
-step of the batch against a contiguous cache of ``--context`` tokens, and
-a fresh prefill of the whole ``--context``-token prompt in place of the
-chunk.
+step of the batch against a contiguous cache of ``--context`` tokens,
+``build_decode_step``'s step replayed as its CUDA graph
+(``models/forward_graph.py``; captured at its second use, inside the
+warm-up), or with ``--eager`` the eager step; and a fresh prefill of the
+whole ``--context``-token prompt (eager) in place of the chunk.
 
 ``--train`` measures a training step instead: the trainer's step on a
 ``--batch`` x ``--context`` batch (fp32 masters, the config's compute
@@ -185,13 +187,17 @@ def main(argv=None) -> int:
            "chunk_capacity": capacity(
                args.context, chunk_len, args.capacity_step or CAPACITY_STEP)
            if steps is _paged_steps else None,
-           "decode_step": "eager" if args.eager or steps is _forward_steps
-           else "cuda_graph",
+           "decode_step": "eager" if args.eager else "cuda_graph",
            "capacity_step": args.capacity_step,
            "decode": {**_timed(decode, args.steps), **traced(decode)},
            "prefill": {**_timed(prefill, args.steps), **traced(prefill)}}
     after = launch_counts()
     out["kernel_launches"] = {k: after[k] - before[k] for k in after}
+    graph = getattr(decode, "graph", None)
+    if graph is not None:                  # Model.forward's decode graph
+        out.update(decode_captures=graph.captures,
+                   decode_capture_s=graph.capture_s,
+                   graph_pool_bytes=graph.pool_bytes())
     print(json.dumps(out, indent=1))
     return 0
 
@@ -272,22 +278,30 @@ def _paged_steps(model, args, dev):
 
 def _forward_steps(model, args, dev):
     """``Model.forward``: a decode step of the batch at position
-    ``--context`` of a contiguous cache (the same position every step),
-    and a fresh prefill of the ``--context``-token prompts."""
+    ``--context`` of a contiguous cache (the same position every step)
+    through ``build_decode_step``'s step (its CUDA graph, or eager with
+    ``--eager``), and a fresh prefill of the ``--context``-token
+    prompts."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.steps import build_decode_step
     rng = np.random.default_rng(args.seed)
     toks = torch.from_numpy(rng.integers(
         0, model.cfg.vocab_size, (args.batch, args.context))).to(dev)
     cache = model.init_cache(args.batch, args.context + 1)
     model.forward(toks, cache=cache, logits_slice=1)
     nxt = toks[:, -1:]
+    step = build_decode_step(
+        model.cfg, None,
+        ShapeSpec("profile", "decode", args.context + 1, args.batch),
+        model=model, cuda_graphs=not args.eager)
 
     def decode():
-        model.forward(nxt, cache=cache, cache_len=args.context,
-                      mode="decode")
+        step.fn(cache, nxt, args.context)
 
     def prefill():
         model.forward(toks, cache=cache, logits_slice=1)
 
+    decode.graph = step.graph
     return decode, prefill, args.context
 
 

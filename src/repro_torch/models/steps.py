@@ -4,9 +4,12 @@ the trainer runs, what the step counter (:mod:`repro_torch.dist.roofline`)
 counts and what the dry run (:mod:`repro_torch.launch.dryrun`) builds.
 
 A built step is plain callables over a :class:`Model` that holds the
-weights: no jit. ``mesh=None`` is one device. With a ``DeviceMesh`` the
-step takes ``default_rules(cfg, mesh, kind)`` (or ``rules``): the model's
-weights are DTensors placed by their logical axes, the caches by
+weights: no jit, but the decode step on one device is replayed as a CUDA
+graph (:mod:`repro_torch.models.forward_graph`), the counterpart of the
+reference's jitted ``decode_step``. ``mesh=None`` is one device. With a
+``DeviceMesh`` the step takes ``default_rules(cfg, mesh, kind)`` (or
+``rules``): the model's weights are DTensors placed by their logical
+axes, the caches by
 :meth:`Model.cache_logical_axes` (:func:`cache_shardings`), the batch
 inputs on "act_batch", and the step runs under those rules, as the
 reference's ``in_shardings`` and ``axis_rules`` place them.
@@ -28,6 +31,7 @@ from repro_torch.dist.sharding import (axis_rules, default_rules, distribute,
                                        full, local_offset, logical_to_spec,
                                        place, placements, placements_of)
 from repro_torch.models.common import torch_dtype
+from repro_torch.models.forward_graph import ForwardGraph
 from repro_torch.models.transformer import Model
 from repro_torch.train import optimizer as opt_mod
 
@@ -150,11 +154,14 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
 @dataclasses.dataclass
 class BuiltStep:
     """``fn(*make_inputs())`` runs the step once; ``model`` holds the
-    weights the step reads (and, for a train step, updates in place)."""
+    weights the step reads (and, for a train step, updates in place).
+    ``graph``: the decode step's :class:`ForwardGraph` where ``fn`` is
+    its ``step`` (for its captures, replays and pool)."""
     fn: Callable
     model: Model
     make_inputs: Callable[[], tuple]
     rules: dict | None = None       # the step's rules on a mesh
+    graph: ForwardGraph | None = None
 
 
 def _zeros(spec: tuple, device) -> torch.Tensor:
@@ -275,15 +282,24 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
 
 def build_decode_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
                       rules: dict | None = None, model: Model | None = None,
-                      device="cuda", seed: int = 0) -> BuiltStep:
+                      device="cuda", seed: int = 0,
+                      cuda_graphs: bool = True) -> BuiltStep:
     """``fn(cache, tokens, cache_len) -> (next token (B,) int32, cache)``:
     one new token a row against a dense cache of ``shape.seq_len``
-    positions. The inputs put every row at the cache's last position, with
-    ``cache_len`` on the host (the port reads cache offsets there);
-    ``logits=True`` returns the fp32 logits too. On a
-    mesh a batch under 8 takes the long-decode rules (the cache spread
-    over its sequence), as the reference does; a cache placed by another
-    step is redistributed to them."""
+    positions, at the per-row offsets ``cache_len`` (host values or a
+    (B,) int32 tensor: on one device they reach ``Model.forward`` as a
+    device tensor, and are never read back); ``logits=True`` returns the
+    fp32 logits too. The inputs put every row at the cache's last
+    position.
+
+    ``cuda_graphs`` (default on): on one device the step runs on a
+    :class:`ForwardGraph` (``graph``), a replayed CUDA graph on the card
+    whose offsets stay on the device; ``cuda_graphs=False``
+    runs it eagerly. On a mesh the step stays eager (logged once, on the
+    card): no CUDA graph of a DTensor step. On a mesh a batch under 8
+    takes the long-decode rules (the cache spread over its sequence), as
+    the reference does; a cache placed by another step is redistributed
+    to them."""
     rules = _rules(cfg, mesh, "decode_long" if shape.global_batch < 8
                    else "decode", rules)
     model = _model(cfg, model, mesh, rules, device=device, seed=seed)
@@ -299,12 +315,23 @@ def build_decode_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
             return (nxt, cache, full(out)) if logits else (nxt, cache)
 
     def make_inputs():
+        # the offsets on the model's device on one device; on a mesh on
+        # the host, where the sharded cache writes place each token
         specs = input_specs(cfg, shape)
         return (model.init_cache(B, S, rules),
                 _zeros(specs["tokens"], model.device),
-                torch.full((B,), S - 1, dtype=torch.int32))
+                torch.full((B,), S - 1, dtype=torch.int32,
+                           device=model.device if mesh is None else "cpu"))
 
-    return BuiltStep(decode_step, model, make_inputs, rules)
+    graph = None
+    if cuda_graphs and model.device.type in ("cuda", "cpu"):
+        if mesh is None:
+            graph = ForwardGraph(decode_step, model)
+        elif model.device.type == "cuda":
+            print("[decode step] the step on a mesh runs eagerly: no CUDA "
+                  "graph of a DTensor step")
+    return BuiltStep(decode_step if graph is None else graph.step, model,
+                     make_inputs, rules, graph)
 
 
 def build_step(cfg: ModelConfig, mesh, shape: ShapeSpec, **kw) -> BuiltStep:

@@ -181,6 +181,9 @@ def test_rwkv_phase_on_cpu():
                          generator=torch.Generator().manual_seed(2))
     rates = chip_smoke.forward_throughput(m16, toks, n_dec=4)
     assert rates["batch"] == 2 and rates["prompt"] == 128
+    pair = chip_smoke.decode_pair(m16, toks, 4)
+    chip_smoke.assert_decode_pair(pair, cuda=False)
+    assert pair["steps"] == chip_smoke.DECODE_WARM + 4
     checks = chip_smoke.rwkv_equivalence(m32, toks)
     assert set(checks) == {"recurrence", "two_calls"}
     chip_smoke.assert_rwkv_equivalence(checks)
@@ -456,6 +459,37 @@ def test_path_e_checks_on_cpu(arch):
     rates = chip_smoke.forward_throughput(model, toks, n_dec=3,
                                           max_len=run["prompt"] + 3)
     assert rates["batch"] == 2 and rates["decode_step_ms"] > 0
+    pair = chip_smoke.decode_pair(model, toks, 3)
+    chip_smoke.assert_decode_pair(pair, cuda=False)
+    assert pair["max_len"] == run["prompt"] + chip_smoke.decode_positions(3)
+    legs = pair["legs"]
+    assert legs["graph"]["cuda_graphs"] and not legs["eager"]["cuda_graphs"]
+    assert "device_ms" not in legs["graph"]      # traced on the card only
+
+
+@pytest.mark.parametrize("broken", ["logits_bit_equal", "caches_bit_equal",
+                                    "captures", "replays",
+                                    "host_launch_calls"])
+def test_decode_pair_check_fails_on_a_fault(broken):
+    """The phase 4 / 7 pair check: bit equality of the logits and caches,
+    one capture, a replay on every later step, at most 10 host launch
+    calls a replay; each fault fails it."""
+    def leg(graphs):
+        return dict(cuda_graphs=graphs, captures=int(graphs),
+                    replays=36 if graphs else 0, host_launch_calls=5
+                    if graphs else 5016)
+
+    check = dict(logits_bit_equal=True, tokens_equal=True,
+                 caches_bit_equal=True, finite=True, steps=37,
+                 legs={"graph": leg(True), "eager": leg(False)})
+    chip_smoke.assert_decode_pair(check, cuda=True)
+    if broken in check:
+        check[broken] = False
+    else:
+        check["legs"]["graph"][broken] = {"captures": 2, "replays": 35,
+                                          "host_launch_calls": 11}[broken]
+    with pytest.raises(AssertionError):
+        chip_smoke.assert_decode_pair(check, cuda=True)
 
 
 def test_path_e_legs_at_full_width():
@@ -470,7 +504,8 @@ def test_path_e_legs_at_full_width():
                                 else cfg.num_layers // per)
         assert all(d % per == 0 for d in run["depths"])
         assert run["prompt"] % 64 and run["max_len"] >= \
-            run["prompt"] + chip_smoke.PATH_E_DECODE
+            run["prompt"] + chip_smoke.decode_positions(
+                chip_smoke.PATH_E_DECODE)
     gemma = cfg_of("gemma2-9b")
     assert chip_smoke.PATH_E["7a"]["prompt"] - chip_smoke.PATH_E_TAIL > \
         gemma.sliding_window

@@ -59,7 +59,7 @@ COPIES = [
     "serving/cluster/clock.py", "serving/cluster/peer.py",
     "serving/cluster/router.py", "serving/cluster/scaling.py",
     "serving/cluster/cluster.py", "serving/cluster/__init__.py",
-    "data/tokens.py",
+    "data/tokens.py", "launch/serve.py",
 ]
 
 
