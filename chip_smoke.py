@@ -242,13 +242,18 @@ Phase 9  path G, the sharded steps, after phase 8: a one-rank NCCL
          (1, 1) ("data", "model") DeviceMesh. (a) Full-width, full-depth
          qwen2-1.5b in bf16: the sharded prefill step (B 1 x 2048, every
          weight and cache a DTensor, the flash kernel launched on each
-         rank's local pieces) and 16 sharded decode steps beside the
-         meshless steps on the same weights: next tokens equal and logits
-         bit-equal, flash launches > 0, the wall ms a step of both legs
-         (a warm-up run of each first). (b) The same config cut to 2
-         layers, fp32, from its published init: step 1 of a sharded
-         Trainer against a meshless one (loss and grad norm within 1e-6
-         relative), then ``reshard_for_mesh(make_host_mesh())`` and 2
+         rank's local pieces) and 16 sharded decode steps, eager and as
+         the step's CUDA graph (the two from one sharded prefill), beside
+         the meshless prefill and decode graph on the same weights:
+         every step's next tokens, logits and the final caches bit-equal
+         across the three legs, flash launches > 0, the graph captured
+         and replayed on >= 14 steps with <= 6 host launch calls a
+         replay; the wall ms a step of each leg (a warm-up run first),
+         and one more step of each traced (device ms, device ops, host
+         launch calls, NCCL kernels: none on one rank). (b) The same
+         config cut to 2 layers, fp32, from its published init: step 1
+         of a sharded Trainer against a meshless one (loss and grad norm
+         within 1e-6 relative), then ``reshard_for_mesh(make_host_mesh())`` and 2
          more steps, each loss finite. (c) One full-width qwen3-moe layer
          (E 128, top 8) in bf16 with ``sharding_mode="ep_a2a"`` under the
          mesh's rules (NCCL's all-to-all, seen by the step counter)
@@ -3644,94 +3649,155 @@ def wall_ms(fn, device, iters: int = 5, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def init_group(backend: str, device) -> None:
-    """A one-rank process group on a free local port (``device``'s
-    card bound for NCCL)."""
-    import socket
+#: 9a's decode legs: the meshless step's graph, the sharded step eager
+#: (``cuda_graphs=False``) and the sharded step's graph
+PATH_G_LEGS = ("meshless", "sharded", "sharded_graph")
+#: host launch calls a replay of 9a's sharded graph may make (the graph,
+#: the inputs' upload and device copy, two clones)
+MAX_SHARDED_LAUNCH_CALLS = 6
 
+
+def decode_legs(dc, cache, nxt, prompt: int, steps: int, device) -> dict:
+    """``steps`` decode steps of ``dc`` from a prefill's ``cache`` and
+    next tokens ``nxt``: each step's next tokens and fp32 logits, the
+    median wall ms a step, the final cache, and the step that continues
+    it (one more position) for a trace."""
     import torch
-    import torch.distributed as dist
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    kw = {}
-    if backend == "nccl":
-        torch.cuda.set_device(torch.device(device))
-        kw["device_id"] = torch.device(device)
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                            rank=0, world_size=1, **kw)
+    B = nxt.shape[0]
+    state = dict(nxt=nxt, cache=cache, t=prompt)
 
+    def one():
+        state["nxt"], state["cache"], lg = dc.fn(
+            state["cache"], state["nxt"][:, None].long(),
+            torch.full((B,), state["t"], dtype=torch.int32), logits=True)
+        state["t"] += 1
+        return lg
 
-def serve_legs(pf, dc, toks, steps: int, device) -> dict:
-    """A prefill step then ``steps`` decode steps from its tokens: each
-    step's next tokens and fp32 logits, and its wall ms."""
-    import torch
-    B, prompt = toks.shape
-    cache = pf.model.init_cache(B, prompt + steps, pf.rules)
-    synchronize(device)
-    t0 = time.perf_counter()
-    nxt, cache, lg = pf.fn(cache, toks, logits=True)
-    synchronize(device)
-    ms = [(time.perf_counter() - t0) * 1e3]
-    tokens, logits = [nxt], [lg]
-    for i in range(steps):
+    tokens, logits, ms = [], [], []
+    for _ in range(steps):
         t0 = time.perf_counter()
-        nxt, cache, lg = dc.fn(cache, nxt[:, None].long(),
-                               torch.full((B,), prompt + i,
-                                          dtype=torch.int32), logits=True)
+        logits.append(one())
         synchronize(device)
         ms.append((time.perf_counter() - t0) * 1e3)
-        tokens.append(nxt)
-        logits.append(lg)
-    return dict(tokens=tokens, logits=logits, prefill_ms=ms[0],
-                decode_ms=sorted(ms[1:])[len(ms[1:]) // 2])
+        tokens.append(state["nxt"])
+    return dict(tokens=tokens, logits=logits, cache=state["cache"],
+                decode_ms=sorted(ms)[len(ms) // 2], one=one)
 
 
 def sharded_serving(cfg, mesh, device, batch: int, prompt: int, steps: int,
                     seed: int = 0) -> dict:
-    """9a: ``cfg``'s model drawn from ``seed``, its meshless prefill and
-    decode steps and the same steps on ``mesh`` (the weights copied into
-    DTensors), a warm-up run of each leg, then a timed one, the sharded
-    leg's kernel launches counted. Returns the legs' times, the launch
-    counts and whether tokens and logits agree bit for bit."""
+    """9a: ``cfg``'s model drawn from ``seed``; its meshless prefill and
+    the same prefill on ``mesh`` (the weights copied into DTensors), then
+    ``steps`` decode steps of each of :data:`PATH_G_LEGS`, the two
+    sharded legs from one sharded prefill (its cache cloned), the
+    meshless leg from the meshless one. A warm-up run of it all, then a
+    timed one, whose sharded prefill and eager sharded leg's kernel
+    launches are counted; on the card, one more step of each leg under
+    torch.profiler (device ms, device ops, host launch calls, NCCL
+    kernels). Returns the legs' times and traces, the graph leg's
+    captures and replays, the launch counts and whether the prefills'
+    and every step's tokens and logits, and the final caches, agree bit
+    for bit across the legs."""
     import torch
     from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.sharding import full
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import Model
     from repro_torch.models.steps import build_decode_step, build_prefill_step
     model = Model(cfg, device=device, seed=seed)
-    pshape = ShapeSpec("g_prefill", "prefill", prompt + steps, batch)
-    dshape = ShapeSpec("g_decode", "decode", prompt + steps, batch)
-    legs = {}
-    for name, m in (("meshless", None), ("sharded", mesh)):
-        pf = build_prefill_step(cfg, m, pshape, model=model, device=device)
-        legs[name] = (pf, build_decode_step(cfg, m, dshape, model=pf.model,
-                                            device=device))
+    S = prompt + steps + 1                      # + the traced step
+    pshape = ShapeSpec("g_prefill", "prefill", S, batch)
+    dshape = ShapeSpec("g_decode", "decode", S, batch)
+    pf = {name: build_prefill_step(cfg, m, pshape, model=model,
+                                   device=device)
+          for name, m in (("meshless", None), ("sharded", mesh))}
+    dc = {leg: build_decode_step(cfg, None if leg == "meshless" else mesh,
+                                 dshape, model=pf[leg.split("_")[0]].model,
+                                 device=device,
+                                 cuda_graphs=leg != "sharded")
+          for leg in PATH_G_LEGS}
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
                          generator=torch.Generator().manual_seed(seed)
                          ).to(device)
-    for name in legs:                                   # warm-up
-        serve_legs(*legs[name], toks, steps, device)
-    reset_launch_counts()
-    runs = {"sharded": serve_legs(*legs["sharded"], toks, steps, device)}
-    counts = launch_counts()
-    runs["meshless"] = serve_legs(*legs["meshless"], toks, steps, device)
-    a, b = runs["sharded"], runs["meshless"]
-    return dict(
-        tokens_equal=all(torch.equal(x, y) for x, y in zip(a["tokens"],
-                                                           b["tokens"])),
-        logits_bit_equal=all(torch.equal(x, y) for x, y in
-                             zip(a["logits"], b["logits"])),
-        max_abs_logit_gap=max(float((x - y).abs().max()) for x, y in
-                              zip(a["logits"], b["logits"])),
-        **{f"{leg}_{k}": runs[leg][k] for leg in runs
-           for k in ("prefill_ms", "decode_ms")},
+
+    def prefill(name):
+        p = pf[name]
+        synchronize(device)
+        t0 = time.perf_counter()
+        nxt, cache, lg = p.fn(p.model.init_cache(batch, S, p.rules), toks,
+                              logits=True)
+        synchronize(device)
+        return nxt, cache, lg, (time.perf_counter() - t0) * 1e3
+
+    def run():
+        reset_launch_counts()
+        pre = {"sharded": prefill("sharded")}
+        clone = {k: v.clone() for k, v in pre["sharded"][1].items()}
+        runs = {"sharded": decode_legs(dc["sharded"], pre["sharded"][1],
+                                       pre["sharded"][0], prompt, steps,
+                                       device)}
+        counts = launch_counts()
+        pre["meshless"] = prefill("meshless")
+        runs["meshless"] = decode_legs(dc["meshless"], pre["meshless"][1],
+                                       pre["meshless"][0], prompt, steps,
+                                       device)
+        runs["sharded_graph"] = decode_legs(
+            dc["sharded_graph"], clone, pre["sharded"][0], prompt, steps,
+            device)
+        return pre, runs, counts
+
+    run()                                               # warm-up
+    pre, runs, counts = run()
+    legs = {leg: dict(tokens=[pre[leg.split("_")[0]][0]] + r["tokens"],
+                      logits=[pre[leg.split("_")[0]][2]] + r["logits"],
+                      cache={k: full(v) for k, v in r["cache"].items()})
+            for leg, r in runs.items()}
+    a = legs["meshless"]
+    out = dict(
+        tokens_equal=all(torch.equal(x, y) for b in legs.values()
+                         for x, y in zip(b["tokens"], a["tokens"])),
+        logits_bit_equal=all(torch.equal(x, y) for b in legs.values()
+                             for x, y in zip(b["logits"], a["logits"])),
+        caches_bit_equal=all(torch.equal(b["cache"][k], a["cache"][k])
+                             for b in legs.values() for k in a["cache"]),
+        max_abs_logit_gap=max(float((x - y).abs().max())
+                              for b in legs.values()
+                              for x, y in zip(b["logits"], a["logits"])),
+        finite=bool(torch.isfinite(a["logits"][-1]).all()),
+        steps=steps,
+        **{f"{name}_prefill_ms": p[3] for name, p in pre.items()},
+        **{f"{leg}_decode_ms": r["decode_ms"] for leg, r in runs.items()},
         launches=counts)
+    g = dc["sharded_graph"].graph
+    out.update(graph_captures=g.captures, graph_capture_s=g.capture_s,
+               graph_replays=g.replays, graph_pool_bytes=g.pool_bytes())
+    if torch.device(device).type == "cuda":
+        from repro_torch.launch.profile_step import traced
+        for leg, r in runs.items():
+            tr = traced(r["one"], top=6, reps=1, cpu=False, counts=True)
+            out[f"{leg}_trace"] = dict(
+                trace_fields(tr), nccl_kernels=sum(
+                    n for k, n in tr["kernel_counts"].items()
+                    if "nccl" in k.lower()))
+    return out
 
 
-def assert_sharded_serving(check: dict) -> None:
+def assert_sharded_serving(check: dict, cuda: bool = True) -> None:
+    """The three legs agree bit for bit (the prefills' and every step's
+    tokens and logits, the final caches); flash ran on the sharded path;
+    on the card the sharded graph was captured and replayed on the later
+    steps, a replay making at most ``MAX_SHARDED_LAUNCH_CALLS`` host
+    launch calls; on the CPU nothing was captured."""
     assert check["tokens_equal"] and check["logits_bit_equal"], check
-    assert check["launches"]["flash_attention"] > 0, check
+    assert check["caches_bit_equal"] and check["finite"], check
+    if cuda:
+        assert check["launches"]["flash_attention"] > 0, check
+        assert check["graph_captures"] >= 1, check
+        assert check["graph_replays"] >= check["steps"] - 2, check
+        assert check["sharded_graph_trace"]["host_launch_calls"] <= \
+            MAX_SHARDED_LAUNCH_CALLS, check
+    else:
+        assert check["graph_captures"] == 0, check
 
 
 def sharded_training(cfg, mesh_fn, device, ckpt_dir, layers: int, seq: int,
@@ -3888,9 +3954,9 @@ def phase9(smi: str) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, one_rank_group
     t_phase = time.perf_counter()
-    init_group("nccl", "cuda:0")
+    one_rank_group("cuda:0")
     try:
         mesh = make_host_mesh()
         assert tuple(mesh.shape) == (1, 1), mesh
@@ -3900,8 +3966,9 @@ def phase9(smi: str) -> dict:
         log(f"phase9a {cfg.name} at full width and depth ({cfg.num_layers} "
             f"layers, {cfg.compute_dtype}), B {PATH_G['batch']} x "
             f"{PATH_G['prompt']} prefill + {PATH_G['steps']} decode steps, "
-            f"sharded on a {tuple(mesh.shape)} NCCL mesh vs meshless on the "
-            f"same weights, on {smi}: {json.dumps(check)}")
+            f"sharded on a {tuple(mesh.shape)} NCCL mesh (eager and its "
+            f"CUDA graph) vs the meshless graph on the same weights, on "
+            f"{smi}: {json.dumps(check)}")
         assert_sharded_serving(check)
         gc.collect()
         torch.cuda.empty_cache()

@@ -276,10 +276,33 @@ def to_local(x: DTensor, out_placements) -> torch.Tensor:
 
 def local_offset(x: DTensor) -> tuple[int, ...]:
     """The global index of the first element of this rank's piece."""
-    from torch.distributed.tensor._utils import (
-        compute_local_shape_and_global_offset)
-    return tuple(compute_local_shape_and_global_offset(
-        x.shape, x.device_mesh, x.placements)[1])
+    mesh = x.device_mesh
+    return shard_offset(tuple(x.shape), tuple(mesh.shape),
+                        mesh.get_coordinate(), x.placements)
+
+
+def shard_offset(shape: tuple, mesh_shape: tuple, coord, place) -> tuple:
+    """The first global index of the piece that mesh coordinate ``coord``
+    holds of a tensor of ``shape`` under ``place``: each ``Shard(d)``, in
+    mesh order, splits what is left of dim d as ``torch.chunk`` does (the
+    last pieces shorter, or empty: an empty piece starts at the dim's
+    end, as torch places it). Plain integers, where torch's own helper
+    goes through host tensors: a step that is being captured reads no
+    tensor's value."""
+    offset, size = [0] * len(shape), list(shape)
+    for i, pl in enumerate(place):
+        if not pl.is_shard():
+            continue
+        if type(pl) is not Shard:
+            raise ValueError(f"no offset of a {pl} piece")
+        d, n = pl.dim, mesh_shape[i]
+        chunk = -(-size[d] // n)
+        start = min(chunk * coord[i], size[d])
+        offset[d] += start
+        size[d] = min(chunk, size[d] - start)
+        if not size[d]:
+            offset[d] = shape[d]
+    return tuple(offset)
 
 
 def from_local(t: torch.Tensor, like: DTensor) -> DTensor:

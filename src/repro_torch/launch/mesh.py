@@ -17,6 +17,29 @@ def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
+def one_rank_group(device) -> None:
+    """A process group of one rank on a free local port: NCCL with
+    ``device``'s card bound when it is a card, else gloo. What a single
+    process needs before :func:`make_host_mesh` (the chip smoke run and
+    ``launch/profile_step.py --mesh``)."""
+    import socket
+
+    import torch
+    device = torch.device(device)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    kw = {}
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device)
+        kw["device_id"] = device
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, **kw)
+
+
 def make_host_mesh(model: int = 1) -> DeviceMesh:
     """(world // model, model) over the process group's ranks, axes
     ("data", "model"): (1, 1) on one card."""

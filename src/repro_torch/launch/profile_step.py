@@ -40,11 +40,26 @@ whole ``--context``-token prompt (eager) in place of the chunk.
 dtype, remat and microbatches; seeded weights), replayed as the
 trainer's CUDA graph, or eager with ``--eager``.
 
-Prints one JSON object. Needs one GPU::
+``--mesh`` measures path G instead: a one-rank process group (NCCL on
+the card), the (1, 1) host mesh, the model's weights as DTensors, and
+``build_decode_step(cfg, mesh, ...)``'s step at position ``--context``
+of a cache its sharded prefill filled (the same position every step),
+beside the same decode step on one device over the same weights
+(``decode_meshless``) and the sharded prefill of the whole prompt into
+a fresh cache. Both decode steps are their CUDA graphs, or eager with
+``--eager``. ``host_split`` times, within the sharded decode step, the
+attention functions that read the offsets on the host (``_offsets``),
+write the cache's pieces (``_write_piece``) and find the heads a rank
+reads (``_kv_for``); the rest of what the sharded eager step costs over
+the meshless one is DTensor's. ``--device cpu --smoke`` runs it on a
+gloo group at smoke width, with the device metrics null.
+
+Prints one JSON object. Needs one GPU (but ``--mesh --device cpu``)::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         [--arch qwen2-1.5b] [--layers N] [--batch 4] [--context 2048] \\
-        [--steps 8] [--eager] [--capacity-step N] [--train]
+        [--steps 8] [--eager] [--capacity-step N] [--train] \\
+        [--mesh [--device cpu] [--smoke]]
 """
 from __future__ import annotations
 
@@ -71,13 +86,18 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                 "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
-def _timed(fn, steps: int) -> dict:
+def _sync(cuda: bool) -> None:
+    if cuda:
+        torch.cuda.synchronize()
+
+
+def _timed(fn, steps: int, cuda: bool = True) -> dict:
     enqueue, wall = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         fn()
         t1 = time.perf_counter()
-        torch.cuda.synchronize()
+        _sync(cuda)
         wall.append(time.perf_counter() - t0)
         enqueue.append(t1 - t0)
     return {"wall_ms_median": 1e3 * float(np.median(wall)),
@@ -86,7 +106,7 @@ def _timed(fn, steps: int) -> dict:
 
 
 def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
-           counts: bool = False) -> dict:
+           counts: bool = False, cuda: bool = True) -> dict:
     """``reps`` calls of ``fn`` under ``torch.profiler``: a step's device
     time, device ops run and host launch calls, and the ops with the most
     device time and host time (a host op's time includes what it calls).
@@ -94,14 +114,15 @@ def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
     runtime's calls, no host operators). ``counts``: every device op's
     runs a step too. ``read_s``: the seconds the trace took to read back
     after the steps. The profiler's raw events are read, not its parsed
-    ones: parsing ~180k events a step took 10-17 s."""
-    torch.cuda.synchronize()
-    acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
+    ones: parsing ~180k events a step took 10-17 s. ``cuda`` False (a
+    rehearsal on the CPU): the host alone, every device metric None."""
+    _sync(cuda)
+    acts = [ProfilerActivity.CUDA] * cuda + [ProfilerActivity.CPU] * cpu
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+        _sync(cuda)
         t1 = time.perf_counter()
     dev: dict[str, list] = {}
     host: dict[str, list] = {}
@@ -135,6 +156,12 @@ def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
         "read_s": time.perf_counter() - t1}
     if counts:
         out["kernel_counts"] = {k: n / reps for k, (n, _) in dev.items()}
+    if not cuda:
+        for k in ("device_busy_ms_per_step", "device_busy_share",
+                  "device_kernels_per_step", "host_launch_calls_per_step",
+                  "host_launch_calls", "top_kernels", "kernel_counts"):
+            if k in out:
+                out[k] = None
     return out
 
 
@@ -154,14 +181,25 @@ def main(argv=None) -> int:
                     "training step), not the CUDA graphs")
     ap.add_argument("--capacity-step", type=int, default=None,
                     help="the extend scratch's capacity granularity")
+    ap.add_argument("--mesh", action="store_true",
+                    help="path G: the sharded decode step on a one-rank "
+                    "mesh beside the same step on one device")
+    ap.add_argument("--device", default="cuda",
+                    help="cpu: a rehearsal of --mesh on a gloo group")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the config at its smoke width")
     args = ap.parse_args(argv)
-    dev = resolve_device("cuda")
+    dev = resolve_device(args.device)
+    if dev.type != "cuda" and not args.mesh:
+        ap.error("only --mesh runs off the card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(args.arch)
+    cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.train:
         return _train(cfg, args, dev)
+    if args.mesh:
+        return _mesh(cfg, args, dev)
     model = Model(cfg, device=dev, seed=args.seed)
     head = model.head()
     weight_bytes = head.numel() * head.element_size() + sum(
@@ -242,6 +280,122 @@ def _train(cfg, args, dev) -> int:
         if tr.graph is not None:
             out.update(capture_s=tr.graph.capture_s,
                        graph_pool_bytes=tr.graph.pool_bytes())
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+#: functions of ``models/attention.py`` whose host time a sharded decode
+#: step's split reports (each with what it calls: a read of the offsets
+#: waits for the device, a write's index uploads)
+HOST_SPLIT = ("_offsets", "_write_piece", "_kv_for")
+
+
+def host_split(fn, reps: int = 3) -> dict:
+    """``reps`` calls of ``fn`` with each ``HOST_SPLIT`` function timed
+    on the host clock where it is called: its milliseconds a step, and
+    the step's. A function the tree does not have, or that the step
+    never calls (a replay calls none), reads 0."""
+    from repro_torch.models import attention
+    spent = dict.fromkeys(HOST_SPLIT, 0.0)
+    saved = {name: getattr(attention, name) for name in HOST_SPLIT
+             if hasattr(attention, name)}
+
+    def timer(name, f):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return f(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return timed
+
+    for name, f in saved.items():
+        setattr(attention, name, timer(name, f))
+    try:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        total = time.perf_counter() - t0
+    finally:
+        for name, f in saved.items():
+            setattr(attention, name, f)
+    return {**{f"{k.lstrip('_')}_ms_per_step": v / reps * 1e3
+               for k, v in spent.items()},
+            "step_ms_per_step": total / reps * 1e3}
+
+
+def _mesh(cfg, args, dev) -> int:
+    """Path G on a one-rank mesh: the sharded decode step (timed, traced
+    and its host time split), the same step on one device over the same
+    weights, and the sharded prefill into a fresh cache."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_host_mesh, one_rank_group
+    from repro_torch.models.steps import (build_decode_step,
+                                          build_prefill_step)
+    cuda = dev.type == "cuda"
+    B, S = args.batch, args.context + 1
+    one_rank_group(dev)
+    try:
+        mesh = make_host_mesh()
+        model = Model(cfg, device=dev, seed=args.seed)
+        dshape = ShapeSpec("profile", "decode", S, B)
+        pf = build_prefill_step(cfg, mesh,
+                                ShapeSpec("profile", "prefill", S, B),
+                                model=model, device=dev)
+        steps = {name: build_decode_step(cfg, m, dshape, model=mm,
+                                         device=dev,
+                                         cuda_graphs=not args.eager)
+                 for name, m, mm in (("sharded", mesh, pf.model),
+                                     ("meshless", None, model))}
+        toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
+            0, cfg.vocab_size, (B, args.context))).to(dev)
+        _, cache = pf.fn(pf.model.init_cache(B, S, pf.rules), toks)
+        plain = model.init_cache(B, S)
+        model.forward(toks, cache=plain, logits_slice=1)
+        nxt = toks[:, -1:]
+        legs = {}
+        for name, c in (("sharded", cache), ("meshless", plain)):
+            st = steps[name]
+            # the offsets where the step's own inputs put them
+            cl = st.make_inputs()[2].fill_(args.context)
+            legs[name] = lambda st=st, c=c, cl=cl: st.fn(c, nxt, cl)
+
+        def prefill():
+            pf.fn(pf.model.init_cache(B, S, pf.rules), toks)
+
+        for fn in (*legs.values(), prefill):   # warm-up (and capture)
+            fn()
+            fn()
+        _sync(cuda)
+        before = launch_counts()
+        out = {"device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+               "arch": cfg.name, "layers": cfg.num_layers,
+               "mesh": list(mesh.shape), "backend": dist.get_backend(),
+               "batch": B, "context": args.context,
+               "decode_step": "eager" if args.eager else "cuda_graph",
+               "decode": {**_timed(legs["sharded"], args.steps, cuda),
+                          **traced(legs["sharded"], cuda=cuda),
+                          "host_split": host_split(legs["sharded"])},
+               "decode_meshless": {**_timed(legs["meshless"], args.steps,
+                                            cuda),
+                                   **traced(legs["meshless"], cuda=cuda)},
+               "prefill": {**_timed(prefill, args.steps, cuda),
+                           **traced(prefill, cuda=cuda)}}
+        after = launch_counts()
+        out["kernel_launches"] = {k: after[k] - before[k] for k in after}
+        for name, st in steps.items():
+            if st.graph is not None:
+                out[f"{name}_graph"] = {
+                    "captures": st.graph.captures,
+                    "capture_s": st.graph.capture_s,
+                    "replays": st.graph.replays,
+                    "pool_bytes": st.graph.pool_bytes()}
+        if cuda:
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
     print(json.dumps(out, indent=1))
     return 0
 

@@ -20,7 +20,10 @@ Layouts: q (B, S, H, Dh); k/v (B, S, KV, Dh); caches (B, S_max, KV, Dh).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import threading
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -296,9 +299,10 @@ def write_cache(cache_k, cache_v, k_new, v_new, cache_len, *,
     reference's scatter with repeated slots leaves ("later writes win").
     ``slots``: the caches are the W slots from ``slot0`` of a cache of
     ``slots`` (one rank's piece of a cache sharded on its sequence), and
-    only the tokens that land in them are written. A tensor
-    ``cache_len`` (and no ``slots``) is never read on the host: the
-    slots are worked out on its device (:func:`_write_indexed`)."""
+    only the tokens that land in them are written (:func:`_write_piece`,
+    on the device whatever ``cache_len`` is). A tensor ``cache_len`` is
+    never read on the host: the slots are worked out on its device
+    (:func:`_write_indexed`)."""
     W, C = cache_k.shape[1], k_new.shape[1]
     k_new, v_new = k_new.to(cache_k.dtype), v_new.to(cache_v.dtype)
     if slots is not None:
@@ -347,24 +351,81 @@ def _write_indexed(cache_k, cache_v, k_new, v_new, cache_len,
 def _write_piece(cache_k, cache_v, k_new, v_new, cache_len, ring: bool,
                  slot0: int, slots: int) -> None:
     """:func:`write_cache` into the W slots from ``slot0`` of a cache of
-    ``slots``: each token's slot in the whole cache worked out on the
-    host, those in the piece written."""
-    W, C = cache_k.shape[1], k_new.shape[1]
-    for b, s in enumerate(_offsets(cache_len, cache_k.shape[0])):
-        s = int(s)
-        if ring:
-            n = min(C, slots)
-            pairs = [((s + i) % slots - slot0, i) for i in range(C - n, C)]
-        else:
-            s = max(0, min(s, slots - C))
-            pairs = [(s + i - slot0, i) for i in range(C)]
-        pairs = [(d, i) for d, i in pairs if 0 <= d < W]
-        if not pairs:
-            continue
-        dst, src = (torch.tensor(t, device=cache_k.device)
-                    for t in zip(*pairs))
-        cache_k[b, dst] = k_new[b, src]
-        cache_v[b, dst] = v_new[b, src]
+    ``slots``, at offsets held in a tensor, reading nothing on the host:
+    each slot of :func:`_piece_plan`'s window takes the token that lands
+    on it, if one does, else its own value. The window's slots are
+    distinct, so no write's order matters (an indexed copy with repeated
+    slots leaves any one of them)."""
+    B, W = cache_k.shape[:2]
+    C = k_new.shape[1]
+    rows, win, src, keep = _per_forward(
+        cache_len, ("piece", B, C, W, ring, slot0, slots),
+        lambda: _piece_plan(cache_len, B, C, W, ring, slot0, slots,
+                            cache_k.device))
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        cache[rows, win] = torch.where(keep, new[rows, src],
+                                       cache[rows, win])
+
+
+def _piece_plan(cache_len, B: int, C: int, W: int, ring: bool, slot0: int,
+                slots: int, dev) -> tuple:
+    """Where :func:`_write_piece` writes, worked out on the device: the
+    rows, the window of piece slots (B, w), the token each window slot
+    takes, and whether one lands there ((B, w, 1, 1)).
+
+    A row's tokens land on a run of n slots of the whole cache (a plain
+    cache: n = C from the clamped start; a ring: the last n = min(C,
+    slots) tokens, from slot (s + C - n) mod slots on), which meets the
+    piece in one run of at most w = min(n, W) of its slots, or in all of
+    them: a piece of a cache split in two or more holds at most half of
+    it, and a ring that wraps within a whole piece wraps with it. The w
+    slots taken mod W from where the run enters the piece so cover every
+    token that lands there."""
+    s = torch.as_tensor(cache_len, device=dev).reshape(-1).long().expand(B)
+    n = min(C, slots) if ring else C
+    # the run's first slot, and where the run enters the piece
+    first = (s + C - n) % slots if ring else \
+        s.clamp(max=slots - C).clamp(min=0)
+    d0 = first - slot0
+    w0 = torch.where((d0 >= 0) & (d0 < W), d0, torch.zeros_like(d0))
+    win = (w0[:, None] + torch.arange(min(n, W), device=dev)) % W
+    t = slot0 + win - first[:, None]                  # token of each slot
+    if ring:
+        t = t % slots
+    keep = ((t >= 0) & (t < n))[..., None, None]
+    src = (C - n + t).clamp(0, C - 1)
+    return torch.arange(B, device=dev)[:, None], win, src, keep
+
+
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def forward_scope():
+    """One forward: what :func:`_per_forward` makes inside it is made once
+    and kept until it ends."""
+    prev = getattr(_scope, "memo", None)
+    _scope.memo = {}
+    try:
+        yield
+    finally:
+        _scope.memo = prev
+
+
+def _per_forward(anchor, key: tuple, make):
+    """``make()`` once per (``anchor``, ``key``) within one
+    :func:`forward_scope` (anew on every call outside one). The layers
+    of a forward write and read at the same offsets, so the index
+    tensors worked out from them on the device are made once a forward,
+    not once a layer. ``anchor`` (the offsets) is held with the value,
+    so its id names it while the scope lives."""
+    memo = getattr(_scope, "memo", None)
+    if memo is None:
+        return make()
+    k = (id(anchor),) + key
+    if k not in memo:
+        memo[k] = (anchor, make())
+    return memo[k][1]
 
 
 def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
@@ -459,12 +520,33 @@ def _kv_for(q, k, Gp: int):
     from repro_torch.dist.sharding import local_offset
     Hl = q.to_local().shape[2]
     h0, c0 = local_offset(q)[2], local_offset(k)[2]
-    idx = [(h0 + i) // Gp - c0 for i in range(Hl)]
+    idx = tuple((h0 + i) // Gp - c0 for i in range(Hl))
     n = idx[-1] - idx[0] + 1
     per = Hl // n
-    if Hl % n == 0 and idx == [idx[0] + i // per for i in range(Hl)]:
+    if Hl % n == 0 and idx == tuple(idx[0] + i // per for i in range(Hl)):
         return slice(idx[0], idx[0] + n), per
-    return torch.tensor(idx, device=q.to_local().device), 1
+    return _head_index(idx, q.to_local().device), 1
+
+
+@functools.lru_cache(maxsize=64)
+def _head_index(idx: tuple, device: torch.device) -> torch.Tensor:
+    """The gathered heads' index on ``device``, uploaded once a placement
+    and kept: a captured step reads the same tensor every replay."""
+    return torch.tensor(idx, device=device)
+
+
+def _local_offsets(cache_len, B: int, b0: int, Bl: int, device):
+    """This rank's rows ``[b0, b0 + Bl)`` of the offsets, an int32 tensor
+    on ``device``, one for all the layers of a forward: a slice of a (B,)
+    or scalar tensor (a view, nothing read back), or a host int filled
+    there (no upload)."""
+    def make():
+        if isinstance(cache_len, int):
+            return torch.full((Bl,), cache_len, dtype=torch.int32,
+                              device=device)
+        cl = torch.as_tensor(cache_len).to(device, torch.int32)
+        return cl.reshape(-1).expand(B)[b0:b0 + Bl]
+    return _per_forward(cache_len, ("offsets", B, b0, Bl), make)
 
 
 def _take(t: torch.Tensor, heads):
@@ -523,7 +605,8 @@ def attend_sharded(q, k, v, kv, cache_len, *, mode: str, scale: float,
         T = ck.shape[1]
         ckl, cvl = ck.to_local(), cv.to_local()
         t0 = local_offset(ck)[1]
-        offs = _offsets(cache_len, q.shape[0])[b0:b0 + ql.shape[0]]
+        offs = _local_offsets(cache_len, q.shape[0], b0, ql.shape[0],
+                              ql.device)
         write_cache(ckl, cvl, k.to_local(), v.to_local(), offs,
                     ring=is_ring(ck, window), slot0=t0, slots=T)
         if mode == "prefill":
@@ -542,8 +625,7 @@ def attend_sharded(q, k, v, kv, cache_len, *, mode: str, scale: float,
                 heads, _ = _kv_for(q, k, Gp)
                 ql = q.to_local()
             o, m, l = decode_stats(
-                ql, _take(ckl, heads), _take(cvl, heads),
-                torch.tensor(offs, dtype=torch.int32, device=ql.device),
+                ql, _take(ckl, heads), _take(cvl, heads), offs,
                 scale=scale, cap=cap, window=window, slot0=t0, slots=T)
             names = ck.device_mesh.mesh_dim_names
             for i in seq:

@@ -1,13 +1,14 @@
 """``Model.forward``'s decode step as one captured program: a CUDA graph of
-:func:`~repro_torch.models.steps.build_decode_step`'s step on one device,
-per bucket, captured at the bucket's second use and replayed on every
-later one.
+:func:`~repro_torch.models.steps.build_decode_step`'s step, on one device
+or on each rank of a mesh, per bucket, captured at the bucket's second
+use and replayed on every later one.
 
 This is the counterpart of the reference's ``jax.jit(decode_step, ...,
-donate_argnums=(1,))`` (``repro.models.steps.build_decode_step``), whose
-``cache_len`` is a ``(B,)`` int32 array: the offsets never leave the
-device. It serves every family ``Model.forward`` runs, the ones the
-paged runtime does not page included (gemma2's local/global pairs with
+donate_argnums=(1,))`` (``repro.models.steps.build_decode_step``; on a
+mesh under its ``in_shardings``), whose ``cache_len`` is a ``(B,)``
+int32 array: the offsets never leave the device. It serves every family
+``Model.forward`` runs, the ones the paged runtime does not page
+included (gemma2's local/global pairs with
 their rings, zamba2's hybrid stack, RWKV6). The port's step is a Python
 loop over the layers that launches ~5400 kernels at gemma2-9b's depth;
 replayed as a graph, the host makes one launch a step and one upload of
@@ -31,10 +32,12 @@ addresses, so its results are that step's bit for bit.
   place and returned.
 - Caches: a graph reads and writes the cache tensors it was captured on.
   So a bucket is keyed on ``B`` and the cache's leaves (their addresses,
-  shapes, strides and dtypes): another cache gets its own bucket and
-  capture, never a replay that writes into the first (a new cache laid
-  out at the addresses of a freed one is the same memory, and replays
-  correctly). A step keeps the ``MAX_BUCKETS`` it used last.
+  shapes, strides and dtypes; of a DTensor leaf, its local piece's: a
+  DTensor is a wrapper whose own address is not its storage's): another
+  cache gets its own bucket and capture, never a replay that writes into
+  the first (a new cache laid out at the addresses of a freed one is the
+  same memory, and replays correctly). A step keeps the ``MAX_BUCKETS``
+  it used last.
 - Steps: a bucket's first use runs eagerly on the capture stream, on its
   buffers (the warm-up: cuBLAS's lazy set-up must not fall inside a
   capture); it is a real step. The second is captured, which runs
@@ -42,6 +45,15 @@ addresses, so its results are that step's bit for bit.
   step is not idempotent (RWKV6's and Mamba2's states advance in place),
   so nothing runs it twice. A failure inside the capture raises; nothing
   falls back to the eager step.
+- A mesh: each rank captures its own graph of the DTensor step. The
+  buffers are whole on every rank, as the eager step's inputs are, and
+  the step places the tokens on "act_batch" inside the captured body.
+  DTensor's dispatch and sharding propagation run on the host while the
+  step is recorded, and never again: a replay runs the local kernels
+  they chose, and the step's collectives (the vocab-parallel argmax's
+  all-gather, the all-reduces of a cache split on its sequence), which
+  NCCL records into the graph. The warm-up fills DTensor's caches; the
+  capture is thread-local, so NCCL's watchdog thread cannot break it.
 
 On the CPU nothing is captured: the same buckets and buffers are filled
 and the step runs eagerly on them, so the tests on the CPU go through
@@ -54,6 +66,7 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.serving.decode_graph import (CaptureSite, counted_capture,
                                               credit_launches)
@@ -86,22 +99,28 @@ class Bucket:
 
 
 def _cache_key(cache: dict) -> tuple:
-    """The identity of a cache's leaves: what a graph captured on them
-    reads and writes."""
+    """The identity of a cache's leaves (a DTensor's by its local piece):
+    what a graph captured on them reads and writes."""
+    leaves = ((k, v.to_local() if isinstance(v, DTensor) else v)
+              for k, v in sorted(cache.items()))
     return tuple((k, v.data_ptr(), tuple(v.shape), v.stride(), v.dtype)
-                 for k, v in sorted(cache.items()))
+                 for k, v in leaves)
 
 
 class ForwardGraph:
     """``step(cache, tokens, cache_len, logits=False)``: the decode step
-    ``fn`` of a ``BuiltStep`` over ``model`` (one device, no mesh) on a
-    bucket's buffers; each bucket captured at its second use on the
-    card."""
+    ``fn`` of a ``BuiltStep`` over ``model`` (on one device or a mesh) on
+    a bucket's buffers; each bucket captured at its second use on the
+    card. ``place(cache)``: the cache on the step's placements (a copy
+    where it has others), made before the bucket is chosen, so that the
+    graph keys on, writes and returns the cache the step writes."""
 
-    def __init__(self, fn, model):
+    def __init__(self, fn, model, place=None):
         self.fn = fn
+        self.place = place or (lambda cache: cache)
         self.device = model.device
         self.capture = self.device.type == "cuda"
+        self.error_mode = "global" if model.mesh is None else "thread_local"
         self.site = CaptureSite()
         self._buckets: dict[tuple, Bucket] = {}
         self.captures = 0
@@ -121,6 +140,7 @@ class ForwardGraph:
         and with ``logits`` the fp32 logits (B, 1, V) too, fresh tensors
         that no later step overwrites."""
         B = tokens.shape[0] if hasattr(tokens, "shape") else len(tokens)
+        cache = self.place(cache)
         key = (B, _cache_key(cache))
         b = self._buckets.pop(key, None)
         if b is None:
@@ -194,7 +214,8 @@ class ForwardGraph:
                 graph = torch.cuda.CUDAGraph()
                 outs = []
                 b.launches = counted_capture(
-                    graph, pool, lambda: outs.append(self._eager(cache, b)))
+                    graph, pool, lambda: outs.append(self._eager(cache, b)),
+                    self.error_mode)
                 b.graph, b.out = graph, outs[0]
                 self.captures += 1
                 self.capture_s += time.perf_counter() - t0

@@ -4,15 +4,17 @@ the trainer runs, what the step counter (:mod:`repro_torch.dist.roofline`)
 counts and what the dry run (:mod:`repro_torch.launch.dryrun`) builds.
 
 A built step is plain callables over a :class:`Model` that holds the
-weights: no jit, but the decode step on one device is replayed as a CUDA
-graph (:mod:`repro_torch.models.forward_graph`), the counterpart of the
-reference's jitted ``decode_step``. ``mesh=None`` is one device. With a
-``DeviceMesh`` the step takes ``default_rules(cfg, mesh, kind)`` (or
-``rules``): the model's weights are DTensors placed by their logical
-axes, the caches by
-:meth:`Model.cache_logical_axes` (:func:`cache_shardings`), the batch
-inputs on "act_batch", and the step runs under those rules, as the
-reference's ``in_shardings`` and ``axis_rules`` place them.
+weights: no jit, but the decode step, on one device and on a mesh, is
+replayed as a CUDA graph (:mod:`repro_torch.models.forward_graph`), the
+counterpart of the reference's jitted ``decode_step``; the prefill and
+train steps built here run eagerly (the trainer captures its step on one
+device, :mod:`repro_torch.train.train_graph`). ``mesh=None`` is one
+device. With a ``DeviceMesh`` the step takes ``default_rules(cfg, mesh,
+kind)`` (or ``rules``): the model's weights are DTensors placed by their
+logical axes, the caches by :meth:`Model.cache_logical_axes`
+(:func:`cache_shardings`), the batch inputs on "act_batch", and the step
+runs under those rules, as the reference's ``in_shardings`` and
+``axis_rules`` place them.
 ``input_specs(cfg, shape)`` gives each input's shape and dtype, the
 counterpart of the reference's ``ShapeDtypeStruct`` stand-ins.
 """
@@ -287,19 +289,18 @@ def build_decode_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     """``fn(cache, tokens, cache_len) -> (next token (B,) int32, cache)``:
     one new token a row against a dense cache of ``shape.seq_len``
     positions, at the per-row offsets ``cache_len`` (host values or a
-    (B,) int32 tensor: on one device they reach ``Model.forward`` as a
-    device tensor, and are never read back); ``logits=True`` returns the
-    fp32 logits too. The inputs put every row at the cache's last
-    position.
+    (B,) int32 tensor: they reach ``Model.forward`` as a device tensor,
+    and are never read back); ``logits=True`` returns the fp32 logits
+    too. The inputs put every row at the cache's last position, the
+    offsets on the model's device.
 
-    ``cuda_graphs`` (default on): on one device the step runs on a
+    ``cuda_graphs`` (default on): the step runs on a
     :class:`ForwardGraph` (``graph``), a replayed CUDA graph on the card
-    whose offsets stay on the device; ``cuda_graphs=False``
-    runs it eagerly. On a mesh the step stays eager (logged once, on the
-    card): no CUDA graph of a DTensor step. On a mesh a batch under 8
-    takes the long-decode rules (the cache spread over its sequence), as
-    the reference does; a cache placed by another step is redistributed
-    to them."""
+    (on a mesh, each rank's graph of the DTensor step);
+    ``cuda_graphs=False`` and the meta device run it eagerly. On a mesh
+    a batch under 8 takes the long-decode rules (the cache spread over
+    its sequence), as the reference does; a cache placed by another
+    step is redistributed to them (the graph then keys on the copy)."""
     rules = _rules(cfg, mesh, "decode_long" if shape.global_batch < 8
                    else "decode", rules)
     model = _model(cfg, model, mesh, rules, device=device, seed=seed)
@@ -315,21 +316,19 @@ def build_decode_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
             return (nxt, cache, full(out)) if logits else (nxt, cache)
 
     def make_inputs():
-        # the offsets on the model's device on one device; on a mesh on
-        # the host, where the sharded cache writes place each token
         specs = input_specs(cfg, shape)
         return (model.init_cache(B, S, rules),
                 _zeros(specs["tokens"], model.device),
                 torch.full((B,), S - 1, dtype=torch.int32,
-                           device=model.device if mesh is None else "cpu"))
+                           device=model.device))
+
+    def place(cache):
+        with _context(rules):
+            return _placed_cache(cache, model, rules)
 
     graph = None
     if cuda_graphs and model.device.type in ("cuda", "cpu"):
-        if mesh is None:
-            graph = ForwardGraph(decode_step, model)
-        elif model.device.type == "cuda":
-            print("[decode step] the step on a mesh runs eagerly: no CUDA "
-                  "graph of a DTensor step")
+        graph = ForwardGraph(decode_step, model, place)
     return BuiltStep(decode_step if graph is None else graph.step, model,
                      make_inputs, rules, graph)
 

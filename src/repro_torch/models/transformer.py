@@ -516,7 +516,7 @@ class Model(nn.Module):
             raise ValueError(f"mode {mode!r} needs a cache")
         if (tokens is None) == (embeds is None):
             raise ValueError("pass exactly one of tokens or embeds")
-        with self._sharding():
+        with self._sharding(), attn.forward_scope():
             w = self._forward_weights()
             x = self._hidden(w, tokens, embeds, cache, cache_len, mode,
                              rows)

@@ -89,15 +89,17 @@ def credit_launches(counts: dict[str, int]) -> None:
         wrappers[name].launches += n
 
 
-def capture(graph, pool, step) -> None:
+def capture(graph, pool, step, error_mode: str = "global") -> None:
     """Record ``step()`` into ``graph`` on the current stream, its
     allocations drawn from ``pool``. ``torch.cuda.graph`` wraps the same
     two calls in a device synchronize, ``gc.collect()``,
     ``torch.cuda.empty_cache()`` and the release of the cached pinned
     host blocks (which the next stage-out then allocates again); the
     capture needs none of them, so none is done. A failure inside the
-    capture ends it and raises."""
-    graph.capture_begin(pool=pool)
+    capture ends it and raises. ``error_mode`` "thread_local": only this
+    thread's unsafe CUDA calls break the capture (a step on a mesh:
+    NCCL's watchdog thread keeps querying its events meanwhile)."""
+    graph.capture_begin(pool=pool, capture_error_mode=error_mode)
     try:
         step()
     except BaseException:
@@ -107,14 +109,15 @@ def capture(graph, pool, step) -> None:
     graph.capture_end()
 
 
-def counted_capture(graph, pool, step) -> dict[str, int]:
+def counted_capture(graph, pool, step,
+                    error_mode: str = "global") -> dict[str, int]:
     """:func:`capture`, returning the wrappers' launches it recorded: one
     replay's worth, for :func:`credit_launches`. Recording runs nothing,
     so the wrappers' counts are put back as they were."""
     from repro_torch.kernels import kernel_wrappers, launch_counts
     before = launch_counts()
     try:
-        capture(graph, pool, step)
+        capture(graph, pool, step, error_mode)
     finally:
         after = launch_counts()
         wrappers = kernel_wrappers()

@@ -687,8 +687,8 @@ torch.set_num_threads(1)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 from repro_torch.configs import get_config
-from repro_torch.launch.mesh import make_host_mesh
-chip_smoke.init_group("gloo", "cpu")
+from repro_torch.launch.mesh import make_host_mesh, one_rank_group
+one_rank_group("cpu")
 mesh = make_host_mesh()
 assert tuple(mesh.shape) == (1, 1)
 cfg = get_config("qwen2-1.5b", smoke=True)
@@ -703,6 +703,14 @@ with tempfile.TemporaryDirectory() as tmp:
     out["dryrun"] = chip_smoke.dryrun_cells(
         (("qwen2-1.5b", "decode_32k", False),), tmp, smoke=True)
 torch.distributed.destroy_process_group()
+# profile_step --mesh opens its own one-rank group
+import contextlib, io
+from repro_torch.launch import profile_step
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    profile_step.main(["--mesh", "--device", "cpu", "--smoke", "--batch",
+                       "1", "--context", "16", "--steps", "2"])
+out["profile"] = json.loads(buf.getvalue())
 print(json.dumps(out))
 """
 
@@ -713,8 +721,11 @@ def test_phase9_on_cpu_gloo():
     at full width on NCCL, 9d at full width): the sharded serving legs
     bit-equal to the meshless ones, the sharded trainer's step 1 equal and
     its remesh going on, the all-to-all layer against the grouped one and
-    a smoke dry-run cell, each through the phase's own checks (the flash
-    kernel does not run on the CPU, so 9a's launches are 0 here)."""
+    a smoke dry-run cell, each through the phase's own checks; then
+    ``profile_step --mesh`` at smoke width on its own one-rank group: its
+    keys, and no host number under a device metric's name (the flash
+    kernel does not run on the CPU, so 9a's launches are 0 here, and the
+    sharded graph leg runs its bucket eagerly: nothing captured)."""
     import json
     import os
     import subprocess
@@ -727,6 +738,8 @@ def test_phase9_on_cpu_gloo():
     serve = out["serve"]
     assert serve["tokens_equal"] and serve["logits_bit_equal"], serve
     assert not any(serve["launches"].values()), serve
+    chip_smoke.assert_sharded_serving(serve, cuda=False)
+    assert serve["graph_replays"] == 0, serve
     chip_smoke.assert_sharded_training(out["train"])
     assert out["train"]["loss_gap"] == 0, out["train"]
     chip_smoke.assert_a2a(out["moe"])
@@ -734,3 +747,23 @@ def test_phase9_on_cpu_gloo():
     chip_smoke.assert_dryrun(out["dryrun"])
     assert chip_smoke.PATH_G_DRYRUN[-1] == ("qwen3-moe-235b-a22b",
                                             "train_4k", True)
+    prof = out["profile"]
+    assert prof["mesh"] == [1, 1] and prof["backend"] == "gloo", prof
+    assert prof["decode_step"] == "cuda_graph", prof
+    for leg in ("decode", "decode_meshless", "prefill"):
+        rec = prof[leg]
+        assert rec["wall_ms_median"] > 0 and rec["enqueue_ms_median"] > 0
+        # no card: the device metrics are null, never host numbers
+        assert all(rec[k] is None for k in (
+            "device_busy_ms_per_step", "device_busy_share",
+            "device_kernels_per_step", "host_launch_calls_per_step")), rec
+    split = prof["decode"]["host_split"]
+    assert set(split) == {f"{k}_ms_per_step" for k in (
+        "offsets", "write_piece", "kv_for", "step")}, split
+    # no offset read on the host is left; a bucket's step writes and
+    # finds its heads inside the step it times
+    assert split["offsets_ms_per_step"] == 0, split
+    assert 0 < split["write_piece_ms_per_step"] < \
+        split["step_ms_per_step"], split
+    graph = prof["sharded_graph"]
+    assert graph["captures"] == 0 and graph["replays"] == 0, graph

@@ -57,9 +57,12 @@ def spawn(script: str, world: int, data: pathlib.Path,
           timeout: float = SPAWN_TIMEOUT_S) -> list[dict]:
     """``script`` in ``world`` processes (rank, world, a free port and
     ``data`` as argv); each writes ``data/rank{r}.json``. Every process
-    is waited for or killed."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "JAX_PLATFORMS": "cpu"}
+    is waited for or killed; a rank that fails reports its error (with
+    its Python stack on a fatal signal)."""
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(str(ROOT / d)
+                                         for d in ("src", "tests")),
+           "JAX_PLATFORMS": "cpu", "PYTHONFAULTHANDLER": "1"}
     port = free_port()
     procs = [subprocess.Popen(
         [sys.executable, "-c", script, str(r), str(world), str(port),
@@ -72,8 +75,9 @@ def spawn(script: str, world: int, data: pathlib.Path,
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for p, err in zip(procs, errs):
-        assert p.returncode == 0, err[-4000:]
+    failed = [f"rank {r}: {err[-3000:]}" for r, (p, err) in
+              enumerate(zip(procs, errs)) if p.returncode]
+    assert not failed, "\n".join(failed)
     return [json.loads((data / f"rank{r}.json").read_text())
             for r in range(world)]
 
@@ -98,6 +102,8 @@ HEADER = textwrap.dedent("""
 """)
 
 WORKER = HEADER + textwrap.dedent("""
+    import contextlib
+    from host_reads import no_host_reads
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.dist.sharding import (axis_rules, default_rules,
@@ -118,19 +124,28 @@ WORKER = HEADER + textwrap.dedent("""
         return dataclasses.replace(get_config(arch, smoke=True),
                                    compute_dtype="float32")
 
-    def serve(cfg, model, m, toks, dec):
+    def serve(cfg, model, m, toks, dec, graphs=True):
+        # graphs: the bucketed decode step (run eagerly on its buffers on
+        # the CPU), with no value read on the host during its steps
         pf = build_prefill_step(cfg, m, ShapeSpec("p", "prefill", 16, 4),
                                 model=model, device="cpu")
         dc = build_decode_step(cfg, m, ShapeSpec("d", "decode", 16, 4),
-                               model=pf.model, device="cpu")
+                               model=pf.model, device="cpu",
+                               cuda_graphs=graphs)
+        assert (dc.graph is not None) == graphs
         cache = pf.model.init_cache(4, 16, pf.rules)
         nxt, cache, lg = pf.fn(cache, toks, logits=True)
         logits, tokens = [lg], [nxt]
         for i in range(dec.shape[1]):
             cl = torch.full((4,), toks.shape[1] + i, dtype=torch.int32)
-            nxt, cache, lg = dc.fn(cache, dec[:, i:i + 1], cl, logits=True)
+            with no_host_reads() if graphs else contextlib.nullcontext():
+                nxt, cache, lg = dc.fn(cache, dec[:, i:i + 1], cl,
+                                       logits=True)
             logits.append(lg)
             tokens.append(nxt)
+        if graphs:
+            (b,) = dc.graph.buckets().values()
+            assert b.uses == dec.shape[1]
         full = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
                 for k, v in cache.items()}
         return logits, full, tokens
@@ -140,8 +155,15 @@ WORKER = HEADER + textwrap.dedent("""
     params = {k[2:]: torch.from_numpy(v) for k, v in ref.items()
               if k.startswith("p.")}
     toks, dec = (torch.from_numpy(ref[k]).long() for k in ("toks", "dec"))
-    logits, cache, tokens = serve(cfg, Model(cfg, params, device="cpu"),
-                                  mesh, toks, dec)
+    qwen2 = Model(cfg, params, device="cpu")
+    logits, cache, tokens = serve(cfg, qwen2, mesh, toks, dec)
+    # the bucketed step against the eager one, bit for bit
+    e_logits, e_cache, e_tokens = serve(cfg, qwen2, mesh, toks, dec,
+                                        graphs=False)
+    out["qwen2_graph_equals_eager"] = all(
+        torch.equal(a, b) for a, b in zip(logits + tokens,
+                                          e_logits + e_tokens)) and all(
+        torch.equal(cache[k], e_cache[k]) for k in cache)
     rms = float(np.sqrt(np.mean(ref["logits"] ** 2)))
     want = [ref["logits"][:, S - 1:S]] + [ref[f"dec{i}"] for i in
                                           range(dec.shape[1])]
@@ -323,7 +345,9 @@ def test_sharded_steps_on_four_gloo_ranks(reference, shape, tmp_path):
     """On each rank: qwen2 smoke's sharded prefill and three decode steps
     against the reference's unsharded forward (1e-4 of the logits' rms,
     the next tokens its argmax, the cache within 1e-5 of its largest
-    value); a sharded train step
+    value), the decode steps through the bucketed step (no value read on
+    the host during them) and bit-equal, logits, tokens and cache, to
+    the eager step (``cuda_graphs=False``); a sharded train step
     against the meshless one (1e-5 relative, two steps); rwkv6's and
     zamba2's sharded steps against their meshless ones; on (2, 2)
     ``CostModel.from_roofline`` counted on the mesh and the MoE layer's
@@ -338,6 +362,7 @@ def test_sharded_steps_on_four_gloo_ranks(reference, shape, tmp_path):
     results = spawn(script, 4, tmp_path)
     for rank, out in enumerate(results):
         assert max(out["qwen2_logit_gaps"]) <= LOGIT_RTOL, (rank, out)
+        assert out["qwen2_graph_equals_eager"], (rank, out)
         assert out["qwen2_cache_gap"] <= 1e-5, (rank, out)
         assert out["qwen2_tokens_equal"], (rank, out)
         assert max(out["train_gaps"]) <= TRAIN_RTOL, (rank, out)

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from host_reads import no_host_reads
 from repro.configs.base import ShapeSpec as JaxShape
 from repro.configs.base import get_config as jax_config
 from repro.dist.sharding import axis_rules
@@ -40,7 +41,6 @@ from repro.models.transformer import Model as JaxModel
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.models import Model
-from repro_torch.models import attention as attn
 from repro_torch.models import forward_graph
 from repro_torch.models.common import params_from_numpy
 from repro_torch.models.steps import build_decode_step, build_prefill_step
@@ -224,33 +224,6 @@ def test_tokens_and_offsets_in_every_form():
         step.fn(cache, tok, [40, 41, 42])
 
 
-class no_host_reads(torch.overrides.TorchFunctionMode):
-    """Reading a tensor's value on the host raises inside the block (on
-    the card it would be a stream sync, which a capture refuses), and so
-    does ``attention._offsets``, the host branch's reader."""
-    READS = (torch.Tensor.item, torch.Tensor.tolist, torch.Tensor.__int__,
-             torch.Tensor.__bool__, torch.Tensor.__index__,
-             torch.Tensor.__float__)
-
-    def __enter__(self):
-        self._offsets = attn._offsets
-        attn._offsets = self._refuse
-        return super().__enter__()
-
-    def __exit__(self, *exc):
-        attn._offsets = self._offsets
-        return super().__exit__(*exc)
-
-    @staticmethod
-    def _refuse(*args):
-        raise AssertionError("the host branch of write_cache was reached")
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        if func in self.READS:
-            raise AssertionError(f"a device value read on the host: {func}")
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-2.7b", "rwkv6-3b",
                                   "qwen3-moe-235b-a22b", "musicgen-large"])
 def test_no_value_is_read_on_the_host(arch):
@@ -266,7 +239,7 @@ def test_no_value_is_read_on_the_host(arch):
     assert nxt.shape == (2,) and nxt.dtype == torch.int32
 
 
-def test_eager_when_asked_on_a_mesh_and_on_meta():
+def test_eager_when_asked_and_on_meta():
     """``cuda_graphs=False`` keeps the eager step; the meta device (the
     roofline counter's) never takes the bucket; ``make_inputs`` puts the
     offsets on the model's device."""

@@ -218,3 +218,67 @@ def test_padded_group_keeps_whole_groups(G, KV, width, want):
     assert Gp == want and KV * Gp % width == 0
     local = KV * Gp // width
     assert Gp % local == 0 or local % Gp == 0
+
+
+#: a cache of SLOTS slots in pieces of PIECE (start, middle, end) and
+#: whole; offsets of four rows, in range and past the end (a plain
+#: cache clamps them, a ring wraps them)
+SLOTS, PIECE = 12, 4
+PIECES = {"start": (0, PIECE), "middle": (4, PIECE), "end": (8, PIECE),
+          "whole": (0, SLOTS)}
+OFFSETS = {"in_range": [0, 3, 5, 9], "clamped": [10, 11, 17, 40]}
+
+
+@pytest.mark.parametrize("offsets", sorted(OFFSETS))
+@pytest.mark.parametrize("piece", sorted(PIECES))
+@pytest.mark.parametrize("chunk", ["1", "3", "over"])
+@pytest.mark.parametrize("ring", [False, True], ids=["plain", "ring"])
+def test_piece_write_equals_the_whole_cache_write(ring, chunk, piece,
+                                                  offsets):
+    """The sharded cache write (``attention._write_piece``: one rank's
+    slots ``[slot0, slot0 + W)`` of a cache of ``SLOTS``, offsets on the
+    device) leaves its piece equal to the slice of ``_write_indexed``'s
+    write into the whole cache, bit for bit, and reads no value on the
+    host. ``over``: a chunk past the cache's length (a ring keeps its
+    last SLOTS tokens; a plain cache takes at most SLOTS, so it gets
+    exactly SLOTS, its whole length)."""
+    from host_reads import no_host_reads
+    from repro_torch.models.attention import _write_indexed, _write_piece
+    C = {"1": 1, "3": 3, "over": SLOTS + 5 if ring else SLOTS}[chunk]
+    slot0, W = PIECES[piece]
+    g = torch.Generator().manual_seed(0)
+    B, KV, Dh = 4, 2, 3
+    cache = [torch.randn(B, SLOTS, KV, Dh, generator=g) for _ in range(2)]
+    new = [torch.randn(B, C, KV, Dh, generator=g) for _ in range(2)]
+    cache_len = torch.tensor(OFFSETS[offsets], dtype=torch.int32)
+    parts = [c[:, slot0:slot0 + W].clone() for c in cache]
+    _write_indexed(*cache, *new, cache_len, ring)
+    with no_host_reads():
+        _write_piece(*parts, *new, cache_len, ring, slot0, SLOTS)
+    for part, whole in zip(parts, cache):
+        assert torch.equal(part, whole[:, slot0:slot0 + W])
+
+
+def test_shard_offset_equals_torchs():
+    """``shard_offset`` (plain integers, read by the captured sharded
+    step) gives torch's own offsets, for even and uneven splits, a dim
+    split over two mesh axes and empty last pieces, at every
+    coordinate."""
+    import itertools
+
+    from torch.distributed.tensor._utils import (
+        _compute_local_shape_and_global_offset)
+    from repro_torch.dist.sharding import shard_offset
+    rng = random.Random(0)
+    for _ in range(200):
+        mesh_shape = tuple(rng.choice([1, 2, 3, 4]) for _ in
+                           range(rng.choice([1, 2, 3])))
+        shape = tuple(rng.randint(1, 9) for _ in range(rng.choice([1, 2,
+                                                                    3])))
+        place = [Shard(rng.randrange(len(shape))) if rng.random() < 0.7
+                 else Replicate() for _ in mesh_shape]
+        for coord in itertools.product(*map(range, mesh_shape)):
+            want = _compute_local_shape_and_global_offset(
+                shape, mesh_shape, list(coord), place)[1]
+            assert shard_offset(shape, mesh_shape, coord, place) == \
+                tuple(want), (shape, mesh_shape, coord, place)
