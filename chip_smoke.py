@@ -265,7 +265,23 @@ Phase 9  path G, the sharded steps, after phase 8: a one-rank NCCL
          decode_32k} on 16 x 16 and qwen3-moe-235b-a22b x train_4k on
          2 x 16 x 16: per-device FLOPs, bytes, collective bytes and
          argument bytes (also as a share of the card's memory), each
-         finite and positive. The process group is torn down at the end.
+         finite and positive. (e) Path G's training step as each rank's
+         CUDA graph (``Trainer(cfg, mesh)``'s ``TrainGraph``) against the
+         eager sharded step (``cuda_graphs=False``): (i) full-width,
+         full-depth qwen2-1.5b from its published init, bf16 compute
+         over fp32 masters, remat, 2 microbatches, B 2 x 2048; the eager
+         leg's warm-up, 2 steps and 1 traced, the graph leg's warm-up,
+         capture, replays to step 4 and 1 traced: every loss and grad
+         norm both legs ran bit-equal, <= 8 host launch calls a replay,
+         the replay's device ms within 5% of the eager step's; each
+         leg's wall, enqueue and device ms, busy share, device ops, NCCL
+         kernels (none on one rank), tokens/s, model-FLOPs share,
+         capture s, pool bytes, peak and reserved memory logged; (ii)
+         the 2-layer cut of (b), fp32, B 1 x 128, 4 steps a leg: every
+         loss, grad norm, master, moment and the count bit-equal, and
+         the graph leg's step 1 within 1e-6 of the meshless graph
+         trainer's. No kernel launches in (e). The process group is torn
+         down at the end.
 
 Prints a ``{"kernels": [...]}`` line (``launches``: phases 3a and 3b,
 and 4; the by-value token append has no runtime caller and reads 0;
@@ -3202,12 +3218,13 @@ def train_adamw(steps: int):
 
 
 def make_trainer(cfg, shape, steps: int, device, ckpt_dir,
-                 ckpt_every: int = 10 ** 9, cuda_graphs: bool = True):
+                 ckpt_every: int = 10 ** 9, cuda_graphs: bool = True,
+                 mesh=None):
     from repro_torch.train.train_loop import TrainConfig, Trainer
     tcfg = TrainConfig(steps=steps, ckpt_every=ckpt_every,
                        ckpt_dir=str(ckpt_dir), log_every=10 ** 9,
                        adamw=train_adamw(steps))
-    return Trainer(cfg, None, shape, tcfg, log_fn=log, device=device,
+    return Trainer(cfg, mesh, shape, tcfg, log_fn=log, device=device,
                    cuda_graphs=cuda_graphs)
 
 
@@ -3219,8 +3236,10 @@ def warm_steps(cuda_graphs: bool) -> int:
 
 def train_leg(cfg, shape, steps: int, device, ckpt_dir,
               peak_flops: float | None = None, cuda_graphs: bool = True,
-              total: int | None = None, trace: bool = False) -> dict:
-    """8a, one leg: a trainer from :func:`published_init` (seed 0) through
+              total: int | None = None, trace: bool = False,
+              mesh=None) -> dict:
+    """8a (and 9e on ``mesh``), one leg: a trainer from
+    :func:`published_init` (seed 0) through
     ``Trainer.run``, one step a call: its :func:`warm_steps`, ``steps``
     timed and, with ``trace``, one under ``torch.profiler`` (device ms,
     device ops and host launch calls a step; the CUDA activity alone, no
@@ -3240,7 +3259,7 @@ def train_leg(cfg, shape, steps: int, device, ckpt_dir,
         torch.cuda.reset_peak_memory_stats()
     warm = warm_steps(cuda_graphs)
     tr = make_trainer(cfg, shape, total or warm + steps + trace, device,
-                      ckpt_dir, cuda_graphs=cuda_graphs)
+                      ckpt_dir, cuda_graphs=cuda_graphs, mesh=mesh)
     tr.init_state(published_init(
         cfg, torch.Generator(device=tr.device).manual_seed(0)))
     enqueue = []
@@ -3626,6 +3645,22 @@ def phase8(hw, smi: str, sheet: dict, samples) -> dict:
 PATH_G = dict(arch="qwen2-1.5b", batch=1, prompt=2048, steps=16)
 PATH_G_TRAIN = dict(layers=2, seq=128, batch=1, steps=2)
 PATH_G_TRAIN_RTOL = 1e-6
+#: 9e(i): the trainer's graph against its eager sharded step at full
+#: width and depth (the config's bf16 compute, remat and 2 microbatches),
+#: train_4k's rows halved, one row a microbatch: the graph leg's timed
+#: replays after its warm-up and capture (to step 4), the eager leg's
+#: timed steps after its warm-up (2.7-2.9 s each, host-bound; two keep
+#: the script's time), then one traced step a leg: both legs run steps
+#: 1-4
+PATH_G_TRAIN_GRAPH = dict(seq=2048, batch=2, steps=2, eager_steps=2)
+#: 9e(ii): the graph leg against the eager leg at 9b's cut, 4 steps a leg
+PATH_G_TRAIN_EQUAL = dict(PATH_G_TRAIN, steps=4)
+#: host launch calls a replay of 9e's graph may make: the graph launch,
+#: the batch's upload, the clones of the loss, grad norm and lr and their
+#: reads back
+MAX_MESH_TRAIN_LAUNCH_CALLS = 8
+#: 9e(i): the replay's device ms against the eager sharded step's
+PATH_G_TRAIN_DEVICE_SHARE = 0.05
 PATH_G_MOE = dict(arch="qwen3-moe-235b-a22b", batch=1, tokens=512)
 #: 9c's bound: bf16 outputs, the max error over the reference's rms
 PATH_G_MOE_BOUND = 1e-2
@@ -3846,6 +3881,116 @@ def assert_sharded_training(check: dict) -> None:
         all(map(math.isfinite, check["resharded_losses"])), check
 
 
+def sharded_train_legs(cfg, mesh, device, ckpt_dir, seq: int, batch: int,
+                       steps: int, eager_steps: int,
+                       peak_flops: float | None = None) -> dict:
+    """9e(i): two :func:`train_leg` legs of ``cfg`` on ``mesh`` from one
+    :func:`published_init` on one schedule, the graph leg (``steps``
+    timed replays after its warm-up and capture) and the eager sharded
+    leg (``eager_steps`` timed steps after its warm-up), each with one
+    traced step on the card; each leg freed before the next. Returns the
+    legs."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    cuda = torch.device(device).type == "cuda"
+    shape = ShapeSpec("g_train_graph", "train", seq, batch)
+    total = max(warm_steps(True) + steps, warm_steps(False) + eager_steps) \
+        + 1
+    legs = {}
+    for name, graphs, n in (("graph", True, steps),
+                            ("eager", False, eager_steps)):
+        legs[name] = train_leg(cfg, shape, n, device,
+                               pathlib.Path(ckpt_dir) / name, peak_flops,
+                               cuda_graphs=graphs, total=total, trace=cuda,
+                               mesh=mesh)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return legs
+
+
+def nccl_kernels(trace: dict) -> float:
+    """NCCL kernels a traced step ran."""
+    return sum(n for k, n in trace["kernel_counts"].items()
+               if "nccl" in k.lower())
+
+
+def assert_sharded_train_legs(legs: dict, cuda: bool = True) -> None:
+    """9e(i): every loss and grad norm that both legs ran bit-equal and
+    finite; on the card the graph captured once and replayed, a replay
+    making at most ``MAX_MESH_TRAIN_LAUNCH_CALLS`` host launch calls,
+    its device ms within ``PATH_G_TRAIN_DEVICE_SHARE`` of the eager
+    sharded step's."""
+    g, e = (legs[k]["records"] for k in ("graph", "eager"))
+    n = min(len(g), len(e))
+    assert n >= warm_steps(False) + PATH_G_TRAIN_GRAPH["eager_steps"] + \
+        cuda, (len(g), len(e))
+    pairs = [((a["loss"], a["grad_norm"]), (b["loss"], b["grad_norm"]))
+             for a, b in zip(g[:n], e[:n])]
+    assert all(x == y for x, y in pairs), pairs
+    assert all(math.isfinite(v) for x, _ in pairs for v in x), pairs
+    if cuda:
+        graph = legs["graph"]
+        assert graph["captures"] == 1 and graph["replays"] >= 1, graph
+        gt, et = graph["trace"], legs["eager"]["trace"]
+        assert gt["host_launch_calls_per_step"] <= \
+            MAX_MESH_TRAIN_LAUNCH_CALLS, gt["host_launch_calls"]
+        gd, ed = gt["device_busy_ms_per_step"], et["device_busy_ms_per_step"]
+        assert abs(gd - ed) <= PATH_G_TRAIN_DEVICE_SHARE * ed, (gd, ed)
+
+
+def sharded_train_pair(cfg, mesh, device, ckpt_dir, layers: int, seq: int,
+                       batch: int, steps: int) -> dict:
+    """9e(ii): ``cfg`` cut to ``layers`` at full width, fp32, one
+    microbatch, from :func:`published_init` (seed 0): ``steps`` steps of
+    a graph leg and of an eager leg on ``mesh``, and step 1 of the
+    meshless graph trainer, on one schedule. Returns the sharded legs
+    against each other (histories, and every master, moment and the
+    count by its local piece) and the graph leg's step-1 gaps to the
+    meshless trainer."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.sharding import local
+    cut = dataclasses.replace(cfg, num_layers=layers,
+                              compute_dtype="float32", train_microbatches=1)
+    params = {k: v.cpu() for k, v in published_init(
+        cut, torch.Generator(device=device).manual_seed(0)).items()}
+    shape = ShapeSpec("g_train_equal", "train", seq, batch)
+    legs = {}
+    for name, m, graphs, n in (("graph", mesh, True, steps),
+                               ("eager", mesh, False, steps),
+                               ("meshless", None, True, 1)):
+        tr = make_trainer(cut, shape, steps, device,
+                          pathlib.Path(ckpt_dir) / name, cuda_graphs=graphs,
+                          mesh=m)
+        tr.init_state(params)
+        legs[name] = dict(history=tr.run(steps=n), state={
+            k: local(t).detach().clone() for k, t in train_state(tr).items()})
+        if graphs and tr.graph.capture:
+            assert tr.graph.replays == n - 1, tr.graph.replays
+        del tr
+        gc.collect()
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+
+    (g1,), (p1,) = legs["graph"]["history"][:1], legs["meshless"]["history"]
+    return dict(graph=compare_legs(legs["graph"], legs["eager"]),
+                losses=[r["loss"] for r in legs["graph"]["history"]],
+                loss_gap=rel(g1["loss"], p1["loss"]),
+                grad_norm_gap=rel(g1["grad_norm"], p1["grad_norm"]))
+
+
+def assert_sharded_train_pair(check: dict) -> None:
+    """9e(ii): the graph leg bit-equal to the eager sharded leg, its step
+    1 within ``PATH_G_TRAIN_RTOL`` of the meshless trainer's."""
+    assert check["graph"]["bit_equal"], check["graph"]
+    assert len(check["losses"]) == PATH_G_TRAIN_EQUAL["steps"] and \
+        all(map(math.isfinite, check["losses"])), check
+    assert max(check["loss_gap"], check["grad_norm_gap"]) <= \
+        PATH_G_TRAIN_RTOL, check
+
+
 def a2a_vs_grouped(cfg, mesh, device, batch: int, tokens: int,
                    seed: int = 0) -> dict:
     """9c: one MoE layer of ``cfg`` (``sharding_mode="ep_a2a"``) in its
@@ -3946,9 +4091,11 @@ def assert_dryrun(records: list[dict]) -> None:
         assert all(math.isfinite(rec[k]) and rec[k] > 0 for k in keys), rec
 
 
-def phase9(smi: str) -> dict:
-    """Path G: the sharded steps on a one-rank NCCL mesh (9a-9c) and the
-    production dry run (9d). Returns 9a's sharded-leg launch counts."""
+def phase9(smi: str, sheet: dict) -> dict:
+    """Path G: the sharded steps on a one-rank NCCL mesh (9a-9c), the
+    production dry run (9d) and the sharded training step as a CUDA
+    graph against the eager one (9e). Returns 9a's sharded-leg launch
+    counts."""
     import tempfile
 
     import torch
@@ -4011,10 +4158,63 @@ def phase9(smi: str) -> dict:
         log(f"phase9d {len(records)} cells in "
             f"{time.perf_counter() - t0:.1f} s (card memory {memory} B)")
         assert_dryrun(records)
+        phase9e(cfg, mesh, smi, sheet)
     finally:
         dist.destroy_process_group()
     log(f"phase9 wall {time.perf_counter() - t_phase:.1f} s")
     return check["launches"]
+
+
+def phase9e(cfg, mesh, smi: str, sheet: dict) -> None:
+    """9e: path G's training step, each rank's CUDA graph against the
+    eager sharded step on ``mesh``, (i) at full width and depth, (ii) at
+    the 2-layer cut; no kernel launched."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import launch_counts
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        legs = sharded_train_legs(cfg, mesh, "cuda", tmp,
+                                  peak_flops=sheet["bf16"],
+                                  **PATH_G_TRAIN_GRAPH)
+    for name, leg in legs.items():
+        for i, rec in enumerate(leg["records"]):
+            log(f"phase9e {name} step {i} ({rec['kind']}): "
+                f"{json.dumps(rec)}")
+    summary = {name: dict(leg_summary(leg),
+                          nccl_kernels=nccl_kernels(leg["trace"]))
+               for name, leg in legs.items()}
+    log(f"phase9e(i) {cfg.name} training on a {tuple(mesh.shape)} NCCL "
+        f"mesh, {cfg.num_layers} layers at full width, fp32 masters, "
+        f"{cfg.compute_dtype} compute, remat {cfg.remat}, "
+        f"{cfg.train_microbatches} microbatches, B "
+        f"{PATH_G_TRAIN_GRAPH['batch']} x {PATH_G_TRAIN_GRAPH['seq']}; "
+        f"graph leg vs eager sharded leg from one init on one schedule, on "
+        f"{smi}: {json.dumps(summary)}; {time.perf_counter() - t0:.1f} s")
+    for name, leg in legs.items():
+        for rec in leg["trace"]["top_kernels"]:
+            log(f"phase9e {name} top kernel: {json.dumps(rec)}")
+    assert_sharded_train_legs(legs)
+    del legs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pair = sharded_train_pair(cfg, mesh, "cuda", tmp,
+                                  **PATH_G_TRAIN_EQUAL)
+    log(f"phase9e(ii) {cfg.name} cut to {PATH_G_TRAIN_EQUAL['layers']} "
+        f"full-width layers, fp32, B {PATH_G_TRAIN_EQUAL['batch']} x "
+        f"{PATH_G_TRAIN_EQUAL['seq']}, {PATH_G_TRAIN_EQUAL['steps']} steps "
+        f"a leg: graph vs eager sharded (bit for bit) and step 1 vs the "
+        f"meshless graph trainer (bound {PATH_G_TRAIN_RTOL} relative): "
+        f"{json.dumps(pair)}; {time.perf_counter() - t0:.1f} s")
+    assert_sharded_train_pair(pair)
+    after = launch_counts()
+    assert after == before, f"a kernel ran in 9e: {before} -> {after}"
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ main
@@ -4064,7 +4264,7 @@ def main() -> int:
     path_f = phase8(hw, smi, sheet, samples)
     gc.collect()
     torch.cuda.empty_cache()
-    path_g = phase9(smi)
+    path_g = phase9(smi, sheet)
 
     sources = {
         "paged_decode_attention": (

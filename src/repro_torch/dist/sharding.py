@@ -319,6 +319,13 @@ def full(x: torch.Tensor) -> torch.Tensor:
     return x.full_tensor() if isinstance(x, DTensor) else x
 
 
+def local(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s own storage: a DTensor's local piece (a DTensor is a
+    wrapper whose ``data_ptr()`` is not its storage's), any other tensor
+    itself."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def placed_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A whole tensor (every rank holds it) on ``like``'s device, and on
     its mesh and placements when ``like`` is a DTensor."""

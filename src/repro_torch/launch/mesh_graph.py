@@ -17,9 +17,23 @@ attention's softmax stats and all-gathers the argmax's candidates. Rank
 and the final caches are bit-equal between the legs on every rank, each
 leg's median wall ms a step, and on the card one more step of each leg
 under torch.profiler (device ms, device ops, host launch calls, NCCL
-kernels: the collectives a replay holds). Needs four cards::
+kernels: the collectives a replay holds).
 
-    PYTHONPATH=src python -m repro_torch.launch.mesh_graph [--device cpu]
+``--train``: path G's training step instead. On each mesh each rank
+trains full-width, full-depth qwen2-1.5b (``--smoke``: its smoke width)
+from seed 0 on 4 x 512-token rows in the config's 2 microbatches, 4
+steps, twice: through ``Trainer(cfg, mesh, cuda_graphs=False)``'s eager
+sharded step and through its graph (``TrainGraph``: warm-up, capture at
+step 2, replays after). Rank 0 prints one JSON line a mesh: whether
+every loss and grad norm and, after step 4, the rank's local masters,
+moments and count are bit-equal between the legs on every rank, each
+leg's median wall ms a step (after its warm-up, and capture) and on the
+card one more step of each leg under torch.profiler (the NCCL kernels
+are the grads' reductions onto their masters' placements and the grad
+norm's sums: inside the graph). Needs four cards::
+
+    PYTHONPATH=src python -m repro_torch.launch.mesh_graph [--train] \
+        [--device cpu --smoke]
 """
 from __future__ import annotations
 
@@ -37,6 +51,7 @@ RANKS = 4
 MESHES = ((1, 4), (2, 2))
 ARCH = "qwen2-1.5b"
 BATCH, PROMPT, STEPS = 4, 512, 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
 TIMEOUT_S = 600
 
 
@@ -44,14 +59,17 @@ def _args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--train", action="store_true",
+                    help="the training step's graph against its eager step")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> int:
-    """The parent: builds the kernels once, starts the ranks, waits for
-    every one of them (or kills them all) and passes rank 0's lines on."""
+    """The parent: builds the kernels once (the decode step's; the
+    training step launches none), starts the ranks, waits for every one
+    of them (or kills them all) and passes rank 0's lines on."""
     args = _args(argv)
     if args.rank is not None:
         return _rank(args)
@@ -61,7 +79,8 @@ def main(argv=None) -> int:
         if torch.cuda.device_count() < RANKS:
             raise SystemExit(f"{RANKS} ranks need {RANKS} cards, "
                              f"{torch.cuda.device_count()} visible")
-        _build.build_all()
+        if not args.train:
+            _build.build_all()
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -108,7 +127,7 @@ def _rank(args) -> int:
         for dims in MESHES:
             mesh = init_device_mesh(dev.type, dims,
                                     mesh_dim_names=("data", "model"))
-            out = _pair(cfg, mesh, dev)
+            out = (_train_pair if args.train else _pair)(cfg, mesh, dev)
             same = [None] * RANKS
             dist.all_gather_object(same, out.pop("bit_equal"))
             if args.rank == 0:
@@ -163,6 +182,78 @@ def _pair(cfg, mesh, dev) -> dict:
                 host_launch_calls=tr["host_launch_calls_per_step"],
                 nccl_kernels={k: n for k, n in tr["kernel_counts"].items()
                               if "nccl" in k.lower()})
+    return out
+
+
+def _train_pair(cfg, mesh, dev) -> dict:
+    """The eager and the graph training legs on ``mesh`` from one seeded
+    init on one schedule, each freed before the next: their agreement,
+    times, capture and traces."""
+    import gc
+    import tempfile
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.sharding import local
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import TrainConfig, Trainer
+    cuda = dev.type == "cuda"
+    shape = ShapeSpec("mesh_train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    runs = {}
+    for leg in LEGS:
+        with tempfile.TemporaryDirectory() as tmp:
+            tr = Trainer(cfg, mesh, shape, TrainConfig(
+                steps=TRAIN_STEPS + 1, ckpt_every=10 ** 9, ckpt_dir=tmp,
+                log_every=10 ** 9, adamw=opt_mod.AdamWConfig(
+                    lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS + 1)),
+                log_fn=lambda s: None, device=dev,
+                cuda_graphs=leg == "graph")
+            tr.init_state()
+            ms = []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                tr.run(steps=tr.step + 1)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            st = tr.opt_state
+            timed = sorted(ms[2 if leg == "graph" else 1:])
+            run = dict(
+                history=[(h["loss"], h["grad_norm"]) for h in tr.history],
+                state=[local(t).detach().clone() for t in (
+                    *tr.params.values(), *st["m"].values(),
+                    *st["v"].values(), st["count"])],
+                wall_ms=timed[len(timed) // 2])
+            if cuda:
+                from repro_torch.launch.profile_step import traced
+                trace = traced(lambda: tr.run(steps=tr.step + 1), top=6,
+                               reps=1, cpu=False, counts=True)
+                run["trace"] = dict(
+                    device_ms=trace["device_busy_ms_per_step"],
+                    device_ops=trace["device_kernels_per_step"],
+                    host_launch_calls=trace["host_launch_calls_per_step"],
+                    nccl_kernels={k: n for k, n in
+                                  trace["kernel_counts"].items()
+                                  if "nccl" in k.lower()})
+            if tr.graph is not None:
+                run.update(capture_s=tr.graph.capture_s,
+                           replays=tr.graph.replays,
+                           pool_bytes=tr.graph.pool_bytes())
+            runs[leg] = run
+            del tr
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    e, g = runs["eager"], runs["graph"]
+    bit_equal = e["history"] == g["history"] and all(
+        torch.equal(a, b) for a, b in zip(e["state"], g["state"]))
+    out = dict(bit_equal=bit_equal, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               steps=TRAIN_STEPS, microbatches=cfg.train_microbatches,
+               losses=[x for x, _ in g["history"]],
+               **{k: g.get(k) for k in ("capture_s", "replays",
+                                        "pool_bytes")},
+               **{f"{leg}_wall_ms": r["wall_ms"] for leg, r in runs.items()})
+    if cuda:
+        out.update({f"{leg}_trace": r["trace"] for leg, r in runs.items()})
     return out
 
 

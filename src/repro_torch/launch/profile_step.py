@@ -38,7 +38,11 @@ whole ``--context``-token prompt (eager) in place of the chunk.
 ``--train`` measures a training step instead: the trainer's step on a
 ``--batch`` x ``--context`` batch (fp32 masters, the config's compute
 dtype, remat and microbatches; seeded weights), replayed as the
-trainer's CUDA graph, or eager with ``--eager``.
+trainer's CUDA graph, or eager with ``--eager``. ``--train --mesh``:
+path G's training step, the trainer on a one-rank process group's (1, 1)
+host mesh, beside the same trainer on one device from the same seeded
+weights (``train_meshless``); each trace also counts the step's tensor
+subclass (DTensor) dispatches on the host.
 
 ``--mesh`` measures path G instead: a one-rank process group (NCCL on
 the card), the (1, 1) host mesh, the model's weights as DTensors, and
@@ -54,7 +58,8 @@ reads (``_kv_for``); the rest of what the sharded eager step costs over
 the meshless one is DTensor's. ``--device cpu --smoke`` runs it on a
 gloo group at smoke width, with the device metrics null.
 
-Prints one JSON object. Needs one GPU (but ``--mesh --device cpu``)::
+Prints one JSON object. Needs one GPU (but ``--mesh --device cpu``,
+with or without ``--train``)::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         [--arch qwen2-1.5b] [--layers N] [--batch 4] [--context 2048] \\
@@ -151,6 +156,9 @@ def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
         "device_kernels_per_step": sum(n for n, _ in dev.values()) / reps,
         "host_launch_calls_per_step": sum(calls.values()),
         "host_launch_calls": calls,
+        # a tensor subclass's dispatch (DTensor's), host events only
+        "python_subclass_dispatches_per_step":
+            host.get("PythonSubclass", (0,))[0] / reps if cpu else None,
         "top_kernels": tops(dev, "device"),
         "top_host": tops(host, "host"),
         "read_s": time.perf_counter() - t1}
@@ -191,7 +199,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type != "cuda" and not args.mesh:
-        ap.error("only --mesh runs off the card")
+        ap.error("only --mesh (and --train --mesh) runs off the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
@@ -241,17 +249,52 @@ def main(argv=None) -> int:
 
 
 def _train(cfg, args, dev) -> int:
-    """Training steps of ``Trainer.run``, timed and traced: replays of
-    the step's CUDA graph (after its eager warm-up step and the step that
+    """Training steps of ``Trainer.run``, timed and traced (see
+    :func:`_train_leg`). With ``--mesh``: the trainer on a one-rank
+    process group's (1, 1) host mesh (its masters and moments DTensors),
+    then, the group gone, the same trainer on one device from the same
+    seeded weights (``train_meshless``)."""
+    cuda = dev.type == "cuda"
+    out = {"device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+           "arch": cfg.name, "layers": cfg.num_layers, "batch": args.batch,
+           "context": args.context, "params": cfg.param_count(),
+           "microbatches": cfg.train_microbatches, "remat": cfg.remat,
+           "compute_dtype": cfg.compute_dtype}
+    if not args.mesh:
+        out.update(_train_leg(cfg, args, dev, None))
+    else:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_host_mesh, one_rank_group
+        one_rank_group(dev)
+        try:
+            mesh = make_host_mesh()
+            out.update(mesh=list(mesh.shape), backend=dist.get_backend(),
+                       **_train_leg(cfg, args, dev, mesh))
+        finally:
+            dist.destroy_process_group()
+        out["train_meshless"] = _train_leg(cfg, args, dev, None)
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+def _train_leg(cfg, args, dev, mesh) -> dict:
+    """One trainer's steps (on ``mesh``, or one device): replays of the
+    step's CUDA graph (after its eager warm-up step and the step that
     captures it), or with ``--eager`` the eager step after one warm-up.
     The enqueue time is the step function's (the trainer's own read of
-    the loss waits for the device)."""
+    the loss waits for the device). The trainer is freed before this
+    returns."""
+    import gc
     import tempfile
 
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.train.train_loop import TrainConfig, Trainer
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        tr = Trainer(cfg, None,
+        tr = Trainer(cfg, mesh,
                      ShapeSpec("profile", "train", args.context, args.batch),
                      TrainConfig(ckpt_every=10 ** 9, ckpt_dir=tmp,
                                  seed=args.seed),
@@ -265,23 +308,22 @@ def _train(cfg, args, dev) -> int:
             fn(tr.opt_state, tokens, labels)
             tr.step += 1
 
-        torch.cuda.synchronize()
-        out = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
-               "layers": cfg.num_layers, "batch": args.batch,
-               "context": args.context, "params": cfg.param_count(),
-               "microbatches": cfg.train_microbatches, "remat": cfg.remat,
-               "compute_dtype": cfg.compute_dtype,
-               "train_step": "eager" if tr.graph is None else "cuda_graph",
-               "train": {**_timed(step, args.steps),
-                         **traced(step, top=20)},
-               "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "memory_reserved": torch.cuda.memory_reserved(),
+        _sync(cuda)
+        out = {"train_step": "eager" if tr.graph is None else "cuda_graph",
+               "train": {**_timed(step, args.steps, cuda),
+                         **traced(step, top=20, cuda=cuda)},
                "kernel_launches": launch_counts()}
+        if cuda:
+            out.update(max_memory_allocated=torch.cuda.max_memory_allocated(
+                dev), memory_reserved=torch.cuda.memory_reserved(dev))
         if tr.graph is not None:
             out.update(capture_s=tr.graph.capture_s,
                        graph_pool_bytes=tr.graph.pool_bytes())
-    print(json.dumps(out, indent=1))
-    return 0
+        del tr, fn, step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
 
 
 #: functions of ``models/attention.py`` whose host time a sharded decode

@@ -11,9 +11,10 @@ without a GPU) or on the CPU, and demonstrates checkpoint/restart. Under
 ``torchrun`` (``WORLD_SIZE`` set) every rank joins the process group
 (NCCL on the cards, each rank on card ``LOCAL_RANK``; gloo on the CPU)
 and trains on ``make_host_mesh()``, a (world, 1) data-parallel mesh, as
-the reference does; alone it trains on one device with no mesh, the
-step a CUDA graph replayed from the second step on (``--eager``: the
-eager step; a mesh's step is always eager).
+the reference does; alone it trains on one device with no mesh. Either
+way the step is a CUDA graph replayed from the second step on (on a
+mesh, each rank's graph of the DTensor step); ``--eager``: the eager
+step.
 """
 from __future__ import annotations
 

@@ -66,10 +66,9 @@ import time
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch.serving.decode_graph import (CaptureSite, counted_capture,
-                                              credit_launches)
+                                              credit_launches, tensor_key)
 
 
 #: buckets a step keeps; the least recently used is dropped first (a
@@ -101,10 +100,7 @@ class Bucket:
 def _cache_key(cache: dict) -> tuple:
     """The identity of a cache's leaves (a DTensor's by its local piece):
     what a graph captured on them reads and writes."""
-    leaves = ((k, v.to_local() if isinstance(v, DTensor) else v)
-              for k, v in sorted(cache.items()))
-    return tuple((k, v.data_ptr(), tuple(v.shape), v.stride(), v.dtype)
-                 for k, v in leaves)
+    return tuple((k, *tensor_key(v)) for k, v in sorted(cache.items()))
 
 
 class ForwardGraph:

@@ -7,8 +7,9 @@ A built step is plain callables over a :class:`Model` that holds the
 weights: no jit, but the decode step, on one device and on a mesh, is
 replayed as a CUDA graph (:mod:`repro_torch.models.forward_graph`), the
 counterpart of the reference's jitted ``decode_step``; the prefill and
-train steps built here run eagerly (the trainer captures its step on one
-device, :mod:`repro_torch.train.train_graph`). ``mesh=None`` is one
+train steps built here run eagerly (the trainer captures its step, on
+one device and on each rank of a mesh, :mod:`repro_torch.train.
+train_graph`). ``mesh=None`` is one
 device. With a ``DeviceMesh`` the step takes ``default_rules(cfg, mesh,
 kind)`` (or ``rules``): the model's weights are DTensors placed by their
 logical axes, the caches by :meth:`Model.cache_logical_axes`
@@ -186,7 +187,10 @@ def build_train_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
     and accumulates the grads in fp32, as the reference's scan does. On a
     mesh each grad is reduced onto its master's placement (a sum over
     the ranks that hold it whole, a reduce-scatter where it is sharded)
-    and the moments share the masters' placements."""
+    and the moments share the masters' placements. The step reads no
+    device value on the host, so a rank's step can be captured whole,
+    its collectives included (``Trainer``'s
+    :class:`~repro_torch.train.train_graph.TrainGraph`)."""
     microbatches = microbatches or cfg.train_microbatches
     rules = _rules(cfg, mesh, "train", rules)
     model = _model(cfg, model, mesh, rules, device=device, seed=seed,

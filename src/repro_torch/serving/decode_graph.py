@@ -41,6 +41,8 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import local
+
 
 @dataclasses.dataclass
 class Bucket:
@@ -125,6 +127,14 @@ def counted_capture(graph, pool, step,
             wrappers[name].launches = n
     return {name: after[name] - before[name] for name in after
             if after[name] != before[name]}
+
+
+def tensor_key(t: torch.Tensor) -> tuple:
+    """What a graph captured on ``t`` reads and writes: the address,
+    shape, strides and dtype of its storage (of a DTensor, its local
+    piece's)."""
+    t = local(t)
+    return t.data_ptr(), tuple(t.shape), t.stride(), t.dtype
 
 
 class CaptureSite:

@@ -1,33 +1,48 @@
 """The training step as one captured program: a CUDA graph of
-:func:`~repro_torch.models.steps.build_train_step`'s step on one device,
-captured at the trainer's second step and replayed on every later one.
+:func:`~repro_torch.models.steps.build_train_step`'s step, on one device
+or on each rank of a mesh, captured at the trainer's second step and
+replayed on every later one.
 
 This is the counterpart of the reference's ``jax.jit(train_step, ...,
-donate_argnums=(0, 1))`` (``repro.models.steps.build_train_step``), the
-step its ``Trainer.run`` compiles once and calls every step. The port's
-step is eager: at qwen2-1.5b's full depth it launches ~82k kernels (the
-forward, the backward with its recomputed layers and loss chunks, AdamW
-over every leaf). Replayed as a graph, the host makes one launch a step
-and one copy of the batch. The graph holds exactly the kernels the eager
+donate_argnums=(0, 1))`` (``repro.models.steps.build_train_step``; on a
+mesh under its ``in_shardings`` and ``out_shardings``), the step its
+``Trainer.run`` compiles once and calls every step. The port's step is
+eager: at qwen2-1.5b's full depth it launches ~90k kernels (the forward,
+the backward with its recomputed layers and loss chunks, AdamW over
+every leaf). Replayed as a graph, the host makes one launch a step and
+one copy of the batch. The graph holds exactly the kernels the eager
 step launches, in the same order, on the same shapes and addresses, so
 its results are the eager step's bit for bit.
 
 - Inputs: one int64 ``(2, B, S)`` device buffer, the tokens and the
   labels, filled before each step by one copy from a pinned host buffer.
+  On a mesh it is whole on every rank, as the eager step's inputs are:
+  the step places each microbatch on "act_batch" inside the captured
+  body.
 - Outputs: the captured step's fp32 scalars ``loss``, ``grad_norm`` and
-  ``lr``, which every replay overwrites: :meth:`TrainGraph.step` returns
-  clones.
+  ``lr`` (whole on every rank), which every replay overwrites:
+  :meth:`TrainGraph.step` returns clones.
 - State: the graph reads and writes the tensors it was captured on, the
   model's fp32 masters and the optimizer state's moments and count, all
-  updated in place by ``apply_updates``. A caller that restores a state
-  copies into those tensors (``Trainer.resume``); a step on tensors other
-  than the bound ones is refused.
+  updated in place by ``apply_updates``; on a mesh, the masters' and
+  moments' local pieces (a DTensor is a wrapper whose own address is not
+  its storage's). A caller that restores a state copies into those
+  tensors (``Trainer.resume``); a step on tensors other than the bound
+  ones is refused.
 - Steps: the first runs eagerly on the capture stream, on the same
-  buffers (the warm-up: autograd's and cuBLAS's lazy set-up must not fall
-  inside a capture); it is a real step. The second is captured, which
-  runs nothing, and then replayed once. Every later step is a replay. A
-  failure inside the capture raises; nothing falls back to the eager
-  step.
+  buffers (the warm-up: autograd's and cuBLAS's lazy set-up, and on a
+  mesh DTensor's sharding caches, must not fall inside a capture); it is
+  a real step. The second is captured, which runs nothing, and then
+  replayed once. Every later step is a replay. A failure inside the
+  capture raises; nothing falls back to the eager step.
+- A mesh: each rank captures its own graph of the DTensor step.
+  DTensor's dispatch and sharding propagation run on the host while the
+  step is recorded, and never again. The backward runs on autograd's
+  device thread, on the capture stream (each backward op on its forward
+  op's stream), drawing from the capture's pool; the step's collectives
+  (the grads reduced onto their masters' placements, the grad norm's
+  sums) are recorded by NCCL into the graph. The capture is
+  thread-local, so NCCL's watchdog thread cannot break it.
 
 On the CPU nothing is captured: the same buffers are filled and bound,
 and the step runs eagerly on them, so the tests on the CPU go through the
@@ -40,12 +55,12 @@ import time
 import torch
 
 from repro_torch.serving.decode_graph import (CaptureSite, counted_capture,
-                                              credit_launches)
+                                              credit_launches, tensor_key)
 
 
 class TrainGraph:
     """``step(opt_state, tokens, labels)``: the step ``fn`` of a
-    ``BuiltStep`` over ``model`` (one device, no mesh) on persistent
+    ``BuiltStep`` over ``model`` (on one device or a mesh) on persistent
     buffers, for batches of ``B`` rows of ``S`` tokens; captured at its
     second call on the card."""
 
@@ -54,6 +69,7 @@ class TrainGraph:
         self.model = model
         self.device = model.device
         self.capture = self.device.type == "cuda"
+        self.error_mode = "global" if model.mesh is None else "thread_local"
         self.batch = torch.zeros((2, batch, seq_len), dtype=torch.long,
                                  device=self.device)
         self._host = torch.zeros((2, batch, seq_len), dtype=torch.long,
@@ -93,15 +109,16 @@ class TrainGraph:
         return self.out
 
     def _bind(self, opt_state: dict) -> None:
-        """Bind the masters and ``opt_state``'s tensors at the first step;
-        refuse a later step on others (a graph would go on reading the
-        bound ones)."""
+        """Bind the masters and ``opt_state``'s tensors (their local
+        pieces on a mesh) at the first step; refuse a later step on
+        others (a graph would go on reading the bound ones)."""
         leaves = [*self.model.params.values(), *opt_state["m"].values(),
                   *opt_state["v"].values(), opt_state["count"]]
-        ptrs = tuple(t.data_ptr() for t in leaves)
+        with torch.no_grad():
+            keys = tuple(tensor_key(t) for t in leaves)
         if self._bound is None:
-            self._bound = ptrs
-        elif ptrs != self._bound:
+            self._bound = keys
+        elif keys != self._bound:
             raise ValueError(
                 "the training step's graph is bound to the tensors of its "
                 "first step: copy a restored state into them "
@@ -145,7 +162,7 @@ class TrainGraph:
                 outs = {}
                 self.launches = counted_capture(
                     graph, pool, lambda: outs.update(
-                        self.fn(opt_state, *self.batch)))
+                        self.fn(opt_state, *self.batch)), self.error_mode)
                 self.graph, self.out = graph, outs
                 self.capture_s += time.perf_counter() - t0
         main.wait_stream(side)

@@ -5,15 +5,16 @@
   the latest durable step after a crash or preemption;
 - the step: ``models.steps.build_train_step`` over a trainable ``Model``
   (fp32 masters, compute-dtype forward, AdamW in place), on the card
-  unless the caller asks for the CPU; on one device a replayed CUDA
-  graph from the second step on (``train.train_graph``, the counterpart
-  of the reference's jitted step), eager with ``cuda_graphs=False`` or
-  on a mesh;
+  unless the caller asks for the CPU; a replayed CUDA graph from the
+  second step on, on one device and on each rank of a mesh
+  (``train.train_graph``, the counterpart of the reference's jitted
+  step), eager with ``cuda_graphs=False``;
 - data: the synthetic ``TokenStream``, stateless by step, so a restart
   resumes mid-stream with nothing lost or repeated;
 - elastic remesh: ``reshard_for_mesh`` rebuilds the step for a new mesh
   (a change of chip count) and moves the masters and moments onto it;
-  training goes on with the global batch kept.
+  training goes on with the global batch kept, the new step captured
+  again at its second step.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.data.tokens import DataConfig, TokenStream
-from repro_torch.dist.sharding import full, placed_like
+from repro_torch.dist.sharding import full, local, placed_like
 from repro_torch.kernels import resolve_device
 from repro_torch.models.steps import build_train_step
 from repro_torch.models.transformer import Model
@@ -53,9 +54,9 @@ class Trainer:
     """``mesh``: None (one device) or a ``DeviceMesh`` over the process
     group (every rank runs the same loop, the masters and moments are
     DTensors). ``device``: "cuda" (the default; raises without a GPU) or
-    "cpu". ``cuda_graphs``: without a mesh, the step runs on a
-    :class:`TrainGraph` (``self.graph``), a CUDA graph on the card;
-    False keeps the eager step. A meshed step is always eager."""
+    "cpu". ``cuda_graphs``: the step runs on a :class:`TrainGraph`
+    (``self.graph``), a CUDA graph on the card (on a mesh, each rank's
+    graph of the DTensor step); False keeps the eager step."""
 
     def __init__(self, cfg: ModelConfig, mesh, shape: ShapeSpec,
                  tcfg: TrainConfig = TrainConfig(),
@@ -76,7 +77,6 @@ class Trainer:
         self.model: Optional[Model] = None
         self.built = None
         self.graph: Optional[TrainGraph] = None
-        self._said_eager = False
         self.params = None
         self.opt_state = None
         self.history: list[dict] = []
@@ -98,22 +98,21 @@ class Trainer:
                                       rules=model.rules)
         self.params = model.params
         self.graph = None
-        if self.cuda_graphs and self.mesh is None:
+        if self.cuda_graphs:
             self.graph = TrainGraph(self.built.fn, model,
                                     self.shape.global_batch,
                                     self.shape.seq_len)
-        elif self.cuda_graphs and not self._said_eager:
-            self._said_eager = True
-            self.log("[trainer] the step on a mesh runs eagerly: no CUDA "
-                     "graph of a DTensor step")
 
     def reshard_for_mesh(self, new_mesh) -> None:
         """Elastic scaling: the step rebuilt for ``new_mesh`` (None: one
         device), the masters and moments gathered whole and placed on it
-        (a DTensor cannot be redistributed across meshes)."""
+        (a DTensor cannot be redistributed across meshes). The old step's
+        graph and its pool are dropped first; the new step is captured
+        again at its second step."""
         _check_mesh(new_mesh)
         if self.model is None:
             self.init_state()
+        self.graph = None
         whole = {k: full(v).detach() for k, v in self.params.items()}
         moments = {m: {k: full(v) for k, v in self.opt_state[m].items()}
                    for m in ("m", "v")}
@@ -128,8 +127,9 @@ class Trainer:
 
     def resume(self) -> bool:
         """Restore the latest checkpoint; True if one was found. The
-        masters, moments and count are copied into the live tensors,
-        whose addresses a captured step holds."""
+        masters, moments and count are copied into the live tensors (on
+        a mesh, their local pieces), whose addresses a captured step
+        holds."""
         latest = self.ckpt.latest_step()
         if latest is None:
             return False
@@ -142,7 +142,7 @@ class Trainer:
                               (self.opt_state["m"], opt_state["m"]),
                               (self.opt_state["v"], opt_state["v"])):
                 for k, t in new.items():
-                    live[k].copy_(t)
+                    local(live[k]).copy_(local(t))
             self.opt_state["count"].copy_(opt_state["count"])
         self.step = manifest["step"]
         self.log(f"[trainer] resumed at step {self.step}")

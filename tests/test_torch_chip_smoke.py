@@ -699,6 +699,18 @@ with tempfile.TemporaryDirectory() as tmp:
         steps=chip_smoke.PATH_G_TRAIN["steps"])
 out["moe"] = chip_smoke.a2a_vs_grouped(
     get_config("qwen3-moe-235b-a22b", smoke=True), mesh, "cpu", 2, 16)
+# 9e: the trainer's graph path against the eager sharded step (two
+# microbatches in (i), as the config's at full width)
+import dataclasses
+with tempfile.TemporaryDirectory() as tmp:
+    out["train_legs"] = chip_smoke.sharded_train_legs(
+        dataclasses.replace(cfg, train_microbatches=2), mesh, "cpu", tmp,
+        seq=32, batch=2, steps=chip_smoke.PATH_G_TRAIN_GRAPH["steps"],
+        eager_steps=chip_smoke.PATH_G_TRAIN_GRAPH["eager_steps"])
+with tempfile.TemporaryDirectory() as tmp:
+    out["train_pair"] = chip_smoke.sharded_train_pair(
+        cfg, mesh, "cpu", tmp, layers=2, seq=32, batch=1,
+        steps=chip_smoke.PATH_G_TRAIN_EQUAL["steps"])
 with tempfile.TemporaryDirectory() as tmp:
     out["dryrun"] = chip_smoke.dryrun_cells(
         (("qwen2-1.5b", "decode_32k", False),), tmp, smoke=True)
@@ -711,6 +723,11 @@ with contextlib.redirect_stdout(buf):
     profile_step.main(["--mesh", "--device", "cpu", "--smoke", "--batch",
                        "1", "--context", "16", "--steps", "2"])
 out["profile"] = json.loads(buf.getvalue())
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    profile_step.main(["--train", "--mesh", "--device", "cpu", "--smoke",
+                       "--batch", "2", "--context", "16", "--steps", "2"])
+out["train_profile"] = json.loads(buf.getvalue())
 print(json.dumps(out))
 """
 
@@ -721,9 +738,14 @@ def test_phase9_on_cpu_gloo():
     at full width on NCCL, 9d at full width): the sharded serving legs
     bit-equal to the meshless ones, the sharded trainer's step 1 equal and
     its remesh going on, the all-to-all layer against the grouped one and
-    a smoke dry-run cell, each through the phase's own checks; then
-    ``profile_step --mesh`` at smoke width on its own one-rank group: its
-    keys, and no host number under a device metric's name (the flash
+    a smoke dry-run cell, 9e's graph-path trainer against the eager
+    sharded one (two microbatches; then the 2-layer pair, bit for bit,
+    and its step 1 equal to the meshless trainer's), each through the
+    phase's own checks; then
+    ``profile_step --mesh`` and ``--train --mesh`` at smoke width, each
+    on its own one-rank group: their keys (the sharded trainer's DTensor
+    dispatches counted, the meshless one's none), and no host number
+    under a device metric's name (the flash
     kernel does not run on the CPU, so 9a's launches are 0 here, and the
     sharded graph leg runs its bucket eagerly: nothing captured)."""
     import json
@@ -742,6 +764,17 @@ def test_phase9_on_cpu_gloo():
     assert serve["graph_replays"] == 0, serve
     chip_smoke.assert_sharded_training(out["train"])
     assert out["train"]["loss_gap"] == 0, out["train"]
+    legs = out["train_legs"]
+    chip_smoke.assert_sharded_train_legs(legs, cuda=False)
+    assert [r["kind"] for r in legs["graph"]["records"]] == \
+        ["warm-up", "capture", "timed", "timed"], legs["graph"]
+    assert [r["kind"] for r in legs["eager"]["records"]] == \
+        ["warm-up", "timed", "timed"], legs["eager"]
+    assert legs["graph"]["captures"] == 0 == legs["eager"]["captures"]
+    pair = out["train_pair"]
+    chip_smoke.assert_sharded_train_pair(pair)
+    assert pair["loss_gap"] == 0 == pair["grad_norm_gap"], pair
+    assert pair["graph"]["n_differing"] == 0, pair
     chip_smoke.assert_a2a(out["moe"])
     assert out["moe"]["bit_equal"], out["moe"]
     chip_smoke.assert_dryrun(out["dryrun"])
@@ -767,3 +800,85 @@ def test_phase9_on_cpu_gloo():
         split["step_ms_per_step"], split
     graph = prof["sharded_graph"]
     assert graph["captures"] == 0 and graph["replays"] == 0, graph
+    # profile_step --train --mesh: the sharded trainer (its graph path,
+    # DTensor dispatches counted) beside the meshless one
+    train = out["train_profile"]
+    assert train["mesh"] == [1, 1] and train["backend"] == "gloo", train
+    assert train["device"] == "cpu" and train["train_step"] == "cuda_graph"
+    sharded, meshless = train["train"], train["train_meshless"]["train"]
+    assert train["train_meshless"]["train_step"] == "cuda_graph"
+    assert sharded["python_subclass_dispatches_per_step"] > 0, sharded
+    assert meshless["python_subclass_dispatches_per_step"] == 0, meshless
+    for rec in (sharded, meshless):
+        assert rec["wall_ms_median"] > 0 and rec["enqueue_ms_median"] > 0
+        assert all(rec[k] is None for k in (
+            "device_busy_ms_per_step", "device_busy_share",
+            "device_kernels_per_step", "host_launch_calls_per_step")), rec
+    # nothing captured on the CPU, and no device memory reported
+    assert train["capture_s"] == 0 and train["graph_pool_bytes"] is None
+    assert "max_memory_allocated" not in train, train
+
+
+#: path F's graph pool, full-depth qwen2-1.5b at B 2 x 4096 (twice 9e(i)'s
+#: tokens) on the H100 (PERF.md section 5)
+PATH_F_POOL_BYTES = 30.5e9
+
+
+def test_path_g_train_sizing_at_full_width():
+    """9e(i)'s shape is 8a's 4096-token row halved, one row a microbatch
+    at qwen2-1.5b's two; each leg runs steps 1-4 (the graph's warm-up,
+    capture and replays before its traced step; the eager leg's warm-up
+    and timed steps, its traced step the fourth). The fp32 masters, two
+    moments, a microbatch's grads and their accumulator, with a graph
+    pool no larger than path F's at twice the tokens, fit the card's 80
+    GB. 9e(ii) is 9b's cut, run for four steps."""
+    cfg = get_config(chip_smoke.PATH_G["arch"])
+    g = chip_smoke.PATH_G_TRAIN_GRAPH
+    assert g["batch"] == cfg.train_microbatches == \
+        chip_smoke.TRAIN_F["batch"]
+    assert 2 * g["seq"] == chip_smoke.TRAIN_F["seq"]
+    assert cfg.remat == "full" and cfg.compute_dtype == "bfloat16"
+    assert chip_smoke.warm_steps(True) + g["steps"] == 4 == \
+        chip_smoke.warm_steps(False) + g["eager_steps"] + 1
+    assert cfg.opt_state_dtype == "float32"
+    state_bytes = 5 * 4 * cfg.param_count()
+    assert state_bytes + PATH_F_POOL_BYTES < 80e9, state_bytes
+    eq = chip_smoke.PATH_G_TRAIN_EQUAL
+    assert {k: v for k, v in eq.items() if k != "steps"} == \
+        {k: v for k, v in chip_smoke.PATH_G_TRAIN.items() if k != "steps"}
+    assert eq["steps"] == chip_smoke.warm_steps(True) + 2
+
+
+@pytest.fixture
+def gloo_mesh():
+    """A (1, 1) mesh over a one-rank gloo group in this process."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, one_rank_group
+    one_rank_group("cpu")
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("part", ["9e(i)", "9e(ii)"])
+def test_a_mesh_capture_failure_is_not_caught(tmp_path, monkeypatch,
+                                              gloo_mesh, part):
+    """Phase 9e's legs let a failing graph step on the mesh (a capture
+    that raises) through: nothing falls back to the eager sharded
+    step."""
+    from repro_torch.train.train_graph import TrainGraph
+
+    def fails(self, *args):
+        raise RuntimeError("capture failed")
+
+    monkeypatch.setattr(TrainGraph, "step", fails)
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    run = {"9e(i)": lambda: chip_smoke.sharded_train_legs(
+               cfg, gloo_mesh, "cpu", tmp_path, seq=32, batch=2, steps=1,
+               eager_steps=1),
+           "9e(ii)": lambda: chip_smoke.sharded_train_pair(
+               cfg, gloo_mesh, "cpu", tmp_path, layers=2, seq=32, batch=1,
+               steps=2)}[part]
+    with pytest.raises(RuntimeError, match="capture failed"):
+        run()

@@ -195,6 +195,33 @@ WORKER = HEADER + textwrap.dedent("""
                                                          "grad_norm")]
     out["train_gaps"] = gaps
 
+    # --- the trainer's graph path (its step on the graph's buffers, the
+    # CPU's stand-in for each rank's captured step) against the eager
+    # sharded step, bit for bit: two steps here, two after a remesh
+    from repro_torch.dist.sharding import local
+    other = mesh_of((2, 2) if shape == (1, 4) else (1, 4))
+    legs = []
+    for graphs in (True, False):
+        tr = Trainer(cfg, mesh, tshape, TrainConfig(
+            steps=4, ckpt_every=10 ** 9, ckpt_dir=str(data / "graph"),
+            log_every=10 ** 9, adamw=opt_mod.AdamWConfig(
+                lr=1e-3, warmup_steps=1, total_steps=4)),
+            log_fn=lambda s: None, device="cpu", cuda_graphs=graphs)
+        tr.init_state(params)
+        tr.run(steps=2)
+        tr.reshard_for_mesh(other)
+        hist = tr.run(steps=4)
+        assert (tr.graph is not None) == graphs
+        st = tr.opt_state
+        legs.append(([[h[k] for k in ("loss", "grad_norm", "lr")]
+                      for h in hist],
+                     [local(t) for t in (*tr.params.values(),
+                                         *st["m"].values(),
+                                         *st["v"].values(), st["count"])]))
+    (hg, sg), (he, se) = legs
+    out["train_graph_equals_eager"] = hg == he and all(
+        torch.equal(a, b) for a, b in zip(sg, se))
+
 
     # --- rwkv6 and zamba2 smoke: sharded against meshless
     for arch in ("rwkv6-3b", "zamba2-2.7b"):
@@ -348,7 +375,10 @@ def test_sharded_steps_on_four_gloo_ranks(reference, shape, tmp_path):
     value), the decode steps through the bucketed step (no value read on
     the host during them) and bit-equal, logits, tokens and cache, to
     the eager step (``cuda_graphs=False``); a sharded train step
-    against the meshless one (1e-5 relative, two steps); rwkv6's and
+    against the meshless one (1e-5 relative, two steps); the sharded
+    trainer's graph path bit-equal to its eager step (``cuda_graphs=
+    False``), history, masters, moments and count, over two steps and
+    two more after a remesh to the other mesh; rwkv6's and
     zamba2's sharded steps against their meshless ones; on (2, 2)
     ``CostModel.from_roofline`` counted on the mesh and the MoE layer's
     two dispatch groups against the reference's; on (1, 4) the remesh to (2, 2) and a
@@ -366,6 +396,7 @@ def test_sharded_steps_on_four_gloo_ranks(reference, shape, tmp_path):
         assert out["qwen2_cache_gap"] <= 1e-5, (rank, out)
         assert out["qwen2_tokens_equal"], (rank, out)
         assert max(out["train_gaps"]) <= TRAIN_RTOL, (rank, out)
+        assert out["train_graph_equals_eager"], (rank, out)
         for arch in ("rwkv6-3b", "zamba2-2.7b"):
             assert max(out[f"{arch}_gaps"]) <= LOGIT_RTOL, (rank, out)
         if shape == "2x2":

@@ -51,9 +51,10 @@ def numpy_params(tree) -> dict:
 
 
 def make_trainer(tmp_path, arch="qwen2-1.5b", steps=30, ckpt_every=10,
-                 compute_dtype=None, cuda_graphs=True):
-    """The reference's ``make_trainer`` on the port (CPU); ``cuda_graphs``
-    False: the eager step, not the step on the graph's buffers."""
+                 compute_dtype=None, cuda_graphs=True, mesh=None):
+    """The reference's ``make_trainer`` on the port (CPU; on ``mesh``, a
+    ``DeviceMesh``, if given); ``cuda_graphs`` False: the eager step, not
+    the step on the graph's buffers."""
     cfg = get_config(arch, smoke=True)
     if compute_dtype:
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
@@ -61,7 +62,7 @@ def make_trainer(tmp_path, arch="qwen2-1.5b", steps=30, ckpt_every=10,
                        ckpt_dir=str(tmp_path / "ckpt"), log_every=1000,
                        adamw=opt_mod.AdamWConfig(lr=1e-3, warmup_steps=5,
                                                  total_steps=steps))
-    return Trainer(cfg, None, ShapeSpec(*SHAPE), tcfg,
+    return Trainer(cfg, mesh, ShapeSpec(*SHAPE), tcfg,
                    log_fn=lambda s: None, device="cpu",
                    cuda_graphs=cuda_graphs)
 
@@ -81,12 +82,13 @@ def jax_trainer(tmp_path, arch, steps, compute_dtype):
 
 
 def twin_histories(tmp_path, arch, steps, compute_dtype="float32",
-                   cuda_graphs=True):
-    """``steps`` steps of JAX's Trainer and of the port's from JAX's
-    initial params, on the same TokenStream batches."""
+                   cuda_graphs=True, mesh=None):
+    """``steps`` steps of JAX's Trainer and of the port's (on ``mesh``, if
+    given) from JAX's initial params, on the same TokenStream batches."""
     jt = jax_trainer(tmp_path, arch, steps, compute_dtype)
     tr = make_trainer(tmp_path, arch, steps, ckpt_every=1000,
-                      compute_dtype=compute_dtype, cuda_graphs=cuda_graphs)
+                      compute_dtype=compute_dtype, cuda_graphs=cuda_graphs,
+                      mesh=mesh)
     tr.init_state(numpy_params(jt.params))
     return jt.run(), tr.run()
 

@@ -6,16 +6,25 @@ step and replayed after; on the CPU the same buffers are filled and bound
 and the step runs eagerly on them, so these tests go through the buffer
 reuse, the binding to the state's tensors and the clones that the graph
 relies on. The capture itself is held bit for bit against two eager legs
-by ``chip_smoke.py`` (phase 8b) and timed against the eager step in 8a.
+by ``chip_smoke.py`` (phase 8b) and timed against the eager step in 8a;
+on a one-rank NCCL mesh against the eager sharded step in 9e.
+
+On a (1, 1) gloo mesh (the masters and moments DTensors) the trainer
+takes the same graph path: its step on the buffers equals the eager
+sharded step bit for bit, reads nothing on the host, and is bound to
+the DTensors' local pieces.
 """
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
+from host_reads import no_host_reads
 from test_torch_train import SHAPE, rel, twin_histories
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ShapeSpec, get_config
+from repro_torch.dist.sharding import local
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.train_graph import TrainGraph
 from repro_torch.train.train_loop import TrainConfig, Trainer
@@ -174,27 +183,116 @@ def test_eager_option_runs_the_built_step(tmp_path):
     assert seen == [np.ndarray, np.ndarray]
 
 
-def test_mesh_trainer_keeps_the_eager_step(tmp_path):
-    """On a (1, 1) gloo mesh the step stays eager, and the trainer says so
-    once, through its rebuilds too (``reshard_for_mesh``); meshless again,
-    the step is the graph path's."""
+# ---------------------------------------------------------------- (e)
+@pytest.fixture
+def mesh():
+    """A (1, 1) mesh over a one-rank gloo group in this process."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
-        mesh = init_device_mesh("cpu", (1, 1),
-                                mesh_dim_names=("data", "model"))
-        logs = []
-        tr = trainer(tmp_path, steps=2, mesh=mesh, logs=logs)
-        tr.run(steps=1)
-        assert tr.graph is None
-        tr.reshard_for_mesh(mesh)
-        assert tr.graph is None
-        tr.run(steps=2)
-        said = [s for s in logs if "eagerly" in s]
-        assert len(said) == 1 and "CUDA graph" in said[0]
-        tr.reshard_for_mesh(None)
-        assert tr.graph is not None
+        yield init_device_mesh("cpu", (1, 1),
+                               mesh_dim_names=("data", "model"))
     finally:
         dist.destroy_process_group()
+
+
+def count_steps(monkeypatch) -> list:
+    """The graphs whose ``TrainGraph.step`` ran, one entry a step."""
+    calls = []
+    step = TrainGraph.step
+
+    def counted(self, *args):
+        calls.append(self)
+        return step(self, *args)
+
+    monkeypatch.setattr(TrainGraph, "step", counted)
+    return calls
+
+
+def test_mesh_trainer_runs_the_graph_path(tmp_path, mesh, monkeypatch):
+    """On a (1, 1) gloo mesh ``cuda_graphs=True`` builds a ``TrainGraph``
+    over the sharded model, and every step goes through
+    ``TrainGraph.step``; ``reshard_for_mesh(mesh)`` and
+    ``reshard_for_mesh(None)`` each build a fresh graph, whose first step
+    is its warm-up; nothing says the step runs eagerly."""
+    calls = count_steps(monkeypatch)
+    logs = []
+    tr = trainer(tmp_path, steps=4, mesh=mesh, logs=logs)
+    tr.run(steps=1)
+    first = tr.graph
+    assert first is not None and first.model.mesh is mesh
+    assert isinstance(tr.params["embed"], DTensor)
+    tr.reshard_for_mesh(mesh)
+    second = tr.graph
+    assert second is not None and second is not first
+    assert second.uses == 0 and second.model.mesh is mesh
+    tr.run(steps=3)
+    tr.reshard_for_mesh(None)
+    third = tr.graph
+    assert third not in (None, second) and third.model.mesh is None
+    tr.run(steps=4)
+    assert calls == [first, second, second, third]
+    assert (first.uses, second.uses, third.uses) == (1, 2, 1)
+    assert not any("eagerly" in s for s in logs), logs
+    assert any("resharded" in s for s in logs), logs
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_mesh_graph_path_equals_eager_bitwise(tmp_path, mesh,
+                                              microbatches):
+    """On the (1, 1) mesh the graph path's trainer equals the eager
+    sharded trainer (``cuda_graphs=False``) bit for bit: every loss,
+    grad norm and lr, every master and moment, the count; its step reads
+    no device value on the host (a capture would refuse it). It runs
+    past its checkpoint (4 -> 6), resumes into itself, copying into the
+    DTensors' local pieces the graph is bound to, and goes on to equal
+    the eager trainer again. A step on another state (fresh DTensors,
+    whose wrappers' ``data_ptr()`` is 0 like the bound ones') is refused:
+    the binding keys on the local pieces."""
+    g = trainer(tmp_path / "g", microbatches=microbatches, steps=6,
+                mesh=mesh)
+    e = trainer(tmp_path / "e", cuda_graphs=False,
+                microbatches=microbatches, steps=6, mesh=mesh)
+    g.init_state()
+    step = g.graph.step
+
+    def guarded(*args):
+        with no_host_reads():
+            return step(*args)
+
+    g.graph.step = guarded
+    hg, he = g.run(), e.run()
+    assert_same(g, e, hg, he)
+    assert g.graph.uses == 6 and e.graph is None
+    bound = [local(t).data_ptr() for t in state(g).values()]
+    assert g.resume() and g.step == 4
+    assert [local(t).data_ptr() for t in state(g).values()] == bound
+    h = g.run()
+    assert g.step == 6 and g.graph.uses == 8
+    assert_same(g, e, h[-2:], he[-2:])
+    fresh = opt_mod.init_state(g.params, g.tcfg.adamw)
+    assert fresh["m"]["embed"].data_ptr() == \
+        g.opt_state["m"]["embed"].data_ptr()
+    with pytest.raises(ValueError, match="bound"):
+        g.graph.step(fresh, *g.data.batch_at(6))
+    assert g.graph.uses == 8
+
+
+def test_mesh_graph_trainer_matches_jax(tmp_path, mesh, monkeypatch):
+    """The graph path's trainer on the (1, 1) mesh against the
+    reference's ``Trainer`` (on ``make_host_mesh()``, as the reference
+    always trains) from the same params on the same batches, fp32
+    compute, with ``twin_histories``' bounds: step 1's loss and grad norm
+    within 1e-5 relative, ten losses within 1e-3; every step went
+    through ``TrainGraph.step`` over the sharded model."""
+    calls = count_steps(monkeypatch)
+    hj, ht = twin_histories(tmp_path, "qwen2-1.5b", 10, cuda_graphs=True,
+                            mesh=mesh)
+    assert len(calls) == 10 and calls[0].model.mesh is mesh
+    assert rel(ht[0]["loss"], hj[0]["loss"]) <= 1e-5
+    assert rel(ht[0]["grad_norm"], hj[0]["grad_norm"]) <= 1e-5
+    for a, b in zip(hj, ht):
+        assert rel(b["loss"], a["loss"]) <= 1e-3, (a, b)
+        assert b["lr"] == pytest.approx(a["lr"], rel=1e-6)
