@@ -61,7 +61,15 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          held against the sequential recurrence; at one chunk, K=64 with
          L=32 and K=10 (4-byte copies), with and without an initial state;
          a B=2 call's rows equal B=1 calls bit for bit; and its device time
-         logged for each carry-pass slice width at B=1 and B=2.
+         logged for each carry-pass slice width at B=1 and B=2. The decode
+         step's four fusions (``kernels/fusions``: the RMS norms, qkv bias
+         + RoPE, the gated activation, and the new token's merge in decode
+         attention's combine) against their plain versions at every paged
+         family's published width, rows 1, 4 and 64, bf16 and fp32: RoPE
+         and the activation bit-equal (the activation over every finite
+         bf16 gate), the norm within one ulp, the merge within one bf16 ulp
+         or 2e-5 in fp32; each timed at the serve step (qwen2-1.5b, B=4)
+         beside ``F.rms_norm`` and ``F.silu(a) * b``.
 Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          seeded random weights cast once to bf16) serving agent programs
          through the unchanged ``Engine`` with a ``TorchModelBackend``:
@@ -82,10 +90,11 @@ Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          kernel of the path (decode attention, the page moves, the
          indexed token append, flash attention in each fresh prefill)
          must have run, flash attention in 3a and in 3b, and the by-value
-         append, which no runtime path calls, never. Then 3b twice more,
-         eager (``cuda_graphs=False``) and graphed, for JCT, busy seconds
-         and each family's capture seconds paired in one call, each with
-         its launches.
+         append, which no runtime path calls, never. Then 3b three times
+         more, eager (``cuda_graphs=False``), graphed, and graphed with
+         the decode step's chains plain (``fused=False``), for JCT, busy
+         seconds and each family's capture seconds paired in one call,
+         each with its launches.
          (c) On the same weights, programs of 2040, 1000 and 500 tokens
          and a twin of the second on its pages: 20 decode steps eager
          (``cuda_graphs=False``), the runtime's state restored, the same
@@ -112,7 +121,15 @@ Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          Then the prefill logits through
          the flash kernel against prefill + extend (dense attention) of
          the same 1024-token prompt, in bf16 and fp32, on the first 2
-         layers at full width, and a logged depth sweep.
+         layers at full width, and a logged depth sweep. 3c runs twice,
+         with the decode step's fusions and with ``fused=False`` (the
+         plain spelling on the card). Last, the fused decode step against
+         ``fused=False`` from the same pools at the 2-layer cut, bf16 and
+         fp32: argmax equal, |logit gap| within 0.25 / 1e-3 of the rms,
+         every fusion launched by the fused leg alone, and one traced
+         eager step of each leg whose kernel list shows the fused leg
+         running none of the plain chains' kernels; a bf16 depth sweep of
+         the gap logged.
 Phase 4  path B: full-width rwkv6-3b (32 layers, seeded random weights)
          through ``Model.forward``: B=2, a 2048-token prompt in bf16, with
          the counts zeroed before and read after (two WKV-scan launches,
@@ -172,7 +189,9 @@ Phase 6  path D, the MoE, VLM and audio families, after phase 3's model
          over ``MOE_PREFILL_OPS`` (15 chunks, four buckets captured), as
          in 3d. (b) qwen3-moe, moonshot-v1-
          16b-a3b (its leading dense layer and two MoE layers, shared
-         experts), pixtral-12b and musicgen-large at full width and cut
+         experts), pixtral-12b, musicgen-large, stablelm-3b and glm4-9b
+         (each paged family also fused against ``fused=False`` as in
+         phase 3, in fp32) at full width and cut
          depth in fp32: a 256-token prompt's prefill against prefill of
          all but 8 tokens and 8 decode steps with the cache (capacity
          where no copy drops); for the three the paged runtime serves,
@@ -418,7 +437,11 @@ SCAN_PREFILL = dict(SCAN_MAIN, B=2)
 # step appends through the indexed launch, graphed or eager
 # (``cuda_graphs=False``); phase 2 holds it against its plain version.
 PATH_A = ("paged_decode_attention", "page_gather", "page_scatter",
-          "token_append_indexed", "flash_attention")
+          "token_append_indexed", "flash_attention", "rms_norm",
+          "qkv_rope", "decode_merge")
+# The gated activation runs in a dense FFN's decode step (a MoE FFN keeps
+# its own ops): on path A's qwen2-1.5b, not in phase 6a's qwen3-moe.
+DENSE_FFN = "gated_act"
 BY_VALUE_APPEND = "token_append"
 # Phase 3c: the graphed decode step against the eager one at full width.
 # Prompts of p0..p2; p3 is p1's twin on shared pages, so p1's first
@@ -427,6 +450,9 @@ BY_VALUE_APPEND = "token_append"
 # new page in step 8, its table widening from 128 to 256 pages there.
 GRAPH_PROMPTS = (2040, 1000, 500)
 GRAPH_SCHEDULE = ((6, (0, 1, 2)), (6, (0, 1, 2, 3)), (8, (2, 0, 3)))
+# the plain chains' leg (fused=False) stops after the COW split and the
+# page boundary: two buckets
+GRAPH_SCHEDULE_PLAIN = GRAPH_SCHEDULE[:2]
 # Phase 6a's check at qwen3-moe width: a capture and replays, and a
 # second bucket.
 MOE_GRAPH_PROMPTS = (300, 200, 100)
@@ -1401,6 +1427,385 @@ def scan_slice_times(gen) -> dict:
     return out
 
 
+# ------------------------------------------------- phase 2: the fusions
+#: The decode step's fusions (``kernels/fusions``): name -> (source, the
+#: reference's jnp that XLA fuses in its jitted decode scan).
+FUSIONS = {
+    "rms_norm": ("src/repro_torch/csrc/fusions.cu",
+                 "src/repro/models/common.py:80"),
+    "qkv_rope": ("src/repro_torch/csrc/fusions.cu",
+                 "src/repro/models/attention.py:53"),
+    "decode_merge": ("src/repro_torch/csrc/decode_attention.cu",
+                     "src/repro/serving/paged_runtime.py:411"),
+    "gated_act": ("src/repro_torch/csrc/fusions.cu",
+                  "src/repro/models/mlp.py:19"),
+}
+#: the paged families whose published widths the fusion checks take
+FUSION_ARCHS = ("qwen2-1.5b", "stablelm-3b", "glm4-9b",
+                "qwen3-moe-235b-a22b", "pixtral-12b", "musicgen-large")
+#: decode batch rows the checks hold, and the serve step's (timed)
+FUSION_ROWS = (1, 4, 64)
+FUSION_TIMED_ROWS = 4
+#: the merge's cases: pools of (shape, dtype, layer whose token rows are
+#: the new token's): the serve step, the phase-2 shape in bf16 and fp32,
+#: glm4-9b's width (G 16) and the smoke width in fp32
+FUSION_MERGE_CASES = (("SERVE_DECODE", "bfloat16", 0),
+                      ("FULL", "bfloat16", FULL["L"] - 1),
+                      ("FULL", "float32", 3),
+                      ("GLM4_WIDE", "bfloat16", 1),
+                      ("GLM4_SMOKE", "float32", 1))
+#: up values the activation's exhaustive check pairs every finite bf16
+#: gate with
+ACT_UPS = (1.0, -1.5, 0.3125, 7.0, 2.0 ** -10)
+#: fp32 norms: the row's sum in another order moves rsqrt's input by a few
+#: ulps; 4 fp32 ulps of the output
+NORM_FP32_ULPS = 4
+#: the merge's plain spelling fed the kernel's residuals: fp32 within
+#: 2e-5 (one dot product summed in another order), bf16 within one ulp
+MERGE_FP32_ATOL = 2e-5
+
+
+def fused_names(cfg) -> list[str]:
+    """The fusions a fused decode step of ``cfg`` launches: all four, but
+    the gated activation in a dense FFN only."""
+    return [n for n in FUSIONS if n != DENSE_FFN or cfg.family != "moe"]
+
+
+def fusion_kernels() -> dict:
+    """name -> (CUDA call, plain version) of the four fusions (a test
+    hands in other callables). The merge's CUDA call is decode attention
+    with ``new_kv``: its splits, then the combine that merges the token."""
+    from repro_torch.kernels import fusions as fz
+    return {"rms_norm": (fz.rms_norm_kernel, fz.rms_norm_ref),
+            "qkv_rope": (fz.qkv_rope_kernel, fz.qkv_rope_ref),
+            "decode_merge": (fz.attend_merged, fz.attend_merged_ref),
+            "gated_act": (fz.gated_act_kernel, fz.gated_act_ref)}
+
+
+def ulp_gap(a, b) -> dict:
+    """Units in the last place of a's dtype (bf16 or fp32) between two
+    finite tensors: the largest distance and how many elements differ."""
+    import torch
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    it, mag = {torch.bfloat16: (torch.int16, 0x7FFF),
+               torch.float32: (torch.int32, 0x7FFFFFFF)}[a.dtype]
+
+    def order(t):
+        i = t.contiguous().view(it).long()
+        return torch.where(i < 0, -(i & mag), i)
+
+    d = (order(a) - order(b)).abs()
+    return dict(max_ulps=int(d.max()) if d.numel() else 0,
+                differ=int((d > 0).sum()), n=d.numel(),
+                max_abs=(a.float() - b.float()).abs().max().item()
+                if d.numel() else 0.0)
+
+
+def worst_gap(a: dict | None, b: dict) -> dict:
+    """Two ``ulp_gap`` records as one: the larger distances, the counts
+    summed."""
+    if a is None:
+        return dict(b)
+    return {k: max(a[k], b[k]) if k.startswith("max") else a[k] + b[k]
+            for k in b}
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (a NaN equal to the same NaN)."""
+    import torch
+    it = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(it),
+                                              b.contiguous().view(it))
+
+
+def fusion_inputs(cfg, B: int, dtype, gen, device) -> dict:
+    """A decode step's tensors at ``cfg``'s width: the residual stream,
+    its delta and a norm scale; the three projections, biases, qk norm
+    scales and RoPE tables at positions up to 32k; gate and up rows."""
+    import torch
+    from repro_torch.models.common import rope_tables
+    H, KV, Dh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.d_model
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=device) *
+                std).to(dtype)
+
+    pos = torch.randint(0, 32768, (B, 1), generator=gen, device=device)
+    return dict(
+        x=rand(B, 1, D), delta=rand(B, 1, D), scale=rand(D, std=0.1),
+        q=rand(B, H, Dh), k=rand(B, KV, Dh), v=rand(B, KV, Dh),
+        bias=(rand(H, Dh, std=0.5), rand(KV, Dh, std=0.5),
+              rand(KV, Dh, std=0.5)) if cfg.qkv_bias else None,
+        norm=(rand(Dh, std=0.1), rand(Dh, std=0.1)) if cfg.qk_norm
+        else None,
+        rope=rope_tables(pos, Dh, cfg.rope_theta, cfg.rope_fraction)
+        if cfg.pos_emb == "rope" else None,
+        gate=rand(B, 1, cfg.d_ff, std=2.0), up=rand(B, 1, cfg.d_ff))
+
+
+def check_fusion_norms(cfg, B: int, dtype, gen, device, kernels) -> dict:
+    """The norm kernel in its three modes at ``cfg``'s d_model (and, with
+    a qk norm, on the (B * H, Dh) head rows) against the plain version:
+    bf16 within one ulp, fp32 within NORM_FP32_ULPS. Returns the worst
+    gap."""
+    import torch
+    kern, ref = kernels["rms_norm"]
+    t = fusion_inputs(cfg, B, dtype, gen, device)
+    eps = cfg.norm_eps
+    worst = None
+    cases = [(t["x"], None, False), (t["x"], t["delta"], True),
+             (t["x"], t["delta"], False)]
+    rows = [t["scale"]] * 3
+    if cfg.qk_norm:
+        cases.append((t["q"], None, False))
+        rows.append(t["norm"][0])
+    for (x, delta, f32), scale in zip(cases, rows):
+        got, want = kern(x, scale, eps, delta, f32), ref(x, scale, eps,
+                                                         delta, f32)
+        if delta is not None:
+            assert same_bits(got[0], want[0]), "residual sum differs"
+            got, want = got[1], want[1]
+        g = ulp_gap(got, want)
+        assert g["max_ulps"] <= (1 if dtype == torch.bfloat16
+                                 else NORM_FP32_ULPS), (cfg.name, B, g)
+        worst = worst_gap(worst, g)
+    return worst
+
+
+def check_fusion_rope(cfg, B: int, dtype, gen, device, kernels) -> dict:
+    """The qkv bias + RoPE kernel against its plain version, bit for bit
+    (q, k and v). With a qk norm the plain composition takes the norm
+    kernel's row sums (the fused norm sums in its order); the gap to the
+    all-plain spelling is returned in ulps."""
+    import torch
+    kern, ref = kernels["qkv_rope"]
+    norm_kern = kernels["rms_norm"][0]
+    t = fusion_inputs(cfg, B, dtype, gen, device)
+    kw = dict(bias=t["bias"], norm=t["norm"], eps=cfg.norm_eps,
+              rope=t["rope"])
+    outs = [torch.empty_like(t["k"]) for _ in range(4)]
+    qd = kern(t["q"], t["k"], t["v"], k_out=outs[0], v_out=outs[1], **kw)
+    q, k, v = t["q"], t["k"], t["v"]
+    if t["norm"] is not None:        # bias and norm first, by the kernel's
+        if t["bias"] is not None:    # row order, then the plain rest
+            q, k, v = (a + b for a, b in zip((q, k, v), t["bias"]))
+        q = norm_kern(q, t["norm"][0], cfg.norm_eps)
+        k = norm_kern(k, t["norm"][1], cfg.norm_eps)
+        kw = dict(kw, bias=None, norm=None)
+    want = ref(q, k, v, k_out=outs[2], v_out=outs[3], **kw)
+    for a, b in ((qd, want), (outs[0], outs[2]), (outs[1], outs[3])):
+        assert same_bits(a, b), (cfg.name, B, dtype, ulp_gap(a, b))
+    gap = {}
+    if t["norm"] is not None:
+        plain = ref(t["q"], t["k"], t["v"], k_out=outs[2], v_out=outs[3],
+                    bias=t["bias"], norm=t["norm"], eps=cfg.norm_eps,
+                    rope=t["rope"])
+        gap = ulp_gap(qd, plain)
+    return gap
+
+
+def check_fusion_act(gen, device, kernels) -> dict:
+    """The gated activation, bit-equal to its plain version: every finite
+    bf16 gate against each of ACT_UPS, for SiLU and the tanh GELU; and
+    fp32 rows of qwen2-1.5b's d_ff. Returns the elements compared."""
+    import torch
+    kern, ref = kernels["gated_act"]
+    bits = torch.arange(-32768, 32768, dtype=torch.int32,
+                        device=device).to(torch.int16)
+    every = bits.view(torch.bfloat16)
+    every = every[torch.isfinite(every)]
+    gate = every.repeat(len(ACT_UPS))
+    up = torch.tensor(ACT_UPS, device=device).to(torch.bfloat16)
+    up = up.repeat_interleave(every.numel())
+    rows = torch.randn((FUSION_TIMED_ROWS, 1, 8960), generator=gen,
+                       device=device)
+    n = 0
+    for act in ("silu", "gelu"):
+        got, want = kern(gate, up, act), ref(gate, up, act)
+        assert same_bits(got, want), (act, ulp_gap(got, want)
+                                      if torch.isfinite(want).all()
+                                      else "non-finite")
+        got = kern(rows * 2, rows, act)
+        assert same_bits(got, ref(rows * 2, rows, act)), (act, "fp32")
+        n += gate.numel() + rows.numel()
+    return dict(elements=n, finite_bf16_gates=every.numel(),
+                ups=len(ACT_UPS))
+
+
+def combine_work(case: dict) -> tuple[int, float]:
+    """The merged combine's bytes and flops alone: each row's live split
+    partials (G * Dh + 2 G + 1 fp32 a split and KV head), q, the new
+    token's k and v, the lengths and the output in q's dtype; ~3 flops an
+    output element a split merged (the token one more) and 2 Dh a query
+    head for the token's score."""
+    from repro_torch.kernels.decode_attention.kernel import plan_decode
+    B, H, Dh = case["q"].shape
+    KV, page = case["k"].shape[3], case["k"].shape[2]
+    G, esz = H // KV, case["q"].element_size()
+    spp = plan_decode(B, KV, G, Dh, esz, page,
+                      case["tables"].shape[1]).split_pages
+    splits = [math.ceil(math.ceil(n / page) / spp) for n in case["lens"]]
+    nbytes = (4 * sum(splits) * KV * (G * Dh + 2 * G + 1)
+              + 2 * B * H * Dh * esz + 2 * B * KV * Dh * esz + 4 * B)
+    return nbytes, float(sum(3 * (n + 1) * H * Dh + 2 * H * Dh
+                             for n in splits))
+
+
+def check_fusion_merge(case: dict, layer: int, kernels) -> float:
+    """Decode attention with the new token merged in the combine against
+    the plain merge fed the kernel's residuals, on the case's pools with
+    the token rows of ``layer``: bf16 within one ulp, fp32 within
+    MERGE_FP32_ATOL. Returns the largest gap."""
+    import torch
+    kern, ref = kernels["decode_merge"]
+    args = decode_args(case)
+    k_new, v_new = case["k_tok"][layer], case["v_tok"][layer]
+    scale = 1.0 / math.sqrt(args[0].shape[-1])
+    got = kern(*args, k_new, v_new, layer=layer, scale=scale)
+    want = ref(*args, k_new, v_new, layer=layer, scale=scale)
+    if got.dtype == torch.bfloat16:
+        g = ulp_gap(got, want)
+        assert g["max_ulps"] <= 1, g
+    else:
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=MERGE_FP32_ATOL, rtol=0)
+    return (got.float() - want.float()).abs().max().item()
+
+
+def time_fusions(gen, sheet: dict, kernels) -> dict:
+    """Each fusion at the serve step (qwen2-1.5b, B = 4, bf16): an eager
+    loop (``ms``) and CUDA-graph replay (``device_ms``) beside the plain
+    version, the bound and, where one torch call computes the function,
+    that call: ``F.rms_norm`` of the same sum (the add before it, as in
+    the timed mode), ``F.silu(a) * b``. Those calls round otherwise:
+    yardsticks only. The merge is the combine alone (given ``new_kv``) on
+    SERVE_DECODE's pools (B 4 x 2048 tokens), of a workspace the splits
+    filled once; its plain version the combine writing the residuals,
+    then ``merge_new_token_ref``: what ``fused=False`` runs after the
+    splits."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        merge_new_token_ref, paged_decode_attention_kernel)
+    from repro_torch.kernels.decode_attention.kernel import plan_decode
+    cfg = get_config("qwen2-1.5b")
+    t = fusion_inputs(cfg, FUSION_TIMED_ROWS, torch.bfloat16, gen, "cuda")
+    esz = 2
+    B, D, F_ = FUSION_TIMED_ROWS, cfg.d_model, cfg.d_ff
+    eps = cfg.norm_eps
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    weight = (1.0 + t["scale"].float()).to(torch.bfloat16)
+    kout = [torch.empty_like(t["k"]) for _ in range(2)]
+    kw = dict(bias=t["bias"], norm=t["norm"], eps=eps, rope=t["rope"])
+    rot = t["rope"][0].shape[-1]
+
+    def pair(name, call):
+        kern, ref = kernels[name]
+        return (lambda: call(kern)), (lambda: call(ref))
+
+    case = make_case(SERVE_DECODE, torch.bfloat16, gen, "cuda")
+    margs = decode_args(case)
+    new_kv = (case["k_tok"][0], case["v_tok"][0])
+    scale = 1.0 / math.sqrt(Dh)
+    ws = torch.empty(plan_decode(B, KV, H // KV, Dh, esz,
+                                 case["k"].shape[2],
+                                 case["tables"].shape[1]).workspace_floats,
+                     dtype=torch.float32, device="cuda")
+    mkw = dict(layer=0, scale=scale, _workspace=ws)
+    paged_decode_attention_kernel(*margs, new_kv=new_kv, **mkw)
+    work = {
+        "rms_norm": (*pair("rms_norm", lambda f: f(t["x"], t["scale"], eps,
+                                                   t["delta"], True)),
+                     (4 * B * D + D) * esz, 5.0 * B * D,
+                     lambda: F.rms_norm(t["x"] + t["delta"], (D,), weight,
+                                        eps)),
+        "qkv_rope": (*pair("qkv_rope", lambda f: f(
+            t["q"], t["k"], t["v"], k_out=kout[0], v_out=kout[1], **kw)),
+                     2 * B * (H + 2 * KV) * Dh * esz
+                     + (H + 2 * KV) * Dh * esz + 2 * B * rot * 4,
+                     8.0 * B * (H + KV) * Dh, None),
+        "decode_merge": (
+            lambda: paged_decode_attention_kernel(
+                *margs, new_kv=new_kv, _combine_only=True, **mkw),
+            lambda: merge_new_token_ref(
+                margs[0], *new_kv, *paged_decode_attention_kernel(
+                    *margs, return_residuals=True, _combine_only=True,
+                    **mkw), scale),
+            *combine_work(case), None),
+        "gated_act": (*pair("gated_act", lambda f: f(t["gate"], t["up"],
+                                                     "silu")),
+                      3 * B * F_ * esz, 6.0 * B * F_,
+                      lambda: F.silu(t["gate"]) * t["up"]),
+    }
+    recs = {}
+    for name, (kern, ref, nbytes, ops, lib) in work.items():
+        bms, by = bound_ms(nbytes, ops, sheet, "fp32")
+        recs[name] = dict(ms=time_ms(kern), plain_ms=time_ms(ref),
+                          bound_ms=bms, bound_by=by,
+                          library_ms=None if lib is None else time_ms(lib),
+                          device_ms=graph_ms(kern))
+        if lib is not None:
+            recs[name]["library_device_ms"] = graph_ms(lib)
+    return recs
+
+
+def check_fusions(gen, sheet: dict | None, device: str = "cuda",
+                  kernels: dict | None = None) -> dict:
+    """Phase 2's checks of the decode step's four fusions against their
+    plain versions at every paged family's published width, rows
+    FUSION_ROWS, bf16 and fp32; the activation exhaustively over the
+    finite bf16 gates; the merge on the serve step's, the phase-2 and
+    glm4's (G 16) pools. With ``sheet`` (the card) each is also timed.
+    Returns {name: record}, each with its ``max_abs_err``."""
+    import torch
+    from repro_torch.configs import get_config
+    kernels = kernels or fusion_kernels()
+    err = dict.fromkeys(FUSIONS, 0.0)
+    norm_gaps, rope_gaps = {}, {}
+    for arch in FUSION_ARCHS:
+        cfg = get_config(arch)
+        for dtype in (torch.bfloat16, torch.float32):
+            for B in FUSION_ROWS:
+                key = f"{arch} {str(dtype)[6:]}"
+                norm_gaps[key] = worst_gap(norm_gaps.get(key),
+                                           check_fusion_norms(
+                                               cfg, B, dtype, gen, device,
+                                               kernels))
+                rg = check_fusion_rope(cfg, B, dtype, gen, device, kernels)
+                if rg:
+                    rope_gaps[key] = worst_gap(rope_gaps.get(key), rg)
+    log(f"phase2 rms_norm: three modes (plain, residual sum read in fp32, "
+        f"rounded) at each paged family's d_model (and qwen3-moe's qk norm "
+        f"rows), rows {FUSION_ROWS}: ulps from the plain norm (largest, "
+        f"elements that differ, compared) {json.dumps(norm_gaps)}")
+    log(f"phase2 qkv_rope: bit-equal to the plain spelling at "
+        f"{FUSION_ARCHS}, rows {FUSION_ROWS}, bf16 and fp32 (the qk norm "
+        f"by the norm kernel's row order); the qk-normed q against the "
+        f"all-plain spelling: {json.dumps(rope_gaps)}")
+    err["rms_norm"] = max(g["max_abs"] for g in norm_gaps.values())
+    act = check_fusion_act(gen, device, kernels)
+    log(f"phase2 gated_act: bit-equal, SiLU and tanh GELU, every finite "
+        f"bf16 gate against ups {ACT_UPS}, and fp32 rows: {act}")
+    merged = {}
+    for shape, dtype, layer in FUSION_MERGE_CASES:
+        case = make_case(globals()[shape], getattr(torch, dtype), gen,
+                         device)
+        merged[f"{shape} {dtype}"] = check_fusion_merge(case, layer,
+                                                        kernels)
+        del case
+    err["decode_merge"] = max(merged.values())
+    log(f"phase2 decode_merge: the merged combine against the plain merge "
+        f"of the kernel's residuals, max |diff| by pools: "
+        f"{json.dumps(merged)}")
+    if sheet is None:
+        return {name: dict(max_abs_err=e) for name, e in err.items()}
+    timed = time_fusions(gen, sheet, kernels)
+    return {name: dict(max_abs_err=err[name], **timed[name])
+            for name in FUSIONS}
+
+
 def phase2(sheet: dict, hw) -> dict:
     """Returns {kernel name: record} at the main paths' shapes."""
     import torch
@@ -1497,6 +1902,10 @@ def phase2(sheet: dict, hw) -> dict:
     log(f"phase2 rwkv6_scan device ms by carry slice width (state columns "
         f"a block; CUDA-graph replay) at B 1 and B 2, T 2048, H 40, K = L = "
         f"64: {json.dumps(scan_slice_times(gen))}")
+    t0 = time.perf_counter()
+    records.update(check_fusions(gen, sheet))
+    log(f"phase2 fusions checked and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
     check_bound_shares(records)
     for name, rec in records.items():
         log(f"phase2 {name}: kernel {rec['ms']:.4f} ms, plain "
@@ -1609,9 +2018,11 @@ def serve_differential(cfg, hw, model, device):
     return eng, len(log_p), wall
 
 
-def serve_measured(cfg, hw, model, device, graphs: bool = True):
+def serve_measured(cfg, hw, model, device, graphs: bool = True,
+                   fused: bool = True):
     """Phase 3b: the same programs on the measured clock, the decode step
-    graphed or (``graphs=False``) eager."""
+    graphed or (``graphs=False``) eager, its chains fused or (``fused=
+    False``) plain."""
     from repro_torch.serving.backend import TorchModelBackend
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.profiler import CostModel, build_profile
@@ -1626,6 +2037,7 @@ def serve_measured(cfg, hw, model, device, graphs: bool = True):
     backend.verify_staging = True
     backend.runtime.verify_copies = True
     backend.runtime.cuda_graphs = graphs
+    backend.runtime.fused = fused
     eng = Engine(cfg, ecfg, hw, backend=backend, cost=cost)
     progs = agent_programs()
     router = Router([eng])
@@ -1636,22 +2048,25 @@ def serve_measured(cfg, hw, model, device, graphs: bool = True):
     return eng, summary, len(progs)
 
 
-def serve_pair_leg(cfg, hw, model, device, graphs: bool) -> dict:
+def serve_pair_leg(cfg, hw, model, device, graphs: bool,
+                   fused: bool = True) -> dict:
     """3b again with the decode step and the prefill chunk graphed or
-    eager, to pair the two in one call: JCT and TTFT on the measured
-    clock, engine busy seconds and steps, each graph family's captures,
-    their seconds (inside the busy seconds) and replays, the prefill
-    buckets, the graph pool's bytes and the leg's launch counts."""
+    eager, the decode step's chains fused or plain, to pair them in one
+    call: JCT and TTFT on the measured clock, engine busy seconds and
+    steps, each graph family's captures, their seconds (inside the busy
+    seconds) and replays, the prefill buckets, the graph pool's bytes and
+    the leg's launch counts."""
     from repro_torch.kernels import launch_counts
     before = launch_counts()
     t0 = time.perf_counter()
-    eng, summary, n_progs = serve_measured(cfg, hw, model, device, graphs)
+    eng, summary, n_progs = serve_measured(cfg, hw, model, device, graphs,
+                                           fused)
     wall = time.perf_counter() - t0
     after = launch_counts()
     assert summary.n_programs == n_progs == len(eng.programs)
     rt = eng.backend.runtime
     g, pg = rt.graphs, rt.prefill_graphs
-    return dict(cuda_graphs=graphs, avg_jct_s=summary.avg_jct,
+    return dict(cuda_graphs=graphs, fused=fused, avg_jct_s=summary.avg_jct,
                 p90_jct_s=summary.p90_jct, avg_ttft_s=summary.avg_ttft,
                 steps=eng.steps, busy_s=eng.busy_seconds, wall_s=wall,
                 captures=g.captures, capture_s=g.capture_s,
@@ -1730,15 +2145,18 @@ def decode_leg(rt, model, schedule, device, graphs: bool) -> dict:
                 launches={k: after[k] - before[k] for k in after})
 
 
-def graph_vs_eager(model, device, prompts, schedule, seed: int = 0) -> dict:
+def graph_vs_eager(model, device, prompts, schedule, seed: int = 0,
+                   fused: bool = True) -> dict:
     """The paged runtime's decode step, eager (``cuda_graphs=False``) and
     graphed, over the same steps from the same state: programs p0.. of
     ``prompts`` tokens (seeded), p<n> a twin of p1 on its pages (p1's
     first append COW-splits), ``schedule`` the steps as (count, rows).
     The state is snapshot after the prefills and restored between the
-    legs. Returns the comparison, the buckets, the captures and their
-    seconds, the graph pool's bytes, the median wall ms of an eager step
-    and of a replayed one, and each leg's launch counts."""
+    legs. ``fused``: the runtime's, the step's chains fused or plain.
+    Returns the comparison, the buckets, the captures and their seconds,
+    the graph pool's bytes, the median wall ms of an eager step and of a
+    replayed one, and each leg's launch counts (with the capture's cost
+    when fused, as served)."""
     import numpy as np
     import torch
     from repro_torch.serving.paged_runtime import PagedKVRuntime
@@ -1746,7 +2164,7 @@ def graph_vs_eager(model, device, prompts, schedule, seed: int = 0) -> dict:
     steps = sum(c for c, _ in schedule)
     rt = PagedKVRuntime(cfg, n_pages=sum(-(-(n + steps) // 16) + 1
                                          for n in prompts) + 8,
-                        page_size=16, device=device)
+                        page_size=16, device=device, fused=fused)
     rng = np.random.default_rng(seed)
     for i, n in enumerate(prompts):
         rt.prefill(model, f"p{i}", torch.from_numpy(
@@ -1762,6 +2180,7 @@ def graph_vs_eager(model, device, prompts, schedule, seed: int = 0) -> dict:
     replayed = [g["ms"] for g in gs if not g["captured"]]
     pool = [g["pool_bytes"] for g in gs]
     out = dict(
+        fused=fused, fusions=fused_names(cfg) if fused else [],
         steps=len(gs),
         logits_equal=all(torch.equal(a["logits"], b["logits"])
                          for a, b in zip(es, gs)),
@@ -1781,7 +2200,7 @@ def graph_vs_eager(model, device, prompts, schedule, seed: int = 0) -> dict:
         eager_ms_median=float(np.median([e["ms"] for e in es[1:]])),
         replay_ms_median=float(np.median(replayed)) if replayed else None,
         launches_eager=eager["launches"], launches_graph=graph["launches"])
-    if torch.device(device).type == "cuda":
+    if torch.device(device).type == "cuda" and fused:
         b = max(rt.graphs.buckets().values(), key=lambda b: b.tables.numel())
         out["capture_cost"] = capture_cost(rt, lambda: rt._decode_step(
             model, *b.inputs(), out=(b.logits, b.nxt)), "p0")
@@ -1807,6 +2226,9 @@ def assert_graph_vs_eager(check: dict, cuda: bool) -> None:
             assert leg[BY_VALUE_APPEND] == 0, check
         assert lg["paged_decode_attention"] == \
             le["paged_decode_attention"] > 0, check
+        for name in FUSIONS:     # the same fused launches in both legs
+            assert lg[name] == le[name], check
+            assert (le[name] > 0) == (name in check["fusions"]), check
     else:
         assert check["captures"] == 0 and sum(le.values()) == 0 == \
             sum(lg.values()), check
@@ -2131,7 +2553,7 @@ def phase3(hw):
         / busy)
     log(f"phase3 throughput (measured step times, 3a prefill-only / "
         f"decode-only steps): {json.dumps(rates)}")
-    for name in PATH_A:
+    for name in PATH_A + (DENSE_FFN,):
         assert counts[name] > 0, f"kernel {name} never launched on path A"
     # the decode step appends through the indexed launch alone
     assert counts[BY_VALUE_APPEND] == 0, counts
@@ -2152,21 +2574,30 @@ def phase3(hw):
     del eng_a, eng_b, b, graphs, rts
     gc.collect()
 
-    pair = [serve_pair_leg(cfg, hw, model, device, graphs)
-            for graphs in (False, True)]
-    log(f"phase3b pair, eager then graphed, after 3b (graphed): "
-        f"{json.dumps(pair)}")
+    t0 = time.perf_counter()
+    pair = [serve_pair_leg(cfg, hw, model, device, graphs, fused)
+            for graphs, fused in ((False, True), (True, True),
+                                  (True, False))]
+    log(f"phase3b pair, eager then graphed, then graphed with the decode "
+        f"step's chains plain (fused=False), after 3b (graphed), "
+        f"{time.perf_counter() - t0:.1f} s: {json.dumps(pair)}")
     assert pair[0]["captures"] == 0 < pair[1]["captures"], pair
     assert pair[0]["prefill_captures"] == 0 < pair[1]["prefill_captures"], \
         pair
     for leg in pair:
         assert leg["launches"]["token_append_indexed"] > 0, pair
         assert leg["launches"][BY_VALUE_APPEND] == 0, pair
+        assert (leg["launches"]["decode_merge"] > 0) == leg["fused"], pair
 
-    check = graph_vs_eager(model, device, GRAPH_PROMPTS, GRAPH_SCHEDULE)
-    log(f"phase3c graphed decode step vs eager, {cfg.name} full width: "
-        f"{json.dumps(check)}")
-    assert_graph_vs_eager(check, cuda=True)
+    for fused, schedule in ((True, GRAPH_SCHEDULE),
+                            (False, GRAPH_SCHEDULE_PLAIN)):
+        t0 = time.perf_counter()
+        check = graph_vs_eager(model, device, GRAPH_PROMPTS, schedule,
+                               fused=fused)
+        log(f"phase3c graphed decode step vs eager, {cfg.name} full width, "
+            f"{'fused' if fused else 'plain (fused=False)'}, "
+            f"{time.perf_counter() - t0:.1f} s: {json.dumps(check)}")
+        assert_graph_vs_eager(check, cuda=True)
 
     check = prefill_graph_vs_eager(model, device, PREFILL_OPS)
     log(f"phase3d graphed prefill chunk vs eager, {cfg.name} full width: "
@@ -2273,10 +2704,155 @@ def prefill_logit_checks(cfg, device) -> None:
                             plain=plain["max_abs_diff"],
                             rms=kernel["rms_logit"])
         del model
-    del params
-    torch.cuda.empty_cache()
     log(f"phase3 fp32 depth sweep, max |prefill - prefill + extend| with "
         f"the kernel and with the plain version: {json.dumps(sweep)}")
+    t0 = time.perf_counter()
+    fused_step_checks(params, cfg, device)
+    log(f"phase3 fused step checks {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+
+#: The fused decode step against ``fused=False`` (the plain spelling on
+#: the card) from the same pools: programs of these many tokens, then
+#: decode steps of the whole batch. Both legs are the served step, a
+#: replayed graph (3c holds each graph bit-equal to its eager step).
+FUSED_PROMPTS = (700, 300, 1000)
+FUSED_STEPS = 6
+#: |fused - plain| at every step's logits. The fusions round as the plain
+#: ops do, but a norm and the merge's dot sum in their own order: a norm
+#: output may sit one bf16 ulp off (a few per million elements), and fp32
+#: differs by summation order alone. bf16: at most FUSED_BF16_ULPS ulps
+#: of the largest plain logit (on the H100 the legs were bit-equal at
+#: every depth from 1 to 28); fp32: FUSED_FP32_RMS of the plain logits'
+#: rms (measured 4.0e-5 at qwen2-1.5b's 2-layer cut, up to 3.4e-4 for
+#: pixtral-12b's in phase 6b).
+FUSED_BF16_ULPS = 2
+FUSED_FP32_RMS = 1e-3
+#: kernels of the plain spelling's chains, by the names torch's CUDA
+#: kernels carry (the norms' rsqrt and mean, the merge's maximum and
+#: clamp_min, the GELU's tanh): the fused step runs none of them
+PLAIN_FUSED_OPS = ("rsqrt", "MeanOps", "maximum", "clamp_min", "tanh")
+
+
+def fused_vs_plain(model, device, prompts=FUSED_PROMPTS,
+                   steps: int = FUSED_STEPS, trace: bool = True,
+                   seed: int = 0) -> dict:
+    """The paged runtime's decode step fused and with ``fused=False``,
+    the same ``steps`` from the same state (programs of ``prompts``
+    tokens, seeded; the state restored between the legs): whether every
+    row's argmax agrees at every step, the largest |fused - plain| logit
+    and the plain logits' rms, each leg's launch counts and, with
+    ``trace`` on the card, one eager step of each leg under
+    ``torch.profiler``: its device kernels and those named in
+    ``PLAIN_FUSED_OPS``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving.paged_runtime import PagedKVRuntime
+    cfg = model.cfg
+    cuda = torch.device(device).type == "cuda"
+    rt = PagedKVRuntime(cfg, n_pages=sum(-(-(n + steps + 2) // 16)
+                                         for n in prompts) + 4,
+                        page_size=16, device=device)
+    rng = np.random.default_rng(seed)
+    pids = [f"p{i}" for i in range(len(prompts))]
+    for pid, n in zip(pids, prompts):
+        rt.prefill(model, pid, torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, n)))
+    st = runtime_state(rt)
+    legs = {}
+    for fused in (True, False):
+        restore_state(rt, st)
+        rt.fused = fused
+        before = launch_counts()
+        logits = torch.stack([torch.stack(rt.decode_batch(model, pids))
+                              for _ in range(steps)]).float()
+        synchronize(device)
+        after = launch_counts()
+        legs[fused] = dict(logits=logits, launches={
+            k: after[k] - before[k] for k in after})
+    a, b = legs[True]["logits"], legs[False]["logits"]
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    out = dict(argmax_equal=bool((a.argmax(-1) == b.argmax(-1)).all()),
+               max_abs_diff=(a - b).abs().max().item(),
+               rms_logit=b.square().mean().sqrt().item(),
+               max_abs_logit=b.abs().max().item(), steps=steps,
+               rows=len(pids), fusions=fused_names(cfg),
+               launches_fused=legs[True]["launches"],
+               launches_plain=legs[False]["launches"])
+    if trace and cuda:
+        from repro_torch.launch.profile_step import traced
+        rt.cuda_graphs = False
+        for fused in (True, False):
+            rt.fused = fused
+            names = traced(lambda: rt.decode_batch(model, pids), top=1,
+                           reps=1, cpu=False, counts=True)["kernel_counts"]
+            leg = "fused" if fused else "plain"
+            out[f"kernels_{leg}"] = sum(names.values())
+            out[f"plain_ops_{leg}"] = sorted(
+                {p for p in PLAIN_FUSED_OPS for n in names if p in n})
+    del rt
+    return out
+
+
+def fused_bound(check: dict, dtype: str) -> float:
+    """The largest |fused - plain| logit the check may show: in bf16
+    FUSED_BF16_ULPS ulps of the largest plain logit, in fp32
+    FUSED_FP32_RMS of their rms."""
+    if dtype == "float32":
+        return FUSED_FP32_RMS * check["rms_logit"]
+    top = max(check["max_abs_logit"], 2.0 ** -126)
+    return FUSED_BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def assert_fused_vs_plain(check: dict, dtype: str, cuda: bool) -> None:
+    """Argmax equal and the gap within ``fused_bound``; on the card the
+    fused leg launches its fusions and no plain chain kernel, the plain
+    leg no fusion, and both the same decode attention (the fused leg's
+    combines counted as ``decode_merge``)."""
+    assert check["argmax_equal"], check
+    assert check["max_abs_diff"] <= fused_bound(check, dtype), check
+    lf, lp = check["launches_fused"], check["launches_plain"]
+    if not cuda:
+        assert sum(lf.values()) == 0 == sum(lp.values()), check
+        return
+    for name in FUSIONS:
+        assert (lf[name] > 0) == (name in check["fusions"]), check
+        assert lp[name] == 0, check
+    assert lf["paged_decode_attention"] == lf["decode_merge"] > 0, check
+    assert lp["paged_decode_attention"] == 2 * lf["decode_merge"], check
+    if "plain_ops_fused" in check:
+        assert not check["plain_ops_fused"] and \
+            "rsqrt" in check["plain_ops_plain"], check
+        assert check["kernels_fused"] < check["kernels_plain"], check
+
+
+def fused_step_checks(params: dict, cfg, device) -> None:
+    """The fused decode step against ``fused=False`` at CHECK_DEPTH
+    full-width layers in bf16 and fp32 (asserted), and in bf16 at the
+    cut and at full depth (logged)."""
+    import torch
+    depth = min(CHECK_DEPTH, cfg.num_layers)
+    keys = ("argmax_equal", "max_abs_diff", "max_abs_logit", "rms_logit")
+    sweep = {}
+    for dtype in ("bfloat16", "float32"):
+        check = fused_vs_plain(cut_model(params, cfg, depth, dtype, device),
+                               device)
+        log(f"phase3 fused decode step vs fused=False, {depth} full-width "
+            f"layers, {dtype}, {FUSED_STEPS} steps of {FUSED_PROMPTS} "
+            f"(bound {fused_bound(check, dtype):.3g}): {json.dumps(check)}")
+        assert_fused_vs_plain(check, dtype,
+                              cuda=torch.device(device).type == "cuda")
+        if dtype == "bfloat16":
+            sweep[depth] = {k: check[k] for k in keys}
+    if cfg.num_layers > depth:
+        check = fused_vs_plain(cut_model(params, cfg, cfg.num_layers,
+                                         "bfloat16", device), device,
+                               trace=False)
+        sweep[cfg.num_layers] = {k: check[k] for k in keys}
+    log(f"phase3 bf16 by depth, fused decode step vs fused=False: "
+        f"{json.dumps(sweep)}")
 
 
 def prefill_vs_extend(model, n: int = 1024, split: int = 512,
@@ -2753,10 +3329,14 @@ MOE_ARCH, MOE_DEPTH = "qwen3-moe-235b-a22b", 6
 #: phase 6b's models at full width in fp32, each cut to this depth (P5):
 #: two layers, moonshot its leading dense layer and two MoE layers
 FAMILY_DEPTHS = {"qwen3-moe-235b-a22b": 2, "moonshot-v1-16b-a3b": 3,
-                 "pixtral-12b": 2, "musicgen-large": 2}
+                 "pixtral-12b": 2, "musicgen-large": 2, "stablelm-3b": 2,
+                 "glm4-9b": 2}
 #: the ones the paged runtime serves (moonshot's leading dense layer is
-#: refused, ROADMAP R4)
-FAMILY_PAGED = ("qwen3-moe-235b-a22b", "pixtral-12b", "musicgen-large")
+#: refused, ROADMAP R4); each also runs its fused decode step against
+#: ``fused=False`` on programs of these many tokens
+FAMILY_PAGED = ("qwen3-moe-235b-a22b", "pixtral-12b", "musicgen-large",
+                "stablelm-3b", "glm4-9b")
+FAMILY_FUSED_PROMPTS = (256, 100)
 #: 6b's prompt: ``FAMILY_PROMPT`` tokens, the last ``FAMILY_TAIL`` of
 #: them decoded one at a time in the split path
 FAMILY_PROMPT, FAMILY_TAIL = 256, 8
@@ -2898,6 +3478,9 @@ def family_checks(cfg, device) -> dict:
         paged = False
     if paged:
         out["paged_vs_forward"] = paged_vs_forward(model, toks, FAMILY_TAIL)
+        out["fused_vs_plain"] = fused_vs_plain(model, device,
+                                               FAMILY_FUSED_PROMPTS,
+                                               FAMILY_TAIL // 2)
     if cfg.family == "vlm":
         rows = model.params["embed"][toks]
         by_tokens, _ = model.forward(toks, cache=model.init_cache(
@@ -2976,7 +3559,7 @@ def assert_family_checks(checks: dict) -> None:
 def phase6(hw) -> dict:
     """Path D: (a) full-width qwen3-moe (``MOE_DEPTH`` layers) served on
     the card, with every mechanism and every kernel of path A exercised
-    and prefill chunks dropping copies; (b) the four new families'
+    and prefill chunks dropping copies; (b) the other families'
     equivalence checks at full width and cut depth. Returns 6a's launch
     counts."""
     import torch
@@ -3011,6 +3594,8 @@ def phase6(hw) -> dict:
             f"{json.dumps(checks)} ({time.perf_counter() - t0:.1f} s)")
         assert_family_checks(checks)
         assert ("paged_vs_forward" in checks) == (arch in FAMILY_PAGED)
+        if arch in FAMILY_PAGED:
+            assert_fused_vs_plain(checks["fused_vs_plain"], "float32", True)
     log(f"phase6 wall {time.perf_counter() - t_phase:.1f} s, 6b peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
     return counts
@@ -4237,7 +4822,7 @@ def main() -> int:
         f"matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}; datasheet {sheet}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     paths = _build.build_all()
     log(f"phase1 built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
     for name in sorted(paths):
@@ -4248,9 +4833,15 @@ def main() -> int:
     check_hgmma(paths["flash_attention"])
 
     hw = hardware_profile(kind)
+    t0 = time.perf_counter()
     records = phase2(sheet, hw)
+    log(f"phase2 wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     counts, qwen, samples = phase3(hw)
+    log(f"phase3 wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     counts.update(rwkv6_scan=phase4(smi)["rwkv6_scan"])
+    log(f"phase4 wall {time.perf_counter() - t0:.1f} s")
     path_c = phase5(qwen, hw)
     del qwen                  # phase 6 needs the card's memory
     gc.collect()
@@ -4265,6 +4856,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path_g = phase9(smi, sheet)
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s, the build "
+        f"included")
 
     sources = {
         "paged_decode_attention": (
@@ -4283,6 +4876,7 @@ def main() -> int:
             "src/repro/kernels/flash_attention/kernel.py:85"),
         "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
                        "src/repro/kernels/rwkv6_scan/kernel.py:75"),
+        **FUSIONS,
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name],

@@ -41,6 +41,19 @@
 // e^(m_s - m); acc likewise) and writes the residuals or the normalized
 // output. One call is two launches.
 //
+// The new token's merge. The paged decode step attends over the pages
+// and merges the new token's own (k, v), which no page holds yet,
+// exactly (repro_torch/serving/paged_runtime.py; the reference's
+// src/repro/serving/paged_runtime.py:411-421, which XLA fuses). Given
+// k_new and v_new, the combine does that merge itself: the token is one
+// more split, m = s = q . k_new * scale, l = 1, acc = v_new, merged after
+// the others with the plain spelling's ops (each fp32 op an __f*_rn, so
+// none is contracted into an FMA), and the normalized output is written
+// in q's dtype. The dots are G <= 16 of length D <= 256 a block, summed
+// in a fixed order (lane l takes d = l, l + 32, ..., then a xor tree): so
+// the result equals the plain merge fed the kernel's residuals up to the
+// order of that one sum.
+//
 // Contracts. Only live slots (ip * page < len) are read, so dead table
 // slots may hold anything. A live id outside the pool marks its split
 // poisoned by an explicit flag (fmaxf would drop a NaN m), and the combine
@@ -585,13 +598,17 @@ constexpr int kCombineChunk = 64;   // splits whose weights a block stages
 // grid (ceil((G*D + G) / kThreads), KV, B): one output element a thread
 // (acc or out element i < G*D, or head i - G*D's m and l), each the merge
 // of the row's splits 0 .. n-1 in that order.
+// With k_new (and q, v_new) set the new token is merged after the splits
+// (see the top of the file) and o_out is written.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) combine_kernel(
     const float* __restrict__ ws, const int* __restrict__ lens,
     float* __restrict__ acc_out, T* __restrict__ o_out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int KV, int G,
-    int D, int page, int n_tab, int spp, int max_splits) {
-  __shared__ float m_row[16], l_row[16];
+    float* __restrict__ m_out, float* __restrict__ l_out,
+    const T* __restrict__ q, const T* __restrict__ k_new,
+    const T* __restrict__ v_new, float scale, int KV, int G, int D,
+    int page, int n_tab, int spp, int max_splits) {
+  __shared__ float m_row[16], l_row[16], s_row[16];
   __shared__ float w_s[kCombineChunk][16];   // e^(m_s - m) of a chunk
   const int kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -614,6 +631,17 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(
     if (lane == 0) {
       m_row[g] = mx;
       l_row[g] = 0.f;
+    }
+    if (k_new != nullptr) {            // the new token's score
+      const T* qg = q + (((long long)b * KV + kvh) * G + g) * D;
+      const T* kn = k_new + ((long long)b * KV + kvh) * D;
+      float dot = 0.f;
+      for (int d = lane; d < D; d += 32)
+        dot = __fadd_rn(dot, __fmul_rn(to_float(qg[d]), to_float(kn[d])));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, off));
+      if (lane == 0) s_row[g] = __fmul_rn(dot, scale);
     }
   }
   const bool bad = __syncthreads_or(poisoned);
@@ -647,7 +675,20 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(
   const float nan = __int_as_float(0x7fc00000);
   const long long row = ((long long)b * KV + kvh) * G;
   if (elem) {
-    if (o_out != nullptr) {
+    if (k_new != nullptr) {
+      // m2 = maximum(m, s); alpha = exp(m - m2); p = exp(s - m2);
+      // acc2 = acc * alpha + p * v; l2 = l * alpha + p;
+      // o = acc2 / clamp_min(l2, 1e-30), NaN kept as torch keeps it
+      const float m = m_row[g], s = s_row[g];
+      const float m2 = (m != m || s != s) ? nan : fmaxf(m, s);
+      const float alpha = expf(__fsub_rn(m, m2));
+      const float p = expf(__fsub_rn(s, m2));
+      const float vn = to_float(v_new[((long long)b * KV + kvh) * D + i % D]);
+      const float acc2 = __fadd_rn(__fmul_rn(a, alpha), __fmul_rn(p, vn));
+      const float l2 = __fadd_rn(__fmul_rn(l_row[g], alpha), p);
+      const float o = __fdiv_rn(acc2, l2 != l2 ? l2 : fmaxf(l2, 1e-30f));
+      store(o_out + row * D + i, bad ? nan : o);
+    } else if (o_out != nullptr) {
       store(o_out + row * D + i, bad ? nan : a / fmaxf(l_row[g], 1e-30f));
     } else {
       acc_out[row * D + i] = bad ? nan : a;
@@ -744,12 +785,15 @@ int dispatch_tc(int D, dim3 grid, cudaStream_t stream,
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* tables, const void* lens, void* ws, void* acc_out,
-           void* o_out, void* m_out, void* l_out, int B, int KV, int G,
-           int D, int P, int page, int n_tab, int layer, float scale,
-           int spp, cudaStream_t stream) {
+           void* o_out, void* m_out, void* l_out, const void* k_new,
+           const void* v_new, int B, int KV, int G, int D, int P, int page,
+           int n_tab, int layer, float scale, int spp, int parts,
+           cudaStream_t stream) {
   const int esz = sizeof(T);
   if (D < 1 || D > 256 || D % (16 / esz) || G < 1 || G > 16 ||
-      (D > 128 && G > 8) || page < 1 || n_tab < 1 || spp < 1)
+      (D > 128 && G > 8) || page < 1 || n_tab < 1 || spp < 1 ||
+      parts < 1 || parts > 3 ||
+      (k_new != nullptr && (v_new == nullptr || o_out == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int max_splits = (n_tab + spp - 1) / spp;
   const long long layer_offset =
@@ -761,29 +805,33 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lens);
   float* w = static_cast<float*>(ws);
-  int err = -1;
-  if constexpr (sizeof(T) == 2)
-    err = dispatch_tc(D, grid, stream, qt, kt, vt, tb, ln, w, KV, G, P, page,
-                      n_tab, spp, max_splits, layer_offset, scale);
-  if (err == -1) {   // fp32, or a head dim without a tensor-core kernel
-    const int tile = tile_tokens(D, esz);
-    const size_t ring = (size_t)kStages * 2 * tile * D * esz;
-    const size_t merge = sizeof(float) * (size_t)kWarps * G * (D + 2);
-    const size_t smem = ring > merge ? ring : merge;
-    err = D <= 128
-              ? dispatch_heads<T, 1>(G, grid, smem, stream, qt, kt, vt, tb,
-                                     ln, w, KV, D, P, page, n_tab, spp,
-                                     max_splits, tile, layer_offset, scale)
-              : dispatch_heads<T, 2>(G, grid, smem, stream, qt, kt, vt, tb,
-                                     ln, w, KV, D, P, page, n_tab, spp,
-                                     max_splits, tile, layer_offset, scale);
+  int err = 0;
+  if (parts & 1) {   // the splits
+    err = -1;
+    if constexpr (sizeof(T) == 2)
+      err = dispatch_tc(D, grid, stream, qt, kt, vt, tb, ln, w, KV, G, P,
+                        page, n_tab, spp, max_splits, layer_offset, scale);
+    if (err == -1) {   // fp32, or a head dim without a tensor-core kernel
+      const int tile = tile_tokens(D, esz);
+      const size_t ring = (size_t)kStages * 2 * tile * D * esz;
+      const size_t merge = sizeof(float) * (size_t)kWarps * G * (D + 2);
+      const size_t smem = ring > merge ? ring : merge;
+      err = D <= 128
+                ? dispatch_heads<T, 1>(G, grid, smem, stream, qt, kt, vt, tb,
+                                       ln, w, KV, D, P, page, n_tab, spp,
+                                       max_splits, tile, layer_offset, scale)
+                : dispatch_heads<T, 2>(G, grid, smem, stream, qt, kt, vt, tb,
+                                       ln, w, KV, D, P, page, n_tab, spp,
+                                       max_splits, tile, layer_offset, scale);
+    }
   }
-  if (err != 0) return err;
+  if (err != 0 || !(parts & 2)) return err;
   combine_kernel<T><<<dim3((G * D + kThreads - 1) / kThreads, KV, B),
                       kThreads, 0, stream>>>(
       w, ln, static_cast<float*>(acc_out), static_cast<T*>(o_out),
-      static_cast<float*>(m_out), static_cast<float*>(l_out), KV, G, D, page,
-      n_tab, spp, max_splits);
+      static_cast<float*>(m_out), static_cast<float*>(l_out), qt,
+      static_cast<const T*>(k_new), static_cast<const T*>(v_new), scale, KV,
+      G, D, page, n_tab, spp, max_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -802,24 +850,30 @@ const char* repro_error_string(int err) {
 // o_out set the normalized output (B, KV*G, D) in q's dtype is written
 // and m_out/l_out may be null; otherwise acc_out (B, KV, G, D) fp32 and
 // m_out, l_out (B, KV, G) fp32 are the unnormalized online-softmax
-// residuals. Two launches: the splits, then their combine.
+// residuals. k_new, v_new (B, KV, D) in q's dtype, or null: set, the new
+// token is merged into o_out (which must be set). parts: 1 the splits
+// alone, 2 the combine alone (of a workspace a call with the same
+// arguments filled; for measurements), 3 both: two launches, the splits,
+// then their combine.
 int paged_decode_launch(const void* q, const void* k_pool, const void* v_pool,
                         const void* tables, const void* lens, void* ws,
                         void* acc_out, void* o_out, void* m_out, void* l_out,
-                        int B, int KV, int G, int D, int P, int page,
-                        int n_tab, int layer, float scale, int dtype,
-                        int split_pages_arg, void* stream) {
+                        const void* k_new, const void* v_new, int B, int KV,
+                        int G, int D, int P, int page, int n_tab, int layer,
+                        float scale, int dtype, int split_pages_arg,
+                        int parts, void* stream) {
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int spp = split_pages_arg > 0 ? split_pages_arg : split_pages(page);
   if (dtype == 0)
     return launch<float>(q, k_pool, v_pool, tables, lens, ws, acc_out, o_out,
-                         m_out, l_out, B, KV, G, D, P, page, n_tab, layer,
-                         scale, spp, s);
+                         m_out, l_out, k_new, v_new, B, KV, G, D, P, page,
+                         n_tab, layer, scale, spp, parts, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lens, ws,
-                                 acc_out, o_out, m_out, l_out, B, KV, G, D,
-                                 P, page, n_tab, layer, scale, spp, s);
+                                 acc_out, o_out, m_out, l_out, k_new, v_new,
+                                 B, KV, G, D, P, page, n_tab, layer, scale,
+                                 spp, parts, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,0 +1,420 @@
+// The elementwise chains and row norms of the paged decode step, fused.
+//
+// Replaces no Pallas kernel. The reference's serving decode step is one
+// XLA program (jax.jit(PagedKVRuntime._decode_step_impl),
+// src/repro/serving/paged_runtime.py:69, its body at :377-444), and XLA
+// fuses each elementwise chain of it into one kernel. The port's plain
+// spelling of the step (repro_torch/serving/paged_runtime.py,
+// _decode_step with fused=False) runs every op of those chains as a torch
+// kernel of its own, ~90 a layer. These are the fusions, by hand; the
+// fourth, the new token's exact merge, rides in decode_attention.cu's
+// combine:
+// - rms_norm_kernel: a row's RMS norm (models/common.rms_norm) alone (a
+//   first layer's ln1, a qk norm), or after a residual add whose sum it
+//   reads in fp32 (ln2 after the out-projection, common.add_rms_norm) or
+//   rounded to the compute dtype (the FFN's residual add folded into the
+//   next layer's ln1, and after the last layer into the final norm: the
+//   reference's scan carry);
+// - qkv_rope_kernel: the qkv biases, the optional qk norm and the rotary
+//   embedding of the three projections (models/attention.qkv_project,
+//   common.apply_rope), written in the layouts the decode kernel and the
+//   token append read;
+// - gated_act_kernel: act(gate) * up, SiLU or the tanh GELU
+//   (models/mlp.mlp_apply, common._silu, common._gelu_tanh).
+//
+// Numerics. Each kernel computes the plain spelling's arithmetic op for
+// op. Every fp32 operation that the plain spelling runs as a torch kernel
+// of its own is one __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn here,
+// which nvcc never contracts into an FMA (so the source builds with the
+// default flags, and expf, tanhf and rsqrtf are the functions torch's CUDA
+// kernels call); every rounding to the compute dtype that the plain
+// spelling makes between two ops is a __float2bfloat16_rn here. So the
+// RoPE and activation passes are bit-equal to the plain spelling. A norm
+// sums each row's squares in one fixed order, a function of the row
+// length alone, so a row's result does not depend on the batch: lane l
+// of the row's warp sums the 16-byte chunks l, l + 32, ... in element
+// order, and a xor-shuffle tree adds the 32 lane sums. torch's mean sums
+// in another order, so a norm is within one ulp of the compute dtype of
+// the plain one, not equal to it.
+//
+// Bound: bytes. Each pass reads its inputs once and writes its outputs
+// once, with a few flops an element. At the decode step's shapes (B rows
+// of d_model, d_ff or the heads) a pass moves tens of KB, so each takes
+// about a launch's latency; what the fusion removes is the kernels
+// between, each a round trip to device memory.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRowWarps = 4;       // rows a block: one warp a row
+constexpr int kMaxHeadDim = 256;
+constexpr int kActThreads = 256;
+constexpr int kActMaxBlocks = 132 * 8;
+
+enum NormMode { kPlain = 0, kAddF32 = 1, kAddRounded = 2 };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and read back: the value a T tensor holds between two
+// ops of the plain spelling.
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// One 16-byte chunk of T as floats, and back.
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* x) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16 / (int)sizeof(T); ++i) x[i] = to_float(e[i]);
+}
+template <typename T>
+__device__ __forceinline__ void store16(T* p, const float* x) {
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16 / (int)sizeof(T); ++i) e[i] = from_float<T>(x[i]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// The sum of the warp's 32 lane values, the same on every lane (each
+// step adds a pair in either order, and fp32 addition commutes).
+__device__ __forceinline__ float warp_sum(float a) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, off));
+  return a;
+}
+
+// rsqrt(mean(x^2) + eps) of an n-element row from its lanes' sums of
+// squares; torch's mean is the sum times (float)(1 / n).
+__device__ __forceinline__ float inv_rms(float lane_sum, int n, float eps) {
+  const float mean = __fmul_rn(warp_sum(lane_sum), __fdiv_rn(1.0f, (float)n));
+  return rsqrtf(__fadd_rn(mean, eps));
+}
+
+// The row's values at one chunk: x, or the residual sum x + delta in fp32
+// (kAddF32) or rounded to T (kAddRounded).
+template <typename T>
+__device__ __forceinline__ void row_chunk(const T* __restrict__ x,
+                                          const T* __restrict__ delta,
+                                          int mode, long long off, float* v) {
+  constexpr int N = 16 / sizeof(T);
+  load16(x + off, v);
+  if (mode != kPlain) {
+    float d[N];
+    load16(delta + off, d);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      v[i] = __fadd_rn(v[i], d[i]);
+      if (mode == kAddRounded) v[i] = rnd<T>(v[i]);
+    }
+  }
+}
+
+// grid ceil(rows / kRowWarps): warp w of block b takes row b*kRowWarps+w.
+// h_out = norm(row) * (1 + scale) in T; with a residual add also x_out =
+// the sum in T. The row is read twice (the second read from cache), so no
+// row length is too long.
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowWarps) rms_norm_kernel(
+    const T* __restrict__ x, const T* __restrict__ delta,
+    const T* __restrict__ scale, T* __restrict__ x_out,
+    T* __restrict__ h_out, int rows, int D, float eps, int mode) {
+  constexpr int N = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int chunks = D / N;
+  const long long base = (long long)row * D;
+  float ss = 0.f;
+  for (int c = lane; c < chunks; c += 32) {
+    float v[N];
+    row_chunk(x, delta, mode, base + (long long)c * N, v);
+#pragma unroll
+    for (int i = 0; i < N; ++i) ss = __fadd_rn(ss, __fmul_rn(v[i], v[i]));
+  }
+  const float r = inv_rms(ss, D, eps);
+  for (int c = lane; c < chunks; c += 32) {
+    float v[N], g[N], h[N];
+    row_chunk(x, delta, mode, base + (long long)c * N, v);
+    load16(scale + (long long)c * N, g);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      h[i] = __fmul_rn(__fmul_rn(v[i], r), __fadd_rn(1.0f, g[i]));
+    store16(h_out + base + (long long)c * N, h);
+    if (mode != kPlain) store16(x_out + base + (long long)c * N, v);
+  }
+}
+
+// grid ceil(B * (H + 2 KV) / kRowWarps): one warp a head row of one token,
+// the H query heads, then the KV key heads, then the KV value heads of
+// each row b. The row (Dh <= kMaxHeadDim) is staged in shared memory:
+// bias added and rounded (q + bq), normed (query and key rows, with
+// qn/kn), then its leading 2 * rot_half channels rotated, each product,
+// difference and sum rounded as apply_rope's bf16 ops round them, with
+// cos and sin rounded to T as apply_rope casts its tables. q_out (B, H,
+// Dh), k_out and v_out (B, KV, Dh).
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowWarps) qkv_rope_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ bq,
+    const T* __restrict__ bk, const T* __restrict__ bv,
+    const T* __restrict__ qn, const T* __restrict__ kn,
+    const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+    T* __restrict__ q_out, T* __restrict__ k_out, T* __restrict__ v_out,
+    int B, int H, int KV, int Dh, int rot_half, float eps) {
+  __shared__ float stage[kRowWarps][kMaxHeadDim];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int per = H + 2 * KV;
+  const int r = blockIdx.x * kRowWarps + w;
+  if (r >= B * per) return;
+  const int b = r / per, j = r - b * per;
+  const T* src;
+  const T* bias;
+  const T* norm;
+  T* dst;
+  bool rope;
+  if (j < H) {
+    src = q + ((long long)b * H + j) * Dh;
+    dst = q_out + ((long long)b * H + j) * Dh;
+    bias = bq != nullptr ? bq + (long long)j * Dh : nullptr;
+    norm = qn;
+    rope = true;
+  } else if (j < H + KV) {
+    const int h = j - H;
+    src = k + ((long long)b * KV + h) * Dh;
+    dst = k_out + ((long long)b * KV + h) * Dh;
+    bias = bk != nullptr ? bk + (long long)h * Dh : nullptr;
+    norm = kn;
+    rope = true;
+  } else {
+    const int h = j - H - KV;
+    src = v + ((long long)b * KV + h) * Dh;
+    dst = v_out + ((long long)b * KV + h) * Dh;
+    bias = bv != nullptr ? bv + (long long)h * Dh : nullptr;
+    norm = nullptr;
+    rope = false;
+  }
+  float* row = stage[w];
+  for (int e = lane; e < Dh; e += 32) {
+    float x = to_float(src[e]);
+    if (bias != nullptr) x = rnd<T>(__fadd_rn(x, to_float(bias[e])));
+    row[e] = x;
+  }
+  __syncwarp();
+  if (norm != nullptr) {   // rms_norm_kernel's order: 16-byte chunks a lane
+    constexpr int N = 16 / sizeof(T);
+    float ss = 0.f;
+    for (int c = lane; c < Dh / N; c += 32)
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        ss = __fadd_rn(ss, __fmul_rn(row[c * N + i], row[c * N + i]));
+    const float rr = inv_rms(ss, Dh, eps);
+    __syncwarp();
+    for (int e = lane; e < Dh; e += 32)
+      row[e] = rnd<T>(__fmul_rn(__fmul_rn(row[e], rr),
+                                __fadd_rn(1.0f, to_float(norm[e]))));
+    __syncwarp();
+  }
+  const int rot = rope ? 2 * rot_half : 0;
+  for (int e = lane; e < Dh; e += 32) {
+    float out = row[e];
+    if (e < rot) {
+      const int i = e < rot_half ? e : e - rot_half;
+      const float c = rnd<T>(cos_t[(long long)b * rot_half + i]);
+      const float s = rnd<T>(sin_t[(long long)b * rot_half + i]);
+      if (e < rot_half)        // x1 * cos - x2 * sin
+        out = rnd<T>(__fsub_rn(rnd<T>(__fmul_rn(row[e], c)),
+                               rnd<T>(__fmul_rn(row[e + rot_half], s))));
+      else                     // x2 * cos + x1 * sin
+        out = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(row[e], c)),
+                               rnd<T>(__fmul_rn(row[i], s))));
+    }
+    dst[e] = from_float<T>(out);
+  }
+}
+
+// x * (1 / (1 + exp(-x))), every op rounded to T (common._silu); 1 / y is
+// torch's reciprocal, then a product with 1.0 that changes nothing.
+template <typename T>
+__device__ __forceinline__ float silu(float x) {
+  const float e = rnd<T>(expf(-x));
+  const float d = rnd<T>(__fadd_rn(e, 1.0f));
+  const float rc = rnd<T>(__fdiv_rn(1.0f, d));
+  return rnd<T>(__fmul_rn(x, rc));
+}
+
+// x * (0.5 * (1 + tanh(c * (x + k * (x * x * x))))), every op rounded to
+// T, k and c the constants rounded to T (common._gelu_tanh).
+template <typename T>
+__device__ __forceinline__ float gelu(float x, float k, float c) {
+  const float x2 = rnd<T>(__fmul_rn(x, x));
+  const float x3 = rnd<T>(__fmul_rn(x2, x));
+  const float kx3 = rnd<T>(__fmul_rn(x3, k));
+  const float in = rnd<T>(__fmul_rn(rnd<T>(__fadd_rn(x, kx3)), c));
+  const float th = rnd<T>(tanhf(in));
+  const float half = rnd<T>(__fmul_rn(rnd<T>(__fadd_rn(th, 1.0f)), 0.5f));
+  return rnd<T>(__fmul_rn(x, half));
+}
+
+// out = act(gate) * up, 16 bytes a thread a step, grid-strided.
+template <typename T, bool kGelu>
+__global__ void __launch_bounds__(kActThreads) gated_act_kernel(
+    const T* __restrict__ gate, const T* __restrict__ up,
+    T* __restrict__ out, long long chunks, float k, float c) {
+  constexpr int N = 16 / sizeof(T);
+  for (long long i = blockIdx.x * (long long)kActThreads + threadIdx.x;
+       i < chunks; i += (long long)gridDim.x * kActThreads) {
+    float g[N], u[N], y[N];
+    load16(gate + i * N, g);
+    load16(up + i * N, u);
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      y[e] = __fmul_rn(kGelu ? gelu<T>(g[e], k, c) : silu<T>(g[e]), u[e]);
+    store16(out + i * N, y);
+  }
+}
+
+template <typename T>
+int norm_launch(const void* x, const void* delta, const void* scale,
+                void* x_out, void* h_out, int rows, int D, float eps,
+                int mode, cudaStream_t s) {
+  if (D < 1 || D % (16 / (int)sizeof(T)) || mode < kPlain ||
+      mode > kAddRounded || (mode != kPlain && (delta == nullptr ||
+                                                x_out == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  rms_norm_kernel<T><<<(rows + kRowWarps - 1) / kRowWarps, 32 * kRowWarps,
+                       0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(delta),
+      static_cast<const T*>(scale), static_cast<T*>(x_out),
+      static_cast<T*>(h_out), rows, D, eps, mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int rope_launch(const void* q, const void* k, const void* v, const void* bq,
+                const void* bk, const void* bv, const void* qn,
+                const void* kn, const void* cos_t, const void* sin_t,
+                void* q_out, void* k_out, void* v_out, int B, int H, int KV,
+                int Dh, int rot_half, float eps, cudaStream_t s) {
+  if (Dh < 1 || Dh > kMaxHeadDim || 2 * rot_half > Dh || rot_half < 0 ||
+      ((qn != nullptr || kn != nullptr) && Dh % (16 / (int)sizeof(T))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = (long long)B * (H + 2 * KV);
+  qkv_rope_kernel<T><<<(unsigned)((rows + kRowWarps - 1) / kRowWarps),
+                       32 * kRowWarps, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(bq),
+      static_cast<const T*>(bk), static_cast<const T*>(bv),
+      static_cast<const T*>(qn), static_cast<const T*>(kn),
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<T*>(q_out), static_cast<T*>(k_out), static_cast<T*>(v_out),
+      B, H, KV, Dh, rot_half, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int act_launch(const void* gate, const void* up, void* out, long long n,
+               int use_gelu, float k, float c, cudaStream_t s) {
+  constexpr int N = 16 / sizeof(T);
+  if (n % N) return static_cast<int>(cudaErrorInvalidValue);
+  const long long chunks = n / N;
+  const long long want = (chunks + kActThreads - 1) / kActThreads;
+  const int blocks = (int)(want < kActMaxBlocks ? want : kActMaxBlocks);
+  const T* g = static_cast<const T*>(gate);
+  const T* u = static_cast<const T*>(up);
+  T* o = static_cast<T*>(out);
+  if (use_gelu)
+    gated_act_kernel<T, true><<<blocks, kActThreads, 0, s>>>(g, u, o, chunks,
+                                                             k, c);
+  else
+    gated_act_kernel<T, false><<<blocks, kActThreads, 0, s>>>(g, u, o, chunks,
+                                                              k, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (every T tensor). x, delta, x_out,
+// h_out (rows, D) contiguous and 16-byte aligned, D a multiple of 16 bytes;
+// scale (D,). mode 0: h_out only (delta, x_out may be null); 1: the
+// residual sum read in fp32; 2: the residual sum rounded to T first.
+int rms_norm_launch(const void* x, const void* delta, const void* scale,
+                    void* x_out, void* h_out, int rows, int D, float eps,
+                    int mode, int dtype, void* stream) {
+  if (rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return norm_launch<float>(x, delta, scale, x_out, h_out, rows, D, eps,
+                              mode, s);
+  if (dtype == 1)
+    return norm_launch<__nv_bfloat16>(x, delta, scale, x_out, h_out, rows, D,
+                                      eps, mode, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// q (B, H, Dh), k and v (B, KV, Dh), contiguous; biases (H or KV, Dh) or
+// all null; qn, kn (Dh,) or null; cos_t, sin_t (B, rot_half) fp32 (null
+// when rot_half is 0). Writes q_out (B, H, Dh), k_out and v_out (B, KV,
+// Dh).
+int qkv_rope_launch(const void* q, const void* k, const void* v,
+                    const void* bq, const void* bk, const void* bv,
+                    const void* qn, const void* kn, const void* cos_t,
+                    const void* sin_t, void* q_out, void* k_out,
+                    void* v_out, int B, int H, int KV, int Dh, int rot_half,
+                    float eps, int dtype, void* stream) {
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return rope_launch<float>(q, k, v, bq, bk, bv, qn, kn, cos_t, sin_t,
+                              q_out, k_out, v_out, B, H, KV, Dh, rot_half,
+                              eps, s);
+  if (dtype == 1)
+    return rope_launch<__nv_bfloat16>(q, k, v, bq, bk, bv, qn, kn, cos_t,
+                                      sin_t, q_out, k_out, v_out, B, H, KV,
+                                      Dh, rot_half, eps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// gate, up, out: n elements, contiguous and 16-byte aligned, n a multiple
+// of 16 bytes. use_gelu 0: SiLU; 1: the tanh GELU with its constants k
+// (0.044715) and c (sqrt(2 / pi)) rounded to T.
+int gated_act_launch(const void* gate, const void* up, void* out,
+                     long long n, int use_gelu, float k, float c, int dtype,
+                     void* stream) {
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return act_launch<float>(gate, up, out, n, use_gelu, k, c, s);
+  if (dtype == 1)
+    return act_launch<__nv_bfloat16>(gate, up, out, n, use_gelu, k, c, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"

@@ -71,11 +71,17 @@ def stream_handle(device: torch.device) -> int:
 
 def kernel_wrappers() -> dict:
     """name -> CUDA wrapper, for every kernel of the port. Each wrapper
-    carries ``launches``: the number of kernel launches it has made."""
-    from repro_torch.kernels.decode_attention.kernel import \
-        paged_decode_attention_kernel
+    carries ``launches``: the number of kernel launches it has made.
+    ``decode_merge`` is the count of decode attention's combine with the
+    new token merged, which ``paged_decode_attention_kernel`` launches
+    given ``new_kv`` (and does not count as its own)."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_merge, paged_decode_attention_kernel)
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_kernel
+    from repro_torch.kernels.fusions.kernel import (gated_act_kernel,
+                                                    qkv_rope_kernel,
+                                                    rms_norm_kernel)
     from repro_torch.kernels.page_copy.kernel import (
         page_gather_kernel, page_scatter_kernel, token_append_indexed_kernel,
         token_append_kernel)
@@ -86,7 +92,11 @@ def kernel_wrappers() -> dict:
             "token_append": token_append_kernel,
             "token_append_indexed": token_append_indexed_kernel,
             "flash_attention": flash_attention_kernel,
-            "rwkv6_scan": rwkv6_scan_kernel}
+            "rwkv6_scan": rwkv6_scan_kernel,
+            "rms_norm": rms_norm_kernel,
+            "qkv_rope": qkv_rope_kernel,
+            "decode_merge": decode_merge,
+            "gated_act": gated_act_kernel}
 
 
 def launch_counts() -> dict[str, int]:

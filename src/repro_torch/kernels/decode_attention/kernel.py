@@ -7,7 +7,9 @@ The kernel is split-KV: one thread block a (split, KV head, row), each
 split ``split_pages(page)`` whole pages of the row's live tokens, then a
 combine that merges a row's splits in split order; one call is two
 launches. bf16 at the head dims of ``TC_HEAD_DIMS`` runs the splits on the
-tensor cores, fp32 and other head dims on the CUDA cores. See the source
+tensor cores, fp32 and other head dims on the CUDA cores. With ``new_kv``
+the combine also merges the decode step's new token exactly (the fusion
+XLA makes of that merge in the reference's decode scan). See the source
 for its bound and design. :func:`plan_decode` is the host side of the
 launch as a pure function of integers, so the CPU tests reach it.
 """
@@ -24,8 +26,8 @@ from repro_torch.kernels import _build, device_guard, stream_handle
 from repro_torch.kernels.decode_attention.ref import SPLIT_TOKENS
 
 _LIB = "decode_attention"
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
-    [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + \
+    [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_PER_BLOCK = 232_448      # bytes of shared memory a Hopper block may use
 # constants of the source: threads (warps) a block, K/V stages in flight,
@@ -94,22 +96,63 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+class LaunchCount:
+    """The launch count of a kernel that a wrapper of another name
+    launches; ``kernel_wrappers()`` lists it beside the wrappers."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+
+#: the combine with the new token merged: ``paged_decode_attention_kernel``
+#: launches it given ``new_kv`` and counts it here, not as its own
+decode_merge = LaunchCount()
+
+
+def check_new_kv(q, new_kv, n_kv: int) -> None:
+    """Raise ``ValueError`` unless ``new_kv`` is a pair ``(k_new, v_new)``
+    of contiguous ``(B, KV, D)`` tensors in q's dtype on q's device."""
+    B, _, D = q.shape
+    if len(new_kv) != 2:
+        raise ValueError("new_kv is a pair (k_new, v_new)")
+    for t in new_kv:
+        if tuple(t.shape) != (B, n_kv, D) or t.dtype != q.dtype \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(
+                f"new_kv: contiguous {(B, n_kv, D)} {q.dtype} tensors on "
+                f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
 def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
                                   seq_lens, *, layer: int = 0,
                                   scale: float | None = None,
                                   return_residuals: bool = False,
-                                  _split_tokens: int | None = None):
+                                  new_kv=None,
+                                  _split_tokens: int | None = None,
+                                  _workspace: torch.Tensor | None = None,
+                                  _combine_only: bool = False):
     """q (B, H, D) on the GPU; k/v_pages (P, page, KV, D) or layer-stacked
     (L, P, page, KV, D) in q's dtype (float32 or bfloat16); block_tables
     (B, n_tab) and seq_lens (B,) int32 on the same GPU.
 
     Returns the normalized output (B, H, D) in q's dtype, or with
     ``return_residuals=True`` the unnormalized fp32 ``(acc (B, KV, G, D),
-    m (B, KV, G), l (B, KV, G))``. Live table slots (``ip * page <
-    seq_lens[b]``) must hold valid page ids; dead slots are never read.
-    Launches on the current stream and does not synchronize; two launches
-    a call. ``_split_tokens`` overrides the split length for measurements
-    only."""
+    m (B, KV, G), l (B, KV, G))``. ``new_kv=(k_new, v_new)``, each (B, KV,
+    D) in q's dtype: the combine also merges that token (one the pages do
+    not hold yet) exactly, as ``ref.merge_new_token_ref`` merges it into
+    the residuals, and the output is the normalized (B, H, D). Live table
+    slots (``ip * page < seq_lens[b]``) must hold valid page ids; dead
+    slots are never read. Launches on the current stream and does not
+    synchronize; two launches a call, the splits counted in ``launches``,
+    the combine there too or, given ``new_kv``, in ``decode_merge``.
+
+    For measurements only: ``_split_tokens`` overrides the split length;
+    ``_workspace`` is the fp32 workspace to use (else a new one), and
+    ``_combine_only`` launches the combine alone, of a workspace that a
+    call with the same arguments filled."""
+    if new_kv is not None and return_residuals:
+        raise ValueError("new_kv merges into the normalized output: not "
+                         "with return_residuals")
     if k_pages.dim() == 4:
         k_pages, v_pages = k_pages[None], v_pages[None]
     if not (q.is_cuda and k_pages.device == q.device
@@ -145,13 +188,22 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
                              "contiguous tensors")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("the pools must be 16-byte aligned")
+    if new_kv is not None:
+        check_new_kv(q, new_kv, KV)
     n_tab = block_tables.shape[1]
     plan = plan_decode(B, KV, G, D, q.element_size(), page, n_tab,
                        _split_tokens or SPLIT_TOKENS)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
 
     dev = q.device
-    ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=dev)
+    ws = _workspace
+    if ws is None:
+        ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                         device=dev)
+    elif ws.dtype != torch.float32 or ws.device != dev \
+            or ws.numel() < plan.workspace_floats or not ws.is_contiguous():
+        raise ValueError(f"_workspace: {plan.workspace_floats} contiguous "
+                         f"fp32 on {dev}")
     if return_residuals:
         acc = torch.empty((B, KV, G, D), dtype=torch.float32, device=dev)
         m = torch.empty((B, KV, G), dtype=torch.float32, device=dev)
@@ -160,17 +212,23 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
     else:
         acc = m = l = None
         out = torch.empty_like(q)
+    k_new, v_new = (None, None) if new_kv is None else new_kv
     fn = _build.function(_LIB, "paged_decode_launch", _ARGTYPES)
     with device_guard(dev):
         err = fn(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
                  _ptr(seq_lens), _ptr(ws), _ptr(acc), _ptr(out), _ptr(m),
-                 _ptr(l), B, KV, G, D, P, page, n_tab, int(layer),
-                 float(scale), _DTYPES[q.dtype],
+                 _ptr(l), _ptr(k_new), _ptr(v_new), B, KV, G, D, P, page,
+                 n_tab, int(layer), float(scale), _DTYPES[q.dtype],
                  plan.split_pages if _split_tokens else 0,
-                 stream_handle(dev))
+                 2 if _combine_only else 3, stream_handle(dev))
     _build.check(_LIB, err, "paged_decode_attention_kernel")
     if B:
-        paged_decode_attention_kernel.launches += 2   # splits, combine
+        if not _combine_only:
+            paged_decode_attention_kernel.launches += 1     # the splits
+        if new_kv is None:
+            paged_decode_attention_kernel.launches += 1     # the combine
+        else:
+            decode_merge.launches += 1
     if return_residuals:
         return acc, m, l
     return out

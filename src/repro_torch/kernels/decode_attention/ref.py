@@ -83,6 +83,28 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens,
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def merge_new_token_ref(q, k_new, v_new, acc, m, l, scale: float):
+    """The decode step's exact merge of the new token's own ``(k_new,
+    v_new)`` (B, KV, D), which no page holds yet, into the residuals
+    ``(acc, m, l)`` of ``q`` (B, H, D) over the pages: the token is one
+    more split with m = q . k_new * scale, l = 1, acc = v_new. Returns the
+    normalized output (B, H, D) in q's dtype. The reference's jnp merge
+    (``src/repro/serving/paged_runtime.py:411-421``), op for op; the
+    CUDA combine runs it when given ``new_kv``."""
+    B, H, D = q.shape
+    KV = k_new.shape[1]
+    qg = q.reshape(B, KV, H // KV, D).float()
+    kf, vf = k_new.float(), v_new.float()
+    s_self = (qg * kf[:, :, None, :]).sum(-1) * scale
+    m2 = torch.maximum(m, s_self)
+    alpha = torch.exp(m - m2)
+    p_self = torch.exp(s_self - m2)
+    acc2 = acc * alpha[..., None] + p_self[..., None] * vf[:, :, None]
+    l2 = l * alpha + p_self
+    o = (acc2 / l2.clamp_min(1e-30)[..., None]).reshape(B, H, D)
+    return o.to(q.dtype)
+
+
 def combine_splits(acc_s, m_s, l_s, bad_s):
     """Merge a row's split partials in split order, as the CUDA combine
     does: acc_s (S, KV, G, D), m_s and l_s (S, KV, G) fp32, bad_s (S,)

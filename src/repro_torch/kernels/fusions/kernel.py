@@ -1,0 +1,198 @@
+"""CUDA fusions of the paged decode step: the checked launchers of
+``csrc/fusions.cu`` (the RMS norms, qkv bias + RoPE, the gated
+activation). The fourth fusion, the new token's merge, is decode
+attention's combine given ``new_kv``
+(``paged_decode_attention_kernel``, ``csrc/decode_attention.cu``), counted
+as ``decode_attention.kernel.decode_merge``.
+
+No Pallas kernel is their counterpart: the reference's decode step is one
+XLA program (``jax.jit(PagedKVRuntime._decode_step_impl)``,
+``src/repro/serving/paged_runtime.py:69``), and these are the fusions XLA
+makes of its elementwise chains. Each wrapper checks shapes, dtypes,
+layout and alignment before it checks the device, so the CPU tests reach
+every refusal; a CPU tensor is refused (``ops.py`` sends it to the plain
+version). Each launches on the current stream, does not synchronize and
+counts its launches in ``launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, device_guard, stream_handle
+from repro_torch.models.common import _gelu_constants
+
+_LIB = "fusions"
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
+_NORM_ARGS = [_P] * 5 + [_I, _I, _F, _I, _I, _P]
+_ROPE_ARGS = [_P] * 13 + [_I] * 5 + [_F, _I, _P]
+_ACT_ARGS = [_P] * 3 + [_L, _I, _F, _F, _I, _P]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256                            # kMaxHeadDim in the source
+ACTIVATIONS = ("silu", "gelu")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_dtype(what: str, ref: torch.Tensor, *others) -> None:
+    if ref.dtype not in _DTYPES:
+        raise ValueError(f"{what}: float32 or bfloat16, got {ref.dtype}")
+    for t in others:
+        if t is not None and t.dtype != ref.dtype:
+            raise ValueError(f"{what}: every tensor in {ref.dtype}, got "
+                             f"{t.dtype}")
+
+
+def _check_rows(what: str, n: int, *tensors) -> None:
+    """Contiguous tensors of 16-byte rows of ``n`` elements at 16-byte
+    aligned addresses: the kernels move 16 bytes a load."""
+    for t in tensors:
+        if t is None:
+            continue
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: contiguous tensors only")
+        if (n * t.element_size()) % 16 or t.data_ptr() % 16:
+            raise ValueError(
+                f"{what}: rows of {n} {t.dtype} elements must be a multiple "
+                f"of 16 bytes at 16-byte aligned addresses")
+
+
+def _check_cuda(what: str, ref: torch.Tensor, *others) -> None:
+    if not ref.is_cuda or any(t is not None and t.device != ref.device
+                              for t in others):
+        raise ValueError(f"{what}: every tensor must be on the same CUDA "
+                         f"device")
+
+
+def rms_norm_kernel(x, scale, eps: float, delta=None,
+                    fp32_sum: bool = False):
+    """x (..., D) and ``scale`` (D,) in float32 or bfloat16 on the GPU.
+    Returns ``rms_norm(x, scale, eps)``, or with ``delta`` (x's shape)
+    ``(x + delta, norm)`` where the norm reads the sum in fp32
+    (``fp32_sum``) or rounded to x's dtype, as ``ref.rms_norm_ref``. One
+    launch."""
+    what = "rms_norm_kernel"
+    D = x.shape[-1]
+    _check_dtype(what, x, scale, delta)
+    if tuple(scale.shape) != (D,) or (delta is not None
+                                      and delta.shape != x.shape):
+        raise ValueError(f"{what}: scale {tuple(scale.shape)}, delta "
+                         f"{None if delta is None else tuple(delta.shape)} "
+                         f"for x {tuple(x.shape)}")
+    _check_rows(what, D, x, scale, delta)
+    _check_cuda(what, x, scale, delta)
+    h = torch.empty_like(x)
+    x_out = None if delta is None else torch.empty_like(x)
+    # the source's modes: 0 the norm alone, 1 the fp32 sum, 2 the rounded
+    mode = 0 if delta is None else 1 if fp32_sum else 2
+    fn = _build.function(_LIB, "rms_norm_launch", _NORM_ARGS)
+    with device_guard(x.device):
+        err = fn(_ptr(x), _ptr(delta), _ptr(scale), _ptr(x_out), _ptr(h),
+                 x.numel() // D if D else 0, D, float(eps), mode,
+                 _DTYPES[x.dtype], stream_handle(x.device))
+    _build.check(_LIB, err, what)
+    if x.numel():
+        rms_norm_kernel.launches += 1
+    return h if delta is None else (x_out, h)
+
+
+rms_norm_kernel.launches = 0
+
+
+def qkv_rope_kernel(q, k, v, *, k_out, v_out, bias=None, norm=None,
+                    eps: float = 0.0, rope=None):
+    """One token's projections q (B, H, Dh), k and v (B, KV, Dh) on the
+    GPU, contiguous, in float32 or bfloat16; ``bias = (bq (H, Dh), bk, bv
+    (KV, Dh))``, ``norm = (q_norm, k_norm)`` (Dh,) and ``rope = (cos,
+    sin)`` fp32 (B, 1, rot/2), each optional. Writes k and v into
+    ``k_out``, ``v_out`` (B, KV, Dh) and returns q (B, H, Dh): the same
+    bits as ``ref.qkv_rope_ref`` (the norm within its one-ulp order). One
+    launch."""
+    what = "qkv_rope_kernel"
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"{what}: q (B, H, Dh), k and v (B, KV, Dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Dh = q.shape
+    KV = k.shape[1]
+    if k.shape[0] != B or k.shape[2] != Dh or not 1 <= Dh <= MAX_HEAD_DIM \
+            or k_out.shape != k.shape or v_out.shape != k.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"outputs {tuple(k_out.shape)} / "
+                         f"{tuple(v_out.shape)}; head dim at most "
+                         f"{MAX_HEAD_DIM}")
+    bq, bk, bv = bias if bias is not None else (None, None, None)
+    qn, kn = norm if norm is not None else (None, None)
+    if bias is not None and (bq.shape != q.shape[1:]
+                             or bk.shape != k.shape[1:]
+                             or bv.shape != k.shape[1:]):
+        raise ValueError(f"{what}: biases (H, Dh), (KV, Dh), (KV, Dh)")
+    if norm is not None and (tuple(qn.shape) != (Dh,)
+                             or tuple(kn.shape) != (Dh,)):
+        raise ValueError(f"{what}: norm scales (Dh,)")
+    _check_dtype(what, q, k, v, bq, bk, bv, qn, kn, k_out, v_out)
+    cos = sin = None
+    rot_half = 0
+    if rope is not None:
+        cos, sin = rope
+        rot_half = cos.shape[-1]
+        if cos.dtype != torch.float32 or sin.shape != cos.shape \
+                or sin.dtype != torch.float32 or cos.numel() != B * rot_half \
+                or 2 * rot_half > Dh:
+            raise ValueError(f"{what}: rope tables fp32 (B, 1, rot/2) with "
+                             f"rot <= Dh, got {tuple(cos.shape)} "
+                             f"{cos.dtype}")
+    for t in (q, k, v, bq, bk, bv, qn, kn, cos, sin, k_out, v_out):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{what}: contiguous tensors only")
+    if norm is not None:       # the norm sums 16-byte chunks
+        _check_rows(what, Dh, q, k)
+    _check_cuda(what, q, k, v, bq, bk, bv, qn, kn, cos, sin, k_out, v_out)
+    q_out = torch.empty_like(q)
+    fn = _build.function(_LIB, "qkv_rope_launch", _ROPE_ARGS)
+    with device_guard(q.device):
+        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bq), _ptr(bk), _ptr(bv),
+                 _ptr(qn), _ptr(kn), _ptr(cos), _ptr(sin), _ptr(q_out),
+                 _ptr(k_out), _ptr(v_out), B, H, KV, Dh, rot_half,
+                 float(eps), _DTYPES[q.dtype], stream_handle(q.device))
+    _build.check(_LIB, err, what)
+    if B:
+        qkv_rope_kernel.launches += 1
+    return q_out
+
+
+qkv_rope_kernel.launches = 0
+
+
+def gated_act_kernel(gate, up, activation: str):
+    """``act(gate) * up`` for ``activation`` "silu" or "gelu" (tanh),
+    gate and up of one shape in float32 or bfloat16 on the GPU, bit-equal
+    to ``ref.gated_act_ref``. One launch."""
+    what = "gated_act_kernel"
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"{what}: activation {activation!r} not in "
+                         f"{ACTIVATIONS}")
+    if gate.shape != up.shape:
+        raise ValueError(f"{what}: gate {tuple(gate.shape)} and up "
+                         f"{tuple(up.shape)} differ")
+    _check_dtype(what, gate, up)
+    _check_rows(what, gate.shape[-1] if gate.dim() else 1, gate, up)
+    _check_cuda(what, gate, up)
+    out = torch.empty_like(gate)
+    k, c = _gelu_constants(gate.dtype)
+    fn = _build.function(_LIB, "gated_act_launch", _ACT_ARGS)
+    with device_guard(gate.device):
+        err = fn(_ptr(gate), _ptr(up), _ptr(out), gate.numel(),
+                 int(activation == "gelu"), k, c, _DTYPES[gate.dtype],
+                 stream_handle(gate.device))
+    _build.check(_LIB, err, what)
+    if gate.numel():
+        gated_act_kernel.launches += 1
+    return out
+
+
+gated_act_kernel.launches = 0

@@ -1,0 +1,62 @@
+"""The paged decode step's fused passes, dispatched by device: a CUDA
+tensor launches the hand-written kernel (:mod:`.kernel`), a CPU tensor
+takes the plain version (:mod:`.ref`), any other device raises. ``plain``
+takes the plain version on any device: the runtime's ``fused=False``, to
+compare the two on the card."""
+from __future__ import annotations
+
+from repro_torch.kernels.decode_attention.kernel import \
+    paged_decode_attention_kernel
+from repro_torch.kernels.fusions.kernel import (gated_act_kernel,
+                                                qkv_rope_kernel,
+                                                rms_norm_kernel)
+from repro_torch.kernels.fusions.ref import (attend_merged_ref,
+                                             gated_act_ref, qkv_rope_ref,
+                                             rms_norm_ref)
+
+
+def _takes_plain(x, plain: bool, what: str) -> bool:
+    if plain or x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def rms_norm(x, scale, eps: float, delta=None, *, fp32_sum: bool = False,
+             plain: bool = False):
+    """``rms_norm(x)``, or with ``delta`` ``(x + delta, norm)`` (the norm
+    reads the fp32 sum with ``fp32_sum``, else the rounded one)."""
+    fn = rms_norm_ref if _takes_plain(x, plain, "rms_norm") \
+        else rms_norm_kernel
+    return fn(x, scale, eps, delta, fp32_sum)
+
+
+def qkv_rope(q, k, v, *, k_out, v_out, bias=None, norm=None,
+             eps: float = 0.0, rope=None, plain: bool = False):
+    """Bias, qk norm and RoPE of one token's projections; k and v into
+    ``k_out`` / ``v_out``; returns q (B, H, Dh)."""
+    fn = qkv_rope_ref if _takes_plain(q, plain, "qkv_rope") \
+        else qkv_rope_kernel
+    return fn(q, k, v, k_out=k_out, v_out=v_out, bias=bias, norm=norm,
+              eps=eps, rope=rope)
+
+
+def attend_merged(q, k_pages, v_pages, tables, lens, k_new, v_new, *,
+                  layer: int, scale: float, plain: bool = False):
+    """Paged decode attention with the new token's (k, v) merged: (B, H,
+    Dh) in q's dtype. On the card the merge runs in decode attention's
+    combine."""
+    if _takes_plain(q, plain, "attend_merged"):
+        return attend_merged_ref(q, k_pages, v_pages, tables, lens, k_new,
+                                 v_new, layer=layer, scale=scale)
+    return paged_decode_attention_kernel(q, k_pages, v_pages, tables, lens,
+                                         layer=layer, scale=scale,
+                                         new_kv=(k_new, v_new))
+
+
+def gated_act(gate, up, activation: str, *, plain: bool = False):
+    """``act(gate) * up``."""
+    fn = gated_act_ref if _takes_plain(gate, plain, "gated_act") \
+        else gated_act_kernel
+    return fn(gate, up, activation)

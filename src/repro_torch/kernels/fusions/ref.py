@@ -1,0 +1,54 @@
+"""Plain PyTorch versions of the paged decode step's fused passes: the
+port's eager spelling of each chain, op for op. A CPU tensor takes them,
+the runtime runs them on the card with ``fused=False``, and
+``chip_smoke.py`` holds the CUDA kernels against them."""
+from __future__ import annotations
+
+from repro_torch.kernels.decode_attention import (merge_new_token_ref,
+                                                  paged_decode_attention)
+from repro_torch.models.attention import qkv_finish
+from repro_torch.models.common import activation_fn, add_rms_norm, rms_norm
+
+
+def rms_norm_ref(x, scale, eps: float, delta=None, fp32_sum: bool = False):
+    """``rms_norm(x)``; with ``delta`` the residual add first, returning
+    ``(x + delta, norm)``: the norm reads the fp32 sum (``fp32_sum``,
+    ``add_rms_norm``) or the sum rounded to x's dtype."""
+    if delta is None:
+        return rms_norm(x, scale, eps)
+    if fp32_sum:
+        return add_rms_norm(x, delta, scale, eps)
+    x = x + delta
+    return x, rms_norm(x, scale, eps)
+
+
+def qkv_rope_ref(q, k, v, *, k_out, v_out, bias=None, norm=None,
+                 eps: float = 0.0, rope=None):
+    """One token's projections q (B, H, Dh), k and v (B, KV, Dh): the
+    biases ``(bq, bk, bv)`` added, q and k normed with ``(q_norm,
+    k_norm)``, then rotated by ``rope = (cos, sin)`` (B, 1, rot/2) fp32,
+    as ``attention.qkv_finish`` orders them. k and v are written into
+    ``k_out`` and ``v_out`` (B, KV, Dh); returns q (B, H, Dh),
+    contiguous."""
+    q, k, v = qkv_finish(q[:, None], k[:, None], v[:, None], bias=bias,
+                         norm=norm, eps=eps, rope=rope)
+    k_out.copy_(k[:, 0])
+    v_out.copy_(v[:, 0])
+    return q[:, 0].contiguous()
+
+
+def attend_merged_ref(q, k_pages, v_pages, tables, lens, k_new, v_new, *,
+                      layer: int, scale: float):
+    """Paged decode attention's residuals over the pages, then the new
+    token's exact merge (:func:`merge_new_token_ref`): (B, H, Dh) in q's
+    dtype."""
+    acc, m, l = paged_decode_attention(q, k_pages, v_pages, tables, lens,
+                                       layer=layer, scale=scale,
+                                       return_residuals=True)
+    return merge_new_token_ref(q, k_new, v_new, acc, m, l, scale)
+
+
+def gated_act_ref(gate, up, activation: str):
+    """``act(gate) * up``, SiLU or the tanh GELU spelled as the JAX
+    package computes them (``common._silu``, ``common._gelu_tanh``)."""
+    return activation_fn(activation)(gate) * up

@@ -18,9 +18,13 @@ The decode step and the prefill chunk are the paged runtime's CUDA
 graphs, replayed (the chunk's bucket is captured at its second use,
 inside the warm-up), unless ``--eager`` asks for the eager steps
 (``PagedKVRuntime(cuda_graphs=False)``); run both in one call to compare
-them. ``--capacity-step N`` sets the extend scratch's capacity
-granularity (``PagedKVRuntime.capacity_step``, 512 tokens by default),
-to measure what padding the chunk's capacity costs.
+them. The decode step runs its chains as the fused kernels of
+``kernels/fusions`` unless ``--plain`` asks for their plain spelling
+(``PagedKVRuntime(fused=False)``); a trace splits a step's device time
+into products, attention, fusions and the rest (``device_ms_by_part``).
+``--capacity-step N`` sets the extend scratch's capacity granularity
+(``PagedKVRuntime.capacity_step``, 512 tokens by default), to measure
+what padding the chunk's capacity costs.
 
 ``--layers N`` cuts the depth to N layers at full width (a full-width
 qwen3-moe step fits the card at 6 of its 94). The JSON also gives the
@@ -63,7 +67,7 @@ with or without ``--train``)::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         [--arch qwen2-1.5b] [--layers N] [--batch 4] [--context 2048] \\
-        [--steps 8] [--eager] [--capacity-step N] [--train] \\
+        [--steps 8] [--eager] [--plain] [--capacity-step N] [--train] \\
         [--mesh [--device cpu] [--smoke]]
 """
 from __future__ import annotations
@@ -89,6 +93,27 @@ CHUNK = 512                       # the serve phase's prefill chunk
 # profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                 "cudaMemcpyAsync", "cudaMemsetAsync")
+#: parts of a step's device time, each by markers in its kernels' names
+#: (the first part whose marker a name holds takes it; the rest is
+#: "other": copies, casts, the embedding, argmax, the token append, the
+#: plain chains): decode and flash attention, the port's fused chains,
+#: the products (cuBLAS's and CUTLASS's kernels)
+DEVICE_PARTS = (("attention", ("split_kernel", "combine_kernel", "flash_")),
+                ("fusions", ("rms_norm_kernel", "qkv_rope_kernel",
+                             "gated_act_kernel")),
+                ("products", ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                              "splitK")))
+
+
+def device_parts(dev: dict, reps: int) -> dict:
+    """ms a step of each ``DEVICE_PARTS`` part and of the rest, from
+    {kernel name: [runs, ns]}."""
+    out = dict.fromkeys([p for p, _ in DEVICE_PARTS] + ["other"], 0.0)
+    for name, (_, ns) in dev.items():
+        part = next((p for p, marks in DEVICE_PARTS
+                     if any(m in name for m in marks)), "other")
+        out[part] += ns / reps / 1e6
+    return out
 
 
 def _sync(cuda: bool) -> None:
@@ -154,6 +179,7 @@ def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
         "device_busy_ms_per_step": device_ns / reps / 1e6,
         "device_busy_share": device_ns / 1e9 / (t1 - t0),
         "device_kernels_per_step": sum(n for n, _ in dev.values()) / reps,
+        "device_ms_by_part": device_parts(dev, reps),
         "host_launch_calls_per_step": sum(calls.values()),
         "host_launch_calls": calls,
         # a tensor subclass's dispatch (DTensor's), host events only
@@ -166,8 +192,9 @@ def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
         out["kernel_counts"] = {k: n / reps for k, (n, _) in dev.items()}
     if not cuda:
         for k in ("device_busy_ms_per_step", "device_busy_share",
-                  "device_kernels_per_step", "host_launch_calls_per_step",
-                  "host_launch_calls", "top_kernels", "kernel_counts"):
+                  "device_kernels_per_step", "device_ms_by_part",
+                  "host_launch_calls_per_step", "host_launch_calls",
+                  "top_kernels", "kernel_counts"):
             if k in out:
                 out[k] = None
     return out
@@ -187,6 +214,10 @@ def main(argv=None) -> int:
     ap.add_argument("--eager", action="store_true",
                     help="the eager decode step and prefill chunk (or "
                     "training step), not the CUDA graphs")
+    ap.add_argument("--plain", action="store_true",
+                    help="the paged decode step's chains in their plain "
+                    "spelling (PagedKVRuntime(fused=False)), not the "
+                    "fused kernels")
     ap.add_argument("--capacity-step", type=int, default=None,
                     help="the extend scratch's capacity granularity")
     ap.add_argument("--mesh", action="store_true",
@@ -234,6 +265,7 @@ def main(argv=None) -> int:
                args.context, chunk_len, args.capacity_step or CAPACITY_STEP)
            if steps is _paged_steps else None,
            "decode_step": "eager" if args.eager else "cuda_graph",
+           "fused": not args.plain if steps is _paged_steps else None,
            "capacity_step": args.capacity_step,
            "decode": {**_timed(decode, args.steps), **traced(decode)},
            "prefill": {**_timed(prefill, args.steps), **traced(prefill)}}
@@ -450,7 +482,7 @@ def _paged_steps(model, args, dev):
     per_prog = (args.context + CHUNK + 64 * args.steps) // page + 2
     rt = PagedKVRuntime(cfg, n_pages=(args.batch + 1) * per_prog,
                         page_size=page, device=dev,
-                        cuda_graphs=not args.eager)
+                        cuda_graphs=not args.eager, fused=not args.plain)
     if args.capacity_step is not None:
         rt.capacity_step = args.capacity_step
     rng = np.random.default_rng(args.seed)

@@ -67,21 +67,38 @@ def attention_specs(cfg: ModelConfig, dtype: str) -> dict[str, ParamSpec]:
     return specs
 
 
-def qkv_project(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor):
-    """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh) with RoPE applied."""
-    q, k, v = (matmul_in(x, p[w]) for w in ("wq", "wk", "wv"))
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.pos_emb == "rope":
-        cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
-                               cfg.rope_fraction)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+def qkv_finish(q, k, v, *, bias=None, norm=None, eps: float = 0.0,
+               rope=None):
+    """The chain after the projections, q (B,S,H,Dh), k/v (B,S,KV,Dh):
+    the biases ``(bq, bk, bv)`` added, q and k normed with ``(q_norm,
+    k_norm)``, then rotated by ``rope = (cos, sin)``; each optional."""
+    if bias is not None:
+        q, k, v = q + bias[0], k + bias[1], v + bias[2]
+    if norm is not None:
+        q = rms_norm(q, norm[0], eps)
+        k = rms_norm(k, norm[1], eps)
+    if rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
     return q, k, v
+
+
+def qkv_project(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor | None, *, rope=None, finish=None):
+    """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh) with RoPE applied, the
+    tables made from ``positions`` unless given as ``rope``. ``finish``
+    takes :func:`qkv_finish`'s place (the paged decode step's fused pass)
+    and its result is returned."""
+    q, k, v = (matmul_in(x, p[w]) for w in ("wq", "wk", "wv"))
+    if cfg.pos_emb != "rope":
+        rope = None
+    elif rope is None:
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                           cfg.rope_fraction)
+    return (finish or qkv_finish)(
+        q, k, v, bias=(p["bq"], p["bk"], p["bv"]) if cfg.qkv_bias else None,
+        norm=(p["q_norm"], p["k_norm"]) if cfg.qk_norm else None,
+        eps=cfg.norm_eps, rope=rope)
 
 
 def out_project(p: dict, o: torch.Tensor) -> torch.Tensor:

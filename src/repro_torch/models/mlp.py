@@ -15,6 +15,13 @@ def mlp_specs(d_model: int, d_ff: int, dtype: str) -> dict[str, ParamSpec]:
     }
 
 
-def mlp_apply(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, activation: str,
+              gated_act=None) -> torch.Tensor:
+    """``act(x w1) * (x w3)`` times w2; ``gated_act(gate, up)``, when
+    given, computes the gated product (the paged decode step's fused
+    op)."""
+    if gated_act is not None:
+        return matmul(gated_act(matmul(x, p["w1"]), matmul(x, p["w3"])),
+                      p["w2"])
     act = activation_fn(activation)
     return matmul(act(matmul(x, p["w1"])) * matmul(x, p["w3"]), p["w2"])

@@ -731,9 +731,11 @@ def sharded_zeros(shape, dtype, device, rules: dict, axes) -> DTensor:
                               .stride())
 
 
-def ffn_apply(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ffn_apply(p: dict, h: torch.Tensor, cfg: ModelConfig,
+              gated_act=None) -> torch.Tensor:
     """A layer's FFN: MoE where its params hold a router, else the dense
-    gated MLP (the reference's ``"router" in p["mlp"]``)."""
+    gated MLP (the reference's ``"router" in p["mlp"]``), its gated
+    product by ``gated_act`` when given (``mlp_apply``)."""
     if "router" in p:
         return moe_apply(p, h, cfg)
-    return mlp_apply(p, h, cfg.activation)
+    return mlp_apply(p, h, cfg.activation, gated_act)

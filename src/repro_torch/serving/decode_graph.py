@@ -7,10 +7,10 @@ This is the counterpart of the reference's ``jax.jit(self._decode_step_
 impl)`` (``repro.serving.paged_runtime``), which compiles the step once
 per ``(B, n_tab)`` shape (the table width a power of two, so it retraces
 rarely). The port's step is a Python loop over the layers that launches
-~80-100 kernels a layer; replayed as a graph, the host makes one launch
-a step. The graph holds exactly the kernels the eager step launches, in
-the same order, on the same shapes and addresses, so its results are the
-eager step's bit for bit.
+~15 kernels a layer (~85 with ``fused=False``); replayed as a graph, the
+host makes one launch a step. The graph holds exactly the kernels the
+eager step launches, in the same order, on the same shapes and
+addresses, so its results are the eager step's bit for bit.
 
 A bucket owns persistent device buffers: the inputs (``toks (B,)``,
 ``tables (B, n_tab)``, ``lens``, ``app_pages`` and ``app_offs (B,)``, the
@@ -184,16 +184,22 @@ class StepGraphs:
         # model -> {key: bucket}; a graph holds the model's weight
         # addresses, so each model has its own buckets, dropped with it
         self._buckets: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
-        self._pool_ptrs = None
+        self._bound_to = None           # what the graphs hold: _binding()
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
 
     def clear(self) -> None:
-        """Drop every bucket and graph: the pools were reassigned, and a
-        graph would read and write the old ones."""
+        """Drop every bucket and graph: what they hold of the runtime
+        (``_binding``) changed, and a graph would read and write the old
+        pools or run the other spelling. If a graph went, later captures
+        open a fresh memory pool: the dropped graphs may have been their
+        pool's last holders, and the caching allocator refuses a capture
+        into a pool that no live graph holds."""
+        if any(b.graph is not None for b in self.buckets().values()):
+            self.site.pool = None
         self._buckets = weakref.WeakKeyDictionary()
-        self._pool_ptrs = None
+        self._bound_to = None
 
     def buckets(self) -> dict:
         """key -> bucket over every model (for logging and tests)."""
@@ -212,15 +218,20 @@ class StepGraphs:
                 f"trainable model rebuilds its weight views every forward "
                 f"and a meshed one runs DTensor; pass cuda_graphs=False")
 
+    def _binding(self) -> tuple:
+        """What a captured step holds of the runtime: the pools'
+        addresses."""
+        return self.rt.k_pages.data_ptr(), self.rt.v_pages.data_ptr()
+
     def _per_model(self, model, graphs: bool = True) -> dict:
         """``model``'s buckets (refused unless it may be captured, when
-        ``graphs``), all dropped first if the pools moved."""
+        ``graphs``), all dropped first if ``_binding()`` changed."""
         if graphs:
             self.refuse(model)
-        ptrs = (self.rt.k_pages.data_ptr(), self.rt.v_pages.data_ptr())
-        if ptrs != self._pool_ptrs:
+        binding = self._binding()
+        if binding != self._bound_to:
             self.clear()
-            self._pool_ptrs = ptrs
+            self._bound_to = binding
         return self._buckets.setdefault(model, {})
 
     def _fill(self, ints: torch.Tensor, host: np.ndarray) -> None:
@@ -290,6 +301,11 @@ class DecodeGraphs(StepGraphs):
     the same values."""
 
     what = "decode step"
+
+    def _binding(self) -> tuple:
+        """The pools' addresses and the runtime's ``fused``: a graph holds
+        the step's kernels, the fusions or the plain chains."""
+        return super()._binding() + (self.rt.fused,)
 
     def _bucket(self, model, B: int, n_tab: int) -> Bucket:
         per = self._per_model(model)

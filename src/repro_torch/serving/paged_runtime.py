@@ -31,11 +31,17 @@ n_tab)`` bucket and replayed (:mod:`.decode_graph`), as the reference
 jits it per ``(B, n_tab)``; so is a prefill or extend chunk per ``(model,
 mode, Sp, T)`` bucket (:mod:`.prefill_graph`), as the reference compiles
 its scanned forward per padded chunk length. ``cuda_graphs=False`` runs
-both eagerly, one launch at a time.
+both eagerly, one launch at a time. Inside the decode step, the
+elementwise chains that XLA fuses in the reference's scan (the RMS norms
+and residual adds, the qkv bias and RoPE, the new token's merge, the
+gated activation) are hand-written kernels on the card
+(:mod:`repro_torch.kernels.fusions`); ``fused=False`` runs their plain
+spelling there, one torch op at a time, to compare the two.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -43,14 +49,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import resolve_device, to_device
-from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels import fusions, resolve_device, to_device
 from repro_torch.kernels.page_copy import (append_tokens_indexed,
                                            copy_pages, gather_pages,
                                            scatter_pages)
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import (add_rms_norm, rms_norm,
-                                       sinusoidal_emb, torch_dtype)
+from repro_torch.models.common import (rope_tables, sinusoidal_emb,
+                                       torch_dtype)
 from repro_torch.models.transformer import ffn_apply, first_k_dense
 from repro_torch.serving.decode_graph import (CaptureSite, DecodeGraphs,
                                               pack_inputs, unpack_inputs)
@@ -101,15 +106,22 @@ class PagedKVRuntime:
     chunk through :class:`~repro_torch.serving.prefill_graph.
     PrefillGraphs`, captured and replayed on the card, on persistent
     buffers on the CPU; False runs both eagerly (the chunk on the same
-    buffers). The flag is read at every step."""
+    buffers). The flag is read at every step.
+
+    ``fused`` (default on): the decode step's elementwise chains run as
+    the fused kernels of :mod:`repro_torch.kernels.fusions` on the card
+    (their plain versions on the CPU); False runs the plain spelling on
+    any device, for comparisons on the card. Read at every step; a
+    change drops the captured graphs."""
 
     def __init__(self, cfg: ModelConfig, n_pages: int = 64,
                  page_size: int = 16, device="cuda",
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, fused: bool = True):
         require_paged(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cuda_graphs = cuda_graphs
+        self.fused = fused
         # an extend chunk's scratch capacity is a multiple of this many
         # tokens (prefill_graph.capacity): each capacity is a bucket
         self.capacity_step = CAPACITY_STEP
@@ -458,11 +470,22 @@ class PagedKVRuntime:
         are read in their native layout, never sliced or cast. Returns
         (logits (B, V) in the compute dtype, argmax (B,)), copied into
         ``out`` when given. Nothing here reads a device value on the host,
-        so the step can be captured."""
+        so the step can be captured.
+
+        The chains between the products are the ops of
+        :mod:`repro_torch.kernels.fusions` (``plain`` when ``fused`` is
+        off): a layer's ln1 (after the first layer, with the previous
+        FFN's residual add, whose rounded sum it reads), the qkv bias, qk
+        norm and RoPE writing k/v straight into the append's (L, B, KV,
+        Dh) buffers, decode attention with the new token merged in its
+        combine, ln2 with the attention's residual add (the fp32 sum), the
+        dense FFN's gated activation, and the last residual add with the
+        final norm."""
         cfg = self.cfg
+        plain = not self.fused
         B = toks.shape[0]
-        KV, Dh, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
-        G = H // KV
+        L, KV, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        eps = cfg.norm_eps
         scale = 1.0 / math.sqrt(Dh)
         positions = lens.long()[:, None]   # (B, 1): new token at `length`
         x = model.params["embed"][toks][:, None]
@@ -472,37 +495,42 @@ class PagedKVRuntime:
             x = x + sinusoidal_emb(positions, cfg.d_model).to(x.dtype)
         if cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-        ks, vs = [], []
+        rope = rope_tables(positions, Dh, cfg.rope_theta,
+                           cfg.rope_fraction) \
+            if cfg.pos_emb == "rope" else None
+        # every layer's new-token k/v, appended to the pages in ONE launch
+        ks = x.new_empty((L, B, KV, Dh))
+        vs = x.new_empty((L, B, KV, Dh))
+        delta = None                       # the previous layer's FFN output
+
+        def qkv_rope(q, k, v, *, li, **kw):   # k/v into the append's rows
+            return fusions.qkv_rope(q[:, 0], k[:, 0], v[:, 0], k_out=ks[li],
+                                    v_out=vs[li], plain=plain, **kw)
+
+        def gated_act(gate, up):
+            return fusions.gated_act(gate, up, cfg.activation, plain=plain)
+
         for li, p in enumerate(model.layers):
-            h = rms_norm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = attn_mod.qkv_project(p["attn"], h, cfg, positions)
-            qd = q[:, 0].contiguous()                  # (B, H, Dh)
-            k_new, v_new = k[:, 0], v[:, 0]            # (B, KV, Dh)
-            acc, m, l = paged_decode_attention(
-                qd, self.k_pages, self.v_pages, tables, lens, layer=li,
-                scale=scale, return_residuals=True)
-            # merge the new token's own (k, v) — not yet in any page —
-            # into the kernel's online-softmax state, exactly
-            qg = qd.reshape(B, KV, G, Dh).float()
-            kf, vf = k_new.float(), v_new.float()
-            s_self = (qg * kf[:, :, None, :]).sum(-1) * scale
-            m2 = torch.maximum(m, s_self)
-            alpha = torch.exp(m - m2)
-            p_self = torch.exp(s_self - m2)
-            acc2 = acc * alpha[..., None] + p_self[..., None] * vf[:, :, None]
-            l2 = l * alpha + p_self
-            o = (acc2 / l2.clamp_min(1e-30)[..., None]).reshape(B, H, Dh)
-            a = attn_mod.out_project(p["attn"], o.to(x.dtype)[:, None])
-            x, h2 = add_rms_norm(x, a, p["ln2"], cfg.norm_eps)
-            x = x + ffn_apply(p["mlp"], h2, cfg)
-            ks.append(k_new)
-            vs.append(v_new)
-        # every layer's new-token k/v (L, B, KV, Dh) into the (exclusive)
-        # append pages in ONE launch
-        append_tokens_indexed(self.k_pages, self.v_pages, torch.stack(ks),
-                              torch.stack(vs), app_pages, app_offs)
-        x = rms_norm(x, model.params["final_norm"], cfg.norm_eps)
-        logits = (x @ model.head())[:, 0]
+            if delta is None:
+                h = fusions.rms_norm(x, p["ln1"], eps, plain=plain)
+            else:
+                x, h = fusions.rms_norm(x, p["ln1"], eps, delta, plain=plain)
+            a = p["attn"]
+            qd = attn_mod.qkv_project(a, h, cfg, None, rope=rope,
+                                      finish=functools.partial(qkv_rope,
+                                                               li=li))
+            o = fusions.attend_merged(qd, self.k_pages, self.v_pages, tables,
+                                      lens, ks[li], vs[li], layer=li,
+                                      scale=scale, plain=plain)
+            x, h2 = fusions.rms_norm(x, p["ln2"], eps,
+                                     attn_mod.out_project(a, o[:, None]),
+                                     fp32_sum=True, plain=plain)
+            delta = ffn_apply(p["mlp"], h2, cfg, gated_act)
+        append_tokens_indexed(self.k_pages, self.v_pages, ks, vs, app_pages,
+                              app_offs)
+        x, h = fusions.rms_norm(x, model.params["final_norm"], eps, delta,
+                                plain=plain)
+        logits = (h @ model.head())[:, 0]
         nxt = logits.argmax(-1)
         if out is None:
             return logits, nxt

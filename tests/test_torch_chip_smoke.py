@@ -3,6 +3,7 @@ datasheet table and workload are what its docstrings say, and its two
 serve legs run end to end on the CPU at smoke width (the card runs them
 at full qwen2-1.5b width)."""
 import dataclasses
+import json
 import math
 import pathlib
 import sys
@@ -16,6 +17,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import kernel_wrappers  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import SPLIT_TOKENS  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 
 # the suite runs in several worker processes at once: one intra-op
@@ -882,3 +884,190 @@ def test_a_mesh_capture_failure_is_not_caught(tmp_path, monkeypatch,
                steps=2)}[part]
     with pytest.raises(RuntimeError, match="capture failed"):
         run()
+
+
+# ------------------------------------------- phase 2's fusions, phase 3's
+def plain_fusions(broken: str | None = None) -> dict:
+    """The four fusions' plain versions standing in for their kernels,
+    ``broken``'s output moved off its plain version's."""
+    kernels = {name: (ref, ref)
+               for name, (_, ref) in chip_smoke.fusion_kernels().items()}
+    if broken is not None:
+        ref = kernels[broken][1]
+
+        def off(*args, **kw):
+            out = ref(*args, **kw)
+            last = out[-1] if isinstance(out, tuple) else out
+            flat = last.view(-1)
+            flat[0] = flat[0] * 1.5 + 1.0      # many ulps away
+            return out
+
+        kernels[broken] = (off, ref)
+    return kernels
+
+
+@pytest.fixture
+def small_fusion_checks(monkeypatch):
+    """Phase 2's fusion checks cut for the CPU: two published widths
+    (qwen2's bias, qwen3-moe's qk norm), rows 1 and 4, smoke pools."""
+    monkeypatch.setattr(chip_smoke, "FUSION_ARCHS",
+                        ("qwen2-1.5b", "qwen3-moe-235b-a22b"))
+    monkeypatch.setattr(chip_smoke, "FUSION_ROWS", (1, 4))
+    monkeypatch.setattr(chip_smoke, "FUSION_MERGE_CASES",
+                        (("SMOKE", "bfloat16", 1),
+                         ("GLM4_SMOKE", "float32", 1)))
+
+
+def test_fusion_checks_on_cpu(small_fusion_checks, capsys):
+    """Phase 2's checks of the four fusions run end to end (the plain
+    versions standing in for the kernels): each a record, the activation
+    over every finite bf16 gate."""
+    recs = chip_smoke.check_fusions(torch.Generator().manual_seed(0), None,
+                                    "cpu", plain_fusions())
+    assert set(recs) == set(chip_smoke.FUSIONS) == {
+        "rms_norm", "qkv_rope", "decode_merge", "gated_act"}
+    assert all(r["max_abs_err"] == 0 for r in recs.values())
+    out = capsys.readouterr().out
+    assert "'finite_bf16_gates': 65280" in out
+    for name in chip_smoke.FUSIONS:
+        assert f"phase2 {name}" in out
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """``chip_smoke.main`` on the CPU: a card that reports itself, no
+    build; each phase is the test's to replace."""
+    import subprocess
+    from repro_torch.kernels import _build
+    name = "NVIDIA H100 80GB HBM3"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: name)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: type(
+        "Done", (), {"stdout": f"{name}, 700.00 W\n"})())
+    monkeypatch.setattr(_build, "build_all", lambda: {
+        "flash_attention": pathlib.Path("lib")})
+    monkeypatch.setattr(_build, "build_log", lambda lib: "")
+    monkeypatch.setattr(chip_smoke, "check_hgmma", lambda lib: None)
+    counts = {k: 1 for k in kernel_wrappers()}
+    for phase, value in (("phase3", (counts, None, [])),
+                         ("phase4", {"rwkv6_scan": 1}),
+                         ("phase5", {"5a": counts, "5b": counts}),
+                         ("phase6", counts),
+                         ("phase7", {"7a": counts, "7c": counts}),
+                         ("phase8", counts), ("phase9", counts)):
+        monkeypatch.setattr(chip_smoke, phase,
+                            lambda *a, v=value, **k: v)
+    return name
+
+
+def test_kernels_line_names_the_fusions(fake_card, monkeypatch, capsys):
+    """The kernels line holds the four fusions beside the six ported
+    kernels, each with every key of the contract; the last line is the
+    device's."""
+    rec = dict(ms=0.02, plain_ms=0.1, bound_ms=0.001, bound_by="bytes",
+               library_ms=None, device_ms=0.01, max_abs_err=0.0)
+    monkeypatch.setattr(chip_smoke, "phase2", lambda *a: {
+        k: dict(rec) for k in kernel_wrappers()})
+    assert chip_smoke.main() == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": fake_card, "count": 1}}
+    rows = {r["name"]: r for r in json.loads(lines[-3])["kernels"]}
+    keys = {"name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    for name, (source, replaces) in chip_smoke.FUSIONS.items():
+        assert keys <= set(rows[name])
+        assert rows[name]["route"] == "cuda"
+        assert (rows[name]["source"], rows[name]["replaces"]) == \
+            (source, replaces)
+        assert (ROOT / source).exists()
+        path, line = replaces.split(":")
+        assert (ROOT / path).exists() and int(line) > 0
+    assert len(rows) == 7 + len(chip_smoke.FUSIONS)
+
+
+@pytest.mark.parametrize("broken", ["rms_norm", "qkv_rope", "decode_merge",
+                                    "gated_act"])
+def test_a_failing_fusion_check_fails_the_run(fake_card, monkeypatch,
+                                              capsys, small_fusion_checks,
+                                              broken):
+    """A fusion whose output leaves its plain version's stops the run
+    with an error (a non-zero exit) before any result is printed."""
+    def phase2(sheet, hw):
+        return chip_smoke.check_fusions(torch.Generator().manual_seed(0),
+                                        sheet, "cpu", plain_fusions(broken))
+
+    monkeypatch.setattr(chip_smoke, "phase2", phase2)
+    with pytest.raises(AssertionError):
+        chip_smoke.main()
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and '"kernels"' not in out
+
+
+def test_fused_vs_plain_on_cpu(smoke):
+    """Phase 3's fused step against ``fused=False`` at smoke width on the
+    CPU: both legs the plain versions, equal, no kernel launched."""
+    check = chip_smoke.fused_vs_plain(smoke[2], "cpu", prompts=(40, 17),
+                                      steps=3)
+    chip_smoke.assert_fused_vs_plain(check, "bfloat16", cuda=False)
+    assert check["max_abs_diff"] == 0 and check["argmax_equal"]
+    assert check["fusions"] == list(chip_smoke.FUSIONS)
+
+
+def _card_check() -> dict:
+    """A fused-vs-plain record as the card's 2-layer bf16 check gives it:
+    each layer one split launch and one merged combine when fused, a
+    split and a plain combine when not."""
+    zero = {k: 0 for k in kernel_wrappers()}
+    check = dict(argmax_equal=True, max_abs_diff=0.0, max_abs_logit=150.0,
+                 rms_logit=39.0, fusions=list(chip_smoke.FUSIONS),
+                 launches_fused=dict(zero, paged_decode_attention=12,
+                                     decode_merge=12, rms_norm=15,
+                                     qkv_rope=12, gated_act=12),
+                 launches_plain=dict(zero, paged_decode_attention=24))
+    return check
+
+
+@pytest.mark.parametrize("edit,ok", [
+    (lambda c: None, True),
+    (lambda c: c.update(max_abs_diff=2.0), True),   # 2 ulps at 128-256
+    (lambda c: c.update(max_abs_diff=2.5), False),
+    (lambda c: c.update(argmax_equal=False), False),
+    (lambda c: c["launches_plain"].update(paged_decode_attention=12),
+     False),                          # the plain leg's combines uncounted
+    (lambda c: c["launches_fused"].update(paged_decode_attention=24),
+     False),                          # a merged combine counted twice
+])
+def test_fused_vs_plain_bounds_and_counts(edit, ok):
+    """The fused step's gate on the card: bf16 within FUSED_BF16_ULPS ulps
+    of the largest logit, and decode attention counted once as splits and
+    once as merged combines in the fused leg, twice a layer in the plain
+    one."""
+    check = _card_check()
+    edit(check)
+    assert chip_smoke.fused_bound(check, "bfloat16") == 2.0
+    assert chip_smoke.fused_bound(check, "float32") == pytest.approx(0.039)
+    if ok:
+        chip_smoke.assert_fused_vs_plain(check, "bfloat16", cuda=True)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.assert_fused_vs_plain(check, "bfloat16", cuda=True)
+
+
+def test_merged_combine_work():
+    """The merged combine's bytes: each row's live split partials, q, the
+    new token's k and v, the lengths and the output."""
+    case = chip_smoke.make_case(chip_smoke.SMOKE, torch.float32,
+                                torch.Generator().manual_seed(0), "cpu")
+    B, H, Dh = case["q"].shape
+    KV, page = case["k"].shape[3], case["k"].shape[2]
+    G = H // KV
+    spp = max(1, SPLIT_TOKENS // page)
+    splits = sum(-(-(-(-int(n) // page)) // spp) for n in case["lens"])
+    nbytes, ops = chip_smoke.combine_work(case)
+    assert nbytes == 4 * splits * KV * (G * Dh + 2 * G + 1) + \
+        4 * (2 * B * H * Dh + 2 * B * KV * Dh) + 4 * B
+    assert ops > 0

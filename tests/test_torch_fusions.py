@@ -1,0 +1,429 @@
+"""The paged decode step's fusions (``repro_torch.kernels.fusions``) off the
+card: each plain version against its counterpart in the JAX package, the
+runtime's decode step through the fused ops against the composition it
+replaced, and the CUDA wrappers' refusals before any build or launch.
+
+The plain versions are the port's eager spelling op for op, so in bf16
+they match the JAX package's jitted functions bit for bit at smoke width
+(P2's spellings: the norm reading the fp32 residual sum where XLA's
+fusion does, the rounded sum at the scan carry); in fp32 within 1e-6.
+The CUDA kernels run on the card only (``chip_smoke.py`` phase 2 holds
+them against these plain versions).
+"""
+import dataclasses
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.kernels.decode_attention import \
+    paged_decode_attention as jax_decode
+from repro.models import attention as jax_attn
+from repro.models.common import rms_norm as jax_rms_norm
+from repro.models.mlp import mlp_apply as jax_mlp_apply
+from repro_torch.configs import get_config
+from repro_torch.dist.sharding import matmul, matmul_in
+from repro_torch.kernels import _build, kernel_wrappers, launch_counts
+from repro_torch.kernels import fusions
+from repro_torch.kernels.decode_attention import (
+    merge_new_token_ref, paged_decode_attention, paged_decode_attention_kernel)
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.decode_attention.kernel import plan_decode
+from repro_torch.kernels.page_copy import append_tokens_indexed
+from repro_torch.models import Model
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.common import (add_rms_norm, rms_norm, rope_tables,
+                                       sinusoidal_emb)
+from repro_torch.models.transformer import ffn_apply
+from repro_torch.serving.paged_runtime import PAGED_FAMILIES, PagedKVRuntime
+
+# the suite runs in several worker processes at once: one intra-op
+# thread each keeps torch's CPU thread pools from oversubscribing
+# the cores (tiny eager ops then spend their time spinning)
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+DTYPES = {"bfloat16": (torch.bfloat16, jnp.bfloat16),
+          "float32": (torch.float32, jnp.float32)}
+FP32_TOL = 1e-6
+#: the smoke configs of every family the paged runtime serves: dense
+#: qwen2 (qkv bias), stablelm (partial rotary), glm4 (G 16 at full
+#: width), qwen3-moe (qk norm), pixtral (VLM), musicgen (GELU, sinusoidal
+#: positions)
+PAGED_ARCHS = ("qwen2-1.5b", "stablelm-3b", "glm4-9b",
+               "qwen3-moe-235b-a22b", "pixtral-12b", "musicgen-large")
+
+
+def rand(rng, shape, dtype: str, std: float = 1.0):
+    """The same values as a torch tensor and a JAX array of ``dtype``."""
+    a = (rng.standard_normal(shape) * std).astype(np.float32)
+    t = torch.from_numpy(a).to(DTYPES[dtype][0])
+    return t, jnp.asarray(t.float().numpy()).astype(DTYPES[dtype][1])
+
+
+def as_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def assert_match(port, ref, dtype: str) -> None:
+    """bf16 bit for bit, fp32 within FP32_TOL."""
+    if dtype == "bfloat16":
+        assert np.array_equal(as_np(port), as_np(ref))
+    else:
+        np.testing.assert_allclose(as_np(port), as_np(ref), rtol=FP32_TOL,
+                                   atol=FP32_TOL)
+
+
+# --------------------------------------------------- plain vs the JAX package
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("mode", ["plain", "fp32_sum", "rounded"])
+def test_norm_matches_jax(mode, dtype):
+    """The norm's three modes against the reference's: ``rms_norm`` alone;
+    the residual add and ln2 in one jitted function (XLA's fusion reads
+    the fp32 sum); the scan carry (the add rounded, then the norm)."""
+    rng = np.random.default_rng(0)
+    eps = 1e-6
+    (x, xj), (d, dj) = (rand(rng, (4, 1, 64), dtype) for _ in range(2))
+    s, sj = rand(rng, (64,), dtype, std=0.1)
+    norm = jax.jit(lambda a, b: jax_rms_norm(a, b, eps))
+    if mode == "plain":
+        assert_match(fusions.rms_norm(x, s, eps), norm(xj, sj), dtype)
+        return
+    got = fusions.rms_norm(x, s, eps, d, fp32_sum=mode == "fp32_sum")
+    if mode == "fp32_sum":
+        want = jax.jit(lambda a, b, c: (a + b, jax_rms_norm(a + b, c, eps)))(
+            xj, dj, sj)
+    else:
+        carry = jax.jit(lambda a, b: a + b)(xj, dj)
+        want = (carry, norm(carry, sj))
+    for a, b in zip(got, want):
+        assert_match(a, b, dtype)
+
+
+def attn_params(rng, cfg, dtype: str) -> tuple[dict, dict]:
+    """One layer's attention weights at ``cfg``'s width, torch and JAX."""
+    H, KV, Dh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.d_model
+    shapes = {"wq": (D, H, Dh), "wk": (D, KV, Dh), "wv": (D, KV, Dh)}
+    if cfg.qkv_bias:
+        shapes.update(bq=(H, Dh), bk=(KV, Dh), bv=(KV, Dh))
+    if cfg.qk_norm:
+        shapes.update(q_norm=(Dh,), k_norm=(Dh,))
+    pt, pj = {}, {}
+    for name, shape in shapes.items():
+        std = 0.1 if name.endswith("norm") else D ** -0.5 \
+            if name.startswith("w") else 0.5
+        pt[name], pj[name] = rand(rng, shape, dtype, std)
+    return pt, pj
+
+
+def port_qkv(cfg, p, h, positions, plain: bool = False):
+    """The decode step's projections and ``fusions.qkv_rope`` for one
+    token a row: (q, k, v) as (B, 1, heads, Dh)."""
+    q, k, v = (matmul_in(h, p[w])[:, 0] for w in ("wq", "wk", "wv"))
+    B, KV, Dh = k.shape
+    k_out, v_out = k.new_empty((B, KV, Dh)), v.new_empty((B, KV, Dh))
+    rope = rope_tables(positions, Dh, cfg.rope_theta, cfg.rope_fraction) \
+        if cfg.pos_emb == "rope" else None
+    qd = fusions.qkv_rope(
+        q, k, v, k_out=k_out, v_out=v_out,
+        bias=(p["bq"], p["bk"], p["bv"]) if cfg.qkv_bias else None,
+        norm=(p["q_norm"], p["k_norm"]) if cfg.qk_norm else None,
+        eps=cfg.norm_eps, rope=rope, plain=plain)
+    return qd[:, None], k_out[:, None], v_out[:, None]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "stablelm-3b",
+                                  "qwen3-moe-235b-a22b", "musicgen-large"])
+def test_qkv_rope_matches_jax(arch, dtype):
+    """Projections, then bias (qwen2), qk norm (qwen3-moe) and RoPE
+    (partial in stablelm, none in musicgen) against the reference's
+    ``qkv_project``, at decode positions past 1000: jitted in bf16; op by
+    op in fp32, where XLA's fusion of the qk norm into the rotation moves
+    qwen3-moe's q by up to 1.4e-5 from the op-by-op values (the port's are
+    within 5e-7 of those)."""
+    cfg = get_config(arch, smoke=True)
+    jcfg = jax_config(arch, smoke=True)
+    rng = np.random.default_rng(1)
+    pt, pj = attn_params(rng, cfg, dtype)
+    h, hj = rand(rng, (3, 1, cfg.d_model), dtype)
+    pos = np.array([[1000], [1], [1517]], np.int32)
+
+    def project(p, x, s):
+        return jax_attn.qkv_project(p, x, jcfg, s)
+
+    want = (jax.jit(project) if dtype == "bfloat16" else project)(
+        pj, hj, jnp.asarray(pos))
+    got = port_qkv(cfg, pt, h, torch.from_numpy(pos).long())
+    for a, b in zip(got, want):
+        assert_match(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+def test_gated_mlp_matches_jax(activation, dtype):
+    """``w2(act(w1 x) * w3 x)`` with ``fusions.gated_act`` between the
+    products against the reference's ``mlp_apply``."""
+    rng = np.random.default_rng(2)
+    D, F = 64, 160
+    (w1, w1j), (w3, w3j) = (rand(rng, (D, F), dtype, D ** -0.5)
+                            for _ in range(2))
+    w2, w2j = rand(rng, (F, D), dtype, F ** -0.5)
+    x, xj = rand(rng, (4, 1, D), dtype, 2.0)
+    got = matmul(fusions.gated_act(matmul(x, w1), matmul(x, w3),
+                                   activation), w2)
+    want = jax.jit(lambda p, a: jax_mlp_apply(p, a, activation))(
+        {"w1": w1j, "w2": w2j, "w3": w3j}, xj)
+    assert_match(got, want, dtype)
+
+
+def jax_merge(qd, k_new, v_new, acc, m, l, scale: float):
+    """The reference's merge of the new token (``src/repro/serving/
+    paged_runtime.py:411-421``), as it reads there."""
+    B, H, Dh = qd.shape
+    KV = k_new.shape[1]
+    qg = qd.reshape(B, KV, H // KV, Dh).astype(jnp.float32)
+    kf = k_new.astype(jnp.float32)
+    vf = v_new.astype(jnp.float32)
+    s_self = jnp.einsum("bkgd,bkd->bkg", qg, kf) * scale
+    m2 = jnp.maximum(m, s_self)
+    alpha = jnp.exp(m - m2)
+    p_self = jnp.exp(s_self - m2)
+    acc2 = acc * alpha[..., None] + p_self[..., None] * vf[:, :, None, :]
+    l2 = l * alpha + p_self
+    o = (acc2 / jnp.maximum(l2, 1e-30)[..., None]).reshape(B, H, Dh)
+    return o.astype(qd.dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_merge_matches_jax(dtype):
+    """The new token's merge fed the JAX decode kernel's residuals (in
+    interpret mode): the port's plain merge against the reference's
+    expression on the same residuals, an empty row included; and the
+    port's whole plain path (its attention's residuals, then the merge)
+    against the reference's within the kernels' fp32 summation order."""
+    rng = np.random.default_rng(3)
+    L, P, page, KV, G, Dh, B = 2, 12, 8, 2, 3, 16, 3
+    (kp, kpj), (vp, vpj) = (rand(rng, (L, P, page, KV, Dh), dtype)
+                            for _ in range(2))
+    q, qj = rand(rng, (B, KV * G, Dh), dtype)
+    (kn, knj), (vn, vnj) = (rand(rng, (B, KV, Dh), dtype) for _ in range(2))
+    tables = np.array([[3, 7, 1, 0], [5, 0, 0, 0], [2, 9, 11, 4]], np.int32)
+    lens = np.array([19, 0, 30], np.int32)
+    scale = Dh ** -0.5
+    acc, m, l = jax_decode(qj, kpj, vpj, jnp.asarray(tables),
+                           jnp.asarray(lens), layer=1, scale=scale,
+                           interpret=True, return_residuals=True)
+    want = jax_merge(qj, knj, vnj, acc, m, l, scale)
+    res = [torch.from_numpy(np.array(r)) for r in (acc, m, l)]
+    got = merge_new_token_ref(q, kn, vn, *res, scale)
+    assert_match(got, want, dtype)
+    assert np.array_equal(as_np(got[1]), as_np(vn[1]).repeat(G, 0))
+    whole = fusions.attend_merged(q, kp, vp, torch.from_numpy(tables),
+                                  torch.from_numpy(lens), kn, vn, layer=1,
+                                  scale=scale)
+    np.testing.assert_allclose(as_np(whole), as_np(want), rtol=0,
+                               atol=1e-5 if dtype == "float32" else 2 ** -6)
+
+
+# --------------------------------- the decode step against its old spelling
+def composed_step(rt, model, toks, tables, lens, app_pages, app_offs):
+    """The paged decode step as it read before the fusions: every chain
+    spelled in torch ops inline (the composition ``fusions``' plain
+    versions must reproduce bit for bit)."""
+    cfg = rt.cfg
+    B = toks.shape[0]
+    KV, Dh, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    G = H // KV
+    scale = 1.0 / np.sqrt(Dh)
+    positions = lens.long()[:, None]
+    x = model.params["embed"][toks][:, None]
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_emb(positions, cfg.d_model).to(x.dtype)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
+    ks, vs = [], []
+    for li, p in enumerate(model.layers):
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = attn_mod.qkv_project(p["attn"], h, cfg, positions)
+        qd = q[:, 0].contiguous()
+        k_new, v_new = k[:, 0], v[:, 0]
+        acc, m, l = paged_decode_attention(
+            qd, rt.k_pages, rt.v_pages, tables, lens, layer=li, scale=scale,
+            return_residuals=True)
+        qg = qd.reshape(B, KV, G, Dh).float()
+        kf, vf = k_new.float(), v_new.float()
+        s_self = (qg * kf[:, :, None, :]).sum(-1) * scale
+        m2 = torch.maximum(m, s_self)
+        alpha = torch.exp(m - m2)
+        p_self = torch.exp(s_self - m2)
+        acc2 = acc * alpha[..., None] + p_self[..., None] * vf[:, :, None]
+        l2 = l * alpha + p_self
+        o = (acc2 / l2.clamp_min(1e-30)[..., None]).reshape(B, H, Dh)
+        a = attn_mod.out_project(p["attn"], o.to(x.dtype)[:, None])
+        x, h2 = add_rms_norm(x, a, p["ln2"], cfg.norm_eps)
+        x = x + ffn_apply(p["mlp"], h2, cfg)
+        ks.append(k_new)
+        vs.append(v_new)
+    append_tokens_indexed(rt.k_pages, rt.v_pages, torch.stack(ks),
+                          torch.stack(vs), app_pages, app_offs)
+    x = rms_norm(x, model.params["final_norm"], cfg.norm_eps)
+    logits = (x @ model.head())[:, 0]
+    return logits, logits.argmax(-1)
+
+
+@pytest.mark.parametrize("arch", PAGED_ARCHS)
+def test_step_equals_its_old_composition(arch):
+    """For every family the runtime pages, the decode step on the CPU
+    (the fused ops' CPU dispatch, and ``fused=False``) gives the old
+    composition's logits, next tokens and pools bit for bit, in bf16 over
+    a ragged batch with an empty row."""
+    cfg = get_config(arch, smoke=True)
+    assert cfg.family in PAGED_FAMILIES
+    model = Model(cfg, device="cpu", seed=0)
+    rt = PagedKVRuntime(cfg, n_pages=16, page_size=8, device="cpu")
+    rng = np.random.default_rng(4)
+    for pid, n in (("a", 13), ("b", 22)):
+        rt.prefill(model, pid, torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, n)))
+    toks = torch.tensor([5, 9, 2])
+    tables = torch.tensor([rt.pages_of("a") + [0], rt.pages_of("b"),
+                           [0, 0, 0]], dtype=torch.int32)
+    lens = torch.tensor([13, 22, 0], dtype=torch.int32)
+    free = rt.free[-3:]
+    app_pages = torch.tensor([rt.pages_of("a")[1], rt.pages_of("b")[2],
+                              free[0]], dtype=torch.int32)
+    app_offs = torch.tensor([5, 6, 0], dtype=torch.int32)
+    args = (toks, tables, lens, app_pages, app_offs)
+    pools = rt.k_pages.clone(), rt.v_pages.clone()
+    legs = []
+    for leg in ("fused", "plain", "composed"):
+        rt.k_pages.copy_(pools[0])
+        rt.v_pages.copy_(pools[1])
+        rt.fused = leg == "fused"
+        step = composed_step if leg == "composed" else \
+            type(rt)._decode_step
+        logits, nxt = step(rt, model, *args)
+        legs.append((logits, nxt, rt.k_pages.clone(), rt.v_pages.clone()))
+    for leg in legs[:2]:
+        for a, b in zip(leg, legs[2]):
+            assert torch.equal(a, b), arch
+    assert launch_counts() == {name: 0 for name in kernel_wrappers()}
+
+
+# ------------------------------------------------------- the CUDA wrappers
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _merged(G: int, Dh: int = 16):
+    """Decode attention with the new token merged, on CPU pools."""
+    pool = torch.zeros(2, 4, 8, 2, Dh)
+    return paged_decode_attention_kernel(
+        torch.zeros(3, 2 * G, Dh), pool, pool,
+        torch.zeros(3, 2, dtype=torch.int32), torch.ones(3, dtype=torch.int32),
+        layer=1, scale=0.25,
+        new_kv=(torch.zeros(3, 2, Dh), torch.zeros(3, 2, Dh)))
+
+
+@pytest.mark.parametrize("call,match", [
+    # CPU tensors, every shape right
+    (lambda: fusions.rms_norm_kernel(_bf16(4, 1, 64), _bf16(64), 1e-6),
+     "CUDA"),
+    (lambda: fusions.rms_norm_kernel(_bf16(4, 64), _bf16(64), 1e-6,
+                                     _bf16(4, 64), True), "CUDA"),
+    (lambda: fusions.qkv_rope_kernel(
+        _bf16(3, 6, 16), _bf16(3, 2, 16), _bf16(3, 2, 16),
+        k_out=_bf16(3, 2, 16), v_out=_bf16(3, 2, 16)), "CUDA"),
+    (lambda: _merged(3), "CUDA"),
+    (lambda: fusions.gated_act_kernel(_bf16(4, 1, 64), _bf16(4, 1, 64),
+                                      "silu"), "CUDA"),
+    # rows the 16-byte loads cannot take: 12 and 4 bf16 elements, an
+    # address 2 bytes off, a qk-normed head of 12
+    (lambda: fusions.rms_norm_kernel(_bf16(4, 12), _bf16(12), 1e-6),
+     "16 bytes"),
+    (lambda: fusions.rms_norm_kernel(_bf16(65)[1:], _bf16(64), 1e-6),
+     "16 bytes"),
+    (lambda: fusions.gated_act_kernel(_bf16(4, 4), _bf16(4, 4), "gelu"),
+     "16 bytes"),
+    (lambda: fusions.qkv_rope_kernel(
+        _bf16(3, 6, 12), _bf16(3, 2, 12), _bf16(3, 2, 12),
+        k_out=_bf16(3, 2, 12), v_out=_bf16(3, 2, 12),
+        norm=(_bf16(12), _bf16(12))), "16 bytes"),
+    # G > 16 and other shapes the kernels do not take
+    (lambda: plan_decode(3, 2, 17, 16, 2, 8, 2), "at most 16"),
+    (lambda: fusions.qkv_rope_kernel(
+        _bf16(3, 2, 512), _bf16(3, 2, 512), _bf16(3, 2, 512),
+        k_out=_bf16(3, 2, 512), v_out=_bf16(3, 2, 512)), "at most 256"),
+    (lambda: fusions.gated_act_kernel(_bf16(4, 64), _bf16(4, 64), "relu"),
+     "activation"),
+    (lambda: fusions.rms_norm_kernel(_bf16(4, 64), _bf16(64).float(),
+                                     1e-6), "every tensor"),
+])
+def test_wrappers_refuse_before_any_launch(call, match):
+    """The CUDA wrappers check shapes, dtypes, rows and the device before
+    they build or launch anything: a CPU tensor, a row the 16-byte loads
+    cannot take and G > 16 raise ``ValueError``."""
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert launch_counts() == {name: 0 for name in kernel_wrappers()}
+    assert not _build._libs
+
+
+def test_fusions_source_builds_for_hopper():
+    """``fusions.cu`` is one of the sources ``_build`` compiles for
+    ``sm_90a`` from the checkout, and names nothing of the JAX package."""
+    assert "fusions" in _build.SOURCES
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    src = (_build.CSRC / "fusions.cu").read_text()
+    assert _build.CSRC == ROOT / "src" / "repro_torch" / "csrc"
+    assert "import jax" not in src and "repro." not in src
+    for entry in ("rms_norm_launch", "qkv_rope_launch", "gated_act_launch",
+                  "repro_error_string"):
+        assert f" {entry}(" in src
+    assert _build.library_path("fusions").parent == _build.BUILD_DIR
+
+
+def test_every_fusion_counts_its_launches():
+    """The four fusions have launch counts beside the six ported
+    kernels': three wrappers, and the merged combine's count, which decode
+    attention's wrapper adds to where it launches that combine."""
+    wrappers = kernel_wrappers()
+    for name, fn in (("rms_norm", fusions.rms_norm_kernel),
+                     ("qkv_rope", fusions.qkv_rope_kernel),
+                     ("decode_merge", decode_kernel.decode_merge),
+                     ("gated_act", fusions.gated_act_kernel)):
+        assert wrappers[name] is fn and fn.launches == 0
+    assert not callable(wrappers["decode_merge"])
+
+
+def test_fused_flag_drops_the_graphs():
+    """Turning ``fused`` off (or on) drops the captured decode buckets: a
+    graph holds the kernels of the step it captured. The prefill chunk's
+    buckets, which do not depend on ``fused``, stay."""
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              num_layers=1)
+    model = Model(cfg, device="cpu", seed=0)
+    rt = PagedKVRuntime(cfg, n_pages=8, page_size=8, device="cpu")
+    rt.prefill(model, "a", torch.arange(5))
+    rt.decode(model, "a")
+    assert rt.graphs.buckets()
+    prefill = dict(rt.prefill_graphs.buckets())
+    assert prefill
+    rt.fused = False
+    logits = rt.decode(model, "a")
+    (bucket,) = rt.graphs.buckets().values()
+    assert torch.isfinite(logits).all()
+    rt.fused = True
+    rt.decode(model, "a")
+    rt.prefill(model, "b", torch.arange(5))
+    assert all(b is not bucket for b in rt.graphs.buckets().values())
+    assert all(rt.prefill_graphs.buckets()[k] is b
+               for k, b in prefill.items())
