@@ -69,7 +69,15 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          and the activation bit-equal (the activation over every finite
          bf16 gate), the norm within one ulp, the merge within one bf16 ulp
          or 2e-5 in fp32; each timed at the serve step (qwen2-1.5b, B=4)
-         beside ``F.rms_norm`` and ``F.silu(a) * b``.
+         beside ``F.rms_norm`` and ``F.silu(a) * b``. The flash kernels'
+         extend launch (``flash_extend``) against its plain version at
+         path A's extend chunk (512 queries on 2048 cached tokens, 2560
+         slots; timed beside SDPA given the same boolean mask) and at
+         FLASH_EXTEND_EDGES (offset 0 and 1000, B 2 with other offsets,
+         gemma2-9b's heads with window and softcap on a plain cache,
+         qwen3-moe's heads, D 80), bf16 and fp32, every dead slot NaN:
+         finite, within row 5's tolerances, the same bits through either
+         layout; bad offsets and inputs TMA cannot take refused.
 Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          seeded random weights cast once to bf16) serving agent programs
          through the unchanged ``Engine`` with a ``TorchModelBackend``:
@@ -88,13 +96,15 @@ Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          and the graph pool's bytes are logged). Launch counts are
          zeroed before 3a and read after 3b (the kernels line's): every
          kernel of the path (decode attention, the page moves, the
-         indexed token append, flash attention in each fresh prefill)
-         must have run, flash attention in 3a and in 3b, and the by-value
+         indexed token append, flash attention in each fresh prefill, its
+         extend launch in each extend chunk, the fusions) must have run,
+         flash attention in 3a and in 3b, and the by-value
          append, which no runtime path calls, never. Then 3b three times
          more, eager (``cuda_graphs=False``), graphed, and graphed with
          the decode step's chains plain (``fused=False``), for JCT, busy
          seconds and each family's capture seconds paired in one call,
-         each with its launches.
+         each with its launches (the extend launch in the fused legs
+         alone).
          (c) On the same weights, programs of 2040, 1000 and 500 tokens
          and a twin of the second on its pages: 20 decode steps eager
          (``cuda_graphs=False``), the runtime's state restored, the same
@@ -113,8 +123,8 @@ Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          torch's sync debug mode "error") and graphed from the same empty
          runtime; logits, next tokens and both pools equal
          (``torch.equal``), every bucket used twice captured once, no
-         replay growing the graph pool, flash launched as often in both
-         legs; wall ms of eager and replayed chunks a bucket, each leg's
+         replay growing the graph pool, flash and its extend launch
+         launched as often in both legs; wall ms of eager and replayed chunks a bucket, each leg's
          launches, and the ms of a capture through ``capture_begin``
          against ``torch.cuda.graph`` (3c's decode bucket too) with the
          pinned blocks a stage-out allocates after each.
@@ -129,7 +139,16 @@ Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          every fusion launched by the fused leg alone, and one traced
          eager step of each leg whose kernel list shows the fused leg
          running none of the plain chains' kernels; a bf16 depth sweep of
-         the gap logged.
+         the gap logged. Then the extend chunk (CHUNK_EXTENDS: 512, 100,
+         88 and 1 tokens, each alone from one prefilled state) fused,
+         fused with its attention plain, and with ``fused=False``, at the
+         2-layer cut in bf16 and fp32: in fp32 argmax equal and the chunk
+         within 1e-3 of the rms, in both its fusions alone within the
+         decode step's bounds (bf16: the chunk's gap logged, as the plain
+         attention rounds its scores to bf16); at full depth one traced
+         eager extend chunk of each leg: 28 extend launches and none of
+         the plain attention's exp / row-max kernels in the fused leg,
+         its wheres only the scratch gather's two.
 Phase 4  path B: full-width rwkv6-3b (32 layers, seeded random weights)
          through ``Model.forward``: B=2, a 2048-token prompt in bf16, with
          the counts zeroed before and read after (two WKV-scan launches,
@@ -415,6 +434,26 @@ FLASH_ZAMBA = dict(B=2, H=32, KV=32, S=2000, D=80, window=0, softcap=0.0)
 FLASH_GEMMA2 = (dict(B=1, H=16, KV=8, S=4600, D=256, window=4096,
                      softcap=50.0),
                 dict(B=1, H=16, KV=8, S=4600, D=256, window=0, softcap=50.0))
+# The flash kernels' extend launch (row 5b): path A's extend chunk, 512
+# queries on 2048 cached tokens in a 2560-slot scratch (profile_step's
+# chunk; timed), then its edges, each in bf16 and fp32 with every slot
+# past a row's offset + C NaN: offset 0 and 1000 (not a multiple of a
+# tile), a cache that ends at the chunk, B 2 with other offsets, a
+# gemma2-9b layer's heads on a plain cache (D 256, window 4096, softcap
+# 50), phase 6a's qwen3-moe heads, and stablelm-like D 80 at offsets 3
+# and 600 with a ragged chunk.
+FLASH_EXTEND = dict(B=1, H=12, KV=2, C=512, T=2560, D=128, offs=(2048,),
+                    window=0, softcap=0.0)
+FLASH_EXTEND_EDGES = (
+    dict(FLASH_EXTEND, offs=(0,)),
+    dict(FLASH_EXTEND, T=1512, offs=(1000,)),
+    dict(FLASH_EXTEND, B=2, C=300, offs=(1000, 37)),
+    dict(B=1, H=16, KV=8, C=200, T=4672, D=256, offs=(4400,), window=4096,
+         softcap=50.0),
+    dict(B=1, H=64, KV=4, C=512, T=1536, D=128, offs=(1000,), window=0,
+         softcap=0.0),
+    dict(B=2, H=8, KV=2, C=77, T=700, D=80, offs=(3, 600), window=0,
+         softcap=0.0))
 # Token append past one launch's capacity (K_MAX_APPEND = 256 rows), at
 # the smoke width.
 APPEND_WIDE = dict(L=2, P=320, page=8, KV=2, Dh=8, B=300)
@@ -437,8 +476,8 @@ SCAN_PREFILL = dict(SCAN_MAIN, B=2)
 # step appends through the indexed launch, graphed or eager
 # (``cuda_graphs=False``); phase 2 holds it against its plain version.
 PATH_A = ("paged_decode_attention", "page_gather", "page_scatter",
-          "token_append_indexed", "flash_attention", "rms_norm",
-          "qkv_rope", "decode_merge")
+          "token_append_indexed", "flash_attention", "flash_extend",
+          "rms_norm", "qkv_rope", "decode_merge")
 # The gated activation runs in a dense FFN's decode step (a MoE FFN keeps
 # its own ops): on path A's qwen2-1.5b, not in phase 6a's qwen3-moe.
 DENSE_FFN = "gated_act"
@@ -1244,6 +1283,124 @@ def check_flash_refusals(gen) -> None:
     assert flash_attention_kernel.launches == before
 
 
+def extend_mask(shape: dict, device) -> "torch.Tensor":
+    """(B, 1, C, T) bool: which cache slot each of a chunk's queries sees
+    (position off[b] + i sees slots j <= off[b] + i, and j > off[b] + i -
+    window with a window)."""
+    import torch
+    off = torch.tensor(shape["offs"], device=device)[:, None, None]
+    pos = off + torch.arange(shape["C"], device=device)[None, :, None]
+    key = torch.arange(shape["T"], device=device)
+    mask = key <= pos
+    if shape["window"]:
+        mask &= key > pos - shape["window"]
+    return mask[:, None]
+
+
+def extend_work(shape: dict, esz: int) -> tuple[int, float]:
+    """(bytes, flops) the extend launch must move and do on this data: q
+    read and o written once, each row's live K/V slots read once (from
+    its window's first to off + C), the offsets; 4 * D flops (q.k and
+    p.v) per live (query, key) pair."""
+    B, H, KV, C, D = (shape[k] for k in ("B", "H", "KV", "C", "D"))
+    W = shape["window"]
+    nbytes, pairs = 2 * B * H * C * D * esz + 4 * B, 0
+    for off in shape["offs"]:
+        first = max(0, off - W + 1) if W else 0
+        nbytes += 2 * KV * (off + C - first) * D * esz
+        pairs += sum(min(off + i + 1, W) if W else off + i + 1
+                     for i in range(C))
+    return nbytes, 4.0 * D * pairs * H
+
+
+def extend_case(shape: dict, dtype, gen):
+    """q (B, H, C, D) and the cache k/v (B, KV, T, D), views of the
+    model's (B, C, H, D) / (B, T, KV, D) memory, and the int32 offsets;
+    every slot past a row's offset + C is NaN (a cache's unwritten slots
+    hold anything)."""
+    import torch
+    B, H, KV, C, T, D = (shape[k] for k in ("B", "H", "KV", "C", "T", "D"))
+    q = torch.randn((B, C, H, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, T, KV, D), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    for b, off in enumerate(shape["offs"]):
+        k[b, off + C:] = float("nan")
+        v[b, off + C:] = float("nan")
+    off = torch.tensor(shape["offs"], dtype=torch.int32, device="cuda")
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), off
+
+
+def check_extend(shape: dict, dtype, gen, timed: bool, sheet: dict):
+    """The extend launch against its plain version (the flash plain
+    version at the same offsets), within row 5's tolerances (``check_
+    flash``'s: fp32 1e-3, bf16 1e-2); finite wherever the cache's dead
+    slots hold NaN; the same memory laid out (B, H, C, D) / (B, KV, T, D)
+    giving the same bits. Timed like ``check_flash``, SDPA given the same
+    boolean mask as ``library_ms``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_ref,
+                                                     flash_extend_kernel)
+    q, k, v, off = extend_case(shape, dtype, gen)
+    opts = dict(window=shape["window"], softcap=shape["softcap"])
+    out = flash_extend_kernel(q, k, v, off, **opts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all(), f"extend launch not finite at {shape}"
+    ref = flash_attention_ref(q, k, v, q_offset=off, **opts)
+    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    err = (out.float() - ref.float()).abs().max().item()
+    del ref
+    dense = flash_extend_kernel(*(x.contiguous() for x in (q, k, v)), off,
+                                **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, out), "extend launch differs by layout"
+    if not timed:
+        return err, None
+    bms, by = bound_ms(*extend_work(shape, q.element_size()), sheet, "bf16")
+    mask = extend_mask(shape, "cuda")
+
+    def kern():
+        return flash_extend_kernel(q, k, v, off, **opts)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+
+    rec = dict(
+        ms=time_ms(kern),
+        plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, q_offset=off,
+                                                     **opts),
+                         iters=5, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa),
+        device_ms=graph_ms(kern), library_device_ms=graph_ms(sdpa))
+    return err, rec
+
+
+def check_extend_refusals(gen) -> None:
+    """The extend launch refuses before any launch: offsets in int64, of
+    the wrong length or rank, or on the host, a misaligned position
+    stride in bf16 (TMA), a head dim of 100 in bf16."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_extend_kernel
+    shape = dict(FLASH_EXTEND, C=64, T=256, offs=(100,))
+    q, k, v, off = extend_case(shape, torch.bfloat16, gen)
+    padded = torch.zeros((1, 2, 256, 129), dtype=torch.bfloat16,
+                         device="cuda")[..., :128]
+    padded.copy_(k)
+    before = flash_extend_kernel.launches
+    for what, args in (
+            ("int64 offsets", (q, k, v, off.long())),
+            ("two offsets", (q, k, v, off.repeat(2))),
+            ("2-D offsets", (q, k, v, off[None])),
+            ("host offsets", (q, k, v, off.cpu())),
+            ("misaligned stride", (q, padded, v, off)),
+            ("head dim 100", tuple(x[..., :100].contiguous()
+                                   for x in (q, k, v)) + (off,))):
+        expect_value_error(lambda: flash_extend_kernel(*args), what)
+    assert flash_extend_kernel.launches == before
+
+
 def check_append_wide(gen) -> float:
     """Token append of APPEND_WIDE's 300 rows, past one launch's capacity:
     one launch per K_MAX_APPEND rows, bit-exact against the plain
@@ -1891,6 +2048,21 @@ def phase2(sheet: dict, hw) -> dict:
             torch.cuda.empty_cache()
     log(f"phase2 flash_attention device ms by query tile (CUDA-graph "
         f"replay): {json.dumps(flash_tile_times(gen, sheet))}")
+    err, rec = check_extend(FLASH_EXTEND, torch.bfloat16, gen, True, sheet)
+    records["flash_extend"] = dict(max_abs_err=err, **rec)
+    check_extend_refusals(gen)
+    log("phase2 flash_extend: int64, two, 2-D and host offsets, a "
+        "misaligned stride and head dim 100 refused")
+    for shape in (FLASH_EXTEND,) + FLASH_EXTEND_EDGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            if shape is FLASH_EXTEND and dtype == torch.bfloat16:
+                continue                                  # checked above
+            err, _ = check_extend(shape, dtype, gen, False, sheet)
+            log(f"phase2 flash_extend {shape} {dtype}: max_abs_err "
+                f"{err:.3g}, finite over NaN dead slots, layout-invariant")
+            records["flash_extend"]["max_abs_err"] = max(
+                records["flash_extend"]["max_abs_err"], err)
+            torch.cuda.empty_cache()
     err, rec = check_scan(SCAN_MAIN, gen, True, sheet)
     records["rwkv6_scan"] = dict(max_abs_err=err, **rec)
     err, _ = check_scan(SCAN_SMOKE, gen, False, sheet)
@@ -2385,6 +2557,7 @@ def assert_prefill_graph_vs_eager(check: dict, cuda: bool) -> None:
         assert check["replayed_chunks"] > 0, check
         assert not check["pool_grew_on_replay"], check
         assert lg["flash_attention"] == le["flash_attention"] > 0, check
+        assert lg["flash_extend"] == le["flash_extend"] > 0, check
     else:
         assert check["captures"] == 0 and sum(le.values()) == 0 == \
             sum(lg.values()), check
@@ -2588,6 +2761,7 @@ def phase3(hw):
         assert leg["launches"]["token_append_indexed"] > 0, pair
         assert leg["launches"][BY_VALUE_APPEND] == 0, pair
         assert (leg["launches"]["decode_merge"] > 0) == leg["fused"], pair
+        assert (leg["launches"]["flash_extend"] > 0) == leg["fused"], pair
 
     for fused, schedule in ((True, GRAPH_SCHEDULE),
                             (False, GRAPH_SCHEDULE_PLAIN)):
@@ -2619,9 +2793,12 @@ CHECK_DEPTH = 2
 SWEEP_DEPTHS = (1, 2, 4, 8, 28)
 # Bounds on |flash prefill - prefill + extend| at the last position, as a
 # share of the logits' rms. fp32: summation order only (~6e-5 measured at
-# two layers), 1e-3. bf16: the extend path rounds its scores to bf16 (as
-# the reference does), a rounding of up to 0.5 at |score| ~ 100 that
-# shifts softmax weights by e^0.5; 1/4 of the rms.
+# two layers), 1e-3. bf16: the plain extend attention rounds its scores to
+# bf16 (as the reference does), a rounding of up to 0.5 at |score| ~ 100
+# that shifts softmax weights by e^0.5; 1/4 of the rms (measured 6.25 of
+# rms 39 with the plain extend on the H100). The extend launch
+# (``fused=True``) keeps fp32 scores as the prefill kernel does (0 apart
+# in bf16 there); the bound is the plain extend's.
 PREFILL_BOUND = {"bfloat16": 0.25, "float32": 1e-3}
 
 
@@ -2689,11 +2866,15 @@ def prefill_logit_checks(cfg, device) -> None:
                         device=device, seed=0).params)
     depth = min(CHECK_DEPTH, cfg.num_layers)
     for dtype in ("bfloat16", "float32"):
-        check = prefill_vs_extend(cut_model(params, cfg, depth, dtype,
-                                            device))
-        log(f"phase3 flash prefill vs prefill + extend, 1024-token prompt, "
-            f"{depth} full-width layers, {dtype}: {json.dumps(check)}")
-        assert_prefill_vs_extend(check, dtype)
+        model = cut_model(params, cfg, depth, dtype, device)
+        for fused in (False, True):
+            check = prefill_vs_extend(model, fused=fused)
+            log(f"phase3 flash prefill vs prefill + extend"
+                f"{' (fused: the extend launch)' if fused else ''}, "
+                f"1024-token prompt, {depth} full-width layers, {dtype}: "
+                f"{json.dumps(check)}")
+            assert_prefill_vs_extend(check, dtype)
+        del model
     sweep = {}
     for depth in sweep_depths(SWEEP_DEPTHS, cfg.num_layers):
         model = cut_model(params, cfg, depth, "float32", device)
@@ -2846,20 +3027,217 @@ def fused_step_checks(params: dict, cfg, device) -> None:
                               cuda=torch.device(device).type == "cuda")
         if dtype == "bfloat16":
             sweep[depth] = {k: check[k] for k in keys}
+    cuda = torch.device(device).type == "cuda"
+    for dtype in ("bfloat16", "float32"):
+        check = chunk_fused_vs_plain(
+            cut_model(params, cfg, depth, dtype, device), device,
+            trace=False)
+        log(f"phase3 fused extend chunk vs fused=False, {depth} full-width "
+            f"layers, {dtype}, {len(CHUNK_EXTENDS)} chunks (bounds: the "
+            f"chunk {chunk_bound(check, dtype)}, its fusions alone "
+            f"{fused_bound(check['fusions'], dtype):.3g}): "
+            f"{json.dumps(check)}")
+        assert_chunk_fused_vs_plain(check, dtype, cuda)
     if cfg.num_layers > depth:
-        check = fused_vs_plain(cut_model(params, cfg, cfg.num_layers,
-                                         "bfloat16", device), device,
-                               trace=False)
+        full = cut_model(params, cfg, cfg.num_layers, "bfloat16", device)
+        check = fused_vs_plain(full, device, trace=False)
         sweep[cfg.num_layers] = {k: check[k] for k in keys}
+        check = chunk_fused_vs_plain(full, device, trace=cuda)
+        log(f"phase3 fused extend chunk vs fused=False, full depth "
+            f"({cfg.num_layers} layers), bf16, gaps logged (chaotic at "
+            f"depth), one traced extend chunk of each leg: "
+            f"{json.dumps(check)}")
+        if cuda:
+            assert_chunk_trace(check, cfg.num_layers)
+        del full
     log(f"phase3 bf16 by depth, fused decode step vs fused=False: "
         f"{json.dumps(sweep)}")
 
 
+#: The prefill chunk fused against ``fused=False`` from one state: p0's
+#: 1000-token and p1's 600-token prompts prefilled in 512-token chunks
+#: (fused; the same state for every leg), then each extend of
+#: CHUNK_EXTENDS alone from that state in each leg (the state restored
+#: before each): 512 tokens and 100 padded to 128 on p0, 88 padded to 128
+#: and 1 padded to 16 on p1. One chunk from one state, so a gap is the
+#: chunk's own, not compounded over chained chunks (P5).
+CHUNK_PROMPTS = (("p0", 1000), ("p1", 600))
+CHUNK_EXTENDS = (("p0", 512, 512), ("p0", 100, 128), ("p1", 88, 128),
+                 ("p1", 1, 16))
+#: the traced chunk: a 512-token extend on p0 (profile_step's shape)
+CHUNK_TRACED = CHUNK_EXTENDS[0]
+#: kernels of the plain extend attention, by the names torch's CUDA
+#: kernels carry: the softmax's exp and its row max over the (C, T)
+#: scores; the fused chunk runs none (its SiLU is gated_act's)
+PLAIN_ATTENTION_OPS = ("exp_kernel_cuda", "MaxNanFunctor")
+#: the masks' where over the scores: the fused chunk keeps only the
+#: scratch gather's two (k and v rows at or past the start zeroed)
+CHUNK_WHERE = "where_kernel_impl"
+GATHER_WHERES = 2
+
+
+@contextlib.contextmanager
+def plain_extend_attention():
+    """Within the block, ``attend_decode`` takes its plain version on any
+    device, whatever its caller passes: a fused chunk then differs from
+    ``fused=False`` by its fusions alone."""
+    from repro_torch.models import attention
+    kernel_path = attention.attend_decode
+
+    def plain(*args, **kw):
+        return kernel_path(*args, **dict(kw, plain=True))
+
+    attention.attend_decode = plain
+    try:
+        yield
+    finally:
+        attention.attend_decode = kernel_path
+
+
+def chunk_fused_vs_plain(model, device, prompts=CHUNK_PROMPTS,
+                         extends=CHUNK_EXTENDS, trace: bool = True,
+                         seed: int = 0) -> dict:
+    """The paged runtime's extend chunk fused (its norms and gated
+    activation the fusion kernels, its attention the extend launch),
+    fused with its attention plain (its fusions alone), and with
+    ``fused=False``: each of ``extends`` run alone from one state
+    (``prompts`` prefilled), in each leg. Returns argmax agreement and
+    the largest |gap| of each fused leg to the plain one, the plain
+    logits' rms and largest |logit|, each leg's launches and, with
+    ``trace`` on the card, one eager CHUNK_TRACED of the fused and plain
+    legs under ``torch.profiler``: its extend launches and its kernels by
+    name."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving.paged_runtime import PagedKVRuntime
+    cfg = model.cfg
+    cuda = torch.device(device).type == "cuda"
+    rt = PagedKVRuntime(cfg, n_pages=256, page_size=16, device=device)
+    rng = np.random.default_rng(seed)
+    for pid, n in prompts:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, n))
+        for lo in range(0, n, 512):
+            rt.prefill(model, pid, toks[lo:lo + 512], pad_to=512)
+    st = runtime_state(rt)
+    ext = [torch.from_numpy(rng.integers(0, cfg.vocab_size, n))
+           for _, n, _ in extends]
+    legs = {}
+    for name, fused, plain_att in (("fused", True, False),
+                                   ("fusions", True, True),
+                                   ("plain", False, False)):
+        rt.fused = fused
+        rt.prefill_graphs.clear()       # no leg replays another's graphs
+        before = launch_counts()
+        rows = []
+        with plain_extend_attention() if plain_att else \
+                contextlib.nullcontext():
+            for (pid, _, pad), t in zip(extends, ext):
+                restore_state(rt, st)
+                rows.append(rt.prefill(model, pid, t, pad_to=pad).float())
+        synchronize(device)
+        after = launch_counts()
+        legs[name] = dict(logits=torch.stack(rows),
+                          launches={k: after[k] - before[k] for k in after})
+        if trace and cuda and name != "fusions":
+            from repro_torch.launch.profile_step import traced
+            pid, _, pad = CHUNK_TRACED
+            restore_state(rt, st)
+            rt.cuda_graphs = False
+            before = launch_counts()
+            names = traced(lambda: rt.prefill(model, pid, ext[0], pad_to=pad),
+                           top=1, reps=1, cpu=False,
+                           counts=True)["kernel_counts"]
+            rt.cuda_graphs = True
+            legs[name].update(
+                traced_extend_launches=launch_counts()["flash_extend"]
+                - before["flash_extend"],
+                traced_kernels=sum(names.values()),
+                traced_attention_ops=sorted({p for p in PLAIN_ATTENTION_OPS
+                                             for n in names if p in n}),
+                traced_wheres=sum(c for n, c in names.items()
+                                  if CHUNK_WHERE in n))
+    del rt
+    b = legs["plain"]["logits"]
+    assert all(torch.isfinite(leg["logits"]).all() for leg in legs.values())
+
+    def gap(a) -> dict:
+        return dict(argmax_equal=bool((a.argmax(-1) == b.argmax(-1)).all()),
+                    max_abs_diff=(a - b).abs().max().item(),
+                    rms_logit=b.square().mean().sqrt().item(),
+                    max_abs_logit=b.abs().max().item())
+
+    out = dict(gap(legs["fused"]["logits"]), chunks=len(extends),
+               fusions=gap(legs["fusions"]["logits"]))
+    for name, leg in legs.items():
+        out[f"launches_{name}"] = leg["launches"]
+        for k, v in leg.items():
+            if k.startswith("traced_"):
+                out[f"{k}_{name}"] = v
+    return out
+
+
+def chunk_bound(check: dict, dtype: str) -> float | None:
+    """The largest |fused - plain| chunk logit: in fp32 the extend launch
+    and the plain attention differ by summation order, FUSED_FP32_RMS of
+    the rms as the decode step. In bf16 none: the plain attention rounds
+    its scores to bf16 (std ~100 at this init, P5) where the launch keeps
+    them fp32, and one extend from one state moved a logit by 123.75 of
+    rms 39.2 at the 2-layer cut, its argmax too (on the H100), while the
+    fusions alone were bit-equal and the extend launch was 0 apart from
+    the flash prefill of the same tokens (``prefill_vs_extend``). The
+    bf16 gap is logged; its fusions alone are held."""
+    if dtype == "float32":
+        return FUSED_FP32_RMS * check["rms_logit"]
+    return None
+
+
+def assert_chunk_fused_vs_plain(check: dict, dtype: str, cuda: bool) -> None:
+    """Argmax equal and the gap within ``chunk_bound`` where it has one
+    (fp32), the fusions alone within the decode step's ``fused_bound``
+    in both dtypes; on the card the fused leg launches the extend launch
+    and the chunk's fusions, the fusions leg the fusions alone, the plain
+    leg neither."""
+    bound = chunk_bound(check, dtype)
+    if bound is not None:
+        assert check["argmax_equal"], check
+        assert check["max_abs_diff"] <= bound, check
+    fz = check["fusions"]
+    assert fz["argmax_equal"], check
+    assert fz["max_abs_diff"] <= fused_bound(fz, dtype), check
+    lf, lz, lp = (check[f"launches_{n}"] for n in ("fused", "fusions",
+                                                   "plain"))
+    if not cuda:
+        assert not any(lf.values()) and not any(lp.values()), check
+        return
+    assert lf["flash_extend"] > 0 == lz["flash_extend"] == \
+        lp["flash_extend"], check
+    for name in ("rms_norm", "gated_act"):
+        assert lf[name] == lz[name] > 0 == lp[name], check
+
+
+def assert_chunk_trace(check: dict, layers: int) -> None:
+    """The traced extend chunk: one extend launch a layer and none of the
+    plain attention's score kernels in the fused leg (its wheres only
+    the scratch gather's), all of them in the plain one."""
+    assert check["traced_extend_launches_fused"] == layers, check
+    assert check["traced_extend_launches_plain"] == 0, check
+    assert not check["traced_attention_ops_fused"], check
+    assert check["traced_wheres_fused"] <= GATHER_WHERES, check
+    assert set(check["traced_attention_ops_plain"]) == \
+        set(PLAIN_ATTENTION_OPS), check
+    assert check["traced_wheres_plain"] >= layers, check
+    assert check["traced_kernels_fused"] < check["traced_kernels_plain"], \
+        check
+
+
 def prefill_vs_extend(model, n: int = 1024, split: int = 512,
-                      seed: int = 1) -> dict:
+                      seed: int = 1, fused: bool = False) -> dict:
     """Final-position logits of a fresh prefill of an ``n``-token prompt
     (flash attention) against prefill of the first ``split`` tokens then
-    extend of the rest (dense ``attend_decode`` over the cache)."""
+    extend of the rest (dense ``attend_decode`` over the cache; with
+    ``fused``, the model's forward as the paged chunk runs it: the extend
+    launch on the card, and the fused norms and activation)."""
     import torch
     gen = torch.Generator(device=model.device).manual_seed(seed)
     toks = torch.randint(0, model.cfg.vocab_size, (1, n), generator=gen,
@@ -2868,9 +3246,9 @@ def prefill_vs_extend(model, n: int = 1024, split: int = 512,
                             mode="prefill", logits_slice=1)
     cache = model.init_cache(1, n)
     model.forward(toks[:, :split], cache=cache, mode="prefill",
-                  logits_slice=1)
+                  logits_slice=1, fused=fused)
     ext, _ = model.forward(toks[:, split:], cache=cache, cache_len=split,
-                           mode="extend", logits_slice=1)
+                           mode="extend", logits_slice=1, fused=fused)
     full, ext = full[0, -1], ext[0, -1]
     assert torch.isfinite(full).all() and torch.isfinite(ext).all()
     return dict(argmax_equal=bool(full.argmax() == ext.argmax()),
@@ -4874,6 +5252,9 @@ def main() -> int:
         "flash_attention": (
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:85"),
+        # no Pallas kernel: XLA's fusion of the reference's attend_decode
+        "flash_extend": ("src/repro_torch/csrc/flash_attention.cu",
+                         "src/repro/models/attention.py:272"),
         "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
                        "src/repro/kernels/rwkv6_scan/kernel.py:75"),
         **FUSIONS,

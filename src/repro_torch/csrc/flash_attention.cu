@@ -44,6 +44,20 @@
 // products as fp32 FMAs in 4 x 4 patches a thread. The wrapper picks the
 // kernel by dtype alone.
 //
+// The extend launch (a chunk of Sq queries against a cache of Sk keys):
+// both kernels also take an int32 offset a batch row, read from device
+// memory, so a captured graph replays the launch for every start. Query
+// row i sits at position off[b] + i and sees keys j <= off[b] + i (and
+// j > off[b] + i - window); a CTA walks the key tiles from the window's
+// first to min(Sk, off + its last row + 1). This is the reference's
+// attend_decode (src/repro/models/attention.py) over a plain cache, which
+// XLA fuses under jit and no Pallas kernel computes. Keys past a CTA's
+// live range may hold anything (a cache's unwritten slots): the fp32
+// kernel loads them as zeros, and the bf16 kernel zeroes their V rows in
+// shared memory before its last P V, as 0 * NaN would survive a zero
+// weight. A null offset is the prefill launch (off 0, Sk == Sq), which
+// runs as before.
+//
 // The tensor-map encoder is fetched through cudaGetDriverEntryPoint, so
 // the library needs no -lcuda.
 #include <cuda.h>
@@ -67,7 +81,7 @@ constexpr int kThreads = 256;  // 16 x 16 threads, each a 4-row patch
 constexpr int kPS = kBK + 1;   // padded row stride of the probability tile
 
 // rows [row0, row0 + n) of one head into an fp32 [n][stride] tile; rows
-// at or past S are zero.
+// at or past S (the rows' end, or a key range's) are zero.
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
                                           long long row_stride, int row0,
@@ -83,8 +97,9 @@ template <int NJ>  // NJ = output columns per thread, >= D / 16
 __global__ void __launch_bounds__(kThreads) flash_fp32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o, Strides qs,
-    Strides ks, Strides vs, Strides os, int G, int S, int D, float scale,
-    int causal, int window, float softcap) {
+    Strides ks, Strides vs, Strides os, int G, int Sq, int Sk, int D,
+    float scale, int causal, int window, float softcap,
+    const int* __restrict__ q_off) {
   extern __shared__ float smem[];
   const int QS = D + 1;
   float* q_s = smem;              // [kBQ][D + 1]
@@ -96,11 +111,12 @@ __global__ void __launch_bounds__(kThreads) flash_fp32_kernel(
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
   const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
   const int q0 = qt * kBQ;
+  const int off = q_off ? max(q_off[b], 0) : 0;  // position of row 0
 
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + kvh * ks.h;
   const float* vb = v + b * vs.b + kvh * vs.h;
-  load_tile(q_s, qb, qs.s, q0, kBQ, S, D, QS);
+  load_tile(q_s, qb, qs.s, q0, kBQ, Sq, D, QS);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -111,12 +127,14 @@ __global__ void __launch_bounds__(kThreads) flash_fp32_kernel(
     for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
   }
 
-  // live key range: the causal diagonal above, the window below
-  const int kv_end = causal ? min(S, q0 + kBQ) : S;
-  const int kv_begin = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
+  // live key range: the causal diagonal above (at the tile's last row),
+  // the window below; keys past it are loaded as zeros
+  const int kv_end = causal ? min(Sk, off + min(Sq, q0 + kBQ)) : Sk;
+  const int kv_begin =
+      (causal && window > 0) ? max(0, off + q0 - window + 1) : 0;
   for (int k0 = (kv_begin / kBK) * kBK; k0 < kv_end; k0 += kBK) {
-    load_tile(k_s, kb, ks.s, k0, kBK, S, D, QS);
-    load_tile(v_s, vb, vs.s, k0, kBK, S, D, D);
+    load_tile(k_s, kb, ks.s, k0, kBK, kv_end, D, QS);
+    load_tile(v_s, vb, vs.s, k0, kBK, kv_end, D, D);
     __syncthreads();
 
     float s[4][4];
@@ -138,14 +156,14 @@ __global__ void __launch_bounds__(kThreads) flash_fp32_kernel(
 
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      const int i = q0 + tr + 16 * a;
+      const int i = off + q0 + tr + 16 * a;  // the row's position
       float mx = kNegInf;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int j = k0 + tc + 16 * c;
         float x = s[a][c] * scale;
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        const bool live = j < S && (!causal || j <= i) &&
+        const bool live = j < kv_end && (!causal || j <= i) &&
                           (window <= 0 || j > i - window);
         s[a][c] = live ? x : kNegInf;
         mx = fmaxf(mx, s[a][c]);
@@ -193,7 +211,7 @@ __global__ void __launch_bounds__(kThreads) flash_fp32_kernel(
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = q0 + tr + 16 * a;
-    if (i >= S) continue;
+    if (i >= Sq) continue;
     const float inv = 1.f / fmaxf(l[a], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -210,9 +228,9 @@ size_t fp32_smem_bytes(int D) {
 
 template <int NJ>
 int launch_fp32(const float* q, const float* k, const float* v, float* o,
-                const long long* st, int B, int H, int KV, int S, int D,
-                float scale, int causal, int window, float softcap,
-                cudaStream_t stream) {
+                const long long* st, int B, int H, int KV, int Sq, int Sk,
+                int D, float scale, int causal, int window, float softcap,
+                const int* q_off, cudaStream_t stream) {
   const size_t smem = fp32_smem_bytes(D);
   static size_t smem_allowed = 48 * 1024;  // per instantiation
   if (smem > smem_allowed) {
@@ -224,10 +242,10 @@ int launch_fp32(const float* q, const float* k, const float* v, float* o,
   }
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fp32_kernel<NJ><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, qs, ks, vs, os, H / KV, S, D, scale, causal, window,
-      softcap);
+      q, k, v, o, qs, ks, vs, os, H / KV, Sq, Sk, D, scale, causal, window,
+      softcap, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -575,13 +593,19 @@ __device__ long long g_phases[2][kPhaseTiles][8];
 
 struct TcParams {
   long long os_b, os_h, os_s;  // output element strides
-  int S, D, G, stages, causal, window;
+  int Sq, Sk, D, G, stages, causal, window;
   float scale, softcap;
+  const int* off;  // (B,) position of query row 0, or null: 0
 };
 
-// Named barriers 1 and 2 pass the tensor cores between two warpgroups.
+// Named barriers 1 and 2 pass the tensor cores between two warpgroups;
+// 3 holds the CTA while the extend launch zeroes a tile's tail.
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+template <int kThreads>
+__device__ __forceinline__ void cta_sync_3() {
+  asm volatile("bar.sync 3, %0;\n" ::"n"(kThreads) : "memory");
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
@@ -621,21 +645,26 @@ __device__ __forceinline__ void issue_pv(float (&acc)[DP / 2],
 
 // The online softmax of one key tile on the score registers: scale,
 // softcap, mask (where the tile crosses the diagonal, the window's edge or
-// S), the row max over the 4 lanes of a row, then p = exp(x - m) in
-// place. Updates m and the per-thread partial row sums l (the 4 lanes of
-// a row are added at the end) and returns the factors alpha that rescale
-// the output accumulated so far. Without a softcap (and with a positive
-// scale, which the max commutes with) the raw scores are used as they
-// are and the scale is folded into the exponent's FMA. Maxima and sums
-// run in four independent chains a row, so that the dependent latency of
-// 32 steps does not serialize them.
+// the end kv_end of the CTA's live keys), the row max over the 4 lanes of
+// a row, then p = exp(x - m) in place. Rows are indices into the chunk;
+// row i's position is off + i. Updates m and the per-thread partial row
+// sums l (the 4 lanes of a row are added at the end) and returns the
+// factors alpha that rescale the output accumulated so far. Without a
+// softcap (and with a positive scale, which the max commutes with) the
+// raw scores are used as they are and the scale is folded into the
+// exponent's FMA. Maxima and sums run in four independent chains a row,
+// so that the dependent latency of 32 steps does not serialize them.
 template <int BK>
 __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2],
                                                float (&m)[2], float (&l)[2],
                                                float (&alpha)[2],
                                                const TcParams& p, int k0,
-                                               int row, int col, int wrow0) {
-  const bool masked = k0 + BK > p.S || (p.causal && k0 + BK - 1 > wrow0) ||
+                                               int row, int col, int wrow0,
+                                               int off, int kv_end) {
+  row += off;    // positions from here on
+  wrow0 += off;
+  const bool masked = k0 + BK > kv_end ||
+                      (p.causal && k0 + BK - 1 > wrow0) ||
                       (p.window > 0 && k0 <= wrow0 + 63 - p.window);
   const bool raw = p.softcap <= 0.f && p.scale > 0.f;
   float mx[2][4];
@@ -652,7 +681,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2],
       if (masked) {
         const int i = row + 8 * ((j % 4) / 2);
         const int key = k0 + 8 * (j / 4) + col + (j % 2);
-        const bool live = key < p.S && (!p.causal || key <= i) &&
+        const bool live = key < kv_end && (!p.causal || key <= i) &&
                           (p.window <= 0 || key > i - p.window);
         if (!live) x = -INFINITY;
       }
@@ -725,12 +754,21 @@ __global__ void __launch_bounds__(TcConfig<DP, NWG>::kThreads, 1)
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.G;
   const int q0 = qt * C::kBQ;
-  // live key range: the causal diagonal above, the window below
-  const int kv_end = p.causal ? min(p.S, q0 + C::kBQ) : p.S;
-  const int kv_begin =
-      (p.causal && p.window > 0) ? max(0, q0 - p.window + 1) : 0;
+  const int off = p.off ? max(p.off[b], 0) : 0;  // position of row 0
+  // live key range: the causal diagonal above (at the tile's last row),
+  // the window below; never empty, as the pipeline waits on its first
+  // tile (a row past the cache and its window sees no key, and gets 0)
+  const int kv_end =
+      p.causal ? min(p.Sk, off + min(p.Sq, q0 + C::kBQ)) : p.Sk;
+  const int kv_begin = min(
+      (p.causal && p.window > 0) ? max(0, off + q0 - p.window + 1) : 0,
+      kv_end - 1);
   const int t_first = kv_begin / BK;
   const int n_tiles = (kv_end + BK - 1) / BK - t_first;
+  // V rows of the last tile past kv_end but inside Sk hold whatever the
+  // cache does there; the extend launch zeroes them before its last P V
+  const int t_last0 = (t_first + n_tiles - 1) * BK;  // the last tile's k0
+  const bool zero_tail = p.off != nullptr && kv_end < min(p.Sk, t_last0 + BK);
   auto kv_stage = [&](int t) {
     return sKV + (t % p.stages) * C::kStageBytes;
   };
@@ -813,7 +851,8 @@ __global__ void __launch_bounds__(TcConfig<DP, NWG>::kThreads, 1)
     pass_turn();
     wgmma_wait<0>();
     fence_regs(sc);
-    online_softmax<BK>(sc, m, l, alpha, p, t_first * BK, row, col, wrow0);
+    online_softmax<BK>(sc, m, l, alpha, p, t_first * BK, row, col, wrow0,
+                       off, kv_end);
     pack_p<BK>(sc, pa);
     for (int t = 1; t < n_tiles; ++t) {
       PHASE(t, 0);
@@ -832,7 +871,7 @@ __global__ void __launch_bounds__(TcConfig<DP, NWG>::kThreads, 1)
       fence_regs(sc);
       PHASE(t, 4);
       online_softmax<BK>(sc, m, l, alpha, p, (t_first + t) * BK, row, col,
-                         wrow0);
+                         wrow0, off, kv_end);
       PHASE(t, 5);
       wgmma_wait<0>();
       fence_regs(acc);
@@ -843,6 +882,23 @@ __global__ void __launch_bounds__(TcConfig<DP, NWG>::kThreads, 1)
       for (int j = 0; j < DP / 2; ++j) acc[j] *= alpha[(j % 4) / 2];
       pack_p<BK>(sc, pa);
       PHASE(t, 7);
+    }
+    if (zero_tail) {
+      // V rows kv_end - t_last0 .. BK - 1 of the last tile, every panel,
+      // zeroed by the whole CTA (a row is 128 bytes however it is
+      // swizzled), made visible to wgmma's async proxy and waited for by
+      // both warpgroups before either reads the tile's V
+      uint8_t* sv = kv_stage(n_tiles - 1) + C::kTileBytes;
+      const int r0 = kv_end - t_last0;
+      const int per_panel = (BK - r0) * 8;  // 16-byte pieces
+      for (int i = threadIdx.x; i < C::kPanels * per_panel;
+           i += C::kThreads) {
+        const int pn = i / per_panel, piece = i - pn * per_panel;
+        *reinterpret_cast<uint4*>(sv + pn * BK * 128 + r0 * 128 +
+                                  piece * 16) = make_uint4(0, 0, 0, 0);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      cta_sync_3<C::kThreads>();
     }
     take_turn();
     wgmma_fence();
@@ -866,7 +922,7 @@ __global__ void __launch_bounds__(TcConfig<DP, NWG>::kThreads, 1)
       const int r = (j % 4) / 2;
       const int i = row + 8 * r;
       const int d = 8 * (j / 4) + col;
-      if (i < p.S && d < p.D)
+      if (i < p.Sq && d < p.D)
         *reinterpret_cast<__nv_bfloat162*>(ob + i * p.os_s + d) =
             __floats2bfloat162_rn(acc[j] * inv[r], acc[j + 1] * inv[r]);
     }
@@ -922,9 +978,9 @@ int encode(CUtensorMap* map, const void* base, const long long* st, int B,
 
 template <int DP, int NWG>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 const long long* st, int B, int H, int KV, int S, int D,
-                 float scale, int causal, int window, float softcap,
-                 int stages, cudaStream_t stream) {
+                 const long long* st, int B, int H, int KV, int Sq, int Sk,
+                 int D, float scale, int causal, int window, float softcap,
+                 const int* q_off, int stages, cudaStream_t stream) {
   using C = TcConfig<DP, NWG>;
   if (stages < 2 || stages > kMaxStages)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -938,14 +994,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
   }
-  CUtensorMap tq, tk, tv;
-  int err = encode(&tq, q, st, B, H, S, D, C::kBQ);
-  if (err == 0) err = encode(&tk, k, st + 3, B, KV, S, D, C::kBK);
-  if (err == 0) err = encode(&tv, v, st + 6, B, KV, S, D, C::kBK);
+  CUtensorMap tq, tk, tv;  // Q over Sq rows, K and V over Sk
+  int err = encode(&tq, q, st, B, H, Sq, D, C::kBQ);
+  if (err == 0) err = encode(&tk, k, st + 3, B, KV, Sk, D, C::kBK);
+  if (err == 0) err = encode(&tv, v, st + 6, B, KV, Sk, D, C::kBK);
   if (err != 0) return err;
-  const TcParams p{st[9], st[10], st[11], S,     D,     H / KV,
-                   stages, causal, window, scale, softcap};
-  const dim3 grid((S + C::kBQ - 1) / C::kBQ, H, B);
+  const TcParams p{st[9],  st[10], st[11], Sq,    Sk,      D,
+                   H / KV, stages, causal, window, scale, softcap,
+                   q_off};
+  const dim3 grid((Sq + C::kBQ - 1) / C::kBQ, H, B);
   flash_wgmma_kernel<DP, NWG><<<grid, C::kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), p);
   return static_cast<int>(cudaGetLastError());
@@ -953,22 +1010,27 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 template <int NWG>
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
-                   const long long* st, int B, int H, int KV, int S, int D,
-                   float scale, int causal, int window, float softcap,
-                   int stages, cudaStream_t s) {
+                   const long long* st, int B, int H, int KV, int Sq,
+                   int Sk, int D, float scale, int causal, int window,
+                   float softcap, const int* q_off, int stages,
+                   cudaStream_t s) {
   switch ((D + 63) / 64) {
     case 1:
-      return launch_wgmma<64, NWG>(q, k, v, o, st, B, H, KV, S, D, scale,
-                                   causal, window, softcap, stages, s);
+      return launch_wgmma<64, NWG>(q, k, v, o, st, B, H, KV, Sq, Sk, D,
+                                   scale, causal, window, softcap, q_off,
+                                   stages, s);
     case 2:
-      return launch_wgmma<128, NWG>(q, k, v, o, st, B, H, KV, S, D, scale,
-                                    causal, window, softcap, stages, s);
+      return launch_wgmma<128, NWG>(q, k, v, o, st, B, H, KV, Sq, Sk, D,
+                                    scale, causal, window, softcap, q_off,
+                                    stages, s);
     case 3:
-      return launch_wgmma<192, NWG>(q, k, v, o, st, B, H, KV, S, D, scale,
-                                    causal, window, softcap, stages, s);
+      return launch_wgmma<192, NWG>(q, k, v, o, st, B, H, KV, Sq, Sk, D,
+                                    scale, causal, window, softcap, q_off,
+                                    stages, s);
     default:
-      return launch_wgmma<256, NWG>(q, k, v, o, st, B, H, KV, S, D, scale,
-                                    causal, window, softcap, stages, s);
+      return launch_wgmma<256, NWG>(q, k, v, o, st, B, H, KV, Sq, Sk, D,
+                                    scale, causal, window, softcap, q_off,
+                                    stages, s);
   }
 }
 
@@ -988,31 +1050,36 @@ const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q (B, H, S, D), k/v (B, KV, S, D), o (B, H, S, D), all float32 with unit
-// stride along D; strides holds the element strides (batch, head,
-// position) of q, k, v and o, in that order. 1 <= D <= 256, H a multiple
-// of KV; window <= 0 means none, softcap <= 0 means none.
+// q (B, H, Sq, D), k/v (B, KV, Sk, D), o (B, H, Sq, D), all float32
+// with unit stride along D; strides holds the element strides (batch,
+// head, position) of q, k, v and o, in that order. 1 <= D <= 256, H a
+// multiple of KV, Sk >= 1; window <= 0 means none, softcap <= 0 means
+// none. q_off: null (the prefill launch: Sk == Sq, query row i at
+// position i) or an int32 (B,) device array, query row i of batch row b
+// at position q_off[b] + i (the extend launch).
 int flash_attention_fp32_launch(const void* q, const void* k, const void* v,
                                 void* o, const long long* strides, int B,
-                                int H, int KV, int S, int D, float scale,
-                                int causal, int window, float softcap,
+                                int H, int KV, int Sq, int Sk, int D,
+                                float scale, int causal, int window,
+                                float softcap, const void* q_off,
                                 void* stream) {
-  if (B == 0 || S == 0 || H == 0) return 0;
-  if (D < 1 || D > 256 || KV < 1 || H % KV)
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  if (D < 1 || D > 256 || KV < 1 || H % KV || Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
+  const int* off = static_cast<const int*>(q_off);
   if (D <= 64)
-    return launch_fp32<4>(qf, kf, vf, of, strides, B, H, KV, S, D, scale,
-                          causal, window, softcap, s);
+    return launch_fp32<4>(qf, kf, vf, of, strides, B, H, KV, Sq, Sk, D,
+                          scale, causal, window, softcap, off, s);
   if (D <= 128)
-    return launch_fp32<8>(qf, kf, vf, of, strides, B, H, KV, S, D, scale,
-                          causal, window, softcap, s);
-  return launch_fp32<16>(qf, kf, vf, of, strides, B, H, KV, S, D, scale,
-                         causal, window, softcap, s);
+    return launch_fp32<8>(qf, kf, vf, of, strides, B, H, KV, Sq, Sk, D,
+                          scale, causal, window, softcap, off, s);
+  return launch_fp32<16>(qf, kf, vf, of, strides, B, H, KV, Sq, Sk, D,
+                         scale, causal, window, softcap, off, s);
 }
 
 // The same contract in bfloat16, on the tensor cores. Also: D a multiple
@@ -1022,19 +1089,21 @@ int flash_attention_fp32_launch(const void* q, const void* k, const void* v,
 // the shared memory fits).
 int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
                                 void* o, const long long* strides, int B,
-                                int H, int KV, int S, int D, float scale,
-                                int causal, int window, float softcap,
+                                int H, int KV, int Sq, int Sk, int D,
+                                float scale, int causal, int window,
+                                float softcap, const void* q_off,
                                 int q_tile, int stages, void* stream) {
-  if (B == 0 || S == 0 || H == 0) return 0;
-  if (D < 8 || D > 256 || D % 8 || KV < 1 || H % KV)
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  if (D < 8 || D > 256 || D % 8 || KV < 1 || H % KV || Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* off = static_cast<const int*>(q_off);
   if (q_tile == 64)
-    return dispatch_wgmma<1>(q, k, v, o, strides, B, H, KV, S, D, scale,
-                             causal, window, softcap, stages, s);
+    return dispatch_wgmma<1>(q, k, v, o, strides, B, H, KV, Sq, Sk, D, scale,
+                             causal, window, softcap, off, stages, s);
   if (q_tile == 128)
-    return dispatch_wgmma<2>(q, k, v, o, strides, B, H, KV, S, D, scale,
-                             causal, window, softcap, stages, s);
+    return dispatch_wgmma<2>(q, k, v, o, strides, B, H, KV, Sq, Sk, D, scale,
+                             causal, window, softcap, off, stages, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

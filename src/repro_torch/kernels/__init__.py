@@ -74,11 +74,13 @@ def kernel_wrappers() -> dict:
     carries ``launches``: the number of kernel launches it has made.
     ``decode_merge`` is the count of decode attention's combine with the
     new token merged, which ``paged_decode_attention_kernel`` launches
-    given ``new_kv`` (and does not count as its own)."""
+    given ``new_kv`` (and does not count as its own). ``flash_extend``
+    is the flash kernels' extend launch, apart from the prefill's
+    ``flash_attention``."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_merge, paged_decode_attention_kernel)
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel, flash_extend_kernel)
     from repro_torch.kernels.fusions.kernel import (gated_act_kernel,
                                                     qkv_rope_kernel,
                                                     rms_norm_kernel)
@@ -92,6 +94,7 @@ def kernel_wrappers() -> dict:
             "token_append": token_append_kernel,
             "token_append_indexed": token_append_indexed_kernel,
             "flash_attention": flash_attention_kernel,
+            "flash_extend": flash_extend_kernel,
             "rwkv6_scan": rwkv6_scan_kernel,
             "rms_norm": rms_norm_kernel,
             "qkv_rope": qkv_rope_kernel,

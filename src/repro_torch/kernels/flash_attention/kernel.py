@@ -12,8 +12,16 @@ tensors are read through their strides (unit stride along D), so a caller
 holding (B, S, H, D) activations passes ``x.transpose(1, 2)`` views and no
 copy is made.
 
-:func:`plan_bf16` and :func:`tma_strides` are the host side of the
-bf16 launch as pure functions of integers, so the CPU tests reach them.
+Two launches share the kernels: :func:`flash_attention_kernel`, the
+prefill (queries and keys the same S positions), and
+:func:`flash_extend_kernel`, a chunk of queries at per-row offsets read
+from device memory against a longer cache (the reference's
+``attend_decode`` over a plain cache, which XLA fuses; no Pallas kernel
+is its counterpart). Each counts its own launches.
+
+:func:`plan_bf16`, :func:`tma_strides` and :func:`operand_shapes` are the
+host side of the launches as pure functions, so the CPU tests reach
+them; every refusal is raised before any launch.
 """
 from __future__ import annotations
 
@@ -27,8 +35,11 @@ import torch
 from repro_torch.kernels import _build, device_guard, stream_handle
 
 _LIB = "flash_attention"
-_COMMON_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-    [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+# q, k, v, o, strides; B, H, KV, Sq, Sk, D; scale, causal, window,
+# softcap; the offsets (null for the prefill launch)
+_COMMON_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+     ctypes.c_void_p]
 _FP32_ARGS = _COMMON_ARGS + [ctypes.c_void_p]
 _BF16_ARGS = _COMMON_ARGS + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 MAX_HEAD_DIM = 256
@@ -45,7 +56,8 @@ STATIC_SMEM = 256     # the mbarriers, rounded up
 class Bf16Plan:
     """The tensor-core launch: ``q_tile`` query rows a CTA (64 per
     consumer warpgroup), D padded to ``head_pad`` in shared memory,
-    ``block_k`` keys a stage, ``stages`` stages in the K/V ring."""
+    ``block_k`` keys a stage, ``stages`` stages in the K/V ring, the
+    K/V tensor maps ``key_tiles`` tiles long."""
     q_tile: int
     head_pad: int
     block_k: int
@@ -53,17 +65,21 @@ class Bf16Plan:
     threads: int
     smem_bytes: int
     grid: tuple[int, int, int]
+    key_tiles: int
 
 
 @functools.lru_cache(maxsize=256)
 def plan_bf16(B: int, H: int, S: int, D: int, q_tile: int | None = None,
-              num_sms: int = 132) -> Bf16Plan:
+              num_sms: int = 132, *, Sk: int | None = None) -> Bf16Plan:
     """Tile shapes and shared memory of the bf16 kernel (``TcConfig`` in
-    the source): 64 query rows a warpgroup, 128-key tiles up to D = 128
-    and 64-key tiles above. ``q_tile`` None picks 128 rows (two
+    the source) for S query rows against ``Sk`` keys (S itself in the
+    prefill launch): 64 query rows a warpgroup, 128-key tiles up to D =
+    128 and 64-key tiles above. ``q_tile`` None picks 128 rows (two
     warpgroups) when their grid alone fills the card's ``num_sms`` SMs,
-    else 64 (twice the CTAs). The K/V ring takes as many stages (up to 4)
-    as fit 227 KB."""
+    else 64 (twice the CTAs; an extend chunk's CTAs each walk its whole
+    cache, so it takes 64 rows at any cache length that leaves the grid
+    under a wave). The K/V ring takes as many stages (up to 4) as fit
+    227 KB."""
     if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash attention in bf16 takes a head dim that is "
                          f"a multiple of 8 in [8, {MAX_HEAD_DIM}] (TMA moves "
@@ -81,7 +97,8 @@ def plan_bf16(B: int, H: int, S: int, D: int, q_tile: int | None = None,
     return Bf16Plan(q_tile=q_tile, head_pad=head_pad, block_k=block_k,
                     stages=stages, threads=2 * q_tile,
                     smem_bytes=ALIGN_SLACK + q_bytes + stages * stage_bytes,
-                    grid=(math.ceil(S / q_tile), H, B))
+                    grid=(math.ceil(S / q_tile), H, B),
+                    key_tiles=math.ceil((S if Sk is None else Sk) / block_k))
 
 
 def tma_strides(name: str, shape, strides, data_ptr: int,
@@ -108,6 +125,85 @@ def tma_strides(name: str, shape, strides, data_ptr: int,
     return tuple(out)
 
 
+def operand_shapes(q, k, v, what: str, q_offset=None
+                   ) -> tuple[int, int, int, int, int, int]:
+    """(B, H, KV, Sq, Sk, D) of q (B, H, Sq, D) and k/v (B, KV, Sk, D),
+    raising ``ValueError`` (``TypeError`` for a dtype) for what the
+    kernels cannot take: other ranks or dtypes, K and V apart, H not a
+    multiple of KV, a head dim outside [1, 256], queries but no keys, a D
+    stride other than 1, grid limits; and with ``q_offset`` anything but
+    a contiguous int32 (B,) tensor. Reads shapes, dtypes and strides
+    only, so a CPU tensor reaches every refusal."""
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q, k and v must share float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or H % KV or (Sq and Sk < 1):
+        raise ValueError(f"{what}: k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head_dim {D} outside [1, "
+                         f"{MAX_HEAD_DIM}]")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 and D > 1:
+            raise ValueError(f"{what}: {name} needs unit stride along D, "
+                             f"got strides {t.stride()}")
+    if H > 65535 or B > 65535:
+        raise ValueError(f"{what}: grid limits: heads {H}, batch {B}")
+    if q_offset is not None and (
+            not isinstance(q_offset, torch.Tensor)
+            or q_offset.dtype != torch.int32
+            or tuple(q_offset.shape) != (B,)
+            or (B > 1 and q_offset.stride(0) != 1)):
+        raise ValueError(
+            f"{what}: q_offset must be a contiguous int32 ({B},) tensor, "
+            f"got {getattr(q_offset, 'dtype', type(q_offset))} "
+            f"{tuple(getattr(q_offset, 'shape', ()))}")
+    return B, H, KV, Sq, Sk, D
+
+
+def _launch(q, k, v, q_offset, dims, *, scale, causal: bool, window: int,
+            softcap: float, q_tile: int | None, what: str) -> torch.Tensor:
+    """One launch of the kernel q's dtype picks, the output allocated
+    like q; ``q_offset`` None is the prefill launch. Raises before the
+    launch for TMA's rules (bf16) and after it for a CUDA error."""
+    B, H, KV, Sq, Sk, D = dims
+    tensors = (q, k, v) + (() if q_offset is None else (q_offset,))
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{what}: every tensor must be on the same CUDA "
+                         f"device")
+    out = torch.empty_like(q)      # unit stride along D, as q
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if q.dtype == torch.bfloat16:
+        plan = plan_bf16(B, H, Sq, D, q_tile, _num_sms(q.device.index),
+                         Sk=Sk)
+        st = [s for name, t in (("q", q), ("k", k), ("v", v))
+              for s in tma_strides(name, t.shape, t.stride(),
+                                   t.data_ptr())]
+        st += out.stride()[:3]
+        extra = (plan.q_tile, plan.stages)
+        fn = _build.function(_LIB, "flash_attention_bf16_launch", _BF16_ARGS)
+    else:
+        st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        extra = ()
+        fn = _build.function(_LIB, "flash_attention_fp32_launch", _FP32_ARGS)
+    strides = (ctypes.c_longlong * 12)(*st)
+    with device_guard(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 ctypes.addressof(strides), B, H, KV, Sq, Sk, D,
+                 float(scale), int(bool(causal)), int(window),
+                 float(softcap),
+                 None if q_offset is None else q_offset.data_ptr(), *extra,
+                 stream_handle(q.device))
+    _build.check(_LIB, err, what)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -124,53 +220,44 @@ def flash_attention_kernel(q, k, v, *, scale: float | None = None,
     current stream and does not synchronize. ``_q_tile`` is a measurement
     hook, set by no caller of the port: it forces the bf16 kernel's query
     tile to 64 or 128 rows instead of :func:`plan_bf16`'s pick."""
+    what = "flash_attention_kernel"
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_kernel: q, k and v must be on the "
-                         "same CUDA device")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k and v must share float32 or bfloat16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}"
-                         f", v {tuple(v.shape)}")
-    B, H, S, D = q.shape
-    KV = k.shape[1]
-    if k.shape[0] != B or k.shape[2] != S or k.shape[3] != D or H % KV:
-        raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
-                         f"{tuple(q.shape)}")
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {D} outside [1, {MAX_HEAD_DIM}]")
-    out = torch.empty_like(q)
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
-        if t.stride(3) != 1 and D > 1:
-            raise ValueError(f"flash_attention_kernel: {name} needs unit "
-                             f"stride along D, got strides {t.stride()}")
-    if H > 65535 or B > 65535:
-        raise ValueError(f"grid limits: heads {H}, batch {B}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        plan = plan_bf16(B, H, S, D, _q_tile, _num_sms(q.device.index))
-        st = [s for name, t in (("q", q), ("k", k), ("v", v))
-              for s in tma_strides(name, t.shape, t.stride(),
-                                        t.data_ptr())]
-        st += out.stride()[:3]
-        extra = (plan.q_tile, plan.stages)
-        fn = _build.function(_LIB, "flash_attention_bf16_launch", _BF16_ARGS)
-    else:
-        st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-        extra = ()
-        fn = _build.function(_LIB, "flash_attention_fp32_launch", _FP32_ARGS)
-    strides = (ctypes.c_longlong * 12)(*st)
-    with device_guard(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 ctypes.addressof(strides), B, H, KV, S, D, float(scale),
-                 int(bool(causal)), int(window), float(softcap), *extra,
-                 stream_handle(q.device))
-    _build.check(_LIB, err, "flash_attention_kernel")
+        raise ValueError(f"{what}: q, k and v must be on the same CUDA "
+                         f"device")
+    dims = operand_shapes(q, k, v, what)
+    if dims[4] != dims[3]:
+        raise ValueError(f"{what}: k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (the extend launch, "
+                         f"flash_extend_kernel, takes more keys)")
+    out = _launch(q, k, v, None, dims, scale=scale, causal=causal,
+                  window=window, softcap=softcap, q_tile=_q_tile, what=what)
     flash_attention_kernel.launches += 1
     return out
 
 
 flash_attention_kernel.launches = 0
+
+
+def flash_extend_kernel(q, k, v, q_offset, *, scale: float | None = None,
+                        window: int = 0, softcap: float = 0.0,
+                        _q_tile: int | None = None) -> torch.Tensor:
+    """A chunk's causal attention against a cache: q (B, H, C, D) the
+    chunk's queries, k/v (B, KV, T, D) the cache, already holding the
+    chunk's keys, and ``q_offset`` a contiguous int32 (B,) tensor on
+    their GPU: query row i of batch row b sits at position q_offset[b] +
+    i and sees the keys at positions j <= q_offset[b] + i (and j >
+    q_offset[b] + i - ``window`` where ``window`` > 0) below T; the
+    caller keeps q_offset[b] + C <= T. Keys past the last one a CTA's
+    rows see are never read into a result, whatever they hold. The
+    offsets are read on the device alone, so a captured graph replays
+    the launch for new offsets. Same dtypes, layouts and rules as
+    :func:`flash_attention_kernel`; one launch."""
+    what = "flash_extend_kernel"
+    dims = operand_shapes(q, k, v, what, q_offset)
+    out = _launch(q, k, v, q_offset, dims, scale=scale, causal=True,
+                  window=window, softcap=softcap, q_tile=_q_tile, what=what)
+    flash_extend_kernel.launches += 1
+    return out
+
+
+flash_extend_kernel.launches = 0

@@ -18,10 +18,17 @@ The decode step and the prefill chunk are the paged runtime's CUDA
 graphs, replayed (the chunk's bucket is captured at its second use,
 inside the warm-up), unless ``--eager`` asks for the eager steps
 (``PagedKVRuntime(cuda_graphs=False)``); run both in one call to compare
-them. The decode step runs its chains as the fused kernels of
-``kernels/fusions`` unless ``--plain`` asks for their plain spelling
+them. The decode step and the chunk run their chains as the fused kernels
+of ``kernels/fusions``, and the extend chunk its attention as the flash
+kernels' extend launch, unless ``--plain`` asks for their plain spelling
 (``PagedKVRuntime(fused=False)``); a trace splits a step's device time
 into products, attention, fusions and the rest (``device_ms_by_part``).
+Attention is the attention kernels by name and, in the chunk, every
+device op launched inside ``attend_decode`` (its products too: the plain
+spelling's): one eager chunk is traced with that function annotated
+(:func:`launch_marks`), and the traced chunks' ops, eager or replayed,
+are walked in stream order beside its ops (``attention_marks``: how many
+ops it had, how many the traced chunks had, how many were aligned).
 ``--capacity-step N`` sets the extend scratch's capacity granularity
 (``PagedKVRuntime.capacity_step``, 512 tokens by default), to measure
 what padding the chunk's capacity costs.
@@ -73,6 +80,7 @@ with or without ``--train``)::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -105,15 +113,118 @@ DEVICE_PARTS = (("attention", ("split_kernel", "combine_kernel", "flash_")),
                               "splitK")))
 
 
-def device_parts(dev: dict, reps: int) -> dict:
-    """ms a step of each ``DEVICE_PARTS`` part and of the rest, from
-    {kernel name: [runs, ns]}."""
+#: functions of ``models/attention.py`` whose device ops are a step's
+#: attention whatever their names (the plain spelling's ops over the
+#: score tensor and its products)
+ATTENTION_FNS = ("attend_decode",)
+
+
+def device_parts(events: list, reps: int, marks: list | None = None
+                 ) -> tuple[dict, dict | None]:
+    """ms a step of each ``DEVICE_PARTS`` part and of the rest, from the
+    trace's device ops ``[(start_ns, name, ns)]`` of ``reps`` steps. With
+    ``marks`` (:func:`launch_marks` of one eager step) an op is attention
+    when its counterpart in the marked step was launched inside an
+    ``ATTENTION_FNS`` function: the traced ops, in stream order, are
+    walked beside the marked step's repeated (:func:`align`), and an op
+    that finds no counterpart takes its part by name. Returns the parts
+    and, with ``marks``, how the walk went: the marked step's ops and
+    marked ops, the traced ops, the ops aligned, the first op that was
+    not."""
     out = dict.fromkeys([p for p, _ in DEVICE_PARTS] + ["other"], 0.0)
-    for name, (_, ns) in dev.items():
-        part = next((p for p, marks in DEVICE_PARTS
-                     if any(m in name for m in marks)), "other")
+    events = sorted(events)
+    names = [name for _, name, _ in events]
+    pairs, first_miss = align(names, marks) if marks else ({}, None)
+    for i, (_, name, ns) in enumerate(events):
+        part = next((p for p, keys in DEVICE_PARTS
+                     if any(m in name for m in keys)), "other")
+        if i in pairs and marks[pairs[i]][1]:
+            part = "attention"
         out[part] += ns / reps / 1e6
-    return out
+    if not marks:
+        return out, None
+    return out, dict(eager_ops=len(marks),
+                     eager_marked=sum(m for _, m in marks),
+                     traced_ops=len(events), aligned_ops=len(pairs),
+                     first_unaligned=first_miss)
+
+
+def align(names: list, marks: list, window: int = 16):
+    """Walk ``names`` beside ``marks``' names repeated: equal names pair
+    up; at a difference the walk skips the fewest ops (up to ``window``)
+    on either side that brings two equal names together, and pairs
+    nothing when none does. Returns {traced index: marks index} and the
+    first traced op left unpaired (index and name), or None."""
+    ref = [name for name, _ in marks]
+    n = len(ref)
+    pairs, first_miss = {}, None
+    i = j = 0
+    while i < len(names):
+        if names[i] == ref[j % n]:
+            pairs[i] = j % n
+            i, j = i + 1, j + 1
+            continue
+        if first_miss is None:
+            first_miss = (i, names[i][:80])
+        step = next(((di, dj) for k in range(1, window + 1)
+                     for di, dj in ((k, 0), (0, k))
+                     if i + di < len(names)
+                     and names[i + di] == ref[(j + dj) % n]), None)
+        if step is None:
+            i += 1
+        else:
+            i, j = i + step[0], j + step[1]
+    return pairs, first_miss
+
+
+@contextlib.contextmanager
+def _annotated():
+    """Each ``ATTENTION_FNS`` function inside a ``record_function`` range
+    of its name (the model calls them through their module)."""
+    from repro_torch.models import attention
+    saved = {n: getattr(attention, n) for n in ATTENTION_FNS}
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(attention, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(attention, name, fn)
+
+
+def launch_marks(fn) -> list[tuple[str, bool]]:
+    """One call of ``fn`` (an eager step) under ``torch.profiler`` with
+    ``ATTENTION_FNS`` annotated: its device ops in stream order, each by
+    name with whether it was launched inside one of their ranges (its
+    launching host op, or the runtime call of the same correlation id,
+    starting inside one)."""
+    torch.cuda.synchronize()
+    with _annotated(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    host = [e for e in events if e.device_type() != DeviceType.CUDA]
+    ranges = [(e.start_ns(), e.end_ns()) for e in host
+              if e.is_user_annotation() and e.name() in ATTENTION_FNS]
+    starts = {e.correlation_id(): e.start_ns() for e in host}
+
+    def inside(corr) -> bool:
+        t = starts.get(corr)
+        return t is not None and any(a <= t <= b for a, b in ranges)
+
+    dev = sorted((e.start_ns(), e.name(), inside(e.linked_correlation_id())
+                  or inside(e.correlation_id()))
+                 for e in events if e.device_type() == DeviceType.CUDA
+                 and not e.is_user_annotation())
+    return [(name, mark) for _, name, mark in dev]
 
 
 def _sync(cuda: bool) -> None:
@@ -136,7 +247,8 @@ def _timed(fn, steps: int, cuda: bool = True) -> dict:
 
 
 def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
-           counts: bool = False, cuda: bool = True) -> dict:
+           counts: bool = False, cuda: bool = True,
+           marks: list | None = None) -> dict:
     """``reps`` calls of ``fn`` under ``torch.profiler``: a step's device
     time, device ops run and host launch calls, and the ops with the most
     device time and host time (a host op's time includes what it calls).
@@ -145,7 +257,9 @@ def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
     runs a step too. ``read_s``: the seconds the trace took to read back
     after the steps. The profiler's raw events are read, not its parsed
     ones: parsing ~180k events a step took 10-17 s. ``cuda`` False (a
-    rehearsal on the CPU): the host alone, every device metric None."""
+    rehearsal on the CPU): the host alone, every device metric None.
+    ``marks``: :func:`launch_marks` of the step, for
+    ``device_ms_by_part``."""
     _sync(cuda)
     acts = [ProfilerActivity.CUDA] * cuda + [ProfilerActivity.CPU] * cpu
     with profile(activities=acts) as prof:
@@ -156,13 +270,17 @@ def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
         t1 = time.perf_counter()
     dev: dict[str, list] = {}
     host: dict[str, list] = {}
+    dev_events = []
     for e in prof.profiler.kineto_results.events():
         if e.is_user_annotation():
             continue
-        side = dev if e.device_type() == DeviceType.CUDA else host
+        on_dev = e.device_type() == DeviceType.CUDA
+        side = dev if on_dev else host
         rec = side.setdefault(e.name(), [0, 0])
         rec[0] += 1
         rec[1] += e.duration_ns()
+        if on_dev:
+            dev_events.append((e.start_ns(), e.name(), e.duration_ns()))
     device_ns = sum(ns for _, ns in dev.values())
     calls = {k: n / reps for k, (n, _) in host.items()
              if k.startswith(LAUNCH_CALLS)}
@@ -174,12 +292,14 @@ def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
                  f"{unit}_ms_per_step": ns / reps / 1e6}
                 for k, (n, ns) in ranked]
 
+    by_part, marks_walk = device_parts(dev_events, reps, marks)
     out = {
         "traced_wall_ms_per_step": (t1 - t0) / reps * 1e3,
         "device_busy_ms_per_step": device_ns / reps / 1e6,
         "device_busy_share": device_ns / 1e9 / (t1 - t0),
         "device_kernels_per_step": sum(n for n, _ in dev.values()) / reps,
-        "device_ms_by_part": device_parts(dev, reps),
+        "device_ms_by_part": by_part,
+        "attention_marks": marks_walk,
         "host_launch_calls_per_step": sum(calls.values()),
         "host_launch_calls": calls,
         # a tensor subclass's dispatch (DTensor's), host events only
@@ -193,6 +313,7 @@ def traced(fn, top: int = 12, reps: int = 3, cpu: bool = True,
     if not cuda:
         for k in ("device_busy_ms_per_step", "device_busy_share",
                   "device_kernels_per_step", "device_ms_by_part",
+                  "attention_marks",
                   "host_launch_calls_per_step", "host_launch_calls",
                   "top_kernels", "kernel_counts"):
             if k in out:
@@ -256,6 +377,7 @@ def main(argv=None) -> int:
         fn()
         fn()
     torch.cuda.synchronize()
+    marks = launch_marks(getattr(prefill, "eager", prefill))
     before = launch_counts()
     out = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
            "layers": cfg.num_layers, "weight_bytes_per_step": weight_bytes,
@@ -268,7 +390,8 @@ def main(argv=None) -> int:
            "fused": not args.plain if steps is _paged_steps else None,
            "capacity_step": args.capacity_step,
            "decode": {**_timed(decode, args.steps), **traced(decode)},
-           "prefill": {**_timed(prefill, args.steps), **traced(prefill)}}
+           "prefill": {**_timed(prefill, args.steps),
+                       **traced(prefill, marks=marks)}}
     after = launch_counts()
     out["kernel_launches"] = {k: after[k] - before[k] for k in after}
     graph = getattr(decode, "graph", None)
@@ -501,6 +624,14 @@ def _paged_steps(model, args, dev):
         rt.prefill(model, "extend", chunk, pad_to=CHUNK)
         rt.programs["extend"].length = args.context   # same context each time
 
+    def eager():                   # the same chunk, eager, for its marks
+        graphs, rt.cuda_graphs = rt.cuda_graphs, False
+        try:
+            prefill()
+        finally:
+            rt.cuda_graphs = graphs
+
+    prefill.eager = eager
     return decode, prefill, CHUNK
 
 

@@ -9,10 +9,13 @@ reference's q-chunked online-softmax blocks (:func:`causal_blocks`,
 blocks on any device, each block recomputed in backward where its layer
 is not (the reference's ``_block_attn_remat``): the kernel has no
 backward, and the reference's train step runs its jnp blocks too.
-``attend_decode`` is dense attention of new tokens against a contiguous
-or ring cache with length and window masking (extend and decode mode, as
-in the reference). The paged decode path goes through its own CUDA kernel
-(:mod:`repro_torch.kernels.decode_attention`). On a mesh,
+``attend_decode`` is attention of new tokens against a contiguous or ring
+cache with length and window masking (extend and decode mode, as in the
+reference): on CUDA tensors a chunk of several tokens against a plain
+cache runs the flash kernels' extend launch, its offsets read on the
+device; one token, a ring, and CPU tensors take the reference's dense
+arithmetic (:func:`decode_stats`). The paged decode path goes through
+its own CUDA kernel (:mod:`repro_torch.kernels.decode_attention`). On a mesh,
 :func:`attend_sharded` runs the same functions on each rank's local
 pieces (the flash kernel on CUDA tensors, never on a DTensor).
 
@@ -30,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import matmul_in, matmul_out
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                 flash_extend_kernel)
 from repro_torch.models.common import (ParamSpec, apply_rope, rms_norm,
                                        rope_tables, softcap)
 
@@ -446,15 +450,46 @@ def _per_forward(anchor, key: tuple, make):
 
 
 def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
-                  cap: float = 0.0, window: int = 0) -> torch.Tensor:
+                  cap: float = 0.0, window: int = 0,
+                  plain: bool = False) -> torch.Tensor:
     """q (B,C,H,Dh) new queries at absolute positions kv_len..kv_len+C-1
-    (per batch); the cache (B,T,KV,Dh) already holds the new keys. Dense
-    over the cache with validity masking, and with ``window`` the sliding
-    window: in a ring (T == window) slot s holds the latest position p =
-    s (mod T) below kv_len + C, in a plain cache slot s holds position
-    s. The reference's two masks."""
+    (per batch); the cache (B,T,KV,Dh) already holds the new keys, and
+    kv_len + C <= T. With ``window`` the sliding window: in a ring (T ==
+    window) slot s holds the latest position p = s (mod T) below kv_len +
+    C, in a plain cache slot s holds position s. The reference's two
+    masks.
+
+    On CUDA tensors a chunk (C > 1) over a plain cache runs the flash
+    kernels' extend launch on (B,H,C,Dh) / (B,KV,T,Dh) views of the same
+    memory, kv_len its device offsets (:func:`_extend_offsets`: nothing
+    read on the host). One token, a ring, CPU tensors and ``plain`` (what
+    ``Model.forward`` passes unless ``fused``) take the reference's dense
+    arithmetic, :func:`decode_stats`."""
+    if q.is_cuda and q.shape[1] > 1 and not plain and \
+            not is_ring(cache_k, window):
+        if cache_k.dtype != q.dtype:
+            cache_k, cache_v = cache_k.to(q.dtype), cache_v.to(q.dtype)
+        return flash_extend_kernel(
+            q.transpose(1, 2), cache_k.transpose(1, 2),
+            cache_v.transpose(1, 2), _extend_offsets(kv_len, q.shape[0],
+                                                     q.device),
+            scale=scale, window=window, softcap=cap).transpose(1, 2)
     return _finalize(*decode_stats(q, cache_k, cache_v, kv_len, scale=scale,
                                    cap=cap, window=window))
+
+
+def _extend_offsets(kv_len, B: int, device) -> torch.Tensor:
+    """The extend launch's offsets: a contiguous int32 (B,) tensor on
+    ``device``, one for all the layers of a forward; a (1,) or (B,)
+    int32 tensor there is used as it is (a view, no launch), a host int
+    filled there (no upload)."""
+    def make():
+        if isinstance(kv_len, int):
+            return torch.full((B,), kv_len, dtype=torch.int32,
+                              device=device)
+        off = torch.as_tensor(kv_len).to(device, torch.int32).reshape(-1)
+        return off.expand(B).contiguous()
+    return _per_forward(kv_len, ("extend_offsets", B), make)
 
 
 def decode_stats(q, cache_k, cache_v, kv_len, *, scale: float,

@@ -17,6 +17,15 @@ Modes: "prefill" (fresh causal or windowed attention, a fresh WKV or SSD
 scan, optional cache write), "extend" (a chunk against an existing cache),
 "decode", and "train" (:meth:`Model.loss`: no cache, the plain attention
 blocks and WKV scan on any device, layers recomputed in backward).
+
+``Model.forward(..., fused=True)`` (the paged runtime's prefill chunk
+with its ``fused`` switch on) runs the attention layers' RMS norms, with
+their residual adds, the final norm and the dense FFN's gated activation
+through :mod:`repro_torch.kernels.fusions`, and a chunk's attention over
+the cache as the flash kernels' extend launch, on CUDA tensors; the
+default keeps the plain spelling of all of them (the fresh prefill's
+attention is the flash kernel either way). Both give the same bits on
+the CPU.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from repro_torch.dist.sharding import (axis_rules, constrain, current_rules,
                                        replicated_like)
 from repro_torch.kernels import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.kernels import fusions
 from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.common import (ParamSpec, add_rms_norm, cast_params,
                                        init_params, meta_params, rms_norm,
@@ -354,14 +364,16 @@ class Model(nn.Module):
         return fn(*args)
 
     def _attn_apply(self, p: dict, h, kv, cache_len, positions, mode,
-                    window: int = 0):
+                    window: int = 0, fused: bool = False):
         """One attention sublayer on the normed input ``h``; ``kv`` is the
         layer's (k, v) cache pair, written in place, or None. ``window``
         > 0: gemma2's sliding window (its cache a ring when it has exactly
         ``window`` slots). Mode "train" runs the plain blocks on any
         device, each recomputed in backward unless the whole layer is
         (``cfg.remat``): nested, the blocks' forward would run a third
-        time for nothing the backward needs."""
+        time for nothing the backward needs. ``fused``: extend and decode
+        attention through the extend launch where ``attend_decode`` takes
+        it, else in the plain spelling on any device."""
         cfg = self.cfg
         q, k, v = attn.qkv_project(p, h, cfg, positions)
         scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -376,7 +388,8 @@ class Model(nn.Module):
                              ring=attn.is_ring(kv[0], window))
         if mode in ("extend", "decode"):
             o = attn.attend_decode(q, kv[0], kv[1], cache_len, scale=scale,
-                                   cap=cfg.attn_softcap, window=window)
+                                   cap=cfg.attn_softcap, window=window,
+                                   plain=not fused)
         elif mode == "train" and window:
             o = attn.windowed_blocks(q, k, v, scale=scale, window=window,
                                      cap=cfg.attn_softcap,
@@ -392,43 +405,53 @@ class Model(nn.Module):
             o = attn.attend_causal(q, k, v, scale=scale, cap=cfg.attn_softcap)
         return attn.out_project(p, o)
 
+    def _norm(self, x, scale, delta=None, *, fp32_sum: bool = False,
+              fused: bool = False):
+        """``rms_norm(x)``, or with ``delta`` ``(x + delta, norm)``, the
+        norm reading the fp32 sum (``fp32_sum``: ``add_rms_norm``) or the
+        rounded one: :func:`repro_torch.kernels.fusions.rms_norm`, its
+        kernel on CUDA tensors when ``fused``, else the plain spelling on
+        any device (the same ops, bit for bit)."""
+        return fusions.rms_norm(x, scale, self.cfg.norm_eps, delta,
+                                fp32_sum=fp32_sum, plain=not fused)
+
     def _attn_layer(self, p: dict, x, kv, cache_len, positions, mode,
-                    fused: bool = True, window: int = 0, delta=None):
+                    scanned: bool = True, window: int = 0, delta=None,
+                    fused: bool = False):
         """One attention layer; ``kv`` is the layer's (k, v) cache pair or
         None. Returns the residual stream before the FFN's output and that
         output, for the caller to add. The FFN is MoE where the layer has
         a router; gemma2's sandwich norms (``ln1_post``, ``ln2_post``) norm
-        each sublayer's output before its residual add. ``fused``: ln2
+        each sublayer's output before its residual add. ``scanned``: ln2
         reads the fp32 residual sum before it is rounded, as XLA's fusion
         computes the reference's scanned layers (ROADMAP P2); the
         reference runs its leading dense layers outside the scan, op by
-        op, where ln2 reads the rounded sum (``fused=False``). ``delta``:
-        the previous layer's FFN output, added here, ln1 reading the sum
-        unrounded (gemma2's global layer after its local one: the
-        reference's pair is one fused scan body)."""
+        op, where ln2 reads the rounded sum (``scanned=False``).
+        ``delta``: the previous layer's FFN output, added here, ln1
+        reading the sum unrounded (gemma2's global layer after its local
+        one: the reference's pair is one fused scan body). ``fused``: as
+        :meth:`forward`'s."""
         cfg = self.cfg
         if delta is None:
-            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            h = self._norm(x, p["ln1"], fused=fused)
         else:
-            x, h = add_rms_norm(x, delta, p["ln1"], cfg.norm_eps)
+            x, h = self._norm(x, p["ln1"], delta, fp32_sum=True, fused=fused)
         a = self._attn_apply(p["attn"], h, kv, cache_len, positions, mode,
-                             window)
+                             window, fused)
         if cfg.sandwich_norm:
-            a = rms_norm(a, p["ln1_post"], cfg.norm_eps)
-        if fused:
-            x, h = add_rms_norm(x, a, p["ln2"], cfg.norm_eps)
-        else:
-            x = x + a
-            h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        f = ffn_apply(p["mlp"], h, cfg)
+            a = self._norm(a, p["ln1_post"], fused=fused)
+        x, h = self._norm(x, p["ln2"], a, fp32_sum=scanned, fused=fused)
+        f = ffn_apply(p["mlp"], h, cfg, functools.partial(
+            _fused_act, activation=cfg.activation) if fused else None)
         if cfg.sandwich_norm:
-            f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
+            f = self._norm(f, p["ln2_post"], fused=fused)
         return x, f
 
     def _dense_layer(self, p: dict, x, kv, cache_len, positions, mode,
-                     fused: bool):
+                     scanned: bool, fused: bool = False):
         """An attention layer with its FFN's output added."""
-        x, f = self._attn_layer(p, x, kv, cache_len, positions, mode, fused)
+        x, f = self._attn_layer(p, x, kv, cache_len, positions, mode,
+                                scanned, fused=fused)
         return x + f
 
     def _shared_block(self, p: dict, x, x0, kv, cache_len, positions,
@@ -501,7 +524,8 @@ class Model(nn.Module):
                 embeds: torch.Tensor | None = None, cache: dict | None = None,
                 cache_len=0, mode: str = "prefill",
                 logits_slice: int | None = None,
-                rows: torch.Tensor | None = None):
+                rows: torch.Tensor | None = None,
+                fused: bool = False):
         """tokens (B, S), or embeds (B, S, D) for the VLM family's patch
         embeddings (no position embedding added) -> (fp32 logits (B, S or
         logits_slice, V), cache). The cache is written in place and
@@ -509,25 +533,32 @@ class Model(nn.Module):
         per-sequence offsets. ``rows``: an (n,) index tensor; the logits
         of those rows only (B, n, V), picked before the final norm, so the
         norm and the head run on n rows (the paged runtime's chunk: its
-        last real row, an index on the device)."""
+        last real row, an index on the device). ``fused``: the chains the
+        paged runtime's switch covers through their kernels (the module's
+        docstring); refused on a mesh (the fusions take local CUDA
+        tensors, never a DTensor)."""
         if mode not in ("prefill", "extend", "decode"):
             raise ValueError(f"mode {mode!r}")
         if mode != "prefill" and cache is None:
             raise ValueError(f"mode {mode!r} needs a cache")
         if (tokens is None) == (embeds is None):
             raise ValueError("pass exactly one of tokens or embeds")
+        if fused and self.mesh is not None:
+            raise ValueError("fused=True runs the fusion kernels on local "
+                             "tensors, never on a meshed model's DTensors")
         with self._sharding(), attn.forward_scope():
             w = self._forward_weights()
             x = self._hidden(w, tokens, embeds, cache, cache_len, mode,
-                             rows)
+                             rows, fused)
             if logits_slice is not None:
                 x = x[:, -logits_slice:]
             return self._logits(w, x), cache
 
     def _hidden(self, w: Weights, tokens, embeds, cache, cache_len, mode,
-                rows=None):
+                rows=None, fused: bool = False):
         """Embedding, the layer stack and the final norm (of ``rows``
-        alone when given)."""
+        alone when given); ``fused`` as :meth:`forward`'s, read by the
+        attention layers and the final norm."""
         cfg = self.cfg
         if embeds is None:
             tokens = tokens.to(self.device)
@@ -570,7 +601,8 @@ class Model(nn.Module):
                                                  cache[f"v_{kind}"][g])
                 layer = functools.partial(self._attn_layer, p, kv=kv,
                                           cache_len=cache_len,
-                                          positions=positions, mode=mode)
+                                          positions=positions, mode=mode,
+                                          fused=fused)
                 if kind == "local":
                     x, f = self._step(mode, functools.partial(
                         layer, window=W), x)
@@ -579,20 +611,22 @@ class Model(nn.Module):
                                       layer(x, delta=f), x, f)
                     x = _act(x + f)
         else:
-            for stack, k, v, fused in ((w.first_layers, "k0", "v0", False),
-                                       (w.layers, "k", "v", True)):
+            for stack, k, v, scanned in ((w.first_layers, "k0", "v0", False),
+                                         (w.layers, "k", "v", True)):
                 for i, p in enumerate(stack):
                     kv = None if cache is None else (cache[k][i],
                                                      cache[v][i])
                     x = _act(self._step(mode, functools.partial(
                         self._dense_layer, p, kv=kv, cache_len=cache_len,
-                        positions=positions, mode=mode, fused=fused), x))
-        return self._final_norm(w, x, rows)
+                        positions=positions, mode=mode, scanned=scanned,
+                        fused=fused), x))
+        return self._final_norm(w, x, rows, fused)
 
-    def _final_norm(self, w: Weights, x, rows=None):
+    def _final_norm(self, w: Weights, x, rows=None,
+                    fused: bool = False):
         if rows is not None:
             x = x.index_select(1, rows)
-        return rms_norm(x, w.params["final_norm"], self.cfg.norm_eps)
+        return self._norm(x, w.params["final_norm"], fused=fused)
 
     def _scale_embeddings(self, x):
         if self.cfg.scale_embeddings:
@@ -729,6 +763,11 @@ def sharded_zeros(shape, dtype, device, rules: dict, axes) -> DTensor:
                               shape=torch.Size(shape),
                               stride=torch.empty(shape, device="meta")
                               .stride())
+
+
+def _fused_act(gate, up, *, activation: str):
+    """The dense FFN's gated product through the fused ``gated_act``."""
+    return fusions.gated_act(gate, up, activation)
 
 
 def ffn_apply(p: dict, h: torch.Tensor, cfg: ModelConfig,

@@ -220,8 +220,10 @@ class StepGraphs:
 
     def _binding(self) -> tuple:
         """What a captured step holds of the runtime: the pools'
-        addresses."""
-        return self.rt.k_pages.data_ptr(), self.rt.v_pages.data_ptr()
+        addresses, and its ``fused`` (a graph holds the step's kernels,
+        the fusions and the extend launch, or the plain chains)."""
+        return (self.rt.k_pages.data_ptr(), self.rt.v_pages.data_ptr(),
+                self.rt.fused)
 
     def _per_model(self, model, graphs: bool = True) -> dict:
         """``model``'s buckets (refused unless it may be captured, when
@@ -301,11 +303,6 @@ class DecodeGraphs(StepGraphs):
     the same values."""
 
     what = "decode step"
-
-    def _binding(self) -> tuple:
-        """The pools' addresses and the runtime's ``fused``: a graph holds
-        the step's kernels, the fusions or the plain chains."""
-        return super()._binding() + (self.rt.fused,)
 
     def _bucket(self, model, B: int, n_tab: int) -> Bucket:
         per = self._per_model(model)

@@ -35,8 +35,11 @@ both eagerly, one launch at a time. Inside the decode step, the
 elementwise chains that XLA fuses in the reference's scan (the RMS norms
 and residual adds, the qkv bias and RoPE, the new token's merge, the
 gated activation) are hand-written kernels on the card
-(:mod:`repro_torch.kernels.fusions`); ``fused=False`` runs their plain
-spelling there, one torch op at a time, to compare the two.
+(:mod:`repro_torch.kernels.fusions`); so are a chunk's norms and gated
+activation, and an extend chunk's attention over the cache is the flash
+kernels' extend launch (``Model.forward(..., fused=True)``).
+``fused=False`` runs their plain spelling there, one torch op at a time,
+to compare the two.
 """
 from __future__ import annotations
 
@@ -108,11 +111,13 @@ class PagedKVRuntime:
     buffers on the CPU; False runs both eagerly (the chunk on the same
     buffers). The flag is read at every step.
 
-    ``fused`` (default on): the decode step's elementwise chains run as
-    the fused kernels of :mod:`repro_torch.kernels.fusions` on the card
-    (their plain versions on the CPU); False runs the plain spelling on
-    any device, for comparisons on the card. Read at every step; a
-    change drops the captured graphs."""
+    ``fused`` (default on): the decode step's elementwise chains, and a
+    prefill chunk's norms and gated activation, run as the fused kernels
+    of :mod:`repro_torch.kernels.fusions` on the card (their plain
+    versions on the CPU), and an extend chunk's attention as the flash
+    kernels' extend launch; False runs the plain spelling on any device,
+    for comparisons on the card. Read at every step; a change drops the
+    captured graphs."""
 
     def __init__(self, cfg: ModelConfig, n_pages: int = 64,
                  page_size: int = 16, device="cuda",
@@ -428,7 +433,8 @@ class PagedKVRuntime:
         if mode == "extend":
             self._gather_into(k, v, gather, start)
         logits, _ = model.forward(toks[None], cache={"k": k, "v": v},
-                                  cache_len=start, mode=mode, rows=last)
+                                  cache_len=start, mode=mode, rows=last,
+                                  fused=self.fused)
         self._scatter_from(k, v, src, dst)
         out[0].copy_(logits[0, 0])
         out[1].copy_(out[0].argmax())

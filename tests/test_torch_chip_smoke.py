@@ -986,7 +986,7 @@ def test_kernels_line_names_the_fusions(fake_card, monkeypatch, capsys):
         assert (ROOT / source).exists()
         path, line = replaces.split(":")
         assert (ROOT / path).exists() and int(line) > 0
-    assert len(rows) == 7 + len(chip_smoke.FUSIONS)
+    assert len(rows) == 8 + len(chip_smoke.FUSIONS)
 
 
 @pytest.mark.parametrize("broken", ["rms_norm", "qkv_rope", "decode_merge",

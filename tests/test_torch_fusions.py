@@ -407,7 +407,9 @@ def test_every_fusion_counts_its_launches():
 def test_fused_flag_drops_the_graphs():
     """Turning ``fused`` off (or on) drops the captured decode buckets: a
     graph holds the kernels of the step it captured. The prefill chunk's
-    buckets, which do not depend on ``fused``, stay."""
+    buckets hold its spelling too (its norms, activation and extend
+    attention): kept when the flag is back before the next chunk, dropped
+    when a chunk runs under the other spelling."""
     cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
                               num_layers=1)
     model = Model(cfg, device="cpu", seed=0)
@@ -427,3 +429,7 @@ def test_fused_flag_drops_the_graphs():
     assert all(b is not bucket for b in rt.graphs.buckets().values())
     assert all(rt.prefill_graphs.buckets()[k] is b
                for k, b in prefill.items())
+    rt.fused = False
+    rt.prefill(model, "c", torch.arange(5))
+    assert all(b is not old for old in prefill.values()
+               for b in rt.prefill_graphs.buckets().values())

@@ -282,7 +282,8 @@ class TestPageCopy:
                                    "page_gather": 0, "page_scatter": 0,
                                    "token_append": 0,
                                    "token_append_indexed": 0,
-                                   "flash_attention": 0, "rwkv6_scan": 0,
+                                   "flash_attention": 0,
+                                   "flash_extend": 0, "rwkv6_scan": 0,
                                    "rms_norm": 0, "qkv_rope": 0,
                                    "decode_merge": 0, "gated_act": 0}
 
