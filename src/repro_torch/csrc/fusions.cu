@@ -18,7 +18,10 @@
 // - qkv_rope_kernel: the qkv biases, the optional qk norm and the rotary
 //   embedding of the three projections (models/attention.qkv_project,
 //   common.apply_rope), written in the layouts the decode kernel and the
-//   token append read;
+//   token append read; in its cache launch (qkv_rope_cache_launch, the
+//   prefill / extend chunk of Model.forward(fused=True)), a chunk's rows
+//   at a position each, k and v written straight into the layer's cache
+//   at the row's offset, read on the device (attention.write_cache);
 // - gated_act_kernel: act(gate) * up, SiLU or the tanh GELU
 //   (models/mlp.mlp_apply, common._silu, common._gelu_tanh).
 //
@@ -172,8 +175,15 @@ __global__ void __launch_bounds__(32 * kRowWarps) rms_norm_kernel(
 // bias added and rounded (q + bq), normed (query and key rows, with
 // qn/kn), then its leading 2 * rot_half channels rotated, each product,
 // difference and sum rounded as apply_rope's bf16 ops round them, with
-// cos and sin rounded to T as apply_rope casts its tables. q_out (B, H,
-// Dh), k_out and v_out (B, KV, Dh).
+// cos and sin rounded to T as apply_rope casts its tables; row b reads
+// table row b mod tab_rows (tab_rows = B, or a chunk's C positions shared
+// by its sequences). q_out (B, H, Dh). Without `off`, k_out and v_out
+// (B, KV, Dh). With `off` (the cache launch) the B rows are nb sequences
+// of C tokens: row b = s * C + c of sequence s goes to slot
+// clamp(off[s], 0, slots - C) + c of k_out / v_out, caches of (nb, slots,
+// KV, Dh) whose sequences lie cache_stride elements apart (write_cache's
+// clamp, the offset read by every thread: one graph replays any offset),
+// and also to k_rows / v_rows (B, KV, Dh) where given.
 template <typename T>
 __global__ void __launch_bounds__(32 * kRowWarps) qkv_rope_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
@@ -182,7 +192,9 @@ __global__ void __launch_bounds__(32 * kRowWarps) qkv_rope_kernel(
     const T* __restrict__ qn, const T* __restrict__ kn,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
     T* __restrict__ q_out, T* __restrict__ k_out, T* __restrict__ v_out,
-    int B, int H, int KV, int Dh, int rot_half, float eps) {
+    int B, int H, int KV, int Dh, int rot_half, float eps, int tab_rows,
+    const int* __restrict__ off, int C, int slots, long long cache_stride,
+    T* __restrict__ k_rows, T* __restrict__ v_rows) {
   __shared__ float stage[kRowWarps][kMaxHeadDim];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int per = H + 2 * KV;
@@ -193,6 +205,7 @@ __global__ void __launch_bounds__(32 * kRowWarps) qkv_rope_kernel(
   const T* bias;
   const T* norm;
   T* dst;
+  T* dst2 = nullptr;           // the chunk's k / v rows, where asked for
   bool rope;
   if (j < H) {
     src = q + ((long long)b * H + j) * Dh;
@@ -200,20 +213,25 @@ __global__ void __launch_bounds__(32 * kRowWarps) qkv_rope_kernel(
     bias = bq != nullptr ? bq + (long long)j * Dh : nullptr;
     norm = qn;
     rope = true;
-  } else if (j < H + KV) {
-    const int h = j - H;
-    src = k + ((long long)b * KV + h) * Dh;
-    dst = k_out + ((long long)b * KV + h) * Dh;
-    bias = bk != nullptr ? bk + (long long)h * Dh : nullptr;
-    norm = kn;
-    rope = true;
   } else {
-    const int h = j - H - KV;
-    src = v + ((long long)b * KV + h) * Dh;
-    dst = v_out + ((long long)b * KV + h) * Dh;
-    bias = bv != nullptr ? bv + (long long)h * Dh : nullptr;
-    norm = nullptr;
-    rope = false;
+    const bool is_k = j < H + KV;
+    const int h = is_k ? j - H : j - H - KV;
+    const long long row = ((long long)b * KV + h) * Dh;
+    src = (is_k ? k : v) + row;
+    const T* bb = is_k ? bk : bv;
+    bias = bb != nullptr ? bb + (long long)h * Dh : nullptr;
+    norm = is_k ? kn : nullptr;
+    rope = is_k;
+    T* out = is_k ? k_out : v_out;
+    if (off == nullptr) {
+      dst = out + row;
+    } else {
+      const int s = b / C, c = b - s * C;
+      const int start = max(min(off[s], slots - C), 0);
+      dst = out + s * cache_stride + ((long long)(start + c) * KV + h) * Dh;
+      T* rows = is_k ? k_rows : v_rows;
+      if (rows != nullptr) dst2 = rows + row;
+    }
   }
   float* row = stage[w];
   for (int e = lane; e < Dh; e += 32) {
@@ -237,12 +255,13 @@ __global__ void __launch_bounds__(32 * kRowWarps) qkv_rope_kernel(
     __syncwarp();
   }
   const int rot = rope ? 2 * rot_half : 0;
+  const long long tab = (long long)(b % tab_rows) * rot_half;
   for (int e = lane; e < Dh; e += 32) {
     float out = row[e];
     if (e < rot) {
       const int i = e < rot_half ? e : e - rot_half;
-      const float c = rnd<T>(cos_t[(long long)b * rot_half + i]);
-      const float s = rnd<T>(sin_t[(long long)b * rot_half + i]);
+      const float c = rnd<T>(cos_t[tab + i]);
+      const float s = rnd<T>(sin_t[tab + i]);
       if (e < rot_half)        // x1 * cos - x2 * sin
         out = rnd<T>(__fsub_rn(rnd<T>(__fmul_rn(row[e], c)),
                                rnd<T>(__fmul_rn(row[e + rot_half], s))));
@@ -251,6 +270,7 @@ __global__ void __launch_bounds__(32 * kRowWarps) qkv_rope_kernel(
                                rnd<T>(__fmul_rn(row[i], s))));
     }
     dst[e] = from_float<T>(out);
+    if (dst2 != nullptr) dst2[e] = from_float<T>(out);
   }
 }
 
@@ -316,9 +336,13 @@ int rope_launch(const void* q, const void* k, const void* v, const void* bq,
                 const void* bk, const void* bv, const void* qn,
                 const void* kn, const void* cos_t, const void* sin_t,
                 void* q_out, void* k_out, void* v_out, int B, int H, int KV,
-                int Dh, int rot_half, float eps, cudaStream_t s) {
+                int Dh, int rot_half, float eps, int tab_rows, const int* off,
+                int C, int slots, long long cache_stride, void* k_rows,
+                void* v_rows, cudaStream_t s) {
   if (Dh < 1 || Dh > kMaxHeadDim || 2 * rot_half > Dh || rot_half < 0 ||
-      ((qn != nullptr || kn != nullptr) && Dh % (16 / (int)sizeof(T))))
+      ((qn != nullptr || kn != nullptr) && Dh % (16 / (int)sizeof(T))) ||
+      (rot_half > 0 && (tab_rows < 1 || B % tab_rows)) ||
+      (off != nullptr && (C < 1 || B % C || slots < C)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = (long long)B * (H + 2 * KV);
   qkv_rope_kernel<T><<<(unsigned)((rows + kRowWarps - 1) / kRowWarps),
@@ -329,7 +353,8 @@ int rope_launch(const void* q, const void* k, const void* v, const void* bq,
       static_cast<const T*>(qn), static_cast<const T*>(kn),
       static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
       static_cast<T*>(q_out), static_cast<T*>(k_out), static_cast<T*>(v_out),
-      B, H, KV, Dh, rot_half, eps);
+      B, H, KV, Dh, rot_half, eps, tab_rows > 0 ? tab_rows : 1, off, C,
+      slots, cache_stride, static_cast<T*>(k_rows), static_cast<T*>(v_rows));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -394,11 +419,45 @@ int qkv_rope_launch(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return rope_launch<float>(q, k, v, bq, bk, bv, qn, kn, cos_t, sin_t,
                               q_out, k_out, v_out, B, H, KV, Dh, rot_half,
-                              eps, s);
+                              eps, B, nullptr, 1, 1, 0, nullptr, nullptr, s);
   if (dtype == 1)
     return rope_launch<__nv_bfloat16>(q, k, v, bq, bk, bv, qn, kn, cos_t,
                                       sin_t, q_out, k_out, v_out, B, H, KV,
-                                      Dh, rot_half, eps, s);
+                                      Dh, rot_half, eps, B, nullptr, 1, 1, 0,
+                                      nullptr, nullptr, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The cache launch: N = nb * C rows, q (N, H, Dh), k and v (N, KV, Dh),
+// contiguous; cos_t, sin_t (tab_rows, rot_half) fp32, tab_rows N or C;
+// off (nb,) int32 on the device. Writes q_out (N, H, Dh) and each row's k
+// and v into the caches k_cache / v_cache (nb, slots, KV, Dh; each
+// sequence's (slots, KV, Dh) contiguous, the sequences cache_stride
+// elements apart) at slot clamp(off[s], 0, slots - C) + c, and into
+// k_rows / v_rows (N, KV, Dh) unless they are null.
+int qkv_rope_cache_launch(const void* q, const void* k, const void* v,
+                          const void* bq, const void* bk, const void* bv,
+                          const void* qn, const void* kn, const void* cos_t,
+                          const void* sin_t, void* q_out, void* k_cache,
+                          void* v_cache, void* k_rows, void* v_rows,
+                          const void* off, int N, int H, int KV, int Dh,
+                          int rot_half, int tab_rows, int C, int slots,
+                          long long cache_stride, float eps, int dtype,
+                          void* stream) {
+  if (N == 0) return 0;
+  if (off == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* o = static_cast<const int*>(off);
+  if (dtype == 0)
+    return rope_launch<float>(q, k, v, bq, bk, bv, qn, kn, cos_t, sin_t,
+                              q_out, k_cache, v_cache, N, H, KV, Dh,
+                              rot_half, eps, tab_rows, o, C, slots,
+                              cache_stride, k_rows, v_rows, s);
+  if (dtype == 1)
+    return rope_launch<__nv_bfloat16>(q, k, v, bq, bk, bv, qn, kn, cos_t,
+                                      sin_t, q_out, k_cache, v_cache, N, H,
+                                      KV, Dh, rot_half, eps, tab_rows, o, C,
+                                      slots, cache_stride, k_rows, v_rows, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -76,12 +76,14 @@ def kernel_wrappers() -> dict:
     new token merged, which ``paged_decode_attention_kernel`` launches
     given ``new_kv`` (and does not count as its own). ``flash_extend``
     is the flash kernels' extend launch, apart from the prefill's
-    ``flash_attention``."""
+    ``flash_attention``; ``qkv_rope_chunk`` the qkv pass's chunk launch,
+    apart from the decode step's ``qkv_rope``."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_merge, paged_decode_attention_kernel)
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_kernel, flash_extend_kernel)
     from repro_torch.kernels.fusions.kernel import (gated_act_kernel,
+                                                    qkv_rope_chunk_kernel,
                                                     qkv_rope_kernel,
                                                     rms_norm_kernel)
     from repro_torch.kernels.page_copy.kernel import (
@@ -98,6 +100,7 @@ def kernel_wrappers() -> dict:
             "rwkv6_scan": rwkv6_scan_kernel,
             "rms_norm": rms_norm_kernel,
             "qkv_rope": qkv_rope_kernel,
+            "qkv_rope_chunk": qkv_rope_chunk_kernel,
             "decode_merge": decode_merge,
             "gated_act": gated_act_kernel}
 

@@ -1,17 +1,23 @@
 """The fusions XLA makes of the reference's jitted decode scan
 (``jax.jit(PagedKVRuntime._decode_step_impl)``, ``src/repro/serving/
 paged_runtime.py:69``), as hand-written CUDA kernels on the port's paged
-decode step. No package under ``src/repro/kernels/`` is their
-counterpart: the reference leaves these chains to XLA."""
+decode step; the qkv pass also on the prefill / extend chunk of
+``Model.forward(fused=True)``. No package under ``src/repro/kernels/`` is
+their counterpart: the reference leaves these chains to XLA."""
 from repro_torch.kernels.fusions.kernel import (gated_act_kernel,
+                                                qkv_rope_chunk_kernel,
                                                 qkv_rope_kernel,
                                                 rms_norm_kernel)
 from repro_torch.kernels.fusions.ops import (attend_merged, gated_act,
-                                             qkv_rope, rms_norm)
+                                             qkv_rope, qkv_rope_chunk,
+                                             rms_norm)
 from repro_torch.kernels.fusions.ref import (attend_merged_ref,
-                                             gated_act_ref, qkv_rope_ref,
-                                             rms_norm_ref)
+                                             gated_act_ref,
+                                             qkv_rope_chunk_ref,
+                                             qkv_rope_ref, rms_norm_ref)
 
 __all__ = ["attend_merged", "attend_merged_ref", "gated_act",
-           "gated_act_kernel", "gated_act_ref", "qkv_rope", "qkv_rope_kernel",
-           "qkv_rope_ref", "rms_norm", "rms_norm_kernel", "rms_norm_ref"]
+           "gated_act_kernel", "gated_act_ref", "qkv_rope",
+           "qkv_rope_chunk", "qkv_rope_chunk_kernel", "qkv_rope_chunk_ref",
+           "qkv_rope_kernel", "qkv_rope_ref", "rms_norm", "rms_norm_kernel",
+           "rms_norm_ref"]

@@ -1,6 +1,8 @@
 """CUDA fusions of the paged decode step: the checked launchers of
 ``csrc/fusions.cu`` (the RMS norms, qkv bias + RoPE, the gated
-activation). The fourth fusion, the new token's merge, is decode
+activation); qkv bias + RoPE also as the prefill / extend chunk's launch,
+a position a row, k and v written into the layer's cache at offsets read
+on the device (``qkv_rope_chunk_kernel``, counted apart). The fourth fusion, the new token's merge, is decode
 attention's combine given ``new_kv``
 (``paged_decode_attention_kernel``, ``csrc/decode_attention.cu``), counted
 as ``decode_attention.kernel.decode_merge``.
@@ -28,6 +30,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _NORM_ARGS = [_P] * 5 + [_I, _I, _F, _I, _I, _P]
 _ROPE_ARGS = [_P] * 13 + [_I] * 5 + [_F, _I, _P]
+_CACHE_ARGS = [_P] * 16 + [_I] * 8 + [_L, _F, _I, _P]
 _ACT_ARGS = [_P] * 3 + [_L, _I, _F, _F, _I, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256                            # kMaxHeadDim in the source
@@ -103,6 +106,58 @@ def rms_norm_kernel(x, scale, eps: float, delta=None,
 rms_norm_kernel.launches = 0
 
 
+def _check_rope_rows(what: str, q, k, v, bias, norm, rope, outs,
+                     tab_rows) -> int:
+    """The checks both qkv launches share: q (N, H, Dh), k and v (N, KV,
+    Dh); biases (H, Dh), (KV, Dh), (KV, Dh); norm scales (Dh,); fp32
+    tables (rows, rot/2) of ``tab_rows`` rows (any leading shape), rot <=
+    Dh; one dtype, contiguous, on one CUDA device (``outs`` too, checked
+    by the caller for shape). Returns rot/2."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"{what}: q (N, H, Dh), k and v (N, KV, Dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    N, H, Dh = q.shape
+    if k.shape[0] != N or k.shape[2] != Dh or not 1 <= Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}; "
+                         f"head dim at most {MAX_HEAD_DIM}")
+    bq, bk, bv = bias if bias is not None else (None, None, None)
+    qn, kn = norm if norm is not None else (None, None)
+    if bias is not None and (bq.shape != q.shape[1:]
+                             or bk.shape != k.shape[1:]
+                             or bv.shape != k.shape[1:]):
+        raise ValueError(f"{what}: biases (H, Dh), (KV, Dh), (KV, Dh)")
+    if norm is not None and (tuple(qn.shape) != (Dh,)
+                             or tuple(kn.shape) != (Dh,)):
+        raise ValueError(f"{what}: norm scales (Dh,)")
+    _check_dtype(what, q, k, v, bq, bk, bv, qn, kn, *outs)
+    cos = sin = None
+    rot_half = 0
+    if rope is not None:
+        cos, sin = rope
+        rot_half = cos.shape[-1]
+        if cos.dtype != torch.float32 or sin.shape != cos.shape \
+                or sin.dtype != torch.float32 \
+                or cos.numel() != tab_rows * rot_half or 2 * rot_half > Dh:
+            raise ValueError(f"{what}: rope tables fp32 of {tab_rows} rows "
+                             f"of rot/2 with rot <= Dh, got "
+                             f"{tuple(cos.shape)} {cos.dtype}")
+    for t in (q, k, v, bq, bk, bv, qn, kn, cos, sin, *outs):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{what}: contiguous tensors only")
+    if norm is not None:       # the norm sums 16-byte chunks
+        _check_rows(what, Dh, q, k)
+    _check_cuda(what, q, k, v, bq, bk, bv, qn, kn, cos, sin, *outs)
+    return rot_half
+
+
+def _rope_ptrs(bias, norm, rope) -> list:
+    bq, bk, bv = bias if bias is not None else (None, None, None)
+    qn, kn = norm if norm is not None else (None, None)
+    cos, sin = rope if rope is not None else (None, None)
+    return [_ptr(t) for t in (bq, bk, bv, qn, kn, cos, sin)]
+
+
 def qkv_rope_kernel(q, k, v, *, k_out, v_out, bias=None, norm=None,
                     eps: float = 0.0, rope=None):
     """One token's projections q (B, H, Dh), k and v (B, KV, Dh) on the
@@ -113,52 +168,20 @@ def qkv_rope_kernel(q, k, v, *, k_out, v_out, bias=None, norm=None,
     bits as ``ref.qkv_rope_ref`` (the norm within its one-ulp order). One
     launch."""
     what = "qkv_rope_kernel"
-    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
-        raise ValueError(f"{what}: q (B, H, Dh), k and v (B, KV, Dh), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() == 3 and (k_out.shape != k.shape or v_out.shape != k.shape):
+        raise ValueError(f"{what}: k {tuple(k.shape)}, outputs "
+                         f"{tuple(k_out.shape)} / {tuple(v_out.shape)}")
+    rot_half = _check_rope_rows(what, q, k, v, bias, norm, rope,
+                                (k_out, v_out), q.shape[0])
     B, H, Dh = q.shape
-    KV = k.shape[1]
-    if k.shape[0] != B or k.shape[2] != Dh or not 1 <= Dh <= MAX_HEAD_DIM \
-            or k_out.shape != k.shape or v_out.shape != k.shape:
-        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"outputs {tuple(k_out.shape)} / "
-                         f"{tuple(v_out.shape)}; head dim at most "
-                         f"{MAX_HEAD_DIM}")
-    bq, bk, bv = bias if bias is not None else (None, None, None)
-    qn, kn = norm if norm is not None else (None, None)
-    if bias is not None and (bq.shape != q.shape[1:]
-                             or bk.shape != k.shape[1:]
-                             or bv.shape != k.shape[1:]):
-        raise ValueError(f"{what}: biases (H, Dh), (KV, Dh), (KV, Dh)")
-    if norm is not None and (tuple(qn.shape) != (Dh,)
-                             or tuple(kn.shape) != (Dh,)):
-        raise ValueError(f"{what}: norm scales (Dh,)")
-    _check_dtype(what, q, k, v, bq, bk, bv, qn, kn, k_out, v_out)
-    cos = sin = None
-    rot_half = 0
-    if rope is not None:
-        cos, sin = rope
-        rot_half = cos.shape[-1]
-        if cos.dtype != torch.float32 or sin.shape != cos.shape \
-                or sin.dtype != torch.float32 or cos.numel() != B * rot_half \
-                or 2 * rot_half > Dh:
-            raise ValueError(f"{what}: rope tables fp32 (B, 1, rot/2) with "
-                             f"rot <= Dh, got {tuple(cos.shape)} "
-                             f"{cos.dtype}")
-    for t in (q, k, v, bq, bk, bv, qn, kn, cos, sin, k_out, v_out):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{what}: contiguous tensors only")
-    if norm is not None:       # the norm sums 16-byte chunks
-        _check_rows(what, Dh, q, k)
-    _check_cuda(what, q, k, v, bq, bk, bv, qn, kn, cos, sin, k_out, v_out)
     q_out = torch.empty_like(q)
     fn = _build.function(_LIB, "qkv_rope_launch", _ROPE_ARGS)
+    bq, bk, bv, qn, kn, cos, sin = _rope_ptrs(bias, norm, rope)
     with device_guard(q.device):
-        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bq), _ptr(bk), _ptr(bv),
-                 _ptr(qn), _ptr(kn), _ptr(cos), _ptr(sin), _ptr(q_out),
-                 _ptr(k_out), _ptr(v_out), B, H, KV, Dh, rot_half,
-                 float(eps), _DTYPES[q.dtype], stream_handle(q.device))
+        err = fn(_ptr(q), _ptr(k), _ptr(v), bq, bk, bv, qn, kn, cos, sin,
+                 _ptr(q_out), _ptr(k_out), _ptr(v_out), B, H, k.shape[1],
+                 Dh, rot_half, float(eps), _DTYPES[q.dtype],
+                 stream_handle(q.device))
     _build.check(_LIB, err, what)
     if B:
         qkv_rope_kernel.launches += 1
@@ -166,6 +189,76 @@ def qkv_rope_kernel(q, k, v, *, k_out, v_out, bias=None, norm=None,
 
 
 qkv_rope_kernel.launches = 0
+
+
+def qkv_rope_chunk_kernel(q, k, v, *, cache_k, cache_v, offsets,
+                          k_rows=None, v_rows=None, bias=None, norm=None,
+                          eps: float = 0.0, rope=None):
+    """A chunk's projections, ``qkv_rope_kernel``'s chain at a position a
+    row, with k and v written into the layer's cache: q (N, H, Dh), k and
+    v (N, KV, Dh) the chunk's N = nb * C rows (sequence s's C tokens at
+    rows s * C ...), contiguous, in float32 or bfloat16; ``cache_k``,
+    ``cache_v`` (nb, T, KV, Dh) in q's dtype, each sequence's (T, KV, Dh)
+    contiguous, T >= C; ``offsets`` a contiguous int32 (nb,) tensor on
+    the device; ``rope = (cos, sin)`` fp32 tables of N rows (a position a
+    row) or C (the positions the sequences share), each (..., rot/2).
+    Row c of sequence s lands in slot ``clamp(offsets[s], 0, T - C) + c``
+    (``attention.write_cache``'s clamp), read on the device, and in
+    ``k_rows`` / ``v_rows`` (N, KV, Dh) where given. Returns q (N, H,
+    Dh): the same bits as ``ref.qkv_rope_chunk_ref``, the norm within
+    its one-ulp order. Every check comes before the launch. One launch."""
+    what = "qkv_rope_chunk_kernel"
+    if cache_k.dim() != 4 or cache_v.shape != cache_k.shape \
+            or cache_v.stride() != cache_k.stride() or q.dim() != 3 \
+            or k.dim() != 3 or cache_k.shape[2:] != k.shape[1:]:
+        raise ValueError(f"{what}: caches (nb, T, KV, Dh) of one layout for "
+                         f"k {tuple(k.shape)}, got {tuple(cache_k.shape)} / "
+                         f"{tuple(cache_v.shape)}")
+    nb, T, KV, Dh = cache_k.shape
+    N = q.shape[0]
+    if not nb or N % nb or T < N // nb:
+        raise ValueError(f"{what}: {N} rows are not {nb} sequences of C <= "
+                         f"T = {T} tokens")
+    C = N // nb
+    if cache_k.stride()[1:] != (KV * Dh, Dh, 1):
+        raise ValueError(f"{what}: each sequence's cache (T, KV, Dh) "
+                         f"contiguous, got strides {cache_k.stride()}")
+    if not isinstance(offsets, torch.Tensor) \
+            or offsets.dtype != torch.int32 or offsets.shape != (nb,) \
+            or not offsets.is_contiguous():
+        raise ValueError(f"{what}: offsets a contiguous int32 ({nb},) "
+                         f"tensor, got {offsets!r}")
+    if (k_rows is None) != (v_rows is None) or (
+            k_rows is not None and (k_rows.shape != k.shape
+                                    or v_rows.shape != k.shape)):
+        raise ValueError(f"{what}: k_rows and v_rows both (N, KV, Dh) or "
+                         f"neither")
+    tab_rows = 0
+    if rope is not None:
+        tab_rows = rope[0].numel() // max(rope[0].shape[-1], 1)
+        if tab_rows not in (N, C):
+            raise ValueError(f"{what}: rope tables of {N} or {C} rows, got "
+                             f"{tuple(rope[0].shape)}")
+    _check_dtype(what, q, cache_k, cache_v)
+    rot_half = _check_rope_rows(what, q, k, v, bias, norm, rope,
+                                (k_rows, v_rows), tab_rows)
+    _check_cuda(what, q, cache_k, cache_v, offsets)
+    q_out = torch.empty_like(q)
+    fn = _build.function(_LIB, "qkv_rope_cache_launch", _CACHE_ARGS)
+    bq, bk, bv, qn, kn, cos, sin = _rope_ptrs(bias, norm, rope)
+    with device_guard(q.device):
+        err = fn(_ptr(q), _ptr(k), _ptr(v), bq, bk, bv, qn, kn, cos, sin,
+                 _ptr(q_out), _ptr(cache_k), _ptr(cache_v), _ptr(k_rows),
+                 _ptr(v_rows), _ptr(offsets), N, q.shape[1], KV, Dh,
+                 rot_half, tab_rows, C, T, cache_k.stride(0), float(eps),
+                 _DTYPES[q.dtype], stream_handle(q.device))
+    _build.check(_LIB, err, what)
+    if N:
+        qkv_rope_chunk_kernel.launches += 1
+    return q_out
+
+
+qkv_rope_chunk_kernel.launches = 0
 
 
 def gated_act_kernel(gate, up, activation: str):

@@ -1,4 +1,5 @@
-"""The paged decode step's fused passes, dispatched by device: a CUDA
+"""The paged decode step's fused passes (and the prefill chunk's qkv
+pass), dispatched by device: a CUDA
 tensor launches the hand-written kernel (:mod:`.kernel`), a CPU tensor
 takes the plain version (:mod:`.ref`), any other device raises. ``plain``
 takes the plain version on any device: the runtime's ``fused=False``, to
@@ -8,11 +9,13 @@ from __future__ import annotations
 from repro_torch.kernels.decode_attention.kernel import \
     paged_decode_attention_kernel
 from repro_torch.kernels.fusions.kernel import (gated_act_kernel,
+                                                qkv_rope_chunk_kernel,
                                                 qkv_rope_kernel,
                                                 rms_norm_kernel)
 from repro_torch.kernels.fusions.ref import (attend_merged_ref,
-                                             gated_act_ref, qkv_rope_ref,
-                                             rms_norm_ref)
+                                             gated_act_ref,
+                                             qkv_rope_chunk_ref,
+                                             qkv_rope_ref, rms_norm_ref)
 
 
 def _takes_plain(x, plain: bool, what: str) -> bool:
@@ -40,6 +43,20 @@ def qkv_rope(q, k, v, *, k_out, v_out, bias=None, norm=None,
         else qkv_rope_kernel
     return fn(q, k, v, k_out=k_out, v_out=v_out, bias=bias, norm=norm,
               eps=eps, rope=rope)
+
+
+def qkv_rope_chunk(q, k, v, *, cache_k, cache_v, offsets, k_rows=None,
+                   v_rows=None, bias=None, norm=None, eps: float = 0.0,
+                   rope=None, plain: bool = False):
+    """Bias, qk norm and RoPE of a prefill / extend chunk's projections
+    (N = nb * C rows, a position a row); k and v into the caches at the
+    device ``offsets`` (and ``k_rows`` / ``v_rows``); returns q (N, H,
+    Dh)."""
+    fn = qkv_rope_chunk_ref if _takes_plain(q, plain, "qkv_rope_chunk") \
+        else qkv_rope_chunk_kernel
+    return fn(q, k, v, cache_k=cache_k, cache_v=cache_v, offsets=offsets,
+              k_rows=k_rows, v_rows=v_rows, bias=bias, norm=norm, eps=eps,
+              rope=rope)
 
 
 def attend_merged(q, k_pages, v_pages, tables, lens, k_new, v_new, *,

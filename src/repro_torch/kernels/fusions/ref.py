@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import (merge_new_token_ref,
                                                   paged_decode_attention)
-from repro_torch.models.attention import qkv_finish
+from repro_torch.models.attention import qkv_finish, write_cache
 from repro_torch.models.common import activation_fn, add_rms_norm, rms_norm
 
 
@@ -35,6 +35,32 @@ def qkv_rope_ref(q, k, v, *, k_out, v_out, bias=None, norm=None,
     k_out.copy_(k[:, 0])
     v_out.copy_(v[:, 0])
     return q[:, 0].contiguous()
+
+
+def qkv_rope_chunk_ref(q, k, v, *, cache_k, cache_v, offsets, k_rows=None,
+                       v_rows=None, bias=None, norm=None, eps: float = 0.0,
+                       rope=None):
+    """A chunk's projections q (N, H, Dh), k and v (N, KV, Dh), N = nb *
+    C rows of ``cache_k``'s nb sequences: ``attention.qkv_finish`` over
+    their (nb, C, heads, Dh) views, ``rope = (cos, sin)`` tables of N or C
+    rows (..., rot/2), then ``attention.write_cache`` into ``cache_k`` /
+    ``cache_v`` (nb, T, KV, Dh) at ``offsets`` ((nb,), a tensor: slots
+    worked out on its device), and k / v into ``k_rows`` / ``v_rows`` (N,
+    KV, Dh) where given. Returns q (N, H, Dh), contiguous."""
+    N, H, Dh = q.shape
+    nb = cache_k.shape[0]
+    C = N // nb
+    if rope is not None:
+        lead = (nb, C) if rope[0].numel() == N * rope[0].shape[-1] else (C,)
+        rope = tuple(t.reshape(*lead, t.shape[-1]) for t in rope)
+    q, k, v = qkv_finish(q.view(nb, C, H, Dh), k.view(nb, C, -1, Dh),
+                         v.view(nb, C, -1, Dh), bias=bias, norm=norm,
+                         eps=eps, rope=rope)
+    write_cache(cache_k, cache_v, k, v, offsets)
+    if k_rows is not None:
+        k_rows.copy_(k.reshape(k_rows.shape))
+        v_rows.copy_(v.reshape(v_rows.shape))
+    return q.reshape(N, H, Dh).contiguous()
 
 
 def attend_merged_ref(q, k_pages, v_pages, tables, lens, k_new, v_new, *,

@@ -88,11 +88,14 @@ def qkv_finish(q, k, v, *, bias=None, norm=None, eps: float = 0.0,
 
 
 def qkv_project(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor | None, *, rope=None, finish=None):
-    """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh) with RoPE applied, the
-    tables made from ``positions`` unless given as ``rope``. ``finish``
-    takes :func:`qkv_finish`'s place (the paged decode step's fused pass)
-    and its result is returned."""
+                positions: torch.Tensor | None = None, *, rope=None,
+                finish=None):
+    """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh) with RoPE applied from
+    the tables ``rope = (cos, sin)`` (the model builds them once a
+    forward), or from tables made of ``positions`` when none are given.
+    ``finish`` takes :func:`qkv_finish`'s place (the fused passes of the
+    paged decode step and of the prefill chunk) and its result is
+    returned."""
     q, k, v = (matmul_in(x, p[w]) for w in ("wq", "wk", "wv"))
     if cfg.pos_emb != "rope":
         rope = None
@@ -465,8 +468,8 @@ def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
     read on the host). One token, a ring, CPU tensors and ``plain`` (what
     ``Model.forward`` passes unless ``fused``) take the reference's dense
     arithmetic, :func:`decode_stats`."""
-    if q.is_cuda and q.shape[1] > 1 and not plain and \
-            not is_ring(cache_k, window):
+    if takes_extend_launch(q.is_cuda, q.shape[1], plain,
+                           is_ring(cache_k, window)):
         if cache_k.dtype != q.dtype:
             cache_k, cache_v = cache_k.to(q.dtype), cache_v.to(q.dtype)
         return flash_extend_kernel(
@@ -478,9 +481,19 @@ def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
                                    cap=cap, window=window))
 
 
+def takes_extend_launch(cuda: bool, C: int, plain: bool,
+                        ring: bool) -> bool:
+    """Whether :func:`attend_decode` runs a chunk of ``C`` queries
+    through the flash extend launch, which never reads a cache slot past
+    a row's last query (the paged runtime then leaves its scratch rows
+    past ``start`` as the gather wrote them)."""
+    return cuda and C > 1 and not plain and not ring
+
+
 def _extend_offsets(kv_len, B: int, device) -> torch.Tensor:
-    """The extend launch's offsets: a contiguous int32 (B,) tensor on
-    ``device``, one for all the layers of a forward; a (1,) or (B,)
+    """The offsets of the extend launch and of the chunk's qkv launch: a
+    contiguous int32 (B,) tensor on ``device``, one for all the layers of
+    a forward; a (1,) or (B,)
     int32 tensor there is used as it is (a view, no launch), a host int
     filled there (no upload)."""
     def make():

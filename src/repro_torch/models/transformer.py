@@ -21,11 +21,13 @@ blocks and WKV scan on any device, layers recomputed in backward).
 ``Model.forward(..., fused=True)`` (the paged runtime's prefill chunk
 with its ``fused`` switch on) runs the attention layers' RMS norms, with
 their residual adds, the final norm and the dense FFN's gated activation
-through :mod:`repro_torch.kernels.fusions`, and a chunk's attention over
-the cache as the flash kernels' extend launch, on CUDA tensors; the
-default keeps the plain spelling of all of them (the fresh prefill's
-attention is the flash kernel either way). Both give the same bits on
-the CPU.
+through :mod:`repro_torch.kernels.fusions`, a prefill or extend chunk's
+qkv bias, qk norm, RoPE and cache write as one launch of the fusions'
+qkv kernel, and a chunk's attention over the cache as the flash kernels'
+extend launch, on CUDA tensors; the default keeps the plain spelling of
+all of them (the fresh prefill's attention is the flash kernel either
+way). Both give the same bits on the CPU. The rotary tables are built
+once a forward, from its positions.
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ from repro_torch.kernels import fusions
 from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.common import (ParamSpec, add_rms_norm, cast_params,
                                        init_params, meta_params, rms_norm,
-                                       sinusoidal_emb, softcap, torch_dtype)
+                                       rope_tables, sinusoidal_emb, softcap,
+                                       torch_dtype)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
 from repro_torch.models.moe import moe_apply, moe_specs
 
@@ -363,29 +366,39 @@ class Model(nn.Module):
                               context_fn=recompute_context())
         return fn(*args)
 
-    def _attn_apply(self, p: dict, h, kv, cache_len, positions, mode,
+    def _attn_apply(self, p: dict, h, kv, cache_len, rope, mode,
                     window: int = 0, fused: bool = False):
         """One attention sublayer on the normed input ``h``; ``kv`` is the
-        layer's (k, v) cache pair, written in place, or None. ``window``
-        > 0: gemma2's sliding window (its cache a ring when it has exactly
-        ``window`` slots). Mode "train" runs the plain blocks on any
-        device, each recomputed in backward unless the whole layer is
-        (``cfg.remat``): nested, the blocks' forward would run a third
-        time for nothing the backward needs. ``fused``: extend and decode
-        attention through the extend launch where ``attend_decode`` takes
-        it, else in the plain spelling on any device."""
+        layer's (k, v) cache pair, written in place, or None; ``rope`` the
+        forward's (cos, sin) tables or None. ``window`` > 0: gemma2's
+        sliding window (its cache a ring when it has exactly ``window``
+        slots). Mode "train" runs the plain blocks on any device, each
+        recomputed in backward unless the whole layer is (``cfg.remat``):
+        nested, the blocks' forward would run a third time for nothing the
+        backward needs. ``fused``: a prefill or extend chunk on CUDA
+        tensors over a plain cache (not a ring) takes its qkv bias, qk
+        norm, RoPE and cache write as one launch (:func:`_fused_qkv_write`),
+        and extend and decode attention the extend launch where
+        ``attend_decode`` takes it; else (and on the CPU) the plain
+        spelling."""
         cfg = self.cfg
-        q, k, v = attn.qkv_project(p, h, cfg, positions)
         scale = 1.0 / math.sqrt(cfg.head_dim)
-        if isinstance(q, DTensor):
-            o = attn.attend_sharded(q, k, v, kv, cache_len, mode=mode,
-                                    scale=scale, cap=cfg.attn_softcap,
-                                    window=window,
-                                    remat=cfg.remat == "none")
-            return attn.out_project(p, o)
-        if kv is not None:
-            attn.write_cache(kv[0], kv[1], k, v, cache_len,
-                             ring=attn.is_ring(kv[0], window))
+        if _takes_qkv_launch(fused, h, kv, mode, window):
+            q, k, v = attn.qkv_project(p, h, cfg, rope=rope, finish=(
+                functools.partial(_fused_qkv_write, cache=kv,
+                                  cache_len=cache_len,
+                                  rows=mode == "prefill")))
+        else:
+            q, k, v = attn.qkv_project(p, h, cfg, rope=rope)
+            if isinstance(q, DTensor):
+                o = attn.attend_sharded(q, k, v, kv, cache_len, mode=mode,
+                                        scale=scale, cap=cfg.attn_softcap,
+                                        window=window,
+                                        remat=cfg.remat == "none")
+                return attn.out_project(p, o)
+            if kv is not None:
+                attn.write_cache(kv[0], kv[1], k, v, cache_len,
+                                 ring=attn.is_ring(kv[0], window))
         if mode in ("extend", "decode"):
             o = attn.attend_decode(q, kv[0], kv[1], cache_len, scale=scale,
                                    cap=cfg.attn_softcap, window=window,
@@ -415,7 +428,7 @@ class Model(nn.Module):
         return fusions.rms_norm(x, scale, self.cfg.norm_eps, delta,
                                 fp32_sum=fp32_sum, plain=not fused)
 
-    def _attn_layer(self, p: dict, x, kv, cache_len, positions, mode,
+    def _attn_layer(self, p: dict, x, kv, cache_len, rope, mode,
                     scanned: bool = True, window: int = 0, delta=None,
                     fused: bool = False):
         """One attention layer; ``kv`` is the layer's (k, v) cache pair or
@@ -436,7 +449,7 @@ class Model(nn.Module):
             h = self._norm(x, p["ln1"], fused=fused)
         else:
             x, h = self._norm(x, p["ln1"], delta, fp32_sum=True, fused=fused)
-        a = self._attn_apply(p["attn"], h, kv, cache_len, positions, mode,
+        a = self._attn_apply(p["attn"], h, kv, cache_len, rope, mode,
                              window, fused)
         if cfg.sandwich_norm:
             a = self._norm(a, p["ln1_post"], fused=fused)
@@ -447,22 +460,21 @@ class Model(nn.Module):
             f = self._norm(f, p["ln2_post"], fused=fused)
         return x, f
 
-    def _dense_layer(self, p: dict, x, kv, cache_len, positions, mode,
+    def _dense_layer(self, p: dict, x, kv, cache_len, rope, mode,
                      scanned: bool, fused: bool = False):
         """An attention layer with its FFN's output added."""
-        x, f = self._attn_layer(p, x, kv, cache_len, positions, mode,
+        x, f = self._attn_layer(p, x, kv, cache_len, rope, mode,
                                 scanned, fused=fused)
         return x + f
 
-    def _shared_block(self, p: dict, x, x0, kv, cache_len, positions,
-                      mode):
+    def _shared_block(self, p: dict, x, x0, kv, cache_len, rope, mode):
         """zamba2's shared attention + MLP block: its input is
         ``concat(x, x0) @ win``, with x0 the (scaled) embeddings; its
         output is added to the residual stream."""
         cfg = self.cfg
         h = matmul(torch.cat([x, x0], dim=-1), p["win"])
         a = self._attn_apply(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
-                             kv, cache_len, positions, mode)
+                             kv, cache_len, rope, mode)
         h, h2 = add_rms_norm(h, a, p["ln2"], cfg.norm_eps)
         return x + (h + mlp_apply(p["mlp"], h2, cfg.activation))
 
@@ -473,7 +485,7 @@ class Model(nn.Module):
             mode)
         return x + out, new
 
-    def _hybrid(self, w: Weights, x, cache, cache_len, positions, mode):
+    def _hybrid(self, w: Weights, x, cache, cache_len, rope, mode):
         """zamba2's stack: per group g, shared block g mod
         ``num_shared_blocks`` (its KV in ``shared_k/v[g]``), then the
         group's E Mamba2 layers (their states in ``conv/ssm[g, e]``,
@@ -487,7 +499,7 @@ class Model(nn.Module):
             shared = w.shared_blocks[g % len(w.shared_blocks)]
             x = _act(self._step(mode, functools.partial(
                 self._shared_block, shared, kv=kv, cache_len=cache_len,
-                positions=positions, mode=mode), x, x0))
+                rope=rope, mode=mode), x, x0))
             for e in range(E):
                 state = None if cache is None else {
                     "conv": cache["conv"][g, e], "ssm": cache["ssm"][g, e]}
@@ -586,9 +598,13 @@ class Model(nn.Module):
         if embeds is None and cfg.pos_emb == "sinusoidal":
             x = x + replicated_like(
                 sinusoidal_emb(positions, cfg.d_model).to(x.dtype), x)
+        # the rotary tables once a forward, every layer's positions
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                           cfg.rope_fraction) \
+            if cfg.pos_emb == "rope" else None
         x = _act(self._scale_embeddings(x))
         if cfg.family == "hybrid":
-            x = self._hybrid(w, x, cache, cache_len, positions, mode)
+            x = self._hybrid(w, x, cache, cache_len, rope, mode)
         elif cfg.local_global_alternating:
             W = cfg.sliding_window
             # extend and decode both read the ring after the chunk's write
@@ -601,7 +617,7 @@ class Model(nn.Module):
                                                  cache[f"v_{kind}"][g])
                 layer = functools.partial(self._attn_layer, p, kv=kv,
                                           cache_len=cache_len,
-                                          positions=positions, mode=mode,
+                                          rope=rope, mode=mode,
                                           fused=fused)
                 if kind == "local":
                     x, f = self._step(mode, functools.partial(
@@ -618,7 +634,7 @@ class Model(nn.Module):
                                                      cache[v][i])
                     x = _act(self._step(mode, functools.partial(
                         self._dense_layer, p, kv=kv, cache_len=cache_len,
-                        positions=positions, mode=mode, scanned=scanned,
+                        rope=rope, mode=mode, scanned=scanned,
                         fused=fused), x))
         return self._final_norm(w, x, rows, fused)
 
@@ -768,6 +784,39 @@ def sharded_zeros(shape, dtype, device, rules: dict, axes) -> DTensor:
 def _fused_act(gate, up, *, activation: str):
     """The dense FFN's gated product through the fused ``gated_act``."""
     return fusions.gated_act(gate, up, activation)
+
+
+def _takes_qkv_launch(fused: bool, h, kv, mode: str, window: int) -> bool:
+    """Whether an attention sublayer's qkv pass and cache write are the
+    chunk's one launch (:func:`_fused_qkv_write`): ``fused``, a prefill
+    or extend chunk, CUDA tensors, a plain cache (not a ring). A mesh
+    never gets here fused (``Model.forward`` refuses it)."""
+    return fused and kv is not None and mode in ("prefill", "extend") \
+        and h.is_cuda and not attn.is_ring(kv[0], window)
+
+
+def _fused_qkv_write(q, k, v, *, cache, cache_len, rows: bool, **finish):
+    """``qkv_finish`` and ``write_cache`` of a prefill or extend chunk's
+    projections q (B, C, H, Dh), k and v (B, C, KV, Dh) as one
+    ``fusions.qkv_rope_chunk``: k and v written into the layer's
+    ``cache`` pair at ``cache_len`` (the forward's int32 device offsets,
+    made once a forward: one graph replays every start). Returns (q, k,
+    v) as (B, C, heads, Dh); k and v (the chunk's rows, which a prefill's
+    attention reads) only with ``rows``, else None."""
+    B, C, H, Dh = q.shape
+    KV = k.shape[2]
+    kr = vr = None
+    if rows:
+        kr, vr = (t.new_empty((B * C, KV, Dh)) for t in (k, v))
+    qo = fusions.qkv_rope_chunk(
+        q.reshape(B * C, H, Dh), k.reshape(B * C, KV, Dh),
+        v.reshape(B * C, KV, Dh), cache_k=cache[0], cache_v=cache[1],
+        offsets=attn._extend_offsets(cache_len, B, q.device), k_rows=kr,
+        v_rows=vr, **finish)
+    if not rows:
+        return qo.view(B, C, H, Dh), None, None
+    return (qo.view(B, C, H, Dh), kr.view(B, C, KV, Dh),
+            vr.view(B, C, KV, Dh))
 
 
 def ffn_apply(p: dict, h: torch.Tensor, cfg: ModelConfig,

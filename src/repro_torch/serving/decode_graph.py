@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import time
 import weakref
 
@@ -100,15 +101,25 @@ def capture(graph, pool, step, error_mode: str = "global") -> None:
     capture needs none of them, so none is done. A failure inside the
     capture ends it and raises. ``error_mode`` "thread_local": only this
     thread's unsafe CUDA calls break the capture (a step on a mesh:
-    NCCL's watchdog thread keeps querying its events meanwhile)."""
-    graph.capture_begin(pool=pool, capture_error_mode=error_mode)
+    NCCL's watchdog thread keeps querying its events meanwhile). Python's
+    cycle collector is off while the step is recorded: a collection
+    there may destroy an unreachable graph (a dropped runtime's), whose
+    teardown is not permitted while a stream captures and breaks this
+    capture."""
+    collecting = gc.isenabled()
+    gc.disable()
     try:
-        step()
-    except BaseException:
-        with contextlib.suppress(RuntimeError):    # already invalidated
-            graph.capture_end()
-        raise
-    graph.capture_end()
+        graph.capture_begin(pool=pool, capture_error_mode=error_mode)
+        try:
+            step()
+        except BaseException:
+            with contextlib.suppress(RuntimeError):    # already invalidated
+                graph.capture_end()
+            raise
+        graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def counted_capture(graph, pool, step,

@@ -431,7 +431,10 @@ class PagedKVRuntime:
         and argmax are written into ``out``. Nothing here reads a device
         value on the host, so the step can be captured."""
         if mode == "extend":
-            self._gather_into(k, v, gather, start)
+            self._gather_into(k, v, gather, start,
+                              zero=not attn_mod.takes_extend_launch(
+                                  k.is_cuda, toks.shape[0], not self.fused,
+                                  False))
         logits, _ = model.forward(toks[None], cache={"k": k, "v": v},
                                   cache_len=start, mode=mode, rows=last,
                                   fused=self.fused)
@@ -449,16 +452,19 @@ class PagedKVRuntime:
         for scratch, pool in ((k, self.k_pages), (v, self.v_pages)):
             self._pool_rows(pool)[:, dst] = scratch[:, 0].index_select(1, src)
 
-    def _gather_into(self, k, v, gather, start) -> None:
+    def _gather_into(self, k, v, gather, start, zero: bool = True) -> None:
         """The pools' flat rows ``gather`` into scratch rows 0..T-1 of
-        every layer, and every row at or past ``start`` zeroed: the chunk
-        rewrites its own rows, and the rest are read masked, where a dead
-        page slot's NaN would survive its zero weight."""
-        live = (torch.arange(k.shape[2], device=k.device) < start)[:, None,
-                                                                   None]
+        every layer, and with ``zero`` every row at or past ``start``
+        zeroed: the chunk rewrites its own rows, and the plain attention
+        reads the rest masked, where a dead page slot's NaN would survive
+        its zero weight. The flash extend launch reads no slot past a
+        row's last query (``attention.takes_extend_launch``), so the fused
+        chunk's gather leaves them as gathered."""
+        live = (torch.arange(k.shape[2], device=k.device) < start)[
+            :, None, None] if zero else None
         for scratch, pool in ((k, self.k_pages), (v, self.v_pages)):
             rows = self._pool_rows(pool).index_select(1, gather)
-            scratch[:, 0] = torch.where(live, rows, 0)
+            scratch[:, 0] = torch.where(live, rows, 0) if zero else rows
 
     # ------------------------------------------------------------ decode
     @torch.no_grad()

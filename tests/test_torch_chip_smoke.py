@@ -986,7 +986,10 @@ def test_kernels_line_names_the_fusions(fake_card, monkeypatch, capsys):
         assert (ROOT / source).exists()
         path, line = replaces.split(":")
         assert (ROOT / path).exists() and int(line) > 0
-    assert len(rows) == 8 + len(chip_smoke.FUSIONS)
+    assert rows["qkv_rope_chunk"]["route"] == "cuda"
+    assert (rows["qkv_rope_chunk"]["source"],
+            rows["qkv_rope_chunk"]["replaces"]) == chip_smoke.CHUNK_QKV
+    assert len(rows) == 9 + len(chip_smoke.FUSIONS)
 
 
 @pytest.mark.parametrize("broken", ["rms_norm", "qkv_rope", "decode_merge",

@@ -294,3 +294,46 @@ def test_decode_steps_match_jax_runtime():
                                        rtol=2e-5, atol=5e-4)
         assert rj.pages_of("a") == rt.pages_of("a")
     assert rt.programs["a"].length == 18 and rt.graphs.buckets()
+
+
+class _Recorder:
+    """A stand-in for ``torch.cuda.CUDAGraph``'s capture calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        self.calls.append("begin")
+
+    def capture_end(self):
+        self.calls.append("end")
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_capture_keeps_the_cycle_collector_out(fails):
+    """No collection runs while a step is recorded (one may destroy an
+    unreachable graph, which breaks the capture), and the collector is
+    back as it was afterwards, also when the step raises."""
+    from repro_torch.serving import decode_graph
+    seen = []
+
+    def step():
+        seen.append(gc.isenabled())
+        if fails:
+            raise RuntimeError("step failed")
+
+    graph = _Recorder()
+    assert gc.isenabled()
+    if fails:
+        with pytest.raises(RuntimeError, match="step failed"):
+            decode_graph.capture(graph, None, step)
+    else:
+        decode_graph.capture(graph, None, step)
+    assert seen == [False] and gc.isenabled()
+    assert graph.calls == ["begin", "end"]
+    gc.disable()
+    try:
+        decode_graph.capture(_Recorder(), None, lambda: None)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -424,12 +424,20 @@ def test_chunk_fused_vs_plain_on_cpu(monkeypatch):
 def _card_chunk_check() -> dict:
     """A chunk record as the card's 2-layer check gives it."""
     zero = {k: 0 for k in kernel_wrappers()}
-    gap = dict(argmax_equal=True, max_abs_diff=0.0, rms_logit=39.0,
-               max_abs_logit=150.0)
+    gap = dict(argmax_equal=True, argmax_gap=0.0, max_abs_diff=0.0,
+               rms_logit=39.0, max_abs_logit=150.0)
     common = dict(zero, rms_norm=12, gated_act=8)
     return dict(gap, max_abs_diff=0.02, chunks=4, fusions=dict(gap),
+                score_max=40.0, scale=128 ** -0.5, layers=2, init="seeded",
                 launches_fused=dict(common, flash_extend=8),
                 launches_fusions=dict(common), launches_plain=dict(zero))
+
+
+#: the published init's logits (P13): the bf16 bound at 3.5, 2 layers and
+#: a largest raw score of 40 (scale 128^-0.5)
+PUBLISHED = dict(init="published", max_abs_logit=3.5, rms_logit=0.8)
+SCORE_R = np.expm1(2 * 2.0 ** -9 * 40 / np.sqrt(128)) + 2.0 ** -7
+PUBLISHED_BOUND = 2 * SCORE_R * 3.5 + 2 * 2.0 ** -6
 
 
 @pytest.mark.parametrize("dtype,edit,ok", [
@@ -440,6 +448,12 @@ def _card_chunk_check() -> dict:
     ("float32", lambda c: c["fusions"].update(max_abs_diff=0.04), False),
     ("bfloat16", lambda c: c.update(max_abs_diff=123.75,
                                     argmax_equal=False), True),  # logged
+    ("bfloat16", lambda c: c.update(PUBLISHED, max_abs_diff=0.18), True),
+    ("bfloat16", lambda c: c.update(PUBLISHED, max_abs_diff=0.19), False),
+    ("bfloat16", lambda c: c.update(PUBLISHED, argmax_equal=False,
+                                    argmax_gap=0.36), True),  # a near tie
+    ("bfloat16", lambda c: c.update(PUBLISHED, argmax_equal=False,
+                                    argmax_gap=0.37), False),
     ("bfloat16", lambda c: c["fusions"].update(max_abs_diff=2.0), True),
     ("bfloat16", lambda c: c["fusions"].update(max_abs_diff=2.5), False),
     ("bfloat16", lambda c: c["fusions"].update(argmax_equal=False), False),
@@ -452,13 +466,20 @@ def _card_chunk_check() -> dict:
 ])
 def test_chunk_bounds_and_counts_on_the_card(dtype, edit, ok):
     """The chunk's gate: fp32 within 1e-3 of the rms with argmax equal;
-    bf16 unbounded (the plain attention's bf16-rounded scores, P5) but its
-    fusions alone within two ulps of the largest logit; the extend launch
-    in the fused leg alone, the fusions in both fused legs."""
+    bf16 at the published init within P13's bound from the largest raw
+    score (its argmax where the bound decides it), at the seeded init
+    logged (the plain attention's bf16-rounded scores, P5); the fusions
+    alone within two ulps of the largest logit; the extend launch in the
+    fused leg alone, the fusions in both fused legs."""
     check = _card_chunk_check()
+    assert chip_smoke.chunk_bound(check, "bfloat16") == pytest.approx(
+        2 * SCORE_R * 150 + 2 * 2.0 ** 0)
     edit(check)
-    assert chip_smoke.chunk_bound(check, "float32") == pytest.approx(0.039)
-    assert chip_smoke.chunk_bound(check, "bfloat16") is None
+    assert chip_smoke.chunk_bound(check, "float32") == pytest.approx(
+        1e-3 * check["rms_logit"])
+    if check["init"] == "published":
+        assert chip_smoke.chunk_bound(check, "bfloat16") == pytest.approx(
+            PUBLISHED_BOUND)
     if ok:
         chip_smoke.assert_chunk_fused_vs_plain(check, dtype, cuda=True)
     else:

@@ -265,3 +265,53 @@ def test_flash_refuses_outside_its_domain_before_launch(no_launch, D,
     x = _on_card(base[..., :D]).transpose(1, 2)
     with pytest.raises(ValueError):
         flash_kernel.flash_attention_kernel(x, x, x)
+
+
+#: every family the paged runtime serves (path A and phase 6)
+PAGED_ARCHS = ("qwen2-1.5b", "stablelm-3b", "glm4-9b", "qwen3-moe-235b-a22b",
+               "pixtral-12b", "musicgen-large")
+
+
+@pytest.mark.parametrize("arch", PAGED_ARCHS)
+def test_chunk_launches_take_each_paged_family(no_launch, arch):
+    """Path A's extend chunk at each paged family's width (512 rows on
+    2048 cached, the runtime's scratch of 4096 rows cut to T = 2560, bf16):
+    the extend launch's (B, KV, T, Dh) views of the layer's scratch cache
+    pass ``tma_strides`` and ``operand_shapes`` with the device offsets,
+    and both the extend launch and the chunk's qkv launch pass every
+    host check and stop at the launch's lookup: nothing launched."""
+    from repro_torch.kernels.fusions import kernel as fusion_kernel
+    cfg = get_config(arch)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C, T = 512, 2560
+    scratch = torch.zeros(1, 4096, KV, D, dtype=torch.bfloat16)[:, :T]
+    q = torch.zeros(1, C, H, D, dtype=torch.bfloat16)
+    off = torch.full((1,), 2048, dtype=torch.int32)
+    qv, kv = q.transpose(1, 2), scratch.transpose(1, 2)
+    assert flash_kernel.operand_shapes(qv, kv, kv, "extend", off) == \
+        (1, H, KV, C, T, D)
+    for name, t in (("q", qv), ("k", kv)):
+        assert flash_kernel.tma_strides(name, t.shape, t.stride(),
+                                        4096)[1:] == t.stride()[1:3]
+    plan = flash_kernel.plan_bf16(1, H, C, D, Sk=T)
+    assert plan.key_tiles * plan.block_k >= T
+    with pytest.raises(AssertionError, match="looked up"):
+        flash_kernel.flash_extend_kernel(*map(_on_card, (qv, kv, kv, off)))
+    rows = torch.zeros(C, H, D, dtype=torch.bfloat16)
+    kvr = torch.zeros(C, KV, D, dtype=torch.bfloat16)
+    rope = None
+    if cfg.pos_emb == "rope":
+        rot = int(D * cfg.rope_fraction) // 2
+        rope = (torch.zeros(1, C, rot), torch.zeros(1, C, rot))
+    bias = (torch.zeros(H, D, dtype=torch.bfloat16),
+            torch.zeros(KV, D, dtype=torch.bfloat16),
+            torch.zeros(KV, D, dtype=torch.bfloat16)) if cfg.qkv_bias \
+        else None
+    norm = (torch.zeros(D, dtype=torch.bfloat16),) * 2 if cfg.qk_norm \
+        else None
+    with pytest.raises(AssertionError, match="looked up"):
+        fusion_kernel.qkv_rope_chunk_kernel(
+            _on_card(rows), _on_card(kvr), _on_card(kvr),
+            cache_k=_on_card(scratch), cache_v=_on_card(scratch),
+            offsets=_on_card(off), bias=bias, norm=norm, eps=cfg.norm_eps,
+            rope=rope)
