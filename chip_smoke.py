@@ -69,15 +69,20 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          and the activation bit-equal (the activation over every finite
          bf16 gate), the norm within one ulp, the merge within one bf16 ulp
          or 2e-5 in fp32; each timed at the serve step (qwen2-1.5b, B=4)
-         beside ``F.rms_norm`` and ``F.silu(a) * b``. The flash kernels'
-         extend launch (``flash_extend``) against its plain version at
-         path A's extend chunk (512 queries on 2048 cached tokens, 2560
-         slots; timed beside SDPA given the same boolean mask) and at
-         FLASH_EXTEND_EDGES (offset 0 and 1000, B 2 with other offsets,
-         gemma2-9b's heads with window and softcap on a plain cache,
-         qwen3-moe's heads, D 80), bf16 and fp32, every dead slot NaN:
-         finite, within row 5's tolerances, the same bits through either
-         layout; bad offsets and inputs TMA cannot take refused.
+         beside ``F.rms_norm`` and ``F.silu(a) * b``; the norm also at
+         512 rows, each row bit-equal across 1, 4, 64 and 512-row calls in
+         its three modes, and timed beside an empty kernel's launch (the
+         floor a graph node costs). The flash kernels' extend launch
+         (``flash_extend``) against its plain version at path A's extend
+         chunk (512 queries on 2048 cached tokens, 2560 slots; timed
+         beside SDPA given the same boolean mask, and at each slice count
+         1-4 its plan can take) and at FLASH_EXTEND_EDGES (offset 0 and
+         1000, B 2 with other offsets, gemma2-9b's heads with window and
+         softcap on a plain cache, qwen3-moe's heads, D 80, an odd
+         group), bf16 and fp32, every dead slot NaN: finite, within row
+         5's tolerances, the same bits through either layout; one graph
+         replayed at offsets 2048, 0 and 1037 bit-equal to eager
+         launches; bad offsets and inputs TMA cannot take refused.
 Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          seeded random weights cast once to bf16) serving agent programs
          through the unchanged ``Engine`` with a ``TorchModelBackend``:
@@ -440,8 +445,11 @@ FLASH_GEMMA2 = (dict(B=1, H=16, KV=8, S=4600, D=256, window=4096,
 # past a row's offset + C NaN: offset 0 and 1000 (not a multiple of a
 # tile), a cache that ends at the chunk, B 2 with other offsets, a
 # gemma2-9b layer's heads on a plain cache (D 256, window 4096, softcap
-# 50), phase 6a's qwen3-moe heads, and stablelm-like D 80 at offsets 3
-# and 600 with a ragged chunk.
+# 50), phase 6a's qwen3-moe heads, stablelm-like D 80 at offsets 3 and
+# 600 with a ragged chunk, and an odd group (G 3: a CTA takes one head's
+# 128 rows) at D 64. Path A's chunk is also run with every slice count
+# the bf16 launch takes (EXTEND_SLICES, timed) and replayed from one
+# captured graph at EXTEND_GRAPH_OFFSETS.
 FLASH_EXTEND = dict(B=1, H=12, KV=2, C=512, T=2560, D=128, offs=(2048,),
                     window=0, softcap=0.0)
 FLASH_EXTEND_EDGES = (
@@ -453,7 +461,11 @@ FLASH_EXTEND_EDGES = (
     dict(B=1, H=64, KV=4, C=512, T=1536, D=128, offs=(1000,), window=0,
          softcap=0.0),
     dict(B=2, H=8, KV=2, C=77, T=700, D=80, offs=(3, 600), window=0,
+         softcap=0.0),
+    dict(B=1, H=6, KV=2, C=200, T=1100, D=64, offs=(850,), window=0,
          softcap=0.0))
+EXTEND_SLICES = (1, 2, 3, 4)
+EXTEND_GRAPH_OFFSETS = (2048, 0, 1037)
 # Token append past one launch's capacity (K_MAX_APPEND = 256 rows), at
 # the smoke width.
 APPEND_WIDE = dict(L=2, P=320, page=8, KV=2, Dh=8, B=300)
@@ -622,8 +634,9 @@ def count_sass(text: str, opcode: str = "HGMMA") -> dict[str, int]:
 
 def check_hgmma(library: pathlib.Path) -> None:
     """The bf16 flash kernels run on the tensor cores: every
-    ``flash_wgmma_kernel`` instance of the built library holds HGMMA
-    instructions (checked where the toolkit has ``cuobjdump``)."""
+    ``flash_wgmma_kernel`` (prefill) and ``flash_extend_kernel`` instance
+    of the built library holds HGMMA instructions (checked where the
+    toolkit has ``cuobjdump``)."""
     tool = cuobjdump()
     if tool is None:
         log("phase1 flash_attention HGMMA count: not checked (no cuobjdump)")
@@ -633,8 +646,9 @@ def check_hgmma(library: pathlib.Path) -> None:
     counts = count_sass(sass)
     for fn, n in sorted(counts.items()):
         log(f"phase1 flash_attention {fn}: {n} HGMMA")
-    wgmma = {fn: n for fn, n in counts.items() if "flash_wgmma_kernel" in fn}
-    assert wgmma and all(n > 0 for n in wgmma.values()), counts
+    for kind in ("flash_wgmma_kernel", "flash_extend_kernel"):
+        wgmma = {fn: n for fn, n in counts.items() if kind in fn}
+        assert wgmma and all(n > 0 for n in wgmma.values()), (kind, counts)
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1374,7 +1388,68 @@ def check_extend(shape: dict, dtype, gen, timed: bool, sheet: dict):
                          iters=5, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa),
         device_ms=graph_ms(kern), library_device_ms=graph_ms(sdpa))
+    if dtype == torch.bfloat16:
+        from repro_torch.kernels.flash_attention.kernel import (_num_sms,
+                                                                plan_extend)
+        plan = plan_extend(*(shape[x] for x in ("B", "H", "KV", "C", "T",
+                                                "D")), shape["window"],
+                           _num_sms(q.device.index))
+        rec.update(slices=plan.slices, ctas=plan.ctas, pair=plan.pair,
+                   device_ms_by_slices=extend_slice_times(
+                       shape, q, k, v, off, opts, tol))
     return err, rec
+
+
+def extend_slice_times(shape: dict, q, k, v, off, opts: dict,
+                       tol: float) -> dict:
+    """The bf16 extend launch forced to each of EXTEND_SLICES (its
+    measurement hook), each within ``tol`` of the plain version and timed
+    by CUDA-graph replay: {slices: device ms}."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_ref,
+                                                     flash_extend_kernel)
+    ref = flash_attention_ref(q, k, v, q_offset=off, **opts).float()
+    out = {}
+    for n in EXTEND_SLICES:
+        got = flash_extend_kernel(q, k, v, off, _slices=n, **opts)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol)
+        out[n] = graph_ms(lambda n=n: flash_extend_kernel(
+            q, k, v, off, _slices=n, **opts))
+    return out
+
+
+def check_extend_graph(shape: dict, dtype, gen) -> dict:
+    """One CUDA graph of the extend launch captured at the first of
+    EXTEND_GRAPH_OFFSETS and replayed with the offset buffer set to each:
+    bit-equal to eager launches at those offsets (the slices' tile ranges
+    are worked out on the device). The cache is NaN past the largest
+    offset + C. Returns {offset: max |out - plain|}."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_ref,
+                                                     flash_extend_kernel)
+    q, k, v, buf = extend_case(dict(shape, offs=(max(EXTEND_GRAPH_OFFSETS),)),
+                               dtype, gen)
+    opts = dict(window=shape["window"], softcap=shape["softcap"])
+    eager = {}
+    for o in EXTEND_GRAPH_OFFSETS:
+        buf.fill_(o)
+        eager[o] = flash_extend_kernel(q, k, v, buf, **opts)
+    buf.fill_(EXTEND_GRAPH_OFFSETS[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_extend_kernel(q, k, v, buf, **opts)
+    gaps = {}
+    for o in EXTEND_GRAPH_OFFSETS:
+        buf.fill_(o)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert same_bits(out, eager[o]), f"replay at offset {o} differs"
+        ref = flash_attention_ref(q, k, v, q_offset=buf, **opts)
+        gaps[o] = (out.float() - ref.float()).abs().max().item()
+    del graph
+    return gaps
 
 
 def check_extend_refusals(gen) -> None:
@@ -1603,6 +1678,9 @@ FUSION_ARCHS = ("qwen2-1.5b", "stablelm-3b", "glm4-9b",
 #: decode batch rows the checks hold, and the serve step's (timed)
 FUSION_ROWS = (1, 4, 64)
 FUSION_TIMED_ROWS = 4
+#: the norm also at a 512-token chunk's rows (timed too), each row
+#: bit-equal across all these row counts
+NORM_WIDE_ROWS = 512
 #: the merge's cases: pools of (shape, dtype, layer whose token rows are
 #: the new token's): the serve step, the phase-2 shape in bf16 and fp32,
 #: glm4-9b's width (G 16) and the smoke width in fp32
@@ -1728,6 +1806,30 @@ def check_fusion_norms(cfg, B: int, dtype, gen, device, kernels) -> dict:
                                  else NORM_FP32_ULPS), (cfg.name, B, g)
         worst = worst_gap(worst, g)
     return worst
+
+
+def check_norm_rows(cfg, dtype, gen, device, kernels) -> int:
+    """The norm kernel's rows do not depend on the batch: at ``cfg``'s
+    d_model, in its three modes, the first n rows of a call on
+    NORM_WIDE_ROWS rows bit-equal to a call on those n rows alone, for n
+    in FUSION_ROWS (the sum's order is a function of the row length
+    alone). Returns the rows compared."""
+    import torch
+    kern = kernels["rms_norm"][0]
+    D, eps = cfg.d_model, cfg.norm_eps
+    x, delta = (torch.randn((NORM_WIDE_ROWS, 1, D), generator=gen,
+                            device=device).to(dtype) for _ in range(2))
+    scale = (torch.randn(D, generator=gen, device=device) * 0.1).to(dtype)
+    n_rows = 0
+    for d, f32 in ((None, False), (delta, True), (delta, False)):
+        full = kern(x, scale, eps, d, f32)
+        for n in FUSION_ROWS:
+            part = kern(x[:n], scale, eps, None if d is None else d[:n], f32)
+            for a, b in (zip(full, part) if d is not None
+                         else ((full, part),)):
+                assert same_bits(a[:n], b), (cfg.name, dtype, n, f32)
+            n_rows += n
+    return n_rows
 
 
 def check_fusion_rope(cfg, B: int, dtype, gen, device, kernels) -> dict:
@@ -1905,7 +2007,30 @@ def time_fusions(gen, sheet: dict, kernels) -> dict:
                           device_ms=graph_ms(kern))
         if lib is not None:
             recs[name]["library_device_ms"] = graph_ms(lib)
+    recs["rms_norm"].update(norm_floor_times(gen, cfg, kernels, sheet))
     return recs
+
+
+def norm_floor_times(gen, cfg, kernels, sheet: dict) -> dict:
+    """Two yardsticks beside the norm's bound, by CUDA-graph replay: an
+    empty kernel's launch (``launch_floor_device_ms``: the least a graph
+    node costs on this card) and the norm (fp32-sum mode) at
+    NORM_WIDE_ROWS rows of ``cfg``'s d_model (``device_ms_wide``, with
+    its bytes' bound ``bound_ms_wide``)."""
+    import torch
+    from repro_torch.kernels.fusions.kernel import empty_kernel_launch
+    kern = kernels["rms_norm"][0]
+    D, eps = cfg.d_model, cfg.norm_eps
+    x, delta = (torch.randn((NORM_WIDE_ROWS, 1, D), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+    scale = torch.randn(D, generator=gen, device="cuda").to(torch.bfloat16)
+    device = x.device
+    return dict(
+        launch_floor_device_ms=graph_ms(lambda: empty_kernel_launch(device)),
+        device_ms_wide=graph_ms(lambda: kern(x, scale, eps, delta, True)),
+        bound_ms_wide=(4 * NORM_WIDE_ROWS * D + D) * 2 / sheet["hbm_bw"]
+        * 1e3)
 
 
 def check_fusions(gen, sheet: dict | None, device: str = "cuda",
@@ -1921,22 +2046,27 @@ def check_fusions(gen, sheet: dict | None, device: str = "cuda",
     kernels = kernels or fusion_kernels()
     err = dict.fromkeys(FUSIONS, 0.0)
     norm_gaps, rope_gaps = {}, {}
+    invariant = 0
     for arch in FUSION_ARCHS:
         cfg = get_config(arch)
         for dtype in (torch.bfloat16, torch.float32):
-            for B in FUSION_ROWS:
-                key = f"{arch} {str(dtype)[6:]}"
+            key = f"{arch} {str(dtype)[6:]}"
+            for B in FUSION_ROWS + (NORM_WIDE_ROWS,):
                 norm_gaps[key] = worst_gap(norm_gaps.get(key),
                                            check_fusion_norms(
                                                cfg, B, dtype, gen, device,
                                                kernels))
+            invariant += check_norm_rows(cfg, dtype, gen, device, kernels)
+            for B in FUSION_ROWS:
                 rg = check_fusion_rope(cfg, B, dtype, gen, device, kernels)
                 if rg:
                     rope_gaps[key] = worst_gap(rope_gaps.get(key), rg)
     log(f"phase2 rms_norm: three modes (plain, residual sum read in fp32, "
         f"rounded) at each paged family's d_model (and qwen3-moe's qk norm "
-        f"rows), rows {FUSION_ROWS}: ulps from the plain norm (largest, "
-        f"elements that differ, compared) {json.dumps(norm_gaps)}")
+        f"rows), rows {FUSION_ROWS + (NORM_WIDE_ROWS,)}: ulps from the "
+        f"plain norm (largest, elements that differ, compared) "
+        f"{json.dumps(norm_gaps)}; rows of {NORM_WIDE_ROWS}-row calls "
+        f"bit-equal to calls of {FUSION_ROWS} rows ({invariant} rows)")
     log(f"phase2 qkv_rope: bit-equal to the plain spelling at "
         f"{FUSION_ARCHS}, rows {FUSION_ROWS}, bf16 and fp32 (the qk norm "
         f"by the norm kernel's row order); the qk-normed q against the "
@@ -2257,7 +2387,17 @@ def phase2(sheet: dict, hw) -> dict:
     log(f"phase2 flash_attention device ms by query tile (CUDA-graph "
         f"replay): {json.dumps(flash_tile_times(gen, sheet))}")
     err, rec = check_extend(FLASH_EXTEND, torch.bfloat16, gen, True, sheet)
+    by_slices = rec.pop("device_ms_by_slices")
     records["flash_extend"] = dict(max_abs_err=err, **rec)
+    log(f"phase2 flash_extend (bf16) at path A's chunk: {rec['slices']} "
+        f"slices, {rec['ctas']} CTAs of two warpgroups (heads paired: "
+        f"{rec['pair']}); device ms by forced slice count, each within "
+        f"1e-2 of the plain version: {json.dumps(by_slices)}")
+    for dtype in (torch.bfloat16, torch.float32):
+        gaps = check_extend_graph(FLASH_EXTEND, dtype, gen)
+        log(f"phase2 flash_extend {dtype}: one graph replayed at offsets "
+            f"{EXTEND_GRAPH_OFFSETS}, bit-equal to eager launches; max "
+            f"|diff| from the plain version {json.dumps(gaps)}")
     check_extend_refusals(gen)
     log("phase2 flash_extend: int64, two, 2-D and host offsets, a "
         "misaligned stride and head dim 100 refused")
@@ -2284,6 +2424,13 @@ def phase2(sheet: dict, hw) -> dict:
         f"64: {json.dumps(scan_slice_times(gen))}")
     t0 = time.perf_counter()
     records.update(check_fusions(gen, sheet))
+    norm = records["rms_norm"]
+    log(f"phase2 rms_norm device {norm['device_ms']:.4f} ms at "
+        f"{FUSION_TIMED_ROWS} rows beside an empty kernel's launch "
+        f"{norm['launch_floor_device_ms']:.4f} ms (CUDA-graph replay) and "
+        f"its bound {norm['bound_ms']:.7f} ms; {NORM_WIDE_ROWS} rows "
+        f"{norm['device_ms_wide']:.4f} ms (bound "
+        f"{norm['bound_ms_wide']:.5f} ms)")
     records["qkv_rope_chunk"] = check_chunk_qkvs(gen, sheet)
     log(f"phase2 fusions checked and timed in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3173,18 +3320,34 @@ def fused_vs_plain(model, device, prompts=FUSED_PROMPTS,
                launches_fused=legs[True]["launches"],
                launches_plain=legs[False]["launches"])
     if trace and cuda:
-        from repro_torch.launch.profile_step import traced
         rt.cuda_graphs = False
         for fused in (True, False):
             rt.fused = fused
-            names = traced(lambda: rt.decode_batch(model, pids), top=1,
-                           reps=1, cpu=False, counts=True)["kernel_counts"]
+            names = step_kernel_counts(lambda: rt.decode_batch(model, pids))
             leg = "fused" if fused else "plain"
             out[f"kernels_{leg}"] = sum(names.values())
             out[f"plain_ops_{leg}"] = sorted(
                 {p for p in PLAIN_FUSED_OPS for n in names if p in n})
     del rt
     return out
+
+
+def step_kernel_counts(fn, reset=None) -> dict:
+    """The device kernels one traced call of ``fn`` runs, by name. A trace
+    that recorded no device event at all (CUPTI can drop a trace's
+    device events, ROADMAP H10) measured nothing: ``reset`` (if given)
+    restores what the call changed, ``fn`` is traced once more, and that
+    trace counts, empty or not."""
+    from repro_torch.launch.profile_step import traced
+    names = traced(fn, top=1, reps=1, cpu=False, counts=True)[
+        "kernel_counts"]
+    if not names:
+        log("a traced step recorded no device event: traced once more")
+        if reset is not None:
+            reset()
+        names = traced(fn, top=1, reps=1, cpu=False, counts=True)[
+            "kernel_counts"]
+    return names
 
 
 def fused_bound(check: dict, dtype: str) -> float:
@@ -3435,18 +3598,21 @@ def chunk_fused_vs_plain(model, device, prompts=CHUNK_PROMPTS,
         legs[name] = dict(logits=torch.stack(rows),
                           launches={k: after[k] - before[k] for k in after})
         if trace and cuda and name in ("fused", "plain"):
-            from repro_torch.launch.profile_step import traced
             pid, _, pad = CHUNK_TRACED
-            restore_state(rt, st)
+            start = {}
+
+            def reset():
+                restore_state(rt, st)
+                start.update(launch_counts())
+
+            reset()
             rt.cuda_graphs = False
-            before = launch_counts()
-            names = traced(lambda: rt.prefill(model, pid, ext[0], pad_to=pad),
-                           top=1, reps=1, cpu=False,
-                           counts=True)["kernel_counts"]
+            names = step_kernel_counts(
+                lambda: rt.prefill(model, pid, ext[0], pad_to=pad), reset)
             rt.cuda_graphs = True
             legs[name].update(
                 traced_extend_launches=launch_counts()["flash_extend"]
-                - before["flash_extend"],
+                - start["flash_extend"],
                 traced_kernels=sum(names.values()),
                 traced_attention_ops=sorted({p for p in PLAIN_ATTENTION_OPS
                                              for n in names if p in n}),

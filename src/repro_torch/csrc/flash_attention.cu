@@ -45,21 +45,51 @@
 // kernel by dtype alone.
 //
 // The extend launch (a chunk of Sq queries against a cache of Sk keys):
-// both kernels also take an int32 offset a batch row, read from device
-// memory, so a captured graph replays the launch for every start. Query
-// row i sits at position off[b] + i and sees keys j <= off[b] + i (and
-// j > off[b] + i - window); a CTA walks the key tiles from the window's
-// first to min(Sk, off + its last row + 1). This is the reference's
-// attend_decode (src/repro/models/attention.py) over a plain cache, which
-// XLA fuses under jit and no Pallas kernel computes. Keys past a CTA's
-// live range may hold anything (a cache's unwritten slots): the fp32
-// kernel loads them as zeros, and the bf16 kernel zeroes their V rows in
-// shared memory before its last P V, as 0 * NaN would survive a zero
-// weight. A null offset is the prefill launch (off 0, Sk == Sq), which
-// runs as before.
+// both kernels' launches take an int32 offset a batch row, read from
+// device memory, so a captured graph replays the launch for every start.
+// Query row i sits at position off[b] + i and sees keys j <= off[b] + i
+// (and j > off[b] + i - window). This is the reference's attend_decode
+// (src/repro/models/attention.py) over a plain cache, which XLA fuses
+// under jit and no Pallas kernel computes. Keys past a CTA's live range
+// may hold anything (a cache's unwritten slots): the fp32 kernel loads
+// them as zeros, and the bf16 one zeroes their V rows in shared memory
+// before its last P V, as 0 * NaN would survive a zero weight. A null
+// offset is the prefill launch (off 0, Sk == Sq).
+//
+// In bf16 the extend launch is a kernel of its own, flash_extend_kernel
+// (the prefill keeps flash_wgmma_kernel). Bound: operations, 7.33 us at
+// qwen2-1.5b's 512-token chunk on 2048 cached tokens (~7.3 GFLOP); the
+// K/V it reads (2.6 MB) stay in L2. A chunk is short (Sq 512 of 12
+// heads: 48 query tiles of 128 rows, or 96 of 64), and each tile walks
+// the whole cache, so a tile a CTA leaves the card short of work. The
+// design:
+// - a CTA is two consumer warpgroups on one query tile, taking turns on
+//   the tensor cores as in the prefill; where the GQA group is even, the
+//   two are two heads of the group over the same 64 rows, so each K/V
+//   stage TMA brings serves both (a tile is read once a head pair, not
+//   once a head); else one head's 128 rows;
+// - a query tile's live key tiles are split into `slices` ranges of whole
+//   tiles (slice s: [ceil(s n / S), ceil((s + 1) n / S)), any of them
+//   empty), one CTA each, the S CTAs a thread-block cluster. Each CTA
+//   works out its range from off[b] on the device; S and the grid are
+//   fixed by the shapes and the SM count alone (kernels/flash_attention/
+//   kernel.plan_extend), so one graph replays every start;
+// - the S CTAs merge their (acc, m, l) through distributed shared memory:
+//   after a cluster barrier each pushes its accumulators to the CTA that
+//   owns their columns and its (m, l) to all, then each sums its columns
+//   in slice order (the bits do not depend on timing) and stores them. No
+//   fp32 partial goes to device memory; the merge takes (S ceil(D_pad / 8
+//   / S) + S) x 4 KB of the CTA's freed ring;
+// - a CTA holds an SM (its registers), so the CTAs run in waves of 132,
+//   each as long as its heaviest CTA, and a split costs a merge: measured
+//   on the H100, a CTA's launch, start and stores take ~6 us, a merge ~4.5
+//   us more (more past 4 slices), a 2-warpgroup key tile ~2 us. The plan
+//   weighs those: path A's chunk takes 2 slices, 96 CTAs in one wave
+//   (3 or 4 slices put 144 or 192 in two).
 //
 // The tensor-map encoder is fetched through cudaGetDriverEntryPoint, so
 // the library needs no -lcuda.
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -585,8 +615,40 @@ __device__ long long g_phases[2][kPhaseTiles][8];
         threadIdx.x % 128 == 0 && (t) < kPhaseTiles)                    \
       g_phases[threadIdx.x / 128][(t)][(k)] = clock64();                \
   } while (0)
+// The extend launch's probes, in the same build: thread 0 of every CTA
+// (up to kProbeCtas) stamps clock64() at kExtPoints points (see
+// flash_extend_kernel) and the global timer (ns) at its start and end,
+// read back through flash_extend_probes_read.
+constexpr int kProbeCtas = 1024;
+constexpr int kExtPoints = 8;
+__device__ long long g_ext_clocks[kProbeCtas][kExtPoints];
+__device__ unsigned long long g_ext_times[kProbeCtas][2];
+__device__ __forceinline__ int probe_cta() {
+  return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define EXT_PROBE(k)                                                    \
+  do {                                                                  \
+    if (threadIdx.x == 0 && probe_cta() < kProbeCtas)                   \
+      g_ext_clocks[probe_cta()][(k)] = clock64();                       \
+  } while (0)
+#define EXT_TIME(k)                                                     \
+  do {                                                                  \
+    if (threadIdx.x == 0 && probe_cta() < kProbeCtas)                   \
+      g_ext_times[probe_cta()][(k)] = global_ns();                      \
+  } while (0)
 #else
 #define PHASE(t, k) \
+  do {              \
+  } while (0)
+#define EXT_PROBE(k) \
+  do {               \
+  } while (0)
+#define EXT_TIME(k) \
   do {              \
   } while (0)
 #endif
@@ -595,7 +657,6 @@ struct TcParams {
   long long os_b, os_h, os_s;  // output element strides
   int Sq, Sk, D, G, stages, causal, window;
   float scale, softcap;
-  const int* off;  // (B,) position of query row 0, or null: 0
 };
 
 // Named barriers 1 and 2 pass the tensor cores between two warpgroups;
@@ -654,11 +715,11 @@ __device__ __forceinline__ void issue_pv(float (&acc)[DP / 2],
 // raw scores are used as they are and the scale is folded into the
 // exponent's FMA. Maxima and sums run in four independent chains a row,
 // so that the dependent latency of 32 steps does not serialize them.
-template <int BK>
+template <int BK, typename Params>
 __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2],
                                                float (&m)[2], float (&l)[2],
                                                float (&alpha)[2],
-                                               const TcParams& p, int k0,
+                                               const Params& p, int k0,
                                                int row, int col, int wrow0,
                                                int off, int kv_end) {
   row += off;    // positions from here on
@@ -754,10 +815,10 @@ __global__ void __launch_bounds__(TcConfig<DP, NWG>::kThreads, 1)
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.G;
   const int q0 = qt * C::kBQ;
-  const int off = p.off ? max(p.off[b], 0) : 0;  // position of row 0
+  const int off = 0;  // the prefill: query row i at position i
   // live key range: the causal diagonal above (at the tile's last row),
   // the window below; never empty, as the pipeline waits on its first
-  // tile (a row past the cache and its window sees no key, and gets 0)
+  // tile
   const int kv_end =
       p.causal ? min(p.Sk, off + min(p.Sq, q0 + C::kBQ)) : p.Sk;
   const int kv_begin = min(
@@ -765,10 +826,6 @@ __global__ void __launch_bounds__(TcConfig<DP, NWG>::kThreads, 1)
       kv_end - 1);
   const int t_first = kv_begin / BK;
   const int n_tiles = (kv_end + BK - 1) / BK - t_first;
-  // V rows of the last tile past kv_end but inside Sk hold whatever the
-  // cache does there; the extend launch zeroes them before its last P V
-  const int t_last0 = (t_first + n_tiles - 1) * BK;  // the last tile's k0
-  const bool zero_tail = p.off != nullptr && kv_end < min(p.Sk, t_last0 + BK);
   auto kv_stage = [&](int t) {
     return sKV + (t % p.stages) * C::kStageBytes;
   };
@@ -883,23 +940,6 @@ __global__ void __launch_bounds__(TcConfig<DP, NWG>::kThreads, 1)
       pack_p<BK>(sc, pa);
       PHASE(t, 7);
     }
-    if (zero_tail) {
-      // V rows kv_end - t_last0 .. BK - 1 of the last tile, every panel,
-      // zeroed by the whole CTA (a row is 128 bytes however it is
-      // swizzled), made visible to wgmma's async proxy and waited for by
-      // both warpgroups before either reads the tile's V
-      uint8_t* sv = kv_stage(n_tiles - 1) + C::kTileBytes;
-      const int r0 = kv_end - t_last0;
-      const int per_panel = (BK - r0) * 8;  // 16-byte pieces
-      for (int i = threadIdx.x; i < C::kPanels * per_panel;
-           i += C::kThreads) {
-        const int pn = i / per_panel, piece = i - pn * per_panel;
-        *reinterpret_cast<uint4*>(sv + pn * BK * 128 + r0 * 128 +
-                                  piece * 16) = make_uint4(0, 0, 0, 0);
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      cta_sync_3<C::kThreads>();
-    }
     take_turn();
     wgmma_fence();
     issue_pv<BK, DP>(acc, pa, kv_stage(n_tiles - 1) + C::kTileBytes);
@@ -927,6 +967,314 @@ __global__ void __launch_bounds__(TcConfig<DP, NWG>::kThreads, 1)
             __floats2bfloat162_rn(acc[j] * inv[r], acc[j + 1] * inv[r]);
     }
   }
+}
+
+// ------------------------------------------------- the extend launch
+// A chunk of Sq queries at per-row offsets against Sk cached keys, in
+// bf16 (the fp32 extend runs flash_fp32_kernel with its offsets). A CTA
+// is two consumer warpgroups on one query tile: two heads of a GQA group
+// over the same 64 rows (ExtParams::pair, G even), so each K/V stage the
+// TMA brings serves both; else one head's 128 rows. The CTA's live key
+// tiles are split into `slices` ranges of whole tiles, one CTA each, the
+// slices of a tile forming a thread-block cluster; the CTAs merge their
+// (acc, m, l) through distributed shared memory (no fp32 partial goes
+// to device memory). The slice count and the grid come from the shapes
+// and the SM count alone (plan_extend in kernels/flash_attention/
+// kernel.py); each CTA reads off[b] and works out its tile range on the
+// device, so a captured graph replays every start.
+constexpr int kMaxSlices = 4;  // past 4 the merge costs more than it saves
+
+struct ExtParams {
+  long long os_b, os_h, os_s;  // output element strides
+  int Sq, Sk, D, G, stages, causal, window, slices, pair;
+  float scale, softcap;
+  const int* off;  // (B,) position of query row 0
+};
+
+template <int DP>
+__global__ void __launch_bounds__(256, 1)
+    flash_extend_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        __nv_bfloat16* __restrict__ o, const ExtParams p) {
+  using C = TcConfig<DP, 2>;
+  constexpr int BK = C::kBK;
+  constexpr int kQw = 64 * DP * 2;  // one warpgroup's Q tile, bytes
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + kMaxStages];
+  __shared__ int released[kMaxStages];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sQ = smem;            // [warpgroup][panel][64 rows][128 B]
+  uint8_t* sKV = smem + 2 * kQw;  // [stage]{K, V}[panel][BK rows][128 B]
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  EXT_TIME(0);
+  EXT_PROBE(0);
+
+  const int slice = blockIdx.x % p.slices;  // the CTA's rank in its cluster
+  const int tiles_q = gridDim.x / p.slices;
+  const int qt = tiles_q - 1 - blockIdx.x / p.slices;  // heaviest first
+  const int rows = p.pair ? 64 : 128;                   // the CTA's rows
+  const int q0 = qt * rows;
+  const int b = blockIdx.z;
+  const int h_first = p.pair ? 2 * blockIdx.y : blockIdx.y;
+  const int kvh = h_first / p.G;
+  if (threadIdx.x == 0) {  // the barriers, and Q: it needs no offset
+    for (const CUtensorMap* map : {&tm_q, &tm_k, &tm_v})
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(map))
+                   : "memory");
+    mbar_init(q_full, 1);
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(q_full, 2 * kQw);
+    for (int w = 0; w < 2; ++w)
+      for (int pn = 0; pn < C::kPanels; ++pn)
+        tma_load_4d(sQ + w * kQw + pn * 64 * 128, &tm_q, q_full, pn * 64,
+                    q0 + (p.pair ? 0 : 64 * w), h_first + (p.pair ? w : 0),
+                    b);
+  }
+  const int off = max(p.off[b], 0);  // position of row 0
+  // the CTA's live keys: the causal diagonal at its last row above, the
+  // window below; split into slices of whole tiles, any of them empty
+  const int kv_end = min(p.Sk, off + min(p.Sq, q0 + rows));
+  const int kv_begin = p.window > 0 ? max(0, off + q0 - p.window + 1) : 0;
+  const int t_all = kv_begin / BK;
+  const int n_all = max(0, (kv_end + BK - 1) / BK - t_all);
+  // slice s takes tiles [ceil(s n / S), ceil((s + 1) n / S)) of the n:
+  // a slice with more tiles comes first, and the last (the diagonal's,
+  // masked) never has more than another
+  const int t_first = t_all + (slice * n_all + p.slices - 1) / p.slices;
+  const int n_tiles = t_all +
+                      ((slice + 1) * n_all + p.slices - 1) / p.slices -
+                      t_first;
+  // V rows of the CTA's last tile past kv_end hold whatever the cache
+  // does there: the slice that takes that tile zeroes them first
+  const int t_last0 = (t_first + n_tiles - 1) * BK;
+  const bool zero_tail = n_tiles > 0 && t_first + n_tiles == t_all + n_all &&
+                         kv_end < min(p.Sk, t_last0 + BK);
+  auto kv_stage = [&](int t) {
+    return sKV + (t % p.stages) * C::kStageBytes;
+  };
+  auto load_kv = [&](int t) {
+    uint64_t* bar = &full[t % p.stages];
+    uint8_t* sk = kv_stage(t);
+    const int k0 = (t_first + t) * BK;
+    mbar_expect_tx(bar, C::kStageBytes);
+    for (int pn = 0; pn < C::kPanels; ++pn) {
+      tma_load_4d(sk + pn * BK * 128, &tm_k, bar, pn * 64, k0, kvh, b);
+      tma_load_4d(sk + C::kTileBytes + pn * BK * 128, &tm_v, bar, pn * 64,
+                  k0, kvh, b);
+    }
+  };
+
+  if (threadIdx.x == 0)  // the ring's first stages
+    for (int t = 0; t < min(p.stages, n_tiles); ++t) load_kv(t);
+  __syncthreads();
+  EXT_PROBE(1);
+  auto release = [&](int t) {
+    if (threadIdx.x % 128 == 0 &&
+        atomicAdd(&released[t % p.stages], 1) % 2 == 1 &&
+        t + p.stages < n_tiles)
+      load_kv(t + p.stages);
+  };
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int h = h_first + (p.pair ? wg : 0);   // the warpgroup's head
+  const int wrow0 = q0 + (p.pair ? 0 : 64 * wg);
+  const int row = wrow0 + 16 * (tid / 32) + lane / 4;  // and row + 8
+  const int col = 2 * (lane % 4);
+  const uint8_t* sQw = sQ + wg * kQw;
+  float acc[DP / 2];
+#pragma unroll
+  for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) {
+    // flash_wgmma_kernel's pipeline with NWG = 2: S_t and P_{t-1} V_{t-1}
+    // issued together, the two warpgroups taking turns on the tensor cores
+    float sc[BK / 2], alpha[2];
+    uint32_t pa[BK / 16][4];
+    auto take_turn = [&] { named_sync(1 + wg); };
+    auto pass_turn = [&] { named_arrive(2 - wg); };
+    if (wg == 1) named_arrive(1);
+    mbar_wait(q_full, 0);
+    mbar_wait(&full[0], 0);
+    EXT_PROBE(2);
+    take_turn();
+    wgmma_fence();
+    issue_qk<BK, DP, 64>(sc, sQw, kv_stage(0));
+    wgmma_commit();
+    pass_turn();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    online_softmax<BK>(sc, m, l, alpha, p, t_first * BK, row, col, wrow0,
+                       off, kv_end);
+    pack_p<BK>(sc, pa);
+    for (int t = 1; t < n_tiles; ++t) {
+      mbar_wait(&full[t % p.stages], (t / p.stages) & 1);
+      take_turn();
+      wgmma_fence();
+      issue_qk<BK, DP, 64>(sc, sQw, kv_stage(t));
+      wgmma_commit();
+      issue_pv<BK, DP>(acc, pa, kv_stage(t - 1) + C::kTileBytes);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      online_softmax<BK>(sc, m, l, alpha, p, (t_first + t) * BK, row, col,
+                         wrow0, off, kv_end);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      release(t - 1);
+#pragma unroll
+      for (int j = 0; j < DP / 2; ++j) acc[j] *= alpha[(j % 4) / 2];
+      pack_p<BK>(sc, pa);
+    }
+    if (zero_tail) {  // as flash_wgmma_kernel's
+      uint8_t* sv = kv_stage(n_tiles - 1) + C::kTileBytes;
+      const int r0 = kv_end - t_last0;
+      const int per_panel = (BK - r0) * 8;
+      for (int i = threadIdx.x; i < C::kPanels * per_panel; i += 256) {
+        const int pn = i / per_panel, piece = i - pn * per_panel;
+        *reinterpret_cast<uint4*>(sv + pn * BK * 128 + r0 * 128 +
+                                  piece * 16) = make_uint4(0, 0, 0, 0);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      cta_sync_3<256>();
+    }
+    take_turn();
+    wgmma_fence();
+    issue_pv<BK, DP>(acc, pa, kv_stage(n_tiles - 1) + C::kTileBytes);
+    wgmma_commit();
+    if (wg == 0) pass_turn();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+  } else {
+    mbar_wait(q_full, 0);  // no CTA leaves or lends its shared memory
+  }                        // with Q's TMA in flight
+  EXT_PROBE(3);
+
+  __nv_bfloat16* ob = o + b * p.os_b + h * p.os_h;
+  // column pairs (8 g + col, + 1) of rows row, row + 8: registers 4g .. 4g+3
+  auto store_group = [&](int g, const float (&a)[4], const float (&inv)[2]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row + 8 * r;
+      const int d = 8 * g + col;
+      if (i < p.Sq && d < p.D)
+        *reinterpret_cast<__nv_bfloat162*>(ob + i * p.os_s + d) =
+            __floats2bfloat162_rn(a[2 * r] * inv[r], a[2 * r + 1] * inv[r]);
+    }
+  };
+  if (p.slices == 1) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int g = 0; g < DP / 8; ++g) {
+      const float a[4] = {acc[4 * g], acc[4 * g + 1], acc[4 * g + 2],
+                          acc[4 * g + 3]};
+      store_group(g, a, inv);
+    }
+    EXT_PROBE(7);
+    EXT_TIME(1);
+    return;
+  }
+
+  // The merge. Column group g (the 4 accumulators of a column pair of
+  // both rows) is finished by slice owner(g) of the cluster: slice r owns
+  // groups [r G / S, (r + 1) G / S). Once every CTA of the cluster is
+  // past its last wgmma (the first cluster barrier: the ring and Q are
+  // free), each pushes its partial into the owners' shared memory, a
+  // float4 [slice][owned group][thread] each, and its (m, m, l, l) into
+  // every CTA's [slice][thread] row: stores to distributed shared memory,
+  // which need no round trip. After the second barrier each CTA sums its
+  // groups' partials in slice order from its own shared memory, so the
+  // bits do not depend on timing.
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int kGroups = DP / 8;
+  const int S = p.slices;
+  const int owned = (kGroups + S - 1) / S;  // groups a slice owns, at most
+  float4* part = reinterpret_cast<float4*>(smem);
+  cluster.sync();
+  EXT_PROBE(4);
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const int owner = ((g + 1) * S - 1) / kGroups;
+    float4* dst = cluster.map_shared_rank(part, owner);
+    dst[(slice * owned + g - owner * kGroups / S) * 256 + threadIdx.x] =
+        make_float4(acc[4 * g], acc[4 * g + 1], acc[4 * g + 2],
+                    acc[4 * g + 3]);
+  }
+  for (int r = 0; r < S; ++r)
+    cluster.map_shared_rank(part, r)[(S * owned + slice) * 256 +
+                                     threadIdx.x] =
+        make_float4(m[0], m[1], l[0], l[1]);
+  cluster.sync();
+  EXT_PROBE(5);
+  // the slices' (m, l) in slice order, then their partials summed in
+  // slice order in place, in slot 0 of each owned group: runtime loops
+  // over the S slices and the owned groups alone (an unrolled, predicated
+  // loop over every slice and group issues each instruction anyway)
+  const float4* mls = part + S * owned * 256 + threadIdx.x;
+  float mx[2] = {-INFINITY, -INFINITY};
+  for (int s = 0; s < S; ++s) {
+    const float4 q = mls[s * 256];
+    mx[0] = fmaxf(mx[0], q.x);
+    mx[1] = fmaxf(mx[1], q.y);
+  }
+  const float mu0 = mx[0] == -INFINITY ? 0.f : mx[0];
+  const float mu1 = mx[1] == -INFINITY ? 0.f : mx[1];
+  const int g0 = slice * kGroups / S;
+  const int n_own = (slice + 1) * kGroups / S - g0;
+  float4* sum = part + threadIdx.x;  // slot 0: [owned group][thread]
+  float lsum[2] = {0.f, 0.f};
+  for (int s = 0; s < S; ++s) {
+    const float4 q = mls[s * 256];
+    const float f0 = fast_exp2((q.x - mu0) * kLog2e);
+    const float f1 = fast_exp2((q.y - mu1) * kLog2e);
+    lsum[0] += f0 * q.z;
+    lsum[1] += f1 * q.w;
+    const float4* x = part + s * owned * 256 + threadIdx.x;
+    for (int j = 0; j < n_own; ++j) {
+      const float4 v = x[j * 256];
+      float4 a = s == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : sum[j * 256];
+      a.x += f0 * v.x;
+      a.y += f0 * v.y;
+      a.z += f1 * v.z;
+      a.w += f1 * v.w;
+      sum[j * 256] = a;
+    }
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
+    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
+    inv[r] = 1.f / fmaxf(lsum[r], 1e-30f);
+  }
+  EXT_PROBE(6);
+  for (int j = 0; j < n_own; ++j) {
+    const float4 a = sum[j * 256];
+    const float v[4] = {a.x, a.y, a.z, a.w};
+    store_group(g0 + j, v, inv);
+  }
+  EXT_PROBE(7);
+  EXT_TIME(1);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -980,7 +1328,7 @@ template <int DP, int NWG>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  const long long* st, int B, int H, int KV, int Sq, int Sk,
                  int D, float scale, int causal, int window, float softcap,
-                 const int* q_off, int stages, cudaStream_t stream) {
+                 int stages, cudaStream_t stream) {
   using C = TcConfig<DP, NWG>;
   if (stages < 2 || stages > kMaxStages)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1000,8 +1348,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (err == 0) err = encode(&tv, v, st + 6, B, KV, Sk, D, C::kBK);
   if (err != 0) return err;
   const TcParams p{st[9],  st[10], st[11], Sq,    Sk,      D,
-                   H / KV, stages, causal, window, scale, softcap,
-                   q_off};
+                   H / KV, stages, causal, window, scale, softcap};
   const dim3 grid((Sq + C::kBQ - 1) / C::kBQ, H, B);
   flash_wgmma_kernel<DP, NWG><<<grid, C::kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), p);
@@ -1012,26 +1359,77 @@ template <int NWG>
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
                    const long long* st, int B, int H, int KV, int Sq,
                    int Sk, int D, float scale, int causal, int window,
-                   float softcap, const int* q_off, int stages,
-                   cudaStream_t s) {
+                   float softcap, int stages, cudaStream_t s) {
   switch ((D + 63) / 64) {
     case 1:
       return launch_wgmma<64, NWG>(q, k, v, o, st, B, H, KV, Sq, Sk, D,
-                                   scale, causal, window, softcap, q_off,
+                                   scale, causal, window, softcap,
                                    stages, s);
     case 2:
       return launch_wgmma<128, NWG>(q, k, v, o, st, B, H, KV, Sq, Sk, D,
-                                    scale, causal, window, softcap, q_off,
+                                    scale, causal, window, softcap,
                                     stages, s);
     case 3:
       return launch_wgmma<192, NWG>(q, k, v, o, st, B, H, KV, Sq, Sk, D,
-                                    scale, causal, window, softcap, q_off,
+                                    scale, causal, window, softcap,
                                     stages, s);
     default:
       return launch_wgmma<256, NWG>(q, k, v, o, st, B, H, KV, Sq, Sk, D,
-                                    scale, causal, window, softcap, q_off,
+                                    scale, causal, window, softcap,
                                     stages, s);
   }
+}
+
+// The extend launch's host side: pair, slices and stages as planned by
+// kernels/flash_attention/kernel.plan_extend. Q's map has 64-row boxes
+// (one a warpgroup), K's and V's BK-row boxes over Sk.
+template <int DP>
+int launch_extend(const void* q, const void* k, const void* v, void* o,
+                  const long long* st, int B, int H, int KV, int Sq, int Sk,
+                  int D, float scale, int window, float softcap,
+                  const int* q_off, int pair, int slices, int stages,
+                  cudaStream_t stream) {
+  using C = TcConfig<DP, 2>;
+  if (stages < 2 || stages > kMaxStages || slices < 1 ||
+      slices > kMaxSlices || (pair && (H / KV) % 2) || q_off == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 1024 + 2 * 64 * DP * 2 +
+                      static_cast<size_t>(stages) * C::kStageBytes;
+  static size_t smem_allowed = 48 * 1024;  // per instantiation
+  if (smem > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_extend_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = smem;
+  }
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, st, B, H, Sq, D, 64);
+  if (err == 0) err = encode(&tk, k, st + 3, B, KV, Sk, D, C::kBK);
+  if (err == 0) err = encode(&tv, v, st + 6, B, KV, Sk, D, C::kBK);
+  if (err != 0) return err;
+  ExtParams p{st[9], st[10], st[11], Sq,    Sk,     D,     H / KV,
+              stages, 1,     window, slices, pair,  scale, softcap,
+              q_off};
+  const int rows = pair ? 64 : 128;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Sq + rows - 1) / rows * slices, pair ? H / 2 : H, B);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = slices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = slices > 1 ? 1 : 0;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o);
+  void* args[] = {&tq, &tk, &tv, &out, &p};
+  const cudaError_t launched = cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(flash_extend_kernel<DP>), args);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1042,6 +1440,14 @@ extern "C" {
 int flash_phases_read(void* out) {  // long long [2][kPhaseTiles][8]
   return static_cast<int>(
       cudaMemcpyFromSymbol(out, g_phases, sizeof(g_phases)));
+}
+// long long [kProbeCtas][kExtPoints], unsigned long long [kProbeCtas][2]
+int flash_extend_probes_read(void* clocks, void* times) {
+  cudaError_t err =
+      cudaMemcpyFromSymbol(clocks, g_ext_clocks, sizeof(g_ext_clocks));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(times, g_ext_times, sizeof(g_ext_times));
+  return static_cast<int>(err);
 }
 #endif
 
@@ -1082,11 +1488,12 @@ int flash_attention_fp32_launch(const void* q, const void* k, const void* v,
                          scale, causal, window, softcap, off, s);
 }
 
-// The same contract in bfloat16, on the tensor cores. Also: D a multiple
-// of 8, q, k and v 16-byte aligned with strides of whole 16-byte units
-// (TMA's rules, checked by the wrapper); q_tile 64 or 128 query rows a
-// CTA; stages the K/V ring's depth (2..4, planned by the wrapper so that
-// the shared memory fits).
+// The same contract in bfloat16, on the tensor cores, for the prefill
+// launch alone (q_off null: the extend launch is flash_extend_bf16_launch).
+// Also: D a multiple of 8, q, k and v 16-byte aligned with strides of
+// whole 16-byte units (TMA's rules, checked by the wrapper); q_tile 64 or
+// 128 query rows a CTA; stages the K/V ring's depth (2..4, planned by the
+// wrapper so that the shared memory fits).
 int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
                                 void* o, const long long* strides, int B,
                                 int H, int KV, int Sq, int Sk, int D,
@@ -1094,17 +1501,53 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
                                 float softcap, const void* q_off,
                                 int q_tile, int stages, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
+  if (D < 8 || D > 256 || D % 8 || KV < 1 || H % KV || Sk < 1 ||
+      q_off != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_tile == 64)
+    return dispatch_wgmma<1>(q, k, v, o, strides, B, H, KV, Sq, Sk, D, scale,
+                             causal, window, softcap, stages, s);
+  if (q_tile == 128)
+    return dispatch_wgmma<2>(q, k, v, o, strides, B, H, KV, Sq, Sk, D, scale,
+                             causal, window, softcap, stages, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The extend launch in bfloat16 (flash_extend_kernel): the bf16 launch's
+// contract with q_off an int32 (B,) device array, always causal; pair 1
+// (H / KV even) puts two heads of a group on a CTA's 64 rows, 0 one
+// head's 128 rows; slices (1..4) CTAs a query tile, a cluster, split its
+// live key tiles; stages the K/V ring's depth (2..4).
+int flash_extend_bf16_launch(const void* q, const void* k, const void* v,
+                             void* o, const long long* strides, int B,
+                             int H, int KV, int Sq, int Sk, int D,
+                             float scale, int window, float softcap,
+                             const void* q_off, int pair, int slices,
+                             int stages, void* stream) {
+  if (B == 0 || Sq == 0 || H == 0) return 0;
   if (D < 8 || D > 256 || D % 8 || KV < 1 || H % KV || Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(q_off);
-  if (q_tile == 64)
-    return dispatch_wgmma<1>(q, k, v, o, strides, B, H, KV, Sq, Sk, D, scale,
-                             causal, window, softcap, off, stages, s);
-  if (q_tile == 128)
-    return dispatch_wgmma<2>(q, k, v, o, strides, B, H, KV, Sq, Sk, D, scale,
-                             causal, window, softcap, off, stages, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch ((D + 63) / 64) {
+    case 1:
+      return launch_extend<64>(q, k, v, o, strides, B, H, KV, Sq, Sk, D,
+                               scale, window, softcap, off, pair, slices,
+                               stages, s);
+    case 2:
+      return launch_extend<128>(q, k, v, o, strides, B, H, KV, Sq, Sk, D,
+                                scale, window, softcap, off, pair, slices,
+                                stages, s);
+    case 3:
+      return launch_extend<192>(q, k, v, o, strides, B, H, KV, Sq, Sk, D,
+                                scale, window, softcap, off, pair, slices,
+                                stages, s);
+    default:
+      return launch_extend<256>(q, k, v, o, strides, B, H, KV, Sq, Sk, D,
+                                scale, window, softcap, off, pair, slices,
+                                stages, s);
+  }
 }
 
 }  // extern "C"

@@ -12,16 +12,21 @@ tensors are read through their strides (unit stride along D), so a caller
 holding (B, S, H, D) activations passes ``x.transpose(1, 2)`` views and no
 copy is made.
 
-Two launches share the kernels: :func:`flash_attention_kernel`, the
-prefill (queries and keys the same S positions), and
-:func:`flash_extend_kernel`, a chunk of queries at per-row offsets read
-from device memory against a longer cache (the reference's
-``attend_decode`` over a plain cache, which XLA fuses; no Pallas kernel
-is its counterpart). Each counts its own launches.
+Two launches: :func:`flash_attention_kernel`, the prefill (queries and
+keys the same S positions), and :func:`flash_extend_kernel`, a chunk of
+queries at per-row offsets read from device memory against a longer
+cache (the reference's ``attend_decode`` over a plain cache, which XLA
+fuses; no Pallas kernel is its counterpart). In fp32 both run the
+CUDA-core kernel; in bf16 the extend launch has a kernel of its own:
+two heads of a GQA group a CTA sharing each K/V stage, and the live key
+tiles of a query tile split over a thread-block cluster of CTAs that
+merge their partial softmax states through distributed shared memory,
+so that a chunk fills the card. Each launch counts its own launches.
 
-:func:`plan_bf16`, :func:`tma_strides` and :func:`operand_shapes` are the
-host side of the launches as pure functions, so the CPU tests reach
-them; every refusal is raised before any launch.
+:func:`plan_bf16`, :func:`plan_extend`, :func:`extend_tile_ranges`,
+:func:`tma_strides` and :func:`operand_shapes` are the host side of the
+launches as pure functions, so the CPU tests reach them; every refusal
+is raised before any launch.
 """
 from __future__ import annotations
 
@@ -42,7 +47,17 @@ _COMMON_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
      ctypes.c_void_p]
 _FP32_ARGS = _COMMON_ARGS + [ctypes.c_void_p]
 _BF16_ARGS = _COMMON_ARGS + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# q, k, v, o, strides; B, H, KV, Sq, Sk, D; scale, window, softcap; the
+# offsets; pair, slices, stages; the stream
+_EXTEND_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p] + \
+    [ctypes.c_int] * 3 + [ctypes.c_void_p]
 MAX_HEAD_DIM = 256
+MAX_SLICES = 4        # kMaxSlices in the source
+# the extend plan's cost of a CTA beyond its key tiles, in key tiles of
+# ~2 us, as the launch's probes and slice sweep read on the H100 (PERF.md
+# §6): its launch, start and stores (~6 us), and a split's merge (~4.5 us)
+START_TILES, MERGE_TILES = 3, 2
 
 # Hopper's shared memory (H100, H200): 227 KB a block. Every tile shape
 # holds one CTA an SM (registers: see ``TcConfig`` in the source).
@@ -68,37 +83,162 @@ class Bf16Plan:
     key_tiles: int
 
 
-@functools.lru_cache(maxsize=256)
-def plan_bf16(B: int, H: int, S: int, D: int, q_tile: int | None = None,
-              num_sms: int = 132, *, Sk: int | None = None) -> Bf16Plan:
-    """Tile shapes and shared memory of the bf16 kernel (``TcConfig`` in
-    the source) for S query rows against ``Sk`` keys (S itself in the
-    prefill launch): 64 query rows a warpgroup, 128-key tiles up to D =
-    128 and 64-key tiles above. ``q_tile`` None picks 128 rows (two
-    warpgroups) when their grid alone fills the card's ``num_sms`` SMs,
-    else 64 (twice the CTAs; an extend chunk's CTAs each walk its whole
-    cache, so it takes 64 rows at any cache length that leaves the grid
-    under a wave). The K/V ring takes as many stages (up to 4) as fit
-    227 KB."""
+def _check_bf16_head_dim(D: int) -> None:
     if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash attention in bf16 takes a head dim that is "
                          f"a multiple of 8 in [8, {MAX_HEAD_DIM}] (TMA moves "
                          f"whole 16-byte rows), got {D}")
+
+
+def _tiles(D: int, q_rows: int) -> tuple[int, int, int]:
+    """(head_pad, block_k, stages) of a CTA holding ``q_rows`` query rows
+    of a padded head: 128-key tiles up to D = 128, 64-key tiles above,
+    as many K/V stages (up to 4) as fit 227 KB."""
+    head_pad = math.ceil(D / 64) * 64
+    block_k = 128 if head_pad <= 128 else 64
+    stage_bytes = 2 * block_k * head_pad * 2
+    stages = min(MAX_STAGES, (SMEM_PER_BLOCK - ALIGN_SLACK - STATIC_SMEM
+                              - q_rows * head_pad * 2) // stage_bytes)
+    return head_pad, block_k, stages
+
+
+@functools.lru_cache(maxsize=256)
+def plan_bf16(B: int, H: int, S: int, D: int, q_tile: int | None = None,
+              num_sms: int = 132) -> Bf16Plan:
+    """Tile shapes and shared memory of the bf16 prefill kernel
+    (``TcConfig`` in the source) for S query rows against as many keys:
+    64 query rows a warpgroup, 128-key tiles up to D = 128 and 64-key
+    tiles above. ``q_tile`` None picks 128 rows (two warpgroups) when
+    their grid alone fills the card's ``num_sms`` SMs, else 64 (twice the
+    CTAs). The K/V ring takes as many stages (up to 4) as fit 227 KB."""
+    _check_bf16_head_dim(D)
     if q_tile is None:
         q_tile = 128 if math.ceil(S / 128) * H * B >= num_sms else 64
     if q_tile not in (64, 128):
         raise ValueError(f"q_tile must be 64 or 128, got {q_tile}")
-    head_pad = math.ceil(D / 64) * 64
-    block_k = 128 if head_pad <= 128 else 64
-    q_bytes = q_tile * head_pad * 2
-    stage_bytes = 2 * block_k * head_pad * 2
-    stages = min(MAX_STAGES, (SMEM_PER_BLOCK - ALIGN_SLACK - STATIC_SMEM
-                              - q_bytes) // stage_bytes)
+    head_pad, block_k, stages = _tiles(D, q_tile)
     return Bf16Plan(q_tile=q_tile, head_pad=head_pad, block_k=block_k,
                     stages=stages, threads=2 * q_tile,
-                    smem_bytes=ALIGN_SLACK + q_bytes + stages * stage_bytes,
+                    smem_bytes=ALIGN_SLACK + q_tile * head_pad * 2
+                    + stages * 2 * block_k * head_pad * 2,
                     grid=(math.ceil(S / q_tile), H, B),
-                    key_tiles=math.ceil((S if Sk is None else Sk) / block_k))
+                    key_tiles=math.ceil(S / block_k))
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtendPlan:
+    """The bf16 extend launch (``flash_extend_kernel`` in the source):
+    CTAs of two consumer warpgroups (``threads`` 256) on ``q_tile`` query
+    rows, two heads of a GQA group over 64 rows when ``pair`` (G even),
+    else one head's 128; each query tile's live key tiles split into
+    ``slices`` ranges, one CTA each, the ``slices`` CTAs along x a
+    ``cluster``; D padded to ``head_pad``, ``block_k`` keys a stage,
+    ``stages`` in the ring. ``key_tiles`` is the most live key tiles a
+    CTA can have at these shapes (any offset); ``partial_bytes`` the
+    shared memory the merge takes in a CTA (0 unsplit)."""
+    pair: bool
+    q_tile: int
+    head_pad: int
+    block_k: int
+    stages: int
+    threads: int
+    smem_bytes: int
+    slices: int
+    cluster: tuple[int, int, int]
+    grid: tuple[int, int, int]
+    key_tiles: int
+    partial_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return math.prod(self.grid)
+
+
+def pick_slices(base: int, key_tiles: int, num_sms: int) -> int:
+    """The slice count for ``base`` CTAs a slice whose heaviest sees
+    ``key_tiles`` tiles: of 1 .. min(MAX_SLICES, ``key_tiles``), the one
+    with the least estimated time, the smaller on a tie. A CTA holds an
+    SM (its registers and shared memory), so the CTAs run in waves of
+    ``num_sms``, each as long as its heaviest CTA: waves x (its tiles +
+    START_TILES, + MERGE_TILES when split)."""
+    def cost(s: int) -> tuple[int, int]:
+        per_cta = math.ceil(key_tiles / s) + START_TILES + \
+            (MERGE_TILES if s > 1 else 0)
+        return math.ceil(base * s / num_sms) * per_cta, s
+    return min(range(1, max(1, min(MAX_SLICES, key_tiles)) + 1), key=cost)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_extend(B: int, H: int, KV: int, C: int, T: int, D: int,
+                window: int = 0, num_sms: int = 132,
+                slices: int | None = None) -> ExtendPlan:
+    """The bf16 extend launch's plan for a chunk of C queries of H heads
+    against a cache of T keys of KV heads: a function of these shapes and
+    the SM count alone, never of the offsets (read on the device), so a
+    captured graph replays every start. ``slices`` None picks the split
+    (:func:`pick_slices`); a number forces it (a measurement hook)."""
+    _check_bf16_head_dim(D)
+    if KV < 1 or H % KV:
+        raise ValueError(f"flash_extend_kernel: {H} heads are not groups "
+                         f"of {KV} KV heads")
+    pair = (H // KV) % 2 == 0
+    q_tile = 64 if pair else 128
+    head_pad, block_k, stages = _tiles(D, 128)
+    tiles_q = math.ceil(C / q_tile)
+    heads = H // 2 if pair else H
+    key_tiles = math.ceil(T / block_k)
+    if window > 0:         # the window's keys and the tile's rows, any start
+        key_tiles = min(key_tiles,
+                        math.ceil((window + q_tile - 1) / block_k) + 1)
+    if slices is None:
+        slices = pick_slices(tiles_q * heads * B, key_tiles, num_sms)
+    if not 1 <= slices <= MAX_SLICES:
+        raise ValueError(f"flash_extend_kernel: slices {slices} outside "
+                         f"[1, {MAX_SLICES}]")
+    return ExtendPlan(pair=pair, q_tile=q_tile, head_pad=head_pad,
+                      block_k=block_k, stages=stages, threads=256,
+                      smem_bytes=ALIGN_SLACK + 128 * head_pad * 2
+                      + stages * 2 * block_k * head_pad * 2,
+                      slices=slices, cluster=(slices, 1, 1),
+                      grid=(tiles_q * slices, heads, B), key_tiles=key_tiles,
+                      partial_bytes=_partial_bytes(head_pad, slices))
+
+
+def _partial_bytes(head_pad: int, slices: int) -> int:
+    """The shared memory a CTA's merge takes (the source's layout): a
+    float4 a thread for each slice of each column group the CTA owns
+    (head_pad / 8 groups over the slices), and each slice's (m, l)."""
+    if slices == 1:
+        return 0
+    groups = head_pad // 8
+    return 16 * 256 * slices * (math.ceil(groups / slices) + 1)
+
+
+def extend_tile_ranges(plan: ExtendPlan, C: int, T: int, offsets,
+                       window: int = 0) -> list:
+    """The key tiles each CTA of the extend launch walks, as the kernel
+    works them out on the device from the offsets: for batch row b and
+    query tile qt, ``[(first, end) for each slice]`` (end exclusive; a
+    slice may be empty). The CTA's live keys run from its window's first
+    (0 without a window) to min(T, off + its last row + 1); of their n
+    tiles slice s takes [ceil(s n / S), ceil((s + 1) n / S)), so a
+    longer slice comes first and the last, holding the masked diagonal,
+    is never the longest."""
+    bk, rows, S = plan.block_k, plan.q_tile, plan.slices
+    out = []
+    for off in offsets:
+        off = max(int(off), 0)
+        per_b = []
+        for qt in range(math.ceil(C / rows)):
+            q0 = qt * rows
+            kv_end = min(T, off + min(C, q0 + rows))
+            kv_begin = max(0, off + q0 - window + 1) if window > 0 else 0
+            first = kv_begin // bk
+            n = max(0, -(-kv_end // bk) - first)
+            per_b.append([(first - (-s * n // S),
+                           first - (-(s + 1) * n // S)) for s in range(S)])
+        out.append(per_b)
+    return out
 
 
 def tma_strides(name: str, shape, strides, data_ptr: int,
@@ -168,10 +308,12 @@ def operand_shapes(q, k, v, what: str, q_offset=None
 
 
 def _launch(q, k, v, q_offset, dims, *, scale, causal: bool, window: int,
-            softcap: float, q_tile: int | None, what: str) -> torch.Tensor:
-    """One launch of the kernel q's dtype picks, the output allocated
-    like q; ``q_offset`` None is the prefill launch. Raises before the
-    launch for TMA's rules (bf16) and after it for a CUDA error."""
+            softcap: float, q_tile: int | None = None,
+            slices: int | None = None, what: str) -> torch.Tensor:
+    """One launch of the kernel q's dtype (and in bf16 the offsets)
+    picks, the output allocated like q; ``q_offset`` None is the prefill
+    launch. Raises before the launch for TMA's rules and the plans (bf16)
+    and after it for a CUDA error."""
     B, H, KV, Sq, Sk, D = dims
     tensors = (q, k, v) + (() if q_offset is None else (q_offset,))
     if not all(t.is_cuda and t.device == q.device for t in tensors):
@@ -179,27 +321,34 @@ def _launch(q, k, v, q_offset, dims, *, scale, causal: bool, window: int,
                          f"device")
     out = torch.empty_like(q)      # unit stride along D, as q
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    off = None if q_offset is None else q_offset.data_ptr()
     if q.dtype == torch.bfloat16:
-        plan = plan_bf16(B, H, Sq, D, q_tile, _num_sms(q.device.index),
-                         Sk=Sk)
         st = [s for name, t in (("q", q), ("k", k), ("v", v))
               for s in tma_strides(name, t.shape, t.stride(),
                                    t.data_ptr())]
         st += out.stride()[:3]
-        extra = (plan.q_tile, plan.stages)
-        fn = _build.function(_LIB, "flash_attention_bf16_launch", _BF16_ARGS)
+        if q_offset is None:
+            plan = plan_bf16(B, H, Sq, D, q_tile, _num_sms(q.device.index))
+            tail = (int(bool(causal)), int(window), float(softcap), off,
+                    plan.q_tile, plan.stages)
+            fn = _build.function(_LIB, "flash_attention_bf16_launch",
+                                 _BF16_ARGS)
+        else:
+            plan = plan_extend(B, H, KV, Sq, Sk, D, int(window),
+                               _num_sms(q.device.index), slices)
+            tail = (int(window), float(softcap), off, int(plan.pair),
+                    plan.slices, plan.stages)
+            fn = _build.function(_LIB, "flash_extend_bf16_launch",
+                                 _EXTEND_ARGS)
     else:
         st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-        extra = ()
+        tail = (int(bool(causal)), int(window), float(softcap), off)
         fn = _build.function(_LIB, "flash_attention_fp32_launch", _FP32_ARGS)
     strides = (ctypes.c_longlong * 12)(*st)
     with device_guard(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  ctypes.addressof(strides), B, H, KV, Sq, Sk, D,
-                 float(scale), int(bool(causal)), int(window),
-                 float(softcap),
-                 None if q_offset is None else q_offset.data_ptr(), *extra,
-                 stream_handle(q.device))
+                 float(scale), *tail, stream_handle(q.device))
     _build.check(_LIB, err, what)
     return out
 
@@ -240,7 +389,7 @@ flash_attention_kernel.launches = 0
 
 def flash_extend_kernel(q, k, v, q_offset, *, scale: float | None = None,
                         window: int = 0, softcap: float = 0.0,
-                        _q_tile: int | None = None) -> torch.Tensor:
+                        _slices: int | None = None) -> torch.Tensor:
     """A chunk's causal attention against a cache: q (B, H, C, D) the
     chunk's queries, k/v (B, KV, T, D) the cache, already holding the
     chunk's keys, and ``q_offset`` a contiguous int32 (B,) tensor on
@@ -251,11 +400,14 @@ def flash_extend_kernel(q, k, v, q_offset, *, scale: float | None = None,
     rows see are never read into a result, whatever they hold. The
     offsets are read on the device alone, so a captured graph replays
     the launch for new offsets. Same dtypes, layouts and rules as
-    :func:`flash_attention_kernel`; one launch."""
+    :func:`flash_attention_kernel`; one launch, in bf16 shaped by
+    :func:`plan_extend`. ``_slices`` is a measurement hook, set by no
+    caller of the port: it forces the bf16 launch's split over keys
+    (1..8) instead of the plan's pick."""
     what = "flash_extend_kernel"
     dims = operand_shapes(q, k, v, what, q_offset)
     out = _launch(q, k, v, q_offset, dims, scale=scale, causal=True,
-                  window=window, softcap=softcap, q_tile=_q_tile, what=what)
+                  window=window, softcap=softcap, slices=_slices, what=what)
     flash_extend_kernel.launches += 1
     return out
 

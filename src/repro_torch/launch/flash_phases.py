@@ -16,6 +16,16 @@ case and warpgroup, the mean cycles of an iteration and of its phases
 - ``rescale_pack``: releasing the stage (and refilling it, for the last
   group), rescaling O and packing P_t to bf16.
 
+The same build stamps the bf16 extend launch (``flash_extend_kernel``):
+thread 0 of every CTA at its start, after its barriers are set up, when Q
+and its first K/V stage have landed, after its last P V, after the
+cluster's first barrier, after its partial is pushed and the second
+barrier, after the merge's sums and at its end (``EXTEND_POINTS``), with
+the global timer at its start and end. At path A's chunk for each slice count in ``EXTEND_SLICES`` and
+offsets 2048 and 0 it prints each segment's mean and largest cycles over
+the CTAs, and the spread of the CTAs' start and end times (ns) against
+the kernel's first start.
+
 The probes are compiled out of the library the port runs. Needs one GPU::
 
     PYTHONPATH=src python -m repro_torch.launch.flash_phases
@@ -36,6 +46,59 @@ PHASES = ("wait_kv", "turn", "issue", "wait_s", "softmax", "wait_pv",
           "rescale_pack")
 CASES = ((2048, 128), (2048, 64), (512, 64), (512, 128))  # (S, q_tile)
 SHAPE = dict(B=1, H=12, KV=2, D=128)                     # qwen2-1.5b
+
+
+EXTEND_POINTS = ("start", "barriers", "first_tile", "last_pv",
+                 "cluster_synced", "pushed", "merged", "end")
+EXTEND_SLICES = (1, 2, 3, 4)
+EXTEND_OFFSETS = (2048, 0)
+EXTEND_SHAPE = dict(B=1, H=12, KV=2, C=512, T=2560, D=128)   # path A
+PROBE_CTAS = 1024                                 # kProbeCtas
+
+
+def extend_probes(lib, gen) -> dict:
+    """Segments of the extend launch's CTAs, by slice count and offset."""
+    B, H, KV, C, T, D = (EXTEND_SHAPE[k] for k in
+                         ("B", "H", "KV", "C", "T", "D"))
+    q = torch.randn((B, C, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((B, T, KV, D), generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2) for _ in range(2))
+    out = {}
+    for off in EXTEND_OFFSETS:
+        offs = torch.full((B,), off, dtype=torch.int32, device="cuda")
+        for slices in EXTEND_SLICES:
+            plan = flash.plan_extend(B, H, KV, C, T, D, slices=slices)
+            for _ in range(3):
+                flash.flash_extend_kernel(q, k, v, offs, _slices=slices)
+            torch.cuda.synchronize()
+            clocks = np.zeros((PROBE_CTAS, len(EXTEND_POINTS)), np.int64)
+            times = np.zeros((PROBE_CTAS, 2), np.uint64)
+            err = lib.flash_extend_probes_read(
+                ctypes.c_void_p(clocks.ctypes.data),
+                ctypes.c_void_p(times.ctypes.data))
+            if err:
+                raise RuntimeError(f"flash_extend_probes_read: {err}")
+            n = plan.ctas
+            c, t = clocks[:n], times[:n].astype(np.int64)
+            segs = {}
+            for i in range(1, len(EXTEND_POINTS)):
+                d = c[:, i] - c[:, i - 1]
+                ok = (c[:, i] >= c[:, i - 1]) & (c[:, i] <= c[:, -1]) & \
+                    (c[:, i - 1] >= c[:, 0])
+                if ok.any():
+                    segs[EXTEND_POINTS[i]] = dict(
+                        mean=float(d[ok].mean()), max=int(d[ok].max()),
+                        ctas=int(ok.sum()))
+            t0 = t[:, 0].min()
+            out[f"off{off}_slices{slices}"] = dict(
+                ctas=n, cycles_start_to_end_max=int((c[:, -1] - c[:, 0])
+                                                    .max()),
+                segments=segs,
+                start_ns_max=int((t[:, 0] - t0).max()),
+                end_ns_min=int((t[:, 1] - t0).min()),
+                end_ns_max=int((t[:, 1] - t0).max()))
+    return out
 
 
 def main() -> None:
@@ -70,7 +133,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(json.dumps(dict(card=smi, block_k=plan.block_k, phases=report)))
+    print(json.dumps(dict(card=smi, block_k=plan.block_k, phases=report,
+                          extend=extend_probes(lib, gen))))
 
 
 if __name__ == "__main__":

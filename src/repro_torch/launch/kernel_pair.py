@@ -1,6 +1,7 @@
-"""Paged decode attention, page gather, page scatter and the RWKV6 WKV scan
-timed the same way on any tree of the port, so that two trees can be
-compared in one call on one card.
+"""Paged decode attention, page gather, page scatter, the RWKV6 WKV scan,
+the RMS norm and the flash kernels' extend launch timed the same way on
+any tree of the port, so that two trees can be compared in one call on
+one card.
 
 It calls only the wrappers' public signatures, which every tree of the
 port shares, so this file times whichever tree ``PYTHONPATH`` names; run
@@ -25,7 +26,19 @@ G 6, page 16):
 - the WKV scan at rwkv6-3b's prefill (fp32, T 2048, H 40, K = L = 64,
   with an initial state) at B 1 (``chip_smoke.py``'s ``SCAN_MAIN``) and at
   B 2 (its phase 4), with the decays ``chip_smoke.check_scan`` times
-  (log-decay -exp(0.1 N(0, 1)), near -1 a token).
+  (log-decay -exp(0.1 N(0, 1)), near -1 a token);
+- the RMS norm at path A's decode step (4 rows of qwen2-1.5b's 1536, bf16)
+  in its three modes (alone, the residual sum read in fp32, rounded) and
+  at a 512-token chunk's rows, and the flash kernels' extend launch at
+  path A's chunk (512 queries of 12 heads on 2048 cached tokens of 2
+  KV heads, 2560 slots, D 128, bf16), each by CUDA-graph replay
+  (``graph_ms``: 20 calls a graph, 5 replays, device time alone) beside
+  its bound; where the tree has it, an empty kernel's launch, the floor
+  a graph node costs (``launch_floor``);
+- the flash kernels' prefill launch at qwen2-1.5b's 2048 tokens (bf16,
+  12 heads of 2 KV heads, D 128) by CUDA-graph replay, with a digest of
+  its output's bits on inputs of their own seed, so two trees' outputs
+  can be compared bit for bit.
 
 Each is timed eager (CUDA events around a loop of calls, host work
 included where it is the slower side) and on the device (``torch.profiler``:
@@ -55,6 +68,7 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan_kernel
 
 HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
 FP32_PEAK = 67e12           # H100 SXM data sheet, fp32 FLOP/s
+BF16_PEAK = 989e12          # H100 SXM data sheet, dense bf16 FLOP/s
 LAYERS, KV, G, DH, PAGE = 28, 2, 6, 128, 16
 DECODE_CASES = {"phase2": (4096, 0, 1, 17, 1000, 2048, 3333, 4095),
                 "serve": (2048,) * 4}
@@ -202,9 +216,108 @@ def time_scan(shape: dict, gen) -> dict:
                 bound_ms=max(nbytes / HBM_BW, flops / FP32_PEAK) * 1e3)
 
 
+def graph_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
+    """Device ms a call: ``iters`` calls captured in one CUDA graph,
+    ``reps`` replays timed with CUDA events (as ``chip_smoke.graph_ms``)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+NORM_D, NORM_ROWS = 1536, (4, 512)
+EXTEND = dict(B=1, H=12, KV=2, C=512, T=2560, D=128, off=2048)
+
+
+def time_norms(gen) -> dict:
+    """The norm's public call at path A's rows: device ms of each mode at
+    4 rows and of the fp32-sum mode at 512, beside each one's bytes over
+    the HBM rate; the launch floor where the tree has an empty kernel."""
+    from repro_torch.kernels.fusions import rms_norm_kernel
+    out = {}
+    scale = torch.randn(NORM_D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    for rows in NORM_ROWS:
+        x, d = (torch.randn((rows, 1, NORM_D), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        modes = {"add_fp32": (d, True)} if rows > 4 else \
+            {"plain": (None, False), "add_fp32": (d, True),
+             "add_rounded": (d, False)}
+        for mode, (delta, f32) in modes.items():
+            nbytes = (2 + 2 * (delta is not None)) * rows * NORM_D * 2 \
+                + NORM_D * 2
+            out[f"rows{rows}_{mode}"] = dict(
+                device_ms=graph_ms(lambda: rms_norm_kernel(x, scale, 1e-6,
+                                                           delta, f32)),
+                bound_ms=nbytes / HBM_BW * 1e3)
+    try:
+        from repro_torch.kernels.fusions.kernel import empty_kernel_launch
+    except ImportError:
+        return out
+    device = scale.device
+    out["launch_floor"] = dict(device_ms=graph_ms(
+        lambda: empty_kernel_launch(device)))
+    return out
+
+
+def time_extend(gen) -> dict:
+    """The extend launch's public call at path A's chunk, the cache NaN
+    past the chunk's end (none at this offset); bound: its flops over the
+    bf16 peak (``chip_smoke.extend_work``'s count)."""
+    from repro_torch.kernels.flash_attention import flash_extend_kernel
+    B, H, KV, C, T, D, off = (EXTEND[x] for x in
+                              ("B", "H", "KV", "C", "T", "D", "off"))
+    q = torch.randn((B, C, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((B, T, KV, D), generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2) for _ in range(2))
+    offs = torch.full((B,), off, dtype=torch.int32, device="cuda")
+    pairs = sum(off + i + 1 for i in range(C))
+    return dict(device_ms=graph_ms(lambda: flash_extend_kernel(q, k, v,
+                                                               offs)),
+                bound_ms=4.0 * D * pairs * H / BF16_PEAK * 1e3)
+
+
+FLASH = dict(B=1, H=12, KV=2, S=2048, D=128)
+
+
+def time_flash() -> dict:
+    """The prefill launch's public call at FLASH, inputs from their own
+    seed; ``bits``: a digest of the output's bytes."""
+    import hashlib
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    B, H, KV, S, D = (FLASH[x] for x in ("B", "H", "KV", "S", "D"))
+    q, k, v = (torch.randn((B, S, n, D), generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2) for n in (H, KV, KV))
+    out = flash_attention_kernel(q, k, v)
+    bits = hashlib.sha256(out.contiguous().view(torch.int16).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+    flops = 4.0 * D * H * B * S * (S + 1) / 2
+    return dict(device_ms=graph_ms(lambda: flash_attention_kernel(q, k, v)),
+                bound_ms=flops / BF16_PEAK * 1e3, bits=bits)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
+    ap.add_argument("--only", default="",
+                    help="comma-separated cases to time (decode, gather, "
+                         "scatter, scan, norm, extend, flash); all by "
+                         "default")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_pair: CUDA is not available")
@@ -213,18 +326,30 @@ def main(argv=None) -> int:
                          text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
+    only = set(filter(None, args.only.split(",")))
+    want = lambda case: not only or case in only  # noqa: E731
     out = {"label": args.label, "card": smi}
-    for name, lens in DECODE_CASES.items():
-        case = decode_case(lens, gen)
-        out[f"decode_{name}"] = time_decode(case)
-        del case
+    if want("decode"):
+        for name, lens in DECODE_CASES.items():
+            case = decode_case(lens, gen)
+            out[f"decode_{name}"] = time_decode(case)
+            del case
+            torch.cuda.empty_cache()
+    if want("gather"):
+        out["page_gather"] = time_gather(gen)
         torch.cuda.empty_cache()
-    out["page_gather"] = time_gather(gen)
-    torch.cuda.empty_cache()
-    out["page_scatter"] = time_scatter(gen)
-    for name, shape in SCAN_CASES.items():
-        out[name] = time_scan(shape, gen)
-        torch.cuda.empty_cache()
+    if want("scatter"):
+        out["page_scatter"] = time_scatter(gen)
+    if want("scan"):
+        for name, shape in SCAN_CASES.items():
+            out[name] = time_scan(shape, gen)
+            torch.cuda.empty_cache()
+    if want("norm"):
+        out["rms_norm"] = time_norms(gen)
+    if want("extend"):
+        out["flash_extend"] = time_extend(gen)
+    if want("flash"):
+        out["flash_attention"] = time_flash()
     print(json.dumps(out))
     return 0
 

@@ -1074,3 +1074,23 @@ def test_merged_combine_work():
     assert nbytes == 4 * splits * KV * (G * Dh + 2 * G + 1) + \
         4 * (2 * B * H * Dh + 2 * B * KV * Dh) + 4 * B
     assert ops > 0
+
+
+@pytest.mark.parametrize("traces,calls", [
+    ([{"a": 3}], 1),                  # a trace with events: taken
+    ([{}, {"a": 3}], 2),              # an empty one: traced once more
+    ([{}, {}], 2),                    # and that one counts, empty or not
+])
+def test_an_empty_step_trace_is_taken_once_more(monkeypatch, traces, calls):
+    from repro_torch.launch import profile_step
+    seen = []
+
+    def traced(fn, **kw):
+        seen.append(kw)
+        return {"kernel_counts": traces[len(seen) - 1]}
+
+    monkeypatch.setattr(profile_step, "traced", traced)
+    resets = []
+    assert chip_smoke.step_kernel_counts(
+        lambda: None, lambda: resets.append(1)) == traces[calls - 1]
+    assert len(seen) == calls and len(resets) == calls - 1

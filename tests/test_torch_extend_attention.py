@@ -185,19 +185,25 @@ class TestExtendPlan:
     plan, its operand checks and the C entry points' argument lists."""
 
     def test_path_a_chunk_plan(self):
-        """512 queries of 12 heads against a 2560-slot scratch: 64-row
-        tiles (96 CTAs, under one wave of 132), 20 K/V tiles of 128."""
-        plan = flash_kernel.plan_bf16(1, 12, 512, 128, Sk=2560)
-        assert plan.grid == (8, 12, 1) and plan.q_tile == 64
+        """512 queries of 12 heads (G 6) against a 2560-slot scratch: the
+        extend plan pairs two heads on a CTA's 64 rows and splits the 20
+        K/V tiles of 128 over clusters of 2: 96 CTAs of two warpgroups,
+        one wave (the prefill plan of the same queries: 96 one-group
+        CTAs); D 256 takes 64-key tiles."""
+        plan = flash_kernel.plan_extend(1, 12, 2, 512, 2560, 128)
+        assert plan.pair and plan.q_tile == 64 and plan.threads == 256
+        assert plan.ctas == 96 and plan.grid == (16, 6, 1)
         assert plan.block_k == 128 and plan.key_tiles == 20
-        wide = flash_kernel.plan_bf16(1, 16, 200, 256, Sk=4672)
-        assert wide.block_k == 64 and wide.key_tiles == 73
+        prefill = flash_kernel.plan_bf16(1, 12, 512, 128)
+        assert prefill.grid == (8, 12, 1) and prefill.q_tile == 64
+        wide = flash_kernel.plan_extend(1, 16, 8, 200, 4672, 256, 4096)
+        assert wide.block_k == 64 and wide.key_tiles == 66
 
     def test_prefill_plan_unchanged(self):
         for B, H, S, D in ((1, 12, 512, 128), (1, 16, 8192, 256),
                            (2, 8, 1000, 80)):
             plan = flash_kernel.plan_bf16(B, H, S, D)
-            assert plan == flash_kernel.plan_bf16(B, H, S, D, Sk=S)
+            assert plan == flash_kernel.plan_bf16(B, H, S, D, plan.q_tile)
             assert plan.key_tiles == -(-S // plan.block_k)
 
     @pytest.mark.parametrize("edit,error,match", [

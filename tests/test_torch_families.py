@@ -30,7 +30,7 @@ import torch
 from repro.configs import get_config as jax_config
 from repro.models import Model as JaxModel
 from repro.models.common import sinusoidal_emb as jax_sinusoidal_emb
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import kernel as decode_kernel
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -293,8 +293,11 @@ def test_chunk_launches_take_each_paged_family(no_launch, arch):
     for name, t in (("q", qv), ("k", kv)):
         assert flash_kernel.tma_strides(name, t.shape, t.stride(),
                                         4096)[1:] == t.stride()[1:3]
-    plan = flash_kernel.plan_bf16(1, H, C, D, Sk=T)
+    plan = flash_kernel.plan_extend(1, H, KV, C, T, D)
     assert plan.key_tiles * plan.block_k >= T
+    assert plan.threads == 256 and plan.pair == ((H // KV) % 2 == 0)
+    assert plan.smem_bytes <= flash_kernel.SMEM_PER_BLOCK
+    assert plan.partial_bytes <= plan.smem_bytes - flash_kernel.ALIGN_SLACK
     with pytest.raises(AssertionError, match="looked up"):
         flash_kernel.flash_extend_kernel(*map(_on_card, (qv, kv, kv, off)))
     rows = torch.zeros(C, H, D, dtype=torch.bfloat16)
@@ -315,3 +318,27 @@ def test_chunk_launches_take_each_paged_family(no_launch, arch):
             cache_k=_on_card(scratch), cache_v=_on_card(scratch),
             offsets=_on_card(off), bias=bias, norm=norm, eps=cfg.norm_eps,
             rope=rope)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_norm_takes_each_config_width(no_launch, arch):
+    """The norm kernel's geometry at every config's d_model (and a
+    qk-normed family's head dim), published and smoke widths, in bf16
+    and fp32: whole warps a row, every chunk a thread's, and the
+    wrapper's host checks pass, stopping at the launch's lookup."""
+    from repro_torch.kernels.fusions import kernel as fusion_kernel
+    for smoke in (False, True):
+        cfg = get_config(arch, smoke=smoke)
+        widths = {cfg.d_model} | ({cfg.head_dim} if cfg.qk_norm else set())
+        for D in widths:
+            for dtype in (torch.bfloat16, torch.float32):
+                esz = torch.empty((), dtype=dtype).element_size()
+                geo = fusion_kernel.norm_geometry(D, esz)
+                chunks = D * esz // 16
+                assert geo.row_threads % 32 == 0
+                assert geo.threads <= fusion_kernel.NORM_MAX_THREADS
+                assert geo.chunks_per_thread * geo.row_threads >= chunks
+                x = _on_card(torch.zeros(4, D, dtype=dtype))
+                with pytest.raises(AssertionError, match="looked up"):
+                    fusion_kernel.rms_norm_kernel(
+                        x, _on_card(torch.zeros(D, dtype=dtype)), 1e-6)
