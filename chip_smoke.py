@@ -348,6 +348,7 @@ import shutil
 import subprocess
 import sys
 import time
+import zlib
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -489,10 +490,13 @@ SCAN_PREFILL = dict(SCAN_MAIN, B=2)
 # (``cuda_graphs=False``); phase 2 holds it against its plain version.
 PATH_A = ("paged_decode_attention", "page_gather", "page_scatter",
           "token_append_indexed", "flash_attention", "flash_extend",
-          "rms_norm", "qkv_rope", "qkv_rope_chunk", "decode_merge")
-# The gated activation runs in a dense FFN's decode step (a MoE FFN keeps
-# its own ops): on path A's qwen2-1.5b, not in phase 6a's qwen3-moe.
-DENSE_FFN = "gated_act"
+          "rms_norm", "qkv_rope", "qkv_rope_chunk")
+# A dense FFN's kernels (a MoE FFN keeps its own ops): on path A's
+# qwen2-1.5b, not in phase 6a's qwen3-moe. The gated activation runs in
+# the chunk (and in an fp32 or wider decode step), the gate/up product
+# with its activation in the bf16 decode step.
+CHUNK_FFN, DECODE_FFN = "gated_act", "gate_up_act"
+DENSE_FFN = (CHUNK_FFN, DECODE_FFN)
 BY_VALUE_APPEND = "token_append"
 # Phase 3c: the graphed decode step against the eager one at full width.
 # Prompts of p0..p2; p3 is p1's twin on shared pages, so p1's first
@@ -787,7 +791,9 @@ def time_decode(case: dict, sheet: dict) -> dict:
     the pool's layers, so that every call finds its pages cold in the 50
     MB L2, as a decode step's layer loop does: an eager loop (``ms``) and
     the same calls replayed from a CUDA graph (``device_ms``), beside the
-    plain version and the bound."""
+    plain version and the bound; and the decode step's call, the new
+    token (the layer's token rows) merged in the launch, by graph replay
+    (``merged_device_ms``)."""
     import itertools
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention_kernel, paged_decode_attention_ref)
@@ -799,6 +805,11 @@ def time_decode(case: dict, sheet: dict) -> dict:
         return paged_decode_attention_kernel(*args, layer=next(layers),
                                              return_residuals=True)
 
+    def merged():
+        li = next(layers)
+        return paged_decode_attention_kernel(
+            *args, layer=li, new_kv=(case["k_tok"][li], case["v_tok"][li]))
+
     bms, by = decode_bound(case, sheet)
     return dict(
         ms=time_ms(kern, iters=L),
@@ -806,7 +817,67 @@ def time_decode(case: dict, sheet: dict) -> dict:
             *args, layer=next(layers), return_residuals=True), iters=3,
             warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
-        device_ms=graph_ms(kern, iters=L))
+        device_ms=graph_ms(kern, iters=L),
+        merged_device_ms=graph_ms(merged, iters=L))
+
+
+#: the counters' check: graph replays of the serve step's merged call
+COUNTER_REPLAYS = 1000
+
+
+def check_decode_counters(gen, replays: int = COUNTER_REPLAYS) -> dict:
+    """Decode attention's ticket counters after ``replays`` replays of
+    one captured merged call (SERVE_DECODE's pools) whose lengths change
+    every replay (0 to 2048 tokens a row, a zero-length row every 7th, a
+    live id outside the pool every 11th): every counter of every arena
+    reads 0, and every 97th replay's output equals an eager call's bit
+    for bit. Returns the replays and the counters read."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attention import \
+        paged_decode_attention_kernel as kernel
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+    case = make_case(SERVE_DECODE, torch.bfloat16, gen, "cuda")
+    q, k, v, tables, lens = decode_args(case)
+    new_kv = (case["k_tok"][0], case["v_tok"][0])
+    lens_in, tables_in = lens.clone(), tables.clone()
+    out = {}
+
+    def call():
+        out["o"] = kernel(q, k, v, tables_in, lens_in, layer=0,
+                          new_kv=new_kv)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    rng = np.random.default_rng(1)
+    page, P = k.shape[2], k.shape[1]
+    compared = 0
+    for i in range(replays):
+        n = rng.integers(0, SERVE_DECODE["lens"][0] + 1,
+                         size=len(SERVE_DECODE["lens"])).astype(np.int32)
+        if i % 7 == 0:
+            n[rng.integers(0, len(n))] = 0
+        bad = tables.clone()
+        if i % 11 == 0 and n.max() > 0:
+            b = int(np.argmax(n))
+            bad[b, (n[b] - 1) // page] = P
+        lens_in.copy_(torch.from_numpy(n))
+        tables_in.copy_(bad)
+        graph.replay()
+        if i % 97 == 0:
+            eager = kernel(q, k, v, bad, lens_in, layer=0, new_kv=new_kv)
+            assert same_bits(eager, out["o"]), f"replay {i}"
+            compared += 1
+    torch.cuda.synchronize()
+    counters = sum(a.numel() for a in decode_kernel._KEPT)
+    assert all(int(a.abs().sum()) == 0 for a in decode_kernel._KEPT), \
+        "a ticket counter was left non-zero"
+    del graph
+    return dict(replays=replays, compared_with_eager=compared,
+                counters=counters)
 
 
 def decode_split_times(case: dict) -> dict:
@@ -1661,16 +1732,19 @@ def scan_slice_times(gen) -> dict:
 
 # ------------------------------------------------- phase 2: the fusions
 #: The decode step's fusions (``kernels/fusions``): name -> (source, the
-#: reference's jnp that XLA fuses in its jitted decode scan).
+#: reference's jnp that XLA fuses in its jitted decode scan). The new
+#: token's merge (the reference's ``paged_runtime.py:411``) has no kernel
+#: of its own: decode attention's one launch merges it, checked below
+#: (``decode_merge``) and counted as ``paged_decode_attention``.
 FUSIONS = {
     "rms_norm": ("src/repro_torch/csrc/fusions.cu",
                  "src/repro/models/common.py:80"),
     "qkv_rope": ("src/repro_torch/csrc/fusions.cu",
                  "src/repro/models/attention.py:53"),
-    "decode_merge": ("src/repro_torch/csrc/decode_attention.cu",
-                     "src/repro/serving/paged_runtime.py:411"),
     "gated_act": ("src/repro_torch/csrc/fusions.cu",
                   "src/repro/models/mlp.py:19"),
+    "gate_up_act": ("src/repro_torch/csrc/fusions.cu",
+                    "src/repro/models/mlp.py:19"),
 }
 #: the paged families whose published widths the fusion checks take
 FUSION_ARCHS = ("qwen2-1.5b", "stablelm-3b", "glm4-9b",
@@ -1692,29 +1766,43 @@ FUSION_MERGE_CASES = (("SERVE_DECODE", "bfloat16", 0),
 #: up values the activation's exhaustive check pairs every finite bf16
 #: gate with
 ACT_UPS = (1.0, -1.5, 0.3125, 7.0, 2.0 ** -10)
-#: fp32 norms: the row's sum in another order moves rsqrt's input by a few
-#: ulps; 4 fp32 ulps of the output
-NORM_FP32_ULPS = 4
+#: the gate/up product's token rows: each row of a 16-row call bit-equal
+#: to the same row of a call on fewer
+GATE_UP_ROWS = tuple(range(1, 17))
+#: weight copies a timing rotates over, so every call finds its weights
+#: cold in the 50 MB L2, as a decode step's layer loop does
+GATE_UP_SETS = 3
+#: fp32 norms are checked on fresh draws of each of these seeds (P15):
+#: the bound below holds for any input, not for one draw
+NORM_FP32_SEEDS = (0, 1, 2)
 #: the merge's plain spelling fed the kernel's residuals: fp32 within
 #: 2e-5 (one dot product summed in another order), bf16 within one ulp
 MERGE_FP32_ATOL = 2e-5
 
 
 def fused_names(cfg) -> list[str]:
-    """The fusions a fused decode step of ``cfg`` launches: all four, but
-    the gated activation in a dense FFN only."""
-    return [n for n in FUSIONS if n != DENSE_FFN or cfg.family != "moe"]
+    """The fusions a fused decode step of ``cfg`` (at most 16 rows, as
+    every check's) launches: the norms and the qkv pass, and in a dense
+    FFN the gate/up product with its activation in bf16, the gated
+    activation alone (after cuBLAS's products) in fp32."""
+    names = ["rms_norm", "qkv_rope"]
+    if cfg.family != "moe":
+        names.append(DECODE_FFN if cfg.compute_dtype == "bfloat16"
+                     else CHUNK_FFN)
+    return names
 
 
 def fusion_kernels() -> dict:
-    """name -> (CUDA call, plain version) of the four fusions (a test
-    hands in other callables). The merge's CUDA call is decode attention
-    with ``new_kv``: its splits, then the combine that merges the token."""
+    """name -> (CUDA call, plain version) of the fusions and of the new
+    token's merge (a test hands in other callables). The merge's CUDA
+    call is decode attention with ``new_kv``: one launch, whose last
+    block of a row merges the token."""
     from repro_torch.kernels import fusions as fz
     return {"rms_norm": (fz.rms_norm_kernel, fz.rms_norm_ref),
             "qkv_rope": (fz.qkv_rope_kernel, fz.qkv_rope_ref),
             "decode_merge": (fz.attend_merged, fz.attend_merged_ref),
-            "gated_act": (fz.gated_act_kernel, fz.gated_act_ref)}
+            "gated_act": (fz.gated_act_kernel, fz.gated_act_ref),
+            "gate_up_act": (fz.gate_up_act_kernel, fz.gate_up_act_ref)}
 
 
 def ulp_gap(a, b) -> dict:
@@ -1779,33 +1867,81 @@ def fusion_inputs(cfg, B: int, dtype, gen, device) -> dict:
         gate=rand(B, 1, cfg.d_ff, std=2.0), up=rand(B, 1, cfg.d_ff))
 
 
-def check_fusion_norms(cfg, B: int, dtype, gen, device, kernels) -> dict:
+def norm_fp32_ulps(D: int) -> int:
+    """The most fp32 ulps the norm kernel's output may lie from the norm
+    of its input computed in float64 and rounded to fp32, for rows of
+    ``D`` (P15). With u = 2^-24 (an error of e u relative is at most e
+    ulps): a square and the kernel's adds (a thread's chunks in element
+    order, the warp's 5-level xor tree, the warps' sums in warp order:
+    ``norm_geometry``) put at most d roundings on any term's path, so the
+    sum is within d u relative; the mean's two roundings and eps's add
+    make d + 3; rsqrt halves its input's relative error and adds its own
+    2 ulps (rsqrtf, 4 u); x r, 1 + g and their product round 3 times; the
+    float64 value's rounding to fp32 is one ulp more at most."""
+    from repro_torch.kernels.fusions.kernel import norm_geometry
+    geo = norm_geometry(D, 4)
+    chunks = D // 4
+    per_thread = geo.chunks_per_thread or -(-chunks // geo.row_threads)
+    d = 1 + (4 * per_thread - 1) + 5 + (geo.row_threads // 32 - 1)
+    return math.ceil((d + 3) / 2) + 4 + 3 + 1
+
+
+def norm_exact(x, scale, eps: float):
+    """The RMS norm of ``x`` in float64, rounded to fp32: the value both
+    fp32 spellings approximate."""
+    import torch
+    xd = x.double()
+    out = xd * torch.rsqrt(xd.square().mean(-1, keepdim=True) + eps) \
+        * (1.0 + scale.double())
+    return out.float()
+
+
+def check_fusion_norms(cfg, B: int, dtype, device, kernels) -> dict:
     """The norm kernel in its three modes at ``cfg``'s d_model (and, with
-    a qk norm, on the (B * H, Dh) head rows) against the plain version:
-    bf16 within one ulp, fp32 within NORM_FP32_ULPS. Returns the worst
-    gap."""
+    a qk norm, on the (B * H, Dh) head rows) against the plain version,
+    on inputs drawn from a generator of their own (no other check's draws
+    move them): bf16 within one ulp; fp32, on each of NORM_FP32_SEEDS,
+    within ``norm_fp32_ulps`` of the float64 norm, and so within that
+    plus the plain version's own measured distance from it of the plain
+    version. Returns the worst gap to the plain version, with the worst
+    fp32 gap to the float64 norm and its bound."""
     import torch
     kern, ref = kernels["rms_norm"]
-    t = fusion_inputs(cfg, B, dtype, gen, device)
     eps = cfg.norm_eps
-    worst = None
-    cases = [(t["x"], None, False), (t["x"], t["delta"], True),
-             (t["x"], t["delta"], False)]
-    rows = [t["scale"]] * 3
-    if cfg.qk_norm:
-        cases.append((t["q"], None, False))
-        rows.append(t["norm"][0])
-    for (x, delta, f32), scale in zip(cases, rows):
-        got, want = kern(x, scale, eps, delta, f32), ref(x, scale, eps,
-                                                         delta, f32)
-        if delta is not None:
-            assert same_bits(got[0], want[0]), "residual sum differs"
-            got, want = got[1], want[1]
-        g = ulp_gap(got, want)
-        assert g["max_ulps"] <= (1 if dtype == torch.bfloat16
-                                 else NORM_FP32_ULPS), (cfg.name, B, g)
-        worst = worst_gap(worst, g)
-    return worst
+    worst, exact = None, None
+    seeds = NORM_FP32_SEEDS if dtype == torch.float32 else (0,)
+    for seed in seeds:
+        gen = torch.Generator(device=device).manual_seed(zlib.crc32(
+            f"{cfg.name} {B} {dtype} {seed}".encode()))
+        t = fusion_inputs(cfg, B, dtype, gen, device)
+        cases = [(t["x"], None, False), (t["x"], t["delta"], True),
+                 (t["x"], t["delta"], False)]
+        rows = [t["scale"]] * 3
+        if cfg.qk_norm:
+            cases.append((t["q"], None, False))
+            rows.append(t["norm"][0])
+        for (x, delta, f32), scale in zip(cases, rows):
+            got, want = kern(x, scale, eps, delta, f32), ref(x, scale, eps,
+                                                             delta, f32)
+            if delta is not None:
+                assert same_bits(got[0], want[0]), "residual sum differs"
+                x, got, want = want[0], got[1], want[1]
+            g = ulp_gap(got, want)
+            if dtype == torch.bfloat16:
+                assert g["max_ulps"] <= 1, (cfg.name, B, g)
+            else:
+                bound = norm_fp32_ulps(x.shape[-1])
+                e64 = norm_exact(x, scale, eps)
+                ge, gp = ulp_gap(got, e64), ulp_gap(want, e64)
+                assert ge["max_ulps"] <= bound, (cfg.name, B, seed, ge,
+                                                 bound)
+                assert g["max_ulps"] <= bound + gp["max_ulps"], \
+                    (cfg.name, B, seed, g, gp, bound)
+                ge = dict(ge, bound_ulps=bound, plain_ulps=gp["max_ulps"])
+                exact = ge if exact is None or \
+                    ge["max_ulps"] > exact["max_ulps"] else exact
+            worst = worst_gap(worst, g)
+    return worst if exact is None else dict(worst, float64=exact)
 
 
 def check_norm_rows(cfg, dtype, gen, device, kernels) -> int:
@@ -1892,23 +2028,67 @@ def check_fusion_act(gen, device, kernels) -> dict:
                 ups=len(ACT_UPS))
 
 
-def combine_work(case: dict) -> tuple[int, float]:
-    """The merged combine's bytes and flops alone: each row's live split
-    partials (G * Dh + 2 G + 1 fp32 a split and KV head), q, the new
-    token's k and v, the lengths and the output in q's dtype; ~3 flops an
-    output element a split merged (the token one more) and 2 Dh a query
-    head for the token's score."""
-    from repro_torch.kernels.decode_attention.kernel import plan_decode
-    B, H, Dh = case["q"].shape
-    KV, page = case["k"].shape[3], case["k"].shape[2]
-    G, esz = H // KV, case["q"].element_size()
-    spp = plan_decode(B, KV, G, Dh, esz, page,
-                      case["tables"].shape[1]).split_pages
-    splits = [math.ceil(math.ceil(n / page) / spp) for n in case["lens"]]
-    nbytes = (4 * sum(splits) * KV * (G * Dh + 2 * G + 1)
-              + 2 * B * H * Dh * esz + 2 * B * KV * Dh * esz + 4 * B)
-    return nbytes, float(sum(3 * (n + 1) * H * Dh + 2 * H * Dh
-                             for n in splits))
+def gate_up_inputs(cfg, rows: int, gen, device, sets: int = 1) -> dict:
+    """The decode step's FFN input at ``cfg``'s width: ``rows`` normed
+    token rows (unit scale) and ``sets`` copies of w1 and w3 (std
+    d_model^-1/2, so gate and up are of unit scale), bf16."""
+    import torch
+    D, F = cfg.d_model, cfg.d_ff
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=device) *
+                std).to(torch.bfloat16)
+
+    return dict(x=rand(rows, 1, D),
+                ws=[(rand(D, F, std=D ** -0.5), rand(D, F, std=D ** -0.5))
+                    for _ in range(sets)])
+
+
+def gate_up_bound(gate, up, activation: str) -> float:
+    """The gate/up product's bound against its plain version: the largest
+    change that moving the plain spelling's bf16 gate and up each by one
+    ulp (either way) makes in its output, over the tensor. The kernel's
+    fp32 sums run in another order than cuBLAS's, so a product may round
+    to the neighbouring bf16 value; the activation and the product with up
+    are the same ops."""
+    import torch
+    from repro_torch.kernels.fusions import gated_act_ref
+
+    def moved(t, d):
+        f = t.float()
+        e = torch.floor(torch.log2(f.abs().clamp_min(2.0 ** -126)))
+        return (f + d * torch.exp2(e - 7)).to(t.dtype)
+
+    base = gated_act_ref(gate, up, activation).float()
+    worst = 0.0
+    for dg in (-1, 0, 1):
+        for du in (-1, 0, 1):
+            near = gated_act_ref(moved(gate, dg), moved(up, du), activation)
+            worst = max(worst, (near.float() - base).abs().max().item())
+    return worst
+
+
+def check_fusion_gate_up(cfg, gen, device, kernels) -> dict:
+    """The gate/up product at ``cfg``'s (d_model, d_ff), bf16: against its
+    plain version (the two products, then the gated activation) within
+    ``gate_up_bound``, the elements that differ counted; each row of a
+    16-row call bit-equal to the row in calls of GATE_UP_ROWS rows and
+    across repeats (its sums' order depends on the widths alone)."""
+    import torch
+    kern, ref = kernels["gate_up_act"]
+    t = gate_up_inputs(cfg, max(GATE_UP_ROWS), gen, device)
+    x, (w1, w3) = t["x"], t["ws"][0]
+    act = cfg.activation
+    got = kern(x, w1, w3, act)
+    for rows in GATE_UP_ROWS:
+        assert same_bits(kern(x[:rows], w1, w3, act), got[:rows]), \
+            (cfg.name, rows)
+    assert same_bits(kern(x, w1, w3, act), got), (cfg.name, "repeat")
+    want = ref(x, w1, w3, act)
+    gap = ulp_gap(got, want)
+    bound = gate_up_bound(x @ w1, x @ w3, act)
+    assert gap["max_abs"] <= bound, (cfg.name, gap, bound)
+    return dict(gap, bound=bound, share_differ=gap["differ"] / gap["n"])
 
 
 def check_fusion_merge(case: dict, layer: int, kernels) -> float:
@@ -1935,20 +2115,19 @@ def check_fusion_merge(case: dict, layer: int, kernels) -> float:
 def time_fusions(gen, sheet: dict, kernels) -> dict:
     """Each fusion at the serve step (qwen2-1.5b, B = 4, bf16): an eager
     loop (``ms``) and CUDA-graph replay (``device_ms``) beside the plain
-    version, the bound and, where one torch call computes the function,
-    that call: ``F.rms_norm`` of the same sum (the add before it, as in
-    the timed mode), ``F.silu(a) * b``. Those calls round otherwise:
-    yardsticks only. The merge is the combine alone (given ``new_kv``) on
-    SERVE_DECODE's pools (B 4 x 2048 tokens), of a workspace the splits
-    filled once; its plain version the combine writing the residuals,
-    then ``merge_new_token_ref``: what ``fused=False`` runs after the
-    splits."""
+    version, the bound and, where torch calls compute the function, those
+    calls: ``F.rms_norm`` of the same sum (the add before it, as in the
+    timed mode), ``F.silu(a) * b``, and for the gate/up product two
+    ``torch.matmul`` and ``F.silu(g) * u`` (timed as one graph too). Those
+    calls round otherwise: yardsticks only. The gate/up product rotates
+    over GATE_UP_SETS weight copies, its weights cold in L2; beside it
+    the parent's route (two cuBLAS products, then ``gated_act_kernel``),
+    ``parent_route_device_ms``, timed before and after it."""
+    import itertools
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import (
-        merge_new_token_ref, paged_decode_attention_kernel)
-    from repro_torch.kernels.decode_attention.kernel import plan_decode
+    from repro_torch.kernels.fusions import plan_gate_up
     cfg = get_config("qwen2-1.5b")
     t = fusion_inputs(cfg, FUSION_TIMED_ROWS, torch.bfloat16, gen, "cuda")
     esz = 2
@@ -1964,16 +2143,20 @@ def time_fusions(gen, sheet: dict, kernels) -> dict:
         kern, ref = kernels[name]
         return (lambda: call(kern)), (lambda: call(ref))
 
-    case = make_case(SERVE_DECODE, torch.bfloat16, gen, "cuda")
-    margs = decode_args(case)
-    new_kv = (case["k_tok"][0], case["v_tok"][0])
-    scale = 1.0 / math.sqrt(Dh)
-    ws = torch.empty(plan_decode(B, KV, H // KV, Dh, esz,
-                                 case["k"].shape[2],
-                                 case["tables"].shape[1]).workspace_floats,
-                     dtype=torch.float32, device="cuda")
-    mkw = dict(layer=0, scale=scale, _workspace=ws)
-    paged_decode_attention_kernel(*margs, new_kv=new_kv, **mkw)
+    gu = gate_up_inputs(cfg, B, gen, "cuda", sets=GATE_UP_SETS)
+    turn = itertools.cycle(gu["ws"])
+
+    def gate_up(f):
+        return f(gu["x"], *next(turn), "silu")
+
+    def gate_up_library():
+        w1, w3 = next(turn)
+        return F.silu(torch.matmul(gu["x"], w1)) * torch.matmul(gu["x"], w3)
+
+    def parent_route():
+        w1, w3 = next(turn)
+        return kernels["gated_act"][0](gu["x"] @ w1, gu["x"] @ w3, "silu")
+
     work = {
         "rms_norm": (*pair("rms_norm", lambda f: f(t["x"], t["scale"], eps,
                                                    t["delta"], True)),
@@ -1985,28 +2168,30 @@ def time_fusions(gen, sheet: dict, kernels) -> dict:
                      2 * B * (H + 2 * KV) * Dh * esz
                      + (H + 2 * KV) * Dh * esz + 2 * B * rot * 4,
                      8.0 * B * (H + KV) * Dh, None),
-        "decode_merge": (
-            lambda: paged_decode_attention_kernel(
-                *margs, new_kv=new_kv, _combine_only=True, **mkw),
-            lambda: merge_new_token_ref(
-                margs[0], *new_kv, *paged_decode_attention_kernel(
-                    *margs, return_residuals=True, _combine_only=True,
-                    **mkw), scale),
-            *combine_work(case), None),
         "gated_act": (*pair("gated_act", lambda f: f(t["gate"], t["up"],
                                                      "silu")),
                       3 * B * F_ * esz, 6.0 * B * F_,
                       lambda: F.silu(t["gate"]) * t["up"]),
+        "gate_up_act": (*pair("gate_up_act", gate_up),
+                        (2 * D * F_ + B * D + B * F_) * esz,
+                        4.0 * B * D * F_, gate_up_library),
     }
     recs = {}
+    parent = graph_ms(parent_route)
     for name, (kern, ref, nbytes, ops, lib) in work.items():
-        bms, by = bound_ms(nbytes, ops, sheet, "fp32")
+        bms, by = bound_ms(nbytes, ops, sheet,
+                           "bf16" if name == "gate_up_act" else "fp32")
         recs[name] = dict(ms=time_ms(kern), plain_ms=time_ms(ref),
                           bound_ms=bms, bound_by=by,
                           library_ms=None if lib is None else time_ms(lib),
                           device_ms=graph_ms(kern))
         if lib is not None:
             recs[name]["library_device_ms"] = graph_ms(lib)
+    plan = plan_gate_up(B, D, F_, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    recs["gate_up_act"].update(
+        parent_route_device_ms=[parent, graph_ms(parent_route)],
+        plan=dataclasses.asdict(plan))
     recs["rms_norm"].update(norm_floor_times(gen, cfg, kernels, sheet))
     return recs
 
@@ -2035,27 +2220,32 @@ def norm_floor_times(gen, cfg, kernels, sheet: dict) -> dict:
 
 def check_fusions(gen, sheet: dict | None, device: str = "cuda",
                   kernels: dict | None = None) -> dict:
-    """Phase 2's checks of the decode step's four fusions against their
-    plain versions at every paged family's published width, rows
-    FUSION_ROWS, bf16 and fp32; the activation exhaustively over the
-    finite bf16 gates; the merge on the serve step's, the phase-2 and
-    glm4's (G 16) pools. With ``sheet`` (the card) each is also timed.
-    Returns {name: record}, each with its ``max_abs_err``."""
+    """Phase 2's checks of the decode step's fusions against their plain
+    versions at every paged family's published width, rows FUSION_ROWS,
+    bf16 and fp32; the activation exhaustively over the finite bf16
+    gates; the gate/up product at each family's (d_model, d_ff); the new
+    token's merge on the serve step's, the phase-2 and glm4's (G 16)
+    pools. With ``sheet`` (the card) each fusion is also timed. Returns
+    {name: record} of FUSIONS, each with its ``max_abs_err``, and the
+    merge's largest gap as ``decode_merge`` (a check of decode
+    attention's launch, no kernel of its own)."""
     import torch
     from repro_torch.configs import get_config
     kernels = kernels or fusion_kernels()
     err = dict.fromkeys(FUSIONS, 0.0)
-    norm_gaps, rope_gaps = {}, {}
+    norm_gaps, norm_far, rope_gaps, gate_up = {}, {}, {}, {}
     invariant = 0
     for arch in FUSION_ARCHS:
         cfg = get_config(arch)
         for dtype in (torch.bfloat16, torch.float32):
             key = f"{arch} {str(dtype)[6:]}"
             for B in FUSION_ROWS + (NORM_WIDE_ROWS,):
-                norm_gaps[key] = worst_gap(norm_gaps.get(key),
-                                           check_fusion_norms(
-                                               cfg, B, dtype, gen, device,
-                                               kernels))
+                g = check_fusion_norms(cfg, B, dtype, device, kernels)
+                far = g.pop("float64", None)
+                norm_gaps[key] = worst_gap(norm_gaps.get(key), g)
+                if far is not None and far["max_ulps"] >= norm_far.get(
+                        key, {}).get("max_ulps", -1):
+                    norm_far[key] = far
             invariant += check_norm_rows(cfg, dtype, gen, device, kernels)
             for B in FUSION_ROWS:
                 rg = check_fusion_rope(cfg, B, dtype, gen, device, kernels)
@@ -2065,7 +2255,10 @@ def check_fusions(gen, sheet: dict | None, device: str = "cuda",
         f"rounded) at each paged family's d_model (and qwen3-moe's qk norm "
         f"rows), rows {FUSION_ROWS + (NORM_WIDE_ROWS,)}: ulps from the "
         f"plain norm (largest, elements that differ, compared) "
-        f"{json.dumps(norm_gaps)}; rows of {NORM_WIDE_ROWS}-row calls "
+        f"{json.dumps(norm_gaps)}; fp32 on seeds {NORM_FP32_SEEDS}, ulps "
+        f"from the float64 norm (the worst row width's gap, its derived "
+        f"bound norm_fp32_ulps, the plain version's own gap): "
+        f"{json.dumps(norm_far)}; rows of {NORM_WIDE_ROWS}-row calls "
         f"bit-equal to calls of {FUSION_ROWS} rows ({invariant} rows)")
     log(f"phase2 qkv_rope: bit-equal to the plain spelling at "
         f"{FUSION_ARCHS}, rows {FUSION_ROWS}, bf16 and fp32 (the qk norm "
@@ -2082,15 +2275,28 @@ def check_fusions(gen, sheet: dict | None, device: str = "cuda",
         merged[f"{shape} {dtype}"] = check_fusion_merge(case, layer,
                                                         kernels)
         del case
-    err["decode_merge"] = max(merged.values())
-    log(f"phase2 decode_merge: the merged combine against the plain merge "
-        f"of the kernel's residuals, max |diff| by pools: "
-        f"{json.dumps(merged)}")
-    if sheet is None:
-        return {name: dict(max_abs_err=e) for name, e in err.items()}
-    timed = time_fusions(gen, sheet, kernels)
-    return {name: dict(max_abs_err=err[name], **timed[name])
-            for name in FUSIONS}
+    log(f"phase2 decode_merge: decode attention's one launch with the new "
+        f"token merged against the plain merge of the kernel's residuals, "
+        f"max |diff| by pools: {json.dumps(merged)}")
+    # the gate/up product's checks come after the parent tree's, which
+    # keep the generator's draws they had
+    for arch in FUSION_ARCHS:
+        gate_up[arch] = check_fusion_gate_up(get_config(arch), gen, device,
+                                             kernels)
+    err["gate_up_act"] = max(g["max_abs"] for g in gate_up.values())
+    log(f"phase2 gate_up_act: against the plain products and activation at "
+        f"each paged family's (d_model, d_ff), {max(GATE_UP_ROWS)} rows, "
+        f"bf16, within the bound one bf16 ulp of gate and of up makes "
+        f"(ulps, elements that differ and their share, the bound); rows "
+        f"bit-equal across calls of {GATE_UP_ROWS} rows and repeats: "
+        f"{json.dumps(gate_up)}")
+    out = {name: dict(max_abs_err=e) for name, e in err.items()}
+    if sheet is not None:
+        timed = time_fusions(gen, sheet, kernels)
+        out = {name: dict(max_abs_err=err[name], **timed[name])
+               for name in FUSIONS}
+    out["decode_merge"] = dict(max_abs_err=max(merged.values()))
+    return out
 
 
 # ------------------------------------- phase 2: the chunk's qkv launch
@@ -2319,8 +2525,12 @@ def phase2(sheet: dict, hw) -> dict:
     serve = make_case(SERVE_DECODE, torch.bfloat16, gen, "cuda")
     err, rec = check_decode(serve, layer=0, timed=True, sheet=sheet)
     log(f"phase2 paged_decode_attention at the serve step (B 4 x 2048 "
-        f"tokens): {json.dumps(dict(max_abs_err=err, **rec))}; device ms "
-        f"by split length: {json.dumps(decode_split_times(serve))}")
+        f"tokens; merged: the token merged in the launch, the decode "
+        f"step's call): {json.dumps(dict(max_abs_err=err, **rec))}; device "
+        f"ms by split length: {json.dumps(decode_split_times(serve))}")
+    records["paged_decode_attention"].update(
+        serve_device_ms=rec["device_ms"],
+        serve_merged_device_ms=rec["merged_device_ms"])
     del serve
     for shape in DECODE_WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
@@ -2424,6 +2634,19 @@ def phase2(sheet: dict, hw) -> dict:
         f"64: {json.dumps(scan_slice_times(gen))}")
     t0 = time.perf_counter()
     records.update(check_fusions(gen, sheet))
+    records["paged_decode_attention"]["merge_max_abs_err"] = records.pop(
+        "decode_merge")["max_abs_err"]
+    log(f"phase2 paged_decode_attention: ticket counters all zero after "
+        f"graph replays with the token merged: "
+        f"{json.dumps(check_decode_counters(gen))}")
+    gu = records["gate_up_act"]
+    log(f"phase2 gate_up_act at the serve step (4 rows, qwen2-1.5b, bf16, "
+        f"weights cold): device {gu['device_ms']:.4f} ms, plan "
+        f"{json.dumps(gu['plan'])}; the parent's route (two cuBLAS "
+        f"products, then gated_act_kernel) before and after "
+        f"{json.dumps(gu['parent_route_device_ms'])}; two torch.matmul and "
+        f"F.silu(g) * u {gu['library_device_ms']:.4f}; bound "
+        f"{gu['bound_ms']:.4f}")
     norm = records["rms_norm"]
     log(f"phase2 rms_norm device {norm['device_ms']:.4f} ms at "
         f"{FUSION_TIMED_ROWS} rows beside an empty kernel's launch "
@@ -3082,7 +3305,7 @@ def phase3(hw):
         / busy)
     log(f"phase3 throughput (measured step times, 3a prefill-only / "
         f"decode-only steps): {json.dumps(rates)}")
-    for name in PATH_A + (DENSE_FFN,):
+    for name in PATH_A + DENSE_FFN:
         assert counts[name] > 0, f"kernel {name} never launched on path A"
     # the decode step appends through the indexed launch alone
     assert counts[BY_VALUE_APPEND] == 0, counts
@@ -3116,7 +3339,7 @@ def phase3(hw):
     for leg in pair:
         assert leg["launches"]["token_append_indexed"] > 0, pair
         assert leg["launches"][BY_VALUE_APPEND] == 0, pair
-        assert (leg["launches"]["decode_merge"] > 0) == leg["fused"], pair
+        assert (leg["launches"][DECODE_FFN] > 0) == leg["fused"], pair
         assert (leg["launches"]["flash_extend"] > 0) == leg["fused"], pair
         assert (leg["launches"]["qkv_rope_chunk"] > 0) == leg["fused"], pair
 
@@ -3271,6 +3494,9 @@ FUSED_FP32_RMS = 1e-3
 #: kernels carry (the norms' rsqrt and mean, the merge's maximum and
 #: clamp_min, the GELU's tanh): the fused step runs none of them
 PLAIN_FUSED_OPS = ("rsqrt", "MeanOps", "maximum", "clamp_min", "tanh")
+#: cuBLAS's and CUTLASS's product kernels, by markers in their names
+#: (``profile_step``'s "products" part, the port's gate/up kernel aside)
+PRODUCT_MARKS = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")
 
 
 def fused_vs_plain(model, device, prompts=FUSED_PROMPTS,
@@ -3312,11 +3538,15 @@ def fused_vs_plain(model, device, prompts=FUSED_PROMPTS,
             k: after[k] - before[k] for k in after})
     a, b = legs[True]["logits"], legs[False]["logits"]
     assert torch.isfinite(a).all() and torch.isfinite(b).all()
-    out = dict(argmax_equal=bool((a.argmax(-1) == b.argmax(-1)).all()),
+    top, mine = b.argmax(-1, keepdim=True), a.argmax(-1, keepdim=True)
+    out = dict(argmax_equal=bool((mine == top).all()),
+               argmax_gap=(b.gather(-1, top) - b.gather(-1, mine)).max()
+               .item(),
                max_abs_diff=(a - b).abs().max().item(),
                rms_logit=b.square().mean().sqrt().item(),
                max_abs_logit=b.abs().max().item(), steps=steps,
-               rows=len(pids), fusions=fused_names(cfg),
+               rows=len(pids), layers=cfg.num_layers,
+               fusions=fused_names(cfg),
                launches_fused=legs[True]["launches"],
                launches_plain=legs[False]["launches"])
     if trace and cuda:
@@ -3328,6 +3558,13 @@ def fused_vs_plain(model, device, prompts=FUSED_PROMPTS,
             out[f"kernels_{leg}"] = sum(names.values())
             out[f"plain_ops_{leg}"] = sorted(
                 {p for p in PLAIN_FUSED_OPS for n in names if p in n})
+            out[f"combines_{leg}"] = sum(c for n, c in names.items()
+                                         if "combine" in n)
+            out[f"gated_act_{leg}"] = sum(c for n, c in names.items()
+                                          if "gated_act_kernel" in n)
+            out[f"products_{leg}"] = sum(
+                c for n, c in names.items()
+                if any(m in n for m in PRODUCT_MARKS))
     del rt
     return out
 
@@ -3360,11 +3597,82 @@ def fused_bound(check: dict, dtype: str) -> float:
     return FUSED_BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
+#: P14: past CHECK_DEPTH the fused bf16 decode step's gap to fused=False
+#: is carried through the layers, each layer's reaching the logits once
+#: (as P13 counts the chunk's): its norms, one bf16 ulp each, 2^-7 of the
+#: layer's contribution together (P13's count), and its gate/up product,
+#: whose fp32 sums run in another order than cuBLAS's: a share s of its
+#: outputs one ulp (2^-7) off, with signs that do not line up, moves the
+#: w2 product by 2^-7 sqrt(s) of its size. s is measured on the card at
+#: the config's widths (``gate_up_share``): r = 2^-7 (1 + sqrt(s)).
+STEP_NORM_R = 2.0 ** -7
+
+
+def step_bound(check: dict) -> float:
+    """The largest |fused - plain| bf16 decode-step logit past
+    CHECK_DEPTH (P14): L r max|logit| + FUSED_BF16_ULPS ulps of it, r =
+    STEP_NORM_R (1 + sqrt(``gate_up_share``)) a layer. Held at qwen2's
+    published init, where the reference's seeded init (scores of std
+    ~100, P5) leaves the gap chaotic: logged there."""
+    top = max(check["max_abs_logit"], 2.0 ** -126)
+    r = STEP_NORM_R * (1.0 + math.sqrt(check["gate_up_share"]))
+    return check["layers"] * r * top + \
+        FUSED_BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def gate_up_share(cfg, device) -> float:
+    """The share of the gate/up product's outputs that differ from the
+    plain route's at ``cfg``'s (d_model, d_ff) in bf16
+    (``check_fusion_gate_up``'s ``share_differ``, itself held within
+    ``gate_up_bound``); 0 where the fused step runs no product (a MoE
+    FFN) and off the card, where both legs run the plain version."""
+    import torch
+    if torch.device(device).type != "cuda" or cfg.family == "moe":
+        return 0.0
+    gen = torch.Generator(device=device).manual_seed(0)
+    return check_fusion_gate_up(cfg, gen, device,
+                                fusion_kernels())["share_differ"]
+
+
+def published_decode_checks(cfg, device) -> None:
+    """P14: the fused bf16 decode step against ``fused=False`` at
+    ``cfg``'s published init, at CHECK_DEPTH layers (``fused_bound``, the
+    argmax equal) and at full depth (``step_bound`` from the product's
+    measured ``gate_up_share``; an argmax flip only between plain logits
+    within twice the bound: ``argmax_gap``)."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    share = gate_up_share(cfg, device)
+    params = published_init(cfg, torch.Generator(
+        device=device).manual_seed(0))
+    for depth in sorted({min(CHECK_DEPTH, cfg.num_layers), cfg.num_layers}):
+        check = fused_vs_plain(cut_model(params, cfg, depth, "bfloat16",
+                                         device), device, trace=False)
+        check["gate_up_share"] = share
+        bound = fused_bound(check, "bfloat16") if depth <= CHECK_DEPTH \
+            else step_bound(check)
+        log(f"phase3 fused decode step vs fused=False at the published "
+            f"init, {depth} full-width layers, bf16, {FUSED_STEPS} steps "
+            f"(bound {bound:.4g}, twice it for an argmax flip): "
+            f"{json.dumps(check)}")
+        if depth <= CHECK_DEPTH:
+            assert_fused_vs_plain(check, "bfloat16", cuda)
+        else:
+            assert check["max_abs_diff"] <= bound, (bound, check)
+            assert check["argmax_gap"] <= 2 * bound, (bound, check)
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+
+
 def assert_fused_vs_plain(check: dict, dtype: str, cuda: bool) -> None:
     """Argmax equal and the gap within ``fused_bound``; on the card the
     fused leg launches its fusions and no plain chain kernel, the plain
-    leg no fusion, and both the same decode attention (the fused leg's
-    combines counted as ``decode_merge``)."""
+    leg no fusion, and both the same decode attention: one launch a layer
+    and step (the fused leg's with the token merged). A traced step of
+    the fused leg runs no combine kernel and, where its FFN takes the
+    gate/up product, no gated activation and two products a layer fewer
+    than the plain leg."""
     assert check["argmax_equal"], check
     assert check["max_abs_diff"] <= fused_bound(check, dtype), check
     lf, lp = check["launches_fused"], check["launches_plain"]
@@ -3374,12 +3682,17 @@ def assert_fused_vs_plain(check: dict, dtype: str, cuda: bool) -> None:
     for name in FUSIONS:
         assert (lf[name] > 0) == (name in check["fusions"]), check
         assert lp[name] == 0, check
-    assert lf["paged_decode_attention"] == lf["decode_merge"] > 0, check
-    assert lp["paged_decode_attention"] == 2 * lf["decode_merge"], check
+    assert lf["paged_decode_attention"] == lp["paged_decode_attention"] \
+        == check["layers"] * check["steps"], check
     if "plain_ops_fused" in check:
         assert not check["plain_ops_fused"] and \
             "rsqrt" in check["plain_ops_plain"], check
         assert check["kernels_fused"] < check["kernels_plain"], check
+        assert check["combines_fused"] == 0, check
+        if DECODE_FFN in check["fusions"]:
+            assert check["gated_act_fused"] == 0, check
+            assert check["products_plain"] - check["products_fused"] == \
+                2 * check["layers"], check
 
 
 def fused_step_checks(params: dict, cfg, device) -> None:
@@ -3431,6 +3744,7 @@ def fused_step_checks(params: dict, cfg, device) -> None:
         del full
     log(f"phase3 bf16 by depth, fused decode step vs fused=False: "
         f"{json.dumps(sweep)}")
+    published_decode_checks(cfg, device)
     published_chunk_checks(cfg, device)
 
 
@@ -3638,8 +3952,8 @@ def chunk_fused_vs_plain(model, device, prompts=CHUNK_PROMPTS,
                score_max=max(x.item() for x in scores) if scores else 0.0,
                layers=cfg.num_layers, scale=1.0 / math.sqrt(cfg.head_dim),
                init=init, qk_norm=bool(cfg.qk_norm),
-               chunk_fusions=[n for n in ("rms_norm", DENSE_FFN)
-                              if n != DENSE_FFN or cfg.family != "moe"])
+               chunk_fusions=[n for n in ("rms_norm", CHUNK_FFN)
+                              if n != CHUNK_FFN or cfg.family != "moe"])
     for name, leg in legs.items():
         out[f"launches_{name}"] = leg["launches"]
         for k, v in leg.items():
@@ -3711,7 +4025,7 @@ def assert_chunk_fused_vs_plain(check: dict, dtype: str, cuda: bool) -> None:
     assert lf["flash_extend"] > 0 == lz["flash_extend"] == \
         lp["flash_extend"], check
     # a MoE FFN keeps its own ops: no gated activation there
-    for name in check.get("chunk_fusions", ("rms_norm", DENSE_FFN)):
+    for name in check.get("chunk_fusions", ("rms_norm", CHUNK_FFN)):
         assert lf[name] == lz[name] > 0 == lp[name], check
 
 

@@ -36,29 +36,40 @@
 //   gives every lane the same scores, CS tokens at a time.
 // At the end of the split the warps merge in warp order and the block
 // writes the split's partial (acc, m, l) and a poison flag to an fp32
-// workspace the wrapper allocates. combine_kernel then merges a row's
-// splits 0, 1, ..., n-1 in that order (m = max m_s; l = sum l_s
-// e^(m_s - m); acc likewise) and writes the residuals or the normalized
-// output. One call is two launches.
+// workspace the wrapper allocates. Then the row's splits are merged, in
+// the same launch (one launch a call): each block, once its record is
+// written (or at once, when its split starts past the row's length or is
+// poisoned), makes its writes visible (__threadfence) and draws a ticket
+// from an int32 counter of its (row, KV head) with one atomicAdd. The
+// block that draws the last ticket, max_splits - 1, merges the row's
+// splits 0, 1, ..., n-1 in that order with its own threads (m = max m_s;
+// l = sum l_s e^(m_s - m); acc likewise) from its shared memory, where
+// it stages the records with 16-byte cp.async copies past L1 (.cg: L1 is
+// not coherent across blocks), all in flight at once: the merge is bound
+// by round trips to L2. It writes the residuals or the normalized output
+// and sets its counter back to 0 for the next call. No block waits for another, so nothing can deadlock, and which
+// block merges changes nothing: the merge's order and ops are fixed. The
+// counters live in a buffer the wrapper keeps a stream (all zero between
+// calls: every row's counter is reset by its last block).
 //
 // The new token's merge. The paged decode step attends over the pages
 // and merges the new token's own (k, v), which no page holds yet,
 // exactly (repro_torch/serving/paged_runtime.py; the reference's
 // src/repro/serving/paged_runtime.py:411-421, which XLA fuses). Given
-// k_new and v_new, the combine does that merge itself: the token is one
-// more split, m = s = q . k_new * scale, l = 1, acc = v_new, merged after
-// the others with the plain spelling's ops (each fp32 op an __f*_rn, so
-// none is contracted into an FMA), and the normalized output is written
-// in q's dtype. The dots are G <= 16 of length D <= 256 a block, summed
-// in a fixed order (lane l takes d = l, l + 32, ..., then a xor tree): so
-// the result equals the plain merge fed the kernel's residuals up to the
-// order of that one sum.
+// k_new and v_new, the row's merge does that merge itself: the token is
+// one more split, m = s = q . k_new * scale, l = 1, acc = v_new, merged
+// after the others with the plain spelling's ops (each fp32 op an
+// __f*_rn, so none is contracted into an FMA), and the normalized output
+// is written in q's dtype. The dots are G <= 16 of length D <= 256 a
+// block, summed in a fixed order (lane l takes d = l, l + 32, ..., then a
+// xor tree): so the result equals the plain merge fed the kernel's
+// residuals up to the order of that one sum.
 //
 // Contracts. Only live slots (ip * page < len) are read, so dead table
 // slots may hold anything. A live id outside the pool marks its split
-// poisoned by an explicit flag (fmaxf would drop a NaN m), and the combine
+// poisoned by an explicit flag (fmaxf would drop a NaN m), and the merge
 // then writes NaN to all of the row's outputs. A zero-length row has no
-// split: the combine over zero splits yields exactly m = -2e38, l = 0,
+// split: the merge over zero splits yields exactly m = -2e38, l = 0,
 // acc = 0. A row's result depends on its own pages and length alone (its
 // splits, each warp's tokens and every reduction order are fixed by them),
 // so a batched call, one-row calls and wider tables agree bit for bit.
@@ -130,9 +141,13 @@ __device__ __forceinline__ int live_len(const int* lens, int b, int n_tab,
 }
 
 // One workspace record a (row, KV head, split): acc [G][D], m [G], l [G],
-// poison flag.
+// poison flag, padded to 16 bytes (the row's merge stages the records
+// with 16-byte copies).
 __host__ __device__ __forceinline__ int record_floats(int G, int D) {
-  return G * D + 2 * G + 1;
+  return (G * D + 2 * G + 1 + 3) & ~3;
+}
+__host__ __device__ __forceinline__ int flag_index(int G, int D) {
+  return G * D + 2 * G;
 }
 
 // The split this block takes: tokens [t0, t1) of its row. False when the
@@ -159,7 +174,7 @@ __device__ __forceinline__ bool begin_split(
     out_of_pool |= (pid < 0 || pid >= P);
   }
   if (__syncthreads_or(out_of_pool)) {
-    if (threadIdx.x == 0) rec[R - 1] = 1.f;
+    if (threadIdx.x == 0) rec[flag_index(G, D)] = 1.f;
     return false;
   }
   return true;
@@ -227,13 +242,13 @@ __device__ __forceinline__ void finish_split(
     rec[G * D + g] = mx;
     rec[G * D + G + g] = sum;
   }
-  if (threadIdx.x == 0) rec[record_floats(G, D) - 1] = 0.f;
+  if (threadIdx.x == 0) rec[flag_index(G, D)] = 0.f;
 }
 
-// grid (max_splits, KV, B). GMAX >= G heads, NU 4-element slices of D a
-// lane (D <= 128 * NU).
+// The split's partial on the CUDA cores. GMAX >= G heads, NU 4-element
+// slices of D a lane (D <= 128 * NU).
 template <typename T, int GMAX, int NU>
-__global__ void __launch_bounds__(kThreads) split_kernel(
+__device__ __forceinline__ void split_partial(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const int* __restrict__ tables,
     const int* __restrict__ lens, float* __restrict__ ws, int KV, int G,
@@ -431,7 +446,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ~16 bits of each probability (not bf16's 8): the residuals stay those
 // of an fp32 softmax.
 template <int DT>
-__global__ void __launch_bounds__(kTcThreads) tc_split_kernel(
+__device__ __forceinline__ void tc_split_partial(
     const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k_pool,
     const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ tables,
@@ -594,36 +609,181 @@ __global__ void __launch_bounds__(kTcThreads) tc_split_kernel(
 }
 
 constexpr int kCombineChunk = 64;   // splits whose weights a block stages
+constexpr int kMaxGD = 2048;        // G * D, at most (G <= 16, 8 above D 128)
+// the merge's shared scratch (the split's ring, drained): m, l and the
+// token's score a head, the weights e^(m_s - m) of a chunk of splits, the
+// row's sums (kMaxGD fp32), q's G rows and the new token's k and v (4
+// bytes an element at most), the bulk copy's mbarrier (16 bytes); the
+// staged records follow it
+constexpr int kMergeSmemBytes =
+    4 * (3 * 16 + kCombineChunk * 16 + kMaxGD + kMaxGD + 2 * 256) + 16;
 
-// grid (ceil((G*D + G) / kThreads), KV, B): one output element a thread
-// (acc or out element i < G*D, or head i - G*D's m and l), each the merge
-// of the row's splits 0 .. n-1 in that order.
-// With k_new (and q, v_new) set the new token is merged after the splits
-// (see the top of the file) and o_out is written.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Where a row's merge writes, and the new token to merge (k_new null:
+// none). With k_new set, o_out is the normalized output with the token
+// merged; else o_out, or acc_out, m_out and l_out (the residuals).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) combine_kernel(
+struct RowMerge {
+  int* counters;          // [B * KV] tickets, zero between calls
+  float* acc_out;
+  T* o_out;
+  float* m_out;
+  float* l_out;
+  const T* k_new;
+  const T* v_new;
+  float scale;
+};
+
+// The block's ticket, drawn once its record (if any) is written: the
+// block's threads meet at a barrier, then one thread adds one to its
+// (row, KV head)'s counter with an acquire-release atomic at GPU scope
+// (cumulative: the block's writes before the barrier are released with
+// it, and the block that draws the last ticket acquires every other
+// block's). True, uniformly across the block, in the block that draws
+// the last ticket, max_splits - 1: every split of the row has then
+// written its record (or has none).
+__device__ __forceinline__ bool last_ticket(int* __restrict__ counters,
+                                            int max_splits) {
+  __syncthreads();
+  int last = 0;
+  if (threadIdx.x == 0) {
+    int t;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(t)
+                 : "l"(counters + blockIdx.z * gridDim.y + blockIdx.y)
+                 : "memory");
+    last = t == max_splits - 1;
+  }
+  return __syncthreads_or(last) != 0;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ``bytes`` (a multiple of 16, both addresses 16-byte aligned) from
+// device memory into shared memory in one bulk copy, completing on
+// ``bar``. The async proxy reads what other blocks wrote through the
+// generic proxy once this thread has acquired it and fenced the proxies.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "MERGE_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra MERGE_WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The row's merge, run by the block that drew its last ticket: output
+// element i < G*D (and head g's m and l) is the merge of the row's splits
+// 0 .. n-1 in that order. It runs once a launch, so it is bound by round
+// trips to L2 and by fetching its own instructions, not by bytes: one
+// thread stages the row's records (written by other blocks) into the
+// block's shared memory with one bulk copy (TMA, through L2), q's G rows
+// and the new token's k and v come with 4-byte cp.async copies, and the
+// block then merges from shared memory in short loops (the tail's code
+// runs once a launch: unrolled, it costs more to fetch than it saves). A
+// row whose records do not fit the
+// block's shared memory at once is staged in chunks, its m first read
+// from device memory. With mg.k_new set the new token is merged after the
+// splits (see the top of the file). Sets the row's counter back to 0.
+template <typename T>
+__device__ __forceinline__ void merge_row(
     const float* __restrict__ ws, const int* __restrict__ lens,
-    float* __restrict__ acc_out, T* __restrict__ o_out,
-    float* __restrict__ m_out, float* __restrict__ l_out,
-    const T* __restrict__ q, const T* __restrict__ k_new,
-    const T* __restrict__ v_new, float scale, int KV, int G, int D,
+    const T* __restrict__ q, const RowMerge<T>& mg, int KV, int G, int D,
     int page, int n_tab, int spp, int max_splits) {
-  __shared__ float m_row[16], l_row[16], s_row[16];
-  __shared__ float w_s[kCombineChunk][16];   // e^(m_s - m) of a chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* m_row = reinterpret_cast<float*>(smem_raw);   // [16]
+  float* l_row = m_row + 16;                            // [16]
+  float* s_row = l_row + 16;                            // [16]
+  float(*w_s)[16] = reinterpret_cast<float(*)[16]>(s_row + 16);
+  float* acc_s = s_row + 16 + kCombineChunk * 16;       // [G * D]
+  T* q_s = reinterpret_cast<T*>(acc_s + kMaxGD);        // [G][D]
+  T* k_s = reinterpret_cast<T*>(acc_s + 2 * kMaxGD);    // [D]
+  T* v_s = k_s + 256;                                   // [D]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(acc_s + 2 * kMaxGD + 512);
+  float* stage = reinterpret_cast<float*>(smem_raw + kMergeSmemBytes);
   const int kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int threads = blockDim.x, warps = threads >> 5;
   const int lane = tid & 31, warp = tid >> 5;
   const int len = live_len(lens, b, n_tab, page);
   const int split_tokens = spp * page;
   const int n = (len + split_tokens - 1) / split_tokens;
-  const int R = record_floats(G, D);
+  const int R = record_floats(G, D), GD = G * D;
   const float* rec = ws + ((long long)b * KV + kvh) * max_splits * R;
+  unsigned dyn_smem;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn_smem));
+  // splits staged at once (the plan leaves room for one at least)
+  const int chunk = min(kCombineChunk,
+                        (int)((dyn_smem - kMergeSmemBytes) / (4 * R)));
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                     smem_u32(bar)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n > 0) bulk_load(stage, rec, 4u * min(chunk, n) * R, bar);
+  }
+  if (mg.k_new != nullptr) {           // q's rows, k_new, v_new: 4 bytes a copy
+    constexpr int E = 4 / sizeof(T);
+    const long long hk = ((long long)b * KV + kvh) * D;
+    for (int k = tid; k < GD / E; k += threads)
+      cp_async4(q_s + E * k, q + hk * G + E * k);
+    for (int k = tid; k < D / E; k += threads) {
+      cp_async4(k_s + E * k, mg.k_new + hk + E * k);
+      cp_async4(v_s + E * k, mg.v_new + hk + E * k);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  const bool whole = n <= chunk;
+  __syncthreads();                     // the barrier's init, q, k and v
+  if (whole && n > 0) bar_wait(bar, 0);
+  if (mg.k_new != nullptr) {           // the new token's scores
+    for (int g = warp; g < G; g += warps) {
+      float dot = 0.f;
+      for (int d = lane; d < D; d += 32)
+        dot = __fadd_rn(dot, __fmul_rn(to_float(q_s[g * D + d]),
+                                       to_float(k_s[d])));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, off));
+      if (lane == 0) s_row[g] = __fmul_rn(dot, mg.scale);
+    }
+  }
 
+  // m = max over the splits (in any order: fmaxf drops a NaN, the flag
+  // marks poison): from the staged records when the row fits, else from
+  // device memory
   int poisoned = 0;
-  for (int g = warp; g < G; g += kWarps) {   // m = max over the splits
+  for (int g = warp; g < G; g += warps) {
     float mx = kNegInf;
     for (int s = lane; s < n; s += 32) {
-      mx = fmaxf(mx, rec[(long long)s * R + G * D + g]);
-      poisoned |= rec[(long long)s * R + R - 1] != 0.f;
+      const float* r = whole ? stage + s * R : rec + (long long)s * R;
+      mx = fmaxf(mx, whole ? r[GD + g] : __ldcg(r + GD + g));
+      poisoned |= (whole ? r[flag_index(G, D)]
+                         : __ldcg(r + flag_index(G, D))) != 0.f;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -632,72 +792,113 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(
       m_row[g] = mx;
       l_row[g] = 0.f;
     }
-    if (k_new != nullptr) {            // the new token's score
-      const T* qg = q + (((long long)b * KV + kvh) * G + g) * D;
-      const T* kn = k_new + ((long long)b * KV + kvh) * D;
-      float dot = 0.f;
-      for (int d = lane; d < D; d += 32)
-        dot = __fadd_rn(dot, __fmul_rn(to_float(qg[d]), to_float(kn[d])));
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, off));
-      if (lane == 0) s_row[g] = __fmul_rn(dot, scale);
-    }
   }
   const bool bad = __syncthreads_or(poisoned);
 
-  const int i = blockIdx.x * kThreads + tid;
-  const bool elem = i < G * D;
-  const int g = elem ? i / D : 0;
-  float a = 0.f;
-  for (int s0 = 0; s0 < n; s0 += kCombineChunk) {
-    const int cnt = min(kCombineChunk, n - s0);
-    for (int k = tid; k < cnt * G; k += kThreads) {
+  // each of the thread's elements (and a head's l) summed over the splits
+  // in split order, a chunk of staged records at a time
+  float lsum = 0.f;
+  for (int i = tid; i < GD; i += threads) acc_s[i] = 0.f;
+  for (int s0 = 0, phase = 0; s0 < n; s0 += chunk) {
+    const int cnt = min(chunk, n - s0);
+    if (!whole) {
+      if (s0 > 0) {
+        __syncthreads();               // every thread is done with the stage
+        if (tid == 0)
+          bulk_load(stage, rec + (long long)s0 * R, 4u * cnt * R, bar);
+      }
+      bar_wait(bar, phase);
+      phase ^= 1;
+    }
+    for (int k = tid; k < cnt * G; k += threads) {
       const int s = k / G, h = k - s * G;
-      w_s[s][h] = expf(rec[(long long)(s0 + s) * R + G * D + h] - m_row[h]);
+      w_s[s][h] = expf(stage[s * R + GD + h] - m_row[h]);
     }
     __syncthreads();
-    if (elem) {
-      const float* col = rec + (long long)s0 * R + i;
-#pragma unroll 8
-      for (int s = 0; s < cnt; ++s) a += col[(long long)s * R] * w_s[s][g];
+    for (int i = tid; i < GD; i += threads) {
+      const int g = i / D;
+      float a = acc_s[i];
+#pragma unroll 4
+      for (int s = 0; s < cnt; ++s) a += stage[s * R + i] * w_s[s][g];
+      acc_s[i] = a;
     }
-    if (tid < G) {                       // l, in the same split order
-      const float* col = rec + (long long)s0 * R + G * D + G + tid;
-      float sum = l_row[tid];
-#pragma unroll 8
-      for (int s = 0; s < cnt; ++s) sum += col[(long long)s * R] * w_s[s][tid];
-      l_row[tid] = sum;
-    }
-    __syncthreads();
+    if (tid < G)
+      for (int s = 0; s < cnt; ++s)
+        lsum += stage[s * R + GD + G + tid] * w_s[s][tid];
   }
 
+  __syncthreads();                     // the weights are read no more
+  // a head's merge of the new token: m2 = maximum(m, s); alpha = exp(m -
+  // m2); p = exp(s - m2); l2 = l * alpha + p (the same for each element of
+  // the head); then acc2 = acc * alpha + p * v and o = acc2 / clamp_min(
+  // l2, 1e-30), NaN kept as torch keeps it
   const float nan = __int_as_float(0x7fc00000);
-  const long long row = ((long long)b * KV + kvh) * G;
-  if (elem) {
-    if (k_new != nullptr) {
-      // m2 = maximum(m, s); alpha = exp(m - m2); p = exp(s - m2);
-      // acc2 = acc * alpha + p * v; l2 = l * alpha + p;
-      // o = acc2 / clamp_min(l2, 1e-30), NaN kept as torch keeps it
-      const float m = m_row[g], s = s_row[g];
-      const float m2 = (m != m || s != s) ? nan : fmaxf(m, s);
+  if (tid < G) {
+    l_row[tid] = lsum;
+    if (mg.k_new != nullptr) {
+      const float m = m_row[tid], sc = s_row[tid];
+      const float m2 = (m != m || sc != sc) ? nan : fmaxf(m, sc);
       const float alpha = expf(__fsub_rn(m, m2));
-      const float p = expf(__fsub_rn(s, m2));
-      const float vn = to_float(v_new[((long long)b * KV + kvh) * D + i % D]);
-      const float acc2 = __fadd_rn(__fmul_rn(a, alpha), __fmul_rn(p, vn));
-      const float l2 = __fadd_rn(__fmul_rn(l_row[g], alpha), p);
-      const float o = __fdiv_rn(acc2, l2 != l2 ? l2 : fmaxf(l2, 1e-30f));
-      store(o_out + row * D + i, bad ? nan : o);
-    } else if (o_out != nullptr) {
-      store(o_out + row * D + i, bad ? nan : a / fmaxf(l_row[g], 1e-30f));
-    } else {
-      acc_out[row * D + i] = bad ? nan : a;
+      const float p = expf(__fsub_rn(sc, m2));
+      const float l2 = __fadd_rn(__fmul_rn(lsum, alpha), p);
+      w_s[0][tid] = alpha;
+      w_s[1][tid] = p;
+      w_s[2][tid] = l2 != l2 ? l2 : fmaxf(l2, 1e-30f);
     }
   }
-  if (blockIdx.x == 0 && tid < G && m_out != nullptr) {
-    m_out[row + tid] = bad ? nan : m_row[tid];
-    l_out[row + tid] = bad ? nan : l_row[tid];
+  __syncthreads();
+  const long long row = ((long long)b * KV + kvh) * G;
+  for (int i = tid; i < GD; i += threads) {
+    const int g = i / D;
+    const float acc = acc_s[i];
+    if (mg.k_new != nullptr) {
+      const float acc2 = __fadd_rn(__fmul_rn(acc, w_s[0][g]),
+                                   __fmul_rn(w_s[1][g], to_float(v_s[i % D])));
+      store(mg.o_out + row * D + i, bad ? nan : __fdiv_rn(acc2, w_s[2][g]));
+    } else if (mg.o_out != nullptr) {
+      store(mg.o_out + row * D + i,
+            bad ? nan : acc / fmaxf(l_row[g], 1e-30f));
+    } else {
+      mg.acc_out[row * D + i] = bad ? nan : acc;
+    }
   }
+  if (tid < G && mg.m_out != nullptr) {
+    mg.m_out[row + tid] = bad ? nan : m_row[tid];
+    mg.l_out[row + tid] = bad ? nan : l_row[tid];
+  }
+  if (tid == 0) mg.counters[b * KV + kvh] = 0;
+}
+
+// grid (max_splits, KV, B): a block's split on the CUDA cores, then its
+// ticket; the last block of a (row, KV head) merges the row.
+template <typename T, int GMAX, int NU>
+__global__ void __launch_bounds__(kThreads) split_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, const int* __restrict__ tables,
+    const int* __restrict__ lens, float* __restrict__ ws, int KV, int G,
+    int D, int P, int page, int n_tab, int spp, int max_splits, int tile,
+    long long layer_offset, float scale, RowMerge<T> mg) {
+  split_partial<T, GMAX, NU>(q, k_pool, v_pool, tables, lens, ws, KV, G, D,
+                             P, page, n_tab, spp, max_splits, tile,
+                             layer_offset, scale);
+  if (last_ticket(mg.counters, max_splits))
+    merge_row<T>(ws, lens, q, mg, KV, G, D, page, n_tab, spp, max_splits);
+}
+
+// The same on the tensor cores (bf16, D = 16 * DT).
+template <int DT>
+__global__ void __launch_bounds__(kTcThreads) tc_split_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k_pool,
+    const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ tables,
+    const int* __restrict__ lens, float* __restrict__ ws, int KV, int G,
+    int P, int page, int n_tab, int spp, int max_splits,
+    long long layer_offset, float scale, RowMerge<__nv_bfloat16> mg) {
+  tc_split_partial<DT>(q, k_pool, v_pool, tables, lens, ws, KV, G, P, page,
+                       n_tab, spp, max_splits, layer_offset, scale);
+  if (last_ticket(mg.counters, max_splits))
+    merge_row<__nv_bfloat16>(ws, lens, q, mg, KV, G, 16 * DT, page, n_tab,
+                             spp, max_splits);
 }
 
 // One instantiation's dynamic shared memory, raised past 48 KB once.
@@ -716,13 +917,13 @@ int launch_split(dim3 grid, size_t smem, cudaStream_t stream, const T* q,
                  const T* k_pool, const T* v_pool, const int* tables,
                  const int* lens, float* ws, int KV, int G, int D, int P,
                  int page, int n_tab, int spp, int max_splits, int tile,
-                 long long layer_offset, float scale) {
+                 long long layer_offset, float scale, const RowMerge<T>& mg) {
   static size_t allowed = 48 * 1024;
   const int err = allow_smem(split_kernel<T, GMAX, NU>, smem, allowed);
   if (err != 0) return err;
   split_kernel<T, GMAX, NU><<<grid, kThreads, smem, stream>>>(
       q, k_pool, v_pool, tables, lens, ws, KV, G, D, P, page, n_tab, spp,
-      max_splits, tile, layer_offset, scale);
+      max_splits, tile, layer_offset, scale, mg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -731,11 +932,12 @@ int dispatch_heads(int G, dim3 grid, size_t smem, cudaStream_t stream,
                    const T* q, const T* k, const T* v, const int* tables,
                    const int* lens, float* ws, int KV, int D, int P, int page,
                    int n_tab, int spp, int max_splits, int tile,
-                   long long layer_offset, float scale) {
+                   long long layer_offset, float scale,
+                   const RowMerge<T>& mg) {
 #define REPRO_SPLIT(GM)                                                      \
   return launch_split<T, GM, NU>(grid, smem, stream, q, k, v, tables, lens, \
                                  ws, KV, G, D, P, page, n_tab, spp,         \
-                                 max_splits, tile, layer_offset, scale)
+                                 max_splits, tile, layer_offset, scale, mg)
   if (G <= 1) REPRO_SPLIT(1);
   if (G <= 2) REPRO_SPLIT(2);
   if (G <= 4) REPRO_SPLIT(4);
@@ -750,17 +952,20 @@ int launch_tc(dim3 grid, cudaStream_t stream, const __nv_bfloat16* q,
               const __nv_bfloat16* k, const __nv_bfloat16* v,
               const int* tables, const int* lens, float* ws, int KV, int G,
               int P, int page, int n_tab, int spp, int max_splits,
-              long long layer_offset, float scale) {
+              long long layer_offset, float scale,
+              const RowMerge<__nv_bfloat16>& mg) {
   constexpr int D = 16 * DT;
   const size_t ring = (size_t)kStages * 2 * kTcTile * (D + 8) * 2;
   const size_t merge = sizeof(float) * (kTcThreads / 32) * 16 * (D + 2);
-  const size_t smem = ring > merge ? ring : merge;
+  size_t smem = ring > merge ? ring : merge;
+  const size_t least = kMergeSmemBytes + 4 * record_floats(G, D);
+  if (smem < least) smem = least;   // the row's merge stages a record
   static size_t allowed = 48 * 1024;
   const int err = allow_smem(tc_split_kernel<DT>, smem, allowed);
   if (err != 0) return err;
   tc_split_kernel<DT><<<grid, kTcThreads, smem, stream>>>(
       q, k, v, tables, lens, ws, KV, G, P, page, n_tab, spp, max_splits,
-      layer_offset, scale);
+      layer_offset, scale, mg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -771,12 +976,12 @@ int dispatch_tc(int D, dim3 grid, cudaStream_t stream,
                 const __nv_bfloat16* v, const int* tables, const int* lens,
                 float* ws, int KV, int G, int P, int page, int n_tab,
                 int spp, int max_splits, long long layer_offset,
-                float scale) {
+                float scale, const RowMerge<__nv_bfloat16>& mg) {
 #define REPRO_TC(HD)                                                        \
   if (D == HD)                                                              \
     return launch_tc<HD / 16>(grid, stream, q, k, v, tables, lens, ws, KV, \
                               G, P, page, n_tab, spp, max_splits,          \
-                              layer_offset, scale);
+                              layer_offset, scale, mg);
   REPRO_TC(16) REPRO_TC(64) REPRO_TC(80) REPRO_TC(128) REPRO_TC(256)
 #undef REPRO_TC
   return -1;
@@ -784,15 +989,15 @@ int dispatch_tc(int D, dim3 grid, cudaStream_t stream,
 
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* lens, void* ws, void* acc_out,
-           void* o_out, void* m_out, void* l_out, const void* k_new,
-           const void* v_new, int B, int KV, int G, int D, int P, int page,
-           int n_tab, int layer, float scale, int spp, int parts,
+           const void* tables, const void* lens, void* ws, void* counters,
+           void* acc_out, void* o_out, void* m_out, void* l_out,
+           const void* k_new, const void* v_new, int B, int KV, int G, int D,
+           int P, int page, int n_tab, int layer, float scale, int spp,
            cudaStream_t stream) {
   const int esz = sizeof(T);
   if (D < 1 || D > 256 || D % (16 / esz) || G < 1 || G > 16 ||
       (D > 128 && G > 8) || page < 1 || n_tab < 1 || spp < 1 ||
-      parts < 1 || parts > 3 ||
+      counters == nullptr || (o_out == nullptr && acc_out == nullptr) ||
       (k_new != nullptr && (v_new == nullptr || o_out == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int max_splits = (n_tab + spp - 1) / spp;
@@ -805,34 +1010,36 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lens);
   float* w = static_cast<float*>(ws);
-  int err = 0;
-  if (parts & 1) {   // the splits
-    err = -1;
-    if constexpr (sizeof(T) == 2)
-      err = dispatch_tc(D, grid, stream, qt, kt, vt, tb, ln, w, KV, G, P,
-                        page, n_tab, spp, max_splits, layer_offset, scale);
-    if (err == -1) {   // fp32, or a head dim without a tensor-core kernel
-      const int tile = tile_tokens(D, esz);
-      const size_t ring = (size_t)kStages * 2 * tile * D * esz;
-      const size_t merge = sizeof(float) * (size_t)kWarps * G * (D + 2);
-      const size_t smem = ring > merge ? ring : merge;
-      err = D <= 128
-                ? dispatch_heads<T, 1>(G, grid, smem, stream, qt, kt, vt, tb,
-                                       ln, w, KV, D, P, page, n_tab, spp,
-                                       max_splits, tile, layer_offset, scale)
-                : dispatch_heads<T, 2>(G, grid, smem, stream, qt, kt, vt, tb,
-                                       ln, w, KV, D, P, page, n_tab, spp,
-                                       max_splits, tile, layer_offset, scale);
-    }
+  const RowMerge<T> mg{static_cast<int*>(counters),
+                       static_cast<float*>(acc_out),
+                       static_cast<T*>(o_out),
+                       static_cast<float*>(m_out),
+                       static_cast<float*>(l_out),
+                       static_cast<const T*>(k_new),
+                       static_cast<const T*>(v_new),
+                       scale};
+  int err = -1;
+  if constexpr (sizeof(T) == 2)
+    err = dispatch_tc(D, grid, stream, qt, kt, vt, tb, ln, w, KV, G, P, page,
+                      n_tab, spp, max_splits, layer_offset, scale, mg);
+  if (err == -1) {   // fp32, or a head dim without a tensor-core kernel
+    const int tile = tile_tokens(D, esz);
+    const size_t ring = (size_t)kStages * 2 * tile * D * esz;
+    const size_t merge = sizeof(float) * (size_t)kWarps * G * (D + 2);
+    size_t smem = ring > merge ? ring : merge;
+    const size_t least = kMergeSmemBytes + 4 * record_floats(G, D);
+    if (smem < least) smem = least;
+    err = D <= 128
+              ? dispatch_heads<T, 1>(G, grid, smem, stream, qt, kt, vt, tb,
+                                     ln, w, KV, D, P, page, n_tab, spp,
+                                     max_splits, tile, layer_offset, scale,
+                                     mg)
+              : dispatch_heads<T, 2>(G, grid, smem, stream, qt, kt, vt, tb,
+                                     ln, w, KV, D, P, page, n_tab, spp,
+                                     max_splits, tile, layer_offset, scale,
+                                     mg);
   }
-  if (err != 0 || !(parts & 2)) return err;
-  combine_kernel<T><<<dim3((G * D + kThreads - 1) / kThreads, KV, B),
-                      kThreads, 0, stream>>>(
-      w, ln, static_cast<float*>(acc_out), static_cast<T*>(o_out),
-      static_cast<float*>(m_out), static_cast<float*>(l_out), qt,
-      static_cast<const T*>(k_new), static_cast<const T*>(v_new), scale, KV,
-      G, D, page, n_tab, spp, max_splits);
-  return static_cast<int>(cudaGetLastError());
+  return err;
 }
 
 }  // namespace
@@ -844,36 +1051,37 @@ const char* repro_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q and both pools). ws: fp32
-// workspace of B * KV * max_splits * (G*D + 2G + 1) floats, max_splits =
-// ceil(n_tab / split pages). split_pages: pages a split, 0 for the
-// default (kSplitTokens tokens); other values are for measurements. With
-// o_out set the normalized output (B, KV*G, D) in q's dtype is written
-// and m_out/l_out may be null; otherwise acc_out (B, KV, G, D) fp32 and
+// workspace of B * KV * max_splits * R floats, 16-byte aligned, R = G*D +
+// 2G + 1 rounded up to a multiple of 4 (record_floats), max_splits =
+// ceil(n_tab / split pages); counters: B * KV int32, all zero (and left
+// all zero: each row's last block resets its own), used by no other call
+// running at the same time. split_pages: pages a split, 0 for the default
+// (kSplitTokens tokens); other values are for measurements. With o_out
+// set the normalized output (B, KV*G, D) in q's dtype is written and
+// m_out/l_out may be null; otherwise acc_out (B, KV, G, D) fp32 and
 // m_out, l_out (B, KV, G) fp32 are the unnormalized online-softmax
 // residuals. k_new, v_new (B, KV, D) in q's dtype, or null: set, the new
-// token is merged into o_out (which must be set). parts: 1 the splits
-// alone, 2 the combine alone (of a workspace a call with the same
-// arguments filled; for measurements), 3 both: two launches, the splits,
-// then their combine.
+// token is merged into o_out (which must be set). One launch: the splits,
+// each row merged by its last block.
 int paged_decode_launch(const void* q, const void* k_pool, const void* v_pool,
                         const void* tables, const void* lens, void* ws,
-                        void* acc_out, void* o_out, void* m_out, void* l_out,
-                        const void* k_new, const void* v_new, int B, int KV,
-                        int G, int D, int P, int page, int n_tab, int layer,
-                        float scale, int dtype, int split_pages_arg,
-                        int parts, void* stream) {
+                        void* counters, void* acc_out, void* o_out,
+                        void* m_out, void* l_out, const void* k_new,
+                        const void* v_new, int B, int KV, int G, int D, int P,
+                        int page, int n_tab, int layer, float scale,
+                        int dtype, int split_pages_arg, void* stream) {
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int spp = split_pages_arg > 0 ? split_pages_arg : split_pages(page);
   if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, tables, lens, ws, acc_out, o_out,
-                         m_out, l_out, k_new, v_new, B, KV, G, D, P, page,
-                         n_tab, layer, scale, spp, parts, s);
+    return launch<float>(q, k_pool, v_pool, tables, lens, ws, counters,
+                         acc_out, o_out, m_out, l_out, k_new, v_new, B, KV, G,
+                         D, P, page, n_tab, layer, scale, spp, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lens, ws,
-                                 acc_out, o_out, m_out, l_out, k_new, v_new,
-                                 B, KV, G, D, P, page, n_tab, layer, scale,
-                                 spp, parts, s);
+                                 counters, acc_out, o_out, m_out, l_out,
+                                 k_new, v_new, B, KV, G, D, P, page, n_tab,
+                                 layer, scale, spp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -23,7 +23,10 @@
 //   at a position each, k and v written straight into the layer's cache
 //   at the row's offset, read on the device (attention.write_cache);
 // - gated_act_kernel: act(gate) * up, SiLU or the tanh GELU
-//   (models/mlp.mlp_apply, common._silu, common._gelu_tanh).
+//   (models/mlp.mlp_apply, common._silu, common._gelu_tanh);
+// - gate_up_kernel: the decode step's act(x @ w1) * (x @ w3) as one
+//   launch, the two products on the tensor cores and the activation in
+//   their epilogue (its design and bound at the kernel below).
 //
 // Numerics. Each kernel computes the plain spelling's arithmetic op for
 // op. Every fp32 operation that the plain spelling runs as a torch kernel
@@ -57,10 +60,12 @@
 // 4 x 1536 decode rows its bytes take 15.6 ns at 3.35 TB/s, far under a
 // launch: empty_kernel, launched alone, is the floor a graph node has on
 // the card, timed beside it.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -373,6 +378,273 @@ __global__ void __launch_bounds__(kActThreads) gated_act_kernel(
   }
 }
 
+// ------------------------------------------------- the gate/up product
+// gate_up_kernel: out = act(round(x @ w1)) * round(x @ w3) for the decode
+// step's B <= 16 rows x (B, K) bf16 and the stored weights w1, w3 (K, N)
+// bf16, each product an fp32 sum rounded once to bf16 (as a bf16 matmul
+// returns it), the activation and the product with up the plain
+// spelling's (silu / gelu above, gated_act_kernel's ops).
+//
+// Bound: bytes. The two weights are 2 K N bf16 (55.0 MB at qwen2-1.5b's
+// 1536 x 8960: 16.4 us at 3.35 TB/s); x and out are a few KB, and the
+// 4 B K N flops are ~2 B flops a weight byte, far below the tensor
+// cores' balance. What the kernel needs is every SM streaming weights
+// with enough bytes in flight, and the activation where gate and up
+// already are: in registers, so neither is written to device memory.
+//
+// Design. A CTA takes 64 columns of both w1 and w3 (the same columns, so
+// its epilogue holds gate and up of an element together) and all of K.
+// One thread streams K through a ring of kGuStages stages with 2-D TMA
+// loads (a 64 x 64 box of each weight, 128-byte swizzled, the ragged
+// edges zero-filled) completing on an mbarrier a stage; the tensor maps
+// are encoded once a weight address (gate_up_maps). Four warps each own
+// 16 of the columns: for each 16 rows of K a warp reads its A operands
+// (16 columns x 16 rows of w1, then of w3) with ldmatrix.trans straight
+// from the swizzled stage and runs mma.sync m16n8k16 with the tokens on
+// the N side (one or two 8-row tiles): x's 16 x 64 slice of the stage's
+// rows of K rides in the same stage, a third TMA box (rows past B
+// zero-filled; its map encoded at each launch, once at a graph's
+// capture), read with ldmatrix, so no load waits in the loop but the
+// stage's. Each sum runs over K in one order, fixed by K alone: a row's
+// bits do not depend on B or on timing. Then the epilogue: gate and up
+// rounded to bf16, the activation, their product rounded and stored.
+// qwen2-1.5b's 8960 columns make 140 CTAs of 55 KB, one wave at up to
+// three CTAs an SM.
+constexpr int kGuBox = 64;                       // columns a CTA (one box)
+constexpr int kGuK = 64;                         // rows of K a stage
+constexpr int kGuThreads = 128;                  // 4 warps, 16 columns each
+constexpr int kGuStages = 3;                     // the ring's stages
+constexpr int kGuBoxBytes = kGuK * kGuBox * 2;   // one box, 8 KB
+constexpr int kGuXBytes = 16 * kGuK * 2;         // x's box: 16 rows, 2 KB
+constexpr int kGuStageBytes = 2 * kGuBoxBytes + kGuXBytes;
+// 1024 bytes to align the ring, the ring, its mbarriers
+constexpr int kGuSmem = 1024 + kGuStages * kGuStageBytes + 8 * kGuStages;
+constexpr int kGuMaxRows = 16;                   // tokens, at most
+constexpr int kGuMapBytes = 2 * sizeof(CUtensorMap);
+constexpr int kGuEncodeFailed = 10000;           // + the encoder's CUresult
+
+__device__ __forceinline__ uint32_t gu_smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void gu_mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   gu_smem_u32(bar)));
+}
+
+__device__ __forceinline__ void gu_mbar_expect_tx(uint64_t* bar,
+                                                  uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          gu_smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void gu_mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "GU_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra GU_WAIT;\n"
+      "}\n" ::"r"(gu_smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One 64-column x 64-row box of a weight into shared memory.
+__device__ __forceinline__ void gu_tma_load(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          gu_smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(gu_smem_u32(bar)), "r"(col),
+      "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void gu_ldmatrix_x4_trans(uint32_t* r,
+                                                     const void* smem) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(gu_smem_u32(smem)));
+}
+
+__device__ __forceinline__ void gu_ldmatrix_x4(uint32_t* r,
+                                               const void* smem) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(gu_smem_u32(smem)));
+}
+
+__device__ __forceinline__ void gu_mma(float* c, const uint32_t* a,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// grid: one CTA a 64-column tile; NT 8-row token tiles.
+template <int NT, bool kGelu>
+__global__ void __launch_bounds__(kGuThreads) gate_up_kernel(
+    const __grid_constant__ CUtensorMap tm_w1,
+    const __grid_constant__ CUtensorMap tm_w3,
+    const __grid_constant__ CUtensorMap tm_x, __nv_bfloat16* __restrict__ out,
+    int B, int K, int N, float gk, float gc) {
+  extern __shared__ __align__(16) unsigned char gu_raw[];
+  // the ring at a 1024-byte boundary (the 128-byte swizzle's period): a
+  // stage is w1's box, then w3's, then x's (a multiple of 1024 bytes)
+  unsigned char* ring = gu_raw + ((1024 - (gu_smem_u32(gu_raw) & 1023)) & 1023);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + kGuStages * kGuStageBytes);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int n0 = blockIdx.x * kGuBox;
+  const int n_it = (K + kGuK - 1) / kGuK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kGuStages; ++s) gu_mbar_init(full + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load_stage = [&](int it) {
+    const int s = it % kGuStages;
+    unsigned char* st = ring + s * kGuStageBytes;
+    gu_mbar_expect_tx(full + s, kGuStageBytes);
+    gu_tma_load(st, &tm_w1, full + s, n0, it * kGuK);
+    gu_tma_load(st + kGuBoxBytes, &tm_w3, full + s, n0, it * kGuK);
+    gu_tma_load(st + 2 * kGuBoxBytes, &tm_x, full + s, it * kGuK, 0);
+  };
+  if (tid == 0)
+    for (int it = 0; it < min(kGuStages, n_it); ++it) load_stage(it);
+
+  float cg[NT][4], cu[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cg[t][e] = cu[t][e] = 0.f;
+  // this lane's ldmatrix row in a 16-row step and, for the warp's 16
+  // columns (16 warp ..), its swizzled chunk: the 8 x 8 matrix j = lane /
+  // 8 is rows 8 (j / 2) .. of columns 16 warp + 8 (j % 2) ..; the 128-byte
+  // swizzle moves 16-byte chunk c of row r to c ^ (r % 8)
+  const int lrow = 8 * ((lane >> 3) >> 1) + (lane & 7);
+  // x's rows: the same lane's row lrow (token) and chunk 2 kk + (j % 2)
+  const int xhalf = (lane >> 3) & 1;
+  const int lbase = ((2 * warp + xhalf) ^ (lane & 7)) * 16;
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kGuStages;
+    gu_mbar_wait(full + s, (it / kGuStages) & 1);
+    const unsigned char* w1s = ring + s * kGuStageBytes;
+    const unsigned char* w3s = w1s + kGuBoxBytes;
+    const unsigned char* xs = w1s + 2 * kGuBoxBytes;
+#pragma unroll
+    for (int kk = 0; kk < kGuK / 16; ++kk) {
+      // B fragments: tokens 0-7 (k 16 kk + 0-7, 8-15), then tokens 8-15
+      uint32_t xb[4];
+      gu_ldmatrix_x4(xb, xs + lrow * 128 +
+                             (((2 * kk + xhalf) ^ (lane & 7)) << 4));
+      const int off = lbase + (16 * kk + lrow) * 128;
+      uint32_t a1[4], a3[4];
+      gu_ldmatrix_x4_trans(a1, w1s + off);
+      gu_ldmatrix_x4_trans(a3, w3s + off);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        gu_mma(cg[t], a1, xb[2 * t], xb[2 * t + 1]);
+        gu_mma(cu[t], a3, xb[2 * t], xb[2 * t + 1]);
+      }
+    }
+    __syncthreads();                  // every warp is done with stage s
+    if (tid == 0 && it + kGuStages < n_it) load_stage(it + kGuStages);
+  }
+
+  // accumulator e of token tile t: column 16 warp + gq + 8 (e / 2), token
+  // 8 t + 2 tq + e % 2
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = n0 + 16 * warp + gq + 8 * (e >> 1);
+      const int b = 8 * t + 2 * tq + (e & 1);
+      if (b >= B || col >= N) continue;
+      const float g = rnd<__nv_bfloat16>(cg[t][e]);
+      const float u = rnd<__nv_bfloat16>(cu[t][e]);
+      const float a = kGelu ? gelu<__nv_bfloat16>(g, gk, gc)
+                            : silu<__nv_bfloat16>(g);
+      out[(long long)b * N + col] = __float2bfloat16_rn(__fmul_rn(a, u));
+    }
+}
+
+using GuEncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+GuEncodeTiled gu_encoder() {
+  static GuEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<GuEncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 (rows, cols) row-major matrix as boxes of box_cols x box_rows,
+// 128-byte swizzled; reads past either edge are zero-filled. The weights
+// (K, N) take 64 x 64 boxes, x (B, K) 64 x 16.
+int gu_encode(CUtensorMap* map, const void* w, int rows, int cols,
+              int box_cols, int box_rows) {
+  const GuEncodeTiled fn = gu_encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
+         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kGuEncodeFailed + static_cast<int>(res);
+}
+
+template <int NT, bool kGelu>
+int gu_launch(const CUtensorMap& m1, const CUtensorMap& m3, const void* x,
+              void* out, int B, int K, int N, float gk, float gc,
+              cudaStream_t stream) {
+  CUtensorMap tx;
+  const int enc = gu_encode(&tx, x, B, K, kGuK, 16);
+  if (enc != 0) return enc;
+  static bool allowed = false;   // per instantiation
+  if (!allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gate_up_kernel<NT, kGelu>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kGuSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = true;
+  }
+  gate_up_kernel<NT, kGelu><<<(N + kGuBox - 1) / kGuBox, kGuThreads,
+                              kGuSmem, stream>>>(
+      m1, m3, tx, static_cast<__nv_bfloat16*>(out), B, K, N, gk, gc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int norm_launch(const void* x, const void* delta, const void* scale,
                 void* x_out, void* h_out, int rows, int D, float eps,
@@ -469,6 +741,7 @@ int act_launch(const void* gate, const void* up, void* out, long long n,
 extern "C" {
 
 const char* repro_error_string(int err) {
+  if (err >= kGuEncodeFailed) return "cuTensorMapEncodeTiled failed";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
@@ -571,6 +844,43 @@ int gated_act_launch(const void* gate, const void* up, void* out,
   if (dtype == 1)
     return act_launch<__nv_bfloat16>(gate, up, out, n, use_gelu, k, c, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor maps of the gate/up product's two weights, w1 and w3 (K, N)
+// bf16 row-major, 16-byte aligned, N a multiple of 8, encoded into
+// maps_out (kGuMapBytes bytes of host memory, w1's then w3's): once a
+// weight address, by the caller, who passes them to every launch.
+int gate_up_maps(const void* w1, const void* w3, int K, int N,
+                 void* maps_out) {
+  if (K < 1 || N < 8 || N % 8) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[2];
+  int err = gu_encode(&m[0], w1, K, N, kGuBox, kGuK);
+  if (err == 0) err = gu_encode(&m[1], w3, K, N, kGuBox, kGuK);
+  if (err == 0) memcpy(maps_out, m, kGuMapBytes);
+  return err;
+}
+
+// out (B, N) bf16 = act(x @ w1) * (x @ w3) for x (B, K) bf16, 1 <= B <=
+// 16, K a multiple of 8, 16-byte aligned (its tensor map encoded here, a
+// few microseconds of host time: once at a graph's capture); maps from
+// gate_up_maps. One CTA a 64-column tile (kernels/fusions/kernel.
+// plan_gate_up). use_gelu 0: SiLU; 1: the tanh GELU with its constants k
+// and c rounded to bf16.
+int gate_up_launch(const void* maps, const void* x, void* out, int B, int K,
+                   int N, int use_gelu, float k, float c, void* stream) {
+  if (B == 0) return 0;
+  if (maps == nullptr || B < 1 || B > kGuMaxRows || K < 1 || K % 8 ||
+      N < 8 || N % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[2];
+  memcpy(m, maps, kGuMapBytes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 8)
+    return use_gelu ? gu_launch<1, true>(m[0], m[1], x, out, B, K, N, k, c, s)
+                    : gu_launch<1, false>(m[0], m[1], x, out, B, K, N, k, c,
+                                          s);
+  return use_gelu ? gu_launch<2, true>(m[0], m[1], x, out, B, K, N, k, c, s)
+                  : gu_launch<2, false>(m[0], m[1], x, out, B, K, N, k, c, s);
 }
 
 }  // extern "C"

@@ -72,17 +72,17 @@ def stream_handle(device: torch.device) -> int:
 def kernel_wrappers() -> dict:
     """name -> CUDA wrapper, for every kernel of the port. Each wrapper
     carries ``launches``: the number of kernel launches it has made.
-    ``decode_merge`` is the count of decode attention's combine with the
-    new token merged, which ``paged_decode_attention_kernel`` launches
-    given ``new_kv`` (and does not count as its own). ``flash_extend``
-    is the flash kernels' extend launch, apart from the prefill's
-    ``flash_attention``; ``qkv_rope_chunk`` the qkv pass's chunk launch,
-    apart from the decode step's ``qkv_rope``."""
-    from repro_torch.kernels.decode_attention.kernel import (
-        decode_merge, paged_decode_attention_kernel)
+    ``flash_extend`` is the flash kernels' extend launch, apart from the
+    prefill's ``flash_attention``; ``qkv_rope_chunk`` the qkv pass's chunk
+    launch, apart from the decode step's ``qkv_rope``; ``gate_up_act``
+    the decode step's gate / up products with their activation, apart
+    from ``gated_act`` (the activation alone)."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        paged_decode_attention_kernel
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_kernel, flash_extend_kernel)
-    from repro_torch.kernels.fusions.kernel import (gated_act_kernel,
+    from repro_torch.kernels.fusions.kernel import (gate_up_act_kernel,
+                                                    gated_act_kernel,
                                                     qkv_rope_chunk_kernel,
                                                     qkv_rope_kernel,
                                                     rms_norm_kernel)
@@ -101,8 +101,8 @@ def kernel_wrappers() -> dict:
             "rms_norm": rms_norm_kernel,
             "qkv_rope": qkv_rope_kernel,
             "qkv_rope_chunk": qkv_rope_chunk_kernel,
-            "decode_merge": decode_merge,
-            "gated_act": gated_act_kernel}
+            "gated_act": gated_act_kernel,
+            "gate_up_act": gate_up_act_kernel}
 
 
 def launch_counts() -> dict[str, int]:

@@ -4,14 +4,16 @@
 kernel.py``).
 
 The kernel is split-KV: one thread block a (split, KV head, row), each
-split ``split_pages(page)`` whole pages of the row's live tokens, then a
-combine that merges a row's splits in split order; one call is two
-launches. bf16 at the head dims of ``TC_HEAD_DIMS`` runs the splits on the
+split ``split_pages(page)`` whole pages of the row's live tokens; the
+block that finishes a row's splits last (a ticket counter a (row, KV
+head)) merges them in split order, in the same launch: one launch a
+call. bf16 at the head dims of ``TC_HEAD_DIMS`` runs the splits on the
 tensor cores, fp32 and other head dims on the CUDA cores. With ``new_kv``
-the combine also merges the decode step's new token exactly (the fusion
-XLA makes of that merge in the reference's decode scan). See the source
-for its bound and design. :func:`plan_decode` is the host side of the
-launch as a pure function of integers, so the CPU tests reach it.
+the merge also takes the decode step's new token exactly (the fusion XLA
+makes of that merge in the reference's decode scan). See the source for
+its bound and design. :func:`plan_decode` is the host side of the launch
+as a pure function of integers, so the CPU tests reach it;
+:func:`ticket_counters` keeps the counters.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ from repro_torch.kernels import _build, device_guard, stream_handle
 from repro_torch.kernels.decode_attention.ref import SPLIT_TOKENS
 
 _LIB = "decode_attention"
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + \
-    [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + \
+    [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_PER_BLOCK = 232_448      # bytes of shared memory a Hopper block may use
 # constants of the source: threads (warps) a block, K/V stages in flight,
@@ -40,22 +42,40 @@ HEAD_GROUPS = (1, 2, 4, 8, 16)   # the CUDA-core kernel's bounds on G
 # the CUDA-core one
 TC_HEAD_DIMS = (16, 64, 80, 128, 256)
 TC_THREADS, TC_TILE = 128, 64
+# the merge's shared scratch (kMergeSmemBytes: three rows of 16 heads, the
+# weights of kCombineChunk = 64 splits, the row's sums and q's rows, kMaxGD
+# = 2048 elements each, the new token's k and v, 256 each, and the bulk
+# copy's mbarrier; the staged records follow it)
+MAX_GD = 2048
+MERGE_SMEM = 4 * (3 * 16 + 64 * 16 + 2 * MAX_GD + 2 * 256) + 16
+#: ticket counters (int32, one a (row, KV head)) a stream takes at least,
+#: out of a device's arena of ARENA_COUNTERS
+MIN_COUNTERS, ARENA_COUNTERS = 4096, 1 << 16
 
 
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
-    """The two launches of one call: ``split_pages`` pages a split,
+    """The launch of one call: ``split_pages`` pages a split,
     ``max_splits`` split blocks a (row, KV head) of the tensor-core or
     the CUDA-core kernel, ``tile`` tokens a K/V stage, ``smem_bytes`` of
-    dynamic shared memory a split block, and a workspace of
-    ``workspace_floats`` fp32."""
+    dynamic shared memory a block (its ring, the warps' merge, then the
+    row's merge), a workspace of ``workspace_floats`` fp32 and
+    ``counters`` int32 tickets, one a (row, KV head)."""
     split_pages: int
     max_splits: int
     tensor_cores: bool
     tile: int
     smem_bytes: int
     workspace_floats: int
+    counters: int
     grid: tuple[int, int, int]
+
+
+def record_floats(G: int, D: int) -> int:
+    """fp32 of a split's workspace record (acc [G][D], m [G], l [G], a
+    poison flag), padded to 16 bytes: the row's merge stages records with
+    16-byte copies (``record_floats`` in the source)."""
+    return -(-(G * D + 2 * G + 1) // 4) * 4
 
 
 @functools.lru_cache(maxsize=256)
@@ -84,11 +104,14 @@ def plan_decode(B: int, KV: int, G: int, D: int, esz: int, page: int,
             tile //= 2
         smem = max(STAGES * 2 * tile * D * esz,
                    4 * (THREADS // 32) * G * (D + 2))
+    record = record_floats(G, D)
+    # the row's merge stages at least one record after its scratch
+    smem = max(smem, MERGE_SMEM + 4 * record)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"head_dim {D} needs {smem} bytes of shared memory")
     max_splits = -(-n_tab // spp)
     return DecodePlan(spp, max_splits, tensor_cores, tile, smem,
-                      B * KV * max_splits * (G * D + 2 * G + 1),
+                      B * KV * max_splits * record, B * KV,
                       (max_splits, KV, B))
 
 
@@ -96,17 +119,50 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-class LaunchCount:
-    """The launch count of a kernel that a wrapper of another name
-    launches; ``kernel_wrappers()`` lists it beside the wrappers."""
+#: (device index, stream handle) -> the int32 ticket counters of the calls
+#: on that stream, all zero between calls (each row's last block resets
+#: its own); a stream's calls run one after another, so they share them
+_COUNTERS: dict[tuple, torch.Tensor] = {}
+#: device index -> [zeroed arena, its next free offset]: the streams'
+#: counters are slices of it, so a stream first seen inside a capture (a
+#: capture stream) takes its counters without an allocation
+_ARENAS: dict = {}
+#: every arena ever made: a captured graph keeps its slices' addresses
+_KEPT: list[torch.Tensor] = []
 
-    def __init__(self) -> None:
-        self.launches = 0
 
-
-#: the combine with the new token merged: ``paged_decode_attention_kernel``
-#: launches it given ``new_kv`` and counts it here, not as its own
-decode_merge = LaunchCount()
+def ticket_counters(device: torch.device, stream: int,
+                    need: int) -> torch.Tensor:
+    """The counters of the calls on ``stream`` of ``device``, at least
+    ``need`` of them: a slice of MIN_COUNTERS or more (a power of two) of
+    the device's arena of ARENA_COUNTERS, given to the stream once. The
+    arena is allocated and zeroed outside any capture, so it lies in no
+    graph's memory pool (a replay reuses pool memory for its other nodes,
+    which would not come back as zeros), and is never freed. Raises
+    ``RuntimeError`` if a capture would need a new arena (the device's
+    first call, or an arena used up, inside a capture)."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is not None and buf.numel() >= need:
+        return buf
+    size = max(MIN_COUNTERS, 1 << (need - 1).bit_length())
+    arena = _ARENAS.get(device.index)
+    if arena is None or arena[1] + size > arena[0].numel():
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"paged_decode_attention_kernel: {size} ticket counters "
+                f"needed inside a capture and no arena holds them; run one "
+                f"call on {device} before capturing")
+        arena = [torch.zeros(max(ARENA_COUNTERS, size), dtype=torch.int32,
+                             device=device), 0]
+        if device.type == "cuda":   # zeroed before any stream reads it
+            torch.cuda.current_stream(device).synchronize()
+        _KEPT.append(arena[0])
+        _ARENAS[device.index] = arena
+    buf = arena[0][arena[1]:arena[1] + size]
+    arena[1] += size
+    _COUNTERS[key] = buf
+    return buf
 
 
 def check_new_kv(q, new_kv, n_kv: int) -> None:
@@ -128,9 +184,7 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
                                   scale: float | None = None,
                                   return_residuals: bool = False,
                                   new_kv=None,
-                                  _split_tokens: int | None = None,
-                                  _workspace: torch.Tensor | None = None,
-                                  _combine_only: bool = False):
+                                  _split_tokens: int | None = None):
     """q (B, H, D) on the GPU; k/v_pages (P, page, KV, D) or layer-stacked
     (L, P, page, KV, D) in q's dtype (float32 or bfloat16); block_tables
     (B, n_tab) and seq_lens (B,) int32 on the same GPU.
@@ -138,18 +192,14 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
     Returns the normalized output (B, H, D) in q's dtype, or with
     ``return_residuals=True`` the unnormalized fp32 ``(acc (B, KV, G, D),
     m (B, KV, G), l (B, KV, G))``. ``new_kv=(k_new, v_new)``, each (B, KV,
-    D) in q's dtype: the combine also merges that token (one the pages do
-    not hold yet) exactly, as ``ref.merge_new_token_ref`` merges it into
+    D) in q's dtype: the row's merge also takes that token (one the pages
+    do not hold yet) exactly, as ``ref.merge_new_token_ref`` merges it into
     the residuals, and the output is the normalized (B, H, D). Live table
     slots (``ip * page < seq_lens[b]``) must hold valid page ids; dead
     slots are never read. Launches on the current stream and does not
-    synchronize; two launches a call, the splits counted in ``launches``,
-    the combine there too or, given ``new_kv``, in ``decode_merge``.
+    synchronize; one launch a call, counted in ``launches``.
 
-    For measurements only: ``_split_tokens`` overrides the split length;
-    ``_workspace`` is the fp32 workspace to use (else a new one), and
-    ``_combine_only`` launches the combine alone, of a workspace that a
-    call with the same arguments filled."""
+    For measurements only: ``_split_tokens`` overrides the split length."""
     if new_kv is not None and return_residuals:
         raise ValueError("new_kv merges into the normalized output: not "
                          "with return_residuals")
@@ -196,14 +246,9 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
 
     dev = q.device
-    ws = _workspace
-    if ws is None:
-        ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
-                         device=dev)
-    elif ws.dtype != torch.float32 or ws.device != dev \
-            or ws.numel() < plan.workspace_floats or not ws.is_contiguous():
-        raise ValueError(f"_workspace: {plan.workspace_floats} contiguous "
-                         f"fp32 on {dev}")
+    stream = stream_handle(dev)
+    counters = ticket_counters(dev, stream, plan.counters)
+    ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=dev)
     if return_residuals:
         acc = torch.empty((B, KV, G, D), dtype=torch.float32, device=dev)
         m = torch.empty((B, KV, G), dtype=torch.float32, device=dev)
@@ -216,19 +261,14 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
     fn = _build.function(_LIB, "paged_decode_launch", _ARGTYPES)
     with device_guard(dev):
         err = fn(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
-                 _ptr(seq_lens), _ptr(ws), _ptr(acc), _ptr(out), _ptr(m),
-                 _ptr(l), _ptr(k_new), _ptr(v_new), B, KV, G, D, P, page,
-                 n_tab, int(layer), float(scale), _DTYPES[q.dtype],
-                 plan.split_pages if _split_tokens else 0,
-                 2 if _combine_only else 3, stream_handle(dev))
+                 _ptr(seq_lens), _ptr(ws), _ptr(counters), _ptr(acc),
+                 _ptr(out), _ptr(m), _ptr(l), _ptr(k_new), _ptr(v_new), B,
+                 KV, G, D, P, page, n_tab, int(layer), float(scale),
+                 _DTYPES[q.dtype], plan.split_pages if _split_tokens else 0,
+                 stream)
     _build.check(_LIB, err, "paged_decode_attention_kernel")
     if B:
-        if not _combine_only:
-            paged_decode_attention_kernel.launches += 1     # the splits
-        if new_kv is None:
-            paged_decode_attention_kernel.launches += 1     # the combine
-        else:
-            decode_merge.launches += 1
+        paged_decode_attention_kernel.launches += 1
     if return_residuals:
         return acc, m, l
     return out

@@ -2,10 +2,11 @@
 ``csrc/fusions.cu`` (the RMS norms, qkv bias + RoPE, the gated
 activation); qkv bias + RoPE also as the prefill / extend chunk's launch,
 a position a row, k and v written into the layer's cache at offsets read
-on the device (``qkv_rope_chunk_kernel``, counted apart). The fourth fusion, the new token's merge, is decode
-attention's combine given ``new_kv``
-(``paged_decode_attention_kernel``, ``csrc/decode_attention.cu``), counted
-as ``decode_attention.kernel.decode_merge``.
+on the device (``qkv_rope_chunk_kernel``, counted apart); the decode
+step's gate and up products with the activation in their epilogue
+(``gate_up_act_kernel``, planned by :func:`plan_gate_up`). The new
+token's merge is decode attention's own, given ``new_kv``
+(``paged_decode_attention_kernel``, ``csrc/decode_attention.cu``).
 
 No Pallas kernel is their counterpart: the reference's decode step is one
 XLA program (``jax.jit(PagedKVRuntime._decode_step_impl)``,
@@ -35,12 +36,25 @@ _NORM_ARGS = [_P] * 5 + [_I, _I, _F] + [_I] * 5 + [_P]
 _ROPE_ARGS = [_P] * 13 + [_I] * 5 + [_F, _I, _P]
 _CACHE_ARGS = [_P] * 16 + [_I] * 8 + [_L, _F, _I, _P]
 _ACT_ARGS = [_P] * 3 + [_L, _I, _F, _F, _I, _P]
+_GU_ARGS = [_P] * 3 + [_I] * 4 + [_F, _F, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256                            # kMaxHeadDim in the source
 ACTIVATIONS = ("silu", "gelu")
 NORM_MAX_THREADS = 512                        # kNormMaxThreads in the source
 NORM_BLOCK = 256                              # threads a block of short rows
 NORM_REGISTER_CHUNKS = (1, 2, 4)              # rms_norm_kernel's CPT > 0
+# the gate/up product (gate_up_kernel): columns a CTA and rows of K a
+# stage (kGuBox, kGuK), threads a CTA, the ring's stages, tokens at most,
+# the two tensor maps' bytes, the dynamic shared memory a CTA (kGuSmem)
+GATE_UP_BOX, GATE_UP_K, GATE_UP_THREADS, GATE_UP_STAGES = 64, 64, 128, 3
+GATE_UP_MAX_ROWS = 16
+GATE_UP_MAP_BYTES = 256
+GATE_UP_SMEM = 1024 + GATE_UP_STAGES * (2 * GATE_UP_BOX + 16) \
+    * GATE_UP_K * 2 + 8 * GATE_UP_STAGES
+#: CTAs an SM holds (its shared memory)
+GATE_UP_CTAS_PER_SM = 3
+SMEM_PER_BLOCK = 232_448          # bytes of shared memory a Hopper block
+H100_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,6 +353,109 @@ def gated_act_kernel(gate, up, activation: str):
 
 
 gated_act_kernel.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class GateUpPlan:
+    """The gate/up product's launch: ``tiles`` CTAs, one a GATE_UP_BOX
+    column tile of w1 and w3, each streaming ``k_tiles`` pieces of
+    GATE_UP_K rows of K, ``token_tiles`` 8-row tiles of tokens (the mma's
+    N side), in ``waves`` waves of GATE_UP_CTAS_PER_SM CTAs an SM."""
+    tiles: int
+    k_tiles: int
+    token_tiles: int
+    waves: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_gate_up(rows: int, d_model: int, d_ff: int,
+                 sms: int = H100_SMS) -> GateUpPlan:
+    """The gate/up product's launch for ``rows`` tokens of ``d_model``
+    against (d_model, d_ff) weights on a card of ``sms`` SMs. Every sum
+    runs over all of K in one CTA, so a token's bits do not depend on
+    ``rows``. Raises ``ValueError`` on what the kernel does not take."""
+    if not 1 <= rows <= GATE_UP_MAX_ROWS:
+        raise ValueError(f"gate_up_act_kernel: {rows} token rows, the kernel "
+                         f"takes 1 to {GATE_UP_MAX_ROWS}")
+    if d_model < 8 or d_model % 8 or d_ff < 8 or d_ff % 8:
+        raise ValueError(f"gate_up_act_kernel: d_model {d_model} and d_ff "
+                         f"{d_ff} must be multiples of 8 (16-byte rows)")
+    tiles = -(-d_ff // GATE_UP_BOX)
+    return GateUpPlan(tiles=tiles, k_tiles=-(-d_model // GATE_UP_K),
+                      token_tiles=1 if rows <= 8 else 2,
+                      waves=-(-tiles // (sms * GATE_UP_CTAS_PER_SM)))
+
+
+#: (device index, w1's and w3's addresses, their shape) -> the encoded
+#: tensor maps (host bytes), made once a weight address
+_GATE_UP_MAPS: dict[tuple, ctypes.Array] = {}
+
+
+def _gate_up_maps(w1, w3) -> ctypes.Array:
+    key = (w1.device.index, w1.data_ptr(), w3.data_ptr(), *w1.shape)
+    maps = _GATE_UP_MAPS.get(key)
+    if maps is None:
+        maps = ctypes.create_string_buffer(GATE_UP_MAP_BYTES)
+        fn = _build.function(_LIB, "gate_up_maps", [_P, _P, _I, _I, _P])
+        with device_guard(w1.device):
+            err = fn(w1.data_ptr(), w3.data_ptr(), w1.shape[0], w1.shape[1],
+                     ctypes.addressof(maps))
+        _build.check(_LIB, err, "gate_up_act_kernel: tensor maps")
+        _GATE_UP_MAPS[key] = maps
+    return maps
+
+
+def takes_gate_up(x) -> bool:
+    """Whether the fused decode step's FFN runs ``x``'s gated product as
+    :func:`gate_up_act_kernel`: bf16 on the card, at most GATE_UP_MAX_ROWS
+    tokens. Anything else (fp32, a chunk's rows) keeps the products and
+    ``gated_act_kernel``. A host decision on shapes, made before any
+    capture."""
+    rows = x.numel() // x.shape[-1] if x.dim() else 0
+    return x.is_cuda and x.dtype == torch.bfloat16 \
+        and 1 <= rows <= GATE_UP_MAX_ROWS
+
+
+def gate_up_act_kernel(x, w1, w3, activation: str):
+    """``act(x @ w1) * (x @ w3)`` for x (..., d_model) of at most
+    GATE_UP_MAX_ROWS tokens and w1, w3 (d_model, d_ff) as stored, all
+    bf16, contiguous and 16-byte aligned on one GPU; ``activation`` "silu"
+    or "gelu" (tanh). Each product is an fp32 sum rounded once to bf16, in
+    an order fixed by d_model (:func:`plan_gate_up`), not by the batch;
+    the activation and the product with up are ``ref.gated_act_ref``'s
+    ops. Returns (..., d_ff). Every check comes before the launch. One
+    launch."""
+    what = "gate_up_act_kernel"
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"{what}: activation {activation!r} not in "
+                         f"{ACTIVATIONS}")
+    if w1.dim() != 2 or w3.shape != w1.shape or x.dim() < 1 \
+            or x.shape[-1] != w1.shape[0]:
+        raise ValueError(f"{what}: x (..., d_model) against w1 and w3 "
+                         f"(d_model, d_ff), got {tuple(x.shape)}, "
+                         f"{tuple(w1.shape)}, {tuple(w3.shape)}")
+    for t in (x, w1, w3):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{what}: bfloat16 tensors only, got {t.dtype}")
+    K, N = w1.shape
+    _check_rows(what, K, x)
+    _check_rows(what, N, w1, w3)
+    plan_gate_up(x.numel() // K, K, N)
+    _check_cuda(what, x, w1, w3)
+    out = x.new_empty((*x.shape[:-1], N))
+    maps = _gate_up_maps(w1, w3)
+    k, c = _gelu_constants(x.dtype)
+    fn = _build.function(_LIB, "gate_up_launch", _GU_ARGS)
+    with device_guard(x.device):
+        err = fn(ctypes.addressof(maps), _ptr(x), _ptr(out), x.numel() // K,
+                 K, N, int(activation == "gelu"), k, c,
+                 stream_handle(x.device))
+    _build.check(_LIB, err, what)
+    gate_up_act_kernel.launches += 1
+    return out
+
+
+gate_up_act_kernel.launches = 0
 
 
 def empty_kernel_launch(device) -> None:

@@ -8,12 +8,15 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention.kernel import \
     paged_decode_attention_kernel
-from repro_torch.kernels.fusions.kernel import (gated_act_kernel,
+from repro_torch.dist.sharding import matmul
+from repro_torch.kernels.fusions.kernel import (gate_up_act_kernel,
+                                                gated_act_kernel,
                                                 qkv_rope_chunk_kernel,
                                                 qkv_rope_kernel,
-                                                rms_norm_kernel)
+                                                rms_norm_kernel,
+                                                takes_gate_up)
 from repro_torch.kernels.fusions.ref import (attend_merged_ref,
-                                             gated_act_ref,
+                                             gate_up_act_ref, gated_act_ref,
                                              qkv_rope_chunk_ref,
                                              qkv_rope_ref, rms_norm_ref)
 
@@ -62,8 +65,8 @@ def qkv_rope_chunk(q, k, v, *, cache_k, cache_v, offsets, k_rows=None,
 def attend_merged(q, k_pages, v_pages, tables, lens, k_new, v_new, *,
                   layer: int, scale: float, plain: bool = False):
     """Paged decode attention with the new token's (k, v) merged: (B, H,
-    Dh) in q's dtype. On the card the merge runs in decode attention's
-    combine."""
+    Dh) in q's dtype. On the card the merge runs in decode attention's own
+    launch."""
     if _takes_plain(q, plain, "attend_merged"):
         return attend_merged_ref(q, k_pages, v_pages, tables, lens, k_new,
                                  v_new, layer=layer, scale=scale)
@@ -77,3 +80,15 @@ def gated_act(gate, up, activation: str, *, plain: bool = False):
     fn = gated_act_ref if _takes_plain(gate, plain, "gated_act") \
         else gated_act_kernel
     return fn(gate, up, activation)
+
+
+def gate_up_act(x, w1, w3, activation: str, *, plain: bool = False):
+    """``act(x @ w1) * (x @ w3)``: on the card one launch of
+    :func:`gate_up_act_kernel` where :func:`takes_gate_up` (bf16, at most
+    16 tokens), else the two products and the gated activation's
+    kernel."""
+    if _takes_plain(x, plain, "gate_up_act"):
+        return gate_up_act_ref(x, w1, w3, activation)
+    if takes_gate_up(x):
+        return gate_up_act_kernel(x, w1, w3, activation)
+    return gated_act_kernel(matmul(x, w1), matmul(x, w3), activation)

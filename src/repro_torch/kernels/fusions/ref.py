@@ -4,6 +4,7 @@ the runtime runs them on the card with ``fused=False``, and
 ``chip_smoke.py`` holds the CUDA kernels against them."""
 from __future__ import annotations
 
+from repro_torch.dist.sharding import matmul
 from repro_torch.kernels.decode_attention import (merge_new_token_ref,
                                                   paged_decode_attention)
 from repro_torch.models.attention import qkv_finish, write_cache
@@ -78,3 +79,9 @@ def gated_act_ref(gate, up, activation: str):
     """``act(gate) * up``, SiLU or the tanh GELU spelled as the JAX
     package computes them (``common._silu``, ``common._gelu_tanh``)."""
     return activation_fn(activation)(gate) * up
+
+
+def gate_up_act_ref(x, w1, w3, activation: str):
+    """``act(x @ w1) * (x @ w3)``: the two products, then
+    :func:`gated_act_ref` (``models/mlp.mlp_apply``'s three ops)."""
+    return gated_act_ref(matmul(x, w1), matmul(x, w3), activation)

@@ -1,7 +1,8 @@
 """Paged decode attention, page gather, page scatter, the RWKV6 WKV scan,
-the RMS norm and the flash kernels' extend launch timed the same way on
-any tree of the port, so that two trees can be compared in one call on
-one card.
+the RMS norm, the flash kernels' extend launch, decode attention with the
+new token merged and the decode step's gate / up products timed the same
+way on any tree of the port, so that two trees can be compared in one
+call on one card.
 
 It calls only the wrappers' public signatures, which every tree of the
 port shares, so this file times whichever tree ``PYTHONPATH`` names; run
@@ -38,7 +39,21 @@ G 6, page 16):
 - the flash kernels' prefill launch at qwen2-1.5b's 2048 tokens (bf16,
   12 heads of 2 KV heads, D 128) by CUDA-graph replay, with a digest of
   its output's bits on inputs of their own seed, so two trees' outputs
-  can be compared bit for bit.
+  can be compared bit for bit;
+- decode attention as the decode step calls it (``merge``): the serve
+  path's pools with the new token merged (``new_kv``), the layer rotating,
+  by CUDA-graph replay and by ``torch.profiler`` kernel by kernel, beside
+  the residual call; with digests of the residuals, the normalized output
+  and the merged output on inputs of their own seed (the phase-2 lengths,
+  an empty row among them);
+- the decode step's gate / up products with their activation
+  (``gate_up``) at qwen2-1.5b's 4 x 1536 rows against (1536, 8960)
+  weights, bf16, rotating over 3 weight copies so that each call finds
+  them cold in L2: the route the tree's decode step takes (the parent's
+  two cuBLAS products and ``gated_act_kernel``; where the tree has it,
+  ``gate_up_act_kernel``'s one launch, and the parent's route timed
+  beside it) by CUDA-graph replay, with digests of the outputs at 4 and
+  16 rows.
 
 Each is timed eager (CUDA events around a loop of calls, host work
 included where it is the slower side) and on the device (``torch.profiler``:
@@ -311,13 +326,98 @@ def time_flash() -> dict:
                 bound_ms=flops / BF16_PEAK * 1e3, bits=bits)
 
 
+def digest(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def time_merge(gen) -> dict:
+    """Decode attention as the decode step calls it, the new token merged,
+    at the serve path's pools (the layer rotating), beside the residual
+    call; digests of every mode's output on seeded inputs."""
+    case = decode_case(DECODE_CASES["serve"], gen)
+    args = (case["q"], case["k"], case["v"], case["tables"], case["lens"])
+    B = case["q"].shape[0]
+    toks = [torch.randn((2, B, KV, DH), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(LAYERS)]
+    layers = itertools.cycle(range(LAYERS))
+
+    def merged():
+        li = next(layers)
+        return paged_decode_attention_kernel(*args, layer=li,
+                                             new_kv=(toks[li][0],
+                                                     toks[li][1]))
+
+    def residual():
+        return paged_decode_attention_kernel(*args, layer=next(layers),
+                                             return_residuals=True)
+
+    out = dict(merged_graph_ms=graph_ms(merged, iters=LAYERS),
+               residual_graph_ms=graph_ms(residual, iters=LAYERS),
+               merged_by_kernel=device_profile(merged),
+               bound_ms=case["bound_ms"])
+    g = torch.Generator(device="cuda").manual_seed(3)
+    case = decode_case(DECODE_CASES["phase2"], g)
+    args = (case["q"], case["k"], case["v"], case["tables"], case["lens"])
+    B = case["q"].shape[0]
+    kn, vn = (torch.randn((B, KV, DH), generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    acc, m, l = paged_decode_attention_kernel(*args, layer=5,
+                                              return_residuals=True)
+    out["bits"] = dict(
+        residuals=digest(torch.cat([acc.flatten(), m.flatten(),
+                                    l.flatten()])),
+        normalized=digest(paged_decode_attention_kernel(*args, layer=5)),
+        merged=digest(paged_decode_attention_kernel(*args, layer=5,
+                                                    new_kv=(kn, vn))))
+    return out
+
+
+GATE_UP = dict(D=1536, F=8960, rows=(4, 16), sets=3)
+
+
+def time_gate_up(gen) -> dict:
+    """The decode step's gated product at qwen2-1.5b's widths: the tree's
+    route and, where the tree has it, the one-launch kernel; digests."""
+    from repro_torch.kernels import fusions
+    D, F = GATE_UP["D"], GATE_UP["F"]
+    ws = [tuple((torch.randn((D, F), generator=gen, device="cuda") *
+                 D ** -0.5).to(torch.bfloat16) for _ in range(2))
+          for _ in range(GATE_UP["sets"])]
+    turn = itertools.cycle(ws)
+    one = getattr(fusions, "gate_up_act_kernel", None)
+    out = dict(bound_ms=2 * D * F * 2 / HBM_BW * 1e3,
+               has_kernel=one is not None)
+    for rows in GATE_UP["rows"]:
+        x = torch.randn((rows, 1, D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+        def route():
+            w1, w3 = next(turn)
+            return fusions.gated_act_kernel(x @ w1, x @ w3, "silu")
+
+        rec = {"route_graph_ms": [graph_ms(route)]}
+        if one is not None:
+            rec["kernel_graph_ms"] = graph_ms(
+                lambda: one(x, *next(turn), "silu"))
+            rec["route_graph_ms"].append(graph_ms(route))
+            rec["kernel_by_kernel"] = device_profile(
+                lambda: one(x, *next(turn), "silu"))
+            rec["kernel_bits"] = digest(one(x, *ws[0], "silu"))
+        rec["route_bits"] = digest(fusions.gated_act_kernel(
+            x @ ws[0][0], x @ ws[0][1], "silu"))
+        out[f"rows{rows}"] = rec
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="",
                     help="comma-separated cases to time (decode, gather, "
-                         "scatter, scan, norm, extend, flash); all by "
-                         "default")
+                         "scatter, scan, norm, extend, flash, merge, "
+                         "gate_up); all by default")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_pair: CUDA is not available")
@@ -350,6 +450,11 @@ def main(argv=None) -> int:
         out["flash_extend"] = time_extend(gen)
     if want("flash"):
         out["flash_attention"] = time_flash()
+    if want("merge"):
+        out["decode_merge"] = time_merge(gen)
+        torch.cuda.empty_cache()
+    if want("gate_up"):
+        out["gate_up"] = time_gate_up(gen)
     print(json.dumps(out))
     return 0
 

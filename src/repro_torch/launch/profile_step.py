@@ -105,12 +105,13 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
 #: (the first part whose marker a name holds takes it; the rest is
 #: "other": copies, casts, the embedding, argmax, the token append, the
 #: plain chains): decode and flash attention, the port's fused chains,
-#: the products (cuBLAS's and CUTLASS's kernels)
-DEVICE_PARTS = (("attention", ("split_kernel", "combine_kernel", "flash_")),
+#: the products (cuBLAS's and CUTLASS's kernels, and the port's gate/up
+#: product with its activation)
+DEVICE_PARTS = (("attention", ("split_kernel", "flash_")),
                 ("fusions", ("rms_norm_kernel", "qkv_rope_kernel",
                              "gated_act_kernel")),
                 ("products", ("gemm", "gemv", "nvjet", "xmma", "cutlass",
-                              "splitK")))
+                              "splitK", "gate_up_kernel")))
 
 
 #: functions of ``models/attention.py`` whose device ops are a step's

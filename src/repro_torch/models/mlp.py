@@ -16,12 +16,11 @@ def mlp_specs(d_model: int, d_ff: int, dtype: str) -> dict[str, ParamSpec]:
 
 
 def mlp_apply(p: dict, x: torch.Tensor, activation: str,
-              gated_act=None) -> torch.Tensor:
-    """``act(x w1) * (x w3)`` times w2; ``gated_act(gate, up)``, when
-    given, computes the gated product (the paged decode step's fused
-    op)."""
-    if gated_act is not None:
-        return matmul(gated_act(matmul(x, p["w1"]), matmul(x, p["w3"])),
-                      p["w2"])
+              gate_up=None) -> torch.Tensor:
+    """``act(x w1) * (x w3)`` times w2; ``gate_up(x, w1, w3)``, when
+    given, computes the gated product (the fused op,
+    ``fusions.gate_up_act``)."""
+    if gate_up is not None:
+        return matmul(gate_up(x, p["w1"], p["w3"]), p["w2"])
     act = activation_fn(activation)
     return matmul(act(matmul(x, p["w1"])) * matmul(x, p["w3"]), p["w2"])

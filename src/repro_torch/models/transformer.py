@@ -20,8 +20,10 @@ blocks and WKV scan on any device, layers recomputed in backward).
 
 ``Model.forward(..., fused=True)`` (the paged runtime's prefill chunk
 with its ``fused`` switch on) runs the attention layers' RMS norms, with
-their residual adds, the final norm and the dense FFN's gated activation
-through :mod:`repro_torch.kernels.fusions`, a prefill or extend chunk's
+their residual adds, the final norm and the dense FFN's gated product
+(``gate_up_act``: its one launch at up to 16 bf16 rows, else the two
+products and the gated activation's kernel) through
+:mod:`repro_torch.kernels.fusions`, a prefill or extend chunk's
 qkv bias, qk norm, RoPE and cache write as one launch of the fusions'
 qkv kernel, and a chunk's attention over the cache as the flash kernels'
 extend launch, on CUDA tensors; the default keeps the plain spelling of
@@ -455,7 +457,8 @@ class Model(nn.Module):
             a = self._norm(a, p["ln1_post"], fused=fused)
         x, h = self._norm(x, p["ln2"], a, fp32_sum=scanned, fused=fused)
         f = ffn_apply(p["mlp"], h, cfg, functools.partial(
-            _fused_act, activation=cfg.activation) if fused else None)
+            fusions.gate_up_act, activation=cfg.activation) if fused
+            else None)
         if cfg.sandwich_norm:
             f = self._norm(f, p["ln2_post"], fused=fused)
         return x, f
@@ -781,11 +784,6 @@ def sharded_zeros(shape, dtype, device, rules: dict, axes) -> DTensor:
                               .stride())
 
 
-def _fused_act(gate, up, *, activation: str):
-    """The dense FFN's gated product through the fused ``gated_act``."""
-    return fusions.gated_act(gate, up, activation)
-
-
 def _takes_qkv_launch(fused: bool, h, kv, mode: str, window: int) -> bool:
     """Whether an attention sublayer's qkv pass and cache write are the
     chunk's one launch (:func:`_fused_qkv_write`): ``fused``, a prefill
@@ -820,10 +818,10 @@ def _fused_qkv_write(q, k, v, *, cache, cache_len, rows: bool, **finish):
 
 
 def ffn_apply(p: dict, h: torch.Tensor, cfg: ModelConfig,
-              gated_act=None) -> torch.Tensor:
+              gate_up=None) -> torch.Tensor:
     """A layer's FFN: MoE where its params hold a router, else the dense
     gated MLP (the reference's ``"router" in p["mlp"]``), its gated
-    product by ``gated_act`` when given (``mlp_apply``)."""
+    product by ``gate_up`` when given (``mlp_apply``)."""
     if "router" in p:
         return moe_apply(p, h, cfg)
-    return mlp_apply(p, h, cfg.activation, gated_act)
+    return mlp_apply(p, h, cfg.activation, gate_up)

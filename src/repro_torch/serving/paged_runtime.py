@@ -490,8 +490,9 @@ class PagedKVRuntime:
         FFN's residual add, whose rounded sum it reads), the qkv bias, qk
         norm and RoPE writing k/v straight into the append's (L, B, KV,
         Dh) buffers, decode attention with the new token merged in its
-        combine, ln2 with the attention's residual add (the fp32 sum), the
-        dense FFN's gated activation, and the last residual add with the
+        own launch, ln2 with the attention's residual add (the fp32 sum),
+        the dense FFN's gate and up products with their activation (one
+        launch at up to 16 bf16 rows), and the last residual add with the
         final norm."""
         cfg = self.cfg
         plain = not self.fused
@@ -519,8 +520,9 @@ class PagedKVRuntime:
             return fusions.qkv_rope(q[:, 0], k[:, 0], v[:, 0], k_out=ks[li],
                                     v_out=vs[li], plain=plain, **kw)
 
-        def gated_act(gate, up):
-            return fusions.gated_act(gate, up, cfg.activation, plain=plain)
+        def gate_up(h, w1, w3):
+            return fusions.gate_up_act(h, w1, w3, cfg.activation,
+                                       plain=plain)
 
         for li, p in enumerate(model.layers):
             if delta is None:
@@ -537,7 +539,7 @@ class PagedKVRuntime:
             x, h2 = fusions.rms_norm(x, p["ln2"], eps,
                                      attn_mod.out_project(a, o[:, None]),
                                      fp32_sum=True, plain=plain)
-            delta = ffn_apply(p["mlp"], h2, cfg, gated_act)
+            delta = ffn_apply(p["mlp"], h2, cfg, gate_up=gate_up)
         append_tokens_indexed(self.k_pages, self.v_pages, ks, vs, app_pages,
                               app_offs)
         x, h = fusions.rms_norm(x, model.params["final_norm"], eps, delta,

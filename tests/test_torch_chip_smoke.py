@@ -17,7 +17,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import kernel_wrappers  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import SPLIT_TOKENS  # noqa: E402
+from repro_torch.kernels.fusions import gated_act_ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 
 # the suite runs in several worker processes at once: one intra-op
@@ -892,6 +892,15 @@ def plain_fusions(broken: str | None = None) -> dict:
     ``broken``'s output moved off its plain version's."""
     kernels = {name: (ref, ref)
                for name, (_, ref) in chip_smoke.fusion_kernels().items()}
+    gate_up = kernels["gate_up_act"][1]
+
+    def rowwise(x, w1, w3, activation):
+        # the CPU's bf16 product depends on the row count (P3); the kernel
+        # it stands in for does not: a row at a time
+        return torch.cat([gate_up(x[i:i + 1], w1, w3, activation)
+                          for i in range(x.shape[0])])
+
+    kernels["gate_up_act"] = (rowwise, rowwise)
     if broken is not None:
         ref = kernels[broken][1]
 
@@ -913,24 +922,75 @@ def small_fusion_checks(monkeypatch):
     monkeypatch.setattr(chip_smoke, "FUSION_ARCHS",
                         ("qwen2-1.5b", "qwen3-moe-235b-a22b"))
     monkeypatch.setattr(chip_smoke, "FUSION_ROWS", (1, 4))
+    monkeypatch.setattr(chip_smoke, "GATE_UP_ROWS", (1, 4, 16))
     monkeypatch.setattr(chip_smoke, "FUSION_MERGE_CASES",
                         (("SMOKE", "bfloat16", 1),
                          ("GLM4_SMOKE", "float32", 1)))
 
 
 def test_fusion_checks_on_cpu(small_fusion_checks, capsys):
-    """Phase 2's checks of the four fusions run end to end (the plain
-    versions standing in for the kernels): each a record, the activation
-    over every finite bf16 gate."""
+    """Phase 2's checks of the fusions and of the new token's merge run
+    end to end (the plain versions standing in for the kernels): each a
+    record, the activation over every finite bf16 gate, the gate/up
+    product within its bound at each width."""
     recs = chip_smoke.check_fusions(torch.Generator().manual_seed(0), None,
                                     "cpu", plain_fusions())
-    assert set(recs) == set(chip_smoke.FUSIONS) == {
-        "rms_norm", "qkv_rope", "decode_merge", "gated_act"}
+    assert set(chip_smoke.FUSIONS) == {
+        "rms_norm", "qkv_rope", "gated_act", "gate_up_act"}
+    assert set(recs) == set(chip_smoke.FUSIONS) | {"decode_merge"}
     assert all(r["max_abs_err"] == 0 for r in recs.values())
     out = capsys.readouterr().out
     assert "'finite_bf16_gates': 65280" in out
-    for name in chip_smoke.FUSIONS:
+    for name in (*chip_smoke.FUSIONS, "decode_merge"):
         assert f"phase2 {name}" in out
+
+
+def _fp32_norm_moved_by(ulps: int):
+    """The plain norm with every fp32 output moved ``ulps`` ulps away
+    from the float64 norm of its input (on the far side of it)."""
+    ref = chip_smoke.fusion_kernels()["rms_norm"][1]
+
+    def moved(x, scale, eps, delta=None, fp32_sum=False):
+        out = ref(x, scale, eps, delta, fp32_sum)
+        inp, h = (out if delta is not None else (x, out))
+        if h.dtype != torch.float32:
+            return out
+        exact = chip_smoke.norm_exact(inp, scale, eps)
+        bits = exact.view(torch.int32)
+        step = torch.where(exact >= 0, ulps, -ulps).to(torch.int32)
+        far = (bits + step).view(torch.float32)
+        return (out[0], far) if delta is not None else far
+
+    return moved
+
+
+@pytest.mark.parametrize("shift,passes", [(0, True), (None, True),
+                                          (1, False)])
+def test_fp32_norm_bound_is_the_kernel_order(shift, passes):
+    """P15: phase 2 holds the fp32 norm within ``norm_fp32_ulps`` of the
+    float64 norm on each seed: an output at the bound passes (0: the
+    float64 norm itself; None: exactly the bound away), one ulp past it
+    fails; the bound grows with the kernel's summation chain."""
+    cfg = get_config("qwen2-1.5b")
+    bound = chip_smoke.norm_fp32_ulps(cfg.d_model)
+    ulps = {0: 0, None: bound, 1: bound + 1}[shift]
+    kern = _fp32_norm_moved_by(ulps)
+    ref = chip_smoke.fusion_kernels()["rms_norm"][1]
+    run = lambda: chip_smoke.check_fusion_norms(       # noqa: E731
+        cfg, 4, torch.float32, "cpu", {"rms_norm": (kern, ref)})
+    if passes:
+        gap = run()
+        assert gap["float64"]["max_ulps"] == ulps
+        assert gap["float64"]["bound_ulps"] == bound
+    else:
+        with pytest.raises(AssertionError):
+            run()
+    # a row of 64 chunks is one warp's (chain 4 x 2 + 5), 384 chunks one
+    # thread a chunk over 12 warps (chain 4 + 5 + 11)
+    assert chip_smoke.norm_fp32_ulps(256) == math.ceil((1 + 7 + 5 + 3)
+                                                       / 2) + 8
+    assert chip_smoke.norm_fp32_ulps(1536) == math.ceil((1 + 3 + 5 + 11
+                                                         + 3) / 2) + 8
 
 
 @pytest.fixture
@@ -993,7 +1053,7 @@ def test_kernels_line_names_the_fusions(fake_card, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("broken", ["rms_norm", "qkv_rope", "decode_merge",
-                                    "gated_act"])
+                                    "gated_act", "gate_up_act"])
 def test_a_failing_fusion_check_fails_the_run(fake_card, monkeypatch,
                                               capsys, small_fusion_checks,
                                               broken):
@@ -1017,20 +1077,22 @@ def test_fused_vs_plain_on_cpu(smoke):
                                       steps=3)
     chip_smoke.assert_fused_vs_plain(check, "bfloat16", cuda=False)
     assert check["max_abs_diff"] == 0 and check["argmax_equal"]
-    assert check["fusions"] == list(chip_smoke.FUSIONS)
+    assert check["fusions"] == ["rms_norm", "qkv_rope", "gate_up_act"]
 
 
 def _card_check() -> dict:
     """A fused-vs-plain record as the card's 2-layer bf16 check gives it:
-    each layer one split launch and one merged combine when fused, a
-    split and a plain combine when not."""
+    each layer and step one decode-attention launch in both legs (the
+    fused one with the token merged), and the fused leg's gate/up
+    product in place of its gated activation."""
     zero = {k: 0 for k in kernel_wrappers()}
     check = dict(argmax_equal=True, max_abs_diff=0.0, max_abs_logit=150.0,
-                 rms_logit=39.0, fusions=list(chip_smoke.FUSIONS),
+                 rms_logit=39.0, layers=2, steps=6,
+                 fusions=["rms_norm", "qkv_rope", "gate_up_act"],
                  launches_fused=dict(zero, paged_decode_attention=12,
-                                     decode_merge=12, rms_norm=15,
-                                     qkv_rope=12, gated_act=12),
-                 launches_plain=dict(zero, paged_decode_attention=24))
+                                     rms_norm=15, qkv_rope=12,
+                                     gate_up_act=12),
+                 launches_plain=dict(zero, paged_decode_attention=12))
     return check
 
 
@@ -1039,16 +1101,15 @@ def _card_check() -> dict:
     (lambda c: c.update(max_abs_diff=2.0), True),   # 2 ulps at 128-256
     (lambda c: c.update(max_abs_diff=2.5), False),
     (lambda c: c.update(argmax_equal=False), False),
-    (lambda c: c["launches_plain"].update(paged_decode_attention=12),
-     False),                          # the plain leg's combines uncounted
+    (lambda c: c["launches_plain"].update(paged_decode_attention=24),
+     False),                          # the plain leg's launch counted twice
     (lambda c: c["launches_fused"].update(paged_decode_attention=24),
-     False),                          # a merged combine counted twice
+     False),                          # a merged launch counted twice
 ])
 def test_fused_vs_plain_bounds_and_counts(edit, ok):
     """The fused step's gate on the card: bf16 within FUSED_BF16_ULPS ulps
-    of the largest logit, and decode attention counted once as splits and
-    once as merged combines in the fused leg, twice a layer in the plain
-    one."""
+    of the largest logit, and decode attention counted once a layer and
+    step in each leg."""
     check = _card_check()
     edit(check)
     assert chip_smoke.fused_bound(check, "bfloat16") == 2.0
@@ -1060,20 +1121,58 @@ def test_fused_vs_plain_bounds_and_counts(edit, ok):
             chip_smoke.assert_fused_vs_plain(check, "bfloat16", cuda=True)
 
 
-def test_merged_combine_work():
-    """The merged combine's bytes: each row's live split partials, q, the
-    new token's k and v, the lengths and the output."""
-    case = chip_smoke.make_case(chip_smoke.SMOKE, torch.float32,
-                                torch.Generator().manual_seed(0), "cpu")
-    B, H, Dh = case["q"].shape
-    KV, page = case["k"].shape[3], case["k"].shape[2]
-    G = H // KV
-    spp = max(1, SPLIT_TOKENS // page)
-    splits = sum(-(-(-(-int(n) // page)) // spp) for n in case["lens"])
-    nbytes, ops = chip_smoke.combine_work(case)
-    assert nbytes == 4 * splits * KV * (G * Dh + 2 * G + 1) + \
-        4 * (2 * B * H * Dh + 2 * B * KV * Dh) + 4 * B
-    assert ops > 0
+@pytest.mark.parametrize("layers,top,share,bound", [
+    (2, 3.5, 0.0, 2 * 2.0 ** -7 * 3.5 + 2 * 2.0 ** -6),
+    (28, 3.5, 0.25, 28 * 2.0 ** -7 * 1.5 * 3.5 + 2 * 2.0 ** -6),
+    (28, 150.0, 0.0, 28 * 2.0 ** -7 * 150.0 + 2 * 2.0 ** 0)])
+def test_step_bound_counts_each_layer(layers, top, share, bound):
+    """P14's bound: 2^-7 (1 + sqrt(share)) of the largest logit a layer
+    (the norms' one-ulp gaps, and the gate/up product's share of outputs
+    one ulp off), plus two ulps of it."""
+    check = dict(layers=layers, max_abs_logit=top, gate_up_share=share)
+    assert chip_smoke.step_bound(check) == pytest.approx(bound)
+
+
+def test_published_decode_checks_on_cpu(capsys):
+    """The published-init decode checks end to end at smoke width on the
+    CPU (both legs the plain versions, so equal): the 2-layer check and a
+    deeper one held to ``step_bound``."""
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              num_layers=4)
+    chip_smoke.published_decode_checks(cfg, "cpu")
+    out = capsys.readouterr().out
+    assert "at the published init, 2 full-width layers" in out
+    assert "at the published init, 4 full-width layers" in out
+    assert '"argmax_gap": 0.0' in out
+
+
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+def test_gate_up_bound_covers_a_product_one_ulp_off(activation):
+    """``gate_up_bound``: the plain spelling's output with gate or up one
+    bf16 ulp away stays within it, and it is no wider than a few ulps of
+    the largest output."""
+    g = torch.linspace(-6, 6, 4001).to(torch.bfloat16)
+    u = torch.linspace(3, -2, 4001).to(torch.bfloat16)
+    bound = chip_smoke.gate_up_bound(g, u, activation)
+    base = gated_act_ref(g, u, activation).float()
+    for t, other, first in ((g, u, True), (u, g, False)):
+        up = (t.view(torch.int16) + 1).view(torch.bfloat16)   # |t| + 1 ulp
+        moved = gated_act_ref(up, other, activation) if first else \
+            gated_act_ref(other, up, activation)
+        assert (moved.float() - base).abs().max().item() <= bound
+    assert 0 < bound <= 8 * 2.0 ** (math.floor(math.log2(
+        base.abs().max().item())) - 7)
+
+
+@pytest.mark.parametrize("family,dtype,names", [
+    ("qwen2-1.5b", "bfloat16", ["rms_norm", "qkv_rope", "gate_up_act"]),
+    ("qwen2-1.5b", "float32", ["rms_norm", "qkv_rope", "gated_act"]),
+    ("qwen3-moe-235b-a22b", "bfloat16", ["rms_norm", "qkv_rope"])])
+def test_fused_names_follow_the_ffn_route(family, dtype, names):
+    """A dense bf16 decode step takes the gate/up product, an fp32 one the
+    products and the gated activation's kernel; a MoE FFN neither."""
+    cfg = dataclasses.replace(get_config(family), compute_dtype=dtype)
+    assert chip_smoke.fused_names(cfg) == names
 
 
 @pytest.mark.parametrize("traces,calls", [

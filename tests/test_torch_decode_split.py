@@ -109,9 +109,86 @@ def test_split_plan_depends_on_the_length_and_page_alone():
     ("kStageBytes", decode_kernel.STAGE_BYTES),
     ("kMaxTile", decode_kernel.MAX_TILE),
     ("kTcThreads", decode_kernel.TC_THREADS),
-    ("kTcTile", decode_kernel.TC_TILE)])
+    ("kTcTile", decode_kernel.TC_TILE),
+    ("kMaxGD", decode_kernel.MAX_GD)])
 def test_constants_match_the_kernel_source(name, value):
     assert source_constant(name) == value
+
+
+def test_the_merge_scratch_matches_the_source():
+    """The row's merge keeps three rows of 16 heads, the weights of
+    kCombineChunk splits, the row's sums, q's rows and the new token's k
+    and v in the block's dynamic shared memory, the records (16-byte
+    padded) after them: the plan counts the same bytes, every block has
+    room for one record at least, and every G * D the plan takes fits the
+    row's kMaxGD sums."""
+    chunk = source_constant("kCombineChunk")
+    assert "4 * (3 * 16 + kCombineChunk * 16 + kMaxGD + kMaxGD + 2 * 256) + 16" \
+        in SOURCE
+    assert "return (G * D + 2 * G + 1 + 3) & ~3;" in SOURCE
+    assert decode_kernel.MERGE_SMEM == 4 * (3 * 16 + chunk * 16 +
+                                            2 * decode_kernel.MAX_GD + 512) \
+        + 16                                # the bulk copy's mbarrier
+    for G, D, esz in ((16, 128, 2), (8, 256, 2), (1, 8, 2), (1, 4, 4),
+                      (16, 128, 4), (3, 16, 2), (8, 256, 4)):
+        plan = plan_decode(4, 2, G, D, esz, 16, 64)
+        record = decode_kernel.record_floats(G, D)
+        assert record % 4 == 0 and 0 <= record - (G * D + 2 * G + 1) < 4
+        # the scratch, then at least one staged record
+        assert plan.smem_bytes >= decode_kernel.MERGE_SMEM + 4 * record
+        assert G * D <= decode_kernel.MAX_GD and D <= 256
+
+
+@pytest.mark.parametrize("B,KV,n_tab", [(1, 1, 1), (4, 2, 128), (8, 2, 256),
+                                        (64, 16, 3), (300, 32, 2)])
+def test_plan_counts_one_ticket_counter_a_row_and_kv_head(B, KV, n_tab):
+    """One int32 ticket counter a (row, KV head): the source indexes them
+    ``blockIdx.z * gridDim.y + blockIdx.y`` over the grid (splits, KV,
+    B), whatever the table width."""
+    plan = plan_decode(B, KV, 2, 64, 2, 16, n_tab)
+    assert plan.counters == B * KV == plan.grid[1] * plan.grid[2]
+    assert "blockIdx.z * gridDim.y + blockIdx.y" in SOURCE
+    assert "mg.counters[b * KV + kvh] = 0" in SOURCE
+
+
+def test_ticket_counters_are_zeroed_slices_of_one_arena(monkeypatch):
+    """A stream's counters: a zeroed slice of at least MIN_COUNTERS (a
+    power of two) of its device's arena, kept while it suffices; each
+    stream its own slice, a larger need a new one; a used-up arena is
+    followed by a new one, the old kept (graphs keep its addresses)."""
+    monkeypatch.setattr(decode_kernel, "_COUNTERS", {})
+    monkeypatch.setattr(decode_kernel, "_ARENAS", {})
+    monkeypatch.setattr(decode_kernel, "_KEPT", [])
+    monkeypatch.setattr(decode_kernel, "ARENA_COUNTERS", 16384)
+    dev = torch.device("cpu")
+    a = decode_kernel.ticket_counters(dev, 7, 10)
+    assert a.dtype == torch.int32 and not a.any()
+    assert a.numel() == decode_kernel.MIN_COUNTERS
+    assert decode_kernel.ticket_counters(dev, 7, 4096) is a
+    other = decode_kernel.ticket_counters(dev, 8, 1)
+    arena = decode_kernel._KEPT[0]
+    assert other.data_ptr() == a.data_ptr() + 4 * 4096
+    big = decode_kernel.ticket_counters(dev, 7, 5000)
+    assert big.numel() == 8192 and not big.any()
+    assert big.data_ptr() == arena.data_ptr() + 4 * 8192
+    assert decode_kernel.ticket_counters(dev, 7, 20) is big
+    fresh = decode_kernel.ticket_counters(dev, 9, 1)   # the arena is full
+    assert len(decode_kernel._KEPT) == 2
+    assert fresh.data_ptr() == decode_kernel._KEPT[1].data_ptr()
+
+
+def test_one_launch_a_call_in_the_source():
+    """The split kernels merge their rows in the same launch: no combine
+    kernel is left, a block's ticket is one acquire-release atomic, the
+    last ticket's block merges (staging the records with one bulk copy
+    through L2 after a proxy fence), and the entry point launches
+    once."""
+    assert "combine_kernel" not in SOURCE
+    assert "last_ticket(mg.counters, max_splits)" in SOURCE
+    assert "atom.acq_rel.gpu.global.add.s32" in SOURCE
+    assert "bulk_load(stage, rec, 4u * min(chunk, n) * R, bar)" in SOURCE
+    assert "fence.proxy.async.global" in SOURCE
+    assert "parts" not in SOURCE.split("int paged_decode_launch(")[1]
 
 
 def test_instantiations_match_the_source_dispatch():
@@ -129,9 +206,11 @@ def test_bf16_at_the_repo_head_dims_takes_the_tensor_cores(D, esz,
                                                            tensor_cores):
     plan = plan_decode(2, 2, 6, D, esz, 16, 40)
     assert plan.tensor_cores is tensor_cores
-    if tensor_cores:   # padded rows: D + 8 elements
+    if tensor_cores:   # padded rows: D + 8 elements; then the row's merge
         assert plan.smem_bytes == max(3 * 2 * 64 * (D + 8) * 2,
-                                      4 * 4 * 16 * (D + 2))
+                                      4 * 4 * 16 * (D + 2),
+                                      decode_kernel.MERGE_SMEM +
+                                      4 * decode_kernel.record_floats(6, D))
 
 
 @pytest.mark.parametrize("esz", [2, 4])
@@ -154,7 +233,9 @@ def test_grid_depends_on_the_table_width_alone(B, n_tab, page):
     plan = plan_decode(B, 2, 6, 128, 2, page, n_tab)
     splits = -(-n_tab * page // SPLIT_TOKENS)   # whole pages divide it
     assert plan.grid == (splits, 2, B)
-    assert plan.workspace_floats == B * 2 * splits * (6 * 128 + 2 * 6 + 1)
+    # a record: acc, m, l and a flag, padded to 16 bytes (784 of 781)
+    assert plan.workspace_floats == B * 2 * splits * 784
+    assert decode_kernel.record_floats(6, 128) == 784
 
 
 @pytest.mark.parametrize("G,D,esz", [(17, 128, 2), (16, 256, 2), (2, 264, 4),

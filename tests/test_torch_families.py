@@ -342,3 +342,43 @@ def test_norm_takes_each_config_width(no_launch, arch):
                 with pytest.raises(AssertionError, match="looked up"):
                     fusion_kernel.rms_norm_kernel(
                         x, _on_card(torch.zeros(D, dtype=dtype)), 1e-6)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_gate_up_plan_takes_each_config_width(no_launch, arch):
+    """The decode step's gate/up product at every config's (d_model, d_ff)
+    (and a MoE's leading dense layers' d_ff), published and smoke widths,
+    for 1 to 16 tokens: one CTA a 64-column tile streaming all of K (a
+    token's sums run in one order at every batch), every column in
+    exactly one tile, one wave of 132 SMs at three CTAs an SM, whose
+    shared memory holds them; the wrapper's host checks pass, stopping at
+    the launch's lookup, and 17 tokens or a row of K that is not whole 16
+    bytes are refused there first."""
+    from repro_torch.kernels.fusions import kernel as fk
+    assert fk.GATE_UP_CTAS_PER_SM * fk.GATE_UP_SMEM <= fk.SMEM_PER_BLOCK
+    for smoke in (False, True):
+        cfg = get_config(arch, smoke=smoke)
+        D = cfg.d_model
+        widths = {cfg.d_ff}
+        if cfg.moe is not None and cfg.moe.dense_d_ff:
+            widths.add(cfg.moe.dense_d_ff)
+        for F in widths:
+            for rows in range(1, fk.GATE_UP_MAX_ROWS + 1):
+                plan = fk.plan_gate_up(rows, D, F)
+                assert (plan.tiles - 1) * fk.GATE_UP_BOX < F \
+                    <= plan.tiles * fk.GATE_UP_BOX
+                assert (plan.k_tiles - 1) * fk.GATE_UP_K < D \
+                    <= plan.k_tiles * fk.GATE_UP_K
+                assert plan.token_tiles * 8 >= rows > \
+                    (plan.token_tiles - 1) * 8
+                assert plan.waves == 1     # one wave of 132 x 3 CTAs
+            w = _on_card(torch.empty(D, F, dtype=torch.bfloat16))
+            for rows in (1, 16):
+                x = _on_card(torch.zeros(rows, 1, D, dtype=torch.bfloat16))
+                with pytest.raises(AssertionError, match="looked up"):
+                    fk.gate_up_act_kernel(x, w, w, "silu")
+            x = _on_card(torch.zeros(17, 1, D, dtype=torch.bfloat16))
+            with pytest.raises(ValueError, match="1 to 16"):
+                fk.gate_up_act_kernel(x, w, w, "gelu")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fk.plan_gate_up(4, 1540, 8960)

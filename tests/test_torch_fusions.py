@@ -184,6 +184,47 @@ def test_gated_mlp_matches_jax(activation, dtype):
     assert_match(got, want, dtype)
 
 
+@pytest.mark.parametrize("arch", PAGED_ARCHS)
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+def test_gate_up_act_ref_matches_jax(arch, activation):
+    """``gate_up_act_ref`` (the two products and the gated activation)
+    against the JAX package's gated product at the family's smoke width,
+    bf16, bit for bit: the reference's ``mlp_apply`` jitted as the model
+    runs it, its w2 the identity, so that its output is the gated product
+    itself (one nonzero term a sum)."""
+    cfg = get_config(arch, smoke=True)
+    D, F = cfg.d_model, cfg.d_ff
+    rng = np.random.default_rng(3)
+    (w1, w1j), (w3, w3j) = (rand(rng, (D, F), "bfloat16", D ** -0.5)
+                            for _ in range(2))
+    x, xj = rand(rng, (4, 1, D), "bfloat16", 2.0)
+    got = fusions.gate_up_act_ref(x, w1, w3, activation)
+    want = jax.jit(lambda p, a: jax_mlp_apply(p, a, activation))(
+        {"w1": w1j, "w2": jnp.eye(F, dtype=jnp.bfloat16), "w3": w3j}, xj)
+    assert got.shape == (4, 1, F)
+    assert_match(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("rows,dtype,takes", [
+    (1, torch.bfloat16, True), (4, torch.bfloat16, True),
+    (16, torch.bfloat16, True), (17, torch.bfloat16, False),
+    (512, torch.bfloat16, False), (4, torch.float32, False)])
+def test_the_decode_ffn_route_is_picked_from_shapes(rows, dtype, takes):
+    """The fused step's FFN takes the one-launch product for bf16 rows of
+    at most 16 tokens on the card; fp32 and a chunk's rows keep the
+    products and the activation's kernel. A CPU tensor never does."""
+    from repro_torch.kernels.fusions.kernel import takes_gate_up
+
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    x = torch.zeros(rows, 1, 64, dtype=dtype)
+    assert takes_gate_up(x.as_subclass(OnCard)) is takes
+    assert not takes_gate_up(x)
+
+
 def jax_merge(qd, k_new, v_new, acc, m, l, scale: float):
     """The reference's merge of the new token (``src/repro/serving/
     paged_runtime.py:411-421``), as it reads there."""
@@ -364,6 +405,30 @@ def _merged(G: int, Dh: int = 16):
         k_out=_bf16(3, 2, 512), v_out=_bf16(3, 2, 512)), "at most 256"),
     (lambda: fusions.gated_act_kernel(_bf16(4, 64), _bf16(4, 64), "relu"),
      "activation"),
+    # the gate/up product: CPU tensors, 17 tokens, fp32, widths not whole
+    # 16-byte rows, an address 2 bytes off, a mismatched w3, a bad
+    # activation, weights that are not matrices
+    (lambda: fusions.gate_up_act_kernel(_bf16(4, 1, 64), _bf16(64, 128),
+                                        _bf16(64, 128), "silu"), "CUDA"),
+    (lambda: fusions.gate_up_act_kernel(_bf16(17, 64), _bf16(64, 128),
+                                        _bf16(64, 128), "silu"), "1 to 16"),
+    (lambda: fusions.gate_up_act_kernel(_bf16(4, 64).float(),
+                                        _bf16(64, 128), _bf16(64, 128),
+                                        "silu"), "bfloat16"),
+    (lambda: fusions.gate_up_act_kernel(_bf16(4, 60), _bf16(60, 128),
+                                        _bf16(60, 128), "gelu"), "16 bytes"),
+    (lambda: fusions.gate_up_act_kernel(_bf16(4, 64), _bf16(64, 132),
+                                        _bf16(64, 132), "gelu"), "16 bytes"),
+    (lambda: fusions.gate_up_act_kernel(_bf16(4 * 64 + 1)[1:].view(4, 64),
+                                        _bf16(64, 128), _bf16(64, 128),
+                                        "silu"), "16 bytes"),
+    (lambda: fusions.gate_up_act_kernel(_bf16(4, 64), _bf16(64, 128),
+                                        _bf16(64, 136), "silu"), "d_model"),
+    (lambda: fusions.gate_up_act_kernel(_bf16(4, 64), _bf16(64, 128),
+                                        _bf16(64, 128), "relu"),
+     "activation"),
+    (lambda: fusions.gate_up_act_kernel(_bf16(4, 64), _bf16(64 * 128),
+                                        _bf16(64 * 128), "silu"), "d_model"),
     (lambda: fusions.rms_norm_kernel(_bf16(4, 64), _bf16(64).float(),
                                      1e-6), "every tensor"),
 ])
@@ -386,22 +451,24 @@ def test_fusions_source_builds_for_hopper():
     assert _build.CSRC == ROOT / "src" / "repro_torch" / "csrc"
     assert "import jax" not in src and "repro." not in src
     for entry in ("rms_norm_launch", "qkv_rope_launch", "gated_act_launch",
-                  "repro_error_string"):
+                  "gate_up_maps", "gate_up_launch", "repro_error_string"):
         assert f" {entry}(" in src
     assert _build.library_path("fusions").parent == _build.BUILD_DIR
 
 
 def test_every_fusion_counts_its_launches():
-    """The four fusions have launch counts beside the six ported
-    kernels': three wrappers, and the merged combine's count, which decode
-    attention's wrapper adds to where it launches that combine."""
+    """The fusions' wrappers have launch counts beside the six ported
+    kernels'; the new token's merge has none of its own: it rides in
+    decode attention's one launch, counted there."""
     wrappers = kernel_wrappers()
     for name, fn in (("rms_norm", fusions.rms_norm_kernel),
                      ("qkv_rope", fusions.qkv_rope_kernel),
-                     ("decode_merge", decode_kernel.decode_merge),
-                     ("gated_act", fusions.gated_act_kernel)):
+                     ("gated_act", fusions.gated_act_kernel),
+                     ("gate_up_act", fusions.gate_up_act_kernel),
+                     ("paged_decode_attention",
+                      decode_kernel.paged_decode_attention_kernel)):
         assert wrappers[name] is fn and fn.launches == 0
-    assert not callable(wrappers["decode_merge"])
+    assert "decode_merge" not in wrappers
 
 
 def test_fused_flag_drops_the_graphs():
