@@ -18,10 +18,13 @@
 // - qkv_rope_kernel: the qkv biases, the optional qk norm and the rotary
 //   embedding of the three projections (models/attention.qkv_project,
 //   common.apply_rope), written in the layouts the decode kernel and the
-//   token append read; in its cache launch (qkv_rope_cache_launch, the
-//   prefill / extend chunk of Model.forward(fused=True)), a chunk's rows
-//   at a position each, k and v written straight into the layer's cache
-//   at the row's offset, read on the device (attention.write_cache);
+//   token append read (an fp32 or wider decode step's); in its cache
+//   launch (qkv_rope_cache_launch, the prefill / extend chunk of
+//   Model.forward(fused=True)), a chunk's rows at a position each, k and v
+//   written straight into the layer's cache at the row's offset, read on
+//   the device (attention.write_cache);
+// - qkv_proj_kernel: the bf16 decode step's three qkv products with
+//   qkv_rope_kernel's chain in their epilogue, one launch;
 // - gated_act_kernel: act(gate) * up, SiLU or the tanh GELU
 //   (models/mlp.mlp_apply, common._silu, common._gelu_tanh);
 // - gate_up_kernel: the decode step's act(x @ w1) * (x @ w3) as one
@@ -43,8 +46,8 @@
 // row's warp sums are added in warp order. torch's mean sums in another
 // order, so a norm is within one ulp of the compute dtype of the plain
 // one, not equal to it. A row of at most 64 chunks takes one warp (R =
-// 32), so the qk norm inside qkv_rope_kernel, one warp a head row, sums in
-// the same order.
+// 32), so the qk norm of the qkv passes (a head row on at most one warp's
+// lanes) sums in the same order.
 //
 // Bound: bytes. Each pass reads its inputs once and writes its outputs
 // once, with a few flops an element. At the decode step's shapes (B rows
@@ -60,6 +63,7 @@
 // 4 x 1536 decode rows its bytes take 15.6 ns at 3.35 TB/s, far under a
 // launch: empty_kernel, launched alone, is the floor a graph node has on
 // the card, timed beside it.
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,8 +73,6 @@
 
 namespace {
 
-constexpr int kRowWarps = 4;       // qkv_rope: one warp a head row
-constexpr int kMaxHeadDim = 256;
 constexpr int kNormMaxThreads = 512;  // a norm row's threads, at most
 constexpr int kActThreads = 256;
 constexpr int kActMaxBlocks = 132 * 8;
@@ -124,13 +126,6 @@ __device__ __forceinline__ float warp_sum(float a) {
   for (int off = 16; off > 0; off >>= 1)
     a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, off));
   return a;
-}
-
-// rsqrt(mean(x^2) + eps) of an n-element row from its lanes' sums of
-// squares; torch's mean is the sum times (float)(1 / n).
-__device__ __forceinline__ float inv_rms(float lane_sum, int n, float eps) {
-  const float mean = __fmul_rn(warp_sum(lane_sum), __fdiv_rn(1.0f, (float)n));
-  return rsqrtf(__fadd_rn(mean, eps));
 }
 
 // The row's values at one chunk: x, or the residual sum x + delta in fp32
@@ -232,23 +227,196 @@ __global__ void __launch_bounds__(kNormMaxThreads) rms_norm_kernel(
 // Launched alone, it times the floor a launch (a graph node) costs.
 __global__ void empty_kernel() {}
 
-// grid ceil(B * (H + 2 KV) / kRowWarps): one warp a head row of one token,
-// the H query heads, then the KV key heads, then the KV value heads of
-// each row b. The row (Dh <= kMaxHeadDim) is staged in shared memory:
-// bias added and rounded (q + bq), normed (query and key rows, with
-// qn/kn), then its leading 2 * rot_half channels rotated, each product,
-// difference and sum rounded as apply_rope's bf16 ops round them, with
-// cos and sin rounded to T as apply_rope casts its tables; row b reads
-// table row b mod tab_rows (tab_rows = B, or a chunk's C positions shared
-// by its sequences). q_out (B, H, Dh). Without `off`, k_out and v_out
-// (B, KV, Dh). With `off` (the cache launch) the B rows are nb sequences
-// of C tokens: row b = s * C + c of sequence s goes to slot
+// ------------------------------------------------------ the qkv row pass
+// The chain after the qkv projections, one head row at a time: the bias
+// added and rounded (q + bq), q and k normed (qn, kn), then their leading
+// 2 rot_half channels rotated, each product, difference and sum rounded
+// as apply_rope's ops round them, cos and sin rounded to T as apply_rope
+// casts its tables. The rows of token b are its H query heads, then its
+// KV key heads, then its KV value heads; row b reads table row b mod
+// tab_rows (tab_rows = B, or a chunk's C positions shared by its
+// sequences).
+//
+// Bound: bytes (each row read and written once; ~8 flops an element).
+// Design (kernels/fusions/kernel.rope_geometry): a row of `chunks` 16-byte
+// chunks lies on rt lanes of one warp (rt the power of two at or above
+// chunks, at most 32), lane c holding chunk c in registers; the row, its
+// bias and norm chunks are loaded before any is used, so a launch of many
+// rows keeps 16-byte loads in flight on every SM (and a block of 256
+// threads keeps at most 64 registers a thread, so path A's 512-row chunk
+// is one wave). Past the loads the pass is bound by the card's
+// conversions to bf16 (16 an SM a clock, an eighth of its fp32 rate):
+// every rounding is a packed pair, one conversion for two values, and
+// RoPE's products of two bf16 values are bf16x2 products, which round the
+// exact product once as the fp32 product rounded to bf16 does, with no
+// conversion at all. The qk norm sums in rms_norm_kernel's one-warp
+// order: each lane its chunk's squares in element order, then the xor
+// tree over the row's rt lanes; the one-warp tree's steps past rt only
+// add lanes that hold no chunk, exactly 0, so dropping them changes no
+// bit. RoPE's partner channel (i and i + rot_half) is another lane's
+// chunk where rot_half is a whole number of chunks (a shuffle), else it
+// is read from a copy of the row in shared memory (kShared).
+constexpr int kRowThreads = 256;   // a row-pass block
+constexpr int kMaxHeadDim = 256;
+
+// v[0 .. n) rounded to T and read back, two values a conversion.
+template <typename T, int n>
+__device__ __forceinline__ void rnd_pairs(float* v) {
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int i = 0; i < n; i += 2) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[i], v[i + 1]);
+      v[i] = __low2float(h);
+      v[i + 1] = __high2float(h);
+    }
+  }
+}
+
+// Two floats that hold bf16 values, as a bf16 pair (their high halves).
+__device__ __forceinline__ __nv_bfloat162 pack_bf16(float lo, float hi) {
+  const uint32_t u = __byte_perm(__float_as_uint(lo), __float_as_uint(hi),
+                                 0x7632);
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+// Lane c's share of a head row's chain (N = 16 / sizeof(T) values of
+// chunk c): x the projection as T holds it, bb its bias chunk, g its norm
+// scale chunk, cs / sn its channels' cos and sin as the fp32 tables hold
+// them (rounded to T here), loaded by the caller. `live` lanes hold a
+// chunk of a row; `bias`, `norm`, `rope` say what the row takes; `normed`
+// and rot_half > 0 are the same for the whole launch, so every lane of a
+// warp runs the same shuffles. stage: the row's Dh floats of shared
+// memory (kShared only). Leaves the output in x.
+template <typename T, bool kShared>
+__device__ __forceinline__ void row_chain(float* x, const float* bb,
+                                          const float* g, const float* cs,
+                                          const float* sn, int c, int rt,
+                                          bool live, bool bias, bool norm,
+                                          bool normed, bool rope, int Dh,
+                                          int rot_half, float eps,
+                                          float* stage) {
+  constexpr int N = 16 / sizeof(T);
+  if (live && bias) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = __fadd_rn(x[i], bb[i]);
+    rnd_pairs<T, N>(x);
+  }
+  if (normed) {
+    float ss = 0.f;
+    if (live && norm)
+#pragma unroll
+      for (int i = 0; i < N; ++i) ss = __fadd_rn(ss, __fmul_rn(x[i], x[i]));
+    for (int off = rt >> 1; off > 0; off >>= 1)
+      ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, off));
+    // torch's mean is the sum times (float)(1 / n)
+    const float rr = rsqrtf(
+        __fadd_rn(__fmul_rn(ss, __fdiv_rn(1.0f, (float)Dh)), eps));
+    if (live && norm) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        x[i] = __fmul_rn(__fmul_rn(x[i], rr), __fadd_rn(1.0f, g[i]));
+      rnd_pairs<T, N>(x);
+    }
+  }
+  if (rot_half == 0) return;
+  float p[N];                      // the partner channels' values
+  if constexpr (kShared) {
+    if (live)
+#pragma unroll
+      for (int i = 0; i < N; ++i) stage[c * N + i] = x[i];
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = c * N + i;
+      p[i] = live && e < 2 * rot_half
+                 ? stage[e < rot_half ? e + rot_half : e - rot_half]
+                 : 0.f;
+    }
+    __syncwarp();                  // the stage is free for the next row
+  } else {
+    const int R = rot_half / N;
+    const int lane = threadIdx.x & 31;
+    const int src =
+        (lane & ~(rt - 1)) + (c < R ? c + R : c < 2 * R ? c - R : c);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      p[i] = __shfl_sync(0xffffffffu, x[i], src);
+  }
+  if (!live || !rope || c * N >= 2 * rot_half) return;
+  float a[N], b[N];                // x cos and the partner's sin, rounded
+  if constexpr (sizeof(T) == 2) {
+    // cos and sin rounded to bf16 a pair a conversion; x and its partner
+    // are bf16 values already, so a bf16x2 product rounds each exact
+    // product once, as the fp32 product rounded to bf16 does
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const __nv_bfloat162 c2 = __floats2bfloat162_rn(cs[i], cs[i + 1]);
+      const __nv_bfloat162 s2 = __floats2bfloat162_rn(sn[i], sn[i + 1]);
+      const __nv_bfloat162 ca = __hmul2(pack_bf16(x[i], x[i + 1]), c2);
+      const __nv_bfloat162 sb = __hmul2(pack_bf16(p[i], p[i + 1]), s2);
+      a[i] = __low2float(ca), a[i + 1] = __high2float(ca);
+      b[i] = __low2float(sb), b[i + 1] = __high2float(sb);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      a[i] = __fmul_rn(x[i], cs[i]);
+      b[i] = __fmul_rn(p[i], sn[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int e = c * N + i;
+    if (e < rot_half)                          // x1 cos - x2 sin
+      x[i] = __fsub_rn(a[i], b[i]);
+    else if (e < 2 * rot_half)                 // x2 cos + x1 sin
+      x[i] = __fadd_rn(a[i], b[i]);
+  }
+  rnd_pairs<T, N>(x);              // channels past the rotation: unchanged
+}
+
+// Chunk c's cos and sin as the fp32 tables hold them (channel e = c N + i
+// takes table column e mod rot_half, for e < 2 rot_half): 16-byte loads
+// where a chunk's columns are whole 16-byte pieces of the row, else one
+// float at a time.
+template <typename T, bool kShared>
+__device__ __forceinline__ void chunk_tables(const float* __restrict__ cos_r,
+                                             const float* __restrict__ sin_r,
+                                             int c, int rot_half, float* cs,
+                                             float* sn) {
+  constexpr int N = 16 / sizeof(T);
+  if constexpr (!kShared) {
+    if (c * N >= 2 * rot_half) return;
+    const int j = (c * N) % rot_half;
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(cos_r + j + i);
+      const float4 b = *reinterpret_cast<const float4*>(sin_r + j + i);
+      cs[i] = a.x, cs[i + 1] = a.y, cs[i + 2] = a.z, cs[i + 3] = a.w;
+      sn[i] = b.x, sn[i + 1] = b.y, sn[i + 2] = b.z, sn[i + 3] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = c * N + i;
+      if (e >= 2 * rot_half) continue;
+      const int j = e < rot_half ? e : e - rot_half;
+      cs[i] = cos_r[j];
+      sn[i] = sin_r[j];
+    }
+  }
+}
+
+// grid ceil(B (H + 2 KV) / (kRowThreads / rt)): the block's rows are
+// consecutive head rows, rt lanes each. q_out (B, H, Dh). Without `off`,
+// k_out and v_out (B, KV, Dh). With `off` (the cache launch) the B rows
+// are nb sequences of C tokens: row b = s C + c of sequence s goes to slot
 // clamp(off[s], 0, slots - C) + c of k_out / v_out, caches of (nb, slots,
 // KV, Dh) whose sequences lie cache_stride elements apart (write_cache's
 // clamp, the offset read by every thread: one graph replays any offset),
 // and also to k_rows / v_rows (B, KV, Dh) where given.
-template <typename T>
-__global__ void __launch_bounds__(32 * kRowWarps) qkv_rope_kernel(
+template <typename T, bool kShared>
+__global__ void __launch_bounds__(kRowThreads, 4) qkv_rope_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ bq,
     const T* __restrict__ bk, const T* __restrict__ bv,
@@ -257,13 +425,16 @@ __global__ void __launch_bounds__(32 * kRowWarps) qkv_rope_kernel(
     T* __restrict__ q_out, T* __restrict__ k_out, T* __restrict__ v_out,
     int B, int H, int KV, int Dh, int rot_half, float eps, int tab_rows,
     const int* __restrict__ off, int C, int slots, long long cache_stride,
-    T* __restrict__ k_rows, T* __restrict__ v_rows) {
-  __shared__ float stage[kRowWarps][kMaxHeadDim];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    T* __restrict__ k_rows, T* __restrict__ v_rows, int rt) {
+  constexpr int N = 16 / sizeof(T);
+  __shared__ float stage[kShared ? kRowThreads * N : 1];
   const int per = H + 2 * KV;
-  const int r = blockIdx.x * kRowWarps + w;
-  if (r >= B * per) return;
-  const int b = r / per, j = r - b * per;
+  const int grp = threadIdx.x / rt, c = threadIdx.x - grp * rt;
+  const int r = blockIdx.x * (kRowThreads / rt) + grp;
+  const bool row_live = r < B * per;   // B (H + 2 KV) < 2^31: the host's
+  const int b = row_live ? r / per : 0;
+  const int j = row_live ? r - b * per : 0;
+  const bool live = row_live && c < Dh / N;
   const T* src;
   const T* bias;
   const T* norm;
@@ -281,60 +452,38 @@ __global__ void __launch_bounds__(32 * kRowWarps) qkv_rope_kernel(
     const int h = is_k ? j - H : j - H - KV;
     const long long row = ((long long)b * KV + h) * Dh;
     src = (is_k ? k : v) + row;
-    const T* bb = is_k ? bk : bv;
-    bias = bb != nullptr ? bb + (long long)h * Dh : nullptr;
+    const T* bs = is_k ? bk : bv;
+    bias = bs != nullptr ? bs + (long long)h * Dh : nullptr;
     norm = is_k ? kn : nullptr;
     rope = is_k;
     T* out = is_k ? k_out : v_out;
     if (off == nullptr) {
       dst = out + row;
     } else {
-      const int s = b / C, c = b - s * C;
+      const int s = b / C, cc = b - s * C;
       const int start = max(min(off[s], slots - C), 0);
-      dst = out + s * cache_stride + ((long long)(start + c) * KV + h) * Dh;
+      dst = out + s * cache_stride + ((long long)(start + cc) * KV + h) * Dh;
       T* rows = is_k ? k_rows : v_rows;
       if (rows != nullptr) dst2 = rows + row;
     }
   }
-  float* row = stage[w];
-  for (int e = lane; e < Dh; e += 32) {
-    float x = to_float(src[e]);
-    if (bias != nullptr) x = rnd<T>(__fadd_rn(x, to_float(bias[e])));
-    row[e] = x;
+  rope = rope && rot_half > 0;
+  float x[N] = {}, bb[N], g[N], cs[N], sn[N];
+  if (live) {                      // every load before any use
+    load16(src + c * N, x);
+    if (bias != nullptr) load16(bias + c * N, bb);
+    if (norm != nullptr) load16(norm + c * N, g);
   }
-  __syncwarp();
-  if (norm != nullptr) {   // rms_norm_kernel's order for a row of one warp
-    constexpr int N = 16 / sizeof(T);
-    float ss = 0.f;
-    for (int c = lane; c < Dh / N; c += 32)
-#pragma unroll
-      for (int i = 0; i < N; ++i)
-        ss = __fadd_rn(ss, __fmul_rn(row[c * N + i], row[c * N + i]));
-    const float rr = inv_rms(ss, Dh, eps);
-    __syncwarp();
-    for (int e = lane; e < Dh; e += 32)
-      row[e] = rnd<T>(__fmul_rn(__fmul_rn(row[e], rr),
-                                __fadd_rn(1.0f, to_float(norm[e]))));
-    __syncwarp();
+  if (live && rope) {
+    const long long at = (long long)(b % tab_rows) * rot_half;
+    chunk_tables<T, kShared>(cos_t + at, sin_t + at, c, rot_half, cs, sn);
   }
-  const int rot = rope ? 2 * rot_half : 0;
-  const long long tab = (long long)(b % tab_rows) * rot_half;
-  for (int e = lane; e < Dh; e += 32) {
-    float out = row[e];
-    if (e < rot) {
-      const int i = e < rot_half ? e : e - rot_half;
-      const float c = rnd<T>(cos_t[tab + i]);
-      const float s = rnd<T>(sin_t[tab + i]);
-      if (e < rot_half)        // x1 * cos - x2 * sin
-        out = rnd<T>(__fsub_rn(rnd<T>(__fmul_rn(row[e], c)),
-                               rnd<T>(__fmul_rn(row[e + rot_half], s))));
-      else                     // x2 * cos + x1 * sin
-        out = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(row[e], c)),
-                               rnd<T>(__fmul_rn(row[i], s))));
-    }
-    dst[e] = from_float<T>(out);
-    if (dst2 != nullptr) dst2[e] = from_float<T>(out);
-  }
+  row_chain<T, kShared>(x, bb, g, cs, sn, c, rt, live, bias != nullptr,
+                        norm != nullptr, qn != nullptr || kn != nullptr, rope,
+                        Dh, rot_half, eps, stage + grp * rt * N);
+  if (!live) return;
+  store16(dst + c * N, x);
+  if (dst2 != nullptr) store16(dst2 + c * N, x);
 }
 
 // x * (1 / (1 + exp(-x))), every op rounded to T (common._silu); 1 / y is
@@ -645,6 +794,302 @@ int gu_launch(const CUtensorMap& m1, const CUtensorMap& m3, const void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------- the decode step's qkv pass
+// qkv_proj_kernel: the decode step's q, k and v for B <= 16 tokens x (B,
+// K) bf16 against the stored weights wq (K, H Dh), wk and wv (K, KV Dh)
+// bf16, each projection an fp32 sum rounded once to bf16 (as a bf16
+// matmul returns it), then qkv_rope_kernel's chain op for op (row_chain:
+// the bias, the qk norm, RoPE) in the epilogue; q to q_out (B, H, Dh), k
+// and v straight into the token append's rows k_out / v_out (B, KV, Dh).
+//
+// Bound: bytes. The weights are 2 K (H + 2 KV) Dh bytes (6.29 MB at
+// qwen2-1.5b: 1.88 us at 3.35 TB/s); x, the tables and the outputs are a
+// few KB, and the flops are ~2 B a weight byte. The parent route ran three
+// cuBLAS products and the row pass as four graph nodes, q, k and v going
+// through device memory between them.
+//
+// Design. The epilogue needs a whole head row (the qk norm sums it, RoPE
+// pairs channel i with i + rot_half), so a head row of q, k or v is the
+// tile: Dh columns, Dh / 64 TMA boxes. qwen2-1.5b has only H + 2 KV = 16
+// head rows, far too few CTAs to stream the weights, so K is split over a
+// thread-block cluster of S CTAs a head row (kernels/fusions/kernel.
+// plan_qkv: S a function of the shapes alone, at most one CTA an SM and at
+// least 6 K tiles a rank: qwen2-1.5b's 16 head rows take 4, 64 CTAs; more
+// ranks of fewer tiles measured no faster, launch/qkv_probes.py). Rank r
+// streams its whole K tiles [r n / S, (r + 1) n / S)
+// as gate_up_kernel streams K: one thread keeps a ring of kQpStages stages
+// of 2-D TMA loads in flight (the head row's boxes of 64 rows of K, 128-
+// byte swizzled, and x's 16 x 64 box), four warps each take 16 columns of
+// every box, read with ldmatrix.trans, and run mma.sync m16n8k16 with the
+// tokens on N. Then each rank pushes its fp32 partials of token b into
+// the shared memory of rank b mod S (distributed shared memory), and after
+// one cluster barrier rank r sums its tokens' partials in rank order 0 ..
+// S - 1, rounds them to bf16 and runs the chain: every sum runs in an
+// order fixed by the shapes, so a row's bits depend neither on B nor on
+// timing. Rank r's 128 threads take its tokens a row at a time, Dh / 8
+// lanes a row, as the row pass lays a row out.
+constexpr int kQpBox = 64;                       // columns a TMA box
+constexpr int kQpK = 64;                         // rows of K a stage
+constexpr int kQpThreads = 128;                  // 4 warps
+constexpr int kQpStages = 4;                     // the ring's stages
+constexpr int kQpMaxRows = 16;                   // tokens, at most
+constexpr int kQpMaxSplit = 8;                   // CTAs a cluster, at most
+constexpr int kQpBoxBytes = kQpK * kQpBox * 2;   // 8 KB
+constexpr int kQpXBytes = 16 * kQpK * 2;         // x's box, 2 KB
+constexpr int kQpMapBytes = 3 * sizeof(CUtensorMap);
+
+struct QpArgs {
+  const __nv_bfloat16* bq;
+  const __nv_bfloat16* bk;
+  const __nv_bfloat16* bv;
+  const __nv_bfloat16* qn;
+  const __nv_bfloat16* kn;
+  const float* cos_t;
+  const float* sin_t;
+  __nv_bfloat16* q_out;
+  __nv_bfloat16* k_out;
+  __nv_bfloat16* v_out;
+  int B, K, H, KV, rot_half, tab_rows, split;
+  float eps;
+};
+
+// The ring, its mbarriers and the partials of the tokens a rank owns
+// (split x ceil(B / split) rows of Dh floats): the dynamic shared memory
+// of a CTA.
+__host__ __device__ constexpr int qp_stage_bytes(int boxes) {
+  return boxes * kQpBoxBytes + kQpXBytes;
+}
+__host__ __device__ constexpr int qp_smem(int boxes, int part_rows) {
+  return 1024 + kQpStages * qp_stage_bytes(boxes) + 16 * kQpStages +
+         part_rows * boxes * kQpBox * 4;
+}
+
+__device__ __forceinline__ void qp_cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void qp_cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// grid: (H + 2 KV) x split CTAs, a cluster of `split` a head row; NB boxes
+// a head row (Dh = 64 NB), NT 8-row token tiles.
+template <int NB, int NT>
+__global__ void __launch_bounds__(kQpThreads) qkv_proj_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_x, const QpArgs a) {
+  constexpr int Dh = NB * kQpBox;
+  constexpr int kStage = qp_stage_bytes(NB);
+  constexpr int kRt = Dh / 8;                   // lanes a row: 8, 16, 32
+  constexpr int kGroups = kQpThreads / kRt;     // rows the CTA takes at once
+  extern __shared__ __align__(16) unsigned char qp_raw[];
+  unsigned char* ring = qp_raw + ((1024 - (gu_smem_u32(qp_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kQpStages * kStage);
+  float* part = reinterpret_cast<float*>(full + 2 * kQpStages);
+  const int S = a.split;
+  const int hr = blockIdx.x / S, rank = blockIdx.x - hr * S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  if (S > 1) qp_cluster_arrive_relaxed();   // waited on before the push
+
+  // the head row's weight, its columns, its outputs and chain operands
+  const CUtensorMap* tm;
+  int col0;
+  __nv_bfloat16* out;
+  int heads, h;
+  const __nv_bfloat16* bias = nullptr;
+  const __nv_bfloat16* norm;
+  bool rope;
+  if (hr < a.H) {
+    tm = &tm_q, h = hr, heads = a.H, out = a.q_out, norm = a.qn, rope = true;
+    if (a.bq != nullptr) bias = a.bq + (long long)h * Dh;
+  } else if (hr < a.H + a.KV) {
+    tm = &tm_k, h = hr - a.H, heads = a.KV, out = a.k_out, norm = a.kn;
+    rope = true;
+    if (a.bk != nullptr) bias = a.bk + (long long)h * Dh;
+  } else {
+    tm = &tm_v, h = hr - a.H - a.KV, heads = a.KV, out = a.v_out;
+    norm = nullptr, rope = false;
+    if (a.bv != nullptr) bias = a.bv + (long long)h * Dh;
+  }
+  col0 = h * Dh;
+  rope = rope && a.rot_half > 0;
+  const int n_k = (a.K + kQpK - 1) / kQpK;
+  const int t0 = rank * n_k / S, t1 = (rank + 1) * n_k / S;
+  const int n_it = t1 - t0;
+
+  if (tid == 0) {
+    // the two tensor maps' descriptors fetched ahead of the first loads
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(tm)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&tm_x)) : "memory");
+    for (int s = 0; s < kQpStages; ++s) gu_mbar_init(full + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load_stage = [&](int it) {
+    const int s = it % kQpStages;
+    unsigned char* st = ring + s * kStage;
+    gu_mbar_expect_tx(full + s, kStage);
+#pragma unroll
+    for (int bx = 0; bx < NB; ++bx)
+      gu_tma_load(st + bx * kQpBoxBytes, tm, full + s, col0 + bx * kQpBox,
+                  (t0 + it) * kQpK);
+    gu_tma_load(st + NB * kQpBoxBytes, &tm_x, full + s, (t0 + it) * kQpK, 0);
+  };
+  if (tid == 0)
+    for (int it = 0; it < min(kQpStages, n_it); ++it) load_stage(it);
+
+  float acc[NB][NT][4];
+#pragma unroll
+  for (int bx = 0; bx < NB; ++bx)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[bx][t][e] = 0.f;
+  // ldmatrix rows and swizzled chunks as in gate_up_kernel
+  const int lrow = 8 * ((lane >> 3) >> 1) + (lane & 7);
+  const int xhalf = (lane >> 3) & 1;
+  const int lbase = ((2 * warp + xhalf) ^ (lane & 7)) * 16;
+#pragma unroll 1
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kQpStages;
+    gu_mbar_wait(full + s, (it / kQpStages) & 1);
+    const unsigned char* st = ring + s * kStage;
+    const unsigned char* xs = st + NB * kQpBoxBytes;
+#pragma unroll
+    for (int kk = 0; kk < kQpK / 16; ++kk) {
+      uint32_t xb[4];
+      gu_ldmatrix_x4(xb, xs + lrow * 128 +
+                             (((2 * kk + xhalf) ^ (lane & 7)) << 4));
+      const int off = lbase + (16 * kk + lrow) * 128;
+#pragma unroll
+      for (int bx = 0; bx < NB; ++bx) {
+        uint32_t w[4];
+        gu_ldmatrix_x4_trans(w, st + bx * kQpBoxBytes + off);
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          gu_mma(acc[bx][t], w, xb[2 * t], xb[2 * t + 1]);
+      }
+    }
+    __syncthreads();                  // every warp is done with stage s
+    if (tid == 0 && it + kQpStages < n_it) load_stage(it + kQpStages);
+  }
+
+  // the chain's operands for this thread's chunk c of the head row (the
+  // bias and norm chunks, the same for every token) and of its first
+  // token row (the table entries): loaded while the cluster's partials
+  // come in
+  const int rpo = (a.B + S - 1) / S;            // tokens a rank owns
+  const int grp = tid / kRt, c = tid - grp * kRt;
+  float bb[8], g[8], cs[8], sn[8];
+  if (bias != nullptr) load16(bias + c * 8, bb);
+  if (norm != nullptr) load16(norm + c * 8, g);
+  auto tables = [&](int b) {
+    const long long tab = (long long)(b % a.tab_rows) * a.rot_half;
+    chunk_tables<__nv_bfloat16, false>(a.cos_t + tab, a.sin_t + tab, c,
+                                       a.rot_half, cs, sn);
+  };
+  if (rope && grp < rpo && rank + S * grp < a.B) tables(rank + S * grp);
+
+  // push: accumulator e of box bx, token tile t is column 64 bx + 16 warp
+  // + gq + 8 (e / 2) of token 8 t + 2 tq + e % 2; token b's partial goes
+  // to rank b mod S, at row (this rank, b / S)
+  namespace cg = cooperative_groups;
+  if (S > 1) qp_cluster_wait();                 // every CTA has started
+#pragma unroll
+  for (int bx = 0; bx < NB; ++bx)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = 8 * t + 2 * tq + (e & 1);
+        if (b >= a.B) continue;
+        const int col = bx * kQpBox + 16 * warp + gq + 8 * (e >> 1);
+        float* dst = S > 1 ? cg::this_cluster().map_shared_rank(part, b % S)
+                           : part;
+        dst[(rank * rpo + b / S) * Dh + col] = acc[bx][t][e];
+      }
+  if (S > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+
+  // this rank's tokens b = rank + S i, a row of kRt lanes each
+  for (int i0 = 0; i0 < rpo; i0 += kGroups) {
+    const int i = i0 + grp, b = rank + S * i;
+    const bool live = i < rpo && b < a.B;
+    float x[8] = {};
+    if (live) {
+      const float* p = part + i * Dh + c * 8;
+      float4 lo = *reinterpret_cast<const float4*>(p);
+      float4 hi = *reinterpret_cast<const float4*>(p + 4);
+      float y[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      for (int r = 1; r < S; ++r) {          // the partials in rank order
+        p += rpo * Dh;
+        lo = *reinterpret_cast<const float4*>(p);
+        hi = *reinterpret_cast<const float4*>(p + 4);
+        const float z[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) y[k] = __fadd_rn(y[k], z[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = y[k];
+      rnd_pairs<__nv_bfloat16, 8>(x);
+      if (rope && i0 > 0) tables(b);
+    }
+    row_chain<__nv_bfloat16, false>(
+        x, bb, g, cs, sn, c, kRt, live, bias != nullptr, norm != nullptr,
+        a.qn != nullptr || a.kn != nullptr, rope, Dh, a.rot_half, a.eps,
+        nullptr);
+    if (live) store16(out + ((long long)b * heads + h) * Dh + c * 8, x);
+  }
+}
+
+template <int NB, int NT>
+int qp_launch(const CUtensorMap* m, const void* x, const QpArgs& a,
+              cudaStream_t stream) {
+  CUtensorMap tx;
+  const int enc = gu_encode(&tx, x, a.B, a.K, kQpK, 16);
+  if (enc != 0) return enc;
+  static bool allowed = false;   // per instantiation: the largest split
+  if (!allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qkv_proj_kernel<NB, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        qp_smem(NB, kQpMaxRows + kQpMaxSplit - 1));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = true;
+  }
+  const int S = a.split;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.H + 2 * a.KV) * S);
+  cfg.blockDim = dim3(kQpThreads);
+  cfg.dynamicSmemBytes = qp_smem(NB, S * ((a.B + S - 1) / S));
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = S > 1 ? 1 : 0;
+  CUtensorMap mq = m[0], mk = m[1], mv = m[2];
+  QpArgs args = a;
+  void* params[] = {&mq, &mk, &mv, &tx, &args};
+  const cudaError_t launched = cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(qkv_proj_kernel<NB, NT>), params);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NB>
+int qp_launch_rows(const CUtensorMap* m, const void* x, const QpArgs& a,
+                   cudaStream_t s) {
+  return a.B <= 8 ? qp_launch<NB, 1>(m, x, a, s) : qp_launch<NB, 2>(m, x, a, s);
+}
+
 template <typename T>
 int norm_launch(const void* x, const void* delta, const void* scale,
                 void* x_out, void* h_out, int rows, int D, float eps,
@@ -696,23 +1141,42 @@ int rope_launch(const void* q, const void* k, const void* v, const void* bq,
                 void* q_out, void* k_out, void* v_out, int B, int H, int KV,
                 int Dh, int rot_half, float eps, int tab_rows, const int* off,
                 int C, int slots, long long cache_stride, void* k_rows,
-                void* v_rows, cudaStream_t s) {
-  if (Dh < 1 || Dh > kMaxHeadDim || 2 * rot_half > Dh || rot_half < 0 ||
-      ((qn != nullptr || kn != nullptr) && Dh % (16 / (int)sizeof(T))) ||
+                void* v_rows, int rt, int shared, cudaStream_t s) {
+  constexpr int N = 16 / sizeof(T);
+  if (Dh < 1 || Dh > kMaxHeadDim || Dh % N || Dh / N > 32 || rt > 32 ||
+      rt < Dh / N || (rt & (rt - 1)) || 2 * rot_half > Dh || rot_half < 0 ||
+      (shared == 0 && rot_half % N) ||
       (rot_half > 0 && (tab_rows < 1 || B % tab_rows)) ||
       (off != nullptr && (C < 1 || B % C || slots < C)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = (long long)B * (H + 2 * KV);
-  qkv_rope_kernel<T><<<(unsigned)((rows + kRowWarps - 1) / kRowWarps),
-                       32 * kRowWarps, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(bq),
-      static_cast<const T*>(bk), static_cast<const T*>(bv),
-      static_cast<const T*>(qn), static_cast<const T*>(kn),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<T*>(q_out), static_cast<T*>(k_out), static_cast<T*>(v_out),
-      B, H, KV, Dh, rot_half, eps, tab_rows > 0 ? tab_rows : 1, off, C,
-      slots, cache_stride, static_cast<T*>(k_rows), static_cast<T*>(v_rows));
+  if (rows >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = kRowThreads / rt;
+  const unsigned grid = (unsigned)((rows + per_block - 1) / per_block);
+  const T* qs = static_cast<const T*>(q);
+  const T* ks = static_cast<const T*>(k);
+  const T* vs = static_cast<const T*>(v);
+  const T* bqs = static_cast<const T*>(bq);
+  const T* bks = static_cast<const T*>(bk);
+  const T* bvs = static_cast<const T*>(bv);
+  const T* qns = static_cast<const T*>(qn);
+  const T* kns = static_cast<const T*>(kn);
+  const float* cs = static_cast<const float*>(cos_t);
+  const float* sn = static_cast<const float*>(sin_t);
+  T* qo = static_cast<T*>(q_out);
+  T* ko = static_cast<T*>(k_out);
+  T* vo = static_cast<T*>(v_out);
+  T* kr = static_cast<T*>(k_rows);
+  T* vr = static_cast<T*>(v_rows);
+  const int tr = tab_rows > 0 ? tab_rows : 1;
+  if (shared)
+    qkv_rope_kernel<T, true><<<grid, kRowThreads, 0, s>>>(
+        qs, ks, vs, bqs, bks, bvs, qns, kns, cs, sn, qo, ko, vo, B, H, KV, Dh,
+        rot_half, eps, tr, off, C, slots, cache_stride, kr, vr, rt);
+  else
+    qkv_rope_kernel<T, false><<<grid, kRowThreads, 0, s>>>(
+        qs, ks, vs, bqs, bks, bvs, qns, kns, cs, sn, qo, ko, vo, B, H, KV, Dh,
+        rot_half, eps, tr, off, C, slots, cache_stride, kr, vr, rt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -777,24 +1241,27 @@ int empty_launch(void* stream) {
 // q (B, H, Dh), k and v (B, KV, Dh), contiguous; biases (H or KV, Dh) or
 // all null; qn, kn (Dh,) or null; cos_t, sin_t (B, rot_half) fp32 (null
 // when rot_half is 0). Writes q_out (B, H, Dh), k_out and v_out (B, KV,
-// Dh).
+// Dh). rt, shared: the row pass's layout for the head row
+// (kernels/fusions/kernel.rope_geometry): rt lanes a row, the RoPE
+// partner from a lane (0) or from a copy of the row in shared memory (1).
 int qkv_rope_launch(const void* q, const void* k, const void* v,
                     const void* bq, const void* bk, const void* bv,
                     const void* qn, const void* kn, const void* cos_t,
                     const void* sin_t, void* q_out, void* k_out,
                     void* v_out, int B, int H, int KV, int Dh, int rot_half,
-                    float eps, int dtype, void* stream) {
+                    float eps, int rt, int shared, int dtype, void* stream) {
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return rope_launch<float>(q, k, v, bq, bk, bv, qn, kn, cos_t, sin_t,
                               q_out, k_out, v_out, B, H, KV, Dh, rot_half,
-                              eps, B, nullptr, 1, 1, 0, nullptr, nullptr, s);
+                              eps, B, nullptr, 1, 1, 0, nullptr, nullptr, rt,
+                              shared, s);
   if (dtype == 1)
     return rope_launch<__nv_bfloat16>(q, k, v, bq, bk, bv, qn, kn, cos_t,
                                       sin_t, q_out, k_out, v_out, B, H, KV,
                                       Dh, rot_half, eps, B, nullptr, 1, 1, 0,
-                                      nullptr, nullptr, s);
+                                      nullptr, nullptr, rt, shared, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -804,16 +1271,17 @@ int qkv_rope_launch(const void* q, const void* k, const void* v,
 // and v into the caches k_cache / v_cache (nb, slots, KV, Dh; each
 // sequence's (slots, KV, Dh) contiguous, the sequences cache_stride
 // elements apart) at slot clamp(off[s], 0, slots - C) + c, and into
-// k_rows / v_rows (N, KV, Dh) unless they are null.
+// k_rows / v_rows (N, KV, Dh) unless they are null; rt, shared as
+// qkv_rope_launch's.
 int qkv_rope_cache_launch(const void* q, const void* k, const void* v,
                           const void* bq, const void* bk, const void* bv,
                           const void* qn, const void* kn, const void* cos_t,
                           const void* sin_t, void* q_out, void* k_cache,
                           void* v_cache, void* k_rows, void* v_rows,
                           const void* off, int N, int H, int KV, int Dh,
-                          int rot_half, int tab_rows, int C, int slots,
-                          long long cache_stride, float eps, int dtype,
-                          void* stream) {
+                          int rot_half, int tab_rows, int rt, int shared,
+                          int C, int slots, long long cache_stride,
+                          float eps, int dtype, void* stream) {
   if (N == 0) return 0;
   if (off == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -822,12 +1290,13 @@ int qkv_rope_cache_launch(const void* q, const void* k, const void* v,
     return rope_launch<float>(q, k, v, bq, bk, bv, qn, kn, cos_t, sin_t,
                               q_out, k_cache, v_cache, N, H, KV, Dh,
                               rot_half, eps, tab_rows, o, C, slots,
-                              cache_stride, k_rows, v_rows, s);
+                              cache_stride, k_rows, v_rows, rt, shared, s);
   if (dtype == 1)
     return rope_launch<__nv_bfloat16>(q, k, v, bq, bk, bv, qn, kn, cos_t,
                                       sin_t, q_out, k_cache, v_cache, N, H,
                                       KV, Dh, rot_half, eps, tab_rows, o, C,
-                                      slots, cache_stride, k_rows, v_rows, s);
+                                      slots, cache_stride, k_rows, v_rows, rt,
+                                      shared, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -881,6 +1350,61 @@ int gate_up_launch(const void* maps, const void* x, void* out, int B, int K,
                                           s);
   return use_gelu ? gu_launch<2, true>(m[0], m[1], x, out, B, K, N, k, c, s)
                   : gu_launch<2, false>(m[0], m[1], x, out, B, K, N, k, c, s);
+}
+
+// The tensor maps of the qkv pass's weights wq (K, H Dh), wk and wv (K,
+// KV Dh) bf16 row-major (the stored (K, heads, Dh) tensors), 16-byte
+// aligned, into maps_out (kQpMapBytes bytes of host memory: wq's, wk's,
+// wv's): once a weight address, by the caller, who passes them to every
+// launch.
+int qkv_proj_maps(const void* wq, const void* wk, const void* wv, int K,
+                  int H, int KV, int Dh, void* maps_out) {
+  if (K < 8 || K % 8 || H < 1 || KV < 1 || Dh < kQpBox || Dh % kQpBox ||
+      Dh > kMaxHeadDim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[3];
+  int err = gu_encode(&m[0], wq, K, H * Dh, kQpBox, kQpK);
+  if (err == 0) err = gu_encode(&m[1], wk, K, KV * Dh, kQpBox, kQpK);
+  if (err == 0) err = gu_encode(&m[2], wv, K, KV * Dh, kQpBox, kQpK);
+  if (err == 0) memcpy(maps_out, m, kQpMapBytes);
+  return err;
+}
+
+// The decode step's qkv pass: x (B, K) bf16, 1 <= B <= 16, K a multiple of
+// 8, 16-byte aligned (its tensor map encoded here: once at a graph's
+// capture); maps from qkv_proj_maps; biases (H or KV, Dh) or all null;
+// qn, kn (Dh,) or null; cos_t, sin_t (tab_rows, rot_half) fp32, rot_half
+// a multiple of 8 (null when 0). Writes q_out (B, H, Dh), k_out and v_out
+// (B, KV, Dh), contiguous bf16. Dh 64, 128 or 256; split: the CTAs of a
+// head row's cluster (kernels/fusions/kernel.plan_qkv).
+int qkv_proj_launch(const void* maps, const void* x, const void* bq,
+                    const void* bk, const void* bv, const void* qn,
+                    const void* kn, const void* cos_t, const void* sin_t,
+                    void* q_out, void* k_out, void* v_out, int B, int K,
+                    int H, int KV, int Dh, int rot_half, int tab_rows,
+                    int split, float eps, void* stream) {
+  if (B == 0) return 0;
+  if (maps == nullptr || B < 1 || B > kQpMaxRows || K < 8 || K % 8 ||
+      H < 1 || KV < 1 || split < 1 || split > kQpMaxSplit || rot_half < 0 ||
+      rot_half % 8 || 2 * rot_half > Dh ||
+      (rot_half > 0 && (tab_rows < 1 || B % tab_rows)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf = __nv_bfloat16;
+  const QpArgs a{static_cast<const bf*>(bq), static_cast<const bf*>(bk),
+                 static_cast<const bf*>(bv), static_cast<const bf*>(qn),
+                 static_cast<const bf*>(kn), static_cast<const float*>(cos_t),
+                 static_cast<const float*>(sin_t), static_cast<bf*>(q_out),
+                 static_cast<bf*>(k_out), static_cast<bf*>(v_out), B, K, H, KV,
+                 rot_half, tab_rows > 0 ? tab_rows : 1, split, eps};
+  CUtensorMap m[3];
+  memcpy(m, maps, kQpMapBytes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64: return qp_launch_rows<1>(m, x, a, s);
+    case 128: return qp_launch_rows<2>(m, x, a, s);
+    case 256: return qp_launch_rows<4>(m, x, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

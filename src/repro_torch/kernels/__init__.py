@@ -74,7 +74,9 @@ def kernel_wrappers() -> dict:
     carries ``launches``: the number of kernel launches it has made.
     ``flash_extend`` is the flash kernels' extend launch, apart from the
     prefill's ``flash_attention``; ``qkv_rope_chunk`` the qkv pass's chunk
-    launch, apart from the decode step's ``qkv_rope``; ``gate_up_act``
+    launch, apart from the decode step's ``qkv_rope``; ``qkv_proj`` the
+    bf16 decode step's qkv products with that pass, one launch;
+    ``gate_up_act``
     the decode step's gate / up products with their activation, apart
     from ``gated_act`` (the activation alone)."""
     from repro_torch.kernels.decode_attention.kernel import \
@@ -83,6 +85,7 @@ def kernel_wrappers() -> dict:
         flash_attention_kernel, flash_extend_kernel)
     from repro_torch.kernels.fusions.kernel import (gate_up_act_kernel,
                                                     gated_act_kernel,
+                                                    qkv_proj_kernel,
                                                     qkv_rope_chunk_kernel,
                                                     qkv_rope_kernel,
                                                     rms_norm_kernel)
@@ -101,6 +104,7 @@ def kernel_wrappers() -> dict:
             "rms_norm": rms_norm_kernel,
             "qkv_rope": qkv_rope_kernel,
             "qkv_rope_chunk": qkv_rope_chunk_kernel,
+            "qkv_proj": qkv_proj_kernel,
             "gated_act": gated_act_kernel,
             "gate_up_act": gate_up_act_kernel}
 

@@ -2,8 +2,10 @@
 ``csrc/fusions.cu`` (the RMS norms, qkv bias + RoPE, the gated
 activation); qkv bias + RoPE also as the prefill / extend chunk's launch,
 a position a row, k and v written into the layer's cache at offsets read
-on the device (``qkv_rope_chunk_kernel``, counted apart); the decode
-step's gate and up products with the activation in their epilogue
+on the device (``qkv_rope_chunk_kernel``, counted apart; both laid out by
+:func:`rope_geometry`); the decode step's qkv products with bias + RoPE
+in their epilogue (``qkv_proj_kernel``, planned by :func:`plan_qkv`) and
+its gate and up products with the activation in theirs
 (``gate_up_act_kernel``, planned by :func:`plan_gate_up`). The new
 token's merge is decode attention's own, given ``new_kv``
 (``paged_decode_attention_kernel``, ``csrc/decode_attention.cu``).
@@ -33,12 +35,14 @@ _LIB = "fusions"
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _NORM_ARGS = [_P] * 5 + [_I, _I, _F] + [_I] * 5 + [_P]
-_ROPE_ARGS = [_P] * 13 + [_I] * 5 + [_F, _I, _P]
-_CACHE_ARGS = [_P] * 16 + [_I] * 8 + [_L, _F, _I, _P]
+_ROPE_ARGS = [_P] * 13 + [_I] * 5 + [_F] + [_I] * 3 + [_P]
+_CACHE_ARGS = [_P] * 16 + [_I] * 10 + [_L, _F, _I, _P]
+_QP_ARGS = [_P] * 12 + [_I] * 8 + [_F, _P]
 _ACT_ARGS = [_P] * 3 + [_L, _I, _F, _F, _I, _P]
 _GU_ARGS = [_P] * 3 + [_I] * 4 + [_F, _F, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256                            # kMaxHeadDim in the source
+ROPE_MAX_LANES = 32                           # a head row on one warp, at most
 ACTIVATIONS = ("silu", "gelu")
 NORM_MAX_THREADS = 512                        # kNormMaxThreads in the source
 NORM_BLOCK = 256                              # threads a block of short rows
@@ -53,6 +57,16 @@ GATE_UP_SMEM = 1024 + GATE_UP_STAGES * (2 * GATE_UP_BOX + 16) \
     * GATE_UP_K * 2 + 8 * GATE_UP_STAGES
 #: CTAs an SM holds (its shared memory)
 GATE_UP_CTAS_PER_SM = 3
+# the qkv pass (qkv_proj_kernel): columns a TMA box and rows of K a stage
+# (kQpBox, kQpK), tokens at most, the cluster splits the plan takes (at
+# most kQpMaxSplit), the three tensor maps' bytes
+QKV_BOX, QKV_K, QKV_MAX_ROWS = 64, 64, 16
+QKV_SPLITS = (1, 2, 4, 8)
+#: K tiles a rank streams at least: fewer leave a rank's fixed costs
+#: (its first loads, the cluster barrier, the epilogue) over too little
+#: streaming (launch/qkv_probes.py)
+QKV_MIN_TILES = 6
+QKV_MAP_BYTES = 384
 SMEM_PER_BLOCK = 232_448          # bytes of shared memory a Hopper block
 H100_SMS = 132
 
@@ -95,6 +109,41 @@ def norm_geometry(D: int, element_size: int) -> NormGeometry:
     rows = max(1, NORM_BLOCK // rt)
     return NormGeometry(row_threads=rt, chunks_per_thread=cpt,
                         rows_per_block=rows, threads=rt * rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeGeometry:
+    """The qkv row pass's layout for head rows of one shape: a row's
+    16-byte chunks on ``row_threads`` lanes of one warp (the power of two
+    at or above the chunk count); the RoPE partner channel from another
+    lane's registers (``"lanes"``: rot_half a whole number of chunks) or
+    from a copy of the row in shared memory (``"shared"``)."""
+    row_threads: int
+    partner: str
+
+
+@functools.lru_cache(maxsize=None)
+def rope_geometry(Dh: int, rot_half: int, element_size: int) -> RopeGeometry:
+    """The row pass's layout for head rows of ``Dh`` elements of
+    ``element_size`` bytes rotating their leading ``2 rot_half`` channels:
+    a function of the shape alone (the qk norm's sum runs in one order
+    whatever the batch). Raises ``ValueError`` for a row that is not a
+    whole number of 16-byte chunks or is longer than one warp's lanes take
+    (32 chunks: 256 bf16 or 128 fp32 elements)."""
+    if not 1 <= Dh <= MAX_HEAD_DIM or (Dh * element_size) % 16:
+        raise ValueError(f"qkv_rope_kernel: head rows of {Dh} elements of "
+                         f"{element_size} bytes must be a multiple of 16 "
+                         f"bytes, head dim at most {MAX_HEAD_DIM}")
+    chunks = Dh * element_size // 16
+    if chunks > ROPE_MAX_LANES:
+        raise ValueError(f"qkv_rope_kernel: head rows of {chunks} 16-byte "
+                         f"chunks; one warp takes at most {ROPE_MAX_LANES}")
+    if not 0 <= 2 * rot_half <= Dh:
+        raise ValueError(f"qkv_rope_kernel: rot/2 {rot_half} for head dim "
+                         f"{Dh}")
+    return RopeGeometry(
+        row_threads=1 << (chunks - 1).bit_length(),
+        partner="lanes" if (rot_half * element_size) % 16 == 0 else "shared")
 
 
 def _ptr(t):
@@ -170,13 +219,21 @@ def rms_norm_kernel(x, scale, eps: float, delta=None,
 rms_norm_kernel.launches = 0
 
 
+def _check_aligned(what: str, *tensors) -> None:
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensors at 16-byte aligned addresses "
+                             f"(the kernels move 16 bytes a load)")
+
+
 def _check_rope_rows(what: str, q, k, v, bias, norm, rope, outs,
-                     tab_rows) -> int:
+                     tab_rows) -> tuple[int, RopeGeometry]:
     """The checks both qkv launches share: q (N, H, Dh), k and v (N, KV,
     Dh); biases (H, Dh), (KV, Dh), (KV, Dh); norm scales (Dh,); fp32
     tables (rows, rot/2) of ``tab_rows`` rows (any leading shape), rot <=
-    Dh; one dtype, contiguous, on one CUDA device (``outs`` too, checked
-    by the caller for shape). Returns rot/2."""
+    Dh; one dtype, contiguous and 16-byte aligned, head rows the row
+    pass's :func:`rope_geometry` takes, on one CUDA device (``outs`` too,
+    checked by the caller for shape). Returns rot/2 and the geometry."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"{what}: q (N, H, Dh), k and v (N, KV, Dh), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -206,13 +263,15 @@ def _check_rope_rows(what: str, q, k, v, bias, norm, rope, outs,
             raise ValueError(f"{what}: rope tables fp32 of {tab_rows} rows "
                              f"of rot/2 with rot <= Dh, got "
                              f"{tuple(cos.shape)} {cos.dtype}")
+    geo = rope_geometry(Dh, rot_half, q.element_size())
     for t in (q, k, v, bq, bk, bv, qn, kn, cos, sin, *outs):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{what}: contiguous tensors only")
-    if norm is not None:       # the norm sums 16-byte chunks
-        _check_rows(what, Dh, q, k)
+    _check_aligned(what, q, k, v, bq, bk, bv, qn, kn, *outs)
+    if geo.partner == "lanes":     # a chunk's table entries: 16-byte loads
+        _check_aligned(what, cos, sin)
     _check_cuda(what, q, k, v, bq, bk, bv, qn, kn, cos, sin, *outs)
-    return rot_half
+    return rot_half, geo
 
 
 def _rope_ptrs(bias, norm, rope) -> list:
@@ -230,13 +289,13 @@ def qkv_rope_kernel(q, k, v, *, k_out, v_out, bias=None, norm=None,
     sin)`` fp32 (B, 1, rot/2), each optional. Writes k and v into
     ``k_out``, ``v_out`` (B, KV, Dh) and returns q (B, H, Dh): the same
     bits as ``ref.qkv_rope_ref`` (the norm within its one-ulp order). One
-    launch."""
+    launch of the row pass, laid out by :func:`rope_geometry`."""
     what = "qkv_rope_kernel"
     if q.dim() == 3 and (k_out.shape != k.shape or v_out.shape != k.shape):
         raise ValueError(f"{what}: k {tuple(k.shape)}, outputs "
                          f"{tuple(k_out.shape)} / {tuple(v_out.shape)}")
-    rot_half = _check_rope_rows(what, q, k, v, bias, norm, rope,
-                                (k_out, v_out), q.shape[0])
+    rot_half, geo = _check_rope_rows(what, q, k, v, bias, norm, rope,
+                                     (k_out, v_out), q.shape[0])
     B, H, Dh = q.shape
     q_out = torch.empty_like(q)
     fn = _build.function(_LIB, "qkv_rope_launch", _ROPE_ARGS)
@@ -244,7 +303,8 @@ def qkv_rope_kernel(q, k, v, *, k_out, v_out, bias=None, norm=None,
     with device_guard(q.device):
         err = fn(_ptr(q), _ptr(k), _ptr(v), bq, bk, bv, qn, kn, cos, sin,
                  _ptr(q_out), _ptr(k_out), _ptr(v_out), B, H, k.shape[1],
-                 Dh, rot_half, float(eps), _DTYPES[q.dtype],
+                 Dh, rot_half, float(eps), geo.row_threads,
+                 int(geo.partner == "shared"), _DTYPES[q.dtype],
                  stream_handle(q.device))
     _build.check(_LIB, err, what)
     if B:
@@ -304,8 +364,12 @@ def qkv_rope_chunk_kernel(q, k, v, *, cache_k, cache_v, offsets,
             raise ValueError(f"{what}: rope tables of {N} or {C} rows, got "
                              f"{tuple(rope[0].shape)}")
     _check_dtype(what, q, cache_k, cache_v)
-    rot_half = _check_rope_rows(what, q, k, v, bias, norm, rope,
-                                (k_rows, v_rows), tab_rows)
+    rot_half, geo = _check_rope_rows(what, q, k, v, bias, norm, rope,
+                                     (k_rows, v_rows), tab_rows)
+    if cache_k.data_ptr() % 16 or cache_v.data_ptr() % 16 \
+            or (cache_k.stride(0) * cache_k.element_size()) % 16:
+        raise ValueError(f"{what}: caches at 16-byte aligned addresses, "
+                         f"their sequences a multiple of 16 bytes apart")
     _check_cuda(what, q, cache_k, cache_v, offsets)
     q_out = torch.empty_like(q)
     fn = _build.function(_LIB, "qkv_rope_cache_launch", _CACHE_ARGS)
@@ -314,8 +378,9 @@ def qkv_rope_chunk_kernel(q, k, v, *, cache_k, cache_v, offsets,
         err = fn(_ptr(q), _ptr(k), _ptr(v), bq, bk, bv, qn, kn, cos, sin,
                  _ptr(q_out), _ptr(cache_k), _ptr(cache_v), _ptr(k_rows),
                  _ptr(v_rows), _ptr(offsets), N, q.shape[1], KV, Dh,
-                 rot_half, tab_rows, C, T, cache_k.stride(0), float(eps),
-                 _DTYPES[q.dtype], stream_handle(q.device))
+                 rot_half, tab_rows, geo.row_threads,
+                 int(geo.partner == "shared"), C, T, cache_k.stride(0),
+                 float(eps), _DTYPES[q.dtype], stream_handle(q.device))
     _build.check(_LIB, err, what)
     if N:
         qkv_rope_chunk_kernel.launches += 1
@@ -456,6 +521,158 @@ def gate_up_act_kernel(x, w1, w3, activation: str):
 
 
 gate_up_act_kernel.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class QkvPlan:
+    """The decode step's qkv launch: ``head_rows`` (H + 2 KV) clusters of
+    ``split`` CTAs, rank r of a head row streaming its share of the
+    ``k_tiles`` QKV_K-row pieces of K through ``boxes`` QKV_BOX-column
+    TMA boxes, ``token_tiles`` 8-row tiles of tokens (the mma's N side);
+    ``ctas`` in all."""
+    head_rows: int
+    split: int
+    k_tiles: int
+    boxes: int
+    token_tiles: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_qkv(rows: int, d_model: int, H: int, KV: int, Dh: int,
+             sms: int = H100_SMS, *, rot_half: int = 0) -> QkvPlan:
+    """The qkv launch for ``rows`` tokens of ``d_model`` against wq (d_model,
+    H, Dh), wk and wv (d_model, KV, Dh), rotating ``2 rot_half`` channels,
+    on a card of ``sms`` SMs. A head row is a tile (its epilogue needs the
+    whole row), so K is split over a cluster of ``split`` CTAs: the
+    largest of QKV_SPLITS with (H + 2 KV) x split at most one CTA an SM
+    and at least QKV_MIN_TILES K tiles a rank (qwen2-1.5b: 4 x 16 CTAs of
+    6 tiles). A function of the shapes alone, so a token's sums run in
+    one order at every batch. Raises ``ValueError`` on what the kernel
+    does not take (the decode step then keeps the three products and the
+    row pass)."""
+    what = "qkv_proj_kernel"
+    if not 1 <= rows <= QKV_MAX_ROWS:
+        raise ValueError(f"{what}: {rows} token rows, the kernel takes 1 "
+                         f"to {QKV_MAX_ROWS}")
+    if d_model < 8 or d_model % 8:
+        raise ValueError(f"{what}: d_model {d_model} must be a multiple of "
+                         f"8 (16-byte rows)")
+    if Dh not in (QKV_BOX, 2 * QKV_BOX, 4 * QKV_BOX):
+        raise ValueError(f"{what}: head dim {Dh}: a head row is 1, 2 or 4 "
+                         f"boxes of {QKV_BOX} columns")
+    if rot_half % 8 or not 0 <= 2 * rot_half <= Dh:
+        raise ValueError(f"{what}: rot/2 {rot_half} must be a whole number "
+                         f"of 8-channel chunks within the head dim {Dh}")
+    if H < 1 or KV < 1:
+        raise ValueError(f"{what}: {H} query heads, {KV} KV heads")
+    head_rows = H + 2 * KV
+    k_tiles = -(-d_model // QKV_K)
+    split = max(s for s in QKV_SPLITS
+                if s == 1 or (head_rows * s <= sms
+                              and s * QKV_MIN_TILES <= k_tiles))
+    return QkvPlan(head_rows=head_rows, split=split, k_tiles=k_tiles,
+                   boxes=Dh // QKV_BOX, token_tiles=1 if rows <= 8 else 2,
+                   ctas=head_rows * split)
+
+
+#: (device index, the three weights' addresses, their shapes) -> the
+#: encoded tensor maps (host bytes), made once a weight address
+_QKV_MAPS: dict[tuple, ctypes.Array] = {}
+
+
+def _qkv_maps(wq, wk, wv) -> ctypes.Array:
+    key = (wq.device.index, wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+           *wq.shape, *wk.shape)
+    maps = _QKV_MAPS.get(key)
+    if maps is None:
+        maps = ctypes.create_string_buffer(QKV_MAP_BYTES)
+        D, H, Dh = wq.shape
+        fn = _build.function(_LIB, "qkv_proj_maps", [_P] * 3 + [_I] * 4
+                             + [_P])
+        with device_guard(wq.device):
+            err = fn(wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), D, H,
+                     wk.shape[1], Dh, ctypes.addressof(maps))
+        _build.check(_LIB, err, "qkv_proj_kernel: tensor maps")
+        _QKV_MAPS[key] = maps
+    return maps
+
+
+def takes_qkv_proj(x, wq, wk, rope=None) -> bool:
+    """Whether the fused decode step's qkv pass runs as
+    :func:`qkv_proj_kernel`: bf16 on the card, 1 to QKV_MAX_ROWS tokens
+    of plain (not DTensor) weights whose shapes :func:`plan_qkv` takes.
+    Anything else (fp32, more tokens, a chunk's rows, a mesh, a head dim
+    of no whole boxes) keeps the three products and the row pass. A host
+    decision on shapes, made before any capture."""
+    from torch.distributed.tensor import DTensor
+    rows = x.numel() // x.shape[-1] if x.dim() else 0
+    if not (x.is_cuda and x.dtype == torch.bfloat16 and wq.dim() == 3
+            and not isinstance(wq, DTensor)):
+        return False
+    rot_half = 0 if rope is None else rope[0].shape[-1]
+    try:
+        plan_qkv(rows, wq.shape[0], wq.shape[1], wk.shape[1], wq.shape[2],
+                 rot_half=rot_half)
+    except ValueError:
+        return False
+    return True
+
+
+def qkv_proj_kernel(x, wq, wk, wv, *, k_out, v_out, bias=None, norm=None,
+                    eps: float = 0.0, rope=None):
+    """The decode step's q, k and v of x (B, 1, d_model) (or (B,
+    d_model)), B <= QKV_MAX_ROWS, against wq (d_model, H, Dh), wk and wv
+    (d_model, KV, Dh) as stored, then the row pass's chain: ``bias``,
+    ``norm`` and ``rope`` (fp32 (B, 1, rot/2) tables) as
+    :func:`qkv_rope_kernel` takes them. All bf16, contiguous and 16-byte
+    aligned on one GPU. Each projection is an fp32 sum rounded once to
+    bf16, in an order fixed by the shapes (:func:`plan_qkv`), not by the
+    batch. Writes k and v into ``k_out``, ``v_out`` (B, KV, Dh) and
+    returns q (B, H, Dh). Every check comes before the launch. One
+    launch."""
+    what = "qkv_proj_kernel"
+    if wq.dim() != 3 or wk.dim() != 3 or wv.shape != wk.shape \
+            or wk.shape[0] != wq.shape[0] or wk.shape[2] != wq.shape[2] \
+            or x.dim() < 1 or x.shape[-1] != wq.shape[0]:
+        raise ValueError(f"{what}: x (..., d_model) against wq (d_model, "
+                         f"H, Dh), wk and wv (d_model, KV, Dh), got "
+                         f"{tuple(x.shape)}, {tuple(wq.shape)}, "
+                         f"{tuple(wk.shape)}, {tuple(wv.shape)}")
+    D, H, Dh = wq.shape
+    KV = wk.shape[1]
+    B = x.numel() // D
+    if k_out.shape != (B, KV, Dh) or v_out.shape != (B, KV, Dh):
+        raise ValueError(f"{what}: outputs ({B}, {KV}, {Dh}), got "
+                         f"{tuple(k_out.shape)} / {tuple(v_out.shape)}")
+    for t in (x, wq, wk, wv, k_out, v_out):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{what}: bfloat16 tensors only, got {t.dtype}")
+    plan = plan_qkv(B, D, H, KV, Dh,
+                    rot_half=0 if rope is None else rope[0].shape[-1])
+    _check_rows(what, D, x)
+    for t in (wq, wk, wv):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: weights contiguous at 16-byte aligned "
+                             f"addresses")
+    q_rows = x.new_empty((B, H, Dh))
+    rot_half, _ = _check_rope_rows(what, q_rows, k_out, v_out, bias, norm,
+                                   rope, (), B)
+    _check_cuda(what, x, wq, wk, wv, k_out, v_out)
+    maps = _qkv_maps(wq, wk, wv)
+    fn = _build.function(_LIB, "qkv_proj_launch", _QP_ARGS)
+    bq, bk, bv, qn, kn, cos, sin = _rope_ptrs(bias, norm, rope)
+    with device_guard(x.device):
+        err = fn(ctypes.addressof(maps), _ptr(x), bq, bk, bv, qn, kn, cos,
+                 sin, _ptr(q_rows), _ptr(k_out), _ptr(v_out), B, D, H, KV,
+                 Dh, rot_half, B if rope is not None else 0, plan.split,
+                 float(eps), stream_handle(x.device))
+    _build.check(_LIB, err, what)
+    qkv_proj_kernel.launches += 1
+    return q_rows
+
+
+qkv_proj_kernel.launches = 0
 
 
 def empty_kernel_launch(device) -> None:

@@ -1,9 +1,9 @@
 """The paged decode step's fused passes (and the prefill chunk's qkv
-pass), dispatched by device: a CUDA
-tensor launches the hand-written kernel (:mod:`.kernel`), a CPU tensor
-takes the plain version (:mod:`.ref`), any other device raises. ``plain``
-takes the plain version on any device: the runtime's ``fused=False``, to
-compare the two on the card."""
+pass), dispatched by device: a CUDA tensor launches the hand-written
+kernel (:mod:`.kernel`), a CPU tensor takes the plain version
+(:mod:`.ref`), any other device raises. ``plain`` takes the plain
+version on any device: the runtime's ``fused=False``, to compare the two
+on the card."""
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention.kernel import \
@@ -11,14 +11,17 @@ from repro_torch.kernels.decode_attention.kernel import \
 from repro_torch.dist.sharding import matmul
 from repro_torch.kernels.fusions.kernel import (gate_up_act_kernel,
                                                 gated_act_kernel,
+                                                qkv_proj_kernel,
                                                 qkv_rope_chunk_kernel,
                                                 qkv_rope_kernel,
                                                 rms_norm_kernel,
-                                                takes_gate_up)
+                                                takes_gate_up,
+                                                takes_qkv_proj)
 from repro_torch.kernels.fusions.ref import (attend_merged_ref,
                                              gate_up_act_ref, gated_act_ref,
+                                             qkv_products, qkv_proj_ref,
                                              qkv_rope_chunk_ref,
-                                             qkv_rope_ref, rms_norm_ref)
+                                             rms_norm_ref)
 
 
 def _takes_plain(x, plain: bool, what: str) -> bool:
@@ -38,14 +41,21 @@ def rms_norm(x, scale, eps: float, delta=None, *, fp32_sum: bool = False,
     return fn(x, scale, eps, delta, fp32_sum)
 
 
-def qkv_rope(q, k, v, *, k_out, v_out, bias=None, norm=None,
+def qkv_proj(x, wq, wk, wv, *, k_out, v_out, bias=None, norm=None,
              eps: float = 0.0, rope=None, plain: bool = False):
-    """Bias, qk norm and RoPE of one token's projections; k and v into
-    ``k_out`` / ``v_out``; returns q (B, H, Dh)."""
-    fn = qkv_rope_ref if _takes_plain(q, plain, "qkv_rope") \
-        else qkv_rope_kernel
-    return fn(q, k, v, k_out=k_out, v_out=v_out, bias=bias, norm=norm,
-              eps=eps, rope=rope)
+    """The decode step's qkv pass from x (B, 1, d_model): the three
+    products, then bias, qk norm and RoPE; k and v into ``k_out`` /
+    ``v_out``; returns q (B, H, Dh). On the card one launch of
+    :func:`qkv_proj_kernel` where :func:`takes_qkv_proj` (bf16, at most
+    16 tokens, a head dim of whole boxes), else the three products and
+    the row pass's kernel."""
+    kw = dict(k_out=k_out, v_out=v_out, bias=bias, norm=norm, eps=eps,
+              rope=rope)
+    if _takes_plain(x, plain, "qkv_proj"):
+        return qkv_proj_ref(x, wq, wk, wv, **kw)
+    if takes_qkv_proj(x, wq, wk, rope):
+        return qkv_proj_kernel(x, wq, wk, wv, **kw)
+    return qkv_rope_kernel(*qkv_products(x, wq, wk, wv), **kw)
 
 
 def qkv_rope_chunk(q, k, v, *, cache_k, cache_v, offsets, k_rows=None,

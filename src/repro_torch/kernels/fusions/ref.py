@@ -4,7 +4,9 @@ the runtime runs them on the card with ``fused=False``, and
 ``chip_smoke.py`` holds the CUDA kernels against them."""
 from __future__ import annotations
 
-from repro_torch.dist.sharding import matmul
+import torch
+
+from repro_torch.dist.sharding import matmul, matmul_in
 from repro_torch.kernels.decode_attention import (merge_new_token_ref,
                                                   paged_decode_attention)
 from repro_torch.models.attention import qkv_finish, write_cache
@@ -36,6 +38,90 @@ def qkv_rope_ref(q, k, v, *, k_out, v_out, bias=None, norm=None,
     k_out.copy_(k[:, 0])
     v_out.copy_(v[:, 0])
     return q[:, 0].contiguous()
+
+
+def qkv_products(x, wq, wk, wv):
+    """One token a row's three projections: x (B, 1, d_model) or (B,
+    d_model) against wq (d_model, H, Dh), wk and wv (d_model, KV, Dh),
+    ``attention.qkv_project``'s products, as (B, heads, Dh)."""
+    return tuple(matmul_in(x, w).reshape(-1, *w.shape[1:])
+                 for w in (wq, wk, wv))
+
+
+def qkv_proj_ref(x, wq, wk, wv, *, k_out, v_out, bias=None, norm=None,
+                 eps: float = 0.0, rope=None):
+    """The decode step's qkv pass: the three products
+    (:func:`qkv_products`), then :func:`qkv_rope_ref` (``attention.
+    qkv_project``'s chain). k and v are written into ``k_out`` and
+    ``v_out`` (B, KV, Dh); returns q (B, H, Dh)."""
+    q, k, v = qkv_products(x, wq, wk, wv)
+    return qkv_rope_ref(q, k, v, k_out=k_out, v_out=v_out, bias=bias,
+                        norm=norm, eps=eps, rope=rope)
+
+
+def bf16_ulp(t):
+    """The bf16 ulp at each element's magnitude, float64."""
+    return torch.exp2(torch.floor(torch.log2(
+        t.double().abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def qkv_proj_bound(x, wq, wk, wv, *, bias=None, norm=None, eps: float = 0.0,
+                   rope=None) -> tuple:
+    """How far ``qkv_proj_kernel``'s q, k and v may lie from
+    :func:`qkv_proj_ref`'s, element by element, in float64. Each
+    projection is an fp32 sum of d_model products x_i w_i, rounded once
+    to bf16; the kernel sums in another order than cuBLAS (its K split
+    over a cluster), and two orders' fp32 sums lie within 2 d_model u
+    sum_i |x_i w_i| (u = 2^-24) of each other, so the rounded
+    projections within that and one bf16 ulp more (where the two sums
+    round apart). That gap is carried through the plain spelling's chain:
+    the bias add (the gap, and one ulp more where the two sums round
+    apart); the qk norm (the row's mean square moved by the gaps moves
+    rsqrt by at most rho of itself, (1 - x)^-1/2 <= 1 + x / (2 (1 - x)),
+    and 2^-20 more for the fp32 sums' orders; then the gap times the
+    scale, and one ulp of the rounding); RoPE (each rounded product
+    carries its input's gap times |cos| or |sin| and one ulp, the sum or
+    difference one more). Returns (q, k, v) bounds of the outputs'
+    shapes."""
+    outs = []
+    xd = x.reshape(-1, x.shape[-1]).double()
+    for i, (p, w) in enumerate(zip(qkv_products(x, wq, wk, wv),
+                                   (wq, wk, wv))):
+        K = w.shape[0]
+        mass = (xd.abs() @ w.reshape(K, -1).double().abs()).reshape(p.shape)
+        y = p.double()
+        gap = 2 * K * 2.0 ** -24 * mass
+        gap = gap + bf16_ulp(y.abs() + gap)
+        if bias is not None:
+            y = (p + bias[i]).double()
+            gap = gap + bf16_ulp(y.abs() + gap)
+        if norm is not None and i < 2:
+            mean = y.square().mean(-1, keepdim=True)
+            dmean = (2 * y.abs() * gap + gap.square()).mean(-1, keepdim=True)
+            rho = dmean / (2 * (mean + eps - dmean).clamp_min(1e-300)) \
+                + 2.0 ** -20
+            scale = (mean + eps).rsqrt() * (1.0 + norm[i].double())
+            gap = scale.abs() * (y.abs() * rho + gap * (1 + rho))
+            y = y * scale
+            gap = gap + bf16_ulp(y.abs() + gap)
+        if rope is not None and i < 2:
+            cos, sin = (t.to(torch.bfloat16).double().reshape(
+                y.shape[0], 1, -1) for t in rope)
+            h = cos.shape[-1]
+            a, b = y[..., :h], y[..., h:2 * h]
+            ga, gb = gap[..., :h], gap[..., h:2 * h]
+
+            def term(v, gv, t):
+                return t.abs() * gv + bf16_ulp((v * t).abs() + t.abs() * gv)
+
+            first = term(a, ga, cos) + term(b, gb, sin)
+            second = term(b, gb, cos) + term(a, ga, sin)
+            gap = torch.cat([
+                first + bf16_ulp((a * cos - b * sin).abs() + first),
+                second + bf16_ulp((b * cos + a * sin).abs() + second),
+                gap[..., 2 * h:]], -1)
+        outs.append(gap)
+    return tuple(outs)
 
 
 def qkv_rope_chunk_ref(q, k, v, *, cache_k, cache_v, offsets, k_rows=None,

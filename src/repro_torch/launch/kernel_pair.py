@@ -1,7 +1,7 @@
 """Paged decode attention, page gather, page scatter, the RWKV6 WKV scan,
 the RMS norm, the flash kernels' extend launch, decode attention with the
-new token merged and the decode step's gate / up products timed the same
-way on any tree of the port, so that two trees can be compared in one
+new token merged, the decode step's gate / up products and its qkv pass,
+and the chunk's qkv pass timed the same way on any tree of the port, so that two trees can be compared in one
 call on one card.
 
 It calls only the wrappers' public signatures, which every tree of the
@@ -53,7 +53,22 @@ G 6, page 16):
   two cuBLAS products and ``gated_act_kernel``; where the tree has it,
   ``gate_up_act_kernel``'s one launch, and the parent's route timed
   beside it) by CUDA-graph replay, with digests of the outputs at 4 and
-  16 rows.
+  16 rows;
+- the decode step's qkv pass (``qkv``) at qwen2-1.5b's 4 and 16 x 1536
+  rows against wq (1536, 12, 128), wk and wv (1536, 2, 128), bf16, with
+  the qkv bias and RoPE at positions up to 32k, rotating over 12 weight
+  copies (75 MB, past the L2): the parent's route (three cuBLAS products,
+  then ``qkv_rope_kernel``) and, where the tree has it,
+  ``qkv_proj_kernel``'s one launch, by CUDA-graph replay, with digests
+  of q, k and v;
+- the chunk's qkv pass (``chunk``: ``qkv_rope_chunk_kernel``) at path
+  A's 512-row chunk (qwen2-1.5b's heads, offset 2048 on 2560 slots; the
+  extend's, k / v into the cache alone, and the prefill's, the rows
+  kept too), at qwen3-moe-235b-a22b's heads with the qk norm (128 rows),
+  at stablelm-3b's partial rotary (128 rows) and in fp32 (qwen2's heads
+  and stablelm's, 128 and 64 rows), by CUDA-graph replay beside one
+  contiguous device copy of the same bytes, with a digest of q, the
+  caches and the rows on inputs of their own seed.
 
 Each is timed eager (CUDA events around a loop of calls, host work
 included where it is the slower side) and on the device (``torch.profiler``:
@@ -411,13 +426,135 @@ def time_gate_up(gen) -> dict:
     return out
 
 
+QKV = dict(D=1536, H=12, KV=2, Dh=128, rows=(4, 16), sets=12)
+
+
+def time_qkv() -> dict:
+    """The decode step's qkv pass at qwen2-1.5b's widths: the parent's
+    route and, where the tree has it, the one launch; digests of q, k
+    and v. Inputs from their own seed."""
+    from repro_torch.kernels import fusions
+    from repro_torch.models.common import rope_tables
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    D, H, KV, Dh = (QKV[x] for x in ("D", "H", "KV", "Dh"))
+
+    def r(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") *
+                std).to(torch.bfloat16)
+
+    ws = [(r(D, H, Dh, std=D ** -0.5), r(D, KV, Dh, std=D ** -0.5),
+           r(D, KV, Dh, std=D ** -0.5)) for _ in range(QKV["sets"])]
+    bias = (r(H, Dh, std=0.5), r(KV, Dh, std=0.5), r(KV, Dh, std=0.5))
+    turn = itertools.cycle(ws)
+    one = getattr(fusions, "qkv_proj_kernel", None)
+    out = dict(bound_ms=2 * D * (H + 2 * KV) * Dh / HBM_BW * 1e3,
+               has_kernel=one is not None)
+    for rows in QKV["rows"]:
+        x = r(rows, 1, D)
+        pos = torch.randint(0, 32768, (rows, 1), generator=gen,
+                            device="cuda")
+        kw = dict(k_out=r(rows, KV, Dh), v_out=r(rows, KV, Dh), bias=bias,
+                  rope=rope_tables(pos, Dh, 1e6, 1.0))
+
+        def route(w=None):
+            wq, wk, wv = w or next(turn)
+            q, k, v = ((x @ t.reshape(D, -1)).reshape(rows, -1, Dh)
+                       for t in (wq, wk, wv))
+            return fusions.qkv_rope_kernel(q, k, v, **kw)
+
+        def bits(f):
+            q = f(ws[0])
+            torch.cuda.synchronize()
+            return digest(torch.cat([q.flatten(), kw["k_out"].flatten(),
+                                     kw["v_out"].flatten()]))
+
+        rec = {"route_graph_ms": [graph_ms(route)],
+               "route_bits": bits(route)}
+        if one is not None:
+            rec["kernel_graph_ms"] = graph_ms(
+                lambda: one(x, *next(turn), **kw))
+            rec["route_graph_ms"].append(graph_ms(route))
+            rec["kernel_bits"] = bits(lambda w: one(x, *w, **kw))
+        out[f"rows{rows}"] = rec
+    return out
+
+
+#: (H, KV, Dh, rope fraction, bias, qk norm, dtype, rows, slots, rows
+#: kept): path A's chunk as the extend and as the prefill takes it, a
+#: qk-normed family, partial rotary, fp32
+CHUNKS = {"qwen2_extend": (12, 2, 128, 1.0, True, False, "bfloat16", 512,
+                           2560, False),
+          "qwen2_prefill": (12, 2, 128, 1.0, True, False, "bfloat16", 512,
+                            2560, True),
+          "qwen3moe": (64, 4, 128, 1.0, False, True, "bfloat16", 128, 640,
+                       False),
+          "stablelm": (32, 32, 80, 0.25, False, False, "bfloat16", 128, 640,
+                       False),
+          "qwen2_fp32": (12, 2, 128, 1.0, True, False, "float32", 128, 640,
+                         False),
+          "stablelm_fp32": (32, 32, 80, 0.25, False, True, "float32", 64,
+                            320, True)}
+
+
+def time_chunk() -> dict:
+    """The chunk's qkv launch on each of CHUNKS at offset slots - rows
+    (path A's 512 rows: 2048 of 2560 slots), by CUDA-graph replay beside
+    its bytes' bound; digests of q, the caches and the rows. Inputs from
+    their own seed."""
+    from repro_torch.kernels.fusions import qkv_rope_chunk_kernel
+    from repro_torch.models.common import rope_tables
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for name, (H, KV, Dh, frac, bias, norm, dt, C, T, rows) in \
+            CHUNKS.items():
+        dtype = getattr(torch, dt)
+
+        def r(*shape, std=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda") *
+                    std).to(dtype)
+
+        off = torch.tensor([T - C], dtype=torch.int32, device="cuda")
+        pos = off.long()[:, None] + torch.arange(C, device="cuda")
+        kw = dict(cache_k=r(1, T, KV, Dh), cache_v=r(1, T, KV, Dh),
+                  offsets=off,
+                  bias=(r(H, Dh, std=0.5), r(KV, Dh, std=0.5),
+                        r(KV, Dh, std=0.5)) if bias else None,
+                  norm=(r(Dh, std=0.1), r(Dh, std=0.1)) if norm else None,
+                  eps=1e-6, rope=rope_tables(pos, Dh, 1e4, frac))
+        if rows:
+            kw.update(k_rows=r(C, KV, Dh), v_rows=r(C, KV, Dh))
+        q, k, v = r(C, H, Dh), r(C, KV, Dh), r(C, KV, Dh)
+        esz = q.element_size()
+        nbytes = esz * (C * (H + 2 * KV) * Dh * 2
+                        + (C * 2 * KV * Dh if rows else 0)
+                        + ((H + 2 * KV) * Dh if bias else 0)) \
+            + 2 * kw["rope"][0].numel() * 4 + 4
+        call = lambda: qkv_rope_chunk_kernel(q, k, v, **kw)  # noqa: E731
+        ms = graph_ms(call)
+        qo = call()
+        torch.cuda.synchronize()
+        # the same bytes moved by one contiguous device copy (half read,
+        # half written): a single-wave pass's floor on this card
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+        dst = torch.empty_like(src)
+        out[name] = dict(graph_ms=ms, bound_ms=nbytes / HBM_BW * 1e3,
+                         copy_graph_ms=graph_ms(lambda: dst.copy_(src)),
+                         bits=digest(torch.cat([
+                             t.flatten() for t in (qo, kw["cache_k"],
+                                                   kw["cache_v"],
+                                                   kw.get("k_rows"),
+                                                   kw.get("v_rows"))
+                             if t is not None])))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="",
                     help="comma-separated cases to time (decode, gather, "
                          "scatter, scan, norm, extend, flash, merge, "
-                         "gate_up); all by default")
+                         "gate_up, qkv, chunk); all by default")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_pair: CUDA is not available")
@@ -455,6 +592,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if want("gate_up"):
         out["gate_up"] = time_gate_up(gen)
+    if want("qkv"):
+        out["qkv"] = time_qkv()
+        torch.cuda.empty_cache()
+    if want("chunk"):
+        out["chunk"] = time_chunk()
     print(json.dumps(out))
     return 0
 

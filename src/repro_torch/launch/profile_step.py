@@ -22,7 +22,9 @@ them. The decode step and the chunk run their chains as the fused kernels
 of ``kernels/fusions``, and the extend chunk its attention as the flash
 kernels' extend launch, unless ``--plain`` asks for their plain spelling
 (``PagedKVRuntime(fused=False)``); a trace splits a step's device time
-into products, attention, fusions and the rest (``device_ms_by_part``).
+into products, attention, fusions and the rest (``device_ms_by_part``;
+the fused decode step's gate/up launch and its qkv launch, products
+with their chains in the epilogue, count as products).
 Attention is the attention kernels by name and, in the chunk, every
 device op launched inside ``attend_decode`` (its products too: the plain
 spelling's): one eager chunk is traced with that function annotated
@@ -106,12 +108,14 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
 #: "other": copies, casts, the embedding, argmax, the token append, the
 #: plain chains): decode and flash attention, the port's fused chains,
 #: the products (cuBLAS's and CUTLASS's kernels, and the port's gate/up
-#: product with its activation)
+#: product with its activation and its qkv products with their bias, qk
+#: norm and RoPE)
 DEVICE_PARTS = (("attention", ("split_kernel", "flash_")),
                 ("fusions", ("rms_norm_kernel", "qkv_rope_kernel",
                              "gated_act_kernel")),
                 ("products", ("gemm", "gemv", "nvjet", "xmma", "cutlass",
-                              "splitK", "gate_up_kernel")))
+                              "splitK", "gate_up_kernel",
+                              "qkv_proj_kernel")))
 
 
 #: functions of ``models/attention.py`` whose device ops are a step's

@@ -89,23 +89,27 @@ def qkv_finish(q, k, v, *, bias=None, norm=None, eps: float = 0.0,
 
 def qkv_project(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor | None = None, *, rope=None,
-                finish=None):
+                finish=None, project=None):
     """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh) with RoPE applied from
     the tables ``rope = (cos, sin)`` (the model builds them once a
     forward), or from tables made of ``positions`` when none are given.
-    ``finish`` takes :func:`qkv_finish`'s place (the fused passes of the
-    paged decode step and of the prefill chunk) and its result is
-    returned."""
-    q, k, v = (matmul_in(x, p[w]) for w in ("wq", "wk", "wv"))
+    ``finish`` takes :func:`qkv_finish`'s place (the prefill chunk's fused
+    pass) and its result is returned; ``project`` takes the products' and
+    the finish's (the paged decode step's qkv pass), called as
+    ``project(x, wq, wk, wv, bias=, norm=, eps=, rope=)``."""
     if cfg.pos_emb != "rope":
         rope = None
     elif rope is None:
         rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_fraction)
-    return (finish or qkv_finish)(
-        q, k, v, bias=(p["bq"], p["bk"], p["bv"]) if cfg.qkv_bias else None,
+    chain = dict(
+        bias=(p["bq"], p["bk"], p["bv"]) if cfg.qkv_bias else None,
         norm=(p["q_norm"], p["k_norm"]) if cfg.qk_norm else None,
         eps=cfg.norm_eps, rope=rope)
+    if project is not None:
+        return project(x, p["wq"], p["wk"], p["wv"], **chain)
+    q, k, v = (matmul_in(x, p[w]) for w in ("wq", "wk", "wv"))
+    return (finish or qkv_finish)(q, k, v, **chain)
 
 
 def out_project(p: dict, o: torch.Tensor) -> torch.Tensor:

@@ -487,9 +487,10 @@ class PagedKVRuntime:
         The chains between the products are the ops of
         :mod:`repro_torch.kernels.fusions` (``plain`` when ``fused`` is
         off): a layer's ln1 (after the first layer, with the previous
-        FFN's residual add, whose rounded sum it reads), the qkv bias, qk
-        norm and RoPE writing k/v straight into the append's (L, B, KV,
-        Dh) buffers, decode attention with the new token merged in its
+        FFN's residual add, whose rounded sum it reads), the qkv products
+        with their bias, qk norm and RoPE (one launch at up to 16 bf16
+        rows) writing k/v straight into the append's (L, B, KV, Dh)
+        buffers, decode attention with the new token merged in its
         own launch, ln2 with the attention's residual add (the fp32 sum),
         the dense FFN's gate and up products with their activation (one
         launch at up to 16 bf16 rows), and the last residual add with the
@@ -516,8 +517,8 @@ class PagedKVRuntime:
         vs = x.new_empty((L, B, KV, Dh))
         delta = None                       # the previous layer's FFN output
 
-        def qkv_rope(q, k, v, *, li, **kw):   # k/v into the append's rows
-            return fusions.qkv_rope(q[:, 0], k[:, 0], v[:, 0], k_out=ks[li],
+        def qkv_proj(h, wq, wk, wv, *, li, **kw):  # k/v: the append's rows
+            return fusions.qkv_proj(h, wq, wk, wv, k_out=ks[li],
                                     v_out=vs[li], plain=plain, **kw)
 
         def gate_up(h, w1, w3):
@@ -531,8 +532,8 @@ class PagedKVRuntime:
                 x, h = fusions.rms_norm(x, p["ln1"], eps, delta, plain=plain)
             a = p["attn"]
             qd = attn_mod.qkv_project(a, h, cfg, None, rope=rope,
-                                      finish=functools.partial(qkv_rope,
-                                                               li=li))
+                                      project=functools.partial(qkv_proj,
+                                                                li=li))
             o = fusions.attend_merged(qd, self.k_pages, self.v_pages, tables,
                                       lens, ks[li], vs[li], layer=li,
                                       scale=scale, plain=plain)

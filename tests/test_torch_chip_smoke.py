@@ -901,6 +901,18 @@ def plain_fusions(broken: str | None = None) -> dict:
                           for i in range(x.shape[0])])
 
     kernels["gate_up_act"] = (rowwise, rowwise)
+    qkv = kernels["qkv_proj"][1]
+
+    def qkv_rowwise(x, wq, wk, wv, *, k_out, v_out, rope=None, **chain):
+        # a row at a time for the same reason
+        q = [qkv(x[i:i + 1], wq, wk, wv, k_out=k_out[i:i + 1],
+                 v_out=v_out[i:i + 1], **chain,
+                 rope=None if rope is None else
+                 tuple(t[i:i + 1] for t in rope))
+             for i in range(x.shape[0])]
+        return torch.cat(q)
+
+    kernels["qkv_proj"] = (qkv_rowwise, qkv_rowwise)
     if broken is not None:
         ref = kernels[broken][1]
 
@@ -923,6 +935,7 @@ def small_fusion_checks(monkeypatch):
                         ("qwen2-1.5b", "qwen3-moe-235b-a22b"))
     monkeypatch.setattr(chip_smoke, "FUSION_ROWS", (1, 4))
     monkeypatch.setattr(chip_smoke, "GATE_UP_ROWS", (1, 4, 16))
+    monkeypatch.setattr(chip_smoke, "QKV_ROWS", (1, 4, 16))
     monkeypatch.setattr(chip_smoke, "FUSION_MERGE_CASES",
                         (("SMOKE", "bfloat16", 1),
                          ("GLM4_SMOKE", "float32", 1)))
@@ -936,7 +949,7 @@ def test_fusion_checks_on_cpu(small_fusion_checks, capsys):
     recs = chip_smoke.check_fusions(torch.Generator().manual_seed(0), None,
                                     "cpu", plain_fusions())
     assert set(chip_smoke.FUSIONS) == {
-        "rms_norm", "qkv_rope", "gated_act", "gate_up_act"}
+        "rms_norm", "qkv_rope", "gated_act", "gate_up_act", "qkv_proj"}
     assert set(recs) == set(chip_smoke.FUSIONS) | {"decode_merge"}
     assert all(r["max_abs_err"] == 0 for r in recs.values())
     out = capsys.readouterr().out
@@ -1053,7 +1066,7 @@ def test_kernels_line_names_the_fusions(fake_card, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("broken", ["rms_norm", "qkv_rope", "decode_merge",
-                                    "gated_act", "gate_up_act"])
+                                    "gated_act", "gate_up_act", "qkv_proj"])
 def test_a_failing_fusion_check_fails_the_run(fake_card, monkeypatch,
                                               capsys, small_fusion_checks,
                                               broken):
@@ -1124,12 +1137,18 @@ def test_fused_vs_plain_bounds_and_counts(edit, ok):
 @pytest.mark.parametrize("layers,top,share,bound", [
     (2, 3.5, 0.0, 2 * 2.0 ** -7 * 3.5 + 2 * 2.0 ** -6),
     (28, 3.5, 0.25, 28 * 2.0 ** -7 * 1.5 * 3.5 + 2 * 2.0 ** -6),
-    (28, 150.0, 0.0, 28 * 2.0 ** -7 * 150.0 + 2 * 2.0 ** 0)])
+    (28, 150.0, 0.0, 28 * 2.0 ** -7 * 150.0 + 2 * 2.0 ** 0),
+    (28, 3.5, (0.0, 0.04), 28 * 2.0 ** -7 * 1.6 * 3.5 + 2 * 2.0 ** -6),
+    (2, 3.5, (0.25, 0.01), 2 * 2.0 ** -7 * 1.8 * 3.5 + 2 * 2.0 ** -6)])
 def test_step_bound_counts_each_layer(layers, top, share, bound):
-    """P14's bound: 2^-7 (1 + sqrt(share)) of the largest logit a layer
-    (the norms' one-ulp gaps, and the gate/up product's share of outputs
-    one ulp off), plus two ulps of it."""
+    """P14's bound: 2^-7 (1 + sqrt(s) + 3 sqrt(t)) of the largest logit a
+    layer (the norms' one-ulp gaps, the gate/up product's share s of
+    outputs one ulp off and the qkv launch's share t of q, k and v), plus
+    two ulps of it."""
+    share, qkv = share if isinstance(share, tuple) else (share, None)
     check = dict(layers=layers, max_abs_logit=top, gate_up_share=share)
+    if qkv is not None:
+        check["qkv_share"] = qkv
     assert chip_smoke.step_bound(check) == pytest.approx(bound)
 
 
@@ -1164,13 +1183,61 @@ def test_gate_up_bound_covers_a_product_one_ulp_off(activation):
         base.abs().max().item())) - 7)
 
 
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-235b-a22b"])
+def test_qkv_bound_covers_projections_one_ulp_off(arch):
+    """``qkv_proj_bound``: the plain chain on projections each one bf16 ulp
+    away (away from zero, toward it, and alternating by channel), and on
+    projections summed in another order, stays within it element by
+    element (qwen2: bias and RoPE; qwen3-moe: the
+    qk norm and RoPE), and it is no wider than a few ulps of the largest
+    output."""
+    from repro_torch.kernels.fusions.ref import (qkv_products,
+                                                 qkv_proj_bound,
+                                                 qkv_rope_ref)
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator().manual_seed(3)
+    t = chip_smoke.qkv_inputs(cfg, 4, gen, "cpu")
+    x, ws, chain = t["x"], t["ws"][0], t["chain"]
+    bounds = qkv_proj_bound(x, *ws, **chain)
+    base = qkv_products(x, *ws)
+
+    def chain_of(p):
+        ko, vo = torch.empty_like(p[1]), torch.empty_like(p[2])
+        return qkv_rope_ref(*p, k_out=ko, v_out=vo, **chain), ko, vo
+
+    want = chain_of(base)
+    # the projections summed in another order (float64, then rounded),
+    # as the kernel's K split sums them, stay within it too
+    exact = [(x.double() @ w.reshape(w.shape[0], -1).double()).to(
+        torch.bfloat16).reshape(p.shape) for p, w in zip(base, ws)]
+    for a, b, bd in zip(chain_of(exact), want, bounds):
+        assert ((a.double() - b.double()).abs() <= bd).all()
+    for step in ((1, 1), (-1, -1), (1, -1)):
+        moved = []
+        for p in base:
+            bits = p.view(torch.int16)
+            sign = torch.ones(p.shape[-1], dtype=torch.int16)
+            sign[1::2] = step[1]
+            moved.append((bits + step[0] * sign * (bits != 0)).view(
+                torch.bfloat16))
+        for a, b, bd in zip(chain_of(moved), want, bounds):
+            assert ((a.double() - b.double()).abs() <= bd).all(), step
+    for b, bd in zip(want, bounds):
+        top = b.double().abs().max().item()
+        assert 0 < bd.max().item() <= 16 * 2.0 ** (math.floor(math.log2(
+            top)) - 7)
+
+
 @pytest.mark.parametrize("family,dtype,names", [
-    ("qwen2-1.5b", "bfloat16", ["rms_norm", "qkv_rope", "gate_up_act"]),
+    ("qwen2-1.5b", "bfloat16", ["rms_norm", "qkv_proj", "gate_up_act"]),
     ("qwen2-1.5b", "float32", ["rms_norm", "qkv_rope", "gated_act"]),
-    ("qwen3-moe-235b-a22b", "bfloat16", ["rms_norm", "qkv_rope"])])
+    ("qwen3-moe-235b-a22b", "bfloat16", ["rms_norm", "qkv_proj"]),
+    ("stablelm-3b", "bfloat16", ["rms_norm", "qkv_rope", "gate_up_act"])])
 def test_fused_names_follow_the_ffn_route(family, dtype, names):
     """A dense bf16 decode step takes the gate/up product, an fp32 one the
-    products and the gated activation's kernel; a MoE FFN neither."""
+    products and the gated activation's kernel; a MoE FFN neither. A bf16
+    step takes the qkv launch where its plan takes the heads (stablelm's
+    Dh 80 keeps the products and the row pass), an fp32 one never."""
     cfg = dataclasses.replace(get_config(family), compute_dtype=dtype)
     assert chip_smoke.fused_names(cfg) == names
 

@@ -382,3 +382,95 @@ def test_gate_up_plan_takes_each_config_width(no_launch, arch):
                 fk.gate_up_act_kernel(x, w, w, "gelu")
     with pytest.raises(ValueError, match="multiples of 8"):
         fk.plan_gate_up(4, 1540, 8960)
+
+
+def _rot_half(cfg) -> int:
+    return int(cfg.head_dim * cfg.rope_fraction) // 2 \
+        if cfg.pos_emb == "rope" else 0
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_qkv_plan_takes_each_config_width(no_launch, arch):
+    """The decode step's qkv launch at every config's (d_model, H, KV, Dh),
+    published and smoke widths, for 1 to 16 tokens: a head dim of whole
+    64-column boxes and a rotation of whole 8-channel chunks is planned
+    (clusters of 1-8 CTAs a head row, at most one CTA an SM, at least
+    QKV_MIN_TILES K tiles a rank, the split the same at every row count;
+    qwen2-1.5b: 4) and passes the
+    wrapper's host checks, stopping at the launch's lookup; any other is
+    refused with ``ValueError`` before anything is looked up, and the
+    decode step keeps the products and the row pass (stablelm-3b's Dh
+    80, the smoke widths' Dh 8 and 16)."""
+    from repro_torch.kernels.fusions import kernel as fk
+    for smoke in (False, True):
+        cfg = get_config(arch, smoke=smoke)
+        D, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim
+        rot = _rot_half(cfg)
+        takes = Dh in (64, 128, 256) and rot % 8 == 0 and D % 8 == 0
+        splits = set()
+        for rows in range(1, fk.QKV_MAX_ROWS + 1):
+            if not takes:
+                with pytest.raises(ValueError):
+                    fk.plan_qkv(rows, D, H, KV, Dh, rot_half=rot)
+                continue
+            plan = fk.plan_qkv(rows, D, H, KV, Dh, rot_half=rot)
+            assert plan.split in fk.QKV_SPLITS
+            assert plan.split == 1 or \
+                plan.split * fk.QKV_MIN_TILES <= plan.k_tiles
+            assert plan.ctas == (H + 2 * KV) * plan.split
+            assert plan.ctas <= fk.H100_SMS or plan.split == 1
+            assert plan.boxes * fk.QKV_BOX == Dh
+            assert plan.token_tiles * 8 >= rows > (plan.token_tiles - 1) * 8
+            splits.add(plan.split)
+        assert len(splits) <= 1
+        x = _on_card(torch.zeros(4, 1, D, dtype=torch.bfloat16))
+        w = [_on_card(torch.zeros(D, n, Dh, dtype=torch.bfloat16))
+             for n in (H, KV, KV)]
+        outs = [_on_card(torch.zeros(4, KV, Dh, dtype=torch.bfloat16))
+                for _ in range(2)]
+        rope = (_on_card(torch.zeros(4, 1, rot)),) * 2 if rot else None
+        bias = (_on_card(torch.zeros(H, Dh, dtype=torch.bfloat16)),
+                *(_on_card(torch.zeros(KV, Dh, dtype=torch.bfloat16))
+                  for _ in range(2))) if cfg.qkv_bias else None
+        norm = (_on_card(torch.zeros(Dh, dtype=torch.bfloat16)),) * 2 \
+            if cfg.qk_norm else None
+        assert fk.takes_qkv_proj(x, w[0], w[1], rope) is takes
+        with pytest.raises(AssertionError if takes else ValueError,
+                           match="looked up" if takes else None):
+            fk.qkv_proj_kernel(x, *w, k_out=outs[0], v_out=outs[1],
+                               bias=bias, norm=norm, eps=cfg.norm_eps,
+                               rope=rope)
+    assert fk.plan_qkv(4, 1536, 12, 2, 128, rot_half=64).split == 4
+    with pytest.raises(ValueError, match="1 to 16"):
+        fk.plan_qkv(17, 1536, 12, 2, 128, rot_half=64)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_row_pass_partner_follows_the_shape(arch):
+    """The qkv row pass's layout at every config's (Dh, rot/2), published
+    and smoke widths, bf16 and fp32: a head row's 16-byte chunks on the
+    power-of-two lanes at or above their count within one warp; RoPE's
+    partner from another lane where rot/2 is a whole number of chunks
+    (qwen2, glm4, pixtral, qwen3-moe: 64), from a copy of the row in
+    shared memory where it is not (stablelm-3b: 10); a row longer than
+    one warp takes (fp32 at Dh 256: gemma2-9b) refused."""
+    from repro_torch.kernels.fusions import kernel as fk
+    for smoke in (False, True):
+        cfg = get_config(arch, smoke=smoke)
+        Dh, rot = cfg.head_dim, _rot_half(cfg)
+        for esz in (2, 4):
+            chunks = Dh * esz // 16
+            if chunks > fk.ROPE_MAX_LANES:
+                with pytest.raises(ValueError, match="one warp"):
+                    fk.rope_geometry(Dh, rot, esz)
+                continue
+            geo = fk.rope_geometry(Dh, rot, esz)
+            lanes = geo.row_threads
+            assert lanes & (lanes - 1) == 0 and chunks <= lanes < 2 * chunks
+            assert lanes <= fk.ROPE_MAX_LANES
+            assert geo.partner == ("lanes" if (rot * esz) % 16 == 0
+                                   else "shared")
+    assert fk.rope_geometry(128, 64, 2).partner == "lanes"
+    assert fk.rope_geometry(80, 10, 2).partner == "shared"
+    assert fk.rope_geometry(80, 10, 4).partner == "shared"

@@ -11,7 +11,9 @@ The CUDA kernels run on the card only (``chip_smoke.py`` phase 2 holds
 them against these plain versions).
 """
 import dataclasses
+import functools
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -123,19 +125,20 @@ def attn_params(rng, cfg, dtype: str) -> tuple[dict, dict]:
     return pt, pj
 
 
-def port_qkv(cfg, p, h, positions, plain: bool = False):
-    """The decode step's projections and ``fusions.qkv_rope`` for one
-    token a row: (q, k, v) as (B, 1, heads, Dh)."""
+def port_qkv(cfg, p, h, positions):
+    """The decode step's projections and the row pass's plain version
+    (``fusions.qkv_rope_ref``) for one token a row: (q, k, v) as (B, 1,
+    heads, Dh)."""
     q, k, v = (matmul_in(h, p[w])[:, 0] for w in ("wq", "wk", "wv"))
     B, KV, Dh = k.shape
     k_out, v_out = k.new_empty((B, KV, Dh)), v.new_empty((B, KV, Dh))
     rope = rope_tables(positions, Dh, cfg.rope_theta, cfg.rope_fraction) \
         if cfg.pos_emb == "rope" else None
-    qd = fusions.qkv_rope(
+    qd = fusions.qkv_rope_ref(
         q, k, v, k_out=k_out, v_out=v_out,
         bias=(p["bq"], p["bk"], p["bv"]) if cfg.qkv_bias else None,
         norm=(p["q_norm"], p["k_norm"]) if cfg.qk_norm else None,
-        eps=cfg.norm_eps, rope=rope, plain=plain)
+        eps=cfg.norm_eps, rope=rope)
     return qd[:, None], k_out[:, None], v_out[:, None]
 
 
@@ -164,6 +167,77 @@ def test_qkv_rope_matches_jax(arch, dtype):
     got = port_qkv(cfg, pt, h, torch.from_numpy(pos).long())
     for a, b in zip(got, want):
         assert_match(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "stablelm-3b",
+                                  "qwen3-moe-235b-a22b", "musicgen-large"])
+def test_qkv_proj_ref_matches_jax(arch, dtype):
+    """The decode step's qkv pass as one call (``fusions.qkv_proj``, its
+    plain version on the CPU: the three products, then the chain) against
+    the reference's ``qkv_project`` at decode positions past 1000: bias
+    (qwen2), qk norm (qwen3-moe), partial rotary (stablelm), no RoPE
+    (musicgen); bf16 jitted, bit for bit; fp32 op by op within FP32_TOL
+    (XLA's fusion of the qk norm into the rotation moves qwen3-moe's q
+    by up to 1.4e-5 from the op-by-op values)."""
+    cfg = get_config(arch, smoke=True)
+    jcfg = jax_config(arch, smoke=True)
+    rng = np.random.default_rng(11)
+    pt, pj = attn_params(rng, cfg, dtype)
+    h, hj = rand(rng, (3, 1, cfg.d_model), dtype)
+    pos = np.array([[1000], [7], [2049]], np.int32)
+
+    def project(p, x, s):
+        return jax_attn.qkv_project(p, x, jcfg, s)
+
+    want = (jax.jit(project) if dtype == "bfloat16" else project)(
+        pj, hj, jnp.asarray(pos))
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
+    k_out, v_out = (torch.empty(3, KV, Dh, dtype=DTYPES[dtype][0])
+                    for _ in range(2))
+    rope = rope_tables(torch.from_numpy(pos).long(), Dh, cfg.rope_theta,
+                       cfg.rope_fraction) if cfg.pos_emb == "rope" else None
+    q = fusions.qkv_proj(
+        h, pt["wq"], pt["wk"], pt["wv"], k_out=k_out, v_out=v_out,
+        bias=(pt["bq"], pt["bk"], pt["bv"]) if cfg.qkv_bias else None,
+        norm=(pt["q_norm"], pt["k_norm"]) if cfg.qk_norm else None,
+        eps=cfg.norm_eps, rope=rope)
+    for a, b in zip((q[:, None], k_out[:, None], v_out[:, None]), want):
+        assert_match(a, b, dtype)
+
+
+def test_qkv_project_hands_its_pass_to_project():
+    """``qkv_project(project=)``: the hook gets the normed rows, the three
+    stored weights and the chain ``finish`` would get; the decode step's
+    hook (``fusions.qkv_proj``) gives ``qkv_project``'s own q, k and v."""
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    rng = np.random.default_rng(12)
+    pt, _ = attn_params(rng, cfg, "bfloat16")
+    h, _ = rand(rng, (2, 1, cfg.d_model), "bfloat16")
+    pos = torch.tensor([[3], [900]])
+    seen = {}
+
+    def spy(x, wq, wk, wv, **chain):
+        seen.update(x=x, w=(wq, wk, wv), **chain)
+        return "q"
+
+    assert attn_mod.qkv_project(pt, h, cfg, pos, project=spy) == "q"
+    assert seen["x"] is h and all(
+        a is pt[n] for a, n in zip(seen["w"], ("wq", "wk", "wv")))
+    assert seen["bias"][0] is pt["bq"] and seen["norm"] is None
+    assert seen["eps"] == cfg.norm_eps
+    want = attn_mod.qkv_project(pt, h, cfg, pos)
+    for got, ref in zip(seen["rope"], rope_tables(pos, cfg.head_dim,
+                                                  cfg.rope_theta,
+                                                  cfg.rope_fraction)):
+        assert torch.equal(got, ref)
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
+    k_out, v_out = (torch.empty(2, KV, Dh, dtype=torch.bfloat16)
+                    for _ in range(2))
+    q = attn_mod.qkv_project(pt, h, cfg, pos, project=functools.partial(
+        fusions.qkv_proj, k_out=k_out, v_out=v_out))
+    for a, b in zip((q, k_out, v_out), want):
+        assert torch.equal(a, b[:, 0])
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -223,6 +297,36 @@ def test_the_decode_ffn_route_is_picked_from_shapes(rows, dtype, takes):
     x = torch.zeros(rows, 1, 64, dtype=dtype)
     assert takes_gate_up(x.as_subclass(OnCard)) is takes
     assert not takes_gate_up(x)
+
+
+@pytest.mark.parametrize("rows,dtype,Dh,rot,takes", [
+    (1, torch.bfloat16, 128, 64, True), (4, torch.bfloat16, 128, 64, True),
+    (16, torch.bfloat16, 128, 64, True), (4, torch.bfloat16, 64, 0, True),
+    (4, torch.bfloat16, 256, 128, True),
+    (17, torch.bfloat16, 128, 64, False),       # more rows: the row pass
+    (512, torch.bfloat16, 128, 64, False),      # a chunk's rows
+    (4, torch.float32, 128, 64, False),         # fp32
+    (4, torch.bfloat16, 80, 10, False),         # stablelm: Dh of no boxes
+    (4, torch.bfloat16, 128, 12, False)])       # a partner not a chunk
+def test_the_decode_qkv_route_is_picked_from_shapes(rows, dtype, Dh, rot,
+                                                    takes):
+    """The fused step's qkv pass takes the one launch for bf16 rows of at
+    most 16 tokens on the card with a head dim of whole 64-column boxes
+    and a rotation of whole 8-channel chunks; everything else keeps the
+    three products and the row pass's kernel. A CPU tensor never does."""
+    from repro_torch.kernels.fusions.kernel import takes_qkv_proj
+
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    x = torch.zeros(rows, 1, 64, dtype=dtype)
+    wq = torch.zeros(64, 4, Dh, dtype=dtype)
+    wk = torch.zeros(64, 2, Dh, dtype=dtype)
+    rope = (torch.zeros(rows, 1, rot),) * 2 if rot else None
+    assert takes_qkv_proj(x.as_subclass(OnCard), wq, wk, rope) is takes
+    assert not takes_qkv_proj(x, wq, wk, rope)
 
 
 def jax_merge(qd, k_new, v_new, acc, m, l, scale: float):
@@ -364,6 +468,22 @@ def _bf16(*shape):
     return torch.zeros(shape, dtype=torch.bfloat16)
 
 
+def _qkv_proj(rows: int = 4, dtype=torch.bfloat16, Dh: int = 64,
+              rot: int = 16, **edit):
+    """The qkv launch on CPU tensors of 64-wide rows, 4 query and 2 KV
+    heads, edited."""
+    a = dict(x=torch.zeros(rows, 1, 64, dtype=dtype),
+             wq=torch.zeros(64, 4, Dh, dtype=dtype),
+             wk=torch.zeros(64, 2, Dh, dtype=dtype),
+             wv=torch.zeros(64, 2, Dh, dtype=dtype),
+             k_out=torch.zeros(rows, 2, Dh, dtype=dtype),
+             v_out=torch.zeros(rows, 2, Dh, dtype=dtype),
+             rope=(torch.zeros(rows, 1, rot), torch.zeros(rows, 1, rot)))
+    a.update(edit)
+    return fusions.qkv_proj_kernel(a.pop("x"), a.pop("wq"), a.pop("wk"),
+                                   a.pop("wv"), **a)
+
+
 def _merged(G: int, Dh: int = 16):
     """Decode attention with the new token merged, on CPU pools."""
     pool = torch.zeros(2, 4, 8, 2, Dh)
@@ -431,6 +551,17 @@ def _merged(G: int, Dh: int = 16):
                                         _bf16(64 * 128), "silu"), "d_model"),
     (lambda: fusions.rms_norm_kernel(_bf16(4, 64), _bf16(64).float(),
                                      1e-6), "every tensor"),
+    # the qkv launch: CPU tensors, 17 tokens, fp32, a head dim of no whole
+    # boxes, a partner that is not a whole chunk, weights that disagree,
+    # outputs of the wrong shape, an address 2 bytes off
+    (lambda: _qkv_proj(), "CUDA"),
+    (lambda: _qkv_proj(rows=17), "1 to 16"),
+    (lambda: _qkv_proj(dtype=torch.float32), "bfloat16"),
+    (lambda: _qkv_proj(Dh=80), "boxes"),
+    (lambda: _qkv_proj(rot=12), "chunks"),
+    (lambda: _qkv_proj(wk=_bf16(64, 2, 128)), "d_model"),
+    (lambda: _qkv_proj(k_out=_bf16(4, 3, 64)), "outputs"),
+    (lambda: _qkv_proj(x=_bf16(4 * 64 + 1)[1:].view(4, 1, 64)), "16 bytes"),
 ])
 def test_wrappers_refuse_before_any_launch(call, match):
     """The CUDA wrappers check shapes, dtypes, rows and the device before
@@ -451,9 +582,33 @@ def test_fusions_source_builds_for_hopper():
     assert _build.CSRC == ROOT / "src" / "repro_torch" / "csrc"
     assert "import jax" not in src and "repro." not in src
     for entry in ("rms_norm_launch", "qkv_rope_launch", "gated_act_launch",
-                  "gate_up_maps", "gate_up_launch", "repro_error_string"):
+                  "gate_up_maps", "gate_up_launch", "qkv_proj_maps",
+                  "qkv_proj_launch", "repro_error_string"):
         assert f" {entry}(" in src
     assert _build.library_path("fusions").parent == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize("entry,args", [
+    ("qkv_rope_launch", "_ROPE_ARGS"), ("qkv_rope_cache_launch",
+                                        "_CACHE_ARGS"),
+    ("qkv_proj_launch", "_QP_ARGS")])
+def test_qkv_entry_points_take_the_bound_arguments(entry, args):
+    """Each qkv entry point's C parameter list matches the ctypes
+    declaration its wrapper binds, type by type: the row pass's layout
+    (``rt``, then ``shared``), the qkv launch's cluster split before
+    ``eps``."""
+    from repro_torch.kernels.fusions import kernel as fk
+    src = (_build.CSRC / "fusions.cu").read_text()
+    sig = re.search(rf"int {entry}\(([^)]*)\)", src).group(1)
+    params = [" ".join(p.split()[:-1]) for p in sig.split(",")]
+    ctypes_of = {"const void*": fk._P, "void*": fk._P, "int": fk._I,
+                 "float": fk._F, "long long": fk._L}
+    assert [ctypes_of[p] for p in params] == getattr(fk, args)
+    names = [p.split()[-1] for p in sig.split(",")]
+    if entry == "qkv_proj_launch":
+        assert names[-3:] == ["split", "eps", "stream"]
+    else:
+        assert names.index("shared") == names.index("rt") + 1
 
 
 def test_every_fusion_counts_its_launches():
@@ -465,6 +620,7 @@ def test_every_fusion_counts_its_launches():
                      ("qkv_rope", fusions.qkv_rope_kernel),
                      ("gated_act", fusions.gated_act_kernel),
                      ("gate_up_act", fusions.gate_up_act_kernel),
+                     ("qkv_proj", fusions.qkv_proj_kernel),
                      ("paged_decode_attention",
                       decode_kernel.paged_decode_attention_kernel)):
         assert wrappers[name] is fn and fn.launches == 0

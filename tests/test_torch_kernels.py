@@ -286,7 +286,8 @@ class TestPageCopy:
                                    "flash_extend": 0, "rwkv6_scan": 0,
                                    "rms_norm": 0, "qkv_rope": 0,
                                    "qkv_rope_chunk": 0,
-                                   "gated_act": 0, "gate_up_act": 0}
+                                   "gated_act": 0, "gate_up_act": 0,
+                                   "qkv_proj": 0}
 
 
 class TestFlashPlan:
