@@ -89,6 +89,20 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          5's tolerances, the same bits through either layout; one graph
          replayed at offsets 2048, 0 and 1037 bit-equal to eager
          launches; bad offsets and inputs TMA cannot take refused.
+         Decode attention's dense launch (path E's one-token step over
+         ``Model.forward``'s cache) against its plain version at
+         gemma2-9b's global layer (4672 slots) and local ring (4096,
+         wrapped), softcap 50, and zamba2-2.7b's shared block (B 2, Dh
+         80), and at edges (a ring not yet full, rows at other offsets
+         and at the last slot, a row stride past the slots, Dh 32, q x
+         20 so the softcap bends the scores), bf16 and fp32, every dead
+         slot NaN: finite, each element within ``dense_tolerance`` of
+         the plain version in float64 (a bound from the launch's own
+         roundings), rows alone bit-equal to the batched call,
+         dead slots never read; timed over 4 caches in turn beside the
+         bound and, at zamba2's shape (no softcap), SDPA; one graph
+         replayed at 64 offset sets bit-equal to eager calls; what it
+         does not take refused before any launch.
 Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          seeded random weights cast once to bf16) serving agent programs
          through the unchanged ``Engine`` with a ``TorchModelBackend``:
@@ -245,7 +259,22 @@ Phase 7  path E, the families the engine does not page, through
          device ms, device ops and host launch calls, the capture's s,
          the graph pool's bytes, flash launches (counts zeroed before,
          read after: 42 and 9 a prefill, asserted), weight GB and peak
-         memory.
+         memory. The steps are ``build_prefill_step`` /
+         ``build_decode_step`` with their default ``fused`` on: each
+         decode step runs decode attention's dense launch once a
+         sublayer (42 / 9) and the plain dense arithmetic never, the
+         decode qkv pass (gemma2: the qkv launch; zamba2: the row pass
+         after cuBLAS's products) and the gate/up launch once a
+         sublayer (asserted); then the same pair with ``fused=False``
+         (8 timed steps), the two logged side by side (wall ms, device
+         ms by part, kernels a step). Then the fused steps against
+         ``fused=False`` (a prefill and 6 eager steps, the fused leg fed
+         the plain leg's tokens): at the seeded init logged (P5); at
+         the published init (N(0, 0.02), drawn in bf16) at 2, 4 and 42
+         layers (zamba2: 6, 12 and 54) held to ``path_e_bound`` (P13 /
+         P14's count: the norms, the scores the plain arithmetic rounds,
+         bounded by the softcap, the gate/up and qkv launches' shares),
+         an argmax flip only within twice it.
          (b, d) each at full width cut to 2 and 4 (gemma2: 1 and 2 pairs)
          and 6 and 12 layers (zamba2: 1 and 2 groups) in fp32: the
          prompt's prefill against prefill of all but 64 tokens and 64
@@ -333,7 +362,8 @@ Phase 9  path G, the sharded steps, after phase 8: a one-rank NCCL
          down at the end.
 
 Prints a ``{"kernels": [...]}`` line (``launches``: phases 3a and 3b,
-and 4; the by-value token append has no runtime caller and reads 0;
+and 4, and for the dense decode launch phase 7; the by-value token
+append has no runtime caller and reads 0;
 ``launches_phase5``: each leg of phase 5; ``launches_phase6``: phase
 6a; ``launches_phase7``: legs 7a and 7c; ``launches_phase8``: phase 8a;
 ``launches_phase9``: the sharded prefill and decode steps of 9a),
@@ -910,6 +940,323 @@ def decode_split_times(case: dict) -> dict:
             *args, layer=next(layers), return_residuals=True,
             _split_tokens=split), iters=L)
     return out
+
+
+#: decode attention's dense launch (path E's one-token attention over
+#: ``Model.forward``'s cache, PERF.md §6 row 1b) at path E's shapes: a
+#: gemma2-9b global layer (a plain cache of 4672 slots) and local layer
+#: (a 4096-slot ring, wrapped) with the softcap 50, B 1, KV 8, G 2, Dh
+#: 256, and a zamba2-2.7b shared block (B 2, KV 32, G 1, Dh 80, 2048
+#: slots), each row at its position of phase 7's decode (``offs``: the
+#: new token's, written). The first is the kernels line's record.
+DENSE_DECODE = (
+    dict(name="gemma2-9b global", B=1, T=4672, KV=8, G=2, D=256, window=0,
+         softcap=50.0, offs=(4631,)),
+    dict(name="gemma2-9b local ring", B=1, T=4096, KV=8, G=2, D=256,
+         window=4096, softcap=50.0, offs=(4631,)),
+    dict(name="zamba2-2.7b shared", B=2, T=2048, KV=32, G=1, D=80,
+         window=0, softcap=0.0, offs=(2031, 2031)))
+#: edges: a ring not yet full and the first token, rows at other offsets
+#: (one at the last slot), a cache read through a row stride past its
+#: slots (``pad``), the CUDA-core split at gemma2's smoke head dim 32
+DENSE_EDGES = (
+    dict(name="ring not full", B=2, T=4096, KV=8, G=2, D=256, window=4096,
+         softcap=50.0, offs=(100, 0)),
+    dict(name="plain, mixed offsets", B=3, T=4672, KV=8, G=2, D=256,
+         window=0, softcap=50.0, offs=(4671, 1, 2999), pad=8),
+    dict(name="zamba2 rows apart", B=2, T=2048, KV=32, G=1, D=80, window=0,
+         softcap=0.0, offs=(2047, 640), pad=16),
+    dict(name="smoke head dim", B=2, T=32, KV=2, G=2, D=32, window=32,
+         softcap=50.0, offs=(40, 7)),
+    # q x 20: scaled scores N(0, 20^2), most past +-30 and the largest
+    # ~75, which the softcap bends to ~45: without it one token would
+    # take the row
+    dict(name="gemma2-9b global at the cap", B=1, T=4672, KV=8, G=2,
+         D=256, window=0, softcap=50.0, offs=(4631,), qscale=20.0))
+#: caches a timed call rotates over (cold in the 50 MB L2, as a step's
+#: layers find theirs)
+DENSE_SETS = 4
+
+
+def dense_case(shape: dict, dtype, gen, device, sets: int = 1) -> dict:
+    """q (B, H, D) N(0, qscale^2) (``shape``'s, else 1), ``sets`` caches
+    (sets, B, T + pad, KV, D) N(0, 1) read as (B, T, KV, D) views, every
+    slot past a row's live length NaN (the launch never reads one), and
+    the int32 offsets."""
+    import torch
+    B, T, KV, D = (shape[k] for k in ("B", "T", "KV", "D"))
+    T_all = T + shape.get("pad", 0)
+    offs = torch.tensor(shape["offs"], dtype=torch.int32, device=device)
+    caches = [torch.randn((sets, B, T_all, KV, D), generator=gen,
+                          device=device).to(dtype) for _ in range(2)]
+    live = (offs.long() + 1).clamp(max=T)
+    dead = torch.arange(T_all, device=device)[None, :] >= live[:, None]
+    for c in caches:
+        c[:, dead] = float("nan")
+    q = torch.randn((B, KV * shape["G"], D), generator=gen, device=device)
+    return dict(q=(q * shape.get("qscale", 1.0)).to(dtype),
+                k=caches[0][:, :, :T], v=caches[1][:, :, :T], offs=offs,
+                live=live)
+
+
+def dense_call(shape: dict, launch=None):
+    """``launch(q, k, v, offsets)`` at ``shape``'s scale, window and
+    softcap: the dense launch, or ``launch`` (a stand-in on the CPU)."""
+    from repro_torch.kernels.decode_attention import (
+        dense_decode_attention_kernel)
+    fn = launch or dense_decode_attention_kernel
+    scale = 1.0 / math.sqrt(shape["D"])
+    return lambda q, k, v, offs: fn(q, k, v, offs, scale=scale,
+                                    softcap=shape["softcap"],
+                                    window=shape["window"])
+
+
+#: the dense launch's rounding budget against the exact arithmetic (unit
+#: roundoffs): a sum two fp32 ulps a term (the tensor cores' sums
+#: truncate), the hi + lo split of P (bf16's 2^-8 twice), an output's
+#: rounding in its dtype
+SUM_ULP = 2.0 ** -23
+P_SPLIT = 2.0 ** -16
+OUT_ULP = {"torch.bfloat16": 2.0 ** -8, "torch.float32": 2.0 ** -24}
+
+
+def dense_exact(case: dict, shape: dict, k, v) -> tuple:
+    """The plain version in float64 from the case's own q, K and V (the
+    dead slots of ``k`` and ``v`` zeroed): the exact output o with its
+    scores unrounded, as the launch keeps them in fp32, and the spread
+    sum_t p_t |v_t| / l, the same softmax over |V|."""
+    import torch
+    from repro_torch.kernels.decode_attention import dense_decode_ref
+    kw = dict(scale=1.0 / math.sqrt(shape["D"]), softcap=shape["softcap"],
+              window=shape["window"])
+    q, k, v = (t.double() for t in (case["q"], k, v))
+    return (dense_decode_ref(q, k, v, case["offs"], **kw),
+            dense_decode_ref(q, k, v.abs(), case["offs"], **kw))
+
+
+def dense_tolerance(case: dict, shape: dict, dtype, k, exact, spread):
+    """|launch - exact| allowed at each (row, head, d), from the launch's
+    own roundings: a weight p_t moves by a factor within e^(+-eta), so the
+    output by at most (e^(2 eta) - 1) spread, eta = S (D + 2) SUM_ULP (S
+    = scale A, A the row and head's largest sum_d |q_d k_td|: the dot
+    product's sum, the scale, the max's subtraction) + 2 cap SUM_ULP (the
+    softcap's divide,
+    tanh and multiply) + 2^-19 (exp, the rescales, the splits' merge);
+    P's hi + lo split (bf16: P_SPLIT) and the two sums over the row's n
+    live tokens, P V and l (2 n SUM_ULP), of the spread; the output's
+    rounding, OUT_ULP of |o|."""
+    import torch
+    B, KV, G, D = case["q"].shape[0], shape["KV"], shape["G"], shape["D"]
+    qa = case["q"].double().abs().reshape(B, KV, G, D)
+    S = torch.einsum("bkgd,btkd->bkgt", qa, k.double().abs()).amax(-1) \
+        / math.sqrt(D)
+    eta = S * (D + 2) * SUM_ULP + 2 * shape["softcap"] * SUM_ULP \
+        + 2.0 ** -19
+    n = case["live"].double()[:, None, None]
+    c = torch.expm1(2 * eta) + 2 * n * SUM_ULP + \
+        (P_SPLIT if dtype == torch.bfloat16 else 0.0)
+    u = OUT_ULP[str(dtype)]
+    return u * exact.abs() + (1 + u) * c.reshape(B, KV * G, 1) * spread
+
+
+def check_dense(shape: dict, dtype, gen, launch=None,
+                device: str = "cuda", rows: bool = True) -> dict:
+    """The dense launch against its plain version in float64 from the
+    same inputs (``dense_exact``), every dead slot NaN: finite, each
+    element within its ``dense_tolerance``; each row
+    alone gives its row of the batched call bit for bit (``rows``: not
+    for a CPU stand-in, whose fp32 products take another path for one
+    row, ROADMAP P3); the same call on a copy with the dead slots zeroed
+    gives the same bits (nothing past a row is read). Returns the largest
+    |gap|, the largest tolerance and the largest gap / tolerance."""
+    import torch
+    case = dense_case(shape, dtype, gen, device)
+    call = dense_call(shape, launch)
+    q, k, v, offs = case["q"], case["k"][0], case["v"][0], case["offs"]
+    got = call(q, k, v, offs)
+    # the plain version reads every slot: its caches' dead slots zeroed
+    zeroed = [torch.nan_to_num(c, nan=0.0) for c in (k, v)]
+    exact, spread = dense_exact(case, shape, *zeroed)
+    assert torch.isfinite(got).all(), (shape["name"], "not finite")
+    tol = dense_tolerance(case, shape, dtype, zeroed[0], exact, spread)
+    gap = (got.double() - exact).abs()
+    ratio = (gap / tol).max().item()
+    assert ratio <= 1.0, (shape["name"], dtype, gap.max().item(), ratio)
+    for b in range(q.shape[0] if rows else 0):
+        row = call(q[b:b + 1], k[b:b + 1], v[b:b + 1], offs[b:b + 1])
+        assert same_bits(row[0], got[b]), (shape["name"], f"row {b} alone")
+    assert same_bits(call(q, *zeroed, offs), got), (shape["name"],
+                                                    "read a dead slot")
+    return dict(max_abs_err=gap.max().item(), tolerance=tol.max().item(),
+                gap_over_tolerance=ratio)
+
+
+def dense_bound(shape: dict, esz: int, sheet: dict) -> tuple[float, str]:
+    """q and each row's live K and V rows read once, the offsets, the
+    output written once; 4 D flops a (query head, live token) and the
+    softcap's 3 a score."""
+    B, T, KV, G, D = (shape[k] for k in ("B", "T", "KV", "G", "D"))
+    live = sum(min(o + 1, T) for o in shape["offs"])
+    nbytes = 2 * B * KV * G * D * esz + 2 * live * KV * D * esz + 4 * B
+    ops = live * KV * G * (4.0 * D + (3 if shape["softcap"] else 0))
+    return bound_ms(nbytes, ops, sheet, "fp32")
+
+
+def time_dense(shape: dict, gen, sheet: dict) -> dict:
+    """The dense launch in bf16 at ``shape``, over DENSE_SETS caches in
+    turn (cold in L2): an eager loop (``ms``) and CUDA-graph replay
+    (``device_ms``) beside the plain version, the bound and, where the
+    scores take no softcap, ``scaled_dot_product_attention`` given the
+    rows' length mask (``library_ms``; None under the softcap, which
+    SDPA does not apply)."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import dense_decode_ref
+    case = dense_case(shape, torch.bfloat16, gen, "cuda", sets=DENSE_SETS)
+    call = dense_call(shape)
+    q, offs = case["q"], case["offs"]
+    sets = itertools.cycle(range(DENSE_SETS))
+
+    def kern():
+        i = next(sets)
+        return call(q, case["k"][i], case["v"][i], offs)
+
+    scale = 1.0 / math.sqrt(shape["D"])
+    bms, by = dense_bound(shape, q.element_size(), sheet)
+    rec = dict(ms=time_ms(kern, iters=4 * DENSE_SETS),
+               plain_ms=time_ms(lambda: dense_decode_ref(
+                   q, case["k"][0], case["v"][0], offs, scale=scale,
+                   softcap=shape["softcap"], window=shape["window"]),
+                   iters=3, warmup=1),
+               bound_ms=bms, bound_by=by, library_ms=None,
+               device_ms=graph_ms(kern, iters=4 * DENSE_SETS))
+    if not shape["softcap"]:
+        B, H, D, T = q.shape[0], q.shape[1], shape["D"], shape["T"]
+        G = shape["G"]
+        mask = (torch.arange(T, device="cuda")[None, :]
+                < case["live"][:, None])[:, None, None]
+        # SDPA's dense clean caches: the NaN dead slots zeroed (a masked
+        # NaN still poisons its product)
+        kc = [torch.nan_to_num(c, nan=0.0).transpose(2, 3) for c in
+              (case["k"], case["v"])]
+
+        def sdpa():
+            i = next(sets)
+            k, v = kc[0][i], kc[1][i]
+            if G > 1:
+                k, v = (t.repeat_interleave(G, 1) for t in (k, v))
+            return F.scaled_dot_product_attention(
+                q.view(B, H, 1, D), k, v, attn_mask=mask, scale=scale)
+
+        rec.update(library_ms=time_ms(sdpa, iters=4 * DENSE_SETS),
+                   library_device_ms=graph_ms(sdpa, iters=4 * DENSE_SETS))
+    return rec
+
+
+def check_dense_graph(gen) -> int:
+    """One captured dense call (zamba2's shape) replayed at offsets that
+    change every replay, each replay's output bit-equal to an eager
+    call's; the ticket counters all zero after. Returns the replays."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+    shape = DENSE_DECODE[2]
+    case = dense_case(dict(shape, offs=(shape["T"] - 1,) * shape["B"]),
+                      torch.bfloat16, gen, "cuda")
+    case["k"], case["v"] = (torch.nan_to_num(c[0], nan=0.0)
+                            for c in (case["k"], case["v"]))
+    call = dense_call(shape)
+    offs = case["offs"].clone()
+    out = {}
+
+    def run():
+        out["o"] = call(case["q"], case["k"], case["v"], offs)
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    rng = np.random.default_rng(3)
+    replays = 0
+    for i in range(64):
+        n = rng.integers(0, shape["T"] + 200, size=shape["B"]).astype(
+            np.int32)
+        offs.copy_(torch.from_numpy(n))
+        graph.replay()
+        eager = call(case["q"], case["k"], case["v"], offs)
+        assert same_bits(eager, out["o"]), f"replay {i}"
+        replays += 1
+    torch.cuda.synchronize()
+    assert all(int(a.abs().sum()) == 0 for a in decode_kernel._KEPT), \
+        "a ticket counter was left non-zero"
+    del graph
+    return replays
+
+
+def check_dense_refusals(gen) -> None:
+    """What the dense launch does not take raises before any launch: a
+    cache longer than its window, int64 or host offsets, a q of another
+    dtype, heads not D apart, a negative softcap."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        dense_decode_attention_kernel as kernel)
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+    shape = DENSE_EDGES[3]
+    case = dense_case(shape, torch.bfloat16, gen, "cuda")
+    q, k, v, offs = case["q"], case["k"][0], case["v"][0], case["offs"]
+    before = decode_kernel.dense_decode_attention_kernel.launches
+    for what, fn in (
+            ("window", lambda: kernel(q, k, v, offs, window=16)),
+            ("int64", lambda: kernel(q, k, v, offs.long())),
+            ("host", lambda: kernel(q, k, v, offs.cpu())),
+            ("dtype", lambda: kernel(q.float(), k, v, offs)),
+            ("heads", lambda: kernel(q, k.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), v, offs)),
+            ("softcap", lambda: kernel(q, k, v, offs, softcap=-1.0))):
+        try:
+            fn()
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError(f"dense launch took a bad {what}")
+    assert decode_kernel.dense_decode_attention_kernel.launches == before
+
+
+def check_dense_decodes(gen, sheet: dict) -> dict:
+    """Phase 2's dense launch: DENSE_DECODE and DENSE_EDGES in bf16 and
+    fp32 against the plain version in float64, the timed records of DENSE_DECODE
+    (logged; the first is the kernels line's), one graph replayed at
+    changing offsets, the refusals."""
+    import torch
+    records = {}
+    err = 0.0
+    for shape in DENSE_DECODE + DENSE_EDGES:
+        dims = {k: v for k, v in shape.items() if k != "name"}
+        for dtype in (torch.bfloat16, torch.float32):
+            got = check_dense(shape, dtype, gen)
+            log(f"phase2 dense_decode_attention {shape['name']} "
+                f"{json.dumps(dims)} {dtype}: {json.dumps(got)}")
+            err = max(err, got["max_abs_err"])
+            torch.cuda.empty_cache()
+    for shape in DENSE_DECODE:
+        records[shape["name"]] = time_dense(shape, gen, sheet)
+        torch.cuda.empty_cache()
+    log(f"phase2 dense_decode_attention timed (bf16, {DENSE_SETS} caches "
+        f"in turn): {json.dumps(records)}")
+    log(f"phase2 dense_decode_attention: one graph replayed at "
+        f"{check_dense_graph(gen)} offset sets bit-equal to eager calls, "
+        f"ticket counters all zero after")
+    check_dense_refusals(gen)
+    log("phase2 dense_decode_attention: a cache past its window, int64 "
+        "and host offsets, a q of another dtype, heads not D apart and a "
+        "negative softcap refused before any launch")
+    main = dict(records[DENSE_DECODE[0]["name"]], max_abs_err=err)
+    main["by_shape"] = {name: {k: r[k] for k in ("device_ms", "bound_ms")}
+                        for name, r in records.items()}
+    zamba = records[DENSE_DECODE[2]["name"]]
+    main["library_device_ms_zamba2"] = zamba.get("library_device_ms")
+    return main
 
 
 def check_page_copy(case: dict, timed: bool, sheet: dict) -> dict:
@@ -2342,7 +2689,33 @@ def time_fusions(gen, sheet: dict, kernels) -> dict:
             B, D, H, KV, Dh, torch.cuda.get_device_properties(
                 0).multi_processor_count, rot_half=rot)))
     recs["rms_norm"].update(norm_floor_times(gen, cfg, kernels, sheet))
+    recs["gated_act"].update(gated_act_wide_times(gen, kernels, sheet))
     return recs
+
+
+#: the gated activation's rows where its launches run: path A's 512-token
+#: chunk (qwen2-1.5b's d_ff 8960, SiLU) and gemma2-9b's 4600-token
+#: prefill (d_ff 14336, the tanh GELU)
+GATED_ACT_WIDE = {"chunk": (512, 8960, "silu"),
+                  "gemma2_prefill": (4600, 14336, "gelu")}
+
+
+def gated_act_wide_times(gen, kernels, sheet: dict) -> dict:
+    """The gated activation by CUDA-graph replay at GATED_ACT_WIDE's rows
+    (``device_ms_<name>``), each beside its bytes' bound (gate and up
+    read, the product written: ``bound_ms_<name>``)."""
+    import torch
+    kern = kernels["gated_act"][0]
+    out = {}
+    for name, (rows, F_, act) in GATED_ACT_WIDE.items():
+        gate, up = (torch.randn((rows, 1, F_), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+        out[f"device_ms_{name}"] = graph_ms(lambda: kern(gate, up, act),
+                                            iters=5)
+        out[f"bound_ms_{name}"] = 3 * rows * F_ * 2 / sheet["hbm_bw"] * 1e3
+        del gate, up
+    return out
 
 
 def norm_floor_times(gen, cfg, kernels, sheet: dict) -> dict:
@@ -2800,6 +3173,7 @@ def phase2(sheet: dict, hw) -> dict:
         f"a block; CUDA-graph replay) at B 1 and B 2, T 2048, H 40, K = L = "
         f"64: {json.dumps(scan_slice_times(gen))}")
     t0 = time.perf_counter()
+    records["dense_decode_attention"] = check_dense_decodes(gen, sheet)
     records.update(check_fusions(gen, sheet))
     records["paged_decode_attention"]["merge_max_abs_err"] = records.pop(
         "decode_merge")["max_abs_err"]
@@ -2829,6 +3203,10 @@ def phase2(sheet: dict, hw) -> dict:
         f"its bound {norm['bound_ms']:.7f} ms; {NORM_WIDE_ROWS} rows "
         f"{norm['device_ms_wide']:.4f} ms (bound "
         f"{norm['bound_ms_wide']:.5f} ms)")
+    wide = {k: v for k, v in records["gated_act"].items()
+            if k.endswith(tuple(GATED_ACT_WIDE))}
+    log(f"phase2 gated_act device ms (CUDA-graph replay) at the rows its "
+        f"launches run, beside its bound: {json.dumps(wide)}")
     records["qkv_rope_chunk"] = check_chunk_qkvs(gen, sheet)
     log(f"phase2 fusions checked and timed in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3737,7 +4115,8 @@ def fused_vs_plain(model, device, prompts=FUSED_PROMPTS,
         rt.cuda_graphs = False
         for fused in (True, False):
             rt.fused = fused
-            names = step_kernel_counts(lambda: rt.decode_batch(model, pids))
+            names = most_kernel_counts(
+                lambda: rt.decode_batch(model, pids))
             leg = "fused" if fused else "plain"
             out[f"kernels_{leg}"] = sum(names.values())
             out[f"plain_ops_{leg}"] = sorted(
@@ -3769,6 +4148,18 @@ def step_kernel_counts(fn, reset=None) -> dict:
         names = traced(fn, top=1, reps=1, cpu=False, counts=True)[
             "kernel_counts"]
     return names
+
+
+def most_kernel_counts(fn, traces: int = 2) -> dict:
+    """Per kernel name, the largest count of ``traces`` traced calls of
+    ``fn`` (``step_kernel_counts`` each, one step each): CUPTI can drop a
+    trace's device events and never adds one (ROADMAP H10), so one trace
+    can miss a kernel the step ran."""
+    out = {}
+    for _ in range(traces):
+        for name, n in step_kernel_counts(fn).items():
+            out[name] = max(out.get(name, 0), n)
+    return out
 
 
 def fused_bound(check: dict, dtype: str) -> float:
@@ -4328,19 +4719,20 @@ def synchronize(device) -> None:
 def forward_throughput(model, toks, n_dec: int,
                        max_len: int | None = None) -> dict:
     """A timed prefill of ``toks`` (B, T) into a cache of ``max_len``
-    (default T) positions and ``n_dec`` timed greedy decode steps through
-    ``build_decode_step``'s step (on the card its CUDA graph, captured at
-    the second step), each timed after the device has finished."""
+    (default T) positions through ``build_prefill_step``'s step and
+    ``n_dec`` timed greedy decode steps through ``build_decode_step``'s
+    step (on the card its CUDA graph, captured at the second step), both
+    with their default ``fused``, each timed after the device has
+    finished."""
     import torch
     B, T = toks.shape
     synchronize(model.device)
     t0 = time.perf_counter()
-    logits, cache = model.forward(toks, cache=model.init_cache(
-        B, max_len or T), mode="prefill", logits_slice=1)
+    nxt, cache = prefill_step_of(model, B, max_len or T).fn(
+        model.init_cache(B, max_len or T), toks)
     synchronize(model.device)
     t_pre = time.perf_counter() - t0
     step = decode_step_of(model, B, max_len or T)
-    nxt = logits[:, -1].argmax(-1).to(torch.int32)
     t0 = time.perf_counter()
     for i in range(n_dec):
         nxt, cache, logits = step.fn(cache, nxt[:, None], T + i,
@@ -4354,13 +4746,27 @@ def forward_throughput(model, toks, n_dec: int,
                 decode_step_ms=t_dec / n_dec * 1e3, batch=B, prompt=T)
 
 
-def decode_step_of(model, B: int, max_len: int, cuda_graphs: bool = True):
-    """``build_decode_step`` over ``model`` for B rows of ``max_len``."""
+def decode_step_of(model, B: int, max_len: int, cuda_graphs: bool = True,
+                   fused: bool | None = None):
+    """``build_decode_step`` over ``model`` for B rows of ``max_len``
+    (``fused`` None: the step's default, on for a model on the card)."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.models.steps import build_decode_step
     return build_decode_step(model.cfg, None,
                              ShapeSpec("decode", "decode", max_len, B),
-                             model=model, cuda_graphs=cuda_graphs)
+                             model=model, cuda_graphs=cuda_graphs,
+                             fused=fused)
+
+
+def prefill_step_of(model, B: int, max_len: int,
+                    fused: bool | None = None):
+    """``build_prefill_step`` over ``model`` for B rows into a cache of
+    ``max_len`` positions (``fused`` as :func:`decode_step_of`'s)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.steps import build_prefill_step
+    return build_prefill_step(model.cfg, None,
+                              ShapeSpec("prefill", "prefill", max_len, B),
+                              model=model, fused=fused)
 
 
 #: decode steps each leg of :func:`decode_pair` runs before its timed
@@ -4418,29 +4824,31 @@ def forward_leg(step, cache, nxt, T: int, n_dec: int, device,
     return out
 
 
-def decode_pair(model, toks, n_dec: int, max_len: int | None = None) -> dict:
+def decode_pair(model, toks, n_dec: int, max_len: int | None = None,
+                fused: bool | None = None) -> dict:
     """One timed prefill of ``toks`` (B, T) into a cache of ``max_len``
-    (default T) positions, then its greedy decode twice from it, the
-    cache cloned after the prefill: the graph leg (``build_decode_step``'s
-    step, a replayed CUDA graph on the card) and the eager leg
-    (``cuda_graphs=False``, today's eager step, its offsets host ints),
-    each as :func:`forward_leg`. Returns the prefill's s and tokens/s,
-    each leg's summary and whether every step's logits, next tokens and
-    the final caches are bit-equal between the legs."""
+    (default T) positions through ``build_prefill_step``'s step, then its
+    greedy decode twice from it, the cache cloned after the prefill: the
+    graph leg (``build_decode_step``'s step, a replayed CUDA graph on the
+    card) and the eager leg (``cuda_graphs=False``, today's eager step,
+    its offsets host ints), each as :func:`forward_leg`; every step with
+    ``fused`` (None: the steps' default, on for a model on the card).
+    Returns the prefill's s and tokens/s, each leg's summary and whether
+    every step's logits, next tokens and the final caches are bit-equal
+    between the legs."""
     import torch
     B, T = toks.shape
     max_len = max_len or T + decode_positions(n_dec)
     synchronize(model.device)
     t0 = time.perf_counter()
-    logits, cache = model.forward(toks, cache=model.init_cache(B, max_len),
-                                  mode="prefill", logits_slice=1)
+    nxt, cache = prefill_step_of(model, B, max_len, fused).fn(
+        model.init_cache(B, max_len), toks)
     synchronize(model.device)
     t_pre = time.perf_counter() - t0
-    nxt = logits[:, -1].argmax(-1).to(torch.int32)
     caches = {"graph": cache,
               "eager": {k: v.clone() for k, v in cache.items()}}
     legs = {leg: forward_leg(decode_step_of(model, B, max_len,
-                                            leg == "graph"),
+                                            leg == "graph", fused),
                              caches[leg], nxt, T, n_dec, model.device,
                              leg == "graph")
             for leg in ("graph", "eager")}
@@ -4475,6 +4883,7 @@ def trace_fields(tr: dict) -> dict:
     """A ``profile_step.traced`` record reduced to a step's device ms,
     busy share, device ops run and host launch calls."""
     return dict(device_ms=tr["device_busy_ms_per_step"],
+                device_ms_by_part=tr["device_ms_by_part"],
                 device_busy_share=tr["device_busy_share"],
                 traced_wall_ms=tr["traced_wall_ms_per_step"],
                 kernels_run=tr["device_kernels_per_step"],
@@ -5060,11 +5469,19 @@ def phase6(hw) -> dict:
 #: flash tiles or 64-token SSD chunks. ``flash``: launches a prefill (one
 #: a gemma2 layer, one a zamba2 shared block: 9 groups of 6). ``depths``:
 #: the fp32 checks' cut depths (P5): 1 and 2 pairs, 1 and 2 groups.
+#: ``published``: the depths the fused bf16 step is held at against
+#: ``fused=False`` at the published init (P13 / P14's bound,
+#: ``path_e_bound``): the cut depths and the full one.
 PATH_E = {"7a": dict(arch="gemma2-9b", B=1, prompt=4600, max_len=4672,
-                     flash=42, check="7b", depths=(2, 4)),
+                     flash=42, check="7b", depths=(2, 4),
+                     published=(2, 4, 42)),
           "7c": dict(arch="zamba2-2.7b", B=2, prompt=2000, max_len=2048,
-                     flash=9, check="7d", depths=(6, 12))}
+                     flash=9, check="7d", depths=(6, 12),
+                     published=(6, 12, 54))}
 PATH_E_DECODE = 32
+#: the plain legs' (``fused=False``) timed decode steps: their eager step
+#: takes ~80 ms at gemma2's depth
+PATH_E_PLAIN_DECODE = 8
 #: 7b / 7d: the last PATH_E_TAIL prompt tokens decoded one at a time in
 #: the split path (across gemma2's ring: the prefill of 4536 tokens wraps
 #: it, every decode step overwrites its oldest slot)
@@ -5113,14 +5530,235 @@ def assert_path_e_checks(checks: dict) -> None:
         assert g["max_abs_diff"] <= FAMILY_BOUND * g["rms_logit"], (name, g)
 
 
+def attention_calls(cfg) -> int:
+    """Attention sublayers a forward of ``cfg`` runs: every layer of a
+    transformer, zamba2's shared block once a group, none in RWKV6."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    return cfg.num_layers
+
+
+def path_e_fusions(cfg) -> dict:
+    """The fusion kernels a fused path E step runs, with their launches a
+    decode step: the norms (their count not fixed here: None), the decode
+    qkv pass (``decode_qkv``: gemma2's one launch, zamba2's row pass after
+    cuBLAS's products) and the gate/up launch, one a sublayer; and the
+    prefill's gated activation and the qkv pass with its cache write
+    over the plain caches (no decode launch: 0)."""
+    n = attention_calls(cfg)
+    return {"rms_norm": None, decode_qkv(cfg): n, DECODE_FFN: n,
+            CHUNK_FFN: 0, "qkv_rope_chunk": 0}
+
+
+@contextlib.contextmanager
+def decode_stats_calls():
+    """Within the block, each call of ``attention.decode_stats`` (the
+    plain dense arithmetic) appended to the yielded list."""
+    from repro_torch.models import attention
+    inner = attention.decode_stats
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return inner(*args, **kw)
+
+    attention.decode_stats = counted
+    try:
+        yield calls
+    finally:
+        attention.decode_stats = inner
+
+
+def forward_fused_vs_plain(model, toks, steps: int, max_len: int,
+                           init: str = "seeded") -> dict:
+    """Path E's programs with ``fused=False`` and fused, from one prompt
+    ``toks`` (B, T): ``build_prefill_step``'s prefill into a cache of
+    ``max_len``, then ``steps`` eager ``build_decode_step`` steps, the
+    fused leg fed the plain leg's tokens (fed its own, one flip at a
+    near-tie would part every later step). Returns whether the argmax
+    agrees at the prefill's last position and every step, the largest
+    plain-logit gap of a flip (``argmax_gap``), the largest |fused -
+    plain| logit, the plain logits' rms and largest |logit|, the largest
+    raw score |q . k| the plain leg's decode attention met
+    (``score_max``), and what ``path_e_bound`` reads (attention layers,
+    norms a layer, scale, softcap, ``init``), each leg's launches and the
+    fused leg's calls of the plain dense arithmetic (``decode_stats``)."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    cfg = model.cfg
+    B, T = toks.shape
+    legs, fed = {}, None
+    for fused in (False, True):
+        before = launch_counts()
+        prefill = prefill_step_of(model, B, max_len, fused)
+        step = decode_step_of(model, B, max_len, cuda_graphs=False,
+                              fused=fused)
+        with (decode_stats_calls if fused else raw_score_max)() as found:
+            nxt, cache, lg = prefill.fn(model.init_cache(B, max_len), toks,
+                                        logits=True)
+            logits, fed_now = [lg[:, -1]], []
+            for i in range(steps):
+                tok = nxt if fed is None else fed[i]
+                fed_now.append(tok)
+                nxt, cache, lg = step.fn(cache, tok[:, None], T + i,
+                                         logits=True)
+                logits.append(lg[:, -1])
+        synchronize(model.device)
+        after = launch_counts()
+        legs[fused] = dict(logits=torch.stack(logits).float(),
+                           launches={k: after[k] - before[k] for k in after
+                                     if after[k] != before[k]},
+                           found=list(found))
+        fed = fed_now
+        del cache
+    a, b = legs[True]["logits"], legs[False]["logits"]
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    top, mine = b.argmax(-1, keepdim=True), a.argmax(-1, keepdim=True)
+    scores = legs[False]["found"]
+    return dict(argmax_equal=bool((mine == top).all()),
+                argmax_gap=(b.gather(-1, top) - b.gather(-1, mine)).max()
+                .item(),
+                max_abs_diff=(a - b).abs().max().item(),
+                rms_logit=b.square().mean().sqrt().item(),
+                max_abs_logit=b.abs().max().item(), steps=steps, rows=B,
+                layers=attention_calls(cfg),
+                norms=4 if cfg.sandwich_norm else 2,
+                scale=1.0 / math.sqrt(cfg.head_dim),
+                softcap=cfg.attn_softcap, init=init,
+                score_max=max(x.item() for x in scores) if scores else 0.0,
+                decode_stats_fused=len(legs[True]["found"]),
+                fusions=path_e_fusions(cfg),
+                launches_fused=legs[True]["launches"],
+                launches_plain=legs[False]["launches"])
+
+
+#: P13 / P14's bound carried to path E's step (prefill, then the decode
+#: steps), a bf16 sublayer's gap reaching the logits once: its norms one
+#: ulp each (2^-8; gemma2's four sandwich norms a layer, two in zamba2's
+#: shared block), its attention's scores rounded to bf16 by the plain
+#: arithmetic where the dense launch keeps them in fp32 (d = 2^-9 x the
+#: largest scaled raw score; gemma2's softcap c tanh(s / c) has slope
+#: sech^2 <= 1 and moves a score by at most 2^-9 max_x x sech^2(x / c) <=
+#: 2^-9 x 0.45 c, which bounds d too), a weight moving within e^(+-2d),
+#: its P and output roundings (2^-7 together), the gate/up launch's share
+#: s and the qkv launch's share t as P14 counts them. The L sublayers'
+#: gaps add in quadrature (sqrt(L) r), not in line: each is a sum of
+#: round-to-nearest errors of its own operands, independent of another
+#: sublayer's and of either sign, and the linear sum L r passes 1 (a
+#: bound of max|logit|, which any output of the logits' size meets)
+#: within gemma2-9b's 42 layers.
+PATH_E_NORM_ULP = 2.0 ** -8
+SOFTCAP_SLOPE = 0.45
+
+
+def path_e_bound(check: dict) -> float:
+    """The largest |fused - plain| bf16 logit of
+    ``forward_fused_vs_plain``: sqrt(L) r max|logit| + FUSED_BF16_ULPS
+    ulps of it, r = e^(2d) - 1 + 2^-7 + norms 2^-8 + 2^-7 (sqrt(s) + 3
+    sqrt(t)), d = 2^-9 min(scale S, 0.45 softcap), L the attention
+    sublayers."""
+    x = check["scale"] * check["score_max"]
+    if check["softcap"]:
+        x = min(x, SOFTCAP_SLOPE * check["softcap"])
+    d = 2.0 ** -9 * x
+    r = math.expm1(2 * d) + STEP_NORM_R + check["norms"] * PATH_E_NORM_ULP \
+        + STEP_NORM_R * (math.sqrt(check["gate_up_share"])
+                         + 3.0 * math.sqrt(check["qkv_share"]))
+    top = max(check["max_abs_logit"], 2.0 ** -126)
+    return math.sqrt(check["layers"]) * r * top + \
+        FUSED_BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def assert_path_e_fused_vs_plain(check: dict, cuda: bool,
+                                 held: bool = True) -> None:
+    """``held`` (the published init): the gap within ``path_e_bound``, an
+    argmax flip only between plain logits within twice it. On the card
+    the fused leg runs the dense launch once a sublayer and step, the
+    plain dense arithmetic never, its fusion kernels (the decode ones
+    once a sublayer and step), and the plain leg none of them; both the
+    same flash prefill. Off the card neither launches anything and both
+    give the same bits. (The legs' launches list the kernels launched.)"""
+    bound = path_e_bound(check)
+    if held:
+        assert check["max_abs_diff"] <= bound, (bound, check)
+        assert check["argmax_gap"] <= 2 * bound, (bound, check)
+    lf, lp = check["launches_fused"], check["launches_plain"]
+    assert check["decode_stats_fused"] == 0, check
+    if not cuda:
+        assert not lf and not lp and check["max_abs_diff"] == 0, check
+        return
+    n = check["layers"] * check["steps"]
+    assert lf.get("dense_decode_attention") == n, check
+    for name, per_step in check["fusions"].items():
+        assert lf.get(name, 0) > 0 == lp.get(name, 0), (name, check)
+        if per_step:
+            assert lf[name] == per_step * check["steps"], (name, check)
+    assert "dense_decode_attention" not in lp, check
+    assert lf.get("flash_attention") == lp.get("flash_attention") == \
+        check["layers"], check
+
+
+def published_path_e_checks(cfg, run: dict, device) -> None:
+    """The fused bf16 step against ``fused=False`` at ``cfg``'s published
+    init (N(0, 0.02), drawn leaf by leaf in bf16) at ``run``'s
+    ``published`` depths, held to ``path_e_bound`` with the gate/up and
+    qkv launches' shares measured at ``cfg``'s widths."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    share, qshare = gate_up_share(cfg, device), qkv_share(cfg, device)
+    params = published_init(cfg, torch.Generator(device=device)
+                            .manual_seed(0), dtype="bfloat16")
+    gen = torch.Generator(device=device).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (run["B"], run["prompt"]),
+                         generator=gen, device=device)
+    for depth in run["published"]:
+        model = cut_model(params, cfg, depth, "bfloat16", device)
+        check = forward_fused_vs_plain(model, toks, FUSED_STEPS,
+                                       run["max_len"], init="published")
+        check.update(gate_up_share=share, qkv_share=qshare)
+        log(f"phase{run['check']} fused step vs fused=False at the "
+            f"published init, {cfg.name} at {depth} full-width layers, "
+            f"bf16, prefill + {FUSED_STEPS} steps (bound "
+            f"{path_e_bound(check):.4g}, twice it for an argmax flip): "
+            f"{json.dumps(check)}")
+        assert_path_e_fused_vs_plain(check, cuda)
+        del model
+        if cuda:
+            torch.cuda.empty_cache()
+    del params
+
+
+def path_e_legs(fused: dict, plain: dict) -> dict:
+    """Path E's fused and plain decode pairs side by side: each graph and
+    eager leg's wall ms, device ms (and by part) and kernels a step, and
+    each prefill's s."""
+    keys = ("wall_ms", "device_ms", "device_ms_by_part", "kernels_run",
+            "host_launch_calls")
+    out = {}
+    for name, pair in (("fused", fused), ("plain", plain)):
+        out[name] = dict(prefill_s=pair["prefill_s"], **{
+            leg: {k: r.get(k) for k in keys}
+            for leg, r in pair["legs"].items()})
+    return out
+
+
 def phase7(smi: str) -> dict:
     """Path E: gemma2-9b (7a) and zamba2-2.7b (7c) at full width and depth
-    in bf16 through ``Model.forward``: after an untimed warm-up (a
-    prefill and two decode steps), :func:`decode_pair`'s timed prefill and
-    its graph and eager decode legs of ``PATH_E_DECODE`` timed steps,
-    with the counts zeroed before and read after (flash launched
-    ``flash`` times, in the one prefill); then each at its cut depths in
-    fp32 (7b, 7d). Returns each leg's launch counts."""
+    in bf16 through ``build_prefill_step`` / ``build_decode_step`` (and
+    so ``Model.forward``), fused (their default on the card): after an
+    untimed warm-up (a prefill and two decode steps),
+    :func:`decode_pair`'s timed prefill and its graph and eager decode
+    legs of ``PATH_E_DECODE`` timed steps, with the counts zeroed before
+    and read after (flash launched ``flash`` times, in the one prefill;
+    the dense decode launch, the decode qkv pass and the gate/up launch
+    once a sublayer and step, the plain dense arithmetic never); then the
+    same pair with ``fused=False`` (``PATH_E_PLAIN_DECODE`` timed steps),
+    the two logged side by side; the fused steps against ``fused=False``
+    at the seeded init (logged, P5) and at the published init at each
+    ``published`` depth (held to ``path_e_bound``); then each at its cut
+    depths in fp32 (7b, 7d). Returns each leg's launch counts."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -5139,7 +5777,8 @@ def phase7(smi: str) -> dict:
                              generator=gen, device="cuda")
         warm = forward_throughput(model, toks, 2, run["max_len"])
         reset_launch_counts()
-        rates = decode_pair(model, toks, PATH_E_DECODE, run["max_len"])
+        with decode_stats_calls() as plain_calls:
+            rates = decode_pair(model, toks, PATH_E_DECODE, run["max_len"])
         rates["first_call_prefill_s"] = warm["prefill_s"]
         counts[leg] = launch_counts()
         rates.update(flash_launches=counts[leg]["flash_attention"],
@@ -5156,8 +5795,39 @@ def phase7(smi: str) -> dict:
             f"launches {counts[leg]}")
         assert counts[leg]["flash_attention"] == run["flash"], counts[leg]
         assert_decode_pair(rates, cuda=True)
+        # both legs' steps: one dense launch, decode qkv pass and gate/up
+        # launch a sublayer, the plain arithmetic never
+        steps = 2 * decode_positions(PATH_E_DECODE)
+        for name, per_step in path_e_fusions(cfg).items():
+            assert counts[leg][name] > 0, (name, counts[leg])
+            if per_step:
+                assert counts[leg][name] == per_step * steps, \
+                    (name, counts[leg])
+        assert counts[leg]["dense_decode_attention"] == \
+            attention_calls(cfg) * steps and not plain_calls, counts[leg]
+        plain = decode_pair(model, toks, PATH_E_PLAIN_DECODE,
+                            run["max_len"], fused=False)
+        assert_decode_pair(plain, cuda=True)
+        side = path_e_legs(rates, plain)
+        log(f"phase{leg} {cfg.name} fused (the default) beside fused=False "
+            f"in one run, a step's wall ms, device ms (by part) and "
+            f"kernels: {json.dumps(side)}")
+        assert side["fused"]["graph"]["kernels_run"] < \
+            side["plain"]["graph"]["kernels_run"], side
+        check = forward_fused_vs_plain(model, toks, FUSED_STEPS,
+                                       run["max_len"])
+        check.update(gate_up_share=0.0, qkv_share=0.0)
+        log(f"phase{leg} fused step vs fused=False at the seeded init "
+            f"(P5: logged, not held), prefill + {FUSED_STEPS} steps: "
+            f"{json.dumps(check)}")
+        assert_path_e_fused_vs_plain(check, cuda=True, held=False)
         del model, toks
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        published_path_e_checks(cfg, run, "cuda")
+        torch.cuda.empty_cache()
+        log(f"phase{leg} published-init checks "
+            f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         top = max(run["depths"])
         params = dict(Model(dataclasses.replace(
@@ -5227,19 +5897,23 @@ TRACE_LOST_SHARE = 1e-3
 INIT_STD = 0.02
 
 
-def published_init(cfg, gen) -> dict:
+def published_init(cfg, gen, dtype: str | None = None) -> dict:
     """Every fp32 master of ``cfg``'s model drawn from ``gen`` on its
-    device, leaf by leaf in name order, with ``INIT_STD``."""
+    device, leaf by leaf in name order, with ``INIT_STD``; with ``dtype``
+    each leaf cast to it as it is drawn (the same values as casting the
+    fp32 tree, one fp32 leaf alive at a time: gemma2-9b's 9.24 B)."""
     import torch
+    from repro_torch.models.common import torch_dtype
     from repro_torch.models.transformer import model_specs
     out = {}
     for name, spec in sorted(model_specs(cfg).items()):
         if spec.init in ("zeros", "ones"):
-            out[name] = torch.full(spec.shape, float(spec.init == "ones"),
-                                   device=gen.device)
+            t = torch.full(spec.shape, float(spec.init == "ones"),
+                           device=gen.device)
         else:
-            out[name] = torch.randn(spec.shape, generator=gen,
-                                    device=gen.device).mul_(INIT_STD)
+            t = torch.randn(spec.shape, generator=gen,
+                            device=gen.device).mul_(INIT_STD)
+        out[name] = t if dtype is None else t.to(torch_dtype(dtype))
     return out
 
 
@@ -5779,13 +6453,15 @@ def sharded_serving(cfg, mesh, device, batch: int, prompt: int, steps: int,
     S = prompt + steps + 1                      # + the traced step
     pshape = ShapeSpec("g_prefill", "prefill", S, batch)
     dshape = ShapeSpec("g_decode", "decode", S, batch)
+    # a mesh takes no fusion kernel: the meshless legs keep the same
+    # plain spelling (fused=False), so that all three are bit-equal
     pf = {name: build_prefill_step(cfg, m, pshape, model=model,
-                                   device=device)
+                                   device=device, fused=False)
           for name, m in (("meshless", None), ("sharded", mesh))}
     dc = {leg: build_decode_step(cfg, None if leg == "meshless" else mesh,
                                  dshape, model=pf[leg.split("_")[0]].model,
                                  device=device,
-                                 cuda_graphs=leg != "sharded")
+                                 cuda_graphs=leg != "sharded", fused=False)
           for leg in PATH_G_LEGS}
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
                          generator=torch.Generator().manual_seed(seed)
@@ -6301,6 +6977,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path_e = phase7(smi)
+    # the dense launch's main path is path E's decode (phase 7)
+    counts["dense_decode_attention"] = sum(
+        c["dense_decode_attention"] for c in path_e.values())
     gc.collect()
     torch.cuda.empty_cache()
     path_f = phase8(hw, smi, sheet, samples)
@@ -6314,6 +6993,11 @@ def main() -> int:
         "paged_decode_attention": (
             "src/repro_torch/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:116"),
+        # no Pallas kernel: XLA's fusion of the reference's attend_decode
+        # at C == 1 (Model.forward's one-token step)
+        "dense_decode_attention": (
+            "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro/models/attention.py:272"),
         "page_gather": ("src/repro_torch/csrc/page_copy.cu",
                         "src/repro/kernels/page_copy/kernel.py:45"),
         "page_scatter": ("src/repro_torch/csrc/page_copy.cu",

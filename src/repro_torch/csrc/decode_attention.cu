@@ -65,6 +65,20 @@
 // xor tree): so the result equals the plain merge fed the kernel's
 // residuals up to the order of that one sum.
 //
+// The dense launch (dense_decode_launch). Model.forward's one-token step
+// (the reference's attend_decode at C == 1, src/repro/models/attention.py
+// :272, which XLA fuses) attends over a layer's dense (B, T, KV, D) cache,
+// not over pages: the same split kernels read it by its row and token
+// strides (KvRows, no table), each row's live length from the step's
+// device offsets, min(offset + 1, T) (the new token is written first, as
+// the reference orders it; a ring's T slots, once full, hold exactly the
+// positions of the window). Its splits are kSplitTokens tokens, so
+// max_splits = ceil(T / kSplitTokens) depends on T alone and a row's bits
+// not on B. The last split reads only up to the row's length, never past
+// it. gemma2's tanh softcap applies to each fp32 score before the max
+// (CAP: the kernels are instantiated with and without it, so the paged
+// step's code is unchanged).
+//
 // Contracts. Only live slots (ip * page < len) are read, so dead table
 // slots may hold anything. A live id outside the pool marks its split
 // poisoned by an explicit flag (fmaxf would drop a NaN m), and the merge
@@ -135,9 +149,35 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ int live_len(const int* lens, int b, int n_tab,
-                                        int page) {
-  return max(0, min(lens[b], n_tab * page));
+// Where a call's K/V rows lie and how long each row is. Paged: token t of
+// row b is slot t % page of page tables[b][t / page] of the layer's pool
+// (layer_offset elements in), and a row's live length is lens[b], at most
+// the table's n_tab * page tokens. Dense (tables null): a (B, T, KV, D)
+// cache read by its strides, token t of row b at b * row_stride + t *
+// tok_stride, and lens holds each row's offset: the new token, already
+// written, makes its live length lens[b] + 1, at most T.
+struct KvRows {
+  const int* tables;
+  long long layer_offset;
+  long long row_stride;
+  long long tok_stride;
+  int cap;         // n_tab * page, or T
+  int len_bias;    // 0 paged, 1 dense
+};
+
+__device__ __forceinline__ int live_len(const int* lens, int b,
+                                        const KvRows& rows) {
+  return max(0, min(lens[b] + rows.len_bias, rows.cap));
+}
+
+// gemma2's tanh softcap of an fp32 score, as the reference spells it
+// (tanh(s / cap) * cap); without CAP the score as it is.
+template <bool CAP>
+__device__ __forceinline__ float capped(float s, float cap) {
+  if constexpr (CAP)
+    return __fmul_rn(tanhf(__fdiv_rn(s, cap)), cap);
+  else
+    return s;
 }
 
 // One workspace record a (row, KV head, split): acc [G][D], m [G], l [G],
@@ -155,18 +195,24 @@ __host__ __device__ __forceinline__ int flag_index(int G, int D) {
 // live page id of the split lies outside the pool (its record's poison
 // flag is set). Uniform across the block.
 __device__ __forceinline__ bool begin_split(
-    const int* __restrict__ tables, const int* __restrict__ lens,
+    const KvRows& rows, const int* __restrict__ lens,
     float* __restrict__ ws, int KV, int G, int D, int P, int page, int n_tab,
     int spp, int max_splits, int& t0, int& t1, const int*& row_table,
-    float*& rec) {
+    long long& row_offset, float*& rec) {
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int len = live_len(lens, b, n_tab, page);
+  const int len = live_len(lens, b, rows);
   t0 = split * spp * page;
   if (t0 >= len) return false;
   t1 = min(len, t0 + spp * page);
-  row_table = tables + (long long)b * n_tab;
   const int R = record_floats(G, D);
   rec = ws + (((long long)b * KV + kvh) * max_splits + split) * R;
+  if (rows.tables == nullptr) {        // dense: no page id to check
+    row_table = nullptr;
+    row_offset = (long long)b * rows.row_stride;
+    return true;
+  }
+  row_table = rows.tables + (long long)b * n_tab;
+  row_offset = rows.layer_offset;
   int out_of_pool = 0;
   for (int ip = t0 / page + threadIdx.x; ip < (t1 + page - 1) / page;
        ip += blockDim.x) {
@@ -182,15 +228,17 @@ __device__ __forceinline__ bool begin_split(
 
 // One K/V tile of `rows` live tokens from token `first` of the row into a
 // ring stage (rows `rs` elements apart): a warp issues whole rows, one
-// page-table read a row, lanes on its 16-byte chunks. With zero_tail, the
-// stage's rows past `rows` are zeroed (a tensor-core product multiplies
-// them by a probability of 0, which must not meet a NaN).
+// page-table read a row (none for a dense cache: row_table null, the
+// token's row at row_offset + tok * tok_stride), lanes on its 16-byte
+// chunks. With zero_tail, the stage's rows past `rows` are zeroed (a
+// tensor-core product multiplies them by a probability of 0, which must
+// not meet a NaN).
 template <typename T>
 __device__ __forceinline__ void issue_tile(
     T* ks, T* vs, int rs, int first, int rows, int tile, bool zero_tail,
     const int* __restrict__ row_table, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, long long layer_offset, int KV, int kvh,
-    int D, int page) {
+    const T* __restrict__ v_pool, long long row_offset, long long tok_stride,
+    int KV, int kvh, int D, int page) {
   constexpr int V = 16 / sizeof(T);
   const int chunks = D / V;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -198,9 +246,11 @@ __device__ __forceinline__ void issue_tile(
   for (int r = warp; r < rows; r += warps) {
     const int tok = first + r;
     const long long base =
-        layer_offset +
-        ((long long)row_table[tok / page] * page + tok % page) *
-            ((long long)KV * D) +
+        row_offset +
+        (row_table != nullptr
+             ? ((long long)row_table[tok / page] * page + tok % page) *
+                   ((long long)KV * D)
+             : (long long)tok * tok_stride) +
         (long long)kvh * D;
     for (int j = lane; j < chunks; j += 32) {
       cp_async16(ks + r * rs + j * V, k_pool + base + j * V);
@@ -246,14 +296,14 @@ __device__ __forceinline__ void finish_split(
 }
 
 // The split's partial on the CUDA cores. GMAX >= G heads, NU 4-element
-// slices of D a lane (D <= 128 * NU).
-template <typename T, int GMAX, int NU>
+// slices of D a lane (D <= 128 * NU); CAP: the scores softcapped.
+template <typename T, int GMAX, int NU, bool CAP>
 __device__ __forceinline__ void split_partial(
     const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ tables,
+    const T* __restrict__ v_pool, const KvRows& rows,
     const int* __restrict__ lens, float* __restrict__ ws, int KV, int G,
     int D, int P, int page, int n_tab, int spp, int max_splits, int tile,
-    long long layer_offset, float scale) {
+    float scale, float cap) {
   // tokens a warp scores together: their scores live in registers
   constexpr int CS = GMAX >= 16 ? 2 : (GMAX >= 8 ? 4 : 8);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -261,9 +311,10 @@ __device__ __forceinline__ void split_partial(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int t0, t1;
   const int* row_table;
+  long long row_offset;
   float* rec;
-  if (!begin_split(tables, lens, ws, KV, G, D, P, page, n_tab, spp,
-                   max_splits, t0, t1, row_table, rec))
+  if (!begin_split(rows, lens, ws, KV, G, D, P, page, n_tab, spp,
+                   max_splits, t0, t1, row_table, row_offset, rec))
     return;
 
   // the G query heads of this KV head, this lane's slices of D
@@ -296,7 +347,8 @@ __device__ __forceinline__ void split_partial(
       T* ks = ring + (size_t)(it % kStages) * 2 * tile * D;
       issue_tile(ks, ks + (size_t)tile * D, D, t0 + it * tile,
                  min(tile, t1 - t0 - it * tile), tile, false, row_table,
-                 k_pool, v_pool, layer_offset, KV, kvh, D, page);
+                 k_pool, v_pool, row_offset, rows.tok_stride, KV, kvh, D,
+                 page);
     }
     cp_async_commit();   // an empty group past the end keeps the count
   };
@@ -357,7 +409,7 @@ __device__ __forceinline__ void split_partial(
 #pragma unroll
         for (int j = 0; j < CS; ++j)
           if (i0 + j < per_warp && first + r0 + j < t1)
-            mx = fmaxf(mx, s[j][g] * scale);
+            mx = fmaxf(mx, capped<CAP>(s[j][g] * scale, cap));
         if (mx > m[g]) {         // warp-uniform: rescale when the max grows
           const float alpha = expf(m[g] - mx);
           l[g] *= alpha;
@@ -370,7 +422,7 @@ __device__ __forceinline__ void split_partial(
 #pragma unroll
         for (int j = 0; j < CS; ++j) {
           const float p = (i0 + j < per_warp && first + r0 + j < t1)
-                              ? expf(s[j][g] * scale - m[g])
+                              ? expf(capped<CAP>(s[j][g] * scale, cap) - m[g])
                               : 0.f;
           l[g] += p;
 #pragma unroll
@@ -445,14 +497,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // P enters the product as bf16 hi + lo parts, two products, so P V keeps
 // ~16 bits of each probability (not bf16's 8): the residuals stay those
 // of an fp32 softmax.
-template <int DT>
+template <int DT, bool CAP>
 __device__ __forceinline__ void tc_split_partial(
     const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k_pool,
-    const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ tables,
+    const __nv_bfloat16* __restrict__ v_pool, const KvRows& rows,
     const int* __restrict__ lens, float* __restrict__ ws, int KV, int G,
-    int P, int page, int n_tab, int spp, int max_splits,
-    long long layer_offset, float scale) {
+    int P, int page, int n_tab, int spp, int max_splits, float scale,
+    float cap) {
   constexpr int D = 16 * DT;
   constexpr int RS = D + 8;      // padded rows: conflict-free 16-byte rows
   constexpr int TW = kTcThreads / 32;
@@ -462,9 +514,10 @@ __device__ __forceinline__ void tc_split_partial(
   const int gq = lane >> 2, tq = lane & 3;      // fragment row / column
   int t0, t1;
   const int* row_table;
+  long long row_offset;
   float* rec;
-  if (!begin_split(tables, lens, ws, KV, G, D, P, page, n_tab, spp,
-                   max_splits, t0, t1, row_table, rec))
+  if (!begin_split(rows, lens, ws, KV, G, D, P, page, n_tab, spp,
+                   max_splits, t0, t1, row_table, row_offset, rec))
     return;
 
   // A fragments of Q (16 heads x D), zero past G
@@ -494,7 +547,8 @@ __device__ __forceinline__ void tc_split_partial(
       __nv_bfloat16* ks = ring + (size_t)(it % kStages) * 2 * kTcTile * RS;
       issue_tile(ks, ks + kTcTile * RS, RS, t0 + it * kTcTile,
                  min(kTcTile, t1 - t0 - it * kTcTile), kTcTile, true,
-                 row_table, k_pool, v_pool, layer_offset, KV, kvh, D, page);
+                 row_table, k_pool, v_pool, row_offset, rows.tok_stride, KV,
+                 kvh, D, page);
     }
     cp_async_commit();
   };
@@ -531,7 +585,7 @@ __device__ __forceinline__ void tc_split_partial(
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const bool ok = nt * 8 + 2 * tq + e < live;
-            const float x = sc[nt][2 * h + e] * scale;
+            const float x = capped<CAP>(sc[nt][2 * h + e] * scale, cap);
             sc[nt][2 * h + e] = x;
             if (ok) mx = fmaxf(mx, x);
           }
@@ -713,8 +767,8 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
 template <typename T>
 __device__ __forceinline__ void merge_row(
     const float* __restrict__ ws, const int* __restrict__ lens,
-    const T* __restrict__ q, const RowMerge<T>& mg, int KV, int G, int D,
-    int page, int n_tab, int spp, int max_splits) {
+    const T* __restrict__ q, const RowMerge<T>& mg, const KvRows& rows,
+    int KV, int G, int D, int page, int spp, int max_splits) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* m_row = reinterpret_cast<float*>(smem_raw);   // [16]
   float* l_row = m_row + 16;                            // [16]
@@ -729,7 +783,7 @@ __device__ __forceinline__ void merge_row(
   const int kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int threads = blockDim.x, warps = threads >> 5;
   const int lane = tid & 31, warp = tid >> 5;
-  const int len = live_len(lens, b, n_tab, page);
+  const int len = live_len(lens, b, rows);
   const int split_tokens = spp * page;
   const int n = (len + split_tokens - 1) / split_tokens;
   const int R = record_floats(G, D), GD = G * D;
@@ -871,33 +925,33 @@ __device__ __forceinline__ void merge_row(
 
 // grid (max_splits, KV, B): a block's split on the CUDA cores, then its
 // ticket; the last block of a (row, KV head) merges the row.
-template <typename T, int GMAX, int NU>
+template <typename T, int GMAX, int NU, bool CAP>
 __global__ void __launch_bounds__(kThreads) split_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ tables,
+    const T* __restrict__ v_pool, KvRows rows,
     const int* __restrict__ lens, float* __restrict__ ws, int KV, int G,
     int D, int P, int page, int n_tab, int spp, int max_splits, int tile,
-    long long layer_offset, float scale, RowMerge<T> mg) {
-  split_partial<T, GMAX, NU>(q, k_pool, v_pool, tables, lens, ws, KV, G, D,
-                             P, page, n_tab, spp, max_splits, tile,
-                             layer_offset, scale);
+    float scale, float cap, RowMerge<T> mg) {
+  split_partial<T, GMAX, NU, CAP>(q, k_pool, v_pool, rows, lens, ws, KV, G,
+                                  D, P, page, n_tab, spp, max_splits, tile,
+                                  scale, cap);
   if (last_ticket(mg.counters, max_splits))
-    merge_row<T>(ws, lens, q, mg, KV, G, D, page, n_tab, spp, max_splits);
+    merge_row<T>(ws, lens, q, mg, rows, KV, G, D, page, spp, max_splits);
 }
 
 // The same on the tensor cores (bf16, D = 16 * DT).
-template <int DT>
+template <int DT, bool CAP>
 __global__ void __launch_bounds__(kTcThreads) tc_split_kernel(
     const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k_pool,
-    const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ tables,
+    const __nv_bfloat16* __restrict__ v_pool, KvRows rows,
     const int* __restrict__ lens, float* __restrict__ ws, int KV, int G,
-    int P, int page, int n_tab, int spp, int max_splits,
-    long long layer_offset, float scale, RowMerge<__nv_bfloat16> mg) {
-  tc_split_partial<DT>(q, k_pool, v_pool, tables, lens, ws, KV, G, P, page,
-                       n_tab, spp, max_splits, layer_offset, scale);
+    int P, int page, int n_tab, int spp, int max_splits, float scale,
+    float cap, RowMerge<__nv_bfloat16> mg) {
+  tc_split_partial<DT, CAP>(q, k_pool, v_pool, rows, lens, ws, KV, G, P,
+                            page, n_tab, spp, max_splits, scale, cap);
   if (last_ticket(mg.counters, max_splits))
-    merge_row<__nv_bfloat16>(ws, lens, q, mg, KV, G, 16 * DT, page, n_tab,
+    merge_row<__nv_bfloat16>(ws, lens, q, mg, rows, KV, G, 16 * DT, page,
                              spp, max_splits);
 }
 
@@ -912,134 +966,133 @@ int allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
   return static_cast<int>(err);
 }
 
-template <typename T, int GMAX, int NU>
-int launch_split(dim3 grid, size_t smem, cudaStream_t stream, const T* q,
-                 const T* k_pool, const T* v_pool, const int* tables,
-                 const int* lens, float* ws, int KV, int G, int D, int P,
-                 int page, int n_tab, int spp, int max_splits, int tile,
-                 long long layer_offset, float scale, const RowMerge<T>& mg) {
+// One call's arguments, as every split kernel takes them.
+template <typename T>
+struct Call {
+  const T* q;
+  const T* k;
+  const T* v;
+  KvRows rows;
+  const int* lens;
+  float* ws;
+  int KV, G, D, P, page, n_tab, spp, max_splits;
+  float scale, cap;   // cap > 0: the scores softcapped
+  RowMerge<T> mg;
+};
+
+template <typename T, int GMAX, int NU, bool CAP>
+int launch_split(dim3 grid, size_t smem, int tile, cudaStream_t stream,
+                 const Call<T>& c) {
   static size_t allowed = 48 * 1024;
-  const int err = allow_smem(split_kernel<T, GMAX, NU>, smem, allowed);
+  const int err = allow_smem(split_kernel<T, GMAX, NU, CAP>, smem, allowed);
   if (err != 0) return err;
-  split_kernel<T, GMAX, NU><<<grid, kThreads, smem, stream>>>(
-      q, k_pool, v_pool, tables, lens, ws, KV, G, D, P, page, n_tab, spp,
-      max_splits, tile, layer_offset, scale, mg);
+  split_kernel<T, GMAX, NU, CAP><<<grid, kThreads, smem, stream>>>(
+      c.q, c.k, c.v, c.rows, c.lens, c.ws, c.KV, c.G, c.D, c.P, c.page,
+      c.n_tab, c.spp, c.max_splits, tile, c.scale, c.cap, c.mg);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NU>
-int dispatch_heads(int G, dim3 grid, size_t smem, cudaStream_t stream,
-                   const T* q, const T* k, const T* v, const int* tables,
-                   const int* lens, float* ws, int KV, int D, int P, int page,
-                   int n_tab, int spp, int max_splits, int tile,
-                   long long layer_offset, float scale,
-                   const RowMerge<T>& mg) {
-#define REPRO_SPLIT(GM)                                                      \
-  return launch_split<T, GM, NU>(grid, smem, stream, q, k, v, tables, lens, \
-                                 ws, KV, G, D, P, page, n_tab, spp,         \
-                                 max_splits, tile, layer_offset, scale, mg)
-  if (G <= 1) REPRO_SPLIT(1);
-  if (G <= 2) REPRO_SPLIT(2);
-  if (G <= 4) REPRO_SPLIT(4);
-  if (G <= 8) REPRO_SPLIT(8);
-  if (NU == 1 && G <= 16) REPRO_SPLIT(16);
+template <typename T, int NU, bool CAP>
+int dispatch_heads(dim3 grid, size_t smem, int tile, cudaStream_t stream,
+                   const Call<T>& c) {
+#define REPRO_SPLIT(GM) \
+  return launch_split<T, GM, NU, CAP>(grid, smem, tile, stream, c)
+  if (c.G <= 1) REPRO_SPLIT(1);
+  if (c.G <= 2) REPRO_SPLIT(2);
+  if (c.G <= 4) REPRO_SPLIT(4);
+  if (c.G <= 8) REPRO_SPLIT(8);
+  if (NU == 1 && c.G <= 16) REPRO_SPLIT(16);
 #undef REPRO_SPLIT
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int DT>
-int launch_tc(dim3 grid, cudaStream_t stream, const __nv_bfloat16* q,
-              const __nv_bfloat16* k, const __nv_bfloat16* v,
-              const int* tables, const int* lens, float* ws, int KV, int G,
-              int P, int page, int n_tab, int spp, int max_splits,
-              long long layer_offset, float scale,
-              const RowMerge<__nv_bfloat16>& mg) {
+template <int DT, bool CAP>
+int launch_tc(dim3 grid, cudaStream_t stream,
+              const Call<__nv_bfloat16>& c) {
   constexpr int D = 16 * DT;
   const size_t ring = (size_t)kStages * 2 * kTcTile * (D + 8) * 2;
   const size_t merge = sizeof(float) * (kTcThreads / 32) * 16 * (D + 2);
   size_t smem = ring > merge ? ring : merge;
-  const size_t least = kMergeSmemBytes + 4 * record_floats(G, D);
+  const size_t least = kMergeSmemBytes + 4 * record_floats(c.G, D);
   if (smem < least) smem = least;   // the row's merge stages a record
   static size_t allowed = 48 * 1024;
-  const int err = allow_smem(tc_split_kernel<DT>, smem, allowed);
+  const int err = allow_smem(tc_split_kernel<DT, CAP>, smem, allowed);
   if (err != 0) return err;
-  tc_split_kernel<DT><<<grid, kTcThreads, smem, stream>>>(
-      q, k, v, tables, lens, ws, KV, G, P, page, n_tab, spp, max_splits,
-      layer_offset, scale, mg);
+  tc_split_kernel<DT, CAP><<<grid, kTcThreads, smem, stream>>>(
+      c.q, c.k, c.v, c.rows, c.lens, c.ws, c.KV, c.G, c.P, c.page, c.n_tab,
+      c.spp, c.max_splits, c.scale, c.cap, c.mg);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The tensor-core split for bf16 at the head dims of the repo's paged
-// families and smoke models; -1 where it has no instantiation.
-int dispatch_tc(int D, dim3 grid, cudaStream_t stream,
-                const __nv_bfloat16* q, const __nv_bfloat16* k,
-                const __nv_bfloat16* v, const int* tables, const int* lens,
-                float* ws, int KV, int G, int P, int page, int n_tab,
-                int spp, int max_splits, long long layer_offset,
-                float scale, const RowMerge<__nv_bfloat16>& mg) {
-#define REPRO_TC(HD)                                                        \
-  if (D == HD)                                                              \
-    return launch_tc<HD / 16>(grid, stream, q, k, v, tables, lens, ws, KV, \
-                              G, P, page, n_tab, spp, max_splits,          \
-                              layer_offset, scale, mg);
+// families, gemma2's and zamba2's and the smoke models'; -1 where it has
+// no instantiation.
+template <bool CAP>
+int dispatch_tc(dim3 grid, cudaStream_t stream,
+                const Call<__nv_bfloat16>& c) {
+#define REPRO_TC(HD) \
+  if (c.D == HD) return launch_tc<HD / 16, CAP>(grid, stream, c);
   REPRO_TC(16) REPRO_TC(64) REPRO_TC(80) REPRO_TC(128) REPRO_TC(256)
 #undef REPRO_TC
   return -1;
 }
 
+template <typename T, bool CAP>
+int launch_call(dim3 grid, cudaStream_t stream, const Call<T>& c) {
+  int err = -1;
+  if constexpr (sizeof(T) == 2) err = dispatch_tc<CAP>(grid, stream, c);
+  if (err != -1) return err;
+  // fp32, or a head dim without a tensor-core kernel
+  const int tile = tile_tokens(c.D, sizeof(T));
+  const size_t ring = (size_t)kStages * 2 * tile * c.D * sizeof(T);
+  const size_t merge = sizeof(float) * (size_t)kWarps * c.G * (c.D + 2);
+  size_t smem = ring > merge ? ring : merge;
+  const size_t least = kMergeSmemBytes + 4 * record_floats(c.G, c.D);
+  if (smem < least) smem = least;
+  return c.D <= 128
+             ? dispatch_heads<T, 1, CAP>(grid, smem, tile, stream, c)
+             : dispatch_heads<T, 2, CAP>(grid, smem, tile, stream, c);
+}
+
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* lens, void* ws, void* counters,
+           const KvRows& rows, const void* lens, void* ws, void* counters,
            void* acc_out, void* o_out, void* m_out, void* l_out,
            const void* k_new, const void* v_new, int B, int KV, int G, int D,
-           int P, int page, int n_tab, int layer, float scale, int spp,
+           int P, int page, int n_tab, float scale, float cap, int spp,
            cudaStream_t stream) {
   const int esz = sizeof(T);
   if (D < 1 || D > 256 || D % (16 / esz) || G < 1 || G > 16 ||
       (D > 128 && G > 8) || page < 1 || n_tab < 1 || spp < 1 ||
       counters == nullptr || (o_out == nullptr && acc_out == nullptr) ||
-      (k_new != nullptr && (v_new == nullptr || o_out == nullptr)))
+      (k_new != nullptr && (v_new == nullptr || o_out == nullptr)) ||
+      !(cap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const int max_splits = (n_tab + spp - 1) / spp;
-  const long long layer_offset =
-      (long long)layer * P * page * (long long)KV * D;
   const dim3 grid(max_splits, KV, B);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k_pool);
-  const T* vt = static_cast<const T*>(v_pool);
-  const int* tb = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(lens);
-  float* w = static_cast<float*>(ws);
-  const RowMerge<T> mg{static_cast<int*>(counters),
-                       static_cast<float*>(acc_out),
-                       static_cast<T*>(o_out),
-                       static_cast<float*>(m_out),
-                       static_cast<float*>(l_out),
-                       static_cast<const T*>(k_new),
-                       static_cast<const T*>(v_new),
-                       scale};
-  int err = -1;
-  if constexpr (sizeof(T) == 2)
-    err = dispatch_tc(D, grid, stream, qt, kt, vt, tb, ln, w, KV, G, P, page,
-                      n_tab, spp, max_splits, layer_offset, scale, mg);
-  if (err == -1) {   // fp32, or a head dim without a tensor-core kernel
-    const int tile = tile_tokens(D, esz);
-    const size_t ring = (size_t)kStages * 2 * tile * D * esz;
-    const size_t merge = sizeof(float) * (size_t)kWarps * G * (D + 2);
-    size_t smem = ring > merge ? ring : merge;
-    const size_t least = kMergeSmemBytes + 4 * record_floats(G, D);
-    if (smem < least) smem = least;
-    err = D <= 128
-              ? dispatch_heads<T, 1>(G, grid, smem, stream, qt, kt, vt, tb,
-                                     ln, w, KV, D, P, page, n_tab, spp,
-                                     max_splits, tile, layer_offset, scale,
-                                     mg)
-              : dispatch_heads<T, 2>(G, grid, smem, stream, qt, kt, vt, tb,
-                                     ln, w, KV, D, P, page, n_tab, spp,
-                                     max_splits, tile, layer_offset, scale,
-                                     mg);
-  }
-  return err;
+  const Call<T> c{static_cast<const T*>(q),
+                  static_cast<const T*>(k_pool),
+                  static_cast<const T*>(v_pool),
+                  rows,
+                  static_cast<const int*>(lens),
+                  static_cast<float*>(ws),
+                  KV, G, D, P, page, n_tab, spp, max_splits, scale, cap,
+                  RowMerge<T>{static_cast<int*>(counters),
+                              static_cast<float*>(acc_out),
+                              static_cast<T*>(o_out),
+                              static_cast<float*>(m_out),
+                              static_cast<float*>(l_out),
+                              static_cast<const T*>(k_new),
+                              static_cast<const T*>(v_new), scale}};
+  return cap > 0.f ? launch_call<T, true>(grid, stream, c)
+                   : launch_call<T, false>(grid, stream, c);
+}
+
+template <typename... Args>
+int by_dtype(int dtype, Args... args) {
+  if (dtype == 0) return launch<float>(args...);
+  if (dtype == 1) return launch<__nv_bfloat16>(args...);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1071,18 +1124,43 @@ int paged_decode_launch(const void* q, const void* k_pool, const void* v_pool,
                         int page, int n_tab, int layer, float scale,
                         int dtype, int split_pages_arg, void* stream) {
   if (B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tables == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int spp = split_pages_arg > 0 ? split_pages_arg : split_pages(page);
-  if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, tables, lens, ws, counters,
-                         acc_out, o_out, m_out, l_out, k_new, v_new, B, KV, G,
-                         D, P, page, n_tab, layer, scale, spp, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lens, ws,
-                                 counters, acc_out, o_out, m_out, l_out,
-                                 k_new, v_new, B, KV, G, D, P, page, n_tab,
-                                 layer, scale, spp, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const KvRows rows{static_cast<const int*>(tables),
+                    (long long)layer * P * page * (long long)KV * D, 0, 0,
+                    n_tab * page, 0};
+  return by_dtype(dtype, q, k_pool, v_pool, rows, lens, ws, counters,
+                  acc_out, o_out, m_out, l_out, k_new, v_new, B, KV, G, D, P,
+                  page, n_tab, scale, 0.f, spp,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The same split kernels over a dense cache: k and v (B, T, KV, D) with
+// rows row_stride and tokens tok_stride elements apart (heads D apart,
+// elements contiguous, 16-byte aligned), offsets (B,) int32 on the device:
+// row b attends over its first min(offsets[b] + 1, T) tokens, the new
+// token written at its slot already (a ring's slots, once full, all hold
+// positions inside the window). Splits of kSplitTokens tokens: max_splits
+// = ceil(T / kSplitTokens), a function of T alone. cap > 0: each fp32
+// score s is softcapped, tanh(s / cap) * cap, before the row's max. The
+// normalized output (B, KV*G, D) in q's dtype; ws and counters as above.
+int dense_decode_launch(const void* q, const void* k, const void* v,
+                        const void* offsets, void* ws, void* counters,
+                        void* o_out, int B, int T, int KV, int G, int D,
+                        long long row_stride, long long tok_stride,
+                        float scale, float cap, int dtype, void* stream) {
+  if (B == 0) return 0;
+  if (T < 1 || row_stride < 0 || tok_stride < (long long)KV * D)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tab = (T + kSplitTokens - 1) / kSplitTokens;
+  const KvRows rows{nullptr, 0, row_stride, tok_stride, T, 1};
+  return by_dtype(dtype, q, k, v, rows, offsets, ws, counters,
+                  static_cast<void*>(nullptr), o_out,
+                  static_cast<void*>(nullptr), static_cast<void*>(nullptr),
+                  static_cast<const void*>(nullptr),
+                  static_cast<const void*>(nullptr), B, KV, G, D, 0,
+                  kSplitTokens, n_tab, scale, cap, 1,
+                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -78,9 +78,11 @@ def kernel_wrappers() -> dict:
     bf16 decode step's qkv products with that pass, one launch;
     ``gate_up_act``
     the decode step's gate / up products with their activation, apart
-    from ``gated_act`` (the activation alone)."""
-    from repro_torch.kernels.decode_attention.kernel import \
-        paged_decode_attention_kernel
+    from ``gated_act`` (the activation alone); ``dense_decode_attention``
+    decode attention's launch over ``Model.forward``'s dense cache (a
+    one-token step), apart from the paged ``paged_decode_attention``."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        dense_decode_attention_kernel, paged_decode_attention_kernel)
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_kernel, flash_extend_kernel)
     from repro_torch.kernels.fusions.kernel import (gate_up_act_kernel,
@@ -94,6 +96,7 @@ def kernel_wrappers() -> dict:
         token_append_kernel)
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_kernel
     return {"paged_decode_attention": paged_decode_attention_kernel,
+            "dense_decode_attention": dense_decode_attention_kernel,
             "page_gather": page_gather_kernel,
             "page_scatter": page_scatter_kernel,
             "token_append": token_append_kernel,

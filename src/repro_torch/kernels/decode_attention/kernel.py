@@ -14,6 +14,12 @@ makes of that merge in the reference's decode scan). See the source for
 its bound and design. :func:`plan_decode` is the host side of the launch
 as a pure function of integers, so the CPU tests reach it;
 :func:`ticket_counters` keeps the counters.
+
+:func:`dense_decode_attention_kernel` is the same launch over a layer's
+dense ``(B, T, KV, D)`` cache (``Model.forward``'s one-token step: the
+reference's ``attend_decode`` at C == 1, which XLA fuses), read by its
+strides, each row's length from the step's device offsets, with gemma2's
+tanh softcap; :func:`plan_dense_decode` is its host side.
 """
 from __future__ import annotations
 
@@ -30,6 +36,9 @@ from repro_torch.kernels.decode_attention.ref import SPLIT_TOKENS
 _LIB = "decode_attention"
 _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + \
     [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_DENSE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+    [ctypes.c_longlong] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int] + \
+    [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_PER_BLOCK = 232_448      # bytes of shared memory a Hopper block may use
 # constants of the source: threads (warps) a block, K/V stages in flight,
@@ -275,3 +284,112 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
 
 
 paged_decode_attention_kernel.launches = 0
+
+
+def plan_dense_decode(B: int, T: int, KV: int, G: int, D: int,
+                      esz: int) -> DecodePlan:
+    """The dense launch of a call over a ``T``-slot cache: the paged plan
+    of SPLIT_TOKENS-token "pages", ceil(T / SPLIT_TOKENS) of them, one a
+    split (the source's ``dense_decode_launch``), so the splits depend on
+    T alone, never on B or the offsets. Raises ``ValueError`` on what the
+    kernel does not take, before any launch."""
+    if T < 1:
+        raise ValueError(f"a dense cache of {T} slots")
+    return plan_decode(B, KV, G, D, esz, SPLIT_TOKENS, -(-T // SPLIT_TOKENS))
+
+
+def check_dense_operands(q, cache_k, cache_v, offsets, window: int,
+                         softcap: float) -> tuple:
+    """The dense launch's host checks, all before any launch: q (B, H, D)
+    contiguous; the caches (B, T, KV, D) in q's dtype, the same strides,
+    heads D apart and elements contiguous, every address and stride a
+    multiple of 16 bytes; offsets a (B,) int32 tensor; everything on one
+    CUDA device; no window mask to apply (``window`` 0 or at least T:
+    at one query a ring's slots and a plain cache shorter than the
+    window hold only positions the window keeps); ``softcap`` >= 0.
+    Returns (B, T, KV, G, D, row stride, token stride) in elements."""
+    what = "dense_decode_attention_kernel"
+    if not (q.is_cuda and cache_k.device == q.device
+            and cache_v.device == q.device and offsets.device == q.device):
+        raise ValueError(f"{what}: every tensor must be on the same CUDA "
+                         f"device")
+    if q.dtype not in _DTYPES or cache_k.dtype != q.dtype \
+            or cache_v.dtype != q.dtype:
+        raise TypeError(f"{what}: q and the caches must share float32 or "
+                        f"bfloat16, got {q.dtype}, {cache_k.dtype}, "
+                        f"{cache_v.dtype}")
+    if q.dim() != 3 or cache_k.dim() != 4 or cache_v.shape != cache_k.shape:
+        raise ValueError(f"{what}: q (B, H, D), caches (B, T, KV, D), got "
+                         f"{tuple(q.shape)}, {tuple(cache_k.shape)} / "
+                         f"{tuple(cache_v.shape)}")
+    B, H, D = q.shape
+    Bc, T, KV, Dc = cache_k.shape
+    if Bc != B or Dc != D or H % KV:
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not fit caches "
+                         f"{tuple(cache_k.shape)}")
+    if offsets.dtype != torch.int32 or tuple(offsets.shape) != (B,) \
+            or not offsets.is_contiguous():
+        raise ValueError(f"{what}: offsets a contiguous ({B},) int32 "
+                         f"tensor, got {tuple(offsets.shape)} "
+                         f"{offsets.dtype}")
+    if window > 0 and T > window:
+        raise ValueError(f"{what}: a {T}-slot cache under a {window}-token "
+                         f"window needs the window mask, which the launch "
+                         f"does not apply")
+    if not softcap >= 0:
+        raise ValueError(f"{what}: softcap {softcap}")
+    if not q.is_contiguous():
+        raise ValueError(f"{what}: q must be contiguous")
+    esz = q.element_size()
+    strides = cache_k.stride()
+    if cache_v.stride() != strides or strides[3] != 1 or strides[2] != D \
+            or strides[1] < KV * D:
+        raise ValueError(f"{what}: caches with heads D apart and contiguous "
+                         f"elements, the same strides, got {strides} / "
+                         f"{cache_v.stride()}")
+    for t in (q, cache_k, cache_v):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: 16-byte aligned addresses")
+    if any((st * esz) % 16 for st in strides[:3]):
+        raise ValueError(f"{what}: strides of whole 16-byte chunks, got "
+                         f"{strides}")
+    return B, T, KV, H // KV, D, strides[0], strides[1]
+
+
+def dense_decode_attention_kernel(q, cache_k, cache_v, offsets, *,
+                                  scale: float | None = None,
+                                  softcap: float = 0.0, window: int = 0):
+    """One token a row, q (B, H, D), against a layer's dense cache
+    ``cache_k`` / ``cache_v`` (B, T, KV, D) that already holds it (views
+    of the model's cache: their strides are read), ``offsets`` (B,) int32
+    the rows' positions on the device (never read on the host): row b
+    attends over its first min(offsets[b] + 1, T) slots. A plain cache
+    holds position s in slot s; a ring (T == the window) holds, once
+    full, exactly the positions of the window, so at one query neither
+    takes a window mask (``window``: a cache longer than it is refused).
+    ``softcap`` > 0: each fp32 score s becomes tanh(s / softcap) *
+    softcap before the row's max. Returns the normalized output (B, H, D)
+    in q's dtype. One launch (counted in ``launches``); every check comes
+    before it (:func:`check_dense_operands`, :func:`plan_dense_decode`)."""
+    B, T, KV, G, D, row_stride, tok_stride = check_dense_operands(
+        q, cache_k, cache_v, offsets, window, softcap)
+    plan = plan_dense_decode(B, T, KV, G, D, q.element_size())
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    fn = _build.function(_LIB, "dense_decode_launch", _DENSE_ARGTYPES)
+    dev = q.device
+    stream = stream_handle(dev)
+    counters = ticket_counters(dev, stream, plan.counters)
+    ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    with device_guard(dev):
+        err = fn(_ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(offsets),
+                 _ptr(ws), _ptr(counters), _ptr(out), B, T, KV, G, D,
+                 row_stride, tok_stride, float(scale), float(softcap),
+                 _DTYPES[q.dtype], stream)
+    _build.check(_LIB, err, "dense_decode_attention_kernel")
+    if B:
+        dense_decode_attention_kernel.launches += 1
+    return out
+
+
+dense_decode_attention_kernel.launches = 0

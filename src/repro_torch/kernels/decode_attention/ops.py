@@ -5,10 +5,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention.kernel import \
-    paged_decode_attention_kernel
-from repro_torch.kernels.decode_attention.ref import \
-    paged_decode_attention_ref
+from repro_torch.kernels.decode_attention.kernel import (
+    dense_decode_attention_kernel, paged_decode_attention_kernel)
+from repro_torch.kernels.decode_attention.ref import (
+    dense_decode_ref, paged_decode_attention_ref)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
@@ -28,3 +28,20 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
                                           seq_lens, layer=layer, scale=scale,
                                           return_residuals=return_residuals)
     raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+
+
+def dense_decode_attention(q, cache_k, cache_v, offsets, *, scale: float,
+                           softcap: float = 0.0, window: int = 0):
+    """One token a row, q (B, H, D), against a dense cache (B, T, KV, D)
+    at the positions ``offsets``: on a CUDA tensor the dense launch
+    (``offsets`` a (B,) int32 device tensor), on a CPU tensor its plain
+    version."""
+    if q.device.type == "cuda":
+        return dense_decode_attention_kernel(q, cache_k, cache_v, offsets,
+                                             scale=scale, softcap=softcap,
+                                             window=window)
+    if q.device.type == "cpu":
+        return dense_decode_ref(q, cache_k, cache_v, offsets, scale=scale,
+                                softcap=softcap, window=window)
+    raise ValueError(f"dense_decode_attention: unsupported device "
+                     f"{q.device}")

@@ -171,3 +171,65 @@ def paged_decode_split_ref(q, k_pages, v_pages, block_tables, seq_lens, *,
         return acc, m, l
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def dense_decode_ref(q, cache_k, cache_v, offsets, *, scale: float,
+                     softcap: float = 0.0, window: int = 0):
+    """The dense launch's plain version: the reference's ``attend_decode``
+    at C == 1 (``src/repro/models/attention.py:272``: its masks, then
+    ``_block_attn`` and the normalisation), op for op as the port's
+    ``attention.decode_stats`` spells it, so the two agree bit for bit.
+    q (B, H, D) one token a row at the positions ``offsets`` (B,) (or a
+    scalar), the caches (B, T, KV, D) holding it already; ``window`` the
+    sliding window (the cache a ring when T == window). Returns (B, H, D)
+    in q's dtype. The scores are fp32 (float64 for float64 inputs: the
+    exact arithmetic phase 2 of ``chip_smoke.py`` holds the launch to).
+
+    At one query the window mask keeps every slot the length mask keeps:
+    a full ring's T = window slots hold positions total - window ..
+    total - 1, each > q - window for the query q = total - 1, and a plain
+    cache shorter than the window holds positions 0 .. T - 1 > q -
+    window. So the CUDA launch reads the first min(offset + 1, T) slots
+    and applies no window."""
+    B, H, D = q.shape
+    T, KV = cache_k.shape[1], cache_k.shape[2]
+    G = H // KV
+    if isinstance(offsets, int):
+        kv_len = torch.full((B,), offsets, dtype=torch.int32,
+                            device=q.device)
+    else:
+        kv_len = torch.as_tensor(offsets, dtype=torch.int32,
+                                 device=q.device).reshape(-1).expand(B)
+    slot = torch.arange(T, device=q.device)[None, :]           # (1, T)
+    total = kv_len + 1
+    q_pos = kv_len[:, None, None] + torch.arange(1, device=q.device)[
+        None, :, None]                                          # (B, 1, 1)
+    if window > 0 and T == window:
+        n_wrap = torch.div(total[:, None] - 1 - slot, T,
+                           rounding_mode="floor")
+        pos = slot + n_wrap.clamp_min(0) * T                    # (B, T)
+        valid = (pos < total[:, None]) & \
+            (pos >= (total - window).clamp_min(0)[:, None])
+        mask = valid[:, None, :] & (pos[:, None, :] <= q_pos) & \
+            (pos[:, None, :] > q_pos - window)
+    else:
+        mask = (slot[:, None, :] <= q_pos) & \
+            (slot[:, None, :] < total[:, None, None])           # (B, 1, T)
+        if window > 0:
+            mask = mask & (slot[:, None, :] > q_pos - window)
+    k, v = cache_k, cache_v
+    if k.dtype != q.dtype:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    qg = q[:, None].reshape(B, 1, KV, G, D)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k).to(
+        torch.promote_types(q.dtype, torch.float32)) * scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)                                              # (B,KV,G,1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype), v).reshape(
+        B, 1, H, D)
+    l = l.permute(0, 3, 1, 2).reshape(B, 1, H)[..., None]
+    return (o / l.clamp_min(1e-30).to(o.dtype))[:, 0]

@@ -13,7 +13,8 @@ from repro_torch.kernels.fusions.kernel import (gate_up_act_kernel,
                                                 qkv_proj_kernel,
                                                 qkv_rope_chunk_kernel,
                                                 qkv_rope_kernel,
-                                                rms_norm_kernel)
+                                                rms_norm_kernel,
+                                                takes_row_pass)
 from repro_torch.kernels.fusions.ops import (attend_merged, gate_up_act,
                                              gated_act, qkv_proj,
                                              qkv_rope_chunk, rms_norm)
@@ -28,4 +29,5 @@ __all__ = ["attend_merged", "attend_merged_ref", "gate_up_act",
            "gated_act_kernel", "gated_act_ref", "plan_gate_up", "plan_qkv",
            "qkv_proj", "qkv_proj_kernel", "qkv_proj_ref", "qkv_rope_chunk",
            "qkv_rope_chunk_kernel", "qkv_rope_chunk_ref", "qkv_rope_kernel",
-           "qkv_rope_ref", "rms_norm", "rms_norm_kernel", "rms_norm_ref"]
+           "qkv_rope_ref", "rms_norm", "rms_norm_kernel", "rms_norm_ref",
+           "takes_row_pass"]

@@ -122,6 +122,23 @@ class RopeGeometry:
     partner: str
 
 
+def _row_pass_refusal(Dh: int, rot_half: int,
+                      element_size: int) -> str | None:
+    """Why the row pass does not take head rows of ``Dh`` elements of
+    ``element_size`` bytes rotating ``2 rot_half`` channels, or None."""
+    if not 1 <= Dh <= MAX_HEAD_DIM or (Dh * element_size) % 16:
+        return (f"qkv_rope_kernel: head rows of {Dh} elements of "
+                f"{element_size} bytes must be a multiple of 16 bytes, head "
+                f"dim at most {MAX_HEAD_DIM}")
+    chunks = Dh * element_size // 16
+    if chunks > ROPE_MAX_LANES:
+        return (f"qkv_rope_kernel: head rows of {chunks} 16-byte chunks; "
+                f"one warp takes at most {ROPE_MAX_LANES}")
+    if not 0 <= 2 * rot_half <= Dh:
+        return f"qkv_rope_kernel: rot/2 {rot_half} for head dim {Dh}"
+    return None
+
+
 @functools.lru_cache(maxsize=None)
 def rope_geometry(Dh: int, rot_half: int, element_size: int) -> RopeGeometry:
     """The row pass's layout for head rows of ``Dh`` elements of
@@ -130,20 +147,21 @@ def rope_geometry(Dh: int, rot_half: int, element_size: int) -> RopeGeometry:
     whatever the batch). Raises ``ValueError`` for a row that is not a
     whole number of 16-byte chunks or is longer than one warp's lanes take
     (32 chunks: 256 bf16 or 128 fp32 elements)."""
-    if not 1 <= Dh <= MAX_HEAD_DIM or (Dh * element_size) % 16:
-        raise ValueError(f"qkv_rope_kernel: head rows of {Dh} elements of "
-                         f"{element_size} bytes must be a multiple of 16 "
-                         f"bytes, head dim at most {MAX_HEAD_DIM}")
+    why = _row_pass_refusal(Dh, rot_half, element_size)
+    if why:
+        raise ValueError(why)
     chunks = Dh * element_size // 16
-    if chunks > ROPE_MAX_LANES:
-        raise ValueError(f"qkv_rope_kernel: head rows of {chunks} 16-byte "
-                         f"chunks; one warp takes at most {ROPE_MAX_LANES}")
-    if not 0 <= 2 * rot_half <= Dh:
-        raise ValueError(f"qkv_rope_kernel: rot/2 {rot_half} for head dim "
-                         f"{Dh}")
     return RopeGeometry(
         row_threads=1 << (chunks - 1).bit_length(),
         partner="lanes" if (rot_half * element_size) % 16 == 0 else "shared")
+
+
+def takes_row_pass(Dh: int, rot_half: int, element_size: int) -> bool:
+    """Whether the row pass (and so ``qkv_proj``'s routes) takes head rows
+    of ``Dh`` elements of ``element_size`` bytes rotating ``2 rot_half``
+    channels: :func:`rope_geometry`'s conditions, as a shape rule decided
+    on the host (gemma2's fp32 Dh 256, 64 chunks a row, is not taken)."""
+    return _row_pass_refusal(Dh, rot_half, element_size) is None
 
 
 def _ptr(t):

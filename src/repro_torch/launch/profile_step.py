@@ -46,7 +46,11 @@ step of the batch against a contiguous cache of ``--context`` tokens,
 ``build_decode_step``'s step replayed as its CUDA graph
 (``models/forward_graph.py``; captured at its second use, inside the
 warm-up), or with ``--eager`` the eager step; and a fresh prefill of the
-whole ``--context``-token prompt (eager) in place of the chunk.
+whole ``--context``-token prompt through ``build_prefill_step``'s step
+(eager) in place of the chunk. Both steps are fused (their default on
+the card: the norms, qkv passes, gated activations and the one-token
+attention through the hand-written kernels) unless ``--plain`` asks for
+``fused=False``.
 
 ``--train`` measures a training step instead: the trainer's step on a
 ``--batch`` x ``--context`` batch (fp32 masters, the config's compute
@@ -341,9 +345,10 @@ def main(argv=None) -> int:
                     help="the eager decode step and prefill chunk (or "
                     "training step), not the CUDA graphs")
     ap.add_argument("--plain", action="store_true",
-                    help="the paged decode step's chains in their plain "
-                    "spelling (PagedKVRuntime(fused=False)), not the "
-                    "fused kernels")
+                    help="the steps' chains in their plain spelling "
+                    "(PagedKVRuntime(fused=False), or build_prefill_step "
+                    "/ build_decode_step(fused=False)), not the fused "
+                    "kernels")
     ap.add_argument("--capacity-step", type=int, default=None,
                     help="the extend scratch's capacity granularity")
     ap.add_argument("--mesh", action="store_true",
@@ -392,7 +397,7 @@ def main(argv=None) -> int:
                args.context, chunk_len, args.capacity_step or CAPACITY_STEP)
            if steps is _paged_steps else None,
            "decode_step": "eager" if args.eager else "cuda_graph",
-           "fused": not args.plain if steps is _paged_steps else None,
+           "fused": not args.plain,
            "capacity_step": args.capacity_step,
            "decode": {**_timed(decode, args.steps), **traced(decode)},
            "prefill": {**_timed(prefill, args.steps),
@@ -546,9 +551,12 @@ def _mesh(cfg, args, dev) -> int:
         pf = build_prefill_step(cfg, mesh,
                                 ShapeSpec("profile", "prefill", S, B),
                                 model=model, device=dev)
+        # the meshless step in the sharded one's spelling (a mesh takes
+        # no fusion kernel): fused=False
         steps = {name: build_decode_step(cfg, m, dshape, model=mm,
                                          device=dev,
-                                         cuda_graphs=not args.eager)
+                                         cuda_graphs=not args.eager,
+                                         fused=False)
                  for name, m, mm in (("sharded", mesh, pf.model),
                                      ("meshless", None, model))}
         toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
@@ -644,26 +652,30 @@ def _forward_steps(model, args, dev):
     """``Model.forward``: a decode step of the batch at position
     ``--context`` of a contiguous cache (the same position every step)
     through ``build_decode_step``'s step (its CUDA graph, or eager with
-    ``--eager``), and a fresh prefill of the ``--context``-token
-    prompts."""
+    ``--eager``), and a fresh prefill of the ``--context``-token prompts
+    through ``build_prefill_step``'s step; both ``fused`` unless
+    ``--plain``."""
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.models.steps import build_decode_step
+    from repro_torch.models.steps import build_decode_step, \
+        build_prefill_step
     rng = np.random.default_rng(args.seed)
     toks = torch.from_numpy(rng.integers(
         0, model.cfg.vocab_size, (args.batch, args.context))).to(dev)
     cache = model.init_cache(args.batch, args.context + 1)
-    model.forward(toks, cache=cache, logits_slice=1)
+    shape = ShapeSpec("profile", "decode", args.context + 1, args.batch)
+    pf = build_prefill_step(model.cfg, None, shape, model=model,
+                            fused=not args.plain)
+    pf.fn(cache, toks)
     nxt = toks[:, -1:]
-    step = build_decode_step(
-        model.cfg, None,
-        ShapeSpec("profile", "decode", args.context + 1, args.batch),
-        model=model, cuda_graphs=not args.eager)
+    step = build_decode_step(model.cfg, None, shape, model=model,
+                             cuda_graphs=not args.eager,
+                             fused=not args.plain)
 
     def decode():
         step.fn(cache, nxt, args.context)
 
     def prefill():
-        model.forward(toks, cache=cache, logits_slice=1)
+        pf.fn(cache, toks)
 
     decode.graph = step.graph
     return decode, prefill, args.context

@@ -12,10 +12,13 @@ backward, and the reference's train step runs its jnp blocks too.
 ``attend_decode`` is attention of new tokens against a contiguous or ring
 cache with length and window masking (extend and decode mode, as in the
 reference): on CUDA tensors a chunk of several tokens against a plain
-cache runs the flash kernels' extend launch, its offsets read on the
-device; one token, a ring, and CPU tensors take the reference's dense
-arithmetic (:func:`decode_stats`). The paged decode path goes through
-its own CUDA kernel (:mod:`repro_torch.kernels.decode_attention`). On a mesh,
+cache runs the flash kernels' extend launch, and one token (a plain cache
+or a ring) decode attention's dense launch
+(:mod:`repro_torch.kernels.decode_attention`; its plain version on CPU
+tensors), their offsets read on the device; ``plain``, a chunk on a ring
+and CPU chunks take the reference's dense arithmetic
+(:func:`decode_stats`). The paged decode path goes through the same
+decode kernel over its pages. On a mesh,
 :func:`attend_sharded` runs the same functions on each rank's local
 pieces (the flash kernel on CUDA tensors, never on a DTensor).
 
@@ -33,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import matmul_in, matmul_out
+from repro_torch.kernels.decode_attention import dense_decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_extend_kernel)
 from repro_torch.models.common import (ParamSpec, apply_rope, rms_norm,
@@ -357,21 +361,28 @@ def _write_indexed(cache_k, cache_v, k_new, v_new, cache_len,
                    ring: bool) -> None:
     """:func:`write_cache` at offsets held in a tensor: each row's slots
     computed on the device (a plain cache's start clamped to ``W - C``,
-    a ring's slots taken mod W), written with one indexed copy a cache.
-    No value is read back, so a captured step can write at offsets that
-    change between replays."""
+    a ring's slots taken mod W; once a forward for the layers that share
+    a cache shape), written with one indexed copy a cache. No value is
+    read back, so a captured step can write at offsets that change
+    between replays."""
     B, W = cache_k.shape[:2]
     C = k_new.shape[1]
     dev = cache_k.device
-    s = cache_len.to(dev).reshape(-1).long().expand(B)
+    n = min(C, W) if ring else C
+
+    def make():
+        s = cache_len.to(dev).reshape(-1).long().expand(B)
+        if ring:
+            slots = (s[:, None] + (C - n) + torch.arange(n, device=dev)) % W
+        else:
+            slots = s.clamp(max=W - C).clamp(min=0)[:, None] + \
+                torch.arange(C, device=dev)
+        return torch.arange(B, device=dev)[:, None], slots
+
+    rows, slots = _per_forward(cache_len, ("write_slots", B, W, C, ring,
+                                           dev), make)
     if ring:
-        n = min(C, W)
         k_new, v_new = k_new[:, C - n:], v_new[:, C - n:]
-        slots = (s[:, None] + (C - n) + torch.arange(n, device=dev)) % W
-    else:
-        slots = s.clamp(max=W - C).clamp(min=0)[:, None] + \
-            torch.arange(C, device=dev)
-    rows = torch.arange(B, device=dev)[:, None]
     cache_k[rows, slots] = k_new
     cache_v[rows, slots] = v_new
 
@@ -457,8 +468,8 @@ def _per_forward(anchor, key: tuple, make):
 
 
 def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
-                  cap: float = 0.0, window: int = 0,
-                  plain: bool = False) -> torch.Tensor:
+                  cap: float = 0.0, window: int = 0, plain: bool = False,
+                  mode: str = "decode") -> torch.Tensor:
     """q (B,C,H,Dh) new queries at absolute positions kv_len..kv_len+C-1
     (per batch); the cache (B,T,KV,Dh) already holds the new keys, and
     kv_len + C <= T. With ``window`` the sliding window: in a ring (T ==
@@ -469,11 +480,23 @@ def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
     On CUDA tensors a chunk (C > 1) over a plain cache runs the flash
     kernels' extend launch on (B,H,C,Dh) / (B,KV,T,Dh) views of the same
     memory, kv_len its device offsets (:func:`_extend_offsets`: nothing
-    read on the host). One token, a ring, CPU tensors and ``plain`` (what
+    read on the host). A decode step's one token (``mode`` "decode",
+    :func:`takes_decode_launch`) runs decode attention's dense launch over
+    the cache as it lies, plain or ring, at the same offsets (on CPU
+    tensors its plain version, these ops' bits); a one-row extend chunk
+    does not.
+    A chunk on a ring or on CPU tensors, and ``plain`` (what
     ``Model.forward`` passes unless ``fused``) take the reference's dense
     arithmetic, :func:`decode_stats`."""
-    if takes_extend_launch(q.is_cuda, q.shape[1], plain,
-                           is_ring(cache_k, window)):
+    B, C = q.shape[:2]
+    if takes_decode_launch(C, plain, cache_k.shape[1], window, mode):
+        if cache_k.dtype != q.dtype:
+            cache_k, cache_v = cache_k.to(q.dtype), cache_v.to(q.dtype)
+        return dense_decode_attention(
+            q[:, 0].contiguous(), cache_k, cache_v,
+            _extend_offsets(kv_len, B, q.device), scale=scale, softcap=cap,
+            window=window)[:, None]
+    if takes_extend_launch(q.is_cuda, C, plain, is_ring(cache_k, window)):
         if cache_k.dtype != q.dtype:
             cache_k, cache_v = cache_k.to(q.dtype), cache_v.to(q.dtype)
         return flash_extend_kernel(
@@ -483,6 +506,20 @@ def attend_decode(q, cache_k, cache_v, kv_len, *, scale: float,
             scale=scale, window=window, softcap=cap).transpose(1, 2)
     return _finalize(*decode_stats(q, cache_k, cache_v, kv_len, scale=scale,
                                    cap=cap, window=window))
+
+
+def takes_decode_launch(C: int, plain: bool, T: int, window: int,
+                        mode: str = "decode") -> bool:
+    """Whether :func:`attend_decode` runs one query a row through decode
+    attention's dense launch (its plain version on the CPU): unless
+    ``plain``, in a decode step (``mode``; the paged runtime's extend
+    chunks keep their route, whatever their rows) at C == 1 over a cache
+    of ``T`` slots that needs no window mask at one query (no window, or
+    T <= window: a ring, or a plain cache shorter than it;
+    ``dense_decode_ref`` says why). A shape rule, decided on the host
+    before any launch."""
+    return mode == "decode" and C == 1 and not plain and \
+        (window == 0 or T <= window)
 
 
 def takes_extend_launch(cuda: bool, C: int, plain: bool,

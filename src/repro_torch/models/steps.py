@@ -255,16 +255,41 @@ def _like(g, p):
     return g
 
 
+def _fused(fused: bool | None, model: Model, mesh) -> bool:
+    """A step's ``fused`` switch (``Model.forward``'s): by default on
+    where the forward takes it, a model on the card with no mesh; off on
+    the CPU (where both spellings are the same bits), on the meta device
+    (the step counter counts the plain arithmetic) and on a mesh. An
+    explicit ``fused=True`` on a mesh raises, as ``Model.forward``
+    does."""
+    if fused is None:
+        return mesh is None and model.device.type == "cuda"
+    if fused and mesh is not None:
+        raise ValueError("fused=True runs the fusion kernels on local "
+                         "tensors, never on a meshed model's DTensors")
+    return bool(fused)
+
+
 def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
                        rules: dict | None = None, model: Model | None = None,
-                       device="cuda", seed: int = 0) -> BuiltStep:
+                       device="cuda", seed: int = 0,
+                       fused: bool | None = None) -> BuiltStep:
     """``fn(cache, inputs) -> (next token (B,) int32, cache)``: the whole
     prompt (tokens, or embeddings for audio/VLM) through ``Model.forward``
     into a fresh dense cache of ``shape.seq_len`` positions
     (``logits=True``: the last position's fp32 logits too). On a mesh the
-    next tokens and logits come back whole and the cache as DTensors."""
+    next tokens and logits come back whole and the cache as DTensors.
+
+    ``fused`` (``Model.forward``'s; default on for a model on the card
+    with no mesh, :func:`_fused`): the attention layers' norms, the dense
+    FFN's gated activation and a plain cache's qkv pass with its cache
+    write through the fusion kernels (gemma2's local rings keep the plain
+    qkv and ring write; the attention is the flash kernel either way).
+    ``fused=False`` is the plain spelling. RWKV6 has no attention layer
+    and no gated FFN: there ``fused`` changes nothing."""
     rules = _rules(cfg, mesh, "prefill", rules)
     model = _model(cfg, model, mesh, rules, device=device, seed=seed)
+    fused = _fused(fused, model, mesh)
     B, S = shape.global_batch, shape.seq_len
     embeds_in = uses_embeds(cfg)
 
@@ -275,7 +300,7 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
             out, cache = model.forward(
                 tokens=None if embeds_in else inputs,
                 embeds=inputs if embeds_in else None, cache=cache,
-                cache_len=0, mode="prefill", logits_slice=1)
+                cache_len=0, mode="prefill", logits_slice=1, fused=fused)
             nxt = _next_tokens(out[:, -1])
             return (nxt, cache, full(out)) if logits else (nxt, cache)
 
@@ -289,7 +314,8 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
 def build_decode_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
                       rules: dict | None = None, model: Model | None = None,
                       device="cuda", seed: int = 0,
-                      cuda_graphs: bool = True) -> BuiltStep:
+                      cuda_graphs: bool = True,
+                      fused: bool | None = None) -> BuiltStep:
     """``fn(cache, tokens, cache_len) -> (next token (B,) int32, cache)``:
     one new token a row against a dense cache of ``shape.seq_len``
     positions, at the per-row offsets ``cache_len`` (host values or a
@@ -304,10 +330,21 @@ def build_decode_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     ``cuda_graphs=False`` and the meta device run it eagerly. On a mesh
     a batch under 8 takes the long-decode rules (the cache spread over
     its sequence), as the reference does; a cache placed by another
-    step is redistributed to them (the graph then keys on the copy)."""
+    step is redistributed to them (the graph then keys on the copy).
+
+    ``fused`` (default on for a model on the card with no mesh, as
+    :func:`build_prefill_step`'s): the norms, the qkv pass (one launch of
+    the decode qkv kernel where its plan takes the shapes, else the
+    products and the row pass) before the cache write, decode attention's
+    dense launch over the cache (plain or ring, gemma2's softcap on its
+    scores) and the dense FFN's gate / up products with their activation;
+    the graph captures that step. RWKV6 has no attention layer and no
+    gated FFN: there ``fused`` changes nothing. Graph and eager give the
+    same bits within one spelling."""
     rules = _rules(cfg, mesh, "decode_long" if shape.global_batch < 8
                    else "decode", rules)
     model = _model(cfg, model, mesh, rules, device=device, seed=seed)
+    fused = _fused(fused, model, mesh)
     B, S = shape.global_batch, shape.seq_len
 
     def decode_step(cache, tokens, cache_len, logits: bool = False):
@@ -315,7 +352,8 @@ def build_decode_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
             cache = _placed_cache(cache, model, rules)
             out, cache = model.forward(tokens=_batch(tokens, rules),
                                        cache=cache, cache_len=cache_len,
-                                       mode="decode", logits_slice=1)
+                                       mode="decode", logits_slice=1,
+                                       fused=fused)
             nxt = _next_tokens(out[:, -1])
             return (nxt, cache, full(out)) if logits else (nxt, cache)
 

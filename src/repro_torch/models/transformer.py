@@ -19,17 +19,22 @@ scan, optional cache write), "extend" (a chunk against an existing cache),
 blocks and WKV scan on any device, layers recomputed in backward).
 
 ``Model.forward(..., fused=True)`` (the paged runtime's prefill chunk
-with its ``fused`` switch on) runs the attention layers' RMS norms, with
-their residual adds, the final norm and the dense FFN's gated product
-(``gate_up_act``: its one launch at up to 16 bf16 rows, else the two
-products and the gated activation's kernel) through
-:mod:`repro_torch.kernels.fusions`, a prefill or extend chunk's
-qkv bias, qk norm, RoPE and cache write as one launch of the fusions'
-qkv kernel, and a chunk's attention over the cache as the flash kernels'
-extend launch, on CUDA tensors; the default keeps the plain spelling of
-all of them (the fresh prefill's attention is the flash kernel either
-way). Both give the same bits on the CPU. The rotary tables are built
-once a forward, from its positions.
+with its ``fused`` switch on; ``build_prefill_step`` and
+``build_decode_step`` on one card by default) runs the attention layers'
+RMS norms, with their residual adds (zamba2's shared blocks' too), the
+final norm and the dense FFN's gated product (``gate_up_act``: its one
+launch at up to 16 bf16 rows, else the two products and the gated
+activation's kernel) through :mod:`repro_torch.kernels.fusions`, a
+prefill or extend chunk's qkv bias, qk norm, RoPE and cache write over a
+plain cache as one launch of the fusions' qkv kernel, a one-token step's
+qkv products with that chain as the decode qkv launch (or the products
+and the row pass's kernel, by shape) before its cache write, a chunk's
+attention over the cache as the flash kernels' extend launch and a
+one-token step's as decode attention's dense launch, on CUDA tensors;
+the default keeps the plain spelling of all of them (the fresh
+prefill's attention is the flash kernel either way). Both give the same
+bits on the CPU. RWKV6 and Mamba2 layers keep their own ops either way.
+The rotary tables are built once a forward, from its positions.
 """
 from __future__ import annotations
 
@@ -380,8 +385,11 @@ class Model(nn.Module):
         backward needs. ``fused``: a prefill or extend chunk on CUDA
         tensors over a plain cache (not a ring) takes its qkv bias, qk
         norm, RoPE and cache write as one launch (:func:`_fused_qkv_write`),
-        and extend and decode attention the extend launch where
-        ``attend_decode`` takes it; else (and on the CPU) the plain
+        a one-token step on CUDA tensors its qkv pass through
+        ``fusions.qkv_proj`` before its cache write
+        (:func:`_fused_decode_qkv`), and extend and decode attention the
+        extend launch or decode attention's dense launch where
+        ``attend_decode`` takes them; else (and on the CPU) the plain
         spelling."""
         cfg = self.cfg
         scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -390,6 +398,11 @@ class Model(nn.Module):
                 functools.partial(_fused_qkv_write, cache=kv,
                                   cache_len=cache_len,
                                   rows=mode == "prefill")))
+        elif _takes_decode_qkv(fused, h, kv, mode, cfg, rope):
+            q, k, v = attn.qkv_project(p, h, cfg, rope=rope, project=(
+                functools.partial(_fused_decode_qkv, cache=kv,
+                                  cache_len=cache_len,
+                                  ring=attn.is_ring(kv[0], window))))
         else:
             q, k, v = attn.qkv_project(p, h, cfg, rope=rope)
             if isinstance(q, DTensor):
@@ -404,7 +417,7 @@ class Model(nn.Module):
         if mode in ("extend", "decode"):
             o = attn.attend_decode(q, kv[0], kv[1], cache_len, scale=scale,
                                    cap=cfg.attn_softcap, window=window,
-                                   plain=not fused)
+                                   plain=not fused, mode=mode)
         elif mode == "train" and window:
             o = attn.windowed_blocks(q, k, v, scale=scale, window=window,
                                      cap=cfg.attn_softcap,
@@ -470,16 +483,25 @@ class Model(nn.Module):
                                 scanned, fused=fused)
         return x + f
 
-    def _shared_block(self, p: dict, x, x0, kv, cache_len, rope, mode):
+    def _shared_block(self, p: dict, x, x0, kv, cache_len, rope, mode,
+                      fused: bool = False):
         """zamba2's shared attention + MLP block: its input is
         ``concat(x, x0) @ win``, with x0 the (scaled) embeddings; its
-        output is added to the residual stream."""
+        output is added to the residual stream. ``fused``: its ln1 and
+        its add + ln2 (reading the fp32 sum) through the norm kernel, its
+        attention as :meth:`_attn_apply`'s and its MLP's gated product as
+        ``gate_up_act`` (the plain spelling: ``rms_norm``,
+        ``add_rms_norm`` and ``mlp_apply``'s ops, bit for bit)."""
         cfg = self.cfg
         h = matmul(torch.cat([x, x0], dim=-1), p["win"])
-        a = self._attn_apply(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
-                             kv, cache_len, rope, mode)
-        h, h2 = add_rms_norm(h, a, p["ln2"], cfg.norm_eps)
-        return x + (h + mlp_apply(p["mlp"], h2, cfg.activation))
+        a = self._attn_apply(p["attn"],
+                             self._norm(h, p["ln1"], fused=fused), kv,
+                             cache_len, rope, mode, fused=fused)
+        h, h2 = self._norm(h, p["ln2"], a, fp32_sum=True, fused=fused)
+        f = mlp_apply(p["mlp"], h2, cfg.activation, functools.partial(
+            fusions.gate_up_act, activation=cfg.activation) if fused
+            else None)
+        return x + (h + f)
 
     def _mamba_layer(self, p: dict, x, state, mode):
         """One Mamba2 layer and its residual add; returns (x, new state)."""
@@ -488,11 +510,12 @@ class Model(nn.Module):
             mode)
         return x + out, new
 
-    def _hybrid(self, w: Weights, x, cache, cache_len, rope, mode):
+    def _hybrid(self, w: Weights, x, cache, cache_len, rope, mode,
+                fused: bool = False):
         """zamba2's stack: per group g, shared block g mod
-        ``num_shared_blocks`` (its KV in ``shared_k/v[g]``), then the
-        group's E Mamba2 layers (their states in ``conv/ssm[g, e]``,
-        written back in place)."""
+        ``num_shared_blocks`` (its KV in ``shared_k/v[g]``; ``fused`` as
+        :meth:`forward`'s), then the group's E Mamba2 layers (their
+        states in ``conv/ssm[g, e]``, written back in place)."""
         cfg = self.cfg
         E = cfg.shared_attn_every
         x0 = x
@@ -502,7 +525,7 @@ class Model(nn.Module):
             shared = w.shared_blocks[g % len(w.shared_blocks)]
             x = _act(self._step(mode, functools.partial(
                 self._shared_block, shared, kv=kv, cache_len=cache_len,
-                rope=rope, mode=mode), x, x0))
+                rope=rope, mode=mode, fused=fused), x, x0))
             for e in range(E):
                 state = None if cache is None else {
                     "conv": cache["conv"][g, e], "ssm": cache["ssm"][g, e]}
@@ -573,7 +596,8 @@ class Model(nn.Module):
                 rows=None, fused: bool = False):
         """Embedding, the layer stack and the final norm (of ``rows``
         alone when given); ``fused`` as :meth:`forward`'s, read by the
-        attention layers and the final norm."""
+        attention layers (zamba2's shared blocks too) and the final norm
+        (not by RWKV6's layers and norms, which keep their ops)."""
         cfg = self.cfg
         if embeds is None:
             tokens = tokens.to(self.device)
@@ -606,8 +630,10 @@ class Model(nn.Module):
                            cfg.rope_fraction) \
             if cfg.pos_emb == "rope" else None
         x = _act(self._scale_embeddings(x))
+        if fused and mode == "decode" and rope is not None and x.is_cuda:
+            rope = _row_tables(rope, x.shape[0], S)
         if cfg.family == "hybrid":
-            x = self._hybrid(w, x, cache, cache_len, rope, mode)
+            x = self._hybrid(w, x, cache, cache_len, rope, mode, fused)
         elif cfg.local_global_alternating:
             W = cfg.sliding_window
             # extend and decode both read the ring after the chunk's write
@@ -791,6 +817,47 @@ def _takes_qkv_launch(fused: bool, h, kv, mode: str, window: int) -> bool:
     never gets here fused (``Model.forward`` refuses it)."""
     return fused and kv is not None and mode in ("prefill", "extend") \
         and h.is_cuda and not attn.is_ring(kv[0], window)
+
+
+def _takes_decode_qkv(fused: bool, h, kv, mode: str, cfg: ModelConfig,
+                      rope) -> bool:
+    """Whether a one-token step's qkv pass goes through
+    ``fusions.qkv_proj`` (:func:`_fused_decode_qkv`): ``fused``, a
+    decode step of one token a row, CUDA tensors, and head rows the row
+    pass takes (``fusions.takes_row_pass``: gemma2's fp32 Dh 256 does
+    not, and keeps the plain spelling). Within it, ``qkv_proj`` picks its
+    one launch or the products and the row pass by shape."""
+    rot_half = 0 if rope is None else rope[0].shape[-1]
+    return fused and kv is not None and mode == "decode" \
+        and h.shape[1] == 1 and h.is_cuda \
+        and fusions.takes_row_pass(cfg.head_dim, rot_half, h.element_size())
+
+
+def _fused_decode_qkv(x, wq, wk, wv, *, cache, cache_len, ring: bool,
+                      **chain):
+    """A one-token step's qkv pass from x (B, 1, d_model) as
+    ``fusions.qkv_proj`` (the three products with bias, qk norm and RoPE
+    in one launch where its plan takes the shapes, else the products and
+    the row pass's kernel), k and v then written into the layer's
+    ``cache`` pair at ``cache_len`` as :func:`attention.write_cache` writes
+    them (a ring's slot mod its length). Returns (q (B, 1, H, Dh), None,
+    None)."""
+    B = x.shape[0]
+    KV, Dh = wk.shape[1:]
+    k, v = (x.new_empty((B, KV, Dh)) for _ in range(2))
+    q = fusions.qkv_proj(x, wq, wk, wv, k_out=k, v_out=v, **chain)
+    attn.write_cache(cache[0], cache[1], k[:, None], v[:, None], cache_len,
+                     ring=ring)
+    return q[:, None], None, None
+
+
+def _row_tables(rope, B: int, S: int):
+    """The rotary tables with one row a token, (B, S, rot/2) and
+    contiguous, as the qkv launches read them: a host offset's (S,
+    rot/2) tables broadcast over the batch, copied once a forward."""
+    if rope[0].shape[:-1] == (B, S):
+        return rope
+    return tuple(t.expand(B, S, t.shape[-1]).contiguous() for t in rope)
 
 
 def _fused_qkv_write(q, k, v, *, cache, cache_len, rows: bool, **finish):

@@ -1062,7 +1062,11 @@ def test_kernels_line_names_the_fusions(fake_card, monkeypatch, capsys):
     assert rows["qkv_rope_chunk"]["route"] == "cuda"
     assert (rows["qkv_rope_chunk"]["source"],
             rows["qkv_rope_chunk"]["replaces"]) == chip_smoke.CHUNK_QKV
-    assert len(rows) == 9 + len(chip_smoke.FUSIONS)
+    assert (rows["dense_decode_attention"]["source"],
+            rows["dense_decode_attention"]["replaces"]) == (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/models/attention.py:272")
+    assert len(rows) == 10 + len(chip_smoke.FUSIONS)
 
 
 @pytest.mark.parametrize("broken", ["rms_norm", "qkv_rope", "decode_merge",
@@ -1260,3 +1264,226 @@ def test_an_empty_step_trace_is_taken_once_more(monkeypatch, traces, calls):
     assert chip_smoke.step_kernel_counts(
         lambda: None, lambda: resets.append(1)) == traces[calls - 1]
     assert len(seen) == calls and len(resets) == calls - 1
+
+
+def test_most_kernel_counts_takes_each_names_largest(monkeypatch):
+    """Two traced steps, a kernel dropped from each: every name's count
+    is its largest, so neither drop shows."""
+    from repro_torch.launch import profile_step
+    traces = [{"gemm": 16, "rsqrt": 5}, {"gemm": 17, "rsqrt": 4, "x": 1}]
+
+    def traced(fn, **kw):
+        return {"kernel_counts": traces.pop(0)}
+
+    monkeypatch.setattr(profile_step, "traced", traced)
+    assert chip_smoke.most_kernel_counts(lambda: None) == \
+        {"gemm": 17, "rsqrt": 5, "x": 1}
+    assert not traces
+
+
+def _dense_standin(q, k, v, offsets, **kw):
+    """The dense launch's arithmetic on the CPU: the plain version in fp32
+    (the scores unrounded, as the launch keeps them) over the caches with
+    their dead slots zeroed (the launch never reads them; the plain
+    version reads every slot), rounded to q's dtype."""
+    from repro_torch.kernels.decode_attention import dense_decode_ref
+    return dense_decode_ref(q.float(), torch.nan_to_num(k).float(),
+                            torch.nan_to_num(v).float(), offsets,
+                            **kw).to(q.dtype)
+
+
+@pytest.mark.parametrize("shape", chip_smoke.DENSE_DECODE
+                         + chip_smoke.DENSE_EDGES,
+                         ids=lambda s: s["name"])
+def test_dense_checks_on_cpu(shape):
+    """Phase 2's dense-launch check with the launch's arithmetic standing
+    in: the cases' NaN dead slots, each element within the tolerance
+    derived from the launch's roundings of the plain version in float64,
+    both dtypes."""
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = chip_smoke.check_dense(shape, dtype, gen, launch=_dense_standin,
+                                     device="cpu", rows=False)
+        assert 0 < got["max_abs_err"] <= got["tolerance"]
+        assert got["gap_over_tolerance"] <= 1.0
+
+
+def _dense_zeros(q, k, v, offsets, **kw):
+    return torch.zeros_like(q)
+
+
+def _dense_uncapped(q, k, v, offsets, **kw):
+    return _dense_standin(q, k, v, offsets, **dict(kw, softcap=0.0))
+
+
+def _dense_rounded_scores(q, k, v, offsets, **kw):
+    """The plain version in q's dtype: bf16 scores rounded to bf16."""
+    from repro_torch.kernels.decode_attention import dense_decode_ref
+    return dense_decode_ref(q, torch.nan_to_num(k), torch.nan_to_num(v),
+                            offsets, **kw)
+
+
+def _dense_last_split_dropped(q, k, v, offsets, *, window, **kw):
+    """Each row over its live slots short of its last 128-token split."""
+    out = []
+    for b in range(q.shape[0]):
+        live = min(int(offsets[b]) + 1, k.shape[1])
+        cut = (live - 1) // 128 * 128
+        out.append(_dense_standin(
+            q[b:b + 1], k[b:b + 1, :cut], v[b:b + 1, :cut],
+            torch.tensor([cut - 1], dtype=torch.int32), window=0, **kw)[0]
+            if cut else torch.zeros_like(q[b]))
+    return torch.stack(out)
+
+
+_CAPPED = chip_smoke.DENSE_EDGES[-1]
+
+
+@pytest.mark.parametrize("fault,shape", [
+    *((_dense_zeros, s) for s in chip_smoke.DENSE_DECODE + (_CAPPED,)),
+    *((_dense_last_split_dropped, s) for s in chip_smoke.DENSE_DECODE),
+    (_dense_uncapped, _CAPPED), (_dense_rounded_scores, _CAPPED)],
+    ids=lambda x: x["name"] if isinstance(x, dict) else x.__name__[7:])
+def test_dense_check_catches_each_fault(fault, shape):
+    """Phase 2's bf16 dense check fails a launch that writes zeros, drops
+    a row's last split, skips the softcap (q x 20: the scores at the cap)
+    or rounds its scores to bf16 as the plain spelling does."""
+    assert _CAPPED["qscale"] > 1 and _CAPPED["softcap"]
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_dense(shape, torch.bfloat16, gen, launch=fault,
+                               device="cpu", rows=False)
+
+
+def test_dense_bound_at_gemma2s_global_layer():
+    """The dense launch's bound at gemma2-9b's global layer: 4632 live
+    tokens x 8 KV heads x 256 x 2 bytes, K and V, ~37.9 MB at 3.35 TB/s."""
+    sheet = chip_smoke.card_datasheet("NVIDIA H100 80GB HBM3")
+    ms, by = chip_smoke.dense_bound(chip_smoke.DENSE_DECODE[0], 2, sheet)
+    assert by == "bytes" and ms == pytest.approx(0.0113319, rel=1e-4)
+
+
+@pytest.mark.parametrize("arch,fusions", [
+    ("gemma2-9b", {"rms_norm": None, "qkv_proj": 42, "gate_up_act": 42,
+                   "gated_act": 0, "qkv_rope_chunk": 0}),
+    ("zamba2-2.7b", {"rms_norm": None, "qkv_rope": 9, "gate_up_act": 9,
+                     "gated_act": 0, "qkv_rope_chunk": 0})])
+def test_path_e_fusions_follow_the_shapes(arch, fusions):
+    """The kernels a fused path E step runs: gemma2-9b's qkv launch (its
+    plan takes Dh 256 at one row), zamba2-2.7b's row pass (its Dh 80 is
+    refused by the plan), each sublayer's gate/up launch."""
+    cfg = get_config(arch)
+    assert chip_smoke.path_e_fusions(cfg) == fusions
+    assert chip_smoke.attention_calls(cfg) == (42 if arch == "gemma2-9b"
+                                               else 9)
+
+
+def _path_e_check(**kw) -> dict:
+    base = dict(max_abs_diff=0.05, argmax_gap=0.0, max_abs_logit=20.0,
+                layers=42, norms=4, scale=1 / 16, softcap=50.0,
+                score_max=3.0, gate_up_share=0.0, qkv_share=0.0)
+    return dict(base, **kw)
+
+
+def test_path_e_bound_counts_each_term():
+    """``path_e_bound``: sqrt(L) r max|logit| + 2 ulps, r from the norms
+    (2^-8 each), the P and output roundings (2^-7), the scores' rounding
+    (d = 2^-9 min(scale S, 0.45 softcap)) and the launches' shares."""
+    c = _path_e_check()
+    ulps = 2 * 2.0 ** (math.floor(math.log2(20.0)) - 7)
+    r = math.expm1(2 * 2.0 ** -9 * 3.0 / 16) + 2.0 ** -7 + 4 * 2.0 ** -8
+    L = math.sqrt(42)
+    assert chip_smoke.path_e_bound(c) == pytest.approx(L * r * 20 + ulps)
+    # the softcap bounds a score's move however large the raw score
+    big = chip_smoke.path_e_bound(_path_e_check(score_max=1e6))
+    r_cap = math.expm1(2 * 2.0 ** -9 * 0.45 * 50) + 2.0 ** -7 + 4 * 2.0 ** -8
+    assert big == pytest.approx(L * r_cap * 20 + ulps)
+    assert chip_smoke.path_e_bound(_path_e_check(score_max=1e6,
+                                                 softcap=0.0)) > 1e3
+    shares = chip_smoke.path_e_bound(_path_e_check(gate_up_share=0.01,
+                                                   qkv_share=0.01))
+    assert shares == pytest.approx(chip_smoke.path_e_bound(c) + L * 20 *
+                                   2.0 ** -7 * 4 * 0.1)
+
+
+@pytest.mark.parametrize("layers", [2, 4, 42])
+def test_path_e_gate_fails_a_zero_output_at_each_depth(layers):
+    """At each depth the gate holds, the bound stays below max|logit|: a
+    fused leg of zeros (a gap of max|logit|) fails it, and so does an
+    argmax flip between logits max|logit| apart."""
+    c = _card_path_e(layers)
+    assert chip_smoke.path_e_bound(c) < 0.2 * c["max_abs_logit"]
+    chip_smoke.assert_path_e_fused_vs_plain(c, cuda=True)
+    for gap in ("max_abs_diff", "argmax_gap"):
+        with pytest.raises(AssertionError):
+            chip_smoke.assert_path_e_fused_vs_plain(
+                dict(c, **{gap: c["max_abs_logit"]}), cuda=True)
+
+
+def _card_path_e(layers: int = 2, **kw) -> dict:
+    """A fused-vs-plain record as the card's gemma2-9b check gives it at
+    ``layers`` layers: the dense launch, the qkv launch and the gate/up
+    launch once a layer and step in the fused leg, none in the plain
+    one."""
+    n = 6 * layers
+    lf = dict(dense_decode_attention=n, qkv_proj=n, gate_up_act=n,
+              rms_norm=63, gated_act=layers, qkv_rope_chunk=1,
+              flash_attention=layers)
+    c = _path_e_check(layers=layers, steps=6, decode_stats_fused=0,
+                      fusions={"rms_norm": None, "qkv_proj": layers,
+                               "gate_up_act": layers, "gated_act": 0,
+                               "qkv_rope_chunk": 0},
+                      launches_fused=lf,
+                      launches_plain=dict(flash_attention=layers))
+    c.update(kw)
+    return c
+
+
+@pytest.mark.parametrize("edit,ok", [
+    (lambda c: None, True),
+    (lambda c: c.update(max_abs_diff=1e3), False),
+    (lambda c: c.update(argmax_gap=1e3), False),
+    (lambda c: c.update(decode_stats_fused=1), False),
+    (lambda c: c["launches_fused"].update(dense_decode_attention=11), False),
+    (lambda c: c["launches_plain"].update(dense_decode_attention=12), False),
+    (lambda c: c["launches_plain"].update(gate_up_act=12), False),
+    (lambda c: c["launches_fused"].pop("qkv_rope_chunk"), False),
+    (lambda c: c["launches_fused"].update(flash_attention=3), False)])
+def test_path_e_gate_catches_each_fault(edit, ok):
+    """``assert_path_e_fused_vs_plain`` on the card: the gap within its
+    bound, one dense launch a sublayer and step in the fused leg alone,
+    no plain dense arithmetic there, every fusion in the fused leg alone,
+    the same flash prefill."""
+    check = _card_path_e()
+    edit(check)
+    if ok:
+        chip_smoke.assert_path_e_fused_vs_plain(check, cuda=True)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.assert_path_e_fused_vs_plain(check, cuda=True)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-2.7b"])
+def test_path_e_fused_vs_plain_on_cpu(arch):
+    """Phase 7's fused-vs-plain check at smoke width on the CPU: both legs
+    the plain versions (the dense launch's among them on the fused leg),
+    equal bit for bit, nothing launched, no plain dense arithmetic in the
+    fused leg; and the published-init checks at two cut depths."""
+    cfg = get_config(arch, smoke=True)
+    run = PATH_E_SMOKE[arch]
+    model = Model(cfg, device="cpu", seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (2, run["prompt"]),
+                         generator=torch.Generator().manual_seed(2))
+    check = chip_smoke.forward_fused_vs_plain(model, toks, 3,
+                                              run["prompt"] + 3)
+    check.update(gate_up_share=0.0, qkv_share=0.0)
+    chip_smoke.assert_path_e_fused_vs_plain(check, cuda=False)
+    assert check["argmax_equal"] and check["score_max"] > 0
+    chip_smoke.published_path_e_checks(
+        cfg, dict(B=2, prompt=run["prompt"], max_len=run["prompt"] + 8,
+                  check="7x", published=run["depths"]), "cpu")
+    pair = chip_smoke.decode_pair(model, toks, 2, fused=True)
+    plain = chip_smoke.decode_pair(model, toks, 2, fused=False)
+    side = chip_smoke.path_e_legs(pair, plain)
+    assert set(side) == {"fused", "plain"}
+    assert set(side["fused"]) == {"prefill_s", "graph", "eager"}

@@ -474,3 +474,70 @@ def test_row_pass_partner_follows_the_shape(arch):
     assert fk.rope_geometry(128, 64, 2).partner == "lanes"
     assert fk.rope_geometry(80, 10, 2).partner == "shared"
     assert fk.rope_geometry(80, 10, 4).partner == "shared"
+
+
+#: path E's one-token attention: (arch, B, T, window of the cache): gemma2
+#: -9b's global layers (a plain 4672-slot cache) and local rings (4096
+#: slots), zamba2-2.7b's shared blocks (2048 slots)
+DENSE_PATH_E = [("gemma2-9b", 1, 4672, 0), ("gemma2-9b", 1, 4096, 4096),
+                ("zamba2-2.7b", 2, 2048, 0)]
+
+
+@pytest.mark.parametrize("arch,B,T,window", DENSE_PATH_E)
+def test_dense_launch_takes_path_e(no_launch, arch, B, T, window):
+    """Decode attention's dense launch at path E's shapes: its plan (splits
+    of 128 tokens, ceil(T / 128) a (row, KV head), a function of T
+    alone; the tensor-core split at gemma2's and zamba2's head dims) and
+    every host check of the wrapper over a view of the model's stacked
+    cache (heads D apart, the layer's row stride) with int32 device
+    offsets and gemma2's softcap, stopping at the launch's lookup:
+    nothing launched. The qkv launch's plan takes gemma2's one-row step
+    (Dh 256) and refuses zamba2's Dh 80 before any launch (its step takes
+    the products and the row pass)."""
+    from repro_torch.kernels.fusions import plan_qkv
+    cfg = get_config(arch)
+    KV, G, D = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+        cfg.head_dim
+    plan = decode_kernel.plan_dense_decode(B, T, KV, G, D, 2)
+    assert plan.max_splits == -(-T // 128) and plan.split_pages == 1
+    assert plan.grid == (plan.max_splits, KV, B) and plan.tensor_cores
+    assert plan.smem_bytes <= decode_kernel.SMEM_PER_BLOCK
+    for b in (1, 8):       # a row's splits do not move with the batch
+        assert decode_kernel.plan_dense_decode(
+            b, T, KV, G, D, 2).max_splits == plan.max_splits
+    cache = torch.zeros(2, B, T, KV, D, dtype=torch.bfloat16)
+    q = torch.zeros(B, KV * G, D, dtype=torch.bfloat16)
+    offs = torch.full((B,), T - 1, dtype=torch.int32)
+    assert decode_kernel.check_dense_operands(
+        *map(_on_card, (q, cache[1], cache[1], offs)), window,
+        cfg.attn_softcap) == (B, T, KV, G, D, T * KV * D, KV * D)
+    with pytest.raises(AssertionError, match="looked up"):
+        decode_kernel.dense_decode_attention_kernel(
+            *map(_on_card, (q, cache[1], cache[1], offs)),
+            softcap=cfg.attn_softcap, window=window)
+    rot = int(D * cfg.rope_fraction) // 2
+    if arch == "gemma2-9b":
+        assert plan_qkv(B, cfg.d_model, cfg.num_heads, KV, D,
+                        rot_half=rot).split >= 1
+    else:
+        with pytest.raises(ValueError):
+            plan_qkv(B, cfg.d_model, cfg.num_heads, KV, D, rot_half=rot)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_dense_plan_takes_each_family(arch):
+    """Every family with attention, published and smoke widths: its (KV,
+    G, Dh) against the dense launch's plan in bf16 and fp32 at a 4096-slot
+    cache (no config crosses the decode kernel's domain, ROADMAP P7)."""
+    for smoke in (False, True):
+        cfg = get_config(arch, smoke=smoke)
+        if cfg.family == "ssm":
+            continue
+        KV = cfg.num_kv_heads
+        for esz in (2, 4):
+            plan = decode_kernel.plan_dense_decode(
+                2, 4096, KV, cfg.num_heads // KV, cfg.head_dim, esz)
+            assert plan.max_splits == 32 and plan.grid[1] == KV
+            assert plan.smem_bytes <= decode_kernel.SMEM_PER_BLOCK
+            assert plan.tensor_cores == (esz == 2 and cfg.head_dim in
+                                         decode_kernel.TC_HEAD_DIMS)

@@ -279,6 +279,7 @@ class TestPageCopy:
     def test_cpu_calls_launch_no_kernel(self):
         """Everything above ran on CPU tensors: no CUDA kernel launched."""
         assert launch_counts() == {"paged_decode_attention": 0,
+                                   "dense_decode_attention": 0,
                                    "page_gather": 0, "page_scatter": 0,
                                    "token_append": 0,
                                    "token_append_indexed": 0,
