@@ -90,7 +90,9 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          replayed at offsets 2048, 0 and 1037 bit-equal to eager
          launches; bad offsets and inputs TMA cannot take refused.
          Decode attention's dense launch (path E's one-token step over
-         ``Model.forward``'s cache) against its plain version at
+         ``Model.forward``'s cache; in bf16 its own kernel,
+         ``csrc/dense_decode.cu``, a row's splits one cluster) against
+         its plain version at
          gemma2-9b's global layer (4672 slots) and local ring (4096,
          wrapped), softcap 50, and zamba2-2.7b's shared block (B 2, Dh
          80), and at edges (a ring not yet full, rows at other offsets
@@ -98,8 +100,10 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          20 so the softcap bends the scores), bf16 and fp32, every dead
          slot NaN: finite, each element within ``dense_tolerance`` of
          the plain version in float64 (a bound from the launch's own
-         roundings), rows alone bit-equal to the batched call,
-         dead slots never read; timed over 4 caches in turn beside the
+         roundings), rows alone bit-equal to the batched call (and a
+         row alone bit-equal to the same row in a B = 3 batch at path
+         E's shapes), dead slots never entering the result; the plan
+         of path E's shapes logged; timed over 4 caches in turn beside the
          bound and, at zamba2's shape (no softcap), SDPA; one graph
          replayed at 64 offset sets bit-equal to eager calls; what it
          does not take refused before any launch.
@@ -956,9 +960,23 @@ DENSE_DECODE = (
          window=4096, softcap=50.0, offs=(4631,)),
     dict(name="zamba2-2.7b shared", B=2, T=2048, KV=32, G=1, D=80,
          window=0, softcap=0.0, offs=(2031, 2031)))
+#: the dense kernel at the other head geometries it instantiates: G 16 at
+#: Dh 128 (two n tiles of query heads; qwen3-moe-235b's and glm4-9b's
+#: heads) with two KV heads a CTA and with one, Dh 64 with two KV heads a
+#: CTA and the softcap, Dh 16 with four over a wrapped ring
+DENSE_HEAD_EDGES = (
+    dict(name="G 16 at Dh 128, two KV heads a CTA", B=2, T=1536, KV=4,
+         G=16, D=128, window=0, softcap=0.0, offs=(1535, 600)),
+    dict(name="G 16 at Dh 128, one KV head a CTA", B=2, T=4000, KV=1,
+         G=16, D=128, window=0, softcap=0.0, offs=(3999, 31)),
+    dict(name="Dh 64, two KV heads a CTA", B=3, T=3000, KV=2, G=6, D=64,
+         window=0, softcap=30.0, offs=(2999, 100, 1777)),
+    dict(name="Dh 16, four KV heads a CTA", B=2, T=5000, KV=4, G=3, D=16,
+         window=5000, softcap=0.0, offs=(7000, 9)))
 #: edges: a ring not yet full and the first token, rows at other offsets
 #: (one at the last slot), a cache read through a row stride past its
-#: slots (``pad``), the CUDA-core split at gemma2's smoke head dim 32
+#: slots (``pad``), the CUDA-core split at gemma2's smoke head dim 32,
+#: DENSE_HEAD_EDGES, the softcap bending the scores
 DENSE_EDGES = (
     dict(name="ring not full", B=2, T=4096, KV=8, G=2, D=256, window=4096,
          softcap=50.0, offs=(100, 0)),
@@ -968,6 +986,7 @@ DENSE_EDGES = (
          softcap=0.0, offs=(2047, 640), pad=16),
     dict(name="smoke head dim", B=2, T=32, KV=2, G=2, D=32, window=32,
          softcap=50.0, offs=(40, 7)),
+    *DENSE_HEAD_EDGES,
     # q x 20: scaled scores N(0, 20^2), most past +-30 and the largest
     # ~75, which the softcap bends to ~45: without it one token would
     # take the row
@@ -1157,7 +1176,8 @@ def time_dense(shape: dict, gen, sheet: dict) -> dict:
 def check_dense_graph(gen) -> int:
     """One captured dense call (zamba2's shape) replayed at offsets that
     change every replay, each replay's output bit-equal to an eager
-    call's; the ticket counters all zero after. Returns the replays."""
+    call's; the paged launch's ticket counters all zero after (the dense
+    kernel keeps none). Returns the replays."""
     import numpy as np
     import torch
     from repro_torch.kernels.decode_attention import kernel as decode_kernel
@@ -1223,14 +1243,45 @@ def check_dense_refusals(gen) -> None:
     assert decode_kernel.dense_decode_attention_kernel.launches == before
 
 
+def check_dense_row_in_batch(gen) -> int:
+    """At each DENSE_DECODE and DENSE_HEAD_EDGES shape in bf16, one row
+    called alone (its q
+    and caches fresh contiguous copies) and the same row inside a B = 3
+    batch, between rows at other offsets: bit-equal outputs (the dense
+    plan never reads B, the offsets or the row strides). Returns the
+    shapes checked."""
+    import torch
+    for shape in DENSE_DECODE + DENSE_HEAD_EDGES:
+        off = shape["offs"][0]
+        case = dense_case(dict(shape, B=3, offs=(17, off, shape["T"] - 1)),
+                          torch.bfloat16, gen, "cuda")
+        call = dense_call(shape)
+        q, k, v, offs = case["q"], case["k"][0], case["v"][0], case["offs"]
+        batch = call(q, k, v, offs)[1]
+        alone = call(q[1:2].clone(), k[1:2].clone(), v[1:2].clone(),
+                     offs[1:2].clone())[0]
+        assert same_bits(alone, batch), (shape["name"], "row 1 alone")
+        torch.cuda.empty_cache()
+    return len(DENSE_DECODE + DENSE_HEAD_EDGES)
+
+
 def check_dense_decodes(gen, sheet: dict) -> dict:
     """Phase 2's dense launch: DENSE_DECODE and DENSE_EDGES in bf16 and
     fp32 against the plain version in float64, the timed records of DENSE_DECODE
     (logged; the first is the kernels line's), one graph replayed at
     changing offsets, the refusals."""
     import torch
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
     records = {}
     err = 0.0
+    for shape in DENSE_DECODE:
+        # path E's shapes take the dense kernel of csrc/dense_decode.cu
+        plan = decode_kernel.plan_dense_decode(*(shape[k] for k in (
+            "B", "T", "KV", "G", "D")), 2)
+        assert plan.route == "cluster", (shape["name"], plan)
+        log(f"phase2 dense_decode_attention plan {shape['name']}: "
+            f"{json.dumps(dataclasses.asdict(plan.split))}, grid "
+            f"{list(plan.grid)}")
     for shape in DENSE_DECODE + DENSE_EDGES:
         dims = {k: v for k, v in shape.items() if k != "name"}
         for dtype in (torch.bfloat16, torch.float32):
@@ -1247,6 +1298,9 @@ def check_dense_decodes(gen, sheet: dict) -> dict:
     log(f"phase2 dense_decode_attention: one graph replayed at "
         f"{check_dense_graph(gen)} offset sets bit-equal to eager calls, "
         f"ticket counters all zero after")
+    log(f"phase2 dense_decode_attention: a row alone bit-equal to the "
+        f"same row in a B = 3 batch at {check_dense_row_in_batch(gen)} "
+        f"shapes")
     check_dense_refusals(gen)
     log("phase2 dense_decode_attention: a cache past its window, int64 "
         "and host offsets, a q of another dtype, heads not D apart and a "
@@ -2703,8 +2757,12 @@ GATED_ACT_WIDE = {"chunk": (512, 8960, "silu"),
 def gated_act_wide_times(gen, kernels, sheet: dict) -> dict:
     """The gated activation by CUDA-graph replay at GATED_ACT_WIDE's rows
     (``device_ms_<name>``), each beside its bytes' bound (gate and up
-    read, the product written: ``bound_ms_<name>``)."""
+    read, the product written: ``bound_ms_<name>``) and one PyTorch
+    spelling of the same function (``F.silu(gate) * up``, or the tanh
+    GELU's ``F.gelu(gate, approximate="tanh") * up``) the same way
+    (``library_device_ms_<name>``; a yardstick that rounds otherwise)."""
     import torch
+    import torch.nn.functional as F
     kern = kernels["gated_act"][0]
     out = {}
     for name, (rows, F_, act) in GATED_ACT_WIDE.items():
@@ -2714,6 +2772,9 @@ def gated_act_wide_times(gen, kernels, sheet: dict) -> dict:
         out[f"device_ms_{name}"] = graph_ms(lambda: kern(gate, up, act),
                                             iters=5)
         out[f"bound_ms_{name}"] = 3 * rows * F_ * 2 / sheet["hbm_bw"] * 1e3
+        lib = (lambda: F.silu(gate) * up) if act == "silu" else \
+            (lambda: F.gelu(gate, approximate="tanh") * up)
+        out[f"library_device_ms_{name}"] = graph_ms(lib, iters=5)
         del gate, up
     return out
 
@@ -6996,7 +7057,7 @@ def main() -> int:
         # no Pallas kernel: XLA's fusion of the reference's attend_decode
         # at C == 1 (Model.forward's one-token step)
         "dense_decode_attention": (
-            "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro_torch/csrc/dense_decode.cu",
             "src/repro/models/attention.py:272"),
         "page_gather": ("src/repro_torch/csrc/page_copy.cu",
                         "src/repro/kernels/page_copy/kernel.py:45"),

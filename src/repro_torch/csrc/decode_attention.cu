@@ -68,7 +68,9 @@
 // The dense launch (dense_decode_launch). Model.forward's one-token step
 // (the reference's attend_decode at C == 1, src/repro/models/attention.py
 // :272, which XLA fuses) attends over a layer's dense (B, T, KV, D) cache,
-// not over pages: the same split kernels read it by its row and token
+// not over pages. In bf16 at the tensor-core head dims that is a kernel
+// of its own (dense_decode.cu); in fp32 (the equivalence checks) and at
+// other head dims the CUDA-core split kernel reads it by its row and token
 // strides (KvRows, no table), each row's live length from the step's
 // device offsets, min(offset + 1, T) (the new token is written first, as
 // the reference orders it; a ring's T slots, once full, hold exactly the
@@ -1027,11 +1029,10 @@ int launch_tc(dim3 grid, cudaStream_t stream,
 // The tensor-core split for bf16 at the head dims of the repo's paged
 // families, gemma2's and zamba2's and the smoke models'; -1 where it has
 // no instantiation.
-template <bool CAP>
 int dispatch_tc(dim3 grid, cudaStream_t stream,
                 const Call<__nv_bfloat16>& c) {
 #define REPRO_TC(HD) \
-  if (c.D == HD) return launch_tc<HD / 16, CAP>(grid, stream, c);
+  if (c.D == HD) return launch_tc<HD / 16, false>(grid, stream, c);
   REPRO_TC(16) REPRO_TC(64) REPRO_TC(80) REPRO_TC(128) REPRO_TC(256)
 #undef REPRO_TC
   return -1;
@@ -1040,7 +1041,9 @@ int dispatch_tc(dim3 grid, cudaStream_t stream,
 template <typename T, bool CAP>
 int launch_call(dim3 grid, cudaStream_t stream, const Call<T>& c) {
   int err = -1;
-  if constexpr (sizeof(T) == 2) err = dispatch_tc<CAP>(grid, stream, c);
+  // the softcap is the dense launch's alone, which sends no bf16 head dim
+  // of the tensor-core split here (dense_decode.cu takes those)
+  if constexpr (sizeof(T) == 2 && !CAP) err = dispatch_tc(grid, stream, c);
   if (err != -1) return err;
   // fp32, or a head dim without a tensor-core kernel
   const int tile = tile_tokens(c.D, sizeof(T));
@@ -1135,7 +1138,9 @@ int paged_decode_launch(const void* q, const void* k_pool, const void* v_pool,
                   static_cast<cudaStream_t>(stream));
 }
 
-// The same split kernels over a dense cache: k and v (B, T, KV, D) with
+// The split kernels over a dense cache, in fp32 and at the bf16 head dims
+// dense_decode.cu has no instantiation for (the host's plan sends it the
+// rest): k and v (B, T, KV, D) with
 // rows row_stride and tokens tok_stride elements apart (heads D apart,
 // elements contiguous, 16-byte aligned), offsets (B,) int32 on the device:
 // row b attends over its first min(offsets[b] + 1, T) tokens, the new

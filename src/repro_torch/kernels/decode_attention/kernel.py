@@ -15,11 +15,16 @@ its bound and design. :func:`plan_decode` is the host side of the launch
 as a pure function of integers, so the CPU tests reach it;
 :func:`ticket_counters` keeps the counters.
 
-:func:`dense_decode_attention_kernel` is the same launch over a layer's
+:func:`dense_decode_attention_kernel` is decode attention over a layer's
 dense ``(B, T, KV, D)`` cache (``Model.forward``'s one-token step: the
 reference's ``attend_decode`` at C == 1, which XLA fuses), read by its
 strides, each row's length from the step's device offsets, with gemma2's
-tanh softcap; :func:`plan_dense_decode` is its host side.
+tanh softcap. In bf16 at the head dims of ``DENSE_HEAD_DIMS`` it is a
+kernel of its own (``csrc/dense_decode.cu``: a row's splits one
+thread-block cluster, fed by bulk copies through an mbarrier ring,
+merged in distributed shared memory; :func:`plan_dense_split`); in fp32
+and at other head dims the paged split kernels over the cache.
+:func:`plan_dense_decode` is its host side.
 """
 from __future__ import annotations
 
@@ -34,11 +39,16 @@ from repro_torch.kernels import _build, device_guard, stream_handle
 from repro_torch.kernels.decode_attention.ref import SPLIT_TOKENS
 
 _LIB = "decode_attention"
+_CLUSTER_LIB = "dense_decode"
 _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + \
     [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _DENSE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
     [ctypes.c_longlong] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int] + \
     [ctypes.c_void_p]
+_CLUSTER_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
+    [ctypes.c_float] * 2 + [ctypes.c_void_p]
+_MAPS_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + \
+    [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_PER_BLOCK = 232_448      # bytes of shared memory a Hopper block may use
 # constants of the source: threads (warps) a block, K/V stages in flight,
@@ -286,16 +296,159 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
 paged_decode_attention_kernel.launches = 0
 
 
-def plan_dense_decode(B: int, T: int, KV: int, G: int, D: int,
-                      esz: int) -> DecodePlan:
-    """The dense launch of a call over a ``T``-slot cache: the paged plan
-    of SPLIT_TOKENS-token "pages", ceil(T / SPLIT_TOKENS) of them, one a
-    split (the source's ``dense_decode_launch``), so the splits depend on
-    T alone, never on B or the offsets. Raises ``ValueError`` on what the
-    kernel does not take, before any launch."""
+#: the dense launch's own kernel (``csrc/dense_decode.cu``): bf16 at these
+#: head dims (the old tensor-core route's); a CTA is DENSE_CONSUMERS
+#: consumer warps and a producer warp, stages of DENSE_STAGE_TOKENS
+#: tokens, at most DENSE_MAX_STAGES of them, clusters of at most
+#: DENSE_MAX_CLUSTER CTAs, DENSE_BAR_BYTES of mbarriers (the source's
+#: kConsumers, kStageTokens, kMaxStages, kMaxCluster, kBarBytes)
+DENSE_HEAD_DIMS = (16, 64, 80, 128, 256)
+DENSE_CONSUMERS, DENSE_STAGE_TOKENS, DENSE_MAX_STAGES = 4, 16, 8
+DENSE_MAX_CLUSTER, DENSE_BAR_BYTES = 16, 256
+#: the plan's: Q, the merge's inbox and the ring within DENSE_SMEM_BUDGET
+#: bytes (two CTAs an SM), a CTA's KV heads at most DENSE_HEAD_BYTES of a
+#: token's K, about DENSE_CTA_BYTES of K and V a CTA at a full cache
+DENSE_SMEM_BUDGET, DENSE_HEAD_BYTES = 113 * 1024, 640
+DENSE_CTA_BYTES = 384 * 1024
+#: the plan's clusters stop at 14 CTAs: 8 clusters of 14 lie one CTA an SM
+#: on the H100 (112 SMs), where 8 of 16 put 2 CTAs on 16 SMs, whose
+#: clusters then finish last (gemma2-9b's global layer 0.0233 ms against
+#: 0.0253 in one call, ``launch/kernel_pair.py --only dense``)
+DENSE_PLAN_CLUSTER = 14
+#: two tensor maps (K's, V's), the bytes of CUtensorMap each (kMapBytes)
+DENSE_MAP_BYTES = 2 * 128
+
+
+def dense_boxes(D: int) -> tuple[int, int]:
+    """(boxes, width): a head's row of D elements as TMA boxes of 16 tokens
+    x ``width`` elements (past D zero-filled), the width 8 times an odd
+    number so a box's rows read conflict-free (``box_count`` /
+    ``box_width`` in the source)."""
+    n = 1 if D <= 248 else 2
+    w = -(-(-(-D // n)) // 8) * 8
+    return n, w if (w // 8) % 2 else w + 8
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseSplitPlan:
+    """The dense kernel's geometry, from (T, KV, G, D) alone: ``heads``
+    KV heads a CTA, ``cluster`` CTAs (the row's splits, one cluster) a
+    (row, head group) of ``split`` tokens each, ``stages`` ring slots,
+    ``chunk`` output elements a rank finishes (a power of two),
+    ``smem_bytes`` of dynamic shared memory a CTA."""
+    heads: int
+    cluster: int
+    split: int
+    stages: int
+    chunk: int
+    smem_bytes: int
+
+    @property
+    def warps_per_head(self) -> int:
+        return DENSE_CONSUMERS // self.heads
+
+
+def dense_geometry(T: int, KV: int, G: int, D: int,
+                   cluster: int = 0) -> DenseSplitPlan:
+    """The dense kernel's plan at any head dim (the kernel itself takes
+    DENSE_HEAD_DIMS; :func:`plan_dense_split` checks): the heads a
+    CTA where a token's K of them fits DENSE_HEAD_BYTES (4, 2 or 1,
+    dividing KV); the cluster the power of two (at most a stage of tokens
+    each) that gives a CTA about DENSE_CTA_BYTES of K and V over all T
+    slots, capped at DENSE_PLAN_CLUSTER, each split ceil(T / cluster)
+    tokens rounded up to a stage; a rank finishing a power of two of the
+    row's outputs, at or above ceil(heads G D / cluster); as many ring
+    slots (at most DENSE_MAX_STAGES) as fit beside Q and the merge's
+    inbox within DENSE_SMEM_BUDGET; the shared memory the source lays out
+    for it (``checked_plan``, which refuses a plan it cannot hold).
+    ``cluster`` > 0 forces the cluster size (measurements, and the tests'
+    schedules)."""
+    heads = next((h for h in (4, 2) if KV % h == 0
+                  and h * D * 2 <= DENSE_HEAD_BYTES), 1)
+    want = -(-4 * heads * D * T // DENSE_CTA_BYTES)
+    c = 1
+    while c < want and c < DENSE_MAX_CLUSTER:
+        c *= 2
+    while c > 1 and c > -(-T // DENSE_STAGE_TOKENS):
+        c //= 2
+    c = cluster or min(c, DENSE_PLAN_CLUSTER)
+    split = -(-(-(-T // c)) // DENSE_STAGE_TOKENS) * DENSE_STAGE_TOKENS
+    P = heads * G
+    chunk = 1
+    while chunk * c < P * D:
+        chunk *= 2
+    q_bytes = 2 * heads * 16 * (D + 8)
+    in_bytes = -(-4 * (c * chunk + 2 * c * P) // 128) * 128
+    nbx, width = dense_boxes(D)
+    stage = 2 * 2 * heads * nbx * DENSE_STAGE_TOKENS * width
+    n_st = min(DENSE_MAX_STAGES, max(1, (
+        DENSE_SMEM_BUDGET - DENSE_BAR_BYTES - q_bytes - in_bytes) // stage))
+    merge = 4 * (DENSE_CONSUMERS * G * (D + 2) + c * P + P)
+    smem = DENSE_BAR_BYTES + q_bytes + in_bytes + max(n_st * stage, merge)
+    return DenseSplitPlan(heads, c, split, n_st, chunk, smem)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_dense_split(T: int, KV: int, G: int, D: int,
+                     cluster: int = 0) -> DenseSplitPlan:
+    """The dense kernel's plan (:func:`dense_geometry`), a function of
+    (T, KV, G, D) alone; the launch passes it to the source, which keeps
+    no plan of its own. Raises ``ValueError`` on what the kernel does not
+    take: another head dim, G past 16 (8 above head_dim 128), a forced
+    cluster past the source's or shared memory past a block's."""
+    if D not in DENSE_HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the dense kernel takes "
+                         f"{DENSE_HEAD_DIMS}")
+    if T < 1 or KV < 1 or not 1 <= G <= 16 or (D > 128 and G > 8):
+        raise ValueError(f"{G} query heads a KV head at head_dim {D}: at "
+                         f"most 16 (8 above head_dim 128); T {T}, KV {KV}")
+    if not 0 <= cluster <= DENSE_MAX_CLUSTER:
+        raise ValueError(f"cluster {cluster}: at most {DENSE_MAX_CLUSTER}")
+    plan = dense_geometry(T, KV, G, D, cluster)
+    if plan.smem_bytes > SMEM_PER_BLOCK:
+        raise ValueError(f"{plan.smem_bytes} bytes of shared memory")
+    return plan
+
+
+def dense_split_ranges(T: int, plan: DenseSplitPlan,
+                       length: int) -> list[tuple[int, int]]:
+    """Each rank's token range ``[t0, t1)`` of a row of ``length`` live
+    slots (empty past it), rank 0 first: the kernel's splits."""
+    return [(min(r * plan.split, length),
+             min(length, (r + 1) * plan.split)) for r in range(plan.cluster)]
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePlan:
+    """The dense launch of a call: ``route`` "cluster" (bf16 at
+    DENSE_HEAD_DIMS: the kernel of ``csrc/dense_decode.cu``, ``split``
+    its plan) or "split" (fp32 and other head dims: the paged split
+    kernels over the cache, ``split`` their plan, with its workspace and
+    ticket counters); ``grid`` the launch's."""
+    route: str
+    split: DenseSplitPlan | DecodePlan
+    grid: tuple[int, int, int]
+
+
+def plan_dense_decode(B: int, T: int, KV: int, G: int, D: int, esz: int,
+                      cluster: int = 0) -> DensePlan:
+    """The dense launch of a call over a ``T``-slot cache, a function of
+    (T, KV, G, D) and the dtype, never of B or the offsets (B sets only
+    the grid's last dimension). bf16 at DENSE_HEAD_DIMS:
+    :func:`plan_dense_split` (``cluster`` for measurements);
+    otherwise the paged plan of SPLIT_TOKENS-token "pages",
+    ceil(T / SPLIT_TOKENS) of them, one a split (the source's
+    ``dense_decode_launch``). Raises ``ValueError`` on what neither
+    takes, before any launch."""
     if T < 1:
         raise ValueError(f"a dense cache of {T} slots")
-    return plan_decode(B, KV, G, D, esz, SPLIT_TOKENS, -(-T // SPLIT_TOKENS))
+    if esz == 2 and D in DENSE_HEAD_DIMS:
+        plan = plan_dense_split(T, KV, G, D, cluster)
+        return DensePlan("cluster", plan, (plan.cluster, KV // plan.heads, B))
+    if cluster:
+        raise ValueError("cluster: the bf16 dense kernel's alone")
+    plan = plan_decode(B, KV, G, D, esz, SPLIT_TOKENS, -(-T // SPLIT_TOKENS))
+    return DensePlan("split", plan, plan.grid)
 
 
 def check_dense_operands(q, cache_k, cache_v, offsets, window: int,
@@ -356,9 +509,37 @@ def check_dense_operands(q, cache_k, cache_v, offsets, window: int,
     return B, T, KV, H // KV, D, strides[0], strides[1]
 
 
+#: (device index, k's and v's addresses, shape, strides) -> the encoded
+#: tensor maps (host bytes) of a dense cache, made once a cache address
+_DENSE_MAPS: dict[tuple, ctypes.Array] = {}
+_DENSE_MAPS_MAX = 4096
+
+
+def _dense_maps(cache_k, cache_v, row_stride: int,
+                tok_stride: int) -> ctypes.Array:
+    key = (cache_k.device.index, cache_k.data_ptr(), cache_v.data_ptr(),
+           *cache_k.shape, row_stride, tok_stride)
+    maps = _DENSE_MAPS.get(key)
+    if maps is None:
+        B, T, KV, D = cache_k.shape
+        maps = ctypes.create_string_buffer(DENSE_MAP_BYTES)
+        fn = _build.function(_CLUSTER_LIB, "dense_cluster_maps",
+                             _MAPS_ARGTYPES)
+        with device_guard(cache_k.device):
+            err = fn(cache_k.data_ptr(), cache_v.data_ptr(), B, T, KV, D,
+                     row_stride, tok_stride, ctypes.addressof(maps))
+        _build.check(_CLUSTER_LIB, err,
+                     "dense_decode_attention_kernel: tensor maps")
+        if len(_DENSE_MAPS) >= _DENSE_MAPS_MAX:
+            _DENSE_MAPS.clear()
+        _DENSE_MAPS[key] = maps
+    return maps
+
+
 def dense_decode_attention_kernel(q, cache_k, cache_v, offsets, *,
                                   scale: float | None = None,
-                                  softcap: float = 0.0, window: int = 0):
+                                  softcap: float = 0.0, window: int = 0,
+                                  _cluster: int = 0):
     """One token a row, q (B, H, D), against a layer's dense cache
     ``cache_k`` / ``cache_v`` (B, T, KV, D) that already holds it (views
     of the model's cache: their strides are read), ``offsets`` (B,) int32
@@ -369,27 +550,47 @@ def dense_decode_attention_kernel(q, cache_k, cache_v, offsets, *,
     takes a window mask (``window``: a cache longer than it is refused).
     ``softcap`` > 0: each fp32 score s becomes tanh(s / softcap) *
     softcap before the row's max. Returns the normalized output (B, H, D)
-    in q's dtype. One launch (counted in ``launches``); every check comes
-    before it (:func:`check_dense_operands`, :func:`plan_dense_decode`)."""
+    in q's dtype. One launch (counted in ``launches``), of the route
+    :func:`plan_dense_decode` picks; every check comes before it
+    (:func:`check_dense_operands`, the plan).
+
+    For measurements only: ``_cluster`` forces the bf16 kernel's cluster
+    size."""
     B, T, KV, G, D, row_stride, tok_stride = check_dense_operands(
         q, cache_k, cache_v, offsets, window, softcap)
-    plan = plan_dense_decode(B, T, KV, G, D, q.element_size())
+    plan = plan_dense_decode(B, T, KV, G, D, q.element_size(), _cluster)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    fn = _build.function(_LIB, "dense_decode_launch", _DENSE_ARGTYPES)
     dev = q.device
-    stream = stream_handle(dev)
-    counters = ticket_counters(dev, stream, plan.counters)
-    ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=dev)
-    out = torch.empty_like(q)
-    with device_guard(dev):
-        err = fn(_ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(offsets),
-                 _ptr(ws), _ptr(counters), _ptr(out), B, T, KV, G, D,
-                 row_stride, tok_stride, float(scale), float(softcap),
-                 _DTYPES[q.dtype], stream)
-    _build.check(_LIB, err, "dense_decode_attention_kernel")
+    if plan.route == "cluster":
+        fn = _build.function(_CLUSTER_LIB, "dense_cluster_launch",
+                             _CLUSTER_ARGTYPES)
+        maps = _dense_maps(cache_k, cache_v, row_stride, tok_stride)
+        stream = stream_handle(dev)
+        out = torch.empty_like(q)
+        sp = plan.split
+        with device_guard(dev):
+            err = fn(ctypes.addressof(maps), _ptr(q), _ptr(offsets),
+                     _ptr(out), B, T, KV, G, D, sp.heads, sp.cluster,
+                     sp.split, sp.stages, sp.chunk, float(scale),
+                     float(softcap), stream)
+        _build.check(_CLUSTER_LIB, err, "dense_decode_attention_kernel")
+    else:
+        fn = _build.function(_LIB, "dense_decode_launch", _DENSE_ARGTYPES)
+        stream = stream_handle(dev)
+        out = torch.empty_like(q)
+        counters = ticket_counters(dev, stream, plan.split.counters)
+        ws = torch.empty(plan.split.workspace_floats, dtype=torch.float32,
+                         device=dev)
+        with device_guard(dev):
+            err = fn(_ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(offsets),
+                     _ptr(ws), _ptr(counters), _ptr(out), B, T, KV, G, D,
+                     row_stride, tok_stride, float(scale), float(softcap),
+                     _DTYPES[q.dtype], stream)
+        _build.check(_LIB, err, "dense_decode_attention_kernel")
     if B:
         dense_decode_attention_kernel.launches += 1
     return out
 
 
 dense_decode_attention_kernel.launches = 0
+

@@ -233,3 +233,93 @@ def dense_decode_ref(q, cache_k, cache_v, offsets, *, scale: float,
         B, 1, H, D)
     l = l.permute(0, 3, 1, 2).reshape(B, 1, H)[..., None]
     return (o / l.clamp_min(1e-30).to(o.dtype))[:, 0]
+
+
+def _warp_partial(qg, k, v, idx, scale: float, softcap: float):
+    """One consumer warp's partial over the tokens ``idx`` of a row: fp32
+    scores of q (KV, G, D) against k (T, KV, D), scaled, softcapped as
+    the kernel spells it (tanh(s / cap) * cap), m, l and acc; P enters P V
+    as bf16 hi + lo parts over a bf16 V. No token: m = -2e38, l = acc = 0."""
+    KV, G, D = qg.shape
+    if not idx:
+        return (torch.zeros((KV, G, D)), torch.full((KV, G), NEG_INF),
+                torch.zeros((KV, G)))
+    ids = torch.tensor(idx)
+    s = torch.einsum("kgd,tkd->kgt", qg, k[ids].float()) * scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    vv = v[ids]
+    if vv.dtype == torch.bfloat16:
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        acc = torch.einsum("kgt,tkd->kgd", hi, vv.float()) + \
+            torch.einsum("kgt,tkd->kgd", lo, vv.float())
+    else:
+        acc = torch.einsum("kgt,tkd->kgd", p, vv.float())
+    return acc, m, p.sum(-1)
+
+
+def dense_split_partials(q, cache_k, cache_v, offsets, *, scale: float,
+                         softcap: float = 0.0, plan=None) -> list:
+    """The dense kernel's splits in plain PyTorch: for each row, each
+    rank's partial ``(acc (KV, G, D), m (KV, G), l (KV, G))`` in fp32,
+    rank 0 first. Rank r takes tokens [r split, (r + 1) split) of the
+    row's min(offset + 1, T) live slots; its consumer warps of a head
+    take the split's 16-token stages in turn (stage i to warp i mod
+    warps a head), each an fp32 softmax partial (:func:`_warp_partial`),
+    merged in warp order (:func:`combine_splits`). ``plan`` a
+    ``DenseSplitPlan`` (``kernel.dense_geometry`` at the caches' shapes
+    by default). Returns a list over rows of (acc_s, m_s, l_s) stacked
+    over the ranks."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        DENSE_STAGE_TOKENS, dense_geometry, dense_split_ranges)
+    B, H, D = q.shape
+    T, KV = cache_k.shape[1], cache_k.shape[2]
+    G = H // KV
+    plan = plan or dense_geometry(T, KV, G, D)
+    wph = plan.warps_per_head
+    offs = [int(offsets)] * B if isinstance(offsets, int) else \
+        torch.as_tensor(offsets).reshape(-1).expand(B).tolist()
+    rows = []
+    for b in range(B):
+        qg = q[b].reshape(KV, G, D).float()
+        length = max(0, min(int(offs[b]) + 1, T))
+        ranks = []
+        for t0, t1 in dense_split_ranges(T, plan, length):
+            stages = list(range(t0, t1, DENSE_STAGE_TOKENS))
+            warps = [_warp_partial(
+                qg, cache_k[b], cache_v[b],
+                [t for s in stages[j::wph]
+                 for t in range(s, min(s + DENSE_STAGE_TOKENS, t1))],
+                scale, softcap) for j in range(wph)]
+            ranks.append(combine_splits(*(torch.stack(x) for x in
+                                          zip(*warps)),
+                                        torch.zeros(wph, dtype=torch.bool)))
+        rows.append(tuple(torch.stack(x) for x in zip(*ranks)))
+    return rows
+
+
+def dense_split_ref(q, cache_k, cache_v, offsets, *, scale: float,
+                    softcap: float = 0.0, window: int = 0, plan=None):
+    """The plain version of the dense kernel's schedule: the ranks'
+    partials (:func:`dense_split_partials`) merged in rank order
+    (:func:`combine_splits`), then acc / max(l, 1e-30) in q's dtype. Same
+    shapes and contract as :func:`dense_decode_ref` with no window mask
+    to apply (``window`` 0 or at least T, as the launch requires); its
+    results agree with it up to fp32 summation order and, for bf16 V, P's
+    hi + lo split."""
+    B, H, D = q.shape
+    T, KV = cache_k.shape[1], cache_k.shape[2]
+    if window > 0 and T > window:
+        raise ValueError(f"a {T}-slot cache under a {window}-token window "
+                         f"needs the window mask")
+    out = torch.empty((B, KV, H // KV, D))
+    for b, (acc_s, m_s, l_s) in enumerate(dense_split_partials(
+            q, cache_k, cache_v, offsets, scale=scale, softcap=softcap,
+            plan=plan)):
+        acc, _, l = combine_splits(acc_s, m_s, l_s,
+                                   torch.zeros(len(m_s), dtype=torch.bool))
+        out[b] = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)

@@ -1,7 +1,8 @@
 """Paged decode attention, page gather, page scatter, the RWKV6 WKV scan,
 the RMS norm, the flash kernels' extend launch, decode attention with the
 new token merged, the decode step's gate / up products and its qkv pass,
-and the chunk's qkv pass timed the same way on any tree of the port, so that two trees can be compared in one
+the chunk's qkv pass and decode attention's dense launch timed the same
+way on any tree of the port, so that two trees can be compared in one
 call on one card.
 
 It calls only the wrappers' public signatures, which every tree of the
@@ -68,7 +69,14 @@ G 6, page 16):
   at stablelm-3b's partial rotary (128 rows) and in fp32 (qwen2's heads
   and stablelm's, 128 and 64 rows), by CUDA-graph replay beside one
   contiguous device copy of the same bytes, with a digest of q, the
-  caches and the rows on inputs of their own seed.
+  caches and the rows on inputs of their own seed;
+- decode attention's dense launch (``dense``: path E's one-token
+  attention) at gemma2-9b's global layer (B 1 and 4) and ring and at
+  zamba2-2.7b's shared block, bf16, by CUDA-graph replay over 4 caches
+  in turn, beside its bound and, without the softcap, SDPA with the
+  length mask; a digest of its output; where the tree has them, the
+  bf16 kernel's plan and other cluster sizes (``_cluster``, for
+  measurements only).
 
 Each is timed eager (CUDA events around a loop of calls, host work
 included where it is the slower side) and on the device (``torch.profiler``:
@@ -81,6 +89,7 @@ name and power limit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import math
@@ -548,13 +557,101 @@ def time_chunk() -> dict:
     return out
 
 
+#: decode attention's dense launch (path E's one-token attention): the
+#: shapes of ``chip_smoke.py``'s DENSE_DECODE (gemma2-9b's global layer and
+#: ring with the softcap 50, zamba2-2.7b's shared block) and gemma2-9b's
+#: global layer at B 4: (B, T, KV, G, D, softcap, offset)
+DENSE = {"gemma2-9b global": (1, 4672, 8, 2, 256, 50.0, 4631),
+         "gemma2-9b local ring": (1, 4096, 8, 2, 256, 50.0, 4631),
+         "zamba2-2.7b shared": (2, 2048, 32, 1, 80, 0.0, 2031),
+         "gemma2-9b global B4": (4, 4672, 8, 2, 256, 50.0, 4631)}
+DENSE_SETS = 4            # caches a timed call rotates over (cold in L2)
+#: the bf16 kernel's cluster sizes timed where the tree has them
+#: (``_cluster``), beside its own plan
+DENSE_SWEEP = {"gemma2-9b global": (16, 8),
+               "zamba2-2.7b shared": (6, 16)}
+
+
+def time_dense() -> dict:
+    """The dense launch at DENSE's shapes in bf16, by CUDA-graph replay
+    over DENSE_SETS caches in turn (``graph_ms``), beside its bound (q, the
+    live K / V rows and the output once at 3.35 TB/s) and, where the
+    scores take no softcap, ``scaled_dot_product_attention`` with the
+    rows' length mask on the same caches; a digest of its output's bits
+    on inputs of their own seed. Where the tree has them, the plan the
+    kernel takes and the DENSE_SWEEP cluster sizes (each checked bit for bit against the plan's output when the
+    split is the same, else within 2e-2)."""
+    import inspect
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.decode_attention import kernel as dk
+    kern = da.dense_decode_attention_kernel
+    tunable = "_cluster" in inspect.signature(kern).parameters
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for name, (B, T, KV, G, D, cap, off) in DENSE.items():
+        caches = [torch.randn((DENSE_SETS, B, T, KV, D), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+        q = torch.randn((B, KV * G, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        offs = torch.full((B,), off, dtype=torch.int32, device="cuda")
+        live = min(off + 1, T)
+        window = T if "ring" in name else 0
+        scale = 1.0 / math.sqrt(D)
+        sets = itertools.cycle(range(DENSE_SETS))
+
+        def call(**kw):
+            i = next(sets)
+            return kern(q, caches[0][i], caches[1][i], offs, scale=scale,
+                        softcap=cap, window=window, **kw)
+
+        nbytes = 2 * 2 * B * KV * G * D + 2 * 2 * B * live * KV * D + 4 * B
+        rec = dict(graph_ms=graph_ms(call, iters=4 * DENSE_SETS),
+                   bound_ms=nbytes / HBM_BW * 1e3)
+        ref = kern(q, caches[0][0], caches[1][0], offs, scale=scale,
+                   softcap=cap, window=window)
+        rec["bits"] = digest(ref)
+        if not cap:
+            mask = (torch.arange(T, device="cuda") < live)[None, None, None]
+            kc = [c.transpose(2, 3) for c in caches]
+
+            def sdpa():
+                i = next(sets)
+                k, v = kc[0][i], kc[1][i]
+                if G > 1:
+                    k, v = (t.repeat_interleave(G, 1) for t in (k, v))
+                return F.scaled_dot_product_attention(
+                    q.view(B, KV * G, 1, D), k, v, attn_mask=mask,
+                    scale=scale)
+
+            rec["sdpa_graph_ms"] = graph_ms(sdpa, iters=4 * DENSE_SETS)
+        if tunable:
+            plan = dk.plan_dense_decode(B, T, KV, G, D, 2)
+            rec["plan"] = dataclasses.asdict(plan.split)
+            for cl in DENSE_SWEEP.get(name, ()):
+                got = kern(q, caches[0][0], caches[1][0], offs, scale=scale,
+                           softcap=cap, window=window, _cluster=cl)
+                gap = (got.float() - ref.float()).abs().max().item()
+                assert (torch.equal(got, ref) if cl == plan.split.cluster
+                        else gap <= 2e-2), (name, cl, gap)
+                rec[f"cluster {cl}"] = dict(
+                    graph_ms=graph_ms(lambda: call(_cluster=cl),
+                                      iters=4 * DENSE_SETS),
+                    max_abs_gap=gap)
+        out[name] = rec
+        del caches
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="",
                     help="comma-separated cases to time (decode, gather, "
                          "scatter, scan, norm, extend, flash, merge, "
-                         "gate_up, qkv, chunk); all by default")
+                         "gate_up, qkv, chunk, dense); all by default")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_pair: CUDA is not available")
@@ -597,6 +694,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if want("chunk"):
         out["chunk"] = time_chunk()
+        torch.cuda.empty_cache()
+    if want("dense"):
+        out["dense"] = time_dense()
     print(json.dumps(out))
     return 0
 

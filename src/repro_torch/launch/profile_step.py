@@ -110,11 +110,14 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
 #: parts of a step's device time, each by markers in its kernels' names
 #: (the first part whose marker a name holds takes it; the rest is
 #: "other": copies, casts, the embedding, argmax, the token append, the
-#: plain chains): decode and flash attention, the port's fused chains,
+#: plain chains): decode attention (its paged and fp32 dense split
+#: kernels, its bf16 dense cluster kernel) and flash attention, the port's
+#: fused chains,
 #: the products (cuBLAS's and CUTLASS's kernels, and the port's gate/up
 #: product with its activation and its qkv products with their bias, qk
 #: norm and RoPE)
-DEVICE_PARTS = (("attention", ("split_kernel", "flash_")),
+DEVICE_PARTS = (("attention", ("split_kernel", "dense_cluster_kernel",
+                               "flash_")),
                 ("fusions", ("rms_norm_kernel", "qkv_rope_kernel",
                              "gated_act_kernel")),
                 ("products", ("gemm", "gemv", "nvjet", "xmma", "cutlass",

@@ -1064,7 +1064,7 @@ def test_kernels_line_names_the_fusions(fake_card, monkeypatch, capsys):
             rows["qkv_rope_chunk"]["replaces"]) == chip_smoke.CHUNK_QKV
     assert (rows["dense_decode_attention"]["source"],
             rows["dense_decode_attention"]["replaces"]) == (
-        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro_torch/csrc/dense_decode.cu",
         "src/repro/models/attention.py:272")
     assert len(rows) == 10 + len(chip_smoke.FUSIONS)
 
@@ -1308,8 +1308,50 @@ def test_dense_checks_on_cpu(shape):
         assert got["gap_over_tolerance"] <= 1.0
 
 
+def _dense_schedule(q, k, v, offsets, **kw):
+    """The dense kernel's schedule on the CPU (``dense_split_ref``: its
+    ranks' splits, each warp's stages, fp32 scores, P V as bf16 hi + lo,
+    the merges in warp and rank order); it reads live slots alone."""
+    from repro_torch.kernels.decode_attention.ref import dense_split_ref
+    return dense_split_ref(q, k, v, offsets, **kw)
+
+
+@pytest.mark.parametrize("shape", chip_smoke.DENSE_DECODE
+                         + chip_smoke.DENSE_EDGES[:1]
+                         + chip_smoke.DENSE_HEAD_EDGES,
+                         ids=lambda s: s["name"])
+def test_dense_checks_pass_the_kernels_schedule(shape):
+    """Phase 2's dense check with the dense kernel's own schedule standing
+    in, at path E's shapes, a ring not yet full (empty ranks) and the
+    other head geometries (G 16, two and four KV heads a CTA): each
+    element within ``dense_tolerance`` in both dtypes."""
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = chip_smoke.check_dense(shape, dtype, gen,
+                                     launch=_dense_schedule, device="cpu",
+                                     rows=False)
+        assert 0 < got["max_abs_err"] <= got["tolerance"]
+        assert got["gap_over_tolerance"] <= 1.0
+
+
 def _dense_zeros(q, k, v, offsets, **kw):
     return torch.zeros_like(q)
+
+
+def _dense_rank_dropped(q, k, v, offsets, *, scale, softcap, window):
+    """The dense kernel's schedule with its rank 1 left out of every
+    row's merge (a cluster rank whose split never arrives)."""
+    from repro_torch.kernels.decode_attention.ref import (
+        combine_splits, dense_split_partials)
+    out = []
+    for acc_s, m_s, l_s in dense_split_partials(q, k, v, offsets,
+                                                scale=scale,
+                                                softcap=softcap):
+        keep = [r for r in range(len(m_s)) if r != 1]
+        acc, _, l = combine_splits(acc_s[keep], m_s[keep], l_s[keep],
+                                   torch.zeros(len(keep), dtype=torch.bool))
+        out.append(acc / l.clamp_min(1e-30)[..., None])
+    return torch.stack(out).reshape(q.shape).to(q.dtype)
 
 
 def _dense_uncapped(q, k, v, offsets, **kw):
@@ -1342,11 +1384,13 @@ _CAPPED = chip_smoke.DENSE_EDGES[-1]
 @pytest.mark.parametrize("fault,shape", [
     *((_dense_zeros, s) for s in chip_smoke.DENSE_DECODE + (_CAPPED,)),
     *((_dense_last_split_dropped, s) for s in chip_smoke.DENSE_DECODE),
+    *((_dense_rank_dropped, s) for s in chip_smoke.DENSE_DECODE),
     (_dense_uncapped, _CAPPED), (_dense_rounded_scores, _CAPPED)],
     ids=lambda x: x["name"] if isinstance(x, dict) else x.__name__[7:])
 def test_dense_check_catches_each_fault(fault, shape):
     """Phase 2's bf16 dense check fails a launch that writes zeros, drops
-    a row's last split, skips the softcap (q x 20: the scores at the cap)
+    a row's last split or a cluster rank's split (rank 1 of the dense
+    kernel's schedule), skips the softcap (q x 20: the scores at the cap)
     or rounds its scores to bf16 as the plain spelling does."""
     assert _CAPPED["qscale"] > 1 and _CAPPED["softcap"]
     gen = torch.Generator().manual_seed(0)

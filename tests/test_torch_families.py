@@ -485,12 +485,14 @@ DENSE_PATH_E = [("gemma2-9b", 1, 4672, 0), ("gemma2-9b", 1, 4096, 4096),
 
 @pytest.mark.parametrize("arch,B,T,window", DENSE_PATH_E)
 def test_dense_launch_takes_path_e(no_launch, arch, B, T, window):
-    """Decode attention's dense launch at path E's shapes: its plan (splits
-    of 128 tokens, ceil(T / 128) a (row, KV head), a function of T
-    alone; the tensor-core split at gemma2's and zamba2's head dims) and
-    every host check of the wrapper over a view of the model's stacked
-    cache (heads D apart, the layer's row stride) with int32 device
-    offsets and gemma2's softcap, stopping at the launch's lookup:
+    """Decode attention's dense launch at path E's shapes: its plan (the
+    bf16 dense kernel of ``csrc/dense_decode.cu``: gemma2-9b a KV head a
+    CTA and 14 splits a cluster, 8 x 14 = 112 CTAs at B 1; zamba2-2.7b 4
+    KV heads a CTA and 8 splits, 2 x 8 x 8 = 128 CTAs at B 2; splits of
+    whole 16-token stages covering T, a function of T alone, not of B)
+    and every host check of the wrapper over a view of the model's
+    stacked cache (heads D apart, the layer's row stride) with int32
+    device offsets and gemma2's softcap, stopping at the launch's lookup:
     nothing launched. The qkv launch's plan takes gemma2's one-row step
     (Dh 256) and refuses zamba2's Dh 80 before any launch (its step takes
     the products and the row pass)."""
@@ -499,12 +501,18 @@ def test_dense_launch_takes_path_e(no_launch, arch, B, T, window):
     KV, G, D = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
         cfg.head_dim
     plan = decode_kernel.plan_dense_decode(B, T, KV, G, D, 2)
-    assert plan.max_splits == -(-T // 128) and plan.split_pages == 1
-    assert plan.grid == (plan.max_splits, KV, B) and plan.tensor_cores
-    assert plan.smem_bytes <= decode_kernel.SMEM_PER_BLOCK
+    split = plan.split
+    assert plan.route == "cluster"
+    assert (split.heads, split.cluster) == ((1, 14) if arch == "gemma2-9b"
+                                            else (4, 8))
+    assert plan.grid == (split.cluster, KV // split.heads, B)
+    assert plan.grid[0] * plan.grid[1] * B <= 128     # one wave of 132
+    assert split.split % 16 == 0 and \
+        (split.cluster - 1) * split.split < T <= split.cluster * split.split
+    assert split.smem_bytes <= decode_kernel.SMEM_PER_BLOCK
     for b in (1, 8):       # a row's splits do not move with the batch
         assert decode_kernel.plan_dense_decode(
-            b, T, KV, G, D, 2).max_splits == plan.max_splits
+            b, T, KV, G, D, 2).split == split
     cache = torch.zeros(2, B, T, KV, D, dtype=torch.bfloat16)
     q = torch.zeros(B, KV * G, D, dtype=torch.bfloat16)
     offs = torch.full((B,), T - 1, dtype=torch.int32)
@@ -528,7 +536,9 @@ def test_dense_launch_takes_path_e(no_launch, arch, B, T, window):
 def test_dense_plan_takes_each_family(arch):
     """Every family with attention, published and smoke widths: its (KV,
     G, Dh) against the dense launch's plan in bf16 and fp32 at a 4096-slot
-    cache (no config crosses the decode kernel's domain, ROADMAP P7)."""
+    cache (no config crosses the decode kernels' domain, ROADMAP P7):
+    bf16 at the dense kernel's head dims its clusters, the rest the paged
+    split kernels' 128-token splits."""
     for smoke in (False, True):
         cfg = get_config(arch, smoke=smoke)
         if cfg.family == "ssm":
@@ -537,7 +547,13 @@ def test_dense_plan_takes_each_family(arch):
         for esz in (2, 4):
             plan = decode_kernel.plan_dense_decode(
                 2, 4096, KV, cfg.num_heads // KV, cfg.head_dim, esz)
-            assert plan.max_splits == 32 and plan.grid[1] == KV
-            assert plan.smem_bytes <= decode_kernel.SMEM_PER_BLOCK
-            assert plan.tensor_cores == (esz == 2 and cfg.head_dim in
-                                         decode_kernel.TC_HEAD_DIMS)
+            assert plan.split.smem_bytes <= decode_kernel.SMEM_PER_BLOCK
+            if esz == 2 and cfg.head_dim in decode_kernel.DENSE_HEAD_DIMS:
+                assert plan.route == "cluster"
+                assert plan.grid[1] == KV // plan.split.heads
+                assert plan.split.cluster * plan.split.split >= 4096
+            else:
+                assert plan.route == "split"
+                assert plan.split.max_splits == 32 and plan.grid[1] == KV
+                assert plan.split.tensor_cores == (
+                    esz == 2 and cfg.head_dim in decode_kernel.TC_HEAD_DIMS)
