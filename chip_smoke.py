@@ -106,7 +106,21 @@ Phase 2  every kernel against its plain PyTorch version on the card, at
          of path E's shapes logged; timed over 4 caches in turn beside the
          bound and, at zamba2's shape (no softcap), SDPA; one graph
          replayed at 64 offset sets bit-equal to eager calls; what it
-         does not take refused before any launch.
+         does not take refused before any launch. zamba2-2.7b's Mamba2
+         kernels (``csrc/mamba2.cu``) at its full widths (H 80, P 64, N
+         64, G 1, d_conv 4, C 5248): the decode step at B 2 from random
+         conv and fp32 states, its new states bit-equal to the plain
+         version's and a row alone bit-equal to the same row of a B = 3
+         batch; the prompt's SSD over 2000 tokens (not a whole number of
+         chunks) and a 37-token extend, each from a nonzero state, its
+         state overwritten in place, rows alone and in a batch
+         bit-equal; edges at smoke widths (two and three B/C groups, P
+         40, N 32, d_conv 3, chunk 24); bf16 and fp32, each output
+         element within ``mamba2_tolerance`` of the plain version (from
+         the magnitudes of its summed terms) and four planted faults
+         (no D skip, no decay, no carried state) failing the checks;
+         each timed eager and by graph replay beside the plain chain it
+         replaces and its bound.
 Phase 3  path A, the serving main path: full-width qwen2-1.5b (28 layers,
          seeded random weights cast once to bf16) serving agent programs
          through the unchanged ``Engine`` with a ``TorchModelBackend``:
@@ -269,7 +283,10 @@ Phase 7  path E, the families the engine does not page, through
          sublayer (42 / 9) and the plain dense arithmetic never, the
          decode qkv pass (gemma2: the qkv launch; zamba2: the row pass
          after cuBLAS's products) and the gate/up launch once a
-         sublayer (asserted); then the same pair with ``fused=False``
+         sublayer (asserted), zamba2's ``mamba2_step`` once a Mamba2
+         layer and step and ``ssd_chunk`` once a layer in the prefill,
+         the plain Mamba2 arithmetic never; then the same pair with
+         ``fused=False``
          (8 timed steps), the two logged side by side (wall ms, device
          ms by part, kernels a step). Then the fused steps against
          ``fused=False`` (a prefill and 6 eager steps, the fused leg fed
@@ -277,14 +294,16 @@ Phase 7  path E, the families the engine does not page, through
          the published init (N(0, 0.02), drawn in bf16) at 2, 4 and 42
          layers (zamba2: 6, 12 and 54) held to ``path_e_bound`` (P13 /
          P14's count: the norms, the scores the plain arithmetic rounds,
-         bounded by the softcap, the gate/up and qkv launches' shares),
-         an argmax flip only within twice it.
+         bounded by the softcap, the gate/up and qkv launches' shares,
+         zamba2's Mamba2 layers' norms and their kernels' share), an
+         argmax flip only within twice it.
          (b, d) each at full width cut to 2 and 4 (gemma2: 1 and 2 pairs)
          and 6 and 12 layers (zamba2: 1 and 2 groups) in fp32: the
          prompt's prefill against prefill of all but 64 tokens and 64
          decode steps (across gemma2's ring), and the prefill through the
-         flash kernel against the plain version; each gap within 1e-3 of
-         the logits' rms, argmax equal.
+         flash kernel against the plain version, zamba2's fused (both
+         Mamba2 kernels launched in fp32); each gap within 1e-3 of the
+         logits' rms, argmax equal.
 
 Phase 8  path F, training and the roofline cost source, after phase 7 is
          freed: (a) full-width, full-depth qwen2-1.5b (28 layers, ~1.54 B
@@ -366,7 +385,8 @@ Phase 9  path G, the sharded steps, after phase 8: a one-rank NCCL
          down at the end.
 
 Prints a ``{"kernels": [...]}`` line (``launches``: phases 3a and 3b,
-and 4, and for the dense decode launch phase 7; the by-value token
+and 4, and for the dense decode launch and the two Mamba2 kernels phase
+7; the by-value token
 append has no runtime caller and reads 0;
 ``launches_phase5``: each leg of phase 5; ``launches_phase6``: phase
 6a; ``launches_phase7``: legs 7a and 7c; ``launches_phase8``: phase 8a;
@@ -3108,6 +3128,541 @@ def check_chunk_qkvs(gen, sheet: dict | None, device: str = "cuda",
     return rec
 
 
+# ------------------------------------------- phase 2: the Mamba2 kernels
+#: zamba2's Mamba2 mixer (``csrc/mamba2.cu``): kernel -> (source, the
+#: reference lines it computes: the decode branch with its epilogue, and
+#: ``ssd_chunked``; no Pallas kernel, XLA's fusion of them)
+MAMBA2 = {"mamba2_step": ("src/repro_torch/csrc/mamba2.cu",
+                          "src/repro/models/mamba2.py:187"),
+          "ssd_chunk": ("src/repro_torch/csrc/mamba2.cu",
+                        "src/repro/models/mamba2.py:89")}
+MAMBA2_ARCH = "zamba2-2.7b"
+#: path E's decode batch; a row alone is held against the same row of a
+#: B = 3 batch
+MAMBA2_STEP_B = 2
+#: (B, S): path E's 2000-token prompt (not a whole number of chunks) and a
+#: 37-token extend, each from a nonzero state
+MAMBA2_CHUNKS = ((2, 2000), (2, 37))
+#: edges at smoke widths: zamba2 smoke's heads in two B/C groups, and
+#: widths off the configs' (P 40, N 32, three groups, d_conv 3, chunk 24)
+MAMBA2_EDGES = (dict(name="smoke_g2", H=8, P=16, N=16, G=2, K=4, chunk=16,
+                     B=3, S=45),
+                dict(name="odd", H=6, P=40, N=32, G=3, K=3, chunk=24, B=1,
+                     S=50))
+#: the unit roundoff of fp32
+U32 = 2.0 ** -24
+#: roundings a decode step's readout term passes, at most: 16 in a lane,
+#: 2 in the lanes' tree, its product, the D skip's add
+MAMBA2_STEP_DEPTH = 20
+#: roundings a norm's sum of squares passes: 4 in a lane, 4 in the tree,
+#: the 1 / P product
+MAMBA2_NORM_DEPTH = 9
+#: roundings a term of a prompt's y passes for each chunk the carried
+#: state takes it across: the chunk's decay exp(total) (expf's 2 ulps),
+#: its product with the state and the add of the chunk's summary
+MAMBA2_CARRY_DEPTH = 4
+#: roundings a term of a prompt's y passes once, beside its sums over the
+#: chunk's tokens and over N: its operands' products (x dt, B decayed to
+#: the chunk's end, the scores' decay) and their exps, the readout's
+#: exp(cum) and product, the add of the chunk's and the state's terms
+MAMBA2_CHUNK_EXTRA = 16
+
+
+def mamba2_widths(cfg) -> dict:
+    """``cfg``'s Mamba2 layer widths (H, P, N, G, K, chunk, eps)."""
+    s = cfg.ssm
+    return dict(H=s.expand * cfg.d_model // s.head_dim, P=s.head_dim,
+                N=s.d_state, G=s.n_groups, K=s.d_conv, chunk=s.chunk,
+                eps=cfg.norm_eps)
+
+
+def mamba2_params(w: dict, dtype, gen, device) -> dict:
+    """A layer's mixer parameters in ``dtype``, drawn as trained ones
+    look: conv weights and bias, dt_bias around -1, A_log around 0.5, D
+    around 1, a norm gain near 1."""
+    import torch
+    H, P, N, G, K = (w[k] for k in ("H", "P", "N", "G", "K"))
+    C = H * P + 2 * G * N
+
+    def rand(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=device) * std
+                + mean).to(dtype)
+
+    return dict(conv_w=rand(K, C, std=0.3), conv_b=rand(C, std=0.1),
+                dt_bias=rand(H, std=0.5, mean=-1.0),
+                A_log=rand(H, std=0.5, mean=0.5), D=rand(H, std=0.3,
+                                                          mean=1.0),
+                norm=rand(H, P, std=0.1))
+
+
+def step_inputs(w: dict, B: int, dtype, gen, device) -> dict:
+    """A decode step's in-products (z, x, bm, cm, the raw dt), the mixer's
+    parameters and random conv and fp32 SSM states."""
+    import torch
+    H, P, N, G, K = (w[k] for k in ("H", "P", "N", "G", "K"))
+    C = H * P + 2 * G * N
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    return dict(z=rand(B, H, P), x=rand(B, H * P), bm=rand(B, G * N),
+                cm=rand(B, G * N), dt=rand(B, H),
+                **mamba2_params(w, dtype, gen, device),
+                conv_state=rand(B, K - 1, C),
+                ssm_state=torch.randn((B, H, P, N), generator=gen,
+                                      device=device))
+
+
+def chunk_inputs(w: dict, B: int, S: int, dtype, gen, device) -> dict:
+    """A prompt's SSD inputs as the model hands them over: xr, Bm and Cm
+    slices of one (B, S, C) conv output after SiLU, dt after the softplus
+    (fp32), z, the parameters and a random fp32 state."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.common import _silu
+    H, P, N, G = (w[k] for k in ("H", "P", "N", "G"))
+    HP, GN = H * P, G * N
+    prm = mamba2_params(w, dtype, gen, device)
+    conv = _silu(torch.randn((B, S, HP + 2 * GN), generator=gen,
+                             device=device).to(dtype))
+    dt = F.softplus(torch.randn((B, S, H), generator=gen, device=device)
+                    + prm["dt_bias"].float())
+    return dict(xr=conv[..., :HP].unflatten(-1, (H, P)), dt=dt,
+                A_log=prm["A_log"],
+                Bm=conv[..., HP:HP + GN].unflatten(-1, (G, N)),
+                Cm=conv[..., HP + GN:].unflatten(-1, (G, N)),
+                z=torch.randn((B, S, H, P), generator=gen,
+                              device=device).to(dtype),
+                D=prm["D"], norm=prm["norm"],
+                state=torch.randn((B, H, P, N), generator=gen,
+                                  device=device))
+
+
+def out_ulp(t, dtype):
+    """One ulp of ``dtype`` at |t| (float64; 0 for fp32, whose rounding
+    the fp32 terms already count)."""
+    import torch
+    from repro_torch.kernels.fusions.ref import bf16_ulp
+    return bf16_ulp(t) if dtype == torch.bfloat16 else torch.zeros_like(t)
+
+
+def mamba2_tolerance(y, y_abs, depth, xs, z, D, norm, eps: float):
+    """|kernel y - plain y| allowed at each element (float64) when the two
+    sum the same pre-epilogue y (..., H, P) in other fp32 orders: each
+    within gamma_d = d u / (1 - d u) of sum |terms| = ``y_abs`` (``depth``
+    d: the roundings a term passes, a tensor or a number) and the D
+    skip's |x D|, so the two y2 = y + x D within e = 2 gamma_d (y_abs +
+    |x D|); rounded to the compute dtype, within e and one of its ulps;
+    the gate's product by |SiLU(z)|, and its own rounding; the norm's
+    mean square m moved by mean(2 |g| dg + dg^2) and its own sum
+    (MAMBA2_NORM_DEPTH roundings, both sides), so rsqrt by half of that
+    over m + eps and its own 2 ulps a side; the output g rs (1 + w)
+    moved by |1 + w| (rs dg + |g| rs drs), its two roundings, and one
+    ulp of the dtype where it rounds."""
+    import torch
+    from repro_torch.models.common import _silu
+    dtype = z.dtype
+    depth = torch.as_tensor(depth, dtype=torch.float64, device=y.device)
+    gam = depth * U32 / (1 - depth * U32)
+    skip = xs.double() * D.double()[:, None]
+    y2 = y.double() + skip
+    e = 2 * gam * (y_abs.double() + skip.abs())
+    dyr = e + out_ulp(y2.abs() + e, dtype)
+    zs = _silu(z).double()
+    g = y2.to(dtype).double() * zs
+    dg = zs.abs() * dyr + 2 * U32 * g.abs()
+    ms = (g * g).mean(-1, keepdim=True)
+    dms = (2 * g.abs() * dg + dg * dg).mean(-1, keepdim=True) \
+        + 2 * MAMBA2_NORM_DEPTH * U32 * ms
+    rs = torch.rsqrt(ms + eps)
+    drs = 0.5 * dms / (ms + eps) + 6 * U32
+    gain = (1.0 + norm.double()).abs()
+    out = g * rs * gain
+    tol = gain * (rs * dg + g.abs() * rs * drs) + 4 * U32 * out.abs()
+    return tol + out_ulp(out.abs() + tol, dtype)
+
+
+def tolerance_ratio(gap, tol) -> float:
+    """The largest gap over its tolerance; an element whose tolerance is
+    0 (an exact zero both sides must give) fails at any gap."""
+    return (gap / tol.clamp_min(2.0 ** -1022)).max().item()
+
+
+def run_step(fn, inp: dict, eps: float) -> tuple:
+    """``fn`` on copies of ``inp``'s states: (y, conv state, SSM state)."""
+    cs, ss = inp["conv_state"].clone(), inp["ssm_state"].clone()
+    args = {k: v for k, v in inp.items()
+            if k not in ("conv_state", "ssm_state")}
+    y = fn(**args, conv_state=cs, ssm_state=ss, eps=eps)
+    return y, cs, ss
+
+
+def check_mamba2_step(w: dict, B: int, dtype, gen, device: str = "cuda",
+                      launch=None, rows: bool = True) -> dict:
+    """The decode step against its plain version from the same inputs:
+    the new conv and SSM states bit-equal, y finite and each element
+    within its ``mamba2_tolerance`` (the readout's terms |C_n h_pn| from
+    the plain version's own new state); with ``rows``, row 1 of a B = 3
+    call bit-equal (y and both states) to the same row called alone.
+    Returns the largest |gap|, the largest tolerance and the largest gap
+    over its tolerance."""
+    import torch
+    from repro_torch.kernels.mamba2 import (mamba2_step_kernel,
+                                            mamba2_step_ref, step_core_ref)
+    fn = launch or mamba2_step_kernel
+    eps = w["eps"]
+    inp = step_inputs(w, B, dtype, gen, device)
+    y, cs, ss = run_step(fn, inp, eps)
+    yr, csr, ssr = run_step(mamba2_step_ref, inp, eps)
+    assert same_bits(cs, csr), ("mamba2_step", dtype, "conv state")
+    assert same_bits(ss, ssr), ("mamba2_step", dtype, "SSM state")
+    assert torch.isfinite(y).all(), ("mamba2_step", dtype, "not finite")
+    core_in = {k: inp[k] for k in ("x", "bm", "cm", "dt", "conv_w",
+                                   "conv_b", "dt_bias", "A_log")}
+    pre, xs, Ch, new = step_core_ref(
+        **core_in, conv_state=inp["conv_state"].clone(),
+        ssm_state=inp["ssm_state"].clone())
+    y_abs = torch.einsum("bhn,bhpn->bhp", Ch.double().abs(),
+                         new.double().abs())
+    tol = mamba2_tolerance(pre, y_abs, MAMBA2_STEP_DEPTH, xs, inp["z"],
+                           inp["D"], inp["norm"], eps)
+    gap = (y.double() - yr.double()).abs()
+    ratio = tolerance_ratio(gap, tol)
+    assert ratio <= 1.0, ("mamba2_step", dtype, gap.max().item(), ratio)
+    if rows:
+        three = step_inputs(w, 3, dtype, gen, device)
+        yb, csb, ssb = run_step(fn, three, eps)
+        one = {k: v[1:2].clone() if k in ("z", "x", "bm", "cm", "dt",
+                                          "conv_state", "ssm_state")
+               else v for k, v in three.items()}
+        ya, csa, ssa = run_step(fn, one, eps)
+        for a, b, what in ((ya[0], yb[1], "y"), (csa[0], csb[1], "conv"),
+                           (ssa[0], ssb[1], "ssm")):
+            assert same_bits(a, b), ("mamba2_step", dtype, what,
+                                     "row 1 alone")
+    return dict(max_abs_err=gap.max().item(), tolerance=tol.max().item(),
+                gap_over_tolerance=ratio)
+
+
+def chunk_depth(S: int, w: dict, device):
+    """Roundings a term of token t's y passes, at most: one sum over a
+    chunk's L tokens and one over N (the scores and their product with
+    x, or a summary and the state's readout), MAMBA2_CARRY_DEPTH for each
+    of the t // L chunks the state carries it across, and
+    MAMBA2_CHUNK_EXTRA. An error the state carries was added in once and
+    then only decays, so a chunk adds its carry's roundings, not its
+    sums: about 270 at token 2000 of zamba2's L = N = 64."""
+    import torch
+    t = torch.arange(S, device=device, dtype=torch.float64)
+    return (w["chunk"] + w["N"] + MAMBA2_CHUNK_EXTRA + MAMBA2_CARRY_DEPTH
+            * (t // w["chunk"]))[None, :, None, None]
+
+
+def mamba2_chunk_call(w: dict, launch=None):
+    """``launch(xr, dt, A_log, Bm, Cm, z, D, norm, state)`` at ``w``'s
+    chunk and eps: the kernel, or a stand-in."""
+    from repro_torch.kernels.mamba2 import ssd_chunk_kernel
+    fn = launch or ssd_chunk_kernel
+    return lambda *a: fn(*a, chunk=w["chunk"], eps=w["eps"])
+
+
+def check_ssd_chunk(w: dict, B: int, S: int, dtype, gen,
+                    device: str = "cuda", launch=None,
+                    rows: bool = True) -> dict:
+    """The prompt's SSD against its plain version from the same inputs and
+    state: y finite and each element within its ``mamba2_tolerance`` (the
+    terms' magnitudes from the plain SSD over |x|, |B|, |C| and |state|
+    in float64); the final state within 2 gamma_d of its own magnitudes
+    (d the last token's depth); the state overwritten in place; with
+    ``rows``, row 1 of a B = 3 call bit-equal to the row alone."""
+    import torch
+    from repro_torch.kernels.mamba2 import ssd_chunk_ref, ssd_ref
+    call = mamba2_chunk_call(w, launch)
+    inp = chunk_inputs(w, B, S, dtype, gen, device)
+    order = ("xr", "dt", "A_log", "Bm", "Cm", "z", "D", "norm")
+    args = [inp[k] for k in order]
+    state = inp["state"].clone()
+    y, final = call(*args, state)
+    assert final.data_ptr() == state.data_ptr(), "state not in place"
+    ref_state = inp["state"].clone()
+    yr, fr = ssd_chunk_ref(*args, ref_state, chunk=w["chunk"], eps=w["eps"])
+    assert torch.isfinite(y).all() and torch.isfinite(final).all(), \
+        ("ssd_chunk", dtype, S, "not finite")
+    pre, _ = ssd_ref(inp["xr"], inp["dt"], inp["A_log"], inp["Bm"],
+                     inp["Cm"], inp["state"], chunk=w["chunk"])
+    absd = ssd_ref(inp["xr"].abs(), inp["dt"], inp["A_log"],
+                   inp["Bm"].abs(), inp["Cm"].abs(), inp["state"].abs(),
+                   chunk=w["chunk"], acc=torch.float64)
+    depth = chunk_depth(S, w, device)
+    tol = mamba2_tolerance(pre, absd[0], depth, inp["xr"], inp["z"],
+                           inp["D"], inp["norm"], w["eps"])
+    gap = (y.double() - yr.double()).abs()
+    ratio = tolerance_ratio(gap, tol)
+    assert ratio <= 1.0, ("ssd_chunk", dtype, S, gap.max().item(), ratio)
+    d = float(depth.max())
+    stol = 2 * d * U32 / (1 - d * U32) * absd[1]
+    sratio = tolerance_ratio((final.double() - fr.double()).abs(), stol)
+    assert sratio <= 1.0, ("ssd_chunk", dtype, S, "state", sratio)
+    if rows:
+        three = chunk_inputs(w, 3, S, dtype, gen, device)
+        targs = [three[k] for k in order]
+        yb, sb = call(*targs, three["state"].clone())
+        one = [t[1:2].clone() if t.dim() >= 3 else t for t in targs]
+        ya, sa = call(*one, three["state"][1:2].clone())
+        assert same_bits(ya[0], yb[1]) and same_bits(sa[0], sb[1]), \
+            ("ssd_chunk", dtype, S, "row 1 alone")
+    return dict(max_abs_err=gap.max().item(), tolerance=tol.max().item(),
+                gap_over_tolerance=ratio, state_gap_over_tolerance=sratio)
+
+
+def tf32(t):
+    """``t`` rounded to TF32 (10 mantissa bits, to nearest even), in
+    float32: what a TF32 product reads of an fp32 operand."""
+    import torch
+    i = t.float().contiguous().view(torch.int32)
+    i = (i + 0xFFF + ((i >> 13) & 1)) & ~0x1FFF
+    return i.view(torch.float32)
+
+
+def planted_mamba2_faults(gen, device: str = "cuda") -> list[str]:
+    """Stand-ins that each break one thing, every one of which the checks
+    must fail: the decode step without its D skip (y off), with its state
+    not decayed (the state's bits), the SSD without its carried-in state
+    (y off), without its D skip, and (fp32 only) on TF32-rounded
+    operands, as TF32 products would read them: on the card at zamba2's
+    widths over path E's B 2 x 2000-token prompt, off it at the first
+    edge's. Returns the faults caught."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba2 import mamba2_step_ref, ssd_chunk_ref
+    w = dict(MAMBA2_EDGES[0], eps=1e-5)
+    if torch.device(device).type == "cuda":
+        wt, (Bt, St) = mamba2_widths(get_config(MAMBA2_ARCH)), \
+            MAMBA2_CHUNKS[0]
+    else:
+        wt, Bt, St = w, 2, w["S"]
+
+    def no_skip(**kw):
+        return mamba2_step_ref(**dict(kw, D=torch.zeros_like(kw["D"])))
+
+    def no_decay(**kw):
+        return mamba2_step_ref(**dict(kw, A_log=torch.full_like(
+            kw["A_log"], float("-inf"))))
+
+    def no_carry(xr, dt, A_log, Bm, Cm, z, D, norm, state, **kw):
+        y, final = ssd_chunk_ref(xr, dt, A_log, Bm, Cm, z, D, norm, None,
+                                 **kw)
+        return y, state.copy_(final)
+
+    def chunk_no_skip(xr, dt, A_log, Bm, Cm, z, D, norm, state, **kw):
+        return ssd_chunk_ref(xr, dt, A_log, Bm, Cm, z, torch.zeros_like(D),
+                             norm, state, **kw)
+
+    def chunk_tf32(xr, dt, A_log, Bm, Cm, z, D, norm, state, **kw):
+        y, final = ssd_chunk_ref(
+            tf32(xr).view(xr.shape), tf32(dt).view(dt.shape), A_log,
+            tf32(Bm).view(Bm.shape), tf32(Cm).view(Cm.shape), z, D, norm,
+            tf32(state).view(state.shape), **kw)
+        return y, state.copy_(final)
+
+    both = (torch.bfloat16, torch.float32)
+    caught = []
+    for name, dtypes, run in (
+            ("step_no_skip", both, lambda dt: check_mamba2_step(
+                w, 2, dt, gen, device, no_skip, rows=False)),
+            ("step_no_decay", both, lambda dt: check_mamba2_step(
+                w, 2, dt, gen, device, no_decay, rows=False)),
+            ("chunk_no_carry", both, lambda dt: check_ssd_chunk(
+                w, 2, w["S"], dt, gen, device, no_carry, rows=False)),
+            ("chunk_no_skip", both, lambda dt: check_ssd_chunk(
+                w, 2, w["S"], dt, gen, device, chunk_no_skip,
+                rows=False)),
+            ("chunk_tf32", (torch.float32,), lambda dt: check_ssd_chunk(
+                wt, Bt, St, dt, gen, device, chunk_tf32, rows=False))):
+        for dtype in dtypes:
+            try:
+                run(dtype)
+            except AssertionError:
+                continue
+            raise AssertionError(f"planted fault {name} ({dtype}) passed")
+        caught.append(name)
+    return caught
+
+
+def plain_step_chain(inp: dict, cfg):
+    """The plain spelling's decode step after the in-products
+    (``models/mamba2.py``, ``fused=False``) at ``cfg``'s widths: the
+    conv, SiLU, softplus, the recurrence, the epilogue; the states
+    written back as the model's cache copy does. What ``mamba2_step``
+    replaces."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import mamba2
+    from repro_torch.models.common import _silu
+    w = mamba2_widths(cfg)
+    H, P, N, G = (w[k] for k in ("H", "P", "N", "G"))
+    HP, GN = H * P, G * N
+    conv, new_conv = mamba2._causal_conv(
+        torch.cat([inp["x"], inp["bm"], inp["cm"]], dim=-1)[:, None],
+        inp["conv_w"], inp["conv_b"], inp["conv_state"])
+    conv = _silu(conv)
+    xr = conv[..., :HP].unflatten(-1, (H, P))
+    dt = F.softplus(inp["dt"][:, None].float() + inp["dt_bias"].float())
+    y, new = mamba2._ssd(xr, dt, -torch.exp(inp["A_log"].float()),
+                         conv[..., HP:HP + GN].unflatten(-1, (G, N)),
+                         conv[..., HP + GN:].unflatten(-1, (G, N)),
+                         inp["ssm_state"].float(), chunk=w["chunk"],
+                         mode="decode")
+    out = mamba2._gate_norm(y, xr, inp["z"][:, None], inp, cfg)
+    inp["conv_state"].copy_(new_conv)
+    inp["ssm_state"].copy_(new)
+    return out
+
+
+def plain_chunk_chain(inp: dict, cfg):
+    """The plain spelling's SSD with its epilogue (``ssd_chunked``, the
+    D skip, gate and norm; ``fused=False``) at ``cfg``'s chunk, the state
+    written back as the model's cache copy does. What ``ssd_chunk``
+    replaces."""
+    import torch
+    from repro_torch.models import mamba2
+    y, new = mamba2._ssd(inp["xr"], inp["dt"],
+                         -torch.exp(inp["A_log"].float()), inp["Bm"],
+                         inp["Cm"], inp["state"], chunk=cfg.ssm.chunk,
+                         mode="prefill")
+    out = mamba2._gate_norm(y, inp["xr"], inp["z"], inp, cfg)
+    inp["state"].copy_(new)
+    return out
+
+
+def mamba2_share(cfg, device) -> float:
+    """The share of the Mamba2 kernels' y elements that leave the plain
+    spelling's bits at ``cfg``'s widths in bf16 (P14's count for path
+    E's bound): the decode step at path E's batch and the SSD over a
+    2000-token prompt, each from random states, the larger share; 0 off
+    the card (both legs there run the plain spelling) and where the model
+    has no Mamba2 layer."""
+    import torch
+    from repro_torch.kernels.mamba2 import mamba2_step_kernel
+    if torch.device(device).type != "cuda" or cfg.family != "hybrid":
+        return 0.0
+    w = mamba2_widths(cfg)
+    gen = torch.Generator(device=device).manual_seed(zlib.crc32(
+        f"mamba2 {cfg.name}".encode()))
+    inp = step_inputs(w, MAMBA2_STEP_B, torch.bfloat16, gen, device)
+    y, _, _ = run_step(mamba2_step_kernel, inp, w["eps"])
+    plain = plain_step_chain({k: v.clone() for k, v in inp.items()}, cfg)
+    shares = [ulp_gap(y, plain[:, 0])]
+    B, S = MAMBA2_CHUNKS[0]
+    cin = chunk_inputs(w, B, S, torch.bfloat16, gen, device)
+    yc, _ = mamba2_chunk_call(w)(*(cin[k] for k in (
+        "xr", "dt", "A_log", "Bm", "Cm", "z", "D", "norm")),
+        cin["state"].clone())
+    shares.append(ulp_gap(yc, plain_chunk_chain(dict(cin), cfg)))
+    return max(s["differ"] / s["n"] for s in shares)
+
+
+def time_mamba2(cfg, gen, sheet: dict) -> dict:
+    """Both kernels at zamba2-2.7b's widths in bf16, path E's shapes: the
+    decode step at B 2 and the SSD over a B 2 x 2000-token prompt, each
+    by an eager loop (``ms``) and by CUDA-graph replay (``device_ms``),
+    beside the plain chain each replaces (``plain_ms``,
+    ``plain_device_ms``) and the bound; no one PyTorch call computes
+    either (``library_ms`` None)."""
+    import torch
+    from repro_torch.kernels.mamba2 import (mamba2_step_kernel,
+                                            ssd_chunk_kernel)
+    from repro_torch.kernels.mamba2.kernel import chunk_work, step_work
+    out = {}
+    w = mamba2_widths(cfg)
+    H, P, N, G, K = (w[k] for k in ("H", "P", "N", "G", "K"))
+    B = MAMBA2_STEP_B
+    inp = step_inputs(w, B, torch.bfloat16, gen, "cuda")
+    args = {k: v for k, v in inp.items()
+            if k not in ("conv_state", "ssm_state")}
+
+    def step():
+        return mamba2_step_kernel(**args, conv_state=inp["conv_state"],
+                                  ssm_state=inp["ssm_state"], eps=w["eps"])
+
+    plain_in = {k: v.clone() for k, v in inp.items()}
+    nbytes, ops = step_work(B, H, P, N, G, K, 2)
+    bms, by = bound_ms(nbytes, ops, sheet, "fp32")
+    out["mamba2_step"] = dict(
+        ms=time_ms(step), device_ms=graph_ms(step),
+        plain_ms=time_ms(lambda: plain_step_chain(plain_in, cfg)),
+        plain_device_ms=graph_ms(lambda: plain_step_chain(plain_in, cfg)),
+        bound_ms=bms, bound_by=by, library_ms=None, bytes=nbytes)
+    Bc, S = MAMBA2_CHUNKS[0]
+    cin = chunk_inputs(w, Bc, S, torch.bfloat16, gen, "cuda")
+    cargs = [cin[k] for k in ("xr", "dt", "A_log", "Bm", "Cm", "z", "D",
+                              "norm")]
+
+    def chunk():
+        return ssd_chunk_kernel(*cargs, cin["state"], chunk=w["chunk"],
+                                eps=w["eps"])
+
+    plain_c = dict(cin, state=cin["state"].clone())
+    nbytes, ops = chunk_work(Bc, S, H, P, N, G, w["chunk"], 2)
+    bms, by = bound_ms(nbytes, ops, sheet, "fp32")
+    out["ssd_chunk"] = dict(
+        ms=time_ms(chunk, iters=10), device_ms=graph_ms(chunk, iters=10),
+        plain_ms=time_ms(lambda: plain_chunk_chain(plain_c, cfg), iters=3,
+                         warmup=1),
+        plain_device_ms=graph_ms(lambda: plain_chunk_chain(plain_c, cfg),
+                                 iters=3, warmup=1, reps=2),
+        bound_ms=bms, bound_by=by, library_ms=None, flops=ops)
+    return out
+
+
+def check_mamba2s(gen, sheet: dict | None, device: str = "cuda",
+                  launches: tuple | None = None) -> dict:
+    """Phase 2's Mamba2 kernels: the decode step at zamba2-2.7b's widths
+    (B 2, a row alone against a B = 3 batch) and the SSD at MAMBA2_CHUNKS
+    from a nonzero state, both in bf16 and fp32, then MAMBA2_EDGES, each
+    against its plain version (``check_mamba2_step``,
+    ``check_ssd_chunk``); the planted faults each failing; with
+    ``sheet``, the timed records (``time_mamba2``). ``launches``:
+    (step, chunk) stand-ins for a CPU run. Returns {kernel: record}."""
+    import torch
+    from repro_torch.configs import get_config
+    step_fn, chunk_fn = launches or (None, None)
+    rows = launches is None
+    cfg = get_config(MAMBA2_ARCH)
+    w = mamba2_widths(cfg)
+    errs = {"mamba2_step": [], "ssd_chunk": []}
+    cases = [(w, MAMBA2_STEP_B, MAMBA2_CHUNKS)] + [
+        (dict(e, eps=w["eps"]), e["B"], ((e["B"], e["S"]),))
+        for e in MAMBA2_EDGES]
+    for ws, B, chunks in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            got = check_mamba2_step(ws, B, dtype, gen, device, step_fn, rows)
+            errs["mamba2_step"].append(got)
+            log(f"phase2 mamba2_step {ws.get('name', MAMBA2_ARCH)} "
+                f"(H {ws['H']}, P {ws['P']}, N {ws['N']}, G {ws['G']}, K "
+                f"{ws['K']}) B {B} {dtype}: new states bit-equal, "
+                f"{json.dumps(got)}")
+            for Bc, S in chunks:
+                got = check_ssd_chunk(ws, Bc, S, dtype, gen, device,
+                                      chunk_fn, rows)
+                errs["ssd_chunk"].append(got)
+                log(f"phase2 ssd_chunk {ws.get('name', MAMBA2_ARCH)} B "
+                    f"{Bc} S {S} chunk {ws['chunk']} {dtype}: "
+                    f"{json.dumps(got)}")
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    caught = planted_mamba2_faults(gen, device)
+    log(f"phase2 mamba2: planted faults failing the checks: {caught}")
+    records = {}
+    timed = time_mamba2(cfg, gen, sheet) if sheet is not None else {}
+    for name, got in errs.items():
+        records[name] = dict(
+            timed.get(name, {}),
+            max_abs_err=max(g["max_abs_err"] for g in got),
+            gap_over_tolerance=max(g["gap_over_tolerance"] for g in got))
+    return records
+
+
 def phase2(sheet: dict, hw) -> dict:
     """Returns {kernel name: record} at the main paths' shapes."""
     import torch
@@ -3270,6 +3825,18 @@ def phase2(sheet: dict, hw) -> dict:
         f"launches run, beside its bound: {json.dumps(wide)}")
     records["qkv_rope_chunk"] = check_chunk_qkvs(gen, sheet)
     log(f"phase2 fusions checked and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    records.update(check_mamba2s(gen, sheet))
+    for name in MAMBA2:
+        rec = records[name]
+        log(f"phase2 {name} at zamba2-2.7b's widths (bf16): device "
+            f"{rec['device_ms']:.4f} ms by graph replay, eager "
+            f"{rec['ms']:.4f}; the plain chain it replaces device "
+            f"{rec['plain_device_ms']:.4f}, eager {rec['plain_ms']:.4f}; "
+            f"bound {rec['bound_ms']:.5f} ({rec['bound_by']}); largest gap "
+            f"over its tolerance {rec['gap_over_tolerance']:.3g}")
+    log(f"phase2 mamba2 kernels checked and timed in "
         f"{time.perf_counter() - t0:.1f} s")
     check_bound_shares(records)
     for name, rec in records.items():
@@ -5422,19 +5989,21 @@ def gap(a, b) -> dict:
                 rms_logit=a.square().mean().sqrt().item())
 
 
-def prefill_vs_decode(model, toks, tail: int) -> dict:
+def prefill_vs_decode(model, toks, tail: int, fused: bool = False) -> dict:
     """Prefill of the whole prompt against prefill of all but ``tail``
-    tokens followed by ``tail`` decode steps with the cache."""
+    tokens followed by ``tail`` decode steps with the cache, every
+    forward ``fused``."""
     import torch
     n = toks.shape[1]
     full, _ = model.forward(toks, cache=model.init_cache(1, n),
-                            logits_slice=1)
+                            logits_slice=1, fused=fused)
     cache = model.init_cache(1, n)
-    model.forward(toks[:, :n - tail], cache=cache, logits_slice=1)
+    model.forward(toks[:, :n - tail], cache=cache, logits_slice=1,
+                  fused=fused)
     for t in range(n - tail, n):
         step, cache = model.forward(toks[:, t:t + 1], cache=cache,
                                     cache_len=torch.full((1,), t),
-                                    mode="decode")
+                                    mode="decode", fused=fused)
     return gap(full[0, -1], step[0, -1])
 
 
@@ -5535,10 +6104,10 @@ def phase6(hw) -> dict:
 #: ``path_e_bound``): the cut depths and the full one.
 PATH_E = {"7a": dict(arch="gemma2-9b", B=1, prompt=4600, max_len=4672,
                      flash=42, check="7b", depths=(2, 4),
-                     published=(2, 4, 42)),
+                     published=(2, 4, 42), fused_checks=False),
           "7c": dict(arch="zamba2-2.7b", B=2, prompt=2000, max_len=2048,
                      flash=9, check="7d", depths=(6, 12),
-                     published=(6, 12, 54))}
+                     published=(6, 12, 54), fused_checks=True)}
 PATH_E_DECODE = 32
 #: the plain legs' (``fused=False``) timed decode steps: their eager step
 #: takes ~80 ms at gemma2's depth
@@ -5549,36 +6118,43 @@ PATH_E_PLAIN_DECODE = 8
 PATH_E_TAIL = 64
 
 
-def kernel_vs_plain(model, toks) -> dict:
+def kernel_vs_plain(model, toks, fused: bool = False) -> dict:
     """The last position's logits of a fresh prefill with the flash
     kernel (on the card; the blocked plain attention on the CPU) against
-    the same prefill under ``plain_prefill_attention``."""
+    the same prefill under ``plain_prefill_attention``; both ``fused``."""
     n = toks.shape[1]
     kern, _ = model.forward(toks, cache=model.init_cache(1, n),
-                            logits_slice=1)
+                            logits_slice=1, fused=fused)
     with plain_prefill_attention():
         plain, _ = model.forward(toks, cache=model.init_cache(1, n),
-                                 logits_slice=1)
+                                 logits_slice=1, fused=fused)
     return gap(kern[0, -1], plain[0, -1])
 
 
 def path_e_checks(params: dict, cfg, depth: int, prompt: int, tail: int,
-                  device) -> dict:
+                  device, fused: bool = False) -> dict:
     """Phase 7b / 7d at one cut depth, fp32: the prefill of ``prompt``
     tokens against prefill of all but ``tail`` and ``tail`` decode steps,
     and the prefill through the flash kernel against the plain version
-    (on the card the flash launches are counted and asserted)."""
+    (on the card the flash launches are counted and asserted). ``fused``
+    (7d): every forward fused, zamba2's Mamba2 layers through their
+    kernels (on the card both launched, asserted)."""
     import torch
     from repro_torch.kernels import launch_counts
     model = cut_model(params, cfg, depth, "float32", device)
     gen = torch.Generator(device=model.device).manual_seed(7)
     toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
                          device=model.device)
-    before = launch_counts()["flash_attention"]
-    out = dict(prefill_vs_decode=prefill_vs_decode(model, toks, tail),
-               kernel_vs_plain=kernel_vs_plain(model, toks))
+    before = launch_counts()
+    out = dict(prefill_vs_decode=prefill_vs_decode(model, toks, tail,
+                                                   fused),
+               kernel_vs_plain=kernel_vs_plain(model, toks, fused))
     if model.device.type == "cuda":
-        assert launch_counts()["flash_attention"] > before, "no flash"
+        after = launch_counts()
+        assert after["flash_attention"] > before["flash_attention"], \
+            "no flash"
+        for name in MAMBA2 if fused and mamba_layers(cfg) else ():
+            assert after[name] > before[name], f"no {name}"
     del model
     return out
 
@@ -5601,35 +6177,58 @@ def attention_calls(cfg) -> int:
     return cfg.num_layers
 
 
+def mamba_layers(cfg) -> int:
+    """Mamba2 layers a forward of ``cfg`` runs: zamba2's every layer."""
+    return cfg.num_layers if cfg.family == "hybrid" else 0
+
+
 def path_e_fusions(cfg) -> dict:
     """The fusion kernels a fused path E step runs, with their launches a
     decode step: the norms (their count not fixed here: None), the decode
     qkv pass (``decode_qkv``: gemma2's one launch, zamba2's row pass after
     cuBLAS's products) and the gate/up launch, one a sublayer; and the
     prefill's gated activation and the qkv pass with its cache write
-    over the plain caches (no decode launch: 0)."""
+    over the plain caches (no decode launch: 0); zamba2's Mamba2 kernels,
+    the decode step's one a layer, the prompt's SSD in the prefill
+    alone."""
     n = attention_calls(cfg)
-    return {"rms_norm": None, decode_qkv(cfg): n, DECODE_FFN: n,
-            CHUNK_FFN: 0, "qkv_rope_chunk": 0}
+    out = {"rms_norm": None, decode_qkv(cfg): n, DECODE_FFN: n,
+           CHUNK_FFN: 0, "qkv_rope_chunk": 0}
+    if mamba_layers(cfg):
+        out.update(mamba2_step=mamba_layers(cfg), ssd_chunk=0)
+    return out
 
 
 @contextlib.contextmanager
-def decode_stats_calls():
-    """Within the block, each call of ``attention.decode_stats`` (the
-    plain dense arithmetic) appended to the yielded list."""
-    from repro_torch.models import attention
-    inner = attention.decode_stats
+def counted_calls(module, name: str):
+    """Within the block, each call of ``module.name`` appended to the
+    yielded list."""
+    inner = getattr(module, name)
     calls = []
 
     def counted(*args, **kw):
         calls.append(1)
         return inner(*args, **kw)
 
-    attention.decode_stats = counted
+    setattr(module, name, counted)
     try:
         yield calls
     finally:
-        attention.decode_stats = inner
+        setattr(module, name, inner)
+
+
+def decode_stats_calls():
+    """Each call of ``attention.decode_stats`` (the plain dense
+    arithmetic) within the block."""
+    from repro_torch.models import attention
+    return counted_calls(attention, "decode_stats")
+
+
+def plain_ssd_calls():
+    """Each call of ``mamba2._ssd`` (the plain Mamba2 arithmetic: the
+    decode recurrence or the chunked SSD) within the block."""
+    from repro_torch.models import mamba2
+    return counted_calls(mamba2, "_ssd")
 
 
 def forward_fused_vs_plain(model, toks, steps: int, max_len: int,
@@ -5644,8 +6243,9 @@ def forward_fused_vs_plain(model, toks, steps: int, max_len: int,
     plain| logit, the plain logits' rms and largest |logit|, the largest
     raw score |q . k| the plain leg's decode attention met
     (``score_max``), and what ``path_e_bound`` reads (attention layers,
-    norms a layer, scale, softcap, ``init``), each leg's launches and the
-    fused leg's calls of the plain dense arithmetic (``decode_stats``)."""
+    Mamba2 layers, norms a layer, scale, softcap, ``init``), each leg's
+    launches and the fused leg's calls of the plain dense arithmetic
+    (``decode_stats``) and of the plain Mamba2 arithmetic (``_ssd``)."""
     import torch
     from repro_torch.kernels import launch_counts
     cfg = model.cfg
@@ -5656,7 +6256,8 @@ def forward_fused_vs_plain(model, toks, steps: int, max_len: int,
         prefill = prefill_step_of(model, B, max_len, fused)
         step = decode_step_of(model, B, max_len, cuda_graphs=False,
                               fused=fused)
-        with (decode_stats_calls if fused else raw_score_max)() as found:
+        with (decode_stats_calls if fused else raw_score_max)() as found, \
+                plain_ssd_calls() as ssd:
             nxt, cache, lg = prefill.fn(model.init_cache(B, max_len), toks,
                                         logits=True)
             logits, fed_now = [lg[:, -1]], []
@@ -5671,7 +6272,7 @@ def forward_fused_vs_plain(model, toks, steps: int, max_len: int,
         legs[fused] = dict(logits=torch.stack(logits).float(),
                            launches={k: after[k] - before[k] for k in after
                                      if after[k] != before[k]},
-                           found=list(found))
+                           found=list(found), ssd=len(ssd))
         fed = fed_now
         del cache
     a, b = legs[True]["logits"], legs[False]["logits"]
@@ -5684,12 +6285,13 @@ def forward_fused_vs_plain(model, toks, steps: int, max_len: int,
                 max_abs_diff=(a - b).abs().max().item(),
                 rms_logit=b.square().mean().sqrt().item(),
                 max_abs_logit=b.abs().max().item(), steps=steps, rows=B,
-                layers=attention_calls(cfg),
+                layers=attention_calls(cfg), mamba_layers=mamba_layers(cfg),
                 norms=4 if cfg.sandwich_norm else 2,
                 scale=1.0 / math.sqrt(cfg.head_dim),
                 softcap=cfg.attn_softcap, init=init,
                 score_max=max(x.item() for x in scores) if scores else 0.0,
                 decode_stats_fused=len(legs[True]["found"]),
+                plain_ssd_fused=legs[True]["ssd"],
                 fusions=path_e_fusions(cfg),
                 launches_fused=legs[True]["launches"],
                 launches_plain=legs[False]["launches"])
@@ -5709,17 +6311,25 @@ def forward_fused_vs_plain(model, toks, steps: int, max_len: int,
 #: round-to-nearest errors of its own operands, independent of another
 #: sublayer's and of either sign, and the linear sum L r passes 1 (a
 #: bound of max|logit|, which any output of the logits' size meets)
-#: within gemma2-9b's 42 layers.
+#: within gemma2-9b's 42 layers. zamba2's M Mamba2 layers are M
+#: sublayers more, counted as P14 counts a product's share: a layer's
+#: norm through the norm kernel (one ulp, 2^-8) and its mixer's y
+#: elements off the plain spelling's bits at a share m (measured at
+#: zamba2's widths, ``mamba2_share``; one bf16 ulp each, signs that do not
+#: line up), which moves the out-projection by 2^-7 sqrt(m) of its size:
+#: r_m = 2^-8 + 2^-7 sqrt(m), in quadrature with the attention
+#: sublayers'.
 PATH_E_NORM_ULP = 2.0 ** -8
 SOFTCAP_SLOPE = 0.45
 
 
 def path_e_bound(check: dict) -> float:
     """The largest |fused - plain| bf16 logit of
-    ``forward_fused_vs_plain``: sqrt(L) r max|logit| + FUSED_BF16_ULPS
-    ulps of it, r = e^(2d) - 1 + 2^-7 + norms 2^-8 + 2^-7 (sqrt(s) + 3
-    sqrt(t)), d = 2^-9 min(scale S, 0.45 softcap), L the attention
-    sublayers."""
+    ``forward_fused_vs_plain``: sqrt(L r^2 + M r_m^2) max|logit| +
+    FUSED_BF16_ULPS ulps of it, r = e^(2d) - 1 + 2^-7 + norms 2^-8 + 2^-7
+    (sqrt(s) + 3 sqrt(t)), d = 2^-9 min(scale S, 0.45 softcap), L the
+    attention sublayers; r_m = 2^-8 + 2^-7 sqrt(m), M the Mamba2 layers
+    (none: sqrt(L) r)."""
     x = check["scale"] * check["score_max"]
     if check["softcap"]:
         x = min(x, SOFTCAP_SLOPE * check["softcap"])
@@ -5727,8 +6337,12 @@ def path_e_bound(check: dict) -> float:
     r = math.expm1(2 * d) + STEP_NORM_R + check["norms"] * PATH_E_NORM_ULP \
         + STEP_NORM_R * (math.sqrt(check["gate_up_share"])
                          + 3.0 * math.sqrt(check["qkv_share"]))
+    r_m = PATH_E_NORM_ULP + STEP_NORM_R * math.sqrt(
+        check.get("mamba2_share", 0.0))
+    spread = math.sqrt(check["layers"] * r * r
+                       + check.get("mamba_layers", 0) * r_m * r_m)
     top = max(check["max_abs_logit"], 2.0 ** -126)
-    return math.sqrt(check["layers"]) * r * top + \
+    return spread * top + \
         FUSED_BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
@@ -5750,6 +6364,7 @@ def assert_path_e_fused_vs_plain(check: dict, cuda: bool,
     if not cuda:
         assert not lf and not lp and check["max_abs_diff"] == 0, check
         return
+    assert check.get("plain_ssd_fused", 0) == 0, check
     n = check["layers"] * check["steps"]
     assert lf.get("dense_decode_attention") == n, check
     for name, per_step in check["fusions"].items():
@@ -5765,10 +6380,12 @@ def published_path_e_checks(cfg, run: dict, device) -> None:
     """The fused bf16 step against ``fused=False`` at ``cfg``'s published
     init (N(0, 0.02), drawn leaf by leaf in bf16) at ``run``'s
     ``published`` depths, held to ``path_e_bound`` with the gate/up and
-    qkv launches' shares measured at ``cfg``'s widths."""
+    qkv launches' shares and the Mamba2 kernels' measured at ``cfg``'s
+    widths."""
     import torch
     cuda = torch.device(device).type == "cuda"
     share, qshare = gate_up_share(cfg, device), qkv_share(cfg, device)
+    mshare = mamba2_share(cfg, device)
     params = published_init(cfg, torch.Generator(device=device)
                             .manual_seed(0), dtype="bfloat16")
     gen = torch.Generator(device=device).manual_seed(3)
@@ -5778,7 +6395,8 @@ def published_path_e_checks(cfg, run: dict, device) -> None:
         model = cut_model(params, cfg, depth, "bfloat16", device)
         check = forward_fused_vs_plain(model, toks, FUSED_STEPS,
                                        run["max_len"], init="published")
-        check.update(gate_up_share=share, qkv_share=qshare)
+        check.update(gate_up_share=share, qkv_share=qshare,
+                     mamba2_share=mshare)
         log(f"phase{run['check']} fused step vs fused=False at the "
             f"published init, {cfg.name} at {depth} full-width layers, "
             f"bf16, prefill + {FUSED_STEPS} steps (bound "
@@ -5838,7 +6456,8 @@ def phase7(smi: str) -> dict:
                              generator=gen, device="cuda")
         warm = forward_throughput(model, toks, 2, run["max_len"])
         reset_launch_counts()
-        with decode_stats_calls() as plain_calls:
+        with decode_stats_calls() as plain_calls, \
+                plain_ssd_calls() as ssd_calls:
             rates = decode_pair(model, toks, PATH_E_DECODE, run["max_len"])
         rates["first_call_prefill_s"] = warm["prefill_s"]
         counts[leg] = launch_counts()
@@ -5866,6 +6485,10 @@ def phase7(smi: str) -> dict:
                     (name, counts[leg])
         assert counts[leg]["dense_decode_attention"] == \
             attention_calls(cfg) * steps and not plain_calls, counts[leg]
+        # zamba2: the prompt's SSD once a layer in the one prefill, the
+        # plain Mamba2 arithmetic never
+        assert counts[leg]["ssd_chunk"] == mamba_layers(cfg) \
+            and not ssd_calls, (counts[leg], len(ssd_calls))
         plain = decode_pair(model, toks, PATH_E_PLAIN_DECODE,
                             run["max_len"], fused=False)
         assert_decode_pair(plain, cuda=True)
@@ -5877,7 +6500,7 @@ def phase7(smi: str) -> dict:
             side["plain"]["graph"]["kernels_run"], side
         check = forward_fused_vs_plain(model, toks, FUSED_STEPS,
                                        run["max_len"])
-        check.update(gate_up_share=0.0, qkv_share=0.0)
+        check.update(gate_up_share=0.0, qkv_share=0.0, mamba2_share=0.0)
         log(f"phase{leg} fused step vs fused=False at the seeded init "
             f"(P5: logged, not held), prefill + {FUSED_STEPS} steps: "
             f"{json.dumps(check)}")
@@ -5896,7 +6519,8 @@ def phase7(smi: str) -> dict:
             seed=0).params)
         for depth in run["depths"]:
             checks = path_e_checks(params, cfg, depth, run["prompt"],
-                                   PATH_E_TAIL, "cuda")
+                                   PATH_E_TAIL, "cuda",
+                                   fused=run["fused_checks"])
             log(f"phase{run['check']} {cfg.name}, {depth} full-width "
                 f"layers, fp32, {run['prompt']}-token prompt, tail "
                 f"{PATH_E_TAIL}: {json.dumps(checks)}")
@@ -7038,9 +7662,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path_e = phase7(smi)
-    # the dense launch's main path is path E's decode (phase 7)
-    counts["dense_decode_attention"] = sum(
-        c["dense_decode_attention"] for c in path_e.values())
+    # the dense launch's and the Mamba2 kernels' main path is path E's
+    # steps (phase 7)
+    for name in ("dense_decode_attention", *MAMBA2):
+        counts[name] = sum(c[name] for c in path_e.values())
     gc.collect()
     torch.cuda.empty_cache()
     path_f = phase8(hw, smi, sheet, samples)
@@ -7077,6 +7702,7 @@ def main() -> int:
                        "src/repro/kernels/rwkv6_scan/kernel.py:75"),
         **FUSIONS,
         "qkv_rope_chunk": CHUNK_QKV,
+        **MAMBA2,
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name],

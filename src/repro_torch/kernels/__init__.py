@@ -80,7 +80,9 @@ def kernel_wrappers() -> dict:
     the decode step's gate / up products with their activation, apart
     from ``gated_act`` (the activation alone); ``dense_decode_attention``
     decode attention's launch over ``Model.forward``'s dense cache (a
-    one-token step), apart from the paged ``paged_decode_attention``."""
+    one-token step), apart from the paged ``paged_decode_attention``;
+    ``mamba2_step`` a Mamba2 layer's one-token decode step and
+    ``ssd_chunk`` a prompt's chunked SSD with its gate and norm."""
     from repro_torch.kernels.decode_attention.kernel import (
         dense_decode_attention_kernel, paged_decode_attention_kernel)
     from repro_torch.kernels.flash_attention.kernel import (
@@ -91,6 +93,8 @@ def kernel_wrappers() -> dict:
                                                     qkv_rope_chunk_kernel,
                                                     qkv_rope_kernel,
                                                     rms_norm_kernel)
+    from repro_torch.kernels.mamba2.kernel import (mamba2_step_kernel,
+                                                   ssd_chunk_kernel)
     from repro_torch.kernels.page_copy.kernel import (
         page_gather_kernel, page_scatter_kernel, token_append_indexed_kernel,
         token_append_kernel)
@@ -109,7 +113,9 @@ def kernel_wrappers() -> dict:
             "qkv_rope_chunk": qkv_rope_chunk_kernel,
             "qkv_proj": qkv_proj_kernel,
             "gated_act": gated_act_kernel,
-            "gate_up_act": gate_up_act_kernel}
+            "gate_up_act": gate_up_act_kernel,
+            "mamba2_step": mamba2_step_kernel,
+            "ssd_chunk": ssd_chunk_kernel}
 
 
 def launch_counts() -> dict[str, int]:

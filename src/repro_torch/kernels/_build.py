@@ -21,7 +21,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 SOURCES = ("page_copy", "decode_attention", "dense_decode",
-           "flash_attention", "rwkv6_scan", "fusions")
+           "flash_attention", "rwkv6_scan", "fusions", "mamba2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,9 +1,9 @@
 """Paged decode attention, page gather, page scatter, the RWKV6 WKV scan,
 the RMS norm, the flash kernels' extend launch, decode attention with the
 new token merged, the decode step's gate / up products and its qkv pass,
-the chunk's qkv pass and decode attention's dense launch timed the same
-way on any tree of the port, so that two trees can be compared in one
-call on one card.
+the chunk's qkv pass, decode attention's dense launch and zamba2's Mamba2
+mixer timed the same way on any tree of the port, so that two trees can
+be compared in one call on one card.
 
 It calls only the wrappers' public signatures, which every tree of the
 port shares, so this file times whichever tree ``PYTHONPATH`` names; run
@@ -76,7 +76,14 @@ G 6, page 16):
   in turn, beside its bound and, without the softcap, SDPA with the
   length mask; a digest of its output; where the tree has them, the
   bf16 kernel's plan and other cluster sizes (``_cluster``, for
-  measurements only).
+  measurements only);
+- zamba2-2.7b's Mamba2 mixer (``mamba2``) at path E's shapes, bf16: the
+  decode step after its in-products at B 2 (H 80, P 64, N 64, d_conv 4,
+  from random conv and fp32 SSM states) and a B 2 x 2000-token prompt's
+  SSD with its D skip, gate and norm, each as the tree's plain chain
+  (``models/mamba2.py``'s ops, ``fused=False``) and, where the tree has
+  them, as ``mamba2_step_kernel`` / ``ssd_chunk_kernel``, by CUDA-graph
+  replay beside the bound, with digests of the kernels' outputs.
 
 Each is timed eager (CUDA events around a loop of calls, host work
 included where it is the slower side) and on the device (``torch.profiler``:
@@ -645,13 +652,124 @@ def time_dense() -> dict:
     return out
 
 
+#: zamba2-2.7b's Mamba2 widths and path E's shapes: heads, head dim,
+#: state, groups, d_conv, chunk; the decode batch; the prompt's (B, S)
+MAMBA2 = dict(H=80, P=64, N=64, G=1, K=4, chunk=64, B=2, prompt=(2, 2000))
+
+
+def _mamba2_plain(inp: dict, w: dict, decode: bool, eps: float):
+    """The plain spelling's Mamba2 chain after the in-products
+    (``models/mamba2.py``, ``fused=False``): for a decode step the conv,
+    SiLU, softplus and recurrence, for a prompt the SSD (from
+    conv'd inputs); then the D skip, gate and norm; the states written
+    back as the model's cache copy does."""
+    import torch.nn.functional as F
+    from repro_torch.models import mamba2
+    from repro_torch.models.common import _silu, rms_norm
+    H, P, N, G = (w[k] for k in ("H", "P", "N", "G"))
+    A = -torch.exp(inp["A_log"].float())
+    if decode:
+        conv, new_conv = mamba2._causal_conv(
+            torch.cat([inp["x"], inp["bm"], inp["cm"]], dim=-1)[:, None],
+            inp["conv_w"], inp["conv_b"], inp["conv_state"])
+        conv = _silu(conv)
+        xr = conv[..., :H * P].unflatten(-1, (H, P))
+        Bm = conv[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+        Cm = conv[..., H * P + G * N:].unflatten(-1, (G, N))
+        dt = F.softplus(inp["dt"][:, None].float()
+                        + inp["dt_bias"].float())
+        state, z, mode = inp["ssm_state"], inp["z"][:, None], "decode"
+        inp["conv_state"].copy_(new_conv)
+    else:
+        xr, Bm, Cm, dt = inp["xr"], inp["Bm"], inp["Cm"], inp["dt"]
+        state, z, mode = inp["state"], inp["z"], "prefill"
+    y, new = mamba2._ssd(xr, dt, A, Bm, Cm, state, chunk=w["chunk"],
+                         mode=mode)
+    y = y + xr.float() * inp["D"].float()[:, None]
+    y = y.to(z.dtype).float() * _silu(z).float()
+    state.copy_(new)
+    return rms_norm(y, inp["norm"], eps).to(z.dtype)
+
+
+def time_mamba2() -> dict:
+    """zamba2-2.7b's Mamba2 decode step and prompt SSD, bf16: the plain
+    chain and, where the tree has them, the kernels, by CUDA-graph replay
+    (the states updated in place each call), beside each kernel's bound
+    (bytes at 3.35 TB/s or fp32 flops at 67 TFLOP/s, the larger); digests
+    of the kernels' outputs on inputs of their own seed."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import _silu
+    try:
+        from repro_torch.kernels import mamba2 as mk
+    except ImportError:
+        mk = None
+    w = MAMBA2
+    eps = get_config("zamba2-2.7b").norm_eps
+    H, P, N, G, K = (w[k] for k in ("H", "P", "N", "G", "K"))
+    C = H * P + 2 * G * N
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(*shape, std=1.0, mean=0.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * std
+                + mean).to(dtype)
+
+    prm = dict(conv_w=rand(K, C, std=0.3), conv_b=rand(C, std=0.1),
+               dt_bias=rand(H, std=0.5, mean=-1.0),
+               A_log=rand(H, std=0.5, mean=0.5),
+               D=rand(H, std=0.3, mean=1.0), norm=rand(H, P, std=0.1))
+    B = w["B"]
+    step = dict(z=rand(B, H, P), x=rand(B, H * P), bm=rand(B, G * N),
+                cm=rand(B, G * N), dt=rand(B, H), **prm,
+                conv_state=rand(B, K - 1, C),
+                ssm_state=rand(B, H, P, N, dtype=torch.float32))
+    Bp, S = w["prompt"]
+    conv = _silu(rand(Bp, S, C))
+    prompt = dict(xr=conv[..., :H * P].unflatten(-1, (H, P)),
+                  dt=F.softplus(rand(Bp, S, H, dtype=torch.float32)
+                                + prm["dt_bias"].float()),
+                  A_log=prm["A_log"],
+                  Bm=conv[..., H * P:H * P + G * N].unflatten(-1, (G, N)),
+                  Cm=conv[..., H * P + G * N:].unflatten(-1, (G, N)),
+                  z=rand(Bp, S, H, P), D=prm["D"], norm=prm["norm"],
+                  state=rand(Bp, H, P, N, dtype=torch.float32))
+    step_bytes = 2 * B * H * P * N * 4
+    out = dict(step=dict(plain_graph_ms=graph_ms(
+        lambda: _mamba2_plain(step, w, True, eps)),
+        bound_ms=step_bytes / HBM_BW * 1e3),
+        prompt=dict(plain_graph_ms=graph_ms(
+            lambda: _mamba2_plain(prompt, w, False, eps), iters=3,
+            reps=2)))
+    if mk is None:
+        return out
+    from repro_torch.kernels.mamba2.kernel import chunk_work, step_work
+    sargs = {k: v for k, v in step.items()
+             if k not in ("conv_state", "ssm_state")}
+    skern = lambda: mk.mamba2_step_kernel(  # noqa: E731
+        **sargs, conv_state=step["conv_state"],
+        ssm_state=step["ssm_state"], eps=eps)
+    order = ("xr", "dt", "A_log", "Bm", "Cm", "z", "D", "norm", "state")
+    ckern = lambda: mk.ssd_chunk_kernel(  # noqa: E731
+        *(prompt[k] for k in order), chunk=w["chunk"], eps=eps)
+    nbytes, ops = step_work(B, H, P, N, G, K, 2)
+    out["step"].update(graph_ms=graph_ms(skern), bits=digest(skern()),
+                       bound_ms=max(nbytes / HBM_BW, ops / FP32_PEAK) * 1e3)
+    nbytes, ops = chunk_work(Bp, S, H, P, N, G, w["chunk"], 2)
+    out["prompt"].update(graph_ms=graph_ms(ckern, iters=5),
+                         bits=digest(ckern()[0]),
+                         bound_ms=max(nbytes / HBM_BW, ops / FP32_PEAK)
+                         * 1e3)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="",
                     help="comma-separated cases to time (decode, gather, "
                          "scatter, scan, norm, extend, flash, merge, "
-                         "gate_up, qkv, chunk, dense); all by default")
+                         "gate_up, qkv, chunk, dense, mamba2); all by "
+                         "default")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_pair: CUDA is not available")
@@ -697,6 +815,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if want("dense"):
         out["dense"] = time_dense()
+        torch.cuda.empty_cache()
+    if want("mamba2"):
+        out["mamba2"] = time_mamba2()
     print(json.dumps(out))
     return 0
 

@@ -22,15 +22,20 @@ them. The decode step and the chunk run their chains as the fused kernels
 of ``kernels/fusions``, and the extend chunk its attention as the flash
 kernels' extend launch, unless ``--plain`` asks for their plain spelling
 (``PagedKVRuntime(fused=False)``); a trace splits a step's device time
-into products, attention, fusions and the rest (``device_ms_by_part``;
-the fused decode step's gate/up launch and its qkv launch, products
-with their chains in the epilogue, count as products).
+into products, attention, the Mamba2 mixer ("ssm"), fusions and the rest
+(``device_ms_by_part``; the fused decode step's gate/up launch and its
+qkv launch, products with their chains in the epilogue, count as
+products).
 Attention is the attention kernels by name and, in the chunk, every
 device op launched inside ``attend_decode`` (its products too: the plain
-spelling's): one eager chunk is traced with that function annotated
-(:func:`launch_marks`), and the traced chunks' ops, eager or replayed,
-are walked in stream order beside its ops (``attention_marks``: how many
-ops it had, how many the traced chunks had, how many were aligned).
+spelling's); "ssm" is the two Mamba2 kernels by name and every device op
+launched inside ``mamba_apply`` that its name puts in no other part (the
+plain chain between the mixer's products): one eager chunk (and, through
+``Model.forward``, one eager decode step) is traced with those functions
+annotated (:func:`launch_marks`), and the traced steps' ops, eager or
+replayed, are walked in stream order beside its ops (``attention_marks``:
+how many ops it had, how many were marked, how many the traced steps had,
+how many were aligned).
 ``--capacity-step N`` sets the extend scratch's capacity granularity
 (``PagedKVRuntime.capacity_step``, 512 tokens by default), to measure
 what padding the chunk's capacity costs.
@@ -111,13 +116,14 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
 #: (the first part whose marker a name holds takes it; the rest is
 #: "other": copies, casts, the embedding, argmax, the token append, the
 #: plain chains): decode attention (its paged and fp32 dense split
-#: kernels, its bf16 dense cluster kernel) and flash attention, the port's
-#: fused chains,
+#: kernels, its bf16 dense cluster kernel) and flash attention, the
+#: Mamba2 mixer's two kernels, the port's fused chains,
 #: the products (cuBLAS's and CUTLASS's kernels, and the port's gate/up
 #: product with its activation and its qkv products with their bias, qk
 #: norm and RoPE)
 DEVICE_PARTS = (("attention", ("split_kernel", "dense_cluster_kernel",
                                "flash_")),
+                ("ssm", ("mamba2_step_kernel", "ssd_chunk_kernel")),
                 ("fusions", ("rms_norm_kernel", "qkv_rope_kernel",
                              "gated_act_kernel")),
                 ("products", ("gemm", "gemv", "nvjet", "xmma", "cutlass",
@@ -129,6 +135,14 @@ DEVICE_PARTS = (("attention", ("split_kernel", "dense_cluster_kernel",
 #: attention whatever their names (the plain spelling's ops over the
 #: score tensor and its products)
 ATTENTION_FNS = ("attend_decode",)
+#: functions of ``models/mamba2.py`` whose device ops are a step's "ssm"
+#: part unless their names make them another part (the plain Mamba2
+#: chain: the conv, SiLU, softplus, the SSD and its epilogue; its five
+#: in-products and its out-projection stay products)
+SSM_FNS = ("mamba_apply",)
+#: (part, module, functions) of the marked launches
+MARKED = (("attention", "attention", ATTENTION_FNS),
+          ("ssm", "mamba2", SSM_FNS))
 
 
 def device_parts(events: list, reps: int, marks: list | None = None
@@ -137,12 +151,13 @@ def device_parts(events: list, reps: int, marks: list | None = None
     trace's device ops ``[(start_ns, name, ns)]`` of ``reps`` steps. With
     ``marks`` (:func:`launch_marks` of one eager step) an op is attention
     when its counterpart in the marked step was launched inside an
-    ``ATTENTION_FNS`` function: the traced ops, in stream order, are
-    walked beside the marked step's repeated (:func:`align`), and an op
-    that finds no counterpart takes its part by name. Returns the parts
-    and, with ``marks``, how the walk went: the marked step's ops and
-    marked ops, the traced ops, the ops aligned, the first op that was
-    not."""
+    ``ATTENTION_FNS`` function, and "ssm" when inside an ``SSM_FNS``
+    function and its name gives it no part: the traced ops, in stream
+    order, are walked beside the marked step's repeated (:func:`align`),
+    and an op that finds no counterpart takes its part by name. Returns
+    the parts and, with ``marks``, how the walk went: the marked step's
+    ops and marked ops, the traced ops, the ops aligned, the first op
+    that was not."""
     out = dict.fromkeys([p for p, _ in DEVICE_PARTS] + ["other"], 0.0)
     events = sorted(events)
     names = [name for _, name, _ in events]
@@ -150,13 +165,14 @@ def device_parts(events: list, reps: int, marks: list | None = None
     for i, (_, name, ns) in enumerate(events):
         part = next((p for p, keys in DEVICE_PARTS
                      if any(m in name for m in keys)), "other")
-        if i in pairs and marks[pairs[i]][1]:
-            part = "attention"
+        mark = marks[pairs[i]][1] if i in pairs else None
+        if mark == "attention" or (mark and part == "other"):
+            part = mark
         out[part] += ns / reps / 1e6
     if not marks:
         return out, None
     return out, dict(eager_ops=len(marks),
-                     eager_marked=sum(m for _, m in marks),
+                     eager_marked=sum(m is not None for _, m in marks),
                      traced_ops=len(events), aligned_ops=len(pairs),
                      first_unaligned=first_miss)
 
@@ -191,10 +207,12 @@ def align(names: list, marks: list, window: int = 16):
 
 @contextlib.contextmanager
 def _annotated():
-    """Each ``ATTENTION_FNS`` function inside a ``record_function`` range
-    of its name (the model calls them through their module)."""
-    from repro_torch.models import attention
-    saved = {n: getattr(attention, n) for n in ATTENTION_FNS}
+    """Each ``MARKED`` function inside a ``record_function`` range of its
+    name (the model calls them through their modules)."""
+    import importlib
+    saved = [(importlib.import_module(f"repro_torch.models.{mod}"), name)
+             for _, mod, names in MARKED for name in names]
+    inner = [getattr(mod, name) for mod, name in saved]
 
     def ranged(name, fn):
         def call(*args, **kw):
@@ -202,21 +220,21 @@ def _annotated():
                 return fn(*args, **kw)
         return call
 
-    for name, fn in saved.items():
-        setattr(attention, name, ranged(name, fn))
+    for (mod, name), fn in zip(saved, inner):
+        setattr(mod, name, ranged(name, fn))
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(attention, name, fn)
+        for (mod, name), fn in zip(saved, inner):
+            setattr(mod, name, fn)
 
 
-def launch_marks(fn) -> list[tuple[str, bool]]:
+def launch_marks(fn) -> list[tuple[str, str | None]]:
     """One call of ``fn`` (an eager step) under ``torch.profiler`` with
-    ``ATTENTION_FNS`` annotated: its device ops in stream order, each by
-    name with whether it was launched inside one of their ranges (its
+    the ``MARKED`` functions annotated: its device ops in stream order,
+    each by name with the part of the range it was launched inside (its
     launching host op, or the runtime call of the same correlation id,
-    starting inside one)."""
+    starting inside one), or None."""
     torch.cuda.synchronize()
     with _annotated(), profile(activities=[ProfilerActivity.CPU,
                                            ProfilerActivity.CUDA]) as prof:
@@ -224,13 +242,15 @@ def launch_marks(fn) -> list[tuple[str, bool]]:
         torch.cuda.synchronize()
     events = list(prof.profiler.kineto_results.events())
     host = [e for e in events if e.device_type() != DeviceType.CUDA]
-    ranges = [(e.start_ns(), e.end_ns()) for e in host
-              if e.is_user_annotation() and e.name() in ATTENTION_FNS]
+    part_of = {name: part for part, _, names in MARKED for name in names}
+    ranges = [(e.start_ns(), e.end_ns(), part_of[e.name()]) for e in host
+              if e.is_user_annotation() and e.name() in part_of]
     starts = {e.correlation_id(): e.start_ns() for e in host}
 
-    def inside(corr) -> bool:
+    def inside(corr) -> str | None:
         t = starts.get(corr)
-        return t is not None and any(a <= t <= b for a, b in ranges)
+        return None if t is None else next(
+            (part for a, b, part in ranges if a <= t <= b), None)
 
     dev = sorted((e.start_ns(), e.name(), inside(e.linked_correlation_id())
                   or inside(e.correlation_id()))
@@ -391,6 +411,9 @@ def main(argv=None) -> int:
         fn()
     torch.cuda.synchronize()
     marks = launch_marks(getattr(prefill, "eager", prefill))
+    eager_decode = getattr(decode, "eager", None)
+    decode_marks = None if eager_decode is None else \
+        launch_marks(eager_decode)
     before = launch_counts()
     out = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
            "layers": cfg.num_layers, "weight_bytes_per_step": weight_bytes,
@@ -402,7 +425,8 @@ def main(argv=None) -> int:
            "decode_step": "eager" if args.eager else "cuda_graph",
            "fused": not args.plain,
            "capacity_step": args.capacity_step,
-           "decode": {**_timed(decode, args.steps), **traced(decode)},
+           "decode": {**_timed(decode, args.steps),
+                      **traced(decode, marks=decode_marks)},
            "prefill": {**_timed(prefill, args.steps),
                        **traced(prefill, marks=marks)}}
     after = launch_counts()
@@ -673,6 +697,8 @@ def _forward_steps(model, args, dev):
     step = build_decode_step(model.cfg, None, shape, model=model,
                              cuda_graphs=not args.eager,
                              fused=not args.plain)
+    eager = build_decode_step(model.cfg, None, shape, model=model,
+                              cuda_graphs=False, fused=not args.plain)
 
     def decode():
         step.fn(cache, nxt, args.context)
@@ -681,6 +707,8 @@ def _forward_steps(model, args, dev):
         pf.fn(cache, toks)
 
     decode.graph = step.graph
+    # the decode step's ops, marked by their launching function
+    decode.eager = lambda: eager.fn(cache, nxt, args.context)
     return decode, prefill, args.context
 
 

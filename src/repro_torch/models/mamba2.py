@@ -14,6 +14,16 @@ Layouts: x (B, S, D); SSM heads H = expand * D / head_dim; state (B, H,
 P, N) with P = head_dim, N = d_state; the conv state (B, K - 1, C) holds
 the last K - 1 inputs of the depthwise causal convolution. On a mesh
 the SSD runs on each rank's batch rows and heads (:func:`_ssd_sharded`).
+
+``mamba_apply(..., fused=True)`` (``Model.forward(fused=True)``'s
+prefill, extend and decode; never training) runs the mixer through
+:mod:`repro_torch.kernels.mamba2` where ``takes_mamba2_launch`` takes the
+layer's widths and dtype: a one-token decode step's conv, recurrence, D
+skip, gate and norm as one launch from the in-products, both states
+updated in place in the cache; any other call's SSD with its D skip,
+gate and norm as one launch after the plain conv and SiLU, the SSM state
+overwritten in place. Only CUDA tensors take that route: on the CPU
+``fused=True`` keeps the plain spelling's bits.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import matmul, matmul_in, matmul_out
+from repro_torch.kernels import mamba2 as mamba2_kernels
 from repro_torch.models.common import ParamSpec, _silu, rms_norm
 
 
@@ -213,24 +224,54 @@ def _ssd_sharded(scan, xr, dt, A, Bm, Cm, ssm):
     return y, from_local(sl, state_like)
 
 
+#: the device type whose tensors take the kernels' route
+_KERNEL_DEVICE = "cuda"
+
+
+def _takes_kernels(fused: bool, x, cfg: ModelConfig, mode: str) -> bool:
+    """Whether :func:`mamba_apply` runs the Mamba2 kernels' route:
+    ``fused``, CUDA tensors (the CPU keeps the plain spelling's bits), a
+    serving mode (training keeps the plain ops: the kernels have no
+    backward), local tensors (a mesh keeps the plain route), and widths
+    and a dtype the kernels take."""
+    return fused and x.device.type == _KERNEL_DEVICE \
+        and mode in ("prefill", "extend", "decode") \
+        and not isinstance(x, DTensor) \
+        and mamba2_kernels.takes_mamba2_launch(cfg, x.dtype)
+
+
 def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                state: dict | None, mode: str):
+                state: dict | None, mode: str, fused: bool = False):
     """x (B, S, D) -> (out (B, S, D), {"conv", "ssm"}). ``state`` holds the
     layer's conv and SSM states (None starts from zeros). A decode step of
     one token runs the recurrence; everything else runs
-    :func:`ssd_chunked` from the given state."""
+    :func:`ssd_chunked` from the given state. ``fused``: where
+    :func:`_takes_kernels`, a one-token decode step after the in-products
+    is one ``mamba2_step`` launch and any other call's SSD with its
+    epilogue one ``ssd_chunk`` launch (the module's docstring), the
+    states updated in place and returned; else the plain spelling, which
+    never writes into ``state``."""
     s = cfg.ssm
     B_, S, D = x.shape
-    _, H, _ = mamba_dims(cfg)
+    _, H, conv_dim = mamba_dims(cfg)
     P, N, G = s.head_dim, s.d_state, s.n_groups
+    kernels = _takes_kernels(fused, x, cfg, mode)
 
     z = matmul_in(x, p["wz"])                                 # (B,S,H,P)
-    conv_in = torch.cat([matmul(x, p["wx"].reshape(D, -1)),
-                         matmul(x, p["wB"].reshape(D, -1)),
-                         matmul(x, p["wC"].reshape(D, -1))], dim=-1)
-    dt = matmul(x, p["wdt"])                                         # (B,S,H)
+    xs, bs, cs = (matmul(x, p[k].reshape(D, -1)) for k in ("wx", "wB", "wC"))
+    dt = matmul(x, p["wdt"])                                  # (B,S,H)
+    if kernels and mode == "decode" and S == 1:
+        if state is None:
+            state = {"conv": x.new_zeros((B_, s.d_conv - 1, conv_dim)),
+                     "ssm": x.new_zeros((B_, H, P, N), dtype=torch.float32)}
+        y = mamba2_kernels.mamba2_step(
+            z[:, 0], xs[:, 0], bs[:, 0], cs[:, 0], dt[:, 0], p["conv_w"],
+            p["conv_b"], p["dt_bias"], p["A_log"], p["D"], p["norm"],
+            conv_state=state["conv"], ssm_state=state["ssm"],
+            eps=cfg.norm_eps)
+        return matmul_out(y[:, None], p["wo"]), state
     conv_out, new_conv = _causal_conv(
-        conv_in, p["conv_w"], p["conv_b"],
+        torch.cat([xs, bs, cs], dim=-1), p["conv_w"], p["conv_b"],
         None if state is None else state["conv"])
     conv_out = _silu(conv_out)
     xr = conv_out[..., :H * P].unflatten(-1, (H, P))
@@ -238,6 +279,12 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     Cm = conv_out[..., H * P + G * N:].unflatten(-1, (G, N))
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())
+    if kernels:
+        y, new_ssm = mamba2_kernels.ssd_chunk(
+            xr, dt, p["A_log"], Bm, Cm, z, p["D"], p["norm"],
+            None if state is None else state["ssm"], chunk=s.chunk,
+            eps=cfg.norm_eps)
+        return matmul_out(y, p["wo"]), {"conv": new_conv, "ssm": new_ssm}
     A = -torch.exp(p["A_log"].float())
     ssm = None if state is None else state["ssm"].float()
     scan = functools.partial(_ssd, chunk=s.chunk, mode=mode)
@@ -248,10 +295,15 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
             ssm = x.new_zeros((B_, H, P, N), dtype=torch.float32)
         y, new_ssm = scan(xr, dt, A, Bm, Cm, ssm)
 
+    out = matmul_out(_gate_norm(y, xr, z, p, cfg), p["wo"])
+    return out, {"conv": new_conv, "ssm": new_ssm}
+
+
+def _gate_norm(y, xr, z, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The SSD's epilogue in the plain spelling: y (B, S, H, P) fp32 plus
+    the D skip, gated by SiLU(z), normed over P, in z's dtype."""
     y = y + xr.float() * p["D"].float()[:, None]
     # the gate's product feeds the norm unrounded, as XLA's fusion of the
     # reference computes it (bf16 outputs then match it bit for bit)
-    y = y.to(x.dtype).float() * _silu(z).float()
-    y = rms_norm(y, p["norm"], cfg.norm_eps).to(x.dtype)
-    out = matmul_out(y, p["wo"])
-    return out, {"conv": new_conv, "ssm": new_ssm}
+    y = y.to(z.dtype).float() * _silu(z).float()
+    return rms_norm(y, p["norm"], cfg.norm_eps).to(z.dtype)

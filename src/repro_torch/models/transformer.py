@@ -33,7 +33,12 @@ attention over the cache as the flash kernels' extend launch and a
 one-token step's as decode attention's dense launch, on CUDA tensors;
 the default keeps the plain spelling of all of them (the fresh
 prefill's attention is the flash kernel either way). Both give the same
-bits on the CPU. RWKV6 and Mamba2 layers keep their own ops either way.
+bits on the CPU. zamba2's Mamba2 layers take their norm through the norm
+kernel and their mixer through the Mamba2 kernels when ``fused``
+(:mod:`repro_torch.kernels.mamba2`: a one-token step's conv, recurrence,
+gate and norm as one launch, a prompt's SSD with its gate and norm as
+another; on CUDA tensors only, so the CPU keeps the plain bits).
+RWKV6 layers keep their own ops either way.
 The rotary tables are built once a forward, from its positions.
 """
 from __future__ import annotations
@@ -503,11 +508,14 @@ class Model(nn.Module):
             else None)
         return x + (h + f)
 
-    def _mamba_layer(self, p: dict, x, state, mode):
-        """One Mamba2 layer and its residual add; returns (x, new state)."""
+    def _mamba_layer(self, p: dict, x, state, mode, fused: bool = False):
+        """One Mamba2 layer and its residual add; returns (x, new state).
+        ``fused``: its norm through the norm kernel and its mixer through
+        the Mamba2 kernels (``mamba2.mamba_apply(fused=True)``) on CUDA
+        tensors."""
         out, new = mamba2.mamba_apply(
-            p, rms_norm(x, p["ln"], self.cfg.norm_eps), self.cfg, state,
-            mode)
+            p, self._norm(x, p["ln"], fused=fused), self.cfg, state, mode,
+            fused=fused)
         return x + out, new
 
     def _hybrid(self, w: Weights, x, cache, cache_len, rope, mode,
@@ -515,7 +523,8 @@ class Model(nn.Module):
         """zamba2's stack: per group g, shared block g mod
         ``num_shared_blocks`` (its KV in ``shared_k/v[g]``; ``fused`` as
         :meth:`forward`'s), then the group's E Mamba2 layers (their
-        states in ``conv/ssm[g, e]``, written back in place)."""
+        states in ``conv/ssm[g, e]``, written back in place; a state the
+        kernels updated in place is not copied)."""
         cfg = self.cfg
         E = cfg.shared_attn_every
         x0 = x
@@ -531,11 +540,12 @@ class Model(nn.Module):
                     "conv": cache["conv"][g, e], "ssm": cache["ssm"][g, e]}
                 x, new = self._step(mode, functools.partial(
                     self._mamba_layer, w.layers[g * E + e], state=state,
-                    mode=mode), x)
+                    mode=mode, fused=fused), x)
                 x = _act(x)
                 if cache is not None:
-                    cache["conv"][g, e] = new["conv"]
-                    cache["ssm"][g, e] = new["ssm"]
+                    for key in ("conv", "ssm"):
+                        if new[key] is not state[key]:
+                            cache[key][g, e] = new[key]
         return x
 
     def _rwkv_layer(self, p: dict, x, cache, i: int, mode):

@@ -1037,8 +1037,8 @@ def fake_card(monkeypatch):
 
 def test_kernels_line_names_the_fusions(fake_card, monkeypatch, capsys):
     """The kernels line holds the four fusions beside the six ported
-    kernels, each with every key of the contract; the last line is the
-    device's."""
+    kernels, and the two Mamba2 kernels, each with every key of the
+    contract; the last line is the device's."""
     rec = dict(ms=0.02, plain_ms=0.1, bound_ms=0.001, bound_by="bytes",
                library_ms=None, device_ms=0.01, max_abs_err=0.0)
     monkeypatch.setattr(chip_smoke, "phase2", lambda *a: {
@@ -1066,7 +1066,13 @@ def test_kernels_line_names_the_fusions(fake_card, monkeypatch, capsys):
             rows["dense_decode_attention"]["replaces"]) == (
         "src/repro_torch/csrc/dense_decode.cu",
         "src/repro/models/attention.py:272")
-    assert len(rows) == 10 + len(chip_smoke.FUSIONS)
+    for name, (source, replaces) in chip_smoke.MAMBA2.items():
+        assert keys <= set(rows[name]) and rows[name]["route"] == "cuda"
+        assert (rows[name]["source"], rows[name]["replaces"]) == \
+            (source, replaces)
+        path, line = replaces.split(":")
+        assert (ROOT / source).exists() and (ROOT / path).exists()
+    assert len(rows) == 10 + len(chip_smoke.FUSIONS) + len(chip_smoke.MAMBA2)
 
 
 @pytest.mark.parametrize("broken", ["rms_norm", "qkv_rope", "decode_merge",
@@ -1411,11 +1417,14 @@ def test_dense_bound_at_gemma2s_global_layer():
     ("gemma2-9b", {"rms_norm": None, "qkv_proj": 42, "gate_up_act": 42,
                    "gated_act": 0, "qkv_rope_chunk": 0}),
     ("zamba2-2.7b", {"rms_norm": None, "qkv_rope": 9, "gate_up_act": 9,
-                     "gated_act": 0, "qkv_rope_chunk": 0})])
+                     "gated_act": 0, "qkv_rope_chunk": 0, "mamba2_step": 54,
+                     "ssd_chunk": 0})])
 def test_path_e_fusions_follow_the_shapes(arch, fusions):
     """The kernels a fused path E step runs: gemma2-9b's qkv launch (its
     plan takes Dh 256 at one row), zamba2-2.7b's row pass (its Dh 80 is
-    refused by the plan), each sublayer's gate/up launch."""
+    refused by the plan), each sublayer's gate/up launch; zamba2-2.7b's
+    decode step's Mamba2 launch once a layer, its prompt's SSD in the
+    prefill alone."""
     cfg = get_config(arch)
     assert chip_smoke.path_e_fusions(cfg) == fusions
     assert chip_smoke.attention_calls(cfg) == (42 if arch == "gemma2-9b"
@@ -1531,3 +1540,72 @@ def test_path_e_fused_vs_plain_on_cpu(arch):
     side = chip_smoke.path_e_legs(pair, plain)
     assert set(side) == {"fused", "plain"}
     assert set(side["fused"]) == {"prefill_s", "graph", "eager"}
+
+
+# ------------------------------------- phase 2: the Mamba2 kernels (CPU)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba2_checks_pass_the_plain_versions(dtype):
+    """Phase 2's Mamba2 checks at the smoke edge with the plain versions
+    standing in for the kernels: the new states bit-equal, every element
+    within ``mamba2_tolerance``, rows alone equal to rows in a batch."""
+    from repro_torch.kernels.mamba2 import mamba2_step_ref, ssd_chunk_ref
+    gen = torch.Generator().manual_seed(0)
+    for edge in chip_smoke.MAMBA2_EDGES:
+        w = dict(edge, eps=1e-5)
+        got = chip_smoke.check_mamba2_step(w, edge["B"], dtype, gen, "cpu",
+                                           mamba2_step_ref)
+        assert got["gap_over_tolerance"] == 0.0 and got["tolerance"] > 0
+        got = chip_smoke.check_ssd_chunk(w, edge["B"], edge["S"], dtype, gen,
+                                         "cpu", ssd_chunk_ref)
+        assert got["gap_over_tolerance"] == 0.0
+        assert got["state_gap_over_tolerance"] == 0.0
+
+
+def test_mamba2_planted_faults_fail_the_checks():
+    """Each planted fault (no D skip or no decay in the decode step, no
+    carried state or no D skip in the SSD) fails its check in bf16 and
+    fp32; the SSD on TF32-rounded operands fails the fp32 check."""
+    caught = chip_smoke.planted_mamba2_faults(torch.Generator().manual_seed(1),
+                                              "cpu")
+    assert caught == ["step_no_skip", "step_no_decay", "chunk_no_carry",
+                      "chunk_no_skip", "chunk_tf32"]
+
+
+def test_mamba2_tolerance_counts_each_term():
+    """``mamba2_tolerance``: zero where every term is zero and the output
+    exact; a bf16 output takes its ulps beside fp32's few; a deeper sum
+    takes more."""
+    z = torch.full((1, 2, 4), 2.0)
+    y = torch.tensor([[[1.0, -2.0, 0.5, 3.0], [0.25, 1.0, -1.0, 2.0]]])
+    D, norm = torch.zeros(2), torch.zeros(2, 4)
+    xs = torch.zeros(1, 2, 4)
+    args = (y, y.abs(), 20, xs)
+    fp32 = chip_smoke.mamba2_tolerance(*args, z, D, norm, 1e-5)
+    bf16 = chip_smoke.mamba2_tolerance(*args, z.bfloat16(), D, norm, 1e-5)
+    deep = chip_smoke.mamba2_tolerance(y, y.abs(), 2000, xs, z, D, norm,
+                                       1e-5)
+    assert (bf16 > fp32).all() and (deep > fp32).all()
+    # fp32: a few of its ulps at outputs of ~1; bf16: its own ulps there
+    assert (fp32 < 1e-4).all() and (bf16 > 2.0 ** -9).all()
+    zero = chip_smoke.mamba2_tolerance(torch.zeros_like(y), torch.zeros_like(
+        y), 20, xs, z, D, norm, 1e-5)
+    assert (zero == 0).all()
+
+
+def test_path_e_bound_adds_the_mamba2_layers_in_quadrature():
+    """``path_e_bound`` with M Mamba2 layers: sqrt(L r^2 + M r_m^2),
+    r_m = 2^-8 + 2^-7 sqrt(m); no Mamba2 layer leaves it as it was."""
+    c = _path_e_check(layers=9, norms=2, softcap=0.0, scale=1 / 80 ** 0.5)
+    base = chip_smoke.path_e_bound(c)
+    assert chip_smoke.path_e_bound(dict(c, mamba_layers=0,
+                                        mamba2_share=0.5)) == base
+    top, ulps = 20.0, 2 * 2.0 ** (math.floor(math.log2(20.0)) - 7)
+    r = (base - ulps) / (3 * top)
+    rm = 2.0 ** -8 + 2.0 ** -7 * math.sqrt(0.01)
+    got = chip_smoke.path_e_bound(dict(c, mamba_layers=54,
+                                       mamba2_share=0.01))
+    assert got == pytest.approx(math.sqrt(9 * r * r + 54 * rm * rm) * top
+                                + ulps)
+    assert chip_smoke.mamba_layers(get_config("zamba2-2.7b")) == 54
+    assert chip_smoke.mamba_layers(get_config("gemma2-9b")) == 0
+    assert chip_smoke.mamba2_share(get_config("zamba2-2.7b"), "cpu") == 0.0

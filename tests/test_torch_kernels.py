@@ -288,7 +288,8 @@ class TestPageCopy:
                                    "rms_norm": 0, "qkv_rope": 0,
                                    "qkv_rope_chunk": 0,
                                    "gated_act": 0, "gate_up_act": 0,
-                                   "qkv_proj": 0}
+                                   "qkv_proj": 0, "mamba2_step": 0,
+                                   "ssd_chunk": 0}
 
 
 class TestFlashPlan:
